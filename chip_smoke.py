@@ -3,47 +3,67 @@
 
     python3 chip_smoke.py
 
-Phases, each of which raises (non-zero exit, no result line) on failure:
+Every phase runs, in this order; each raises (non-zero exit, no result
+line) on failure:
 
 0. device: a CUDA device is required; prints the card's name and power limit.
-1. build: compiles the CUDA kernels from vic_tpu_torch/csrc with nvcc.
-2. kernels: one record of the light configuration at 32,768 cells (262,144
-   HRU lanes) with each kernel binding wrapped to capture its real
-   arguments; then each kernel is re-run on those arguments beside its plain
-   PyTorch version on the card, compared and timed with CUDA events.
-3. reference: 16 cells x 4 records through the port on the card against
-   tests/fixtures/torch_port/light_16x4.npz, written by vic_tpu on CPU.
-4. slice: 32,768 cells x 8 daily records through vic_tpu_torch.model.run,
-   with every kernel's launch counter read from that run alone.
+1. build: compiles the CUDA kernels from vic_tpu_torch/csrc with nvcc (one
+   process per source) and prints ptxas' registers and spills.
+2. kernels: each configuration at 32,768 cells (262,144 HRU lanes) with
+   each kernel binding wrapped to capture its first real arguments: K1-K5
+   in the light step's first record, K6 (and K4 again) in the frozen
+   step's third. Each kernel is re-run on those arguments beside its plain
+   PyTorch version on the card, compared, timed with CUDA events and given
+   its bound (the least time the card could take for the same work).
+3. reference: 16 cells x 4 records of each configuration through the port
+   on the card against tests/fixtures/torch_port/{light,frozen}_16x4.npz,
+   written by vic_tpu on CPU.
+4. slice: 32,768 cells x 8 daily records of each configuration through
+   vic_tpu_torch.model.run, every kernel's launch counter set to 0 just
+   before each run and read just after it.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
-kernels with their launches, errors and times.
+kernels with their launches, errors, times and bounds.
 """
 import importlib
 import json
 import subprocess
-import sys
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from vic_tpu_torch.entry import CONFIGS
+
 ROOT = Path(__file__).resolve().parent
 SMOKE_CELLS = 32768
 SMOKE_RECS = 8
-FIXTURE = ROOT / "tests" / "fixtures" / "torch_port" / "light_16x4.npz"
-KERNEL_SOURCE = "vic_tpu_torch/csrc/vic_kernels.cu"
-# kernel -> (TPU loop it replaces, module of its plain version, plain name)
+FROZEN_RECORD = 2          # record whose step gives K6 its arguments
+FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
+CSRC = "vic_tpu_torch/csrc/"
+# kernel -> (source, TPU loop it replaces, module of its plain version,
+# plain name, configuration whose step captures its arguments)
 KERNELS = {
-    "glacier_brent": ("vic_tpu/physics/glacier.py:130", "glacier",
-                      "glacier_brent_plain"),
-    "snowpack_brent": ("vic_tpu/physics/snow.py:443", "snow",
-                       "snowpack_brent_plain"),
-    "canopy_brent": ("vic_tpu/physics/canopy_snow.py:270", "canopy_snow",
-                     "canopy_brent_plain"),
-    "runoff_hourly": ("vic_tpu/physics/runoff.py:171", "runoff",
-                      "runoff_hourly_plain"),
+    "glacier_brent": ("vic_kernels.cu", "vic_tpu/physics/glacier.py:130",
+                      "glacier", "glacier_brent_plain", "light"),
+    "snowpack_brent": ("vic_kernels.cu", "vic_tpu/physics/snow.py:443",
+                       "snow", "snowpack_brent_plain", "light"),
+    "canopy_brent": ("vic_kernels.cu", "vic_tpu/physics/canopy_snow.py:270",
+                     "canopy_snow", "canopy_brent_plain", "light"),
+    "runoff_hourly": ("vic_kernels.cu", "vic_tpu/physics/runoff.py:171",
+                      "runoff", "runoff_hourly_plain", "light"),
+    "surface_brent": ("surface_brent.cu", "vic_tpu/physics/surface.py:438",
+                      "surface", "surface_brent_plain", "light"),
+    "node_sweep": ("node_sweep.cu", "vic_tpu/physics/frozen_soil.py:311",
+                   "frozen_soil", "solve_t_profile_explicit_plain", "frozen"),
+}
+# the kernels each configuration's step must launch
+PATH_KERNELS = {
+    "light": ("glacier_brent", "snowpack_brent", "canopy_brent",
+              "runoff_hourly", "surface_brent"),
+    "frozen": ("glacier_brent", "snowpack_brent", "canopy_brent",
+               "runoff_hourly", "node_sweep"),
 }
 # Brent stops a lane anywhere inside its final bracket, |c - b| <= 2*tol_i
 # with tol_i = 2*FLT_EPSILON*|b| + 1e-4 C, so two runs whose residuals differ
@@ -52,8 +72,20 @@ KERNELS = {
 BRENT_TOL = 1e-4           # C, the solver's tol addend
 FLAG_DISAGREE_FRAC = 1e-4  # of the active lanes
 RUNOFF_TOL = 1e-5          # rtol = atol
+SWEEP_TOL = 1e-4           # C, node temperatures of K6 vs its plain version
 REF_TOL = 1e-3             # rtol = atol, card libm vs XLA-CPU
 WATER_TOL = 1e-2           # mm, max |OUT_WATER_ERROR|
+# H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, FP32 op/s
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FP32 operations (+ - * / and each libm call counted as one) of one
+# residual evaluation plus one Brent iteration's own ~30, counted from the
+# residuals in csrc/; per hourly trip and layer for K4; per node for K6
+RESIDUAL_OPS = {"glacier_brent": 55 + 30, "snowpack_brent": 55 + 30,
+                "canopy_brent": 70 + 30, "surface_brent": 150 + 30}
+RUNOFF_OPS_PER_LAYER_HOUR = 30
+SWEEP_OPS_PER_NODE = 20           # t_lin and the bookkeeping
+NODE_RESIDUAL_OPS = 30            # SoilThermalEqn with its unfrozen water
 
 
 def phase(title):
@@ -80,7 +112,7 @@ def build_phase():
     path, log = build.build(extra_flags=("-Xptxas", "-v"))
     print(f"built {path.name} in {time.perf_counter() - t0:.2f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
     build.load()
 
@@ -95,15 +127,15 @@ def clone_args(obj):
     return obj
 
 
-def capture_kernel_args(device):
-    """Run one record at smoke size with each binding wrapped; returns
-    {kernel: (args, kwargs)} of its first call."""
+def capture_kernel_args(config, names, device, record=0):
+    """Run `config` at smoke size up to its record `record` with each
+    binding in `names` wrapped in that record's step; returns
+    {kernel: (args, kwargs)} of its first call there."""
     from vic_tpu_torch import kernels
-    from vic_tpu_torch.entry import build_light
     from vic_tpu_torch.model import make_step
 
     captured = {}
-    originals = {name: getattr(kernels, name) for name in KERNELS}
+    originals = {name: getattr(kernels, name) for name in names}
 
     def wrap(name, fn):
         def wrapper(*args, **kwargs):
@@ -111,17 +143,23 @@ def capture_kernel_args(device):
             return fn(*args, **kwargs)
         return wrapper
 
+    gp, params, stack, state, geom = CONFIGS[config](SMOKE_CELLS,
+                                                     record + 1, device)
+    step = make_step(params, gp, geom=geom)
+    for r in range(record):
+        state, _ = step(state, {k: v[r] for k, v in stack.items()})
     for name, fn in originals.items():
         setattr(kernels, name, wrap(name, fn))
-    gp, params, stack, state = build_light(SMOKE_CELLS, 1, device)
-    step = make_step(params, gp)
-    step(state, {k: v[0] for k, v in stack.items()})
-    torch.cuda.synchronize()
-    for name, fn in originals.items():
-        setattr(kernels, name, fn)
-    missing = set(KERNELS) - set(captured)
+    try:
+        step(state, {k: v[record] for k, v in stack.items()})
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in originals.items():
+            setattr(kernels, name, fn)
+    missing = set(names) - set(captured)
     if missing:
-        raise RuntimeError(f"kernels not reached by the step: {missing}")
+        raise RuntimeError(f"kernels not reached by the {config} step: "
+                           f"{missing}")
     return captured
 
 
@@ -170,26 +208,118 @@ def compare_brent(name, kern, plain):
     return root_err
 
 
-def compare_runoff(kern, plain):
+def compare_runoff(kern, plain, label):
     worst = 0.0
-    for label, a, b in zip(("liq", "runoff_extra", "baseflow"), kern, plain):
+    for part, a, b in zip(("liq", "runoff_extra", "baseflow"), kern, plain):
         diff = (a - b).abs()
         worst = max(worst, float(diff.max()))
         bad = diff > RUNOFF_TOL + RUNOFF_TOL * b.abs()
-        print(f"  runoff_hourly {label}: max |diff| {float(diff.max()):.3e}, "
-              f"outside rtol=atol={RUNOFF_TOL}: {int(bad.sum())}")
+        print(f"  runoff_hourly ({label}) {part}: max |diff| "
+              f"{float(diff.max()):.3e}, outside rtol=atol={RUNOFF_TOL}: "
+              f"{int(bad.sum())}")
         if bool(bad.any()):
-            raise AssertionError(f"runoff_hourly {label} outside tolerance")
+            raise AssertionError(f"runoff_hourly ({label}) {part} outside "
+                                 "tolerance")
     return worst
 
 
+def compare_sweep(kern, plain):
+    """K6 vs its plain version: node temperatures within SWEEP_TOL, equal
+    per-node fallback counts and an equal batch-wide sweep count."""
+    diff = float((kern.temp - plain.temp).abs().max())
+    fb_dis = int((kern.fbcount != plain.fbcount).sum())
+    sweeps_k, sweeps_p = int(kern.iterations), int(plain.iterations)
+    print(f"  node_sweep: lanes {kern.temp[..., 0].numel()}, sweeps "
+          f"{sweeps_k}/{sweeps_p} (kernel/plain), max |T diff| {diff:.3e} C, "
+          f"fallback-count disagreements {fb_dis}, lanes with a fallback "
+          f"{int((plain.fbcount > 0).any(-1).sum())}")
+    if sweeps_k != sweeps_p:
+        raise AssertionError(f"node_sweep: {sweeps_k} sweeps, plain "
+                             f"{sweeps_p}")
+    if fb_dis or not diff <= SWEEP_TOL:
+        raise AssertionError(f"node_sweep: max |T diff| {diff} C, "
+                             f"{fb_dis} fallback-count disagreements")
+    return diff
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def bound(bytes_moved, ops):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and FP32
+    operations over the FP32 peak."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def brent_work(name, args, kwargs, kern):
+    """Bytes in and out of one Brent kernel call, and its FP32 operations:
+    residual evaluations that these inputs need (2 endpoints + one per
+    iteration on bracketed lanes, 2 + 2*max_tries on unbracketed active
+    lanes; bracket expansions of lanes that do bracket are not counted)."""
+    from vic_tpu_torch.kernels import surface_inputs
+    from vic_tpu_torch.ops.rootfind import MAXTRIES
+    lo, hi, active = args[:3]
+    if name == "surface_brent":
+        inputs = list(surface_inputs(kwargs["eb_kwargs"]).values())
+        max_tries = MAXTRIES
+    else:
+        inputs = list(kwargs.values())
+        max_tries = kwargs["max_tries"]
+    bytes_in = nbytes(lo, hi, active, *inputs)
+    bytes_out = nbytes(kern.root, kern.converged, kern.bracketed,
+                       kern.iterations)
+    act = active.expand(kern.root.shape)
+    evals = torch.where(kern.bracketed, 2 + kern.iterations,
+                        torch.where(act, 2 + 2 * max_tries, 0))
+    return bytes_in + bytes_out, float(evals.sum()) * RESIDUAL_OPS[name]
+
+
+def runoff_work(args, result):
+    liq = result[0]
+    dt_hours = args[-1]
+    lanes, nl = liq[..., 0].numel(), liq.shape[-1]
+    return (nbytes(*args[:-1], *result),
+            lanes * dt_hours * nl * RUNOFF_OPS_PER_LAYER_HOUR)
+
+
+def sweep_work(args, kwargs, kern):
+    """Bytes in and out of one K6 call, and its FP32 operations: every
+    interior node per sweep, plus the residual evaluations of the nodes that
+    start below 0 C where frozen soil is active (2 for nodes above the
+    soil-layer count, 2 + 16 for deeper nodes; expansions not counted)."""
+    t0, surf, kappa, cs, moist, ice0, geom, fs_active = args
+    geo = [getattr(geom, k) for k in ("alpha", "beta", "gamma", "e_coef",
+                                      "solver_max_moist", "solver_bubble",
+                                      "solver_expt")]
+    bytes_moved = nbytes(t0, surf, kappa, cs, moist, ice0, fs_active, *geo,
+                         kern.temp, kern.fbcount)
+    nn = t0.shape[-1]
+    sweeps = int(kern.iterations)
+    cold = (t0[..., 1:nn - 1] < 0.0) & fs_active[:, None, None]
+    evals = torch.where(torch.arange(1, nn - 1, device=t0.device)
+                        < kwargs["nlayer"], 2, 18)
+    ops = sweeps * (t0[..., 0].numel() * (nn - 2) * SWEEP_OPS_PER_NODE
+                    + float((cold * evals).sum()) * NODE_RESIDUAL_OPS)
+    return bytes_moved, ops
+
+
 def kernels_phase(device):
-    phase(f"2 kernels at {SMOKE_CELLS} cells, one record")
+    phase(f"2 kernels at {SMOKE_CELLS} cells")
     from vic_tpu_torch import kernels
-    captured = capture_kernel_args(device)
+    captured = {"light": capture_kernel_args(
+        "light", PATH_KERNELS["light"], device)}
+    # the frozen step's third record: nodes below 0 C, layer ice, fallbacks
+    captured["frozen"] = capture_kernel_args(
+        "frozen", ("node_sweep", "runoff_hourly"), device,
+        record=FROZEN_RECORD)
     results = {}
-    for name, (replaces, module, plain_name) in KERNELS.items():
-        args, kwargs = captured[name]
+    for name, (source, replaces, module, plain_name, config) in \
+            KERNELS.items():
+        args, kwargs = captured[config][name]
         kern_fn = getattr(kernels, name)
         plain_fn = getattr(importlib.import_module(
             f"vic_tpu_torch.physics.{module}"), plain_name)
@@ -197,27 +327,40 @@ def kernels_phase(device):
         plain = plain_fn(*args, **kwargs)
         torch.cuda.synchronize()
         if name == "runoff_hourly":
-            err = compare_runoff(kern, plain)
+            err = compare_runoff(kern, plain, "light")
+            fa, fkw = captured["frozen"][name]
+            err = max(err, compare_runoff(kernels.runoff_hourly(*fa, **fkw),
+                                          plain_fn(*fa, **fkw), "frozen"))
+            work = runoff_work(args, kern)
+        elif name == "node_sweep":
+            err = compare_sweep(kern, plain)
+            work = sweep_work(args, kwargs, kern)
         else:
             err = compare_brent(name, kern, plain)
+            work = brent_work(name, args, kwargs, kern)
         ms = cuda_ms(lambda: kern_fn(*args, **kwargs), reps=20)
-        plain_ms = cuda_ms(lambda: plain_fn(*args, **kwargs), reps=5)
-        print(f"  {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms")
-        results[name] = dict(name=name, route="cuda", source=KERNEL_SOURCE,
-                             replaces=replaces, max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms)
+        plain_ms = cuda_ms(lambda: plain_fn(*args, **kwargs), reps=3)
+        bound_ms, bound_by = bound(*work)
+        print(f"  {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({work[0]} bytes, "
+              f"{work[1]:.4g} FP32 operations)")
+        results[name] = dict(
+            name=name, route="cuda", source=CSRC + source, replaces=replaces,
+            launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     return results
 
 
-def reference_phase(device):
-    phase("3 reference: 16 cells x 4 records vs the vic_tpu fixture")
-    from vic_tpu_torch.entry import build_light
+def reference_phase(device, config):
+    phase(f"3 reference: {config}, 16 cells x 4 records vs the vic_tpu "
+          "fixture")
     from vic_tpu_torch.model import run
 
-    ref = np.load(FIXTURE)
+    ref = np.load(FIXTURES / f"{config}_16x4.npz")
     n_rec, n_cell = ref["out/OUT_EVAP"].shape
-    gp, params, stack, state = build_light(n_cell, n_rec, device)
-    final, outs = run(state, stack, params, gp)
+    gp, params, stack, state, geom = CONFIGS[config](n_cell, n_rec,
+                                                     device)
+    final, outs = run(state, stack, params, gp, geom=geom)
     torch.cuda.synchronize()
     got = {f"out/{k}": v for k, v in outs.items()}
     got.update({f"state/{k}": v for k, v in final.numpy().items()})
@@ -236,30 +379,29 @@ def reference_phase(device):
         worst[key] = float(np.abs(a - b).max())
         if not np.allclose(b, a, rtol=REF_TOL, atol=REF_TOL):
             failed.append(key)
-    for key in sorted(k for k in worst if k.startswith("out/")):
-        print(f"  {key[4:]}: {worst[key]:.3e}")
-    top = max(worst, key=worst.get)
-    print(f"  largest difference {worst[top]:.3e} ({top}); "
-          f"{len(worst)} float arrays")
+    top = sorted(worst, key=worst.get, reverse=True)[:8]
+    print("  largest differences: " + ", ".join(
+        f"{k} {worst[k]:.3e}" for k in top) + f"; {len(worst)} float arrays")
     if failed:
         raise AssertionError(f"outside rtol=atol={REF_TOL}: {failed}")
 
 
-def slice_phase(device):
-    phase(f"4 slice: {SMOKE_CELLS} cells x {SMOKE_RECS} daily records")
+def slice_phase(device, config):
+    phase(f"4 slice: {config}, {SMOKE_CELLS} cells x {SMOKE_RECS} daily "
+          "records")
     from vic_tpu_torch import kernels
-    from vic_tpu_torch.entry import build_light
     from vic_tpu_torch.model import run
 
-    gp, params, stack, state = build_light(SMOKE_CELLS, SMOKE_RECS, device)
+    gp, params, stack, state, geom = CONFIGS[config](SMOKE_CELLS,
+                                                     SMOKE_RECS, device)
     # warm-up record, outside the timed and counted run
-    run(state, {k: v[:1] for k, v in stack.items()}, params, gp)
+    run(state, {k: v[:1] for k, v in stack.items()}, params, gp, geom=geom)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    final, outs = run(state, stack, params, gp)
+    final, outs = run(state, stack, params, gp, geom=geom)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)
@@ -279,26 +421,30 @@ def slice_phase(device):
     print(f"  {rate:.1f} cell-steps/s ({wall:.3f} s for {SMOKE_RECS} records, "
           f"warm-up record excluded); peak device memory {peak} bytes")
     print(f"  kernel launches in this run: {launches}")
-    print("  loops as CUDA kernels: glacier, snowpack and canopy Brent, "
-          "hourly runoff; as plain torch: the soil-surface Brent "
-          "(physics/surface.py)")
+    if config == "frozen":
+        ice = float(final.ice.sum())
+        print(f"  layer ice at the end {ice:.1f} mm summed over lanes; "
+              f"OUT_FDEPTH max {float(outs['OUT_FDEPTH'].max()):.3f} cm")
     if werr > WATER_TOL:
         raise AssertionError(f"water balance error {werr} mm")
-    idle = [k for k, n in launches.items() if n == 0]
+    idle = [k for k in PATH_KERNELS[config] if launches[k] == 0]
     if idle:
-        raise AssertionError(f"kernels never launched by the slice: {idle}")
+        raise AssertionError(f"kernels never launched by the {config} "
+                             f"slice: {idle}")
     return launches
 
 
 def main():
-    sys.path.insert(0, str(ROOT))
     device = device_phase()
     build_phase()
     results = kernels_phase(device)
-    reference_phase(device)
-    launches = slice_phase(device)
-    for name, n in launches.items():
-        results[name]["launches"] = n
+    for config in ("light", "frozen"):
+        reference_phase(device, config)
+    launches = {config: slice_phase(device, config)
+                for config in ("light", "frozen")}
+    for name, result in results.items():
+        # each kernel's count from the run of the path it was captured on
+        result["launches"] = launches[KERNELS[name][4]][name]
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

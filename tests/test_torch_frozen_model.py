@@ -1,0 +1,142 @@
+"""The port's frozen-soil step and time loop against vic_tpu.model.run.
+
+4 cells x 4 daily records of the frozen configuration (the light one with
+FROZEN_SOIL on 5 finite-difference soil nodes, entry.frozen_params) through
+both packages from the very same float32 bits: the port's parameters, state
+and forcing are filled field by field from vic_tpu's, and both step on the
+same node geometry. All 151 OUT_* and all 51 final-state fields at
+rtol = atol = 1e-4, but for two leaves held looser, each with its cause in
+ROADMAP.md queue 3: OUT_ENERGY_ERROR, the residual at an accepted Brent root
+(1e-3 W/m^2, as the light step's residual-at-root leaves), and the layer
+ice, whose unfrozen-water curve is steep just below 0 C (rtol 1e-3).
+Water closure within 1e-2 mm on both.
+"""
+import dataclasses
+import functools
+import os
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from vic_tpu.model import run as jax_run
+from vic_tpu_torch import model
+from vic_tpu_torch.entry import build_frozen, frozen_params, light_params
+from vic_tpu_torch.physics.frozen_soil import build_node_geometry
+from vic_tpu_torch.prepare import device_params_from_numpy
+from vic_tpu_torch.state import state_from_numpy
+from vic_tpu_torch.testing import synthetic_domain
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+import make_torch_port_fixture as fixture  # noqa: E402
+
+torch.set_num_threads(1)
+
+N_CELL, N_REC = 4, 4
+TOL = 1e-4
+WATER_TOL = 1e-2
+# leaf -> (rtol, atol) where the 1e-4 bar does not hold (ROADMAP queue 3)
+LOOSE = {"OUT_ENERGY_ERROR": (TOL, 1e-3), "ice": (1e-3, TOL)}
+
+
+def fields_of(obj):
+    return {f.name: np.asarray(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)}
+
+
+@functools.lru_cache(maxsize=None)
+def both_runs(n_cell=N_CELL, n_rec=N_REC, frozen=True):
+    gp, params, stack, state, jgeom = fixture.frozen_inputs(n_cell, n_rec,
+                                                            frozen)
+    j_final, j_outs = jax.jit(
+        lambda s, f: jax_run(s, f, params, gp, geom=jgeom))(state, stack)
+    t_stack = {k: torch.tensor(np.asarray(v)) for k, v in stack.items()
+               if k not in ("month", "day_in_year")}
+    t_stack.update(month=np.asarray(stack["month"]),
+                   day_in_year=np.asarray(stack["day_in_year"]))
+    t_gp = frozen_params(n_rec).replace(frozen_soil=frozen)
+    geom = build_node_geometry(synthetic_domain(n_cell, n_band=2).soil,
+                               t_gp).to("cpu")
+    t_final, t_outs = model.run(
+        state_from_numpy(fields_of(state), "cpu"), t_stack,
+        device_params_from_numpy(fields_of(params), "cpu"), t_gp, geom=geom)
+    return (j_final, {k: np.asarray(v) for k, v in j_outs.items()},
+            t_final, {k: v.numpy() for k, v in t_outs.items()})
+
+
+def test_all_outputs_match():
+    _, j_outs, _, t_outs = both_runs()
+    assert len(j_outs) == 151
+    assert sorted(t_outs) == sorted(j_outs)
+    for k, a in j_outs.items():
+        b = t_outs[k]
+        assert b.shape == a.shape and b.dtype == a.dtype, k
+        rtol, atol = LOOSE.get(k, (TOL, TOL))
+        np.testing.assert_allclose(b, a, rtol=rtol, atol=atol, err_msg=k)
+
+
+def test_final_state_matches():
+    j_final, _, t_final, _ = both_runs()
+    names = [f.name for f in dataclasses.fields(j_final)]
+    assert names == [f.name for f in dataclasses.fields(t_final)]
+    for n in names:
+        a = np.asarray(getattr(j_final, n))
+        b = getattr(t_final, n).numpy()
+        assert b.shape == a.shape and b.dtype == a.dtype, n
+        if a.dtype.kind == "f":
+            rtol, atol = LOOSE.get(n, (TOL, TOL))
+            np.testing.assert_allclose(b, a, rtol=rtol, atol=atol, err_msg=n)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=n)
+
+
+def test_water_closure_and_frozen_soil_on_both():
+    j_final, j_outs, t_final, t_outs = both_runs()
+    assert np.abs(j_outs["OUT_WATER_ERROR"]).max() <= WATER_TOL
+    assert np.abs(t_outs["OUT_WATER_ERROR"]).max() <= WATER_TOL
+    # the soil freezes: layer ice, a freezing front and node fallbacks
+    assert t_final.ice.max() > 0 and t_outs["OUT_FDEPTH"].max() > 0
+    assert t_outs["OUT_SOILT_FBFLAG"].sum() > 0
+    np.testing.assert_array_equal(t_outs["OUT_ZSUM_NODE"][0],
+                                  np.asarray(j_outs["OUT_ZSUM_NODE"][0]))
+
+
+def test_frozen_step_does_not_write_into_its_inputs():
+    gp, params, stack, state, geom = build_frozen(3, 2, "cpu")
+    before = {k: v.copy() for k, v in state.numpy().items()}
+    step = model.make_step(params, gp, geom=geom)
+    step(state, {k: v[0] for k, v in stack.items()})
+    for k, v in state.numpy().items():
+        np.testing.assert_array_equal(v, before[k], err_msg=k)
+
+
+def test_unfrozen_finite_difference_nodes_match():
+    """QUICK_FLUX off without FROZEN_SOIL: the node sweep without ice, 2
+    cells x 2 records against vic_tpu."""
+    _, j_outs, t_final, t_outs = both_runs(2, 2, frozen=False)
+    assert sorted(t_outs) == sorted(j_outs)
+    for k, a in j_outs.items():
+        rtol, atol = LOOSE.get(k, (TOL, TOL))
+        np.testing.assert_allclose(t_outs[k], a, rtol=rtol, atol=atol,
+                                   err_msg=k)
+    assert float(t_final.ice.abs().max()) == 0.0
+    assert float(np.abs(t_outs["OUT_FUSION"]).max()) == 0.0
+    assert np.abs(t_outs["OUT_WATER_ERROR"]).max() <= WATER_TOL
+
+
+@pytest.mark.parametrize("flag,geom_given,refused", [
+    (dict(frozen_soil=True), True, "frozen_soil with quick_flux"),
+    (dict(exp_trans=True, quick_flux=False), True, "exp_trans"),
+    (dict(frozen_soil=True, quick_flux=False), False,
+     "frozen_soil without geom"),
+    (dict(), True, "geom with quick_flux"),
+], ids=lambda v: v if isinstance(v, str) else None)
+def test_make_step_refuses_frozen_options_outside_the_slice(flag, geom_given,
+                                                           refused):
+    gp = light_params(1).replace(**flag)
+    _, params, _, _, geom = build_frozen(1, 1, "cpu")
+    with pytest.raises(NotImplementedError, match=refused):
+        model.make_step(params, gp, geom=geom if geom_given else None)

@@ -10,25 +10,34 @@ run on a host without it (tests/conftest.py imports jax, hence
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 """
+import re
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
 from vic_tpu_torch import kernels
-from vic_tpu_torch.entry import build_light
+from vic_tpu_torch.entry import (CONFIGS, build_frozen, build_light,
+                                 frozen_params)
 from vic_tpu_torch.kernels import build
 from vic_tpu_torch.model import make_step
+from vic_tpu_torch.physics import surface
 from vic_tpu_torch.physics.canopy_snow import canopy_brent_plain
+from vic_tpu_torch.physics.frozen_soil import solve_t_profile_explicit_plain
 from vic_tpu_torch.physics.glacier import glacier_brent_plain
 from vic_tpu_torch.physics.runoff import runoff_hourly_plain
 from vic_tpu_torch.physics.snow import snowpack_brent_plain
+from vic_tpu_torch.physics.surface import surface_brent_plain
 
 torch.set_num_threads(1)
 
 PLAIN = {"glacier_brent": glacier_brent_plain,
          "snowpack_brent": snowpack_brent_plain,
          "canopy_brent": canopy_brent_plain,
-         "runoff_hourly": runoff_hourly_plain}
+         "runoff_hourly": runoff_hourly_plain,
+         "surface_brent": surface_brent_plain,
+         "node_sweep": solve_t_profile_explicit_plain}
 
 
 @pytest.fixture
@@ -63,16 +72,115 @@ def test_runoff_wrapper_refuses_cpu_tensors():
 
 
 def test_cpu_step_takes_the_plain_versions():
-    gp, params, stack, state = build_light(2, 1, "cpu")
+    gp, params, stack, state, _ = build_light(2, 1, "cpu")
     kernels.reset_launches()
     make_step(params, gp)(state, {k: v[0] for k, v in stack.items()})
     assert kernels.launches == dict.fromkeys(kernels.launches, 0)
 
 
-def _captured_args(device, n_cell=64):
-    """The first call of each kernel in one light step on `device`."""
+def test_cpu_frozen_step_takes_the_plain_versions():
+    gp, params, stack, state, geom = build_frozen(2, 1, "cpu")
+    kernels.reset_launches()
+    make_step(params, gp, geom=geom)(state,
+                                     {k: v[0] for k, v in stack.items()})
+    assert kernels.launches == dict.fromkeys(kernels.launches, 0)
+
+
+def test_new_wrappers_refuse_cpu_tensors():
+    t = torch.zeros(2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.surface_brent(t, t, t > 0, max_iter=60, eb_kwargs={})
+    gp, _, _, state, geom = build_frozen(2, 1, "cpu")
+    nodes = state.node_temp
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.node_sweep(nodes, nodes[..., 0], nodes, nodes, nodes, nodes,
+                           geom, torch.ones(2, dtype=torch.bool), nlayer=3,
+                           dt_sec=86400.0, noflux=False, frozen=True,
+                           max_sweeps=10)
+
+
+def test_lane_inputs_are_strided_views_of_the_inputs():
+    """Each input goes to a kernel as its own storage with the strides
+    csrc/lanes.cuh reads it by: element cell*s0 + hru*s1 (+ l*s2) from the
+    data pointer holds lane (cell, hru)'s value, for lane, per-cell,
+    scalar, layered, sliced and mask inputs, and nothing is copied."""
+    c, h, nl = 3, 4, 2
+    rng = np.random.default_rng(0)
+    lanes = torch.tensor(rng.normal(size=(c, h)), dtype=torch.float32)
+    cell = torch.tensor(rng.normal(size=(c, 1)), dtype=torch.float32)
+    layered = torch.tensor(rng.normal(size=(c, 1, nl)), dtype=torch.float32)
+    sliced = torch.tensor(rng.normal(size=(c, h, 3)),
+                          dtype=torch.float32)[..., 1]
+    items = [("lanes", lanes, torch.float32, 0),
+             ("cell", cell, torch.float32, 0),
+             ("scalar", torch.tensor(2.5), torch.float32, 0),
+             ("layered", layered, torch.float32, nl),
+             ("sliced", sliced, torch.float32, 0),
+             ("mask", cell > 0, torch.bool, 0)]
+    views, ptrs, strides = kernels._lane_inputs(items, (c, h),
+                                                torch.device("cpu"))
+    assert list(ptrs) == [v.data_ptr() for v in views]
+    for k, ((name, x, _, n_l), view) in enumerate(zip(items, views)):
+        s0, s1, s2 = strides[3 * k:3 * k + 3]
+        assert view.untyped_storage().data_ptr() == \
+            x.untyped_storage().data_ptr(), name          # not copied
+        full = x.expand((c, h) + ((n_l,) if n_l else ()))
+        for ci in range(c):
+            for hi in range(h):
+                for li in range(max(n_l, 1)):
+                    off = ci * s0 + hi * s1 + li * s2
+                    got = torch.as_strided(
+                        view, (1,), (1,), view.storage_offset() + off)
+                    want = full[ci, hi, li] if n_l else full[ci, hi]
+                    assert torch.equal(got[0], want), (name, ci, hi, li)
+
+
+def test_make_step_refuses_node_counts_the_sweep_kernel_lacks():
+    """On CUDA tensors a node count K6 is not built for is refused by name
+    when the step is built."""
+    gp = frozen_params(1).replace(nnode=6)
+    _, params, _, _, _ = build_frozen(1, 1, "cpu")
+    on_card = SimpleNamespace(alpha=SimpleNamespace(is_cuda=True))
+    with pytest.raises(NotImplementedError, match="nnode=6"):
+        make_step(params, gp, geom=on_card)
+
+
+def test_surface_inputs_are_the_kernels_rows():
+    """surface_inputs gathers one tensor for each of the kernel's inputs
+    (as many as csrc/surface_brent.cuh's enums count) from the keyword
+    arguments the light step hands the surface Brent."""
+    captured = []
+    orig = surface.surface_brent_plain
+    surface.surface_brent_plain = lambda *a, **k: (captured.append(k),
+                                                   orig(*a, **k))[1]
+    try:
+        gp, params, stack, state, _ = build_light(2, 1, "cpu")
+        make_step(params, gp)(state, {k: v[0] for k, v in stack.items()})
+    finally:
+        surface.surface_brent_plain = orig
+    named = kernels.surface_inputs(captured[0]["eb_kwargs"])
+    names = (kernels.SURFACE_INPUTS + kernels.SURFACE_LAYER_INPUTS
+             + kernels.SURFACE_MASKS)
+    assert sorted(named) == sorted(set(names) - {"active"})
+    lanes = state.swq.shape
+    for k in kernels.SURFACE_INPUTS:
+        assert named[k].dtype == torch.float32 and \
+            torch.broadcast_shapes(named[k].shape, lanes) == lanes, k
+    header = (build.CSRC / "surface_brent.cuh").read_text()
+    for enum, group in (("In", kernels.SURFACE_INPUTS),
+                        ("LayerIn", kernels.SURFACE_LAYER_INPUTS),
+                        ("Mask", kernels.SURFACE_MASKS)):
+        body = re.search(r"enum %s \{([^}]*)\}" % enum, header).group(1)
+        rows = [w.strip() for w in body.split(",") if w.strip()]
+        assert rows[-1].startswith("kNum") and len(rows) - 1 == len(group)
+
+
+def _captured_args(device, n_cell=64, names=tuple(PLAIN)[:5],
+                   config="light", record=0):
+    """The first call of each kernel in `names` in the step of record
+    `record` of `config` on `device`."""
     captured = {}
-    originals = {name: getattr(kernels, name) for name in PLAIN}
+    originals = {name: getattr(kernels, name) for name in names}
 
     def wrap(name, fn):
         def wrapper(*args, **kwargs):
@@ -80,11 +188,15 @@ def _captured_args(device, n_cell=64):
             return fn(*args, **kwargs)
         return wrapper
 
+    gp, params, stack, state, geom = CONFIGS[config](n_cell, record + 1,
+                                                     device)
+    step = make_step(params, gp, geom=geom)
+    for r in range(record):
+        state, _ = step(state, {k: v[r] for k, v in stack.items()})
     for name, fn in originals.items():
         setattr(kernels, name, wrap(name, fn))
     try:
-        gp, params, stack, state = build_light(n_cell, 1, device)
-        make_step(params, gp)(state, {k: v[0] for k, v in stack.items()})
+        step(state, {k: v[record] for k, v in stack.items()})
     finally:
         for name, fn in originals.items():
             setattr(kernels, name, fn)
@@ -93,7 +205,7 @@ def _captured_args(device, n_cell=64):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["glacier_brent", "snowpack_brent",
-                                  "canopy_brent"])
+                                  "canopy_brent", "surface_brent"])
 def test_brent_kernel_matches_plain(cuda, name):
     a, kw = _captured_args(cuda)[name]
     before = kernels.launches[name]
@@ -119,6 +231,59 @@ def test_runoff_kernel_matches_plain(cuda):
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_node_sweep_kernel_matches_plain(cuda):
+    """K6 on the frozen step's first sweep of its third record (frozen
+    nodes, fallbacks): the same sweep count, fallback counts and node
+    temperatures within 1e-4 C."""
+    a, kw = _captured_args(cuda, names=("node_sweep",), config="frozen",
+                           record=2)["node_sweep"]
+    before = kernels.launches["node_sweep"]
+    got = kernels.node_sweep(*a, **kw)
+    ref = solve_t_profile_explicit_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["node_sweep"] == before + 1
+    assert int(got.iterations) == ref.iterations
+    assert torch.equal(got.fbcount, ref.fbcount)
+    assert float((got.temp - ref.temp).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["glacier_brent", "runoff_hourly"])
+def test_cell_inputs_match_their_lane_copies(cuda, name):
+    """Every input but the first (which keeps the lanes' shape) made the
+    same on the HRUs of a cell: passed as [c, 1] (one row per cell) it
+    gives the kernel's result for the same values copied out to every
+    lane."""
+    a, kw = _captured_args(cuda)[name]
+
+    def cells(x, copy):
+        if not isinstance(x, torch.Tensor) or x.dtype != torch.float32 \
+                or x.dim() < 2:
+            return x
+        one = x.narrow(1, 0, 1)
+        return one.expand(x.shape).contiguous() if copy else one
+
+    fn = getattr(kernels, name)
+    got = fn(a[0], *[cells(x, False) for x in a[1:]],
+             **{k: cells(v, False) for k, v in kw.items()})
+    ref = fn(a[0], *[cells(x, True) for x in a[1:]],
+             **{k: cells(v, True) for k, v in kw.items()})
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.gpu
+def test_node_sweep_refuses_node_counts_it_lacks(cuda):
+    t = torch.zeros(2, 4, 6, device=cuda)
+    with pytest.raises(ValueError, match="nnode=6"):
+        kernels.node_sweep(t, t[..., 0], t, t, t, t, None,
+                           torch.ones(2, dtype=torch.bool, device=cuda),
+                           nlayer=3, dt_sec=86400.0, noflux=False,
+                           frozen=True, max_sweeps=10)
 
 
 @pytest.mark.gpu

@@ -1,12 +1,17 @@
-"""Write the golden fixture of the light configuration from vic_tpu on CPU.
+"""Write the golden fixtures of the port's configurations from vic_tpu on CPU.
 
-16 cells x 4 daily records of `__graft_entry__._build(heavy=False)` through
-`vic_tpu.model.run`: every OUT_* output ("out/<name>", [n_rec, ...]) and
-every final-state field ("state/<name>"), compressed. The PyTorch port is
-checked against this file by tests/test_torch_golden.py and by
-chip_smoke.py's reference phase.
+16 cells x 4 daily records through `vic_tpu.model.run`: every OUT_* output
+("out/<name>", [n_rec, ...]) and every final-state field ("state/<name>"),
+compressed, of
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py [out.npz]
+- light: `__graft_entry__._build(heavy=False)` -> light_16x4.npz;
+- frozen: the light configuration with FROZEN_SOIL on 5 finite-difference
+  nodes (vic_tpu_torch.entry.frozen_params) -> frozen_16x4.npz.
+
+The PyTorch port is checked against these files by tests/test_torch_golden.py
+and by chip_smoke.py's reference phase.
+
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py [light|frozen]
 """
 from __future__ import annotations
 
@@ -16,9 +21,17 @@ import sys
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port",
-                       "light_16x4.npz")
+FIXTURE_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_port")
+FIXTURE = os.path.join(FIXTURE_DIR, "light_16x4.npz")
+FROZEN_FIXTURE = os.path.join(FIXTURE_DIR, "frozen_16x4.npz")
 N_CELL, N_REC = 16, 4
+
+
+def _arrays(final, outs) -> dict:
+    arrays = {f"out/{k}": np.asarray(v) for k, v in outs.items()}
+    arrays.update({f"state/{f}": np.asarray(getattr(final, f))
+                   for f in final.__dataclass_fields__})
+    return arrays
 
 
 def light_reference(n_cell: int = N_CELL, n_rec: int = N_REC) -> dict:
@@ -31,15 +44,55 @@ def light_reference(n_cell: int = N_CELL, n_rec: int = N_REC) -> dict:
 
     gp, params, stack, state, _ = __graft_entry__._build(n_cell, n_rec=n_rec)
     final, outs = jax.jit(lambda s, f: run(s, f, params, gp))(state, stack)
-    arrays = {f"out/{k}": np.asarray(v) for k, v in outs.items()}
-    arrays.update({f"state/{f}": np.asarray(getattr(final, f))
-                   for f in final.__dataclass_fields__})
-    return arrays
+    return _arrays(final, outs)
 
 
-def main(path: str = FIXTURE):
+def frozen_inputs(n_cell: int, n_rec: int, frozen: bool = True):
+    """vic_tpu's (gp, params, stack, state, geom) of the frozen-soil
+    configuration (finite-difference nodes without frozen soil if not
+    `frozen`); geom holds numpy float64 arrays."""
+    sys.path.insert(0, ROOT)
+    from vic_tpu.config import GlobalParams
+    from vic_tpu.model import make_forcing_stack
+    from vic_tpu.physics.frozen_soil import build_node_geometry
+    from vic_tpu.prepare import prepare_domain
+    from vic_tpu.state import initial_state
+    from vic_tpu.testing import synthetic_domain, synthetic_forcing
+    from vic_tpu.timeaxis import make_time_axis
+
+    gp = GlobalParams(dt=24, nlayer=3, startyear=1995, startmonth=1,
+                      startday=1, nrecs=n_rec, full_energy=True,
+                      glacier_id=99, snow_band=2, frozen_soil=frozen,
+                      quick_flux=False, nnode=5, implicit=True,
+                      soil_sweep_maxiter=10, fd_affine_residual=True)
+    domain = synthetic_domain(n_cell=n_cell, n_band=2, with_glacier=True)
+    geom = build_node_geometry(domain.soil, gp)
+    stack = make_forcing_stack(
+        synthetic_forcing(n_rec, n_cell, dt_hours=gp.dt),
+        make_time_axis(1995, 1, 1, 0, n_rec, gp.dt))
+    return (gp, prepare_domain(domain, gp), stack,
+            initial_state(domain, gp, geom=geom), geom)
+
+
+def frozen_reference(n_cell: int = N_CELL, n_rec: int = N_REC) -> dict:
+    """As light_reference, for the frozen-soil configuration. The node
+    geometry enters the jitted run as numpy constants, as `make_step`'s
+    callers build it."""
+    import jax
+    jax.config.update("jax_enable_x64", False)
+    gp, params, stack, state, geom = frozen_inputs(n_cell, n_rec)
+    from vic_tpu.model import run
+
+    final, outs = jax.jit(lambda s, f: run(s, f, params, gp, geom=geom))(
+        state, stack)
+    return _arrays(final, outs)
+
+
+def main(which: str = "light"):
+    path, make = {"light": (FIXTURE, light_reference),
+                  "frozen": (FROZEN_FIXTURE, frozen_reference)}[which]
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    np.savez_compressed(path, **light_reference())
+    np.savez_compressed(path, **make())
     print(f"wrote {path} ({os.path.getsize(path)} bytes)")
 
 

@@ -1,6 +1,7 @@
-"""Where the time of the port's light step goes on one NVIDIA GPU.
+"""Where the time of the port's step goes on one NVIDIA GPU.
 
-    python tools/profile_torch_light.py [--cells 32768] [--records 8]
+    python tools/profile_torch_light.py [--config light|frozen]
+                                        [--cells 32768] [--records 8]
                                         [--repeats 5] [--out FILE.json]
 
 1. throughput: `--repeats` runs of `--records` daily records through
@@ -30,12 +31,18 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from vic_tpu_torch import model  # noqa: E402
-from vic_tpu_torch.entry import build_light  # noqa: E402
+from vic_tpu_torch.entry import CONFIGS  # noqa: E402
 
 STEP_CALLS = ("calc_aerodynamic", "snow_intercept", "snow_albedo",
               "snow_melt", "glacier_ablation", "snow_density_update",
               "build_evap_pre", "solve_surface_temperature",
               "surf_energy_terms", "runoff_step", "compute_pot_evap")
+# the frozen step's own calls (the node sweep runs inside the surface
+# Brent and the final surf_energy_terms, and is timed with them)
+FROZEN_CALLS = ("distribute_node_moisture", "estimate_layer_ice",
+                "find_zero_fronts")
+HAND_WRITTEN = ("brent_kernel", "runoff_hourly_kernel", "node_sweep_kernel",
+                "node_finish_kernel")
 
 
 def quartiles(xs):
@@ -44,24 +51,27 @@ def quartiles(xs):
             "n": len(xs)}
 
 
-def throughput(n_cell, n_rec, repeats, device):
-    gp, params, stack, state = build_light(n_cell, n_rec, device)
-    model.run(state, {k: v[:1] for k, v in stack.items()}, params, gp)
+def throughput(config, n_cell, n_rec, repeats, device):
+    gp, params, stack, state, geom = CONFIGS[config](n_cell, n_rec, device)
+    model.run(state, {k: v[:1] for k, v in stack.items()}, params, gp,
+              geom=geom)
     rates = []
     for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.run(state, stack, params, gp)
+        model.run(state, stack, params, gp, geom=geom)
         torch.cuda.synchronize()
         rates.append(n_cell * n_rec / (time.perf_counter() - t0))
     return quartiles(rates)
 
 
-def breakdown(n_cell, n_rec, device):
-    gp, params, stack, state = build_light(n_cell, n_rec, device)
-    model.run(state, {k: v[:1] for k, v in stack.items()}, params, gp)
-    spent = dict.fromkeys(STEP_CALLS, 0.0)
-    originals = {name: getattr(model, name) for name in STEP_CALLS}
+def breakdown(config, n_cell, n_rec, device):
+    gp, params, stack, state, geom = CONFIGS[config](n_cell, n_rec, device)
+    model.run(state, {k: v[:1] for k, v in stack.items()}, params, gp,
+              geom=geom)
+    calls = STEP_CALLS + (FROZEN_CALLS if config == "frozen" else ())
+    spent = dict.fromkeys(calls, 0.0)
+    originals = {name: getattr(model, name) for name in calls}
 
     def timed(name, fn):
         def wrapper(*args, **kwargs):
@@ -78,7 +88,7 @@ def breakdown(n_cell, n_rec, device):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.run(state, stack, params, gp)
+        model.run(state, stack, params, gp, geom=geom)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
@@ -90,20 +100,21 @@ def breakdown(n_cell, n_rec, device):
             total / n_rec * 1e3}
 
 
-def profile(n_cell, device, step_ms):
+def profile(config, n_cell, device, step_ms):
     """Device time of every kernel over two profiled records. The busy
     share is given against the profiled wall time (profiler overhead
     included) and against two records at the unprofiled median step
     time `step_ms`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
-    gp, params, stack, state = build_light(n_cell, 2, device)
-    model.run(state, {k: v[:1] for k, v in stack.items()}, params, gp)
+    gp, params, stack, state, geom = CONFIGS[config](n_cell, 2, device)
+    model.run(state, {k: v[:1] for k, v in stack.items()}, params, gp,
+              geom=geom)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.run(state, stack, params, gp)
+        model.run(state, stack, params, gp, geom=geom)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side kernel events only: CPU-side aten ops also carry the
@@ -114,7 +125,7 @@ def profile(n_cell, device, step_ms):
                      key=lambda x: -x[1])
     busy_ms = sum(k[1] for k in kernels) / 1e3
     ours = {k[0]: {"ms": k[1] / 1e3, "count": k[2]} for k in kernels
-            if "brent_kernel" in k[0] or "runoff_hourly_kernel" in k[0]}
+            if any(h in k[0] for h in HAND_WRITTEN)}
     return {"records": 2, "profiled_wall_ms": wall * 1e3,
             "device_busy_ms": busy_ms,
             "busy_share_of_profiled_wall": busy_ms / (wall * 1e3),
@@ -128,6 +139,7 @@ def profile(n_cell, device, step_ms):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", choices=tuple(CONFIGS), default="light")
     ap.add_argument("--cells", type=int, default=32768)
     ap.add_argument("--records", type=int, default=8)
     ap.add_argument("--repeats", type=int, default=5)
@@ -141,13 +153,14 @@ def main():
                           text=True, check=True).stdout.strip()
     torch.empty(0, device=device)          # create the CUDA context
     torch.cuda.reset_peak_memory_stats(device)
-    rate = throughput(a.cells, a.records, a.repeats, device)
+    rate = throughput(a.config, a.cells, a.records, a.repeats, device)
     result = {
-        "card": card, "cells": a.cells, "records": a.records,
+        "card": card, "config": a.config, "cells": a.cells,
+        "records": a.records,
         "lanes": a.cells * 8, "cell_steps_per_s": rate,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
-        "breakdown": breakdown(a.cells, a.records, device),
-        "profile": profile(a.cells, device,
+        "breakdown": breakdown(a.config, a.cells, a.records, device),
+        "profile": profile(a.config, a.cells, device,
                            step_ms=a.cells / rate["median"] * 1e3),
     }
     text = json.dumps(result, indent=1)

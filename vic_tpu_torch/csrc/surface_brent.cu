@@ -1,0 +1,90 @@
+// K5 surface_brent: the soil-surface temperature of the QUICK_FLUX step,
+// for sm_90a (H100).
+//
+// Replaces vic_tpu/physics/surface.py:438 (solve_surface_temperature's
+// batched_brent on surf_energy_terms, residual :71-378). On the TPU the
+// Brent was a lax while_loop over the whole [n_cell, max_hru] batch: every
+// iteration re-ran the ~300-line residual's fusions on every lane until the
+// slowest lane converged; its PyTorch plain version
+// (physics/surface.surface_brent_plain) also pays one device-to-host sync
+// per iteration. Here one thread owns one lane and runs bracket expansion
+// and Brent (brent.cuh) on the residual of surface_brent.cuh inside one
+// launch. A lane reads 53 floats, 5 x nl layer floats and 5 masks (~280 B;
+// less where an input is shared by the HRUs of a cell) and writes 10 B,
+// while it runs up to ~70 residual evaluations of ~150 flops and a few
+// log/sqrt/exp each: the kernel is bound by latency and
+// occupancy (a residual with ~65 live per-lane terms costs registers), not
+// by device-memory bytes. Simple and right first: no shared memory.
+//
+// C interface for ctypes: the 53 float inputs then the 5 layered ones, and
+// the 5 uint8 masks, as host arrays of device pointers with their strides
+// (lanes.cuh); returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "brent.cuh"
+#include "lanes.cuh"
+#include "surface_brent.cuh"
+
+namespace {
+
+constexpr int kBlock = 128;
+
+template <int NL>
+__global__ void surface_brent_kernel(const __grid_constant__ LaneInputs in,
+                                     const float* lo, const float* hi,
+                                     float dt, int gft, int max_iter,
+                                     int max_tries, int n, float* root,
+                                     uint8_t* converged, uint8_t* bracketed,
+                                     int32_t* iterations) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const LaneRow row = lane_row(in, i);
+  vicsurf::SurfaceResidual<NL> r;
+  r.init(in, row, dt, gft);
+  const BrentOut out =
+      brent_solve(r, lo[i], hi[i], lane_m(in, vicsurf::kActive, row),
+                  max_iter, max_tries);
+  root[i] = out.root;
+  converged[i] = out.converged;
+  bracketed[i] = out.bracketed;
+  iterations[i] = out.iterations;
+}
+
+}  // namespace
+
+extern "C" {
+
+// nf, nm: the input counts, checked against the residual's; h: lanes per
+// cell; nl: soil layers (2 or 3).
+int surface_brent(const void* const* f, const int32_t* f_stride, int nf,
+                  const void* const* m, const int32_t* m_stride, int nm,
+                  int h, int nl, const float* lo, const float* hi, float dt,
+                  int grnd_flux_type, int max_iter, int max_tries, int n,
+                  float* root, uint8_t* converged, uint8_t* bracketed,
+                  int32_t* iterations, void* stream) {
+  LaneInputs in{};
+  if (n <= 0 ||
+      !fill_lane_inputs(&in, f, f_stride, nf,
+                        vicsurf::kNumIn + vicsurf::kNumLayerIn, m, m_stride,
+                        nm, vicsurf::kNumMask, h))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kBlock - 1) / kBlock);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nl == 2) {
+    surface_brent_kernel<2><<<grid, kBlock, 0, s>>>(
+        in, lo, hi, dt, grnd_flux_type, max_iter, max_tries, n, root,
+        converged, bracketed, iterations);
+  } else if (nl == 3) {
+    surface_brent_kernel<3><<<grid, kBlock, 0, s>>>(
+        in, lo, hi, dt, grnd_flux_type, max_iter, max_tries, n, root,
+        converged, bracketed, iterations);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,270 @@
+// The soil-surface energy-balance residual of one lane, QUICK_FLUX path.
+//
+// A line-for-line copy of vic_tpu_torch/physics/surface.surf_energy_terms(ts)
+// .error with estimate_T1 ground heat, no frozen-soil fusion and the
+// hoisted ET terms of evap.build_evap_pre (penman coefficients, ARNO beta,
+// the transpiration split): func_surf_energy_bal.c:7-397. The terms that do
+// not depend on Ts are formed once per lane by init(), in the plain
+// version's operation order (divisions by a host scalar as PyTorch does them
+// on the card, physics.cuh), so every evaluation repeats the plain version's
+// arithmetic on this lane.
+#pragma once
+
+#include <cstdint>
+
+#include "lanes.cuh"
+#include "physics.cuh"
+
+namespace vicsurf {
+
+using namespace vicphys;
+
+// float inputs, in the order of the wrapper's kernels.SURFACE_INPUTS; the
+// layered ones follow them (LaneInputs f[kNumIn + LayerIn])
+enum In {
+  kTsOld, kT1Old, kT2, kD1, kD2, kKappa1, kKappa2, kCs1, kCs2, kDp,
+  kTair, kVpd, kVpAir, kSwNetBare, kLwBareIn, kAirDens, kPressure, kLe,
+  kRaUnder, kZRef, kDispl, kRough, kWind, kLai, kWdew, kWdmax, kRarc,
+  kRaCanopy, kRainfall, kResid0, kMoist0, kIce0, kMaxMoist0,
+  kDepth0, kSnowCov, kSurfAtten, kKappaSnow, kTsnowSurf, kMeltEnergy,
+  kIncSwq, kIncSurfWater, kIncDensity, kIncOldTsurf, kIncAdvection0,
+  kIncLwSnowIn, kIncNetShortSnowCov, kIncCov, kPenSlope, kPenLv, kPenGamma,
+  kPenRAir, kArnoBeta, kRc1, kNumIn
+};
+// layered inputs, NL values a lane (kernels.SURFACE_LAYER_INPUTS)
+enum LayerIn { kRoot, kGsm, kRc2, kW1, kCap, kNumLayerIn };
+// uint8 masks (kernels.SURFACE_MASKS)
+enum Mask { kActive, kInc, kOverSnow, kIsVeg, kCase1, kNumMask };
+
+// evap.penman with the hoisted coefficients (penman.c:96-143)
+__device__ __forceinline__ float penman(float slope, float lv, float gamma,
+                                        float r_air, float rad, float vpd,
+                                        float ra, float rc, float rarc) {
+  const float ra_safe = fmaxf(ra, 1e-10f);
+  float evap = (slope * rad + r_air * 1013.0f * vpd / ra_safe) /
+               (lv * (slope + gamma * (1.0f + (rc + rarc) / ra_safe))) *
+               kSecPerDay;
+  if (vpd >= 0.0f && evap < 0.0f) evap = 0.0f;
+  return evap;
+}
+
+template <int NL>
+struct SurfaceResidual {
+  float dt;
+  int grnd_flux_type;
+  bool inc, veg, case1;
+  float tair, vpd, vp_air, sw_net_bare, lw_bare_in, air_dens, pressure, le;
+  float ra_under, z_ref, d_eff, rough, wind, ra_canopy, rarc;
+  // estimate_T1 and ground-flux terms
+  float p1, q1, q2, den, ga, gb, t2, cover_atten, cs1, d1, tsum_old;
+  float snow_cov, kappa_snow, tsnow_surf, melt_energy;
+  // INCLUDE_SNOW pack
+  float i_dry, old_tsurf, cov_i, refreeze, advection0, lw_snow_in, nssc;
+  // ET
+  float slope, lv, gamma, r_air, beta, rc1;
+  float cev_pow, wdew_c, storage, wdew_frac_pow, arno_cap;
+  float root[NL], gsm[NL], rc2[NL], w1[NL], cap[NL];
+
+  __device__ void init(const LaneInputs& inputs, LaneRow row, float dt_,
+                       int gft) {
+    auto in = [&](int k) { return lane_f(inputs, k, row); };
+    auto mask = [&](int k) { return lane_m(inputs, k, row); };
+    dt = dt_;
+    grnd_flux_type = gft;
+    inc = mask(kInc);
+    case1 = mask(kCase1);
+    const float lai = in(kLai);
+    veg = mask(kIsVeg) && lai > 0.0f;
+    tair = in(kTair);
+    vpd = in(kVpd);
+    vp_air = in(kVpAir);
+    sw_net_bare = in(kSwNetBare);
+    lw_bare_in = in(kLwBareIn);
+    air_dens = in(kAirDens);
+    pressure = in(kPressure);
+    le = in(kLe);
+    ra_under = in(kRaUnder);
+    z_ref = in(kZRef);
+    d_eff = mask(kOverSnow) ? 0.0f : in(kDispl);
+    rough = in(kRough);
+    wind = in(kWind);
+    ra_canopy = in(kRaCanopy);
+    rarc = in(kRarc);
+
+    // soil_thermal.estimate_t1's Ts-independent terms (estimate_T1.c)
+    const float t1_old = in(kT1Old), d2 = in(kD2), dp = in(kDp);
+    const float kappa1 = in(kKappa1), kappa2 = in(kKappa2), cs2 = in(kCs2);
+    d1 = in(kD1);
+    cs1 = in(kCs1);
+    t2 = in(kT2);
+    const float c1 = cs2 * dp / d2 * (1.0f - expf(-d2 / dp));
+    const float c2 = -(1.0f - expf(d1 / dp)) * expf(-d2 / dp);
+    const float c3 = kappa1 / d1 - kappa2 / d1 + kappa2 / d1 * expf(-d1 / dp);
+    p1 = kappa1 / 2.0f / d1 / d2;
+    q1 = div_s(c1, dt) * t1_old;
+    q2 = (2.0f * c2 - 1.0f + expf(-d1 / dp)) * kappa2 / 2.0f / d1 / d2 * t2;
+    den = div_s(c1, dt) + kappa2 / d1 / d2 * c2 + c3 / 2.0f / d2;
+    ga = kappa1 / d1;
+    gb = kappa2 / d2 * (1.0f - expf(-d1 / dp));
+    tsum_old = in(kTsOld) + t1_old;
+
+    snow_cov = in(kSnowCov);
+    cover_atten = snow_cov + (1.0f - snow_cov) * in(kSurfAtten);
+    kappa_snow = in(kKappaSnow);
+    tsnow_surf = in(kTsnowSurf);
+    melt_energy = in(kMeltEnergy);
+
+    const float i_sw = in(kIncSurfWater);
+    i_dry = in(kIncSwq) - i_sw;
+    old_tsurf = in(kIncOldTsurf);
+    cov_i = in(kIncCov);
+    const float rfz_i = div_s(i_sw * kLf * in(kIncDensity), dt);
+    refreeze = inc ? rfz_i * cov_i : 0.0f;
+    advection0 = in(kIncAdvection0);
+    lw_snow_in = in(kIncLwSnowIn);
+    nssc = in(kIncNetShortSnowCov);
+
+    slope = in(kPenSlope);
+    lv = in(kPenLv);
+    gamma = in(kPenGamma);
+    r_air = in(kPenRAir);
+    beta = in(kArnoBeta);
+    rc1 = in(kRc1);
+    // evap.wet_canopy_evap's Ts-independent part
+    const float wdew = in(kWdew), wdmax = in(kWdmax);
+    const float wdmax_safe = fmaxf(wdmax, 1e-10f);
+    wdew_c = fminf(wdew, wdmax);
+    cev_pow = powf(fminf(fmaxf(wdew_c / wdmax_safe, 0.0f), 1.0f), kTwoThirds);
+    storage = dt == kSecPerDay ? wdew_c + in(kRainfall) : wdew_c;
+    wdew_frac_pow =
+        powf(fmaxf(wdew, 0.0f) / fmaxf(wdmax, 1e-10f), kTwoThirds);
+    // evap.arno_evap's Ts-independent part
+    const float moist =
+        fminf(fmaxf(in(kMoist0) - in(kIce0), 0.0f), in(kMaxMoist0));
+    arno_cap = fmaxf(moist - in(kResid0) * in(kDepth0) * 1000.0f, 0.0f);
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      auto layer = [&](int k) {
+        return lane_fl(inputs, kNumIn + k, row, l);
+      };
+      root[l] = layer(kRoot);
+      gsm[l] = layer(kGsm);
+      rc2[l] = layer(kRc2);
+      w1[l] = layer(kW1);
+      cap[l] = layer(kCap);
+    }
+  }
+
+  // evap.canopy_evap's total, mm/step (canopy_evap.c:46-445)
+  __device__ float canopy_evap(float rad) const {
+    float cevap = div_s(cev_pow *
+                            penman(slope, lv, gamma, r_air, rad, vpd,
+                                   ra_canopy, 0.0f, rarc) *
+                            dt,
+                        kSecPerDay);
+    const float f =
+        cevap > 0.0f ? fminf(storage / fmaxf(cevap, 1e-20f), 1.0f) : 1.0f;
+    cevap = cevap * f;
+    const float trans_factor = 1.0f - f * wdew_frac_pow;
+    const float evap1 =
+        div_s(penman(slope, lv, gamma, r_air, rad, vpd, ra_canopy, rc1,
+                     rarc) *
+                  dt,
+              kSecPerDay) *
+        trans_factor;
+    float layer_sum = 0.0f;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      float le_l;
+      if (case1) {
+        le_l = evap1 * w1[l];
+      } else {
+        le_l = gsm[l] > 0.0f
+                   ? div_s(penman(slope, lv, gamma, r_air, rad, vpd,
+                                  ra_canopy, rc2[l], rarc) *
+                               dt,
+                           kSecPerDay) *
+                         root[l] * trans_factor
+                   : 0.0f;
+      }
+      le_l = fminf(fmaxf(le_l, 0.0f), cap[l]);
+      layer_sum = l == 0 ? le_l : layer_sum + le_l;
+    }
+    return cevap + layer_sum;
+  }
+
+  // evap.arno_evap from the top layer, mm/step (arno_evap.c:61-228)
+  __device__ float arno_evap(float rad, float ra_used) const {
+    const float epot = div_s(
+        penman(slope, lv, gamma, r_air, rad, vpd, ra_used, 0.0f, 0.0f) * dt,
+        kSecPerDay);
+    const float evap = epot * beta;
+    return evap > 0.0f ? fminf(evap, arno_cap) : evap;
+  }
+
+  __device__ float operator()(float ts) const {
+    const float tmean = ts;
+    const float tkelv = tmean + kKelvin;
+    const float tk2 = tkelv * tkelv;
+    const float tk4 = tk2 * tk2;
+    // pack -> soil conduction; none on INCLUDE_SNOW lanes (:148-161)
+    const float snow_flux = inc ? 0.0f : kappa_snow * (tsnow_surf - tmean);
+    // quick-flux ground heat (:171-181)
+    const float t1 = (p1 * tmean + q1 + q2) / den;
+    const float grnd_flux =
+        grnd_flux_type == 0
+            ? cover_atten * (ga * (t1 - tmean))
+            : cover_atten * (ga * (t1 - tmean) + (gb * (t2 - t1))) / 2.0f;
+    // heat storage between nodes 0 and 1 (:249-254)
+    float delta_h = div_s(cs1 * (tsum_old - (tmean + t1)) * d1, dt) / 2.0f;
+    if (grnd_flux_type == 2) delta_h = cover_atten * delta_h;
+    // INCLUDE_SNOW pack cold content (:279-286)
+    const float dcc_i = tmean > 0.0f
+                            ? div_s(kChIce * i_dry * (0.0f - old_tsurf), dt)
+                            : div_s(kChIce * i_dry * (tmean - old_tsurf), dt);
+    const float delta_cc = inc ? dcc_i * cov_i : 0.0f;
+    // net radiation on the snow-free area (:291-295)
+    const float net_long_bare =
+        lw_bare_in - (1.0f - snow_cov) * (kStefanB * tk4);
+    const float net_bare_rad =
+        sw_net_bare + net_long_bare + grnd_flux + delta_h;
+    // stability-corrected resistance (:298-310)
+    const float ra_used =
+        wind > 0.0f ? ra_under / stability_correction(z_ref, d_eff, tmean,
+                                                      tair, wind, rough)
+                    : kHugeResist;
+    // evapotranspiration inside the residual (:320-336)
+    const float evap =
+        veg ? canopy_evap(net_bare_rad) : arno_evap(net_bare_rad, ra_used);
+    // latent heat (:339-363)
+    float latent =
+        -kRhoW * le * div_s(div_s(evap, 1000.0f), dt) * (1.0f - snow_cov);
+    float latent_sub = 0.0f;
+    if (inc) {
+      // snow.latent_heat_from_snow at the surface resistance
+      float vf = air_dens * rdiv_s(kEpsRatio, pressure) *
+                 (vp_air - svp(tmean)) / ra_used;
+      if (vpd == 0.0f && vf < 0.0f) vf = 0.0f;
+      latent = (tmean >= 0.0f ? le * vf : 0.0f) * cov_i;
+      latent_sub = (tmean >= 0.0f ? 0.0f : ls_of(tmean) * vf) * cov_i;
+    }
+    // sensible heat (:366-372); unscaled on INCLUDE_SNOW lanes
+    const float sensible_raw = air_dens * kCp * (tair - tmean) / ra_used;
+    float sensible =
+        snow_cov >= 1.0f ? 0.0f : sensible_raw * (1.0f - snow_cov);
+    if (inc) sensible = sensible_raw;
+
+    float error = net_bare_rad + sensible + latent + latent_sub +
+                  snow_flux * snow_cov - delta_cc;
+    error = error + melt_energy;
+    if (!inc) return error;
+    // pack terms of the joint balance (:378-387), refreeze two-pass at
+    // TMean == 0 (:388-397)
+    const float nls_i = lw_snow_in - cov_i * kStefanB * tk4;
+    error = error + (advection0 + nssc + nls_i - melt_energy);
+    if (tmean == 0.0f && error > -refreeze) return 0.0f;
+    return error + refreeze;
+  }
+};
+
+}  // namespace vicsurf

@@ -21,83 +21,24 @@
 // library is built with -fmad=false, so a kernel and its plain version
 // differ only by libm ulps.
 //
-// C interface for ctypes: per-lane float inputs and uint8 masks come as host
-// arrays of device pointers, copied into the kernel's parameter block; each
-// launcher returns cudaGetLastError() (0 = launched).
+// C interface for ctypes: float inputs and uint8 masks come as host arrays
+// of device pointers with their strides (lanes.cuh), copied into the
+// kernel's parameter block; each launcher returns cudaGetLastError()
+// (0 = launched).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "brent.cuh"
+#include "lanes.cuh"
+#include "physics.cuh"
 
 namespace {
 
-constexpr float kKelvin = 273.15f;
-constexpr float kStefanB = 5.6696e-8f;
-constexpr float kLf = 3.337e5f;
-constexpr float kRhoW = 999.842594f;
-constexpr float kCp = 1013.0f;
-constexpr float kChIce = 2100.0e3f;
-constexpr float kChWater = 4186.8e3f;
-constexpr float kKSnow = 2.9302e-6f;
-constexpr float kEpsRatio = 0.62196351f;
-constexpr float kG = 9.81f;
-constexpr float kJoulesPerCal = 4.1868f;
-constexpr float kGramsPerKg = 1000.0f;
-constexpr float kHugeResist = 1.0e20f;
-constexpr float kGlacKIce = 2.14f;
-constexpr float kSecPerDay = 86400.0f;
-// python-constant products evaluate in double before the float32 op
-constexpr float kSvpBC = static_cast<float>(17.269 * 237.3);
-constexpr float kGasOverG = static_cast<float>(287.0 / 9.81);
-constexpr float kTwoThirds = static_cast<float>(2.0 / 3.0);
+using namespace vicphys;
 
 constexpr int kBlock = 128;
-constexpr int kMaxFloatInputs = 20;
-constexpr int kMaxMaskInputs = 2;
-
-struct LaneInputs {
-  const float* f[kMaxFloatInputs];
-  const uint8_t* m[kMaxMaskInputs];
-};
-
-// evap.svp (svp.c:7-23)
-__device__ __forceinline__ float svp(float t) {
-  float s = 0.61078f * expf((17.269f * t) / (237.3f + t));
-  if (t < 0.0f) s = s * (1.0f + 0.00972f * t + 0.000042f * t * t);
-  return s * 1000.0f;
-}
-
-// snow.stability_correction (StabilityCorrection.c:41-80)
-__device__ __forceinline__ float stability_correction(float z, float d,
-                                                      float tsurf, float tair,
-                                                      float wind, float z0) {
-  const float denom_t = ((tair + kKelvin) + (tsurf + kKelvin)) / 2.0f;
-  const float wind2 = fmaxf(wind * wind, 1e-10f);
-  float ri = kG * (tair - tsurf) * (z - d) / (denom_t * wind2);
-  const float ri_limit =
-      (tair + kKelvin) / (denom_t * (logf((z - d) / z0) + 5.0f));
-  ri = fminf(ri, ri_limit);
-  float corr;
-  if (ri > 0.0f) {
-    const float s = 1.0f - ri / 0.2f;
-    corr = s * s;
-  } else {
-    corr = sqrtf(1.0f - 16.0f * fmaxf(ri, -0.5f));
-  }
-  return tsurf == tair ? 1.0f : corr;
-}
-
-__device__ __forceinline__ float pow4(float x) {
-  const float x2 = x * x;
-  return x2 * x2;
-}
-
-// sublimation latent heat, J/kg
-__device__ __forceinline__ float ls_of(float t) {
-  return (677.0f - 0.07f * t) * kJoulesPerCal * kGramsPerKg;
-}
 
 // evap.penman with rc = 0 (penman.c:96-143, coefficients from
 // evap.penman_coeffs)
@@ -257,72 +198,75 @@ __device__ __forceinline__ void store(const BrentOutputs& out, int i,
   out.iterations[i] = r.iterations;
 }
 
-__global__ void glacier_brent_kernel(LaneInputs in, const float* lo,
-                                     const float* hi, float dt, int max_iter,
-                                     int max_tries, int n, BrentOutputs out) {
+__global__ void glacier_brent_kernel(const __grid_constant__ LaneInputs in,
+                                     const float* lo, const float* hi,
+                                     float dt, int max_iter, int max_tries,
+                                     int n, BrentOutputs out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float* const* f = in.f;
-  const GlacierResidual r{dt,       f[0][i],  f[1][i],  f[2][i],  f[3][i],
-                          f[4][i],  f[5][i],  f[6][i],  f[7][i],  f[8][i],
-                          f[9][i],  f[10][i], f[11][i], f[12][i], f[13][i],
-                          f[14][i]};
-  store(out, i,
-        brent_solve(r, lo[i], hi[i], in.m[0][i] != 0, max_iter, max_tries));
+  const LaneRow row = lane_row(in, i);
+  auto f = [&](int k) { return lane_f(in, k, row); };
+  const GlacierResidual r{dt,    f(0),  f(1),  f(2),  f(3),  f(4),
+                          f(5),  f(6),  f(7),  f(8),  f(9),  f(10),
+                          f(11), f(12), f(13), f(14)};
+  store(out, i, brent_solve(r, lo[i], hi[i], lane_m(in, 0, row), max_iter,
+                            max_tries));
 }
 
-__global__ void snowpack_brent_kernel(LaneInputs in, const float* lo,
-                                      const float* hi, float dt, int max_iter,
-                                      int max_tries, int n, BrentOutputs out) {
+__global__ void snowpack_brent_kernel(const __grid_constant__ LaneInputs in,
+                                      const float* lo, const float* hi,
+                                      float dt, int max_iter, int max_tries,
+                                      int n, BrentOutputs out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float* const* f = in.f;
-  const SnowpackResidual r{dt,       f[0][i],  f[1][i],  f[2][i],  f[3][i],
-                           f[4][i],  f[5][i],  f[6][i],  f[7][i],  f[8][i],
-                           f[9][i],  f[10][i], f[11][i], f[12][i], f[13][i],
-                           f[14][i], f[15][i], f[16][i], f[17][i], f[18][i]};
-  store(out, i,
-        brent_solve(r, lo[i], hi[i], in.m[0][i] != 0, max_iter, max_tries));
+  const LaneRow row = lane_row(in, i);
+  auto f = [&](int k) { return lane_f(in, k, row); };
+  const SnowpackResidual r{dt,    f(0),  f(1),  f(2),  f(3),  f(4),  f(5),
+                           f(6),  f(7),  f(8),  f(9),  f(10), f(11), f(12),
+                           f(13), f(14), f(15), f(16), f(17), f(18)};
+  store(out, i, brent_solve(r, lo[i], hi[i], lane_m(in, 0, row), max_iter,
+                            max_tries));
 }
 
-__global__ void canopy_brent_kernel(LaneInputs in, const float* lo,
-                                    const float* hi, float dt, int max_iter,
-                                    int max_tries, int n, BrentOutputs out) {
+__global__ void canopy_brent_kernel(const __grid_constant__ LaneInputs in,
+                                    const float* lo, const float* hi,
+                                    float dt, int max_iter, int max_tries,
+                                    int n, BrentOutputs out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float* const* f = in.f;
-  const CanopyResidual r{dt,       f[0][i],  f[1][i],  f[2][i],  f[3][i],
-                         f[4][i],  f[5][i],  f[6][i],  f[7][i],  f[8][i],
-                         f[9][i],  f[10][i], f[11][i], f[12][i], f[13][i],
-                         f[14][i], f[15][i], f[16][i], f[17][i],
-                         in.m[1][i] != 0};
-  store(out, i,
-        brent_solve(r, lo[i], hi[i], in.m[0][i] != 0, max_iter, max_tries));
+  const LaneRow row = lane_row(in, i);
+  auto f = [&](int k) { return lane_f(in, k, row); };
+  const CanopyResidual r{dt,    f(0),  f(1),  f(2),  f(3),  f(4),  f(5),
+                         f(6),  f(7),  f(8),  f(9),  f(10), f(11), f(12),
+                         f(13), f(14), f(15), f(16), f(17),
+                         lane_m(in, 1, row)};
+  store(out, i, brent_solve(r, lo[i], hi[i], lane_m(in, 0, row), max_iter,
+                            max_tries));
 }
 
 // K4: the hourly loop of runoff.runoff_hourly_plain (runoff.c:446-700).
-// Layer arrays are [n, NL] row-major; per-lane scalars [n].
+// Inputs 0-6 are layered (NL values a lane), 7-12 one value a lane.
 template <int NL>
-__global__ void runoff_hourly_kernel(LaneInputs in, int dt_hours, int n,
-                                     float* liq_out, float* runoff_out,
-                                     float* base_out) {
+__global__ void runoff_hourly_kernel(const __grid_constant__ LaneInputs in,
+                                     int dt_hours, int n, float* liq_out,
+                                     float* runoff_out, float* base_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const LaneRow row = lane_row(in, i);
   float liq[NL], ice[NL], evap[NL], resid[NL], mm[NL], ksat[NL], expt[NL];
 #pragma unroll
   for (int l = 0; l < NL; ++l) {
-    const int k = i * NL + l;
-    liq[l] = in.f[0][k];
-    ice[l] = in.f[1][k];
-    evap[l] = in.f[2][k];
-    resid[l] = in.f[3][k];
-    mm[l] = in.f[4][k];
-    ksat[l] = in.f[5][k];
-    expt[l] = in.f[6][k];
+    liq[l] = lane_fl(in, 0, row, l);
+    ice[l] = lane_fl(in, 1, row, l);
+    evap[l] = lane_fl(in, 2, row, l);
+    resid[l] = lane_fl(in, 3, row, l);
+    mm[l] = lane_fl(in, 4, row, l);
+    ksat[l] = lane_fl(in, 5, row, l);
+    expt[l] = lane_fl(in, 6, row, l);
   }
-  const float dt_runoff = in.f[7][i], dt_inflow = in.f[8][i];
-  const float dsmax_hr = in.f[9][i], ds = in.f[10][i], ws = in.f[11][i];
-  const float c_expt = in.f[12][i];
+  const float dt_runoff = lane_f(in, 7, row), dt_inflow = lane_f(in, 8, row);
+  const float dsmax_hr = lane_f(in, 9, row), ds = lane_f(in, 10, row);
+  const float ws = lane_f(in, 11, row), c_expt = lane_f(in, 12, row);
   constexpr int lb = NL - 1;
 
   // excess moves up through layers top..0; what leaves layer 0 is runoff
@@ -391,25 +335,17 @@ __global__ void runoff_hourly_kernel(LaneInputs in, int dt_hours, int n,
   base_out[i] = base_acc;
 }
 
-bool copy_inputs(LaneInputs* in, const void* const* f, int nf,
-                 int nf_expected, const void* const* m, int nm,
-                 int nm_expected) {
-  if (nf != nf_expected || nm != nm_expected || nf > kMaxFloatInputs ||
-      nm > kMaxMaskInputs)
-    return false;
-  for (int k = 0; k < nf; ++k) in->f[k] = static_cast<const float*>(f[k]);
-  for (int k = 0; k < nm; ++k) in->m[k] = static_cast<const uint8_t*>(m[k]);
-  return true;
-}
-
 template <class Kernel>
-int launch_brent(Kernel kernel, const void* const* f, int nf, int nf_expected,
-                 const void* const* m, int nm, int nm_expected,
+int launch_brent(Kernel kernel, const void* const* f,
+                 const int32_t* f_stride, int nf, int nf_expected,
+                 const void* const* m, const int32_t* m_stride, int nm,
+                 int nm_expected, int h,
                  const float* lo, const float* hi, float dt, int max_iter,
                  int max_tries, int n, float* root, uint8_t* converged,
                  uint8_t* bracketed, int32_t* iterations, void* stream) {
   LaneInputs in{};
-  if (n <= 0 || !copy_inputs(&in, f, nf, nf_expected, m, nm, nm_expected))
+  if (n <= 0 || !fill_lane_inputs(&in, f, f_stride, nf, nf_expected, m,
+                                  m_stride, nm, nm_expected, h))
     return static_cast<int>(cudaErrorInvalidValue);
   const BrentOutputs out{root, converged, bracketed, iterations};
   kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
@@ -426,26 +362,30 @@ extern "C" {
 // batched_brent). Bound by latency and occupancy: one lane per thread,
 // divergent Brent trip counts, ~50 registers, ~70 B read per lane.
 // 15 float inputs in GlacierResidual order after dt; masks: [active].
-int glacier_brent(const void* const* f, int nf, const void* const* m, int nm,
+int glacier_brent(const void* const* f, const int32_t* f_stride, int nf,
+                  const void* const* m, const int32_t* m_stride, int nm,
+                  int h,
                   const float* lo, const float* hi, float dt, int max_iter,
                   int max_tries, int n, float* root, uint8_t* converged,
                   uint8_t* bracketed, int32_t* iterations, void* stream) {
-  return launch_brent(glacier_brent_kernel, f, nf, 15, m, nm, 1, lo, hi, dt,
-                      max_iter, max_tries, n, root, converged, bracketed,
-                      iterations, stream);
+  return launch_brent(glacier_brent_kernel, f, f_stride, nf, 15, m, m_stride,
+                      nm, 1, h, lo, hi, dt, max_iter, max_tries, n, root,
+                      converged, bracketed, iterations, stream);
 }
 
 // Replaces vic_tpu/physics/snow.py:443 (snow_melt's batched_brent). Bound
 // by latency and occupancy: one lane per thread, divergent Brent trip
 // counts, ~90 B read per lane. 19 float inputs in SnowpackResidual order
 // after dt; masks: [active].
-int snowpack_brent(const void* const* f, int nf, const void* const* m, int nm,
+int snowpack_brent(const void* const* f, const int32_t* f_stride, int nf,
+                   const void* const* m, const int32_t* m_stride, int nm,
+                   int h,
                    const float* lo, const float* hi, float dt, int max_iter,
                    int max_tries, int n, float* root, uint8_t* converged,
                    uint8_t* bracketed, int32_t* iterations, void* stream) {
-  return launch_brent(snowpack_brent_kernel, f, nf, 19, m, nm, 1, lo, hi, dt,
-                      max_iter, max_tries, n, root, converged, bracketed,
-                      iterations, stream);
+  return launch_brent(snowpack_brent_kernel, f, f_stride, nf, 19, m, m_stride,
+                      nm, 1, h, lo, hi, dt, max_iter, max_tries, n, root,
+                      converged, bracketed, iterations, stream);
 }
 
 // Replaces vic_tpu/physics/canopy_snow.py:270 (snow_intercept's
@@ -453,25 +393,28 @@ int snowpack_brent(const void* const* f, int nf, const void* const* m, int nm,
 // divergent Brent trip counts and the two branches of has_csnow, ~85 B
 // read per lane. 18 float inputs in CanopyResidual order after dt; masks:
 // [active, has_csnow].
-int canopy_brent(const void* const* f, int nf, const void* const* m, int nm,
+int canopy_brent(const void* const* f, const int32_t* f_stride, int nf,
+                 const void* const* m, const int32_t* m_stride, int nm,
+                 int h,
                  const float* lo, const float* hi, float dt, int max_iter,
                  int max_tries, int n, float* root, uint8_t* converged,
                  uint8_t* bracketed, int32_t* iterations, void* stream) {
-  return launch_brent(canopy_brent_kernel, f, nf, 18, m, nm, 2, lo, hi, dt,
-                      max_iter, max_tries, n, root, converged, bracketed,
-                      iterations, stream);
+  return launch_brent(canopy_brent_kernel, f, f_stride, nf, 18, m, m_stride,
+                      nm, 2, h, lo, hi, dt, max_iter, max_tries, n, root,
+                      converged, bracketed, iterations, stream);
 }
 
 // Replaces vic_tpu/physics/runoff.py:171 (runoff_step's hourly fori_loop).
 // Bound by latency: dt_hours dependent trips of ~20 flops and 3 powf per
 // lane, ~110 B read and 20 B written per lane. 13 float inputs: liq0, ice,
-// evap_hr, resid_mm, max_moist, ksat_hr, expt ([n, nl]); dt_runoff,
-// dt_inflow, dsmax_hr, ds, ws, c_expt ([n]).
-int runoff_hourly(const void* const* f, int nf, int nl, int dt_hours, int n,
-                  float* liq_out, float* runoff_out, float* base_out,
-                  void* stream) {
+// evap_hr, resid_mm, max_moist, ksat_hr, expt (layered); dt_runoff,
+// dt_inflow, dsmax_hr, ds, ws, c_expt; each with its strides.
+int runoff_hourly(const void* const* f, const int32_t* f_stride, int nf, int h,
+                  int nl, int dt_hours, int n, float* liq_out,
+                  float* runoff_out, float* base_out, void* stream) {
   LaneInputs in{};
-  if (n <= 0 || dt_hours < 0 || !copy_inputs(&in, f, nf, 13, nullptr, 0, 0))
+  if (n <= 0 || dt_hours < 0 ||
+      !fill_lane_inputs(&in, f, f_stride, nf, 13, nullptr, nullptr, 0, 0, h))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + kBlock - 1) / kBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

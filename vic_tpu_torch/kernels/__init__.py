@@ -1,12 +1,13 @@
-"""Python bindings of the CUDA kernels (csrc/vic_kernels.cu).
+"""Python bindings of the CUDA kernels (csrc/*.cu).
 
-Each wrapper takes CUDA tensors only: it checks device and dtype, expands
-broadcast inputs to the lane shape and makes them contiguous (a stride-0
-`x[:, None]` view must never reach a kernel as an [N] array), allocates the
-outputs, launches on the current stream, raises if the launch was refused,
-and adds one to its entry of `launches`. The plain PyTorch versions live
-beside each call site (physics/glacier.py, snow.py, canopy_snow.py,
-runoff.py); the call sites pick one or the other by the tensors' device.
+Each wrapper takes CUDA tensors only: it checks device and dtype, passes
+K1-K5 each input as its view broadcast to the lanes, a data pointer and
+element strides (`_lane_inputs`, csrc/lanes.cuh), so no input is copied,
+allocates the outputs, launches on the current stream, raises if the
+launch was refused, and adds one to its entry of `launches`. The plain
+PyTorch versions live beside each call site (physics/glacier.py, snow.py,
+canopy_snow.py, runoff.py, surface.py, frozen_soil.py); the call sites
+pick one or the other by the tensors' device.
 """
 from __future__ import annotations
 
@@ -14,12 +15,14 @@ import ctypes
 
 import torch
 
-from ..ops.rootfind import RootResult
+from ..ops.rootfind import MAXTRIES, RootResult
 from . import build
 
-# launches of each kernel since the last reset_launches()
+# launches of each kernel since the last reset_launches(): calls of its
+# wrapper that reached the device (K6's one call is 11 device launches at
+# max_sweeps = 10: a sweep launch each and a finishing one)
 launches = {"glacier_brent": 0, "snowpack_brent": 0, "canopy_brent": 0,
-            "runoff_hourly": 0}
+            "runoff_hourly": 0, "surface_brent": 0, "node_sweep": 0}
 
 # per-lane float inputs of each Brent residual, in the C functors' order
 GLACIER_INPUTS = ("ra", "z_ref", "roughness", "air_dens", "vp_air",
@@ -41,8 +44,8 @@ def reset_launches():
         launches[k] = 0
 
 
-def _lanes(x, shape, device, dtype, name):
-    """x expanded to `shape`, contiguous; raises unless x is a tensor of
+def _expand(x, shape, device, dtype, name):
+    """x expanded to `shape` (a view); raises unless x is a tensor of
     `dtype` on `device` that broadcasts to `shape`."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
@@ -50,11 +53,36 @@ def _lanes(x, shape, device, dtype, name):
         raise ValueError(f"{name}: on {x.device}, expected {device}")
     if x.dtype != dtype:
         raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
-    return x.expand(shape).contiguous()
+    return x.expand(shape)
+
+
+def _lanes(x, shape, device, dtype, name):
+    """x expanded to `shape`, contiguous (see _expand)."""
+    return _expand(x, shape, device, dtype, name).contiguous()
 
 
 def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _lane_inputs(items, shape, device):
+    """The inputs of a K1-K5 kernel over the lanes `shape` ([n_cell,
+    max_hru], or [n] as one cell) as csrc/lanes.cuh reads them. items:
+    (name, tensor, dtype, nl), nl > 0 for an input with a trailing layer
+    axis. Each input is broadcast to the lanes as a view and passed as its
+    data pointer and its element strides along the cell, HRU and layer axes
+    (0 along an axis it is broadcast over): nothing is copied. Returns (the
+    views, pointer array, int32 stride array of 3 per input)."""
+    if len(shape) not in (1, 2):
+        raise ValueError(f"lanes must be [n_cell, max_hru], got {shape}")
+    views, strides = [], []
+    for name, x, dtype, nl in items:
+        x = _expand(x, shape + ((nl,) if nl else ()), device, dtype, name)
+        if len(shape) == 1:
+            x = x.unsqueeze(0)
+        views.append(x)
+        strides += [x.stride(0), x.stride(1), x.stride(2) if nl else 0]
+    return views, _ptrs(views), (ctypes.c_int32 * len(strides))(*strides)
 
 
 def _check_launch(name, err):
@@ -78,9 +106,11 @@ def _brent(name, float_names, flag_names, lo, hi, active, dt, max_iter,
     f32, flag = torch.float32, torch.bool
     lo_c = _lanes(lo, shape, device, f32, "lo")
     hi_c = _lanes(hi, shape, device, f32, "hi")
-    fin = [_lanes(inputs[k], shape, device, f32, k) for k in float_names]
-    masks = [_lanes(active, shape, device, flag, "active")] + [
-        _lanes(inputs[k], shape, device, flag, k) for k in flag_names]
+    fin, f_ptr, f_stride = _lane_inputs(
+        [(k, inputs[k], f32, 0) for k in float_names], shape, device)
+    masks, m_ptr, m_stride = _lane_inputs(
+        [("active", active, flag, 0)]
+        + [(k, inputs[k], flag, 0) for k in flag_names], shape, device)
     root = torch.empty(shape, dtype=f32, device=device)
     converged = torch.empty(shape, dtype=flag, device=device)
     bracketed = torch.empty(shape, dtype=flag, device=device)
@@ -89,10 +119,10 @@ def _brent(name, float_names, flag_names, lo, hi, active, dt, max_iter,
     if n:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(build.load(), name)(
-            _ptrs(fin), len(fin), _ptrs(masks), len(masks), lo_c.data_ptr(),
-            hi_c.data_ptr(), float(dt), int(max_iter), int(max_tries), n,
-            root.data_ptr(), converged.data_ptr(), bracketed.data_ptr(),
-            iterations.data_ptr(), stream)
+            f_ptr, f_stride, len(fin), m_ptr, m_stride, len(masks), shape[-1],
+            lo_c.data_ptr(), hi_c.data_ptr(), float(dt), int(max_iter),
+            int(max_tries), n, root.data_ptr(), converged.data_ptr(),
+            bracketed.data_ptr(), iterations.data_ptr(), stream)
         _check_launch(name, err)
     return RootResult(root, converged, bracketed, iterations)
 
@@ -140,8 +170,9 @@ def runoff_hourly(liq0, ice, evap_hr, resid_mm, max_moist, ksat_hr, expt,
     lshape = shape + lshape[-1:]
     nl = lshape[-1]
     f32 = torch.float32
-    fin = ([_lanes(t, lshape, device, f32, k) for k, t in layer.items()]
-           + [_lanes(t, shape, device, f32, k) for k, t in lane.items()])
+    fin, f_ptr, f_stride = _lane_inputs(
+        [(k, t, f32, nl) for k, t in layer.items()]
+        + [(k, t, f32, 0) for k, t in lane.items()], shape, device)
     liq = torch.empty(lshape, dtype=f32, device=device)
     runoff_extra = torch.empty(shape, dtype=f32, device=device)
     baseflow = torch.empty(shape, dtype=f32, device=device)
@@ -149,7 +180,141 @@ def runoff_hourly(liq0, ice, evap_hr, resid_mm, max_moist, ksat_hr, expt,
     if n:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = build.load().runoff_hourly(
-            _ptrs(fin), len(fin), nl, int(dt_hours), n, liq.data_ptr(),
+            f_ptr, f_stride, len(fin), shape[-1], nl, int(dt_hours), n,
+            liq.data_ptr(),
             runoff_extra.data_ptr(), baseflow.data_ptr(), stream)
         _check_launch(name, err)
     return liq, runoff_extra, baseflow
+
+
+# K5's inputs, in the order of csrc/surface_brent.cuh's enums
+SURFACE_INPUTS = (
+    "ts_old", "t1_old", "t2", "d1", "d2", "kappa1", "kappa2", "cs1", "cs2",
+    "dp", "tair", "vpd", "vp_air", "shortwave_net_bare", "long_bare_in",
+    "atmos_density", "atmos_pressure", "latent_heat_le", "ra_under", "z_ref",
+    "displacement", "roughness", "wind", "lai", "wdew", "wdmax", "rarc",
+    "ra_canopy", "rainfall", "resid_moist0", "moist0", "ice0", "max_moist0",
+    "depth0", "snow_coverage", "surf_atten", "kappa_snow", "tsnow_surf",
+    "melt_energy", "inc_swq", "inc_surf_water", "inc_density",
+    "inc_old_tsurf", "inc_advection0", "inc_lw_snow_in",
+    "inc_net_short_snow_cov", "inc_cov", "pen_slope", "pen_lv", "pen_gamma",
+    "pen_r_air", "arno_beta", "rc1")
+SURFACE_LAYER_INPUTS = ("root", "gsm_l", "rc2", "w1", "cap")
+SURFACE_MASKS = ("active", "inc_mask", "overstory_snowing", "is_veg",
+                 "case1")
+
+
+def surface_inputs(eb_kwargs):
+    """K5's inputs from physics.surface.surf_energy_terms' keyword
+    arguments: {name: tensor} over SURFACE_INPUTS, SURFACE_LAYER_INPUTS and
+    SURFACE_MASKS but `active`."""
+    kw = eb_kwargs
+    pre = kw["evap_pre"]
+    named = {k: kw[k] for k in SURFACE_INPUTS + SURFACE_LAYER_INPUTS
+             + SURFACE_MASKS if k in kw}
+    for k in ("moist", "ice", "max_moist", "depth"):
+        named[f"{k}0"] = kw[f"{k}_l"][..., 0]
+    named.update({f"inc_{k}": v for k, v in kw["inc_terms"].items()})
+    named.update(zip(("pen_slope", "pen_lv", "pen_gamma", "pen_r_air"),
+                     pre["coeffs"]))
+    named.update(arno_beta=pre["arno_beta"], **{
+        k: pre["transp"][k] for k in ("rc1", "gsm_l", "rc2", "w1", "cap",
+                                      "case1")})
+    return named
+
+
+def surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
+    """K5: expand-then-Brent on the QUICK_FLUX soil-surface residual, one
+    thread per lane. Same arguments and result as
+    physics.surface.surface_brent_plain (iterations per lane)."""
+    name = "surface_brent"
+    device = lo.device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors required, got {device}")
+    if eb_kwargs.get("frozen_soil") or eb_kwargs.get("fd_solve") is not None:
+        raise ValueError(f"{name}: solves the QUICK_FLUX residual without "
+                         "frozen soil only")
+    if eb_kwargs.get("evap_pre") is None:
+        raise ValueError(f"{name}: needs the hoisted evap_pre terms")
+    shape = torch.broadcast_shapes(lo.shape, hi.shape, active.shape)
+    named = dict(surface_inputs(eb_kwargs), active=active)
+    nl = named["root"].shape[-1]
+    f32 = torch.float32
+    fin, f_ptr, f_stride = _lane_inputs(
+        [(k, named[k], f32, 0) for k in SURFACE_INPUTS]
+        + [(k, named[k], f32, nl) for k in SURFACE_LAYER_INPUTS],
+        shape, device)
+    masks, m_ptr, m_stride = _lane_inputs(
+        [(k, named[k], torch.bool, 0) for k in SURFACE_MASKS], shape, device)
+    lo_c = _lanes(lo, shape, device, f32, "lo")
+    hi_c = _lanes(hi, shape, device, f32, "hi")
+    root = torch.empty(shape, dtype=f32, device=device)
+    converged = torch.empty(shape, dtype=torch.bool, device=device)
+    bracketed = torch.empty(shape, dtype=torch.bool, device=device)
+    iterations = torch.empty(shape, dtype=torch.int32, device=device)
+    n = root.numel()
+    if n:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = build.load().surface_brent(
+            f_ptr, f_stride, len(fin), m_ptr, m_stride, len(masks), shape[-1],
+            nl, lo_c.data_ptr(), hi_c.data_ptr(),
+            float(eb_kwargs["delta_t"]),
+            int(eb_kwargs.get("grnd_flux_type", 1)), int(max_iter), MAXTRIES,
+            n, root.data_ptr(), converged.data_ptr(), bracketed.data_ptr(),
+            iterations.data_ptr(), stream)
+        _check_launch(name, err)
+    return RootResult(root, converged, bracketed, iterations)
+
+
+# the node count K6 is instantiated for (csrc/node_sweep.cu): the frozen
+# configuration's; another count would cost one more template instance
+SWEEP_NNODE = 5
+SWEEP_LANE_INPUTS = ("t0", "kappa", "cs", "moist_node", "ice0_node")
+SWEEP_GEOMETRY = ("alpha", "beta", "gamma", "e_coef", "solver_max_moist",
+                  "solver_bubble", "solver_expt")
+
+
+def node_sweep(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
+               fs_active, *, nlayer, dt_sec, noflux, frozen, max_sweeps):
+    """K6: the Gauss-Seidel node sweep of every lane, the batch-wide sweep
+    count decided on the device. Same arguments and result as
+    physics.frozen_soil.solve_t_profile_explicit_plain (the sweep count as
+    an int32 0-d tensor)."""
+    from ..physics.frozen_soil import ProfileResult
+    name = "node_sweep"
+    device = t0.device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors required, got {device}")
+    f32, i32 = torch.float32, torch.int32
+    c, h, nn = t0.shape
+    if nn != SWEEP_NNODE:
+        raise ValueError(f"{name}: built for nnode={SWEEP_NNODE}, got "
+                         f"nnode={nn}")
+    named = dict(t0=t0, kappa=kappa, cs=cs, moist_node=moist_node,
+                 ice0_node=ice0_node)
+    lane = [_lanes(named[k], t0.shape, device, f32, k)
+            for k in SWEEP_LANE_INPUTS]
+    geo = [_lanes(getattr(geom, k), (c, nn), device, f32, k)
+           for k in SWEEP_GEOMETRY]
+    surf = _lanes(surf_temp, (c, h), device, f32, "surf_temp")
+    fs = _lanes(fs_active, (c,), device, torch.bool, "fs_active")
+    temp = torch.empty(t0.shape, dtype=f32, device=device)
+    fbcount = torch.empty(t0.shape, dtype=i32, device=device)
+    sweeps = torch.zeros((), dtype=i32, device=device)
+    n = c * h
+    if n:
+        work_t = torch.empty(t0.shape, dtype=f32, device=device)
+        work_fb = torch.empty(t0.shape, dtype=i32, device=device)
+        lastdiff = torch.empty((c, h), dtype=f32, device=device)
+        control = torch.empty((2, max(int(max_sweeps), 1)), dtype=i32,
+                              device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = build.load().node_sweep(
+            _ptrs(lane), _ptrs(geo), surf.data_ptr(), fs.data_ptr(), n, h, nn,
+            int(nlayer), int(frozen), int(noflux), int(max_sweeps),
+            float(dt_sec), float(2.0 * dt_sec), work_t.data_ptr(),
+            work_fb.data_ptr(), lastdiff.data_ptr(), control[0].data_ptr(),
+            control[1].data_ptr(), temp.data_ptr(), fbcount.data_ptr(),
+            sweeps.data_ptr(), stream)
+        _check_launch(name, err)
+    return ProfileResult(temp=temp, fbcount=fbcount, iterations=sweeps)

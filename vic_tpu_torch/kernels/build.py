@@ -2,8 +2,9 @@
 it with ctypes.
 
 The library is compiled at first use from `vic_tpu_torch/csrc/` into
-`vic_tpu_torch/kernels/_build/` (listed in .gitignore) and rebuilt whenever
-a source is newer than it. A failed build raises; nothing falls back.
+`vic_tpu_torch/kernels/_build/` (listed in .gitignore), one nvcc process per
+source started together, and rebuilt whenever a source is newer than it. A
+failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -11,13 +12,14 @@ import ctypes
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 LIB_NAME = "libvic_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 
 def find_nvcc() -> str:
@@ -37,37 +39,54 @@ def find_nvcc() -> str:
         "kernels of vic_tpu_torch cannot be built")
 
 
-def build(build_dir: Path = BUILD_DIR, extra_flags=()):
-    """Compile csrc/*.cu into build_dir/libvic_kernels.so unless an
-    up-to-date library is there (extra nvcc flags always rebuild). Returns
-    (library path, nvcc's output)."""
-    build_dir = Path(build_dir)
-    lib = build_dir / LIB_NAME
-    sources = sorted(CSRC.glob("*.cu"))
-    newest = max(p.stat().st_mtime for p in sources + sorted(CSRC.glob("*.cuh")))
-    if not extra_flags and lib.is_file() and lib.stat().st_mtime >= newest:
-        return lib, ""
-    nvcc = find_nvcc()
-    build_dir.mkdir(parents=True, exist_ok=True)
-    tmp = build_dir / (LIB_NAME + f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, sources)]
+def _run(cmd):
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def build(build_dir: Path = BUILD_DIR, extra_flags=()):
+    """Compile each csrc/*.cu into an object, all nvcc processes at once,
+    and link them into build_dir/libvic_kernels.so, unless an up-to-date
+    library is there (extra nvcc flags always rebuild). Returns (library
+    path, nvcc's output)."""
+    build_dir = Path(build_dir)
+    lib = build_dir / LIB_NAME
+    sources = sorted(CSRC.glob("*.cu"))
+    newest = max(p.stat().st_mtime
+                 for p in sources + sorted(CSRC.glob("*.cuh")))
+    if not extra_flags and lib.is_file() and lib.stat().st_mtime >= newest:
+        return lib, ""
+    nvcc = find_nvcc()
+    build_dir.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}.tmp"
+    objects = [build_dir / f"{src.stem}.{tag}.o" for src in sources]
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        logs = list(pool.map(_run, [
+            [nvcc, *COMPILE_FLAGS, *extra_flags, "-I", str(CSRC), "-c",
+             "-o", str(obj), str(src)] for src, obj in zip(sources, objects)]))
+    tmp = build_dir / f"{LIB_NAME}.{tag}"
+    logs.append(_run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                      "-shared", "-o", str(tmp), *map(str, objects)]))
+    for obj in objects:
+        obj.unlink()
     os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    return lib, "".join(logs)
 
 
-_BRENT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-_RUNOFF_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_void_p]
+# (pointers, per-cell flags, count) of float inputs, then of masks
+_INPUTS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+_BRENT_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_float]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+_RUNOFF_ARGTYPES = (_INPUTS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4)
+_SURFACE_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int] * 2
+                     + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
+                     + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
+_SWEEP_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 9)
 
 _lib = None
 
@@ -82,7 +101,11 @@ def load():
             fn = getattr(lib, name)
             fn.argtypes = _BRENT_ARGTYPES
             fn.restype = ctypes.c_int
-        lib.runoff_hourly.argtypes = _RUNOFF_ARGTYPES
-        lib.runoff_hourly.restype = ctypes.c_int
+        for name, argtypes in (("runoff_hourly", _RUNOFF_ARGTYPES),
+                               ("surface_brent", _SURFACE_ARGTYPES),
+                               ("node_sweep", _SWEEP_ARGTYPES)):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib

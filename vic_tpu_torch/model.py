@@ -1,10 +1,11 @@
-"""The model step on the light configuration, and the time loop.
+"""The model step and the time loop.
 
 Counterpart of `vic_tpu/model.py` (make_step :39, run :1807) for FULL_ENERGY
-with QUICK_FLUX ground heat, snow, glacier HRUs and elevation bands: the
-per-record column physics over the whole [n_cell, max_hru] batch. `run` is a
-Python loop over records; month and day-of-year reach the step as host ints,
-so indexing the monthly veg tables needs no device-to-host sync.
+with snow, glacier HRUs and elevation bands, on QUICK_FLUX ground heat or on
+finite-difference soil nodes (QUICK_FLUX off, with or without FROZEN_SOIL):
+the per-record column physics over the whole [n_cell, max_hru] batch. `run`
+is a Python loop over records; month and day-of-year reach the step as host
+ints, so indexing the monthly veg tables needs no device-to-host sync.
 
 Every option outside that configuration is refused when the step is built.
 """
@@ -13,16 +14,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vic_tpu import constants as c
-
+from . import constants as c
+from . import kernels
 from .physics.aero import calc_aerodynamic
 from .physics.canopy_snow import snow_intercept
 from .physics.evap import build_evap_pre, compute_pot_evap, svp
+from .physics.frozen_soil import (distribute_node_moisture,
+                                  estimate_layer_ice, find_zero_fronts,
+                                  layer_ice_params, solve_t_profile_explicit)
 from .physics.glacier import glacier_ablation
 from .physics.runoff import runoff_step
 from .physics.snow import (calc_rainonly, new_snow_density, snow_albedo,
                            snow_density_update, snow_melt)
-from .physics.soil_thermal import layer_thermal_props
+from .physics.soil_thermal import layer_thermal_props, maximum_unfrozen_water
 from .physics.surface import solve_surface_temperature, surf_energy_terms
 from .prepare import DeviceParams
 from .state import ModelState
@@ -32,8 +36,15 @@ def _refuse(gp, geom, zwt_curves, lake_params):
     """NotImplementedError naming the first option outside the slice."""
     flags = [
         ("full_energy=False", not gp.full_energy),
-        ("frozen_soil", gp.frozen_soil),
-        ("quick_flux=False", not gp.quick_flux),
+        ("frozen_soil with quick_flux", gp.frozen_soil and gp.quick_flux),
+        ("frozen_soil without geom", gp.frozen_soil and geom is None),
+        ("quick_flux=False without geom", not gp.quick_flux and geom is None),
+        ("geom with quick_flux", gp.quick_flux and geom is not None),
+        (f"nnode={gp.nnode} on CUDA (the node sweep kernel is built for "
+         f"nnode={kernels.SWEEP_NNODE})",
+         geom is not None and geom.alpha.is_cuda
+         and gp.nnode != kernels.SWEEP_NNODE),
+        ("exp_trans", gp.exp_trans),
         ("dist_prcp", gp.dist_prcp),
         ("blowing", gp.blowing),
         ("spatial_snow", gp.spatial_snow),
@@ -42,15 +53,16 @@ def _refuse(gp, geom, zwt_curves, lake_params):
         ("corrprec", gp.corrprec),
         ("zwt_curves", zwt_curves is not None),
         ("continue_on_error", gp.continue_on_error),
-        ("geom (finite-difference node geometry)", geom is not None),
     ]
     for name, on in flags:
         if on:
             raise NotImplementedError(
                 f"vic_tpu_torch.model.make_step: {name} is not ported; the "
-                "port runs FULL_ENERGY + QUICK_FLUX without FROZEN_SOIL, "
-                "DIST_PRCP, BLOWING, SPATIAL_SNOW, CLOSE_ENERGY, LAKES, "
-                "CORRPREC, water-table curves or CONTINUEONERROR")
+                "port runs FULL_ENERGY on QUICK_FLUX nodes without "
+                "FROZEN_SOIL, or on finite-difference nodes (a NodeGeometry "
+                "as geom, linear spacing) with or without FROZEN_SOIL; "
+                "without DIST_PRCP, BLOWING, SPATIAL_SNOW, CLOSE_ENERGY, "
+                "LAKES, CORRPREC, water-table curves or CONTINUEONERROR")
 
 
 def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
@@ -60,13 +72,20 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
     forcing: [n_cell] float32 tensors 'prec' (mm/step), 'air_temp' (C),
     'wind' (m/s), 'shortwave', 'longwave' (W/m^2), 'pressure', 'vp' (Pa),
     'density' (kg/m^3), optional 'tskc', and host ints 'month' (1-12),
-    'day_in_year'. outvars: optional OUT_* names to return (plus
-    OUT_WATER_ERROR, always kept)."""
+    'day_in_year'. geom: the NodeGeometry of finite-difference nodes on the
+    parameters' device (physics.frozen_soil.build_node_geometry(...).to),
+    required with quick_flux=False. outvars: optional OUT_* names to return
+    (plus OUT_WATER_ERROR, always kept)."""
     _refuse(gp, geom, zwt_curves, lake_params)
     dt_hours = gp.dt
     dt_sec = float(dt_hours) * 3600.0
     n_band = max(1, gp.snow_band)
     p = params
+    frozen = gp.frozen_soil
+    fd_nodes = geom is not None
+    nl = gp.nlayer
+    soil_ice = (layer_ice_params(p.max_moist, p.bubble, p.expt, p.fs_active)
+                if frozen else None)
 
     def step(state: ModelState, forcing):
         W = torch.where
@@ -142,9 +161,45 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             B(p.soil_dens_min)[..., l2], B(p.bulk_dens_min)[..., l2],
             B(p.quartz)[..., l2], B(p.soil_density)[..., l2],
             B(p.bulk_density)[..., l2], B(p.organic)[..., l2])
-        # QUICK_FLUX node spacings: depth[0] and dp - depth[0]
-        d1 = B(p.depth)[..., 0]
-        d2 = B(p.dp) - d1
+        # D1/D2 are node spacings (calc_surf_energy_bal.c:242-243): on the
+        # QUICK_FLUX geometry depth[0] and dp - depth[0]
+        if fd_nodes:
+            d1 = (geom.zsum[:, 1] - geom.zsum[:, 0])[:, None]
+            d2 = (geom.zsum[:, 2] - geom.zsum[:, 1])[:, None]
+        else:
+            d1 = B(p.depth)[..., 0]
+            d2 = B(p.dp) - d1
+        frozen_kw = {}
+        if frozen:
+            # fusion inputs: top-layer ice recomputed from the carried node
+            # temperatures (prepare_full_energy.c:64-76)
+            depth0_mm = B(p.depth)[..., 0] * 1000.0
+            moist0_vol = moist0[..., 0] / depth0_mm
+            max_moist0_vol = B(p.max_moist)[..., 0] / depth0_mm
+            bubble0, expt0 = B(p.bubble)[..., 0], B(p.expt)[..., 0]
+            tavg01 = 0.5 * (state.node_temp[..., 0] + state.node_temp[..., 1])
+            ice0_vol = W(B(p.fs_active) & (tavg01 < 0.0), torch.clamp(
+                moist0_vol - maximum_unfrozen_water(
+                    tavg01, max_moist0_vol, bubble0, expt0), min=0.0), 0.0)
+            frozen_kw = dict(
+                frozen_soil=True, moist0_vol=moist0_vol,
+                max_moist0_vol=max_moist0_vol, ice0_vol=ice0_vol,
+                bubble0=bubble0, expt0=expt0, fs_active=B(p.fs_active))
+        fd_solve = None
+        if fd_nodes:
+            # node moisture and thermal properties at the carried
+            # temperatures, fixed over the step; the profile is re-solved
+            # with each candidate Ts as the node-0 boundary condition inside
+            # every residual evaluation (func_surf_energy_bal.c:190-228)
+            nodep = distribute_node_moisture(moist0, state.node_temp, geom, p,
+                                             frozen=frozen)
+
+            def fd_solve(ts_candidate):
+                return solve_t_profile_explicit(
+                    state.node_temp, ts_candidate, nodep["kappa"],
+                    nodep["cs"], nodep["moist"], nodep["ice"], geom,
+                    p.fs_active, nlayer=nl, dt_sec=dt_sec, noflux=gp.noflux,
+                    frozen=frozen, max_sweeps=gp.soil_sweep_maxiter)
 
         eb_common = dict(
             ts_old=state.node_temp[..., 0], t1_old=state.node_temp[..., 1],
@@ -162,7 +217,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             moist_l=moist0, ice_l=ice0, wcr=B(p.wcr), wpwp=B(p.wpwp),
             depth_l=B(p.depth), resid_moist0=B(p.resid_moist)[..., 0],
             b_infilt=B(p.b_infilt), max_moist_l=B(p.max_moist),
-            surf_atten=surf_att_eff, grnd_flux_type=int(gp.grnd_flux_type))
+            surf_atten=surf_att_eff, grnd_flux_type=int(gp.grnd_flux_type),
+            fd_solve=fd_solve, **frozen_kw)
 
         # ---- overstory canopy snow interception (snow_intercept.c) ----
         tca = tair      # canopy air at Tair: no CLOSE_ENERGY iteration
@@ -401,9 +457,19 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             B(p.depth), B(p.ksat), B(p.expt), B(p.b_infilt), B(p.ds),
             B(p.dsmax), B(p.ws), B(p.c_expt), dt_hours)
 
-        # QUICK_FLUX nodes: [Ts, T1, T2...]
-        node_temp = torch.cat([ts[..., None], eb.t1[..., None],
-                               state.node_temp[..., 2:]], dim=-1)
+        if fd_nodes:
+            # the profile solved at the accepted Ts in the final evaluation
+            # (calc_surf_energy_bal.c:489-506, frozen_soil.c:67)
+            node_temp = eb.t_nodes
+        else:
+            # QUICK_FLUX nodes: [Ts, T1, T2...]
+            node_temp = torch.cat([ts[..., None], eb.t1[..., None],
+                                   state.node_temp[..., 2:]], dim=-1)
+        if frozen:
+            _, ice_new = estimate_layer_ice(node_temp, ro.moist, geom,
+                                            soil_ice)
+        else:
+            ice_new = ice0
 
         snow_sub_mm = vapor_flux * 1000.0
         total_evap = evap_sfree + snow_sub_mm + canopy_sub_mm + cevap_liq_mm
@@ -420,7 +486,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
         cell_baseflow = agg(ro.baseflow)
 
         new_state = ModelState(
-            moist=ro.moist, ice=ice0, wdew=wdew_new,
+            moist=ro.moist, ice=ice_new, wdew=wdew_new,
             moist_dry=state.moist_dry, ice_dry=state.ice_dry,
             wdew_dry=state.wdew_dry, snow_canopy=snow_canopy_new,
             swq=swq, surf_temp=surf_temp, pack_temp=pack_temp,
@@ -473,7 +539,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             p.rgl, lai, veg_albedo, p.overstory)
 
         moist_f = ro.moist
-        ice_f = ice0
+        ice_f = ice_new
         liq_f = moist_f - ice_f
         wpwp_b = B(p.wpwp)
         soil_wet = agg(torch.clamp(
@@ -510,10 +576,22 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
         glac_sub = W(on_ice, -glac.vapor_flux, 0.0) * 1000.0
         tair_c = forcing["air_temp"]
         svp_c = svp(tair_c)
-        tdepth_c = torch.zeros(cell_runoff.shape + (3,),
-                               dtype=cell_runoff.dtype,
-                               device=cell_runoff.device)
         f32 = tair.dtype
+        if frozen:
+            # thawing/freezing fronts (find_0_degree_fronts) and per-node
+            # fallback flags (frozen_soil.c:404-418)
+            tdep, fdep = find_zero_fronts(node_temp, geom.zsum[:, None, :])
+            tdepth_c = aggl(tdep) * 100.0
+            fdepth_c = aggl(fdep) * 100.0
+            soilt_fb = (eb.node_fbcount > 0).to(f32)
+            soil_temp = estimate_layer_ice(node_temp, moist_f, geom)[0]
+        else:
+            tdepth_c = torch.zeros(cell_runoff.shape + (3,),
+                                   dtype=cell_runoff.dtype,
+                                   device=cell_runoff.device)
+            fdepth_c = tdepth_c
+            soilt_fb = torch.zeros_like(node_temp)
+            soil_temp = node_temp[..., :1].expand(moist_f.shape)
 
         outputs = {
             "OUT_SWE": agg((swq + snow_canopy_new) * 1000.0),
@@ -577,7 +655,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             "OUT_BARESOILT": agg(W(bare, ts_blend, 0.0)),
             "OUT_SNOW_SURF_TEMP": agg(surf_temp),
             "OUT_SNOW_PACK_TEMP": agg(pack_temp),
-            "OUT_SOIL_TEMP": aggl(node_temp[..., :1].expand(moist_f.shape)),
+            "OUT_SOIL_TEMP": aggl(soil_temp),
             "OUT_SOIL_TNODE": aggl(node_temp),
             "OUT_ALBEDO": agg(albedo_under),
             "OUT_SALBEDO": agg(snow_alb),
@@ -634,8 +712,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             "OUT_AERO_RESIST2": recip(agg_cond2),
             "OUT_R_NET": agg(ns_under + nl_under),
             "OUT_IN_LONG": agg(lw_in),
-            "OUT_SOILT_FBFLAG": aggl(torch.zeros_like(node_temp)),
-            "OUT_FDEPTH": tdepth_c,
+            "OUT_SOILT_FBFLAG": aggl(soilt_fb),
+            "OUT_FDEPTH": fdepth_c,
             "OUT_TDEPTH": tdepth_c,
             "OUT_SUBSIDENCE": zero_c,
             "OUT_SURF_FROST_FRAC": agg((ice_f[..., 0] > 0.0).to(f32)),
@@ -643,6 +721,9 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             "OUT_DELSURFSTOR": zero_c,
             "OUT_SURF_COND": zero_c,
         }
+        if fd_nodes:
+            # static node-depth echo (put_data.c:522)
+            outputs["OUT_ZSUM_NODE"] = geom.zsum.expand(p.n_cell, -1)
         if "tskc" in forcing:
             outputs["OUT_TSKC"] = agg(B(forcing["tskc"]))
 

@@ -12,7 +12,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from vic_tpu import constants as c
+from . import constants as c
 
 LAI_WATER_FACTOR = 0.2  # user_def.h:111
 

@@ -9,7 +9,7 @@ from typing import NamedTuple
 
 import torch
 
-from vic_tpu.constants import HUGE_RESIST, VON_K
+from ..constants import HUGE_RESIST, VON_K
 
 
 class SurfaceCases(NamedTuple):

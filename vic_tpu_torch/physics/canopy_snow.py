@@ -14,8 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from vic_tpu import constants as c
-
+from .. import constants as c
 from .. import kernels
 from ..ops.rootfind import batched_brent
 from .evap import svp, wet_canopy_evap

@@ -9,9 +9,9 @@ from __future__ import annotations
 
 import torch
 
-from vic_tpu import constants as c
-from vic_tpu.constants import (A_SVP, B_SVP, C_SVP, CP_PM, HUGE_RESIST,
-                               LAPSE_PM, PS_PM, SEC_PER_DAY)
+from .. import constants as c
+from ..constants import (A_SVP, B_SVP, C_SVP, CP_PM, HUGE_RESIST,
+                         LAPSE_PM, PS_PM, SEC_PER_DAY)
 
 _CLOSURE = 4000.0   # Pa (penman.c:40-42)
 _RSMAX = 5000.0

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from vic_tpu.constants import LF
+from ..constants import LF
 
 
 def soil_conductivity(moist, wu, soil_dens_min, bulk_dens_min, quartz,
@@ -53,9 +53,17 @@ def volumetric_heat_capacity(soil_fract, water_fract, ice_fract,
 
 def maximum_unfrozen_water(t, max_moist, bubble, expt):
     """Maximum liquid water at temperature t (C), in max_moist's units."""
-    arg = (-LF * torch.clamp(t, max=-1e-10)) / 273.16 / (9.81 * bubble / 100.0)
-    unfrozen = max_moist * torch.pow(torch.clamp(arg, min=1e-30),
+    return unfrozen_water_from_terms(t, max_moist, 9.81 * bubble / 100.0,
                                      -(2.0 / (expt - 3.0)))
+
+
+def unfrozen_water_from_terms(t, max_moist, bubble_term, power):
+    """maximum_unfrozen_water with its parameter-only terms given:
+    bubble_term = 9.81*bubble/100 and power = -2/(expt-3). Callers whose
+    parameters are float64 host arrays form the terms there and round them
+    once, as the JAX package does with its numpy node geometry."""
+    arg = (-LF * torch.clamp(t, max=-1e-10)) / 273.16 / bubble_term
+    unfrozen = max_moist * torch.pow(torch.clamp(arg, min=1e-30), power)
     unfrozen = torch.minimum(torch.clamp(unfrozen, min=0.0), max_moist)
     return torch.where(t <= 0.0, unfrozen, max_moist)
 

@@ -1,11 +1,16 @@
 """Soil-surface energy balance residual and its Brent solve.
 
 Counterpart of `vic_tpu/physics/surface.py` (func_surf_energy_bal.c,
-calc_surf_energy_bal.c:7-520) on the QUICK_FLUX, non-frozen path: ground
-heat from estimate_T1, the deltaH storage term, evapotranspiration inside
-the residual, a stability-corrected resistance and the per-lane
-INCLUDE_SNOW fold of thin packs. The Brent solve runs through the plain
-`batched_brent` on every device.
+calc_surf_energy_bal.c:7-520): ground heat from estimate_T1 (QUICK_FLUX) or
+from the finite-difference node profile solved at each candidate
+temperature (QUICK_FLUX off), the deltaH storage and frozen-soil fusion
+terms, evapotranspiration inside the residual, a stability-corrected
+resistance and the per-lane INCLUDE_SNOW fold of thin packs.
+
+The Brent solve: on the QUICK_FLUX path of a CUDA tensor, the
+`surface_brent` kernel (one thread per lane, `csrc/surface_brent.cu`); on
+the CPU, and on the finite-difference path whose residual runs the node
+sweep, the plain batch loop `surface_brent_plain`.
 """
 from __future__ import annotations
 
@@ -13,12 +18,12 @@ from typing import NamedTuple
 
 import torch
 
-from vic_tpu import constants as c
-
+from .. import constants as c
+from .. import kernels
 from ..ops.rootfind import batched_brent
 from .evap import arno_evap, canopy_evap
 from .snow import latent_heat_from_snow, stability_correction
-from .soil_thermal import estimate_t1
+from .soil_thermal import estimate_t1, maximum_unfrozen_water
 
 
 class SurfEBResult(NamedTuple):
@@ -41,6 +46,10 @@ class SurfEBResult(NamedTuple):
     refreeze_energy: torch.Tensor
     delta_cc: torch.Tensor
     inc_vapor_flux: torch.Tensor
+    # finite-difference path: the node profile solved at this Ts
+    # (func_surf_energy_bal.c:190-228) and its per-node TFALLBACK counts
+    t_nodes: torch.Tensor = None
+    node_fbcount: torch.Tensor = None
 
 
 def surf_energy_terms(
@@ -51,12 +60,20 @@ def surf_energy_terms(
         wdew, wdmax, rmin, rgl, rarc, root, ra_canopy, rainfall, moist_l,
         ice_l, wcr, wpwp, depth_l, resid_moist0, b_infilt, max_moist_l,
         snow_coverage, surf_atten, kappa_snow, tsnow_surf, melt_energy,
-        evap_pre, inc_mask, inc_terms,
-        grnd_flux_type: int = 1) -> SurfEBResult:
+        evap_pre, inc_mask, inc_terms, grnd_flux_type: int = 1,
+        frozen_soil: bool = False, moist0_vol=None, max_moist0_vol=None,
+        ice0_vol=None, bubble0=None, expt0=None, fs_active=None,
+        fd_solve=None) -> SurfEBResult:
     """Every term of the surface energy balance at candidate Ts
     (func_surf_energy_bal.c:calculate). inc_mask lanes fold a thin pack
     into this balance; inc_terms keys: swq, surf_water, density, old_tsurf,
-    advection0, lw_snow_in, net_short_snow_cov, cov."""
+    advection0, lw_snow_in, net_short_snow_cov, cov.
+
+    Finite-difference path: fd_solve(Ts) solves the node profile with Ts as
+    the node-0 boundary condition; ground heat then comes from nodes 1 and
+    2. frozen_soil adds
+    the fusion term of the top node pair, from moist0_vol, max_moist0_vol,
+    ice0_vol, bubble0, expt0 and fs_active."""
     W = torch.where
     tmean = ts
     tkelv = tmean + c.KELVIN
@@ -67,21 +84,41 @@ def surf_energy_terms(
     snow_flux = W(inc_mask, 0.0, kappa_snow * (tsnow_surf - tmean))
 
     cover_atten = snow_coverage + (1.0 - snow_coverage) * surf_atten
-    # quick-flux ground heat (func_surf_energy_bal.c:171-181)
-    t1 = estimate_t1(tmean, t1_old, t2, d1, d2, kappa1, kappa2, cs1, cs2, dp,
-                     delta_t)
+    t_nodes = node_fbcount = None
+    if fd_solve is not None:
+        # node profile at this Ts; no exp(-D1/dp) damping (:185-240)
+        prof = fd_solve(tmean)
+        t_nodes, node_fbcount = prof.temp, prof.fbcount
+        t1 = t_nodes[..., 1]
+        lower_flux = kappa2 / d2 * (t_nodes[..., 2] - t1)
+    else:
+        # quick-flux ground heat (func_surf_energy_bal.c:171-181)
+        t1 = estimate_t1(tmean, t1_old, t2, d1, d2, kappa1, kappa2, cs1, cs2,
+                         dp, delta_t)
+        lower_flux = kappa2 / d2 * (1.0 - torch.exp(-d1 / dp)) * (t2 - t1)
     if grnd_flux_type == 0:  # GF_406
         grnd_flux = cover_atten * (kappa1 / d1 * (t1 - tmean))
     else:  # GF_410 / GF_FULL
-        grnd_flux = cover_atten * (
-            kappa1 / d1 * (t1 - tmean)
-            + (kappa2 / d2 * (1.0 - torch.exp(-d1 / dp)) * (t2 - t1))) / 2.0
+        grnd_flux = cover_atten * (kappa1 / d1 * (t1 - tmean)
+                                   + lower_flux) / 2.0
 
     # heat storage between nodes 0 and 1 (:249-254)
     delta_h = cs1 * ((ts_old + t1_old) - (tmean + t1)) * d1 / delta_t / 2.0
     if grnd_flux_type == 2:
         delta_h = cover_atten * delta_h
-    fusion = torch.zeros_like(tmean)
+    if frozen_soil:
+        # fusion of the top node pair's ice (:260-275)
+        tavg01 = (tmean + t1) / 2.0
+        unfrozen = maximum_unfrozen_water(tavg01, max_moist0_vol, bubble0,
+                                          expt0)
+        ice_new = W(tavg01 < 0.0, torch.clamp(moist0_vol - unfrozen, min=0.0),
+                    0.0)
+        fusion = -c.ICE_DENSITY * c.LF * (ice0_vol - ice_new) * d1 / delta_t
+        if grnd_flux_type == 2:
+            fusion = cover_atten * fusion
+        fusion = W(fs_active, fusion, 0.0)
+    else:
+        fusion = torch.zeros_like(tmean)
 
     # INCLUDE_SNOW pack cold content / refreeze (:279-286), Lf * snow
     # DENSITY as the reference writes it (:284)
@@ -163,7 +200,15 @@ def surf_energy_terms(
         net_short_bare=shortwave_net_bare, evap=evap, layer_evap=layer_evap,
         canopy_evap_mm=canopy_evap_mm, throughfall=throughfall,
         wdew_new=wdew_new, refreeze_energy=refreeze_energy, delta_cc=delta_cc,
-        inc_vapor_flux=inc_vapor_flux)
+        inc_vapor_flux=inc_vapor_flux, t_nodes=t_nodes,
+        node_fbcount=node_fbcount)
+
+
+def surface_brent_plain(lo, hi, active, *, max_iter: int, eb_kwargs):
+    """Plain version of the `surface_brent` kernel: the batch-wide Brent
+    (ops/rootfind.py) on surf_energy_terms(t, **eb_kwargs).error."""
+    return batched_brent(lambda t: surf_energy_terms(t, **eb_kwargs).error,
+                         lo, hi, max_iter=max_iter, active=active)
 
 
 def solve_surface_temperature(kwargs, t0_old, tair, max_iter: int = 30,
@@ -171,12 +216,20 @@ def solve_surface_temperature(kwargs, t0_old, tair, max_iter: int = 30,
     """Full-energy surface temperature: Brent on mid +/- SURF_DT with
     mid = 0.5*(T0_old + Tair), or [T0_old - SURF_DT, 0] on INCLUDE_SNOW
     lanes (calc_surf_energy_bal.c:277-346); TFALLBACK to T0_old.
+    The `surface_brent` kernel solves the QUICK_FLUX residual of CUDA
+    tensors; the CPU, and the finite-difference residual (whose node sweep
+    is a kernel of its own), take `surface_brent_plain`.
     Returns (Ts, fbflag)."""
     mid = 0.5 * (t0_old + tair)
     inc = kwargs["inc_mask"]
     t_lower = torch.where(inc, t0_old - c.SURF_DT, mid - c.SURF_DT)
     t_upper = torch.where(inc, 0.0, mid + c.SURF_DT)
-    res = batched_brent(lambda t: surf_energy_terms(t, **kwargs).error,
-                        t_lower, t_upper, max_iter=max_iter, active=active)
+    if active is None:
+        active = torch.ones_like(inc)
+    solve = (kernels.surface_brent
+             if t0_old.device.type != "cpu" and kwargs.get("fd_solve") is None
+             else surface_brent_plain)
+    res = solve(t_lower, t_upper, active, max_iter=max_iter,
+                eb_kwargs=kwargs)
     ts = torch.where(res.converged, res.root, t0_old)  # TFALLBACK
     return ts, ~res.converged

@@ -11,8 +11,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from vic_tpu.constants import MAX_LAKE_NODES
-
+from .constants import MAX_LAKE_NODES
+from .physics.frozen_soil import estimate_layer_ice, layer_ice_params
 from .tensors import TensorDataclass
 
 
@@ -72,17 +72,20 @@ class ModelState(TensorDataclass):
     lake_melting: torch.Tensor  # [c] bool
 
 
-def initial_state(domain, gp, device, surf_temp_init=None) -> ModelState:
-    """Cold-start state on the QUICK_FLUX node geometry
-    (vic_tpu/state.py:108-217; initialize_model_state.c): node temperatures
-    [surf, surf, avg_temp, ...], no layer ice, no lake.
+def initial_state(domain, gp, device, surf_temp_init=None,
+                  geom=None) -> ModelState:
+    """Cold-start state (vic_tpu/state.py:108-217; initialize_model_state.c),
+    no lake. Node temperatures: [surf, surf, avg_temp, ...], or with
+    FROZEN_SOIL on finite-difference nodes (`geom`, a NodeGeometry on
+    `device`) the exponential profile avg + (surf - avg)*exp(-Zsum) with the
+    bottom node at avg, whose layer water then starts partitioned into ice
+    (initialize_model_state.c:553-585, :927).
 
     surf_temp_init: optional per-cell first-step air temperature, clamped
     to >= -1 C like the reference; defaults to the soil's avg_temp."""
-    if gp.frozen_soil or not gp.quick_flux:
-        raise NotImplementedError(
-            "initial_state: only the QUICK_FLUX, non-frozen node profile is "
-            "ported (frozen_soil / quick_flux=False)")
+    if gp.exp_trans:
+        raise NotImplementedError("initial_state: EXP_TRANS node spacing "
+                                  "is not ported")
     f32 = dict(dtype=torch.float32, device=device)
     n_cell, max_hru = domain.hru.mask.shape
     nl = domain.soil.depth.shape[1]
@@ -102,8 +105,18 @@ def initial_state(domain, gp, device, surf_temp_init=None) -> ModelState:
                                               **f32), min=-1.0)
     t_surf = t_surf0[:, None].expand(sh)
     t_bot = avg[:, None].expand(sh)
-    node_temp = torch.stack(
-        [t_surf, t_surf] + [t_bot] * (n_node - 2), dim=-1).contiguous()
+    ice = Z(nl)
+    if gp.frozen_soil and not gp.quick_flux and geom is not None:
+        avg3 = avg[:, None, None]
+        node_temp = (avg3 + (t_surf[..., None] - avg3)
+                     * torch.exp(-geom.zsum)[:, None, :]).contiguous()
+        node_temp[..., -1] = t_bot
+        soil = domain.soil
+        _, ice = estimate_layer_ice(node_temp, moist, geom, layer_ice_params(
+            soil.max_moist, soil.bubble, soil.expt, soil.fs_active, device))
+    else:
+        node_temp = torch.stack(
+            [t_surf, t_surf] + [t_bot] * (n_node - 2), dim=-1).contiguous()
     tk = node_temp[..., 0] + 273.15
     tk2 = tk * tk
 
@@ -115,7 +128,7 @@ def initial_state(domain, gp, device, surf_temp_init=None) -> ModelState:
 
     zc = torch.zeros((n_cell,), **f32)
     return ModelState(
-        moist=moist, ice=Z(nl), moist_dry=moist.clone(), ice_dry=Z(nl),
+        moist=moist, ice=ice, moist_dry=moist.clone(), ice_dry=ice.clone(),
         wdew=Z(), wdew_dry=Z(), snow_canopy=Z(),
         swq=Z(), surf_temp=Z(), pack_temp=Z(), surf_water=Z(), pack_water=Z(),
         density=Z(), depth=Z(), albedo=Z(), last_snow=ZI(),

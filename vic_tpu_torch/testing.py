@@ -7,8 +7,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from vic_tpu import constants as c
-
+from . import constants as c
 from .params import (LAI_WATER_FACTOR, Domain, HruParams, SoilParams, VegLib,
                      append_ref_surfaces, derive_band_factors)
 
