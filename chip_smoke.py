@@ -11,16 +11,20 @@ line) on failure:
    process per source) and prints ptxas' registers and spills.
 2. kernels: each configuration at 32,768 cells (262,144 HRU lanes) with
    each kernel binding wrapped to capture its first real arguments: K1-K5
-   in the light step's first record, K6 (and K4 again) in the frozen
-   step's third. Each kernel is re-run on those arguments beside its plain
-   PyTorch version on the card, compared, timed with CUDA events and given
-   its bound (the least time the card could take for the same work).
+   in the light step's first record, K6, K7 (and K4 again) in the frozen
+   step's third, K8, K9 (and K2 again, with a blowing-snow flux) in the
+   blowing_close step's fourth. Each kernel is re-run on those arguments
+   beside its plain PyTorch version on the card, compared, timed with CUDA
+   events and given its bound (the least time the card could take for the
+   same work).
 3. reference: 16 cells x 4 records of each configuration through the port
-   on the card against tests/fixtures/torch_port/{light,frozen}_16x4.npz,
+   on the card against tests/fixtures/torch_port/<config>_16x4.npz,
    written by vic_tpu on CPU.
 4. slice: 32,768 cells x 8 daily records of each configuration through
    vic_tpu_torch.model.run, every kernel's launch counter set to 0 just
-   before each run and read just after it.
+   before each run and read just after it, and every plain solver of the
+   port (ops.rootfind.batched_brent and each *_plain) made to fail if it is
+   handed a CUDA tensor during the run.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches, errors, times and bounds.
@@ -39,7 +43,9 @@ from vic_tpu_torch.entry import CONFIGS
 ROOT = Path(__file__).resolve().parent
 SMOKE_CELLS = 32768
 SMOKE_RECS = 8
-FROZEN_RECORD = 2          # record whose step gives K6 its arguments
+FROZEN_RECORD = 2          # record whose step gives K6 and K7 their arguments
+BLOWING_RECORD = 3         # record whose step gives K8 and K9 theirs
+CONFIG_NAMES = ("light", "frozen", "blowing_close")
 FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
 CSRC = "vic_tpu_torch/csrc/"
 # kernel -> (source, TPU loop it replaces, module of its plain version,
@@ -57,13 +63,25 @@ KERNELS = {
                       "surface", "surface_brent_plain", "light"),
     "node_sweep": ("node_sweep.cu", "vic_tpu/physics/frozen_soil.py:311",
                    "frozen_soil", "solve_t_profile_explicit_plain", "frozen"),
+    "fd_surface_brent": ("fd_surface_brent.cu",
+                         "vic_tpu/physics/surface.py:438", "surface",
+                         "surface_brent_plain", "frozen"),
+    "blowing_snow": ("blowing_snow.cu",
+                     "vic_tpu/physics/blowing_snow.py:171", "blowing_snow",
+                     "calc_blowing_snow_plain", "blowing_close"),
+    "canopy_air_step": ("canopy_air.cu", "vic_tpu/model.py:841",
+                        "canopy_air", "canopy_air_step_plain",
+                        "blowing_close"),
 }
 # the kernels each configuration's step must launch
 PATH_KERNELS = {
     "light": ("glacier_brent", "snowpack_brent", "canopy_brent",
               "runoff_hourly", "surface_brent"),
     "frozen": ("glacier_brent", "snowpack_brent", "canopy_brent",
-               "runoff_hourly", "node_sweep"),
+               "runoff_hourly", "node_sweep", "fd_surface_brent"),
+    "blowing_close": ("glacier_brent", "snowpack_brent", "canopy_brent",
+                      "runoff_hourly", "surface_brent", "blowing_snow",
+                      "canopy_air_step"),
 }
 # Brent stops a lane anywhere inside its final bracket, |c - b| <= 2*tol_i
 # with tol_i = 2*FLT_EPSILON*|b| + 1e-4 C, so two runs whose residuals differ
@@ -73,6 +91,9 @@ BRENT_TOL = 1e-4           # C, the solver's tol addend
 FLAG_DISAGREE_FRAC = 1e-4  # of the active lanes
 RUNOFF_TOL = 1e-5          # rtol = atol
 SWEEP_TOL = 1e-4           # C, node temperatures of K6 vs its plain version
+BLOWING_RTOL = 1e-4        # K8 vs its plain version
+BLOWING_ATOL = 1e-9        # kg/m^2/s, far below the -5e-5 floor
+CANOPY_AIR_TOL = 1e-5      # C, K9's tc_next vs its plain version
 REF_TOL = 1e-3             # rtol = atol, card libm vs XLA-CPU
 WATER_TOL = 1e-2           # mm, max |OUT_WATER_ERROR|
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, FP32 op/s
@@ -86,6 +107,16 @@ RESIDUAL_OPS = {"glacier_brent": 55 + 30, "snowpack_brent": 55 + 30,
 RUNOFF_OPS_PER_LAYER_HOUR = 30
 SWEEP_OPS_PER_NODE = 20           # t_lin and the bookkeeping
 NODE_RESIDUAL_OPS = 30            # SoilThermalEqn with its unfrozen water
+# K7: the FD residual (K5's plus the fusion term's ~20) and the propose and
+# accept steps' Brent arithmetic (~30) per lane and evaluation
+FD_RESIDUAL_OPS = 150 + 20 + 30
+# K8 per snow-covered lane (csrc/blowing_snow.cu): 10 wind increments, each
+# 26 shear residuals of ~9 and 24 bisection updates of ~4, one
+# sub_with_height of ~55 at hsalt/2 and 16 quadrature nodes of ~75 (an exp,
+# a sub_with_height, the transport integrand), ~170 of saltation terms,
+# bounds and probability; ~60 once per lane
+BLOWING_OPS_PER_LANE = 10 * (26 * 9 + 24 * 4 + 55 + 16 * 75 + 170) + 60
+CANOPY_AIR_OPS_PER_LANE = 40      # the closed form and the secant guards
 
 
 def phase(title):
@@ -197,7 +228,7 @@ def compare_brent(name, kern, plain):
           f"converged {root_err:.3e} C ({over_tol} lanes above {BRENT_TOL} C,"
           f" {outside} outside the final bracket width), max |root diff| "
           f"{max_abs:.3e}, "
-          f"kernel iterations max {int(kern.iterations.max())}, "
+          f"kernel iterations {iterations_of(kern)}, "
           f"plain loop trips {plain.iterations}")
     if flag_dis > FLAG_DISAGREE_FRAC * max(n_active, 1):
         raise AssertionError(f"{name}: {flag_dis} converged/bracketed "
@@ -206,6 +237,50 @@ def compare_brent(name, kern, plain):
         raise AssertionError(f"{name}: {outside} roots differ by more than "
                              f"the final bracket width (max {root_err} C)")
     return root_err
+
+
+def iterations_of(result):
+    """Brent trips: the lanes' most (K1-K5) or the batch's (K7)."""
+    its = result.iterations
+    return int(its.max()) if isinstance(its, torch.Tensor) else int(its)
+
+
+def compare_blowing(kern, plain, snowdepth):
+    """K8 vs its plain version at rtol BLOWING_RTOL, atol BLOWING_ATOL; the
+    path counts as exercised only if some snow-covered lane blows."""
+    worst = 0.0
+    for part, a, b in zip(("flux", "transport"), kern, plain):
+        diff = (a - b).abs()
+        worst = max(worst, float(diff.max()))
+        bad = diff > BLOWING_ATOL + BLOWING_RTOL * b.abs()
+        print(f"  blowing_snow {part}: max |diff| {float(diff.max()):.3e}, "
+              f"outside rtol={BLOWING_RTOL} atol={BLOWING_ATOL}: "
+              f"{int(bad.sum())}")
+        if bool(bad.any()):
+            raise AssertionError(f"blowing_snow {part} outside tolerance")
+    snow = (snowdepth > 0.0).expand(plain[0].shape)
+    blowing = int((snow & (plain[0] != 0.0)).sum())
+    print(f"  blowing_snow: {int(snow.sum())} snow-covered lanes, {blowing} "
+          "with a nonzero flux")
+    if not blowing:
+        raise AssertionError("blowing_snow: no snow-covered lane blows; the "
+                             "path was not exercised")
+    return worst
+
+
+def compare_canopy_air(kern, plain):
+    """K9 vs its plain version: tc_next and g within CANOPY_AIR_TOL, the
+    batch maxima too, and the same stop decision."""
+    from vic_tpu_torch.model import OVER_TOL_F32
+    diffs = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
+    stop_k = float(kern[2]) <= OVER_TOL_F32
+    stop_p = float(plain[2]) <= OVER_TOL_F32
+    print(f"  canopy_air_step: max |diff| tc_next {diffs[0]:.3e} C, g "
+          f"{diffs[1]:.3e} C, batch max change {float(kern[2]):.6g} / "
+          f"{float(plain[2]):.6g} C (kernel/plain), stop {stop_k}/{stop_p}")
+    if max(diffs) > CANOPY_AIR_TOL or stop_k != stop_p:
+        raise AssertionError("canopy_air_step outside tolerance")
+    return max(diffs)
 
 
 def compare_runoff(kern, plain, label):
@@ -278,6 +353,33 @@ def brent_work(name, args, kwargs, kern):
     return bytes_in + bytes_out, float(evals.sum()) * RESIDUAL_OPS[name]
 
 
+def fd_brent_work(kwargs, kern, evaluations):
+    """Bytes in and out of one K7 call (each residual input once, the
+    outputs once; the node profiles are K6's own) and its FP32 operations:
+    `evaluations` residual launches on every lane, as the batch-wide sweep
+    count of the reference makes every lane's profile depend on every
+    candidate."""
+    from vic_tpu_torch.kernels import FD_SURFACE_INPUTS, surface_inputs
+    kw = kwargs["eb_kwargs"]
+    inputs = list(surface_inputs(kw).values()) + [
+        kw[k] for k in FD_SURFACE_INPUTS + ("fs_active",) if k in kw]
+    bytes_moved = nbytes(*inputs, kern.root, kern.converged, kern.bracketed)
+    return bytes_moved, evaluations * kern.root.numel() * FD_RESIDUAL_OPS
+
+
+def blowing_work(kwargs, result):
+    from vic_tpu_torch.kernels import BLOWING_INPUTS, BLOWING_MASKS
+    inputs = [kwargs[k] for k in BLOWING_INPUTS + BLOWING_MASKS]
+    snow = (kwargs["snowdepth"] > 0.0).expand(result[0].shape)
+    return (nbytes(*inputs, *result),
+            float(snow.sum()) * BLOWING_OPS_PER_LANE)
+
+
+def canopy_air_work(kwargs, result):
+    return (nbytes(*kwargs.values(), *result),
+            result[0].numel() * CANOPY_AIR_OPS_PER_LANE)
+
+
 def runoff_work(args, result):
     liq = result[0]
     dt_hours = args[-1]
@@ -314,8 +416,12 @@ def kernels_phase(device):
         "light", PATH_KERNELS["light"], device)}
     # the frozen step's third record: nodes below 0 C, layer ice, fallbacks
     captured["frozen"] = capture_kernel_args(
-        "frozen", ("node_sweep", "runoff_hourly"), device,
+        "frozen", ("node_sweep", "runoff_hourly", "fd_surface_brent"), device,
         record=FROZEN_RECORD)
+    # the blowing_close step's fourth record: packs on the ground blow
+    captured["blowing_close"] = capture_kernel_args(
+        "blowing_close", ("blowing_snow", "canopy_air_step", "snowpack_brent"),
+        device, record=BLOWING_RECORD)
     results = {}
     for name, (source, replaces, module, plain_name, config) in \
             KERNELS.items():
@@ -323,10 +429,23 @@ def kernels_phase(device):
         kern_fn = getattr(kernels, name)
         plain_fn = getattr(importlib.import_module(
             f"vic_tpu_torch.physics.{module}"), plain_name)
+        sweeps_before = kernels.launches["node_sweep"]
         kern = kern_fn(*args, **kwargs)
+        evaluations = kernels.launches["node_sweep"] - sweeps_before
         plain = plain_fn(*args, **kwargs)
         torch.cuda.synchronize()
-        if name == "runoff_hourly":
+        if name == "fd_surface_brent":
+            err = compare_brent(name, kern, plain)
+            print(f"  fd_surface_brent: {evaluations} residual evaluations "
+                  "(node_sweep calls) in the kernel's solve")
+            work = fd_brent_work(kwargs, kern, evaluations)
+        elif name == "blowing_snow":
+            err = compare_blowing(kern, plain, kwargs["snowdepth"])
+            work = blowing_work(kwargs, kern)
+        elif name == "canopy_air_step":
+            err = compare_canopy_air(kern, plain)
+            work = canopy_air_work(kwargs, kern)
+        elif name == "runoff_hourly":
             err = compare_runoff(kern, plain, "light")
             fa, fkw = captured["frozen"][name]
             err = max(err, compare_runoff(kernels.runoff_hourly(*fa, **fkw),
@@ -338,6 +457,15 @@ def kernels_phase(device):
         else:
             err = compare_brent(name, kern, plain)
             work = brent_work(name, args, kwargs, kern)
+            if name == "snowpack_brent":
+                # again with the blowing-snow flux in its residual
+                ba, bkw = captured["blowing_close"][name]
+                print(f"  snowpack_brent (blowing_close): "
+                      f"{int((bkw['blowing_flux'] != 0).sum())} lanes with a "
+                      "blowing flux")
+                err = max(err, compare_brent(
+                    name + " (blowing_close)", kern_fn(*ba, **bkw),
+                    plain_fn(*ba, **bkw)))
         ms = cuda_ms(lambda: kern_fn(*args, **kwargs), reps=20)
         plain_ms = cuda_ms(lambda: plain_fn(*args, **kwargs), reps=3)
         bound_ms, bound_by = bound(*work)
@@ -386,6 +514,47 @@ def reference_phase(device, config):
         raise AssertionError(f"outside rtol=atol={REF_TOL}: {failed}")
 
 
+def flat_tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from flat_tensors(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from flat_tensors(v)
+
+
+def guard_plain_solvers():
+    """Replace ops.rootfind.batched_brent and every *_plain solver, in each
+    vic_tpu_torch module that holds one, by a wrapper that raises if it is
+    handed a CUDA tensor. Returns the function that puts them back."""
+    import sys
+    patched = []
+
+    def guarded(name, fn):
+        def wrapper(*args, **kwargs):
+            if any(t.is_cuda for t in flat_tensors((args, kwargs))):
+                raise AssertionError(f"{name}, a plain version, ran on a "
+                                     "CUDA tensor on the card's path")
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for mod_name, mod in list(sys.modules.items()):
+        if mod is None or not mod_name.startswith("vic_tpu_torch"):
+            continue
+        for attr, fn in list(vars(mod).items()):
+            if callable(fn) and (attr == "batched_brent"
+                                 or attr.endswith("_plain")):
+                patched.append((mod, attr, fn))
+                setattr(mod, attr, guarded(f"{mod_name}.{attr}", fn))
+
+    def restore():
+        for mod, attr, fn in patched:
+            setattr(mod, attr, fn)
+    return restore
+
+
 def slice_phase(device, config):
     phase(f"4 slice: {config}, {SMOKE_CELLS} cells x {SMOKE_RECS} daily "
           "records")
@@ -398,13 +567,17 @@ def slice_phase(device, config):
     run(state, {k: v[:1] for k, v in stack.items()}, params, gp, geom=geom)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    final, outs = run(state, stack, params, gp, geom=geom)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    restore = guard_plain_solvers()
+    try:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, outs = run(state, stack, params, gp, geom=geom)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+    finally:
+        restore()
     peak = torch.cuda.max_memory_allocated(device)
 
     for k, v in outs.items():
@@ -425,6 +598,11 @@ def slice_phase(device, config):
         ice = float(final.ice.sum())
         print(f"  layer ice at the end {ice:.1f} mm summed over lanes; "
               f"OUT_FDEPTH max {float(outs['OUT_FDEPTH'].max()):.3f} cm")
+    if config == "blowing_close":
+        passes = [int(x) for x in outs["OUT_TCANOPY_ITER"][:, 0].tolist()]
+        print(f"  CLOSE_ENERGY passes per record: {passes}; max "
+              f"|OUT_SUB_BLOWING| "
+              f"{float(outs['OUT_SUB_BLOWING'].abs().max()):.4g} mm")
     if werr > WATER_TOL:
         raise AssertionError(f"water balance error {werr} mm")
     idle = [k for k in PATH_KERNELS[config] if launches[k] == 0]
@@ -438,10 +616,10 @@ def main():
     device = device_phase()
     build_phase()
     results = kernels_phase(device)
-    for config in ("light", "frozen"):
+    for config in CONFIG_NAMES:
         reference_phase(device, config)
     launches = {config: slice_phase(device, config)
-                for config in ("light", "frozen")}
+                for config in CONFIG_NAMES}
     for name, result in results.items():
         # each kernel's count from the run of the path it was captured on
         result["launches"] = launches[KERNELS[name][4]][name]

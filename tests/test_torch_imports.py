@@ -26,7 +26,8 @@ print("ok", len(out))
 """
 
 
-@pytest.mark.parametrize("config,n_out", [("light", 150), ("frozen", 151)])
+@pytest.mark.parametrize("config,n_out", [("light", 150), ("frozen", 151),
+                                          ("blowing_close", 150)])
 def test_port_imports_and_steps_without_jax(config, n_out):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, config], cwd=ROOT,

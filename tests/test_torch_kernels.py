@@ -22,7 +22,10 @@ from vic_tpu_torch.entry import (CONFIGS, build_frozen, build_light,
                                  frozen_params)
 from vic_tpu_torch.kernels import build
 from vic_tpu_torch.model import make_step
+from vic_tpu_torch.model import OVER_TOL_F32
 from vic_tpu_torch.physics import surface
+from vic_tpu_torch.physics.blowing_snow import calc_blowing_snow_plain
+from vic_tpu_torch.physics.canopy_air import canopy_air_step_plain
 from vic_tpu_torch.physics.canopy_snow import canopy_brent_plain
 from vic_tpu_torch.physics.frozen_soil import solve_t_profile_explicit_plain
 from vic_tpu_torch.physics.glacier import glacier_brent_plain
@@ -37,7 +40,10 @@ PLAIN = {"glacier_brent": glacier_brent_plain,
          "canopy_brent": canopy_brent_plain,
          "runoff_hourly": runoff_hourly_plain,
          "surface_brent": surface_brent_plain,
-         "node_sweep": solve_t_profile_explicit_plain}
+         "node_sweep": solve_t_profile_explicit_plain,
+         "fd_surface_brent": surface_brent_plain,
+         "blowing_snow": calc_blowing_snow_plain,
+         "canopy_air_step": canopy_air_step_plain}
 
 
 @pytest.fixture
@@ -97,6 +103,18 @@ def test_new_wrappers_refuse_cpu_tensors():
                            geom, torch.ones(2, dtype=torch.bool), nlayer=3,
                            dt_sec=86400.0, noflux=False, frozen=True,
                            max_sweeps=10)
+
+
+def test_slice_three_wrappers_refuse_cpu_tensors():
+    t = torch.zeros(2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.fd_surface_brent(t, t, t > 0, max_iter=60,
+                                 eb_kwargs={"fd_solve": lambda ts: None})
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.blowing_snow(dt_sec=86400.0, quad_nodes=t[0], log_terms=t[0],
+                             tair=t)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.canopy_air_step(it=0, tc=t)
 
 
 def test_lane_inputs_are_strided_views_of_the_inputs():
@@ -299,3 +317,59 @@ def test_kernel_wrapper_checks_its_inputs(cuda):
     with pytest.raises(ValueError, match="on cpu"):
         kernels.glacier_brent(t, t, t > 0, dt=86400.0, max_iter=60,
                               max_tries=1, **dict(inputs, ra=torch.zeros(8)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,config,record", [
+    ("snowpack_brent", "blowing_close", 3),
+    ("fd_surface_brent", "frozen", 2)])
+def test_slice_three_brent_kernels_match_plain(cuda, name, config, record):
+    """K2 with a nonzero blowing flux in its residual, and K7 on the frozen
+    step's third record: the same flags, roots within the final bracket
+    width."""
+    a, kw = _captured_args(cuda, names=(name,), config=config,
+                           record=record)[name]
+    if name == "snowpack_brent":
+        assert bool((kw["blowing_flux"] != 0).any())
+    before = kernels.launches[name]
+    got = getattr(kernels, name)(*a, **kw)
+    ref = PLAIN[name](*a, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 1
+    assert torch.equal(got.bracketed, ref.bracketed)
+    assert torch.equal(got.converged, ref.converged)
+    both = got.converged & ref.converged
+    tol = 2.0 * (2.0 * torch.finfo(torch.float32).eps * got.root.abs() + 1e-4)
+    assert bool(((got.root - ref.root).abs() <= tol)[both].all())
+    assert torch.equal(got.root[~got.bracketed], ref.root[~ref.bracketed])
+
+
+@pytest.mark.gpu
+def test_blowing_snow_kernel_matches_plain(cuda):
+    """K8 on the blowing_close step's fourth record: flux and transport at
+    rtol 1e-4, atol 1e-9, with snow blowing on some lanes."""
+    a, kw = _captured_args(cuda, names=("blowing_snow",),
+                           config="blowing_close", record=3)["blowing_snow"]
+    got = kernels.blowing_snow(*a, **kw)
+    ref = calc_blowing_snow_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert int((ref[0] != 0).sum()) > 0
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.gpu
+def test_canopy_air_step_kernel_matches_plain(cuda):
+    """K9 on a pass of the blowing_close step's fourth record: tc_next and g
+    within 1e-5 C, the same batch maximum and stop decision."""
+    a, kw = _captured_args(cuda, names=("canopy_air_step",),
+                           config="blowing_close",
+                           record=3)["canopy_air_step"]
+    got = kernels.canopy_air_step(*a, **kw)
+    ref = canopy_air_step_plain(*a, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=0.0, atol=1e-5)
+    assert (float(got[2]) <= OVER_TOL_F32) == (float(ref[2]) <= OVER_TOL_F32)

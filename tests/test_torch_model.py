@@ -28,7 +28,7 @@ from vic_tpu.testing import synthetic_domain as jax_synthetic_domain
 from vic_tpu.testing import synthetic_forcing as jax_synthetic_forcing
 from vic_tpu.timeaxis import make_time_axis
 from vic_tpu_torch import model
-from vic_tpu_torch.entry import build_light, light_params
+from vic_tpu_torch.entry import build_frozen, build_light, light_params
 from vic_tpu_torch.prepare import device_params_from_numpy
 from vic_tpu_torch.state import state_from_numpy
 
@@ -147,18 +147,24 @@ def test_params_from_jax_objects_run_identically():
         assert torch.equal(a[k], b[k]), k
 
 
+# BLOWING and CLOSE_ENERGY run on QUICK_FLUX; on finite-difference nodes
+# (QUICK_FLUX off, with a node geometry) they are refused
+ON_NODES = ("blowing", "close_energy")
+
+
 @pytest.mark.parametrize("flag", [
     dict(full_energy=False), dict(frozen_soil=True), dict(quick_flux=False),
-    dict(dist_prcp=True), dict(blowing=True), dict(spatial_snow=True),
-    dict(close_energy=True), dict(lakes=True), dict(corrprec=True),
-    dict(continue_on_error=True), dict(exp_trans=True)],
+    dict(dist_prcp=True), dict(blowing=True, quick_flux=False),
+    dict(spatial_snow=True), dict(close_energy=True, quick_flux=False),
+    dict(lakes=True), dict(corrprec=True), dict(continue_on_error=True),
+    dict(exp_trans=True)],
     ids=lambda d: next(iter(d)))
 def test_make_step_refuses_options_outside_the_slice(flag):
     gp = light_params(1).replace(**flag)
-    _, params, _, _, _ = build_light(1, 1, "cpu")
+    _, params, _, _, geom = build_frozen(1, 1, "cpu")
     name = next(iter(flag))
     with pytest.raises(NotImplementedError, match=name):
-        model.make_step(params, gp)
+        model.make_step(params, gp, geom=geom if name in ON_NODES else None)
 
 
 def test_make_step_refuses_water_table_curves():

@@ -6,12 +6,16 @@ compressed, of
 
 - light: `__graft_entry__._build(heavy=False)` -> light_16x4.npz;
 - frozen: the light configuration with FROZEN_SOIL on 5 finite-difference
-  nodes (vic_tpu_torch.entry.frozen_params) -> frozen_16x4.npz.
+  nodes (vic_tpu_torch.entry.frozen_params) -> frozen_16x4.npz;
+- blowing_close: the light configuration with BLOWING and CLOSE_ENERGY on
+  the windy, cold forcing of vic_tpu_torch.entry.blowing_close_forcing
+  -> blowing_close_16x4.npz.
 
-The PyTorch port is checked against these files by tests/test_torch_golden.py
+The PyTorch port is checked against these files by tests/test_torch_golden*.py
 and by chip_smoke.py's reference phase.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py [light|frozen]
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py \
+        [light|frozen|blowing_close]
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_port")
 FIXTURE = os.path.join(FIXTURE_DIR, "light_16x4.npz")
 FROZEN_FIXTURE = os.path.join(FIXTURE_DIR, "frozen_16x4.npz")
+BLOWING_CLOSE_FIXTURE = os.path.join(FIXTURE_DIR, "blowing_close_16x4.npz")
 N_CELL, N_REC = 16, 4
 
 
@@ -88,9 +93,47 @@ def frozen_reference(n_cell: int = N_CELL, n_rec: int = N_REC) -> dict:
     return _arrays(final, outs)
 
 
+def blowing_close_inputs(n_cell: int, n_rec: int):
+    """vic_tpu's (gp, params, stack, state) of the blowing_close
+    configuration, its forcing from the port's numpy
+    blowing_close_forcing."""
+    sys.path.insert(0, ROOT)
+    from vic_tpu.config import GlobalParams
+    from vic_tpu.model import make_forcing_stack
+    from vic_tpu.prepare import prepare_domain
+    from vic_tpu.state import initial_state
+    from vic_tpu.testing import synthetic_domain
+    from vic_tpu.timeaxis import make_time_axis
+    from vic_tpu_torch.entry import blowing_close_forcing
+
+    gp = GlobalParams(dt=24, nlayer=3, startyear=1995, startmonth=1,
+                      startday=1, nrecs=n_rec, full_energy=True,
+                      glacier_id=99, snow_band=2, blowing=True,
+                      close_energy=True)
+    domain = synthetic_domain(n_cell=n_cell, n_band=2, with_glacier=True)
+    stack = make_forcing_stack(
+        blowing_close_forcing(n_rec, n_cell, dt_hours=gp.dt),
+        make_time_axis(1995, 1, 1, 0, n_rec, gp.dt))
+    return (gp, prepare_domain(domain, gp), stack,
+            initial_state(domain, gp))
+
+
+def blowing_close_reference(n_cell: int = N_CELL, n_rec: int = N_REC) -> dict:
+    """As light_reference, for the blowing_close configuration."""
+    import jax
+    jax.config.update("jax_enable_x64", False)
+    gp, params, stack, state = blowing_close_inputs(n_cell, n_rec)
+    from vic_tpu.model import run
+
+    final, outs = jax.jit(lambda s, f: run(s, f, params, gp))(state, stack)
+    return _arrays(final, outs)
+
+
 def main(which: str = "light"):
     path, make = {"light": (FIXTURE, light_reference),
-                  "frozen": (FROZEN_FIXTURE, frozen_reference)}[which]
+                  "frozen": (FROZEN_FIXTURE, frozen_reference),
+                  "blowing_close": (BLOWING_CLOSE_FIXTURE,
+                                    blowing_close_reference)}[which]
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(path, **make())
     print(f"wrote {path} ({os.path.getsize(path)} bytes)")

@@ -1,6 +1,6 @@
 """Where the time of the port's step goes on one NVIDIA GPU.
 
-    python tools/profile_torch_light.py [--config light|frozen]
+    python tools/profile_torch_light.py [--config light|frozen|blowing_close]
                                         [--cells 32768] [--records 8]
                                         [--repeats 5] [--out FILE.json]
 
@@ -37,12 +37,21 @@ STEP_CALLS = ("calc_aerodynamic", "snow_intercept", "snow_albedo",
               "snow_melt", "glacier_ablation", "snow_density_update",
               "build_evap_pre", "solve_surface_temperature",
               "surf_energy_terms", "runoff_step", "compute_pot_evap")
-# the frozen step's own calls (the node sweep runs inside the surface
-# Brent and the final surf_energy_terms, and is timed with them)
-FROZEN_CALLS = ("distribute_node_moisture", "estimate_layer_ice",
-                "find_zero_fronts")
+# each configuration's own calls (the node sweep runs inside the surface
+# Brent and the final surf_energy_terms, and is timed with them; with
+# CLOSE_ENERGY every call of the canopy -> surface chain is timed over all
+# its passes)
+CONFIG_CALLS = {
+    "light": (),
+    "frozen": ("distribute_node_moisture", "estimate_layer_ice",
+               "find_zero_fronts"),
+    "blowing_close": ("calc_blowing_snow", "canopy_air_step"),
+}
 HAND_WRITTEN = ("brent_kernel", "runoff_hourly_kernel", "node_sweep_kernel",
-                "node_finish_kernel")
+                "node_finish_kernel", "fd_eval_kernel", "fd_expand_kernel",
+                "fd_init_kernel", "fd_propose_kernel", "fd_accept_kernel",
+                "fd_finish_kernel", "blowing_snow_kernel",
+                "canopy_air_kernel")
 
 
 def quartiles(xs):
@@ -69,7 +78,7 @@ def breakdown(config, n_cell, n_rec, device):
     gp, params, stack, state, geom = CONFIGS[config](n_cell, n_rec, device)
     model.run(state, {k: v[:1] for k, v in stack.items()}, params, gp,
               geom=geom)
-    calls = STEP_CALLS + (FROZEN_CALLS if config == "frozen" else ())
+    calls = STEP_CALLS + CONFIG_CALLS[config]
     spent = dict.fromkeys(calls, 0.0)
     originals = {name: getattr(model, name) for name in calls}
 

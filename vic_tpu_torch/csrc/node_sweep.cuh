@@ -62,18 +62,6 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return fmaxf(a, b);
 }
 
-// soil_thermal.maximum_unfrozen_water (soil_conduction.c)
-__device__ __forceinline__ float max_unfrozen(float t, float max_moist,
-                                              float bubble, float expt) {
-  const float bubble_term = div_s(9.81f * bubble, 100.0f);
-  const float power = -rdiv_s(2.0f, expt - 3.0f);
-  const float arg =
-      div_s(-kLf * fminf(t, -1e-10f), 273.16f) / bubble_term;
-  float unfrozen = max_moist * powf(fmaxf(arg, 1e-30f), power);
-  unfrozen = fminf(fmaxf(unfrozen, 0.0f), max_moist);
-  return t <= 0.0f ? unfrozen : max_moist;
-}
-
 template <int NN>
 struct NodeLane {
   float t0[NN], A[NN], B[NN], C[NN], D[NN], E[NN], ice0[NN], moist[NN];

@@ -28,6 +28,7 @@ constexpr float kSecPerDay = 86400.0f;
 constexpr float kSvpBC = static_cast<float>(17.269 * 237.3);
 constexpr float kGasOverG = static_cast<float>(287.0 / 9.81);
 constexpr float kTwoThirds = static_cast<float>(2.0 / 3.0);
+constexpr float kNegRhoIceLf = static_cast<float>(-917.0 * 3.337e5);
 
 // PyTorch on CUDA divides a tensor by a host scalar as a product with the
 // scalar's float reciprocal, and a host scalar by a tensor as the tensor's
@@ -70,6 +71,18 @@ __device__ __forceinline__ float stability_correction(float z, float d,
 __device__ __forceinline__ float pow4(float x) {
   const float x2 = x * x;
   return x2 * x2;
+}
+
+// soil_thermal.maximum_unfrozen_water (soil_conduction.c)
+__device__ __forceinline__ float max_unfrozen(float t, float max_moist,
+                                              float bubble, float expt) {
+  const float bubble_term = div_s(9.81f * bubble, 100.0f);
+  const float power = -rdiv_s(2.0f, expt - 3.0f);
+  const float arg =
+      div_s(-kLf * fminf(t, -1e-10f), 273.16f) / bubble_term;
+  float unfrozen = max_moist * powf(fmaxf(arg, 1e-30f), power);
+  unfrozen = fminf(fmaxf(unfrozen, 0.0f), max_moist);
+  return t <= 0.0f ? unfrozen : max_moist;
 }
 
 // sublimation latent heat, J/kg

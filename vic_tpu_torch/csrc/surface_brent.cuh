@@ -1,13 +1,16 @@
-// The soil-surface energy-balance residual of one lane, QUICK_FLUX path.
+// The soil-surface energy-balance residual of one lane.
 //
 // A line-for-line copy of vic_tpu_torch/physics/surface.surf_energy_terms(ts)
-// .error with estimate_T1 ground heat, no frozen-soil fusion and the
-// hoisted ET terms of evap.build_evap_pre (penman coefficients, ARNO beta,
-// the transpiration split): func_surf_energy_bal.c:7-397. The terms that do
-// not depend on Ts are formed once per lane by init(), in the plain
-// version's operation order (divisions by a host scalar as PyTorch does them
-// on the card, physics.cuh), so every evaluation repeats the plain version's
-// arithmetic on this lane.
+// .error with the hoisted ET terms of evap.build_evap_pre (penman
+// coefficients, ARNO beta, the transpiration split) and the INCLUDE_SNOW
+// fold with its blowing-snow flux: func_surf_energy_bal.c:7-397. Ground heat
+// comes either from estimate_T1 (QUICK_FLUX, operator(); K5) or from the
+// finite-difference node profile solved at Ts, nodes 1 and 2, with the
+// frozen-soil fusion of the top node pair (fd(); K7). The terms that do not
+// depend on Ts are formed once per lane by init() and init_fd(), in the
+// plain version's operation order (divisions by a host scalar as PyTorch
+// does them on the card, physics.cuh), so every evaluation repeats the plain
+// version's arithmetic on this lane.
 #pragma once
 
 #include <cstdint>
@@ -28,13 +31,18 @@ enum In {
   kRaCanopy, kRainfall, kResid0, kMoist0, kIce0, kMaxMoist0,
   kDepth0, kSnowCov, kSurfAtten, kKappaSnow, kTsnowSurf, kMeltEnergy,
   kIncSwq, kIncSurfWater, kIncDensity, kIncOldTsurf, kIncAdvection0,
-  kIncLwSnowIn, kIncNetShortSnowCov, kIncCov, kPenSlope, kPenLv, kPenGamma,
-  kPenRAir, kArnoBeta, kRc1, kNumIn
+  kIncLwSnowIn, kIncNetShortSnowCov, kIncCov, kIncBlowing, kPenSlope,
+  kPenLv, kPenGamma, kPenRAir, kArnoBeta, kRc1, kNumIn
 };
 // layered inputs, NL values a lane (kernels.SURFACE_LAYER_INPUTS)
 enum LayerIn { kRoot, kGsm, kRc2, kW1, kCap, kNumLayerIn };
 // uint8 masks (kernels.SURFACE_MASKS)
 enum Mask { kActive, kInc, kOverSnow, kIsVeg, kCase1, kNumMask };
+// K7's fusion inputs follow the layered ones (kernels.FD_SURFACE_INPUTS),
+// and its frozen-soil mask the others (kernels.FD_SURFACE_MASKS)
+enum FdIn { kMoist0Vol, kMaxMoist0Vol, kIce0Vol, kBubble0, kExpt0,
+            kNumFdIn };
+constexpr int kFsActive = kNumMask;
 
 // evap.penman with the hoisted coefficients (penman.c:96-143)
 __device__ __forceinline__ float penman(float slope, float lv, float gamma,
@@ -60,6 +68,11 @@ struct SurfaceResidual {
   float snow_cov, kappa_snow, tsnow_surf, melt_energy;
   // INCLUDE_SNOW pack
   float i_dry, old_tsurf, cov_i, refreeze, advection0, lw_snow_in, nssc;
+  float blowing;   // blowing-snow mass flux of the folded pack, kg/m^2/s
+  // finite-difference lower flux kappa2/d2 and the top node pair's fusion
+  float k2d2;
+  bool frozen, fs_active;
+  float moist0_vol, max_moist0_vol, ice0_vol, bubble0, expt0;
   // ET
   float slope, lv, gamma, r_air, beta, rc1;
   float cev_pow, wdew_c, storage, wdew_frac_pow, arno_cap;
@@ -123,6 +136,8 @@ struct SurfaceResidual {
     advection0 = in(kIncAdvection0);
     lw_snow_in = in(kIncLwSnowIn);
     nssc = in(kIncNetShortSnowCov);
+    blowing = in(kIncBlowing);
+    frozen = false;
 
     slope = in(kPenSlope);
     lv = in(kPenLv);
@@ -153,6 +168,21 @@ struct SurfaceResidual {
       w1[l] = layer(kW1);
       cap[l] = layer(kCap);
     }
+  }
+
+  // the finite-difference terms (K7): FROZEN_SOIL's fusion when frozen
+  __device__ void init_fd(const LaneInputs& inputs, LaneRow row, bool frz) {
+    auto fd_in = [&](int k) {
+      return lane_f(inputs, kNumIn + kNumLayerIn + k, row);
+    };
+    k2d2 = lane_f(inputs, kKappa2, row) / lane_f(inputs, kD2, row);
+    frozen = frz;
+    fs_active = lane_m(inputs, kFsActive, row);
+    moist0_vol = fd_in(kMoist0Vol);
+    max_moist0_vol = fd_in(kMaxMoist0Vol);
+    ice0_vol = fd_in(kIce0Vol);
+    bubble0 = fd_in(kBubble0);
+    expt0 = fd_in(kExpt0);
   }
 
   // evap.canopy_evap's total, mm/step (canopy_evap.c:46-445)
@@ -202,19 +232,41 @@ struct SurfaceResidual {
     return evap > 0.0f ? fminf(evap, arno_cap) : evap;
   }
 
+  // QUICK_FLUX: estimate_T1 ground heat (func_surf_energy_bal.c:171-181)
   __device__ float operator()(float ts) const {
+    const float t1 = (p1 * ts + q1 + q2) / den;
+    return balance(ts, t1, gb * (t2 - t1));
+  }
+
+  // finite differences: t1, t2n are nodes 1 and 2 of the profile solved at
+  // ts; no exp(-D1/dp) damping (:185-240)
+  __device__ float fd(float ts, float t1, float t2n) const {
+    return balance(ts, t1, k2d2 * (t2n - t1));
+  }
+
+  // fusion of the top node pair's ice (:260-275)
+  __device__ float fusion(float tmean, float t1) const {
+    const float tavg01 = (tmean + t1) / 2.0f;
+    const float unfrozen =
+        max_unfrozen(tavg01, max_moist0_vol, bubble0, expt0);
+    const float ice_new =
+        tavg01 < 0.0f ? fmaxf(moist0_vol - unfrozen, 0.0f) : 0.0f;
+    float fus = div_s(kNegRhoIceLf * (ice0_vol - ice_new) * d1, dt);
+    if (grnd_flux_type == 2) fus = cover_atten * fus;
+    return fs_active ? fus : 0.0f;
+  }
+
+  __device__ float balance(float ts, float t1, float lower_flux) const {
     const float tmean = ts;
     const float tkelv = tmean + kKelvin;
     const float tk2 = tkelv * tkelv;
     const float tk4 = tk2 * tk2;
     // pack -> soil conduction; none on INCLUDE_SNOW lanes (:148-161)
     const float snow_flux = inc ? 0.0f : kappa_snow * (tsnow_surf - tmean);
-    // quick-flux ground heat (:171-181)
-    const float t1 = (p1 * tmean + q1 + q2) / den;
     const float grnd_flux =
         grnd_flux_type == 0
             ? cover_atten * (ga * (t1 - tmean))
-            : cover_atten * (ga * (t1 - tmean) + (gb * (t2 - t1))) / 2.0f;
+            : cover_atten * (ga * (t1 - tmean) + lower_flux) / 2.0f;
     // heat storage between nodes 0 and 1 (:249-254)
     float delta_h = div_s(cs1 * (tsum_old - (tmean + t1)) * d1, dt) / 2.0f;
     if (grnd_flux_type == 2) delta_h = cover_atten * delta_h;
@@ -226,8 +278,8 @@ struct SurfaceResidual {
     // net radiation on the snow-free area (:291-295)
     const float net_long_bare =
         lw_bare_in - (1.0f - snow_cov) * (kStefanB * tk4);
-    const float net_bare_rad =
-        sw_net_bare + net_long_bare + grnd_flux + delta_h;
+    float net_bare_rad = sw_net_bare + net_long_bare + grnd_flux + delta_h;
+    if (frozen) net_bare_rad = net_bare_rad + fusion(tmean, t1);
     // stability-corrected resistance (:298-310)
     const float ra_used =
         wind > 0.0f ? ra_under / stability_correction(z_ref, d_eff, tmean,
@@ -241,10 +293,12 @@ struct SurfaceResidual {
         -kRhoW * le * div_s(div_s(evap, 1000.0f), dt) * (1.0f - snow_cov);
     float latent_sub = 0.0f;
     if (inc) {
-      // snow.latent_heat_from_snow at the surface resistance
+      // snow.latent_heat_from_snow at the surface resistance, plus the
+      // blowing-snow flux
       float vf = air_dens * rdiv_s(kEpsRatio, pressure) *
                  (vp_air - svp(tmean)) / ra_used;
       if (vpd == 0.0f && vf < 0.0f) vf = 0.0f;
+      vf = vf + blowing;
       latent = (tmean >= 0.0f ? le * vf : 0.0f) * cov_i;
       latent_sub = (tmean >= 0.0f ? 0.0f : ls_of(tmean) * vf) * cov_i;
     }

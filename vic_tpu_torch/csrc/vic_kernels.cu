@@ -111,11 +111,12 @@ struct GlacierResidual {
   }
 };
 
-// K2 residual: snow.snow_energy_terms(t).rest
+// K2 residual: snow.snow_energy_terms(t).rest, with the blowing-snow mass
+// flux (kg/m^2/s) added to the surface vapor flux
 struct SnowpackResidual {
   float dt, ra, z_ref, roughness, air_dens, vp_air, longwave_in, lv,
       pressure, rain_m, net_short, vpd, wind, old_tsurf, snow_depth,
-      snow_density, surf_water, surface_swq, tair, tgrnd;
+      snow_density, surf_water, surface_swq, tair, tgrnd, blowing_flux;
 
   __device__ float operator()(float ts) const {
     const float ra_corr =
@@ -127,6 +128,7 @@ struct SnowpackResidual {
     const float sensible = air_dens * kCp * (tair - ts) / ra_corr;
     float vf = air_dens * (kEpsRatio / pressure) * (vp_air - svp(ts)) / ra_corr;
     if (vpd == 0.0f && vf < 0.0f) vf = 0.0f;
+    vf = vf + blowing_flux;
     const float latent = ts >= 0.0f ? lv * vf : 0.0f;
     const float latent_sub = ts >= 0.0f ? 0.0f : ls_of(ts) * vf;
     const float advection = ts == 0.0f ? kChWater * tair * rain_m / dt : 0.0f;
@@ -223,7 +225,8 @@ __global__ void snowpack_brent_kernel(const __grid_constant__ LaneInputs in,
   auto f = [&](int k) { return lane_f(in, k, row); };
   const SnowpackResidual r{dt,    f(0),  f(1),  f(2),  f(3),  f(4),  f(5),
                            f(6),  f(7),  f(8),  f(9),  f(10), f(11), f(12),
-                           f(13), f(14), f(15), f(16), f(17), f(18)};
+                           f(13), f(14), f(15), f(16), f(17), f(18),
+                           f(19)};
   store(out, i, brent_solve(r, lo[i], hi[i], lane_m(in, 0, row), max_iter,
                             max_tries));
 }
@@ -375,7 +378,7 @@ int glacier_brent(const void* const* f, const int32_t* f_stride, int nf,
 
 // Replaces vic_tpu/physics/snow.py:443 (snow_melt's batched_brent). Bound
 // by latency and occupancy: one lane per thread, divergent Brent trip
-// counts, ~90 B read per lane. 19 float inputs in SnowpackResidual order
+// counts, ~95 B read per lane. 20 float inputs in SnowpackResidual order
 // after dt; masks: [active].
 int snowpack_brent(const void* const* f, const int32_t* f_stride, int nf,
                    const void* const* m, const int32_t* m_stride, int nm,
@@ -383,7 +386,7 @@ int snowpack_brent(const void* const* f, const int32_t* f_stride, int nf,
                    const float* lo, const float* hi, float dt, int max_iter,
                    int max_tries, int n, float* root, uint8_t* converged,
                    uint8_t* bracketed, int32_t* iterations, void* stream) {
-  return launch_brent(snowpack_brent_kernel, f, f_stride, nf, 19, m, m_stride,
+  return launch_brent(snowpack_brent_kernel, f, f_stride, nf, 20, m, m_stride,
                       nm, 1, h, lo, hi, dt, max_iter, max_tries, n, root,
                       converged, bracketed, iterations, stream);
 }

@@ -6,11 +6,15 @@
 - `build_frozen`: the same plus the heavy configuration's frozen-soil
   settings (`__graft_entry__.py:33-36`): FROZEN_SOIL on 5 finite-difference
   soil nodes (QUICK_FLUX off), IMPLICIT, a 10-sweep Gauss-Seidel cap.
+- `build_blowing_close`: the light configuration plus BLOWING and
+  CLOSE_ENERGY (`__graft_entry__.py:37`), on a windy, cold forcing.
 
-Both run on the seeded synthetic domain and forcing, on the CUDA device
+All run on the seeded synthetic domain and forcing, on the CUDA device
 unless the caller names another one.
 """
 from __future__ import annotations
+
+import numpy as np
 
 from .config import GlobalParams
 from .model import make_forcing_stack
@@ -35,12 +39,42 @@ def frozen_params(n_rec: int) -> GlobalParams:
         soil_sweep_maxiter=10, fd_affine_residual=True)
 
 
-def _build(gp, n_cell: int, n_rec: int, device, frozen: bool):
+def blowing_close_params(n_rec: int) -> GlobalParams:
+    return light_params(n_rec).replace(blowing=True, close_energy=True)
+
+
+# the forcing offsets that take the synthetic forcing to blowing snow and
+# to snow-laden overstory canopies, as vic_tpu's own tests reach those
+# paths (tests/test_blowing_snow.py:85, tests/test_close_energy.py:22)
+BLOWING_CLOSE_WIND = 8.0        # m/s added to the wind
+BLOWING_CLOSE_AIR_TEMP = -12.0  # C added to the air temperature
+
+
+def blowing_close_forcing(n_rec: int, n_cell: int, dt_hours: int = 24):
+    """synthetic_forcing with the BLOWING_CLOSE_* offsets. The vapor
+    pressure is scaled by the saturation ratio of the two temperatures, so
+    the air keeps the relative humidity synthetic_forcing drew: the colder
+    air would otherwise be supersaturated everywhere, and no snow would
+    sublimate."""
+    forc = synthetic_forcing(n_rec, n_cell, dt_hours=dt_hours)
+    t_old = forc["air_temp"]
+    t_new = t_old + BLOWING_CLOSE_AIR_TEMP
+
+    def svp(t):
+        return 610.78 * np.exp(17.269 * t / (237.3 + t))
+    forc["vp"] = forc["vp"] * svp(t_new) / svp(t_old)
+    forc["air_temp"] = t_new
+    forc["wind"] = forc["wind"] + BLOWING_CLOSE_WIND
+    return forc
+
+
+def _build(gp, n_cell: int, n_rec: int, device, frozen: bool,
+           forcing=synthetic_forcing):
     domain = synthetic_domain(n_cell=n_cell, n_band=2, with_glacier=True)
     params = prepare_domain(domain, gp, device)
     ax = make_time_axis(1995, 1, 1, 0, n_rec, gp.dt)
-    stack = make_forcing_stack(synthetic_forcing(n_rec, n_cell,
-                                                 dt_hours=gp.dt), ax, device)
+    stack = make_forcing_stack(forcing(n_rec, n_cell, dt_hours=gp.dt), ax,
+                               device)
     geom = build_node_geometry(domain.soil, gp).to(device) if frozen else None
     state = initial_state(domain, gp, device, geom=geom)
     return params, stack, state, geom
@@ -61,6 +95,18 @@ def build_frozen(n_cell: int, n_rec: int, device="cuda"):
     return (gp, *_build(gp, n_cell, n_rec, device, True))
 
 
+def build_blowing_close(n_cell: int, n_rec: int, device="cuda"):
+    """(gp, params, stack, state, None) of the light configuration with
+    BLOWING and CLOSE_ENERGY on `device`, ready for `model.run(state,
+    stack, params, gp)`. Its forcing is synthetic_forcing with 8 m/s more
+    wind and 12 C colder air (blowing_close_forcing), so that packs blow
+    and overstory canopies hold snow and iterate their canopy air."""
+    gp = blowing_close_params(n_rec)
+    return (gp, *_build(gp, n_cell, n_rec, device, False,
+                        forcing=blowing_close_forcing))
+
+
 # configuration name -> the function that builds it, for callers that
 # take the name
-CONFIGS = {"light": build_light, "frozen": build_frozen}
+CONFIGS = {"light": build_light, "frozen": build_frozen,
+           "blowing_close": build_blowing_close}

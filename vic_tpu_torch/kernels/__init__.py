@@ -1,13 +1,14 @@
 """Python bindings of the CUDA kernels (csrc/*.cu).
 
 Each wrapper takes CUDA tensors only: it checks device and dtype, passes
-K1-K5 each input as its view broadcast to the lanes, a data pointer and
-element strides (`_lane_inputs`, csrc/lanes.cuh), so no input is copied,
-allocates the outputs, launches on the current stream, raises if the
-launch was refused, and adds one to its entry of `launches`. The plain
-PyTorch versions live beside each call site (physics/glacier.py, snow.py,
-canopy_snow.py, runoff.py, surface.py, frozen_soil.py); the call sites
-pick one or the other by the tensors' device.
+each lane input of K1-K5 and K7-K9 as its view broadcast to the lanes, a
+data pointer and element strides (`_lane_inputs`, csrc/lanes.cuh), so no
+input is copied, allocates the outputs, launches on the current stream,
+raises if the launch was refused, and adds one to its entry of `launches`.
+The plain PyTorch versions live beside each call site (physics/glacier.py,
+snow.py, canopy_snow.py, runoff.py, surface.py, frozen_soil.py,
+blowing_snow.py, canopy_air.py); the call sites pick one or the other by
+the tensors' device.
 """
 from __future__ import annotations
 
@@ -20,9 +21,11 @@ from . import build
 
 # launches of each kernel since the last reset_launches(): calls of its
 # wrapper that reached the device (K6's one call is 11 device launches at
-# max_sweeps = 10: a sweep launch each and a finishing one)
+# max_sweeps = 10: a sweep launch each and a finishing one; K7's one call is
+# a whole Brent solve, a fixed sequence of launches with K6 calls inside)
 launches = {"glacier_brent": 0, "snowpack_brent": 0, "canopy_brent": 0,
-            "runoff_hourly": 0, "surface_brent": 0, "node_sweep": 0}
+            "runoff_hourly": 0, "surface_brent": 0, "node_sweep": 0,
+            "fd_surface_brent": 0, "blowing_snow": 0, "canopy_air_step": 0}
 
 # per-lane float inputs of each Brent residual, in the C functors' order
 GLACIER_INPUTS = ("ra", "z_ref", "roughness", "air_dens", "vp_air",
@@ -31,7 +34,8 @@ GLACIER_INPUTS = ("ra", "z_ref", "roughness", "air_dens", "vp_air",
 SNOWPACK_INPUTS = ("ra", "z_ref", "roughness", "air_dens", "vp_air",
                    "longwave_in", "lv", "pressure", "rain_m", "net_short",
                    "vpd", "wind", "old_tsurf", "snow_depth", "snow_density",
-                   "surf_water", "surface_swq", "tair", "tgrnd")
+                   "surf_water", "surface_swq", "tair", "tgrnd",
+                   "blowing_flux")
 CANOPY_INPUTS = ("lai_ra_over", "air_dens", "vp_air", "pressure", "le",
                  "tcanopy", "vpd", "rainfall_m", "net_short_over",
                  "long_over_in", "long_under_out", "int_rain", "ra_plain",
@@ -197,8 +201,8 @@ SURFACE_INPUTS = (
     "depth0", "snow_coverage", "surf_atten", "kappa_snow", "tsnow_surf",
     "melt_energy", "inc_swq", "inc_surf_water", "inc_density",
     "inc_old_tsurf", "inc_advection0", "inc_lw_snow_in",
-    "inc_net_short_snow_cov", "inc_cov", "pen_slope", "pen_lv", "pen_gamma",
-    "pen_r_air", "arno_beta", "rc1")
+    "inc_net_short_snow_cov", "inc_cov", "inc_blowing_flux", "pen_slope",
+    "pen_lv", "pen_gamma", "pen_r_air", "arno_beta", "rc1")
 SURFACE_LAYER_INPUTS = ("root", "gsm_l", "rc2", "w1", "cap")
 SURFACE_MASKS = ("active", "inc_mask", "overstory_snowing", "is_veg",
                  "case1")
@@ -223,29 +227,49 @@ def surface_inputs(eb_kwargs):
     return named
 
 
-def surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
-    """K5: expand-then-Brent on the QUICK_FLUX soil-surface residual, one
-    thread per lane. Same arguments and result as
-    physics.surface.surface_brent_plain (iterations per lane)."""
-    name = "surface_brent"
+def _surface_lanes(name, lo, hi, active, eb_kwargs, fd):
+    """The inputs of K5 (fd False) or K7 (fd True) from the residual's
+    keyword arguments, as _lane_inputs passes them: (lanes shape, layers,
+    the views to keep alive, float pointers, strides, count, mask pointers,
+    strides, count)."""
     device = lo.device
     if device.type != "cuda":
         raise ValueError(f"{name}: CUDA tensors required, got {device}")
-    if eb_kwargs.get("frozen_soil") or eb_kwargs.get("fd_solve") is not None:
-        raise ValueError(f"{name}: solves the QUICK_FLUX residual without "
-                         "frozen soil only")
     if eb_kwargs.get("evap_pre") is None:
         raise ValueError(f"{name}: needs the hoisted evap_pre terms")
     shape = torch.broadcast_shapes(lo.shape, hi.shape, active.shape)
     named = dict(surface_inputs(eb_kwargs), active=active)
     nl = named["root"].shape[-1]
-    f32 = torch.float32
-    fin, f_ptr, f_stride = _lane_inputs(
-        [(k, named[k], f32, 0) for k in SURFACE_INPUTS]
-        + [(k, named[k], f32, nl) for k in SURFACE_LAYER_INPUTS],
-        shape, device)
-    masks, m_ptr, m_stride = _lane_inputs(
-        [(k, named[k], torch.bool, 0) for k in SURFACE_MASKS], shape, device)
+    f32, flag = torch.float32, torch.bool
+    floats = ([(k, named[k], f32, 0) for k in SURFACE_INPUTS]
+              + [(k, named[k], f32, nl) for k in SURFACE_LAYER_INPUTS])
+    masks = [(k, named[k], flag, 0) for k in SURFACE_MASKS]
+    if fd:
+        # without FROZEN_SOIL the fusion inputs are never read: zeros
+        frozen = bool(eb_kwargs.get("frozen_soil"))
+        zero = torch.zeros((), dtype=f32, device=device)
+        floats += [(k, eb_kwargs[k] if frozen else zero, f32, 0)
+                   for k in FD_SURFACE_INPUTS]
+        masks.append(("fs_active", eb_kwargs["fs_active"] if frozen
+                      else torch.zeros((), dtype=flag, device=device),
+                      flag, 0))
+    fin, f_ptr, f_stride = _lane_inputs(floats, shape, device)
+    mviews, m_ptr, m_stride = _lane_inputs(masks, shape, device)
+    return (shape, nl, (fin, mviews), f_ptr, f_stride, len(fin), m_ptr,
+            m_stride, len(mviews))
+
+
+def surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
+    """K5: expand-then-Brent on the QUICK_FLUX soil-surface residual, one
+    thread per lane. Same arguments and result as
+    physics.surface.surface_brent_plain (iterations per lane)."""
+    name = "surface_brent"
+    if eb_kwargs.get("frozen_soil") or eb_kwargs.get("fd_solve") is not None:
+        raise ValueError(f"{name}: solves the QUICK_FLUX residual without "
+                         "frozen soil only")
+    shape, nl, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = \
+        _surface_lanes(name, lo, hi, active, eb_kwargs, fd=False)
+    device, f32 = lo.device, torch.float32
     lo_c = _lanes(lo, shape, device, f32, "lo")
     hi_c = _lanes(hi, shape, device, f32, "hi")
     root = torch.empty(shape, dtype=f32, device=device)
@@ -256,7 +280,7 @@ def surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     if n:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = build.load().surface_brent(
-            f_ptr, f_stride, len(fin), m_ptr, m_stride, len(masks), shape[-1],
+            f_ptr, f_stride, nf, m_ptr, m_stride, nm, shape[-1],
             nl, lo_c.data_ptr(), hi_c.data_ptr(),
             float(eb_kwargs["delta_t"]),
             int(eb_kwargs.get("grnd_flux_type", 1)), int(max_iter), MAXTRIES,
@@ -264,6 +288,100 @@ def surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
             iterations.data_ptr(), stream)
         _check_launch(name, err)
     return RootResult(root, converged, bracketed, iterations)
+
+
+# K7's fusion inputs and frozen-soil mask, after K5's (csrc/surface_brent.cuh
+# FdIn, kFsActive)
+FD_SURFACE_INPUTS = ("moist0_vol", "max_moist0_vol", "ice0_vol", "bubble0",
+                     "expt0")
+# K7's launches (csrc/fd_surface_brent.cu Op) and its state's float rows
+(_FD_EVAL_LO, _FD_EVAL_HI, _FD_EVAL_LO_NEED, _FD_EVAL_HI_NEED, _FD_EXPAND,
+ _FD_INIT, _FD_PROPOSE, _FD_ACCEPT, _FD_FINISH) = range(9)
+_FD_ROWS, _FD_A, _FD_B, _FD_BNEXT = 11, 0, 1, 10
+
+
+def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
+    """K7: the batch-wide Brent of physics.surface.surface_brent_plain on
+    the finite-difference residual, its state on the device. Every residual
+    evaluation is one eb_kwargs["fd_solve"] call (K6 on CUDA) at the
+    candidates of all lanes and one residual launch; the host reads one
+    flag per expansion round and per Brent iteration, as the plain loop.
+    Same arguments and result as surface_brent_plain (iterations: the
+    loop's trip count)."""
+    name = "fd_surface_brent"
+    fd_solve = eb_kwargs.get("fd_solve")
+    if fd_solve is None:
+        raise ValueError(f"{name}: solves the finite-difference residual "
+                         "only (fd_solve)")
+    shape, nl, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = \
+        _surface_lanes(name, lo, hi, active, eb_kwargs, fd=True)
+    device, f32 = lo.device, torch.float32
+    lo_c = _lanes(lo, shape, device, f32, "lo")
+    hi_c = _lanes(hi, shape, device, f32, "hi")
+    root = torch.empty(shape, dtype=f32, device=device)
+    converged = torch.empty(shape, dtype=torch.bool, device=device)
+    bracketed = torch.empty(shape, dtype=torch.bool, device=device)
+    n = root.numel()
+    if not n:
+        return RootResult(root, converged, bracketed, 0)
+    state = torch.empty((_FD_ROWS,) + tuple(shape), dtype=f32, device=device)
+    state[_FD_A].copy_(lo_c)
+    state[_FD_B].copy_(hi_c)
+    lane_flags = torch.zeros((3,) + tuple(shape), dtype=torch.uint8,
+                             device=device)
+    votes = torch.zeros(MAXTRIES + int(max_iter) + 1, dtype=torch.int32,
+                        device=device)
+    lib = build.load()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    args = dict(dt=float(eb_kwargs["delta_t"]),
+                gft=int(eb_kwargs.get("grnd_flux_type", 1)),
+                frozen=int(bool(eb_kwargs.get("frozen_soil"))))
+
+    def launch(op, nodes=None, vote=0):
+        nn = 0
+        if nodes is not None:
+            if nodes.dtype != f32 or not nodes.is_contiguous() \
+                    or tuple(nodes.shape[:-1]) != tuple(shape):
+                raise ValueError(f"{name}: node profile {nodes.dtype} "
+                                 f"{tuple(nodes.shape)}, expected a "
+                                 f"contiguous float32 {tuple(shape)} + (nn,)")
+            nn = nodes.shape[-1]
+        err = lib.fd_surface_brent(
+            op, f_ptr, f_stride, nf, m_ptr, m_stride, nm, shape[-1], nl,
+            args["dt"], args["gft"], args["frozen"], state.data_ptr(),
+            lane_flags.data_ptr(),
+            nodes.data_ptr() if nodes is not None else None, nn,
+            votes.data_ptr() + 4 * vote, n, lo_c.data_ptr(),
+            hi_c.data_ptr(), root.data_ptr(), converged.data_ptr(),
+            bracketed.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: kernel launch failed with CUDA "
+                               f"error {err}")
+
+    def evaluate(op, row):
+        # the node profile at every lane's candidate, then the residual
+        launch(op, nodes=fd_solve(state[row]).temp)
+
+    # bracket expansion (ops/rootfind.expand_brackets)
+    evaluate(_FD_EVAL_LO, _FD_A)
+    evaluate(_FD_EVAL_HI, _FD_B)
+    for t in range(MAXTRIES):
+        launch(_FD_EXPAND, vote=t)
+        if not int(votes[t]):
+            break
+        evaluate(_FD_EVAL_LO_NEED, _FD_A)
+        evaluate(_FD_EVAL_HI_NEED, _FD_B)
+    # Brent (ops/rootfind.batched_brent), one vote per iteration: is any
+    # lane not done
+    launch(_FD_INIT, vote=MAXTRIES)
+    i = 0
+    while i < max_iter and int(votes[MAXTRIES + i]):
+        launch(_FD_PROPOSE, vote=MAXTRIES + 1 + i)
+        evaluate(_FD_ACCEPT, _FD_BNEXT)
+        i += 1
+    launch(_FD_FINISH)
+    _check_launch(name, 0)
+    return RootResult(root, converged, bracketed, i)
 
 
 # the node count K6 is instantiated for (csrc/node_sweep.cu): the frozen
@@ -318,3 +436,90 @@ def node_sweep(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
             sweeps.data_ptr(), stream)
         _check_launch(name, err)
     return ProfileResult(temp=temp, fbcount=fbcount, iterations=sweeps)
+
+
+# K8's inputs, in the order of csrc/blowing_snow.cu's In, and its mask
+BLOWING_INPUTS = ("tair", "last_snow", "surf_water_m", "wind_2m", "ls",
+                  "air_dens", "eact", "z0_snow", "snowdepth", "lag_one",
+                  "sigma_slope", "fetch", "displacement", "roughness")
+BLOWING_MASKS = ("is_bare",)
+# calc_blowing_snow's arguments that its arithmetic never reads
+BLOWING_UNUSED = ("pressure", "zrh", "tsnow")
+
+
+def blowing_snow(*, dt_sec, quad_nodes, log_terms, **inputs):
+    """K8: calc_blowing_snow of every lane, one thread per lane. Same
+    arguments and result as physics.blowing_snow.calc_blowing_snow_plain:
+    (flux, transport), each of the lanes' broadcast shape."""
+    name = "blowing_snow"
+    device = inputs["tair"].device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors required, got {device}")
+    expected = set(BLOWING_INPUTS + BLOWING_MASKS + BLOWING_UNUSED)
+    if set(inputs) != expected:
+        raise TypeError(f"{name}: missing inputs "
+                        f"{sorted(expected - set(inputs))}, unexpected "
+                        f"{sorted(set(inputs) - expected)}")
+    shape = torch.broadcast_shapes(*(inputs[k].shape for k in
+                                     BLOWING_INPUTS + BLOWING_MASKS))
+    f32 = torch.float32
+    fin, f_ptr, f_stride = _lane_inputs(
+        [(k, inputs[k], f32, 0) for k in BLOWING_INPUTS], shape, device)
+    masks, m_ptr, m_stride = _lane_inputs(
+        [(k, inputs[k], torch.bool, 0) for k in BLOWING_MASKS], shape,
+        device)
+    nodes = _lanes(quad_nodes, (16,), device, f32, "quad_nodes")
+    logs = _lanes(log_terms, (20,), device, f32, "log_terms")
+    flux = torch.empty(shape, dtype=f32, device=device)
+    transport = torch.empty(shape, dtype=f32, device=device)
+    n = flux.numel()
+    if n:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = build.load().blowing_snow(
+            f_ptr, f_stride, len(fin), m_ptr, m_stride, len(masks),
+            shape[-1], float(dt_sec), nodes.data_ptr(), logs.data_ptr(), n,
+            flux.data_ptr(), transport.data_ptr(), stream)
+        _check_launch(name, err)
+    return flux, transport
+
+
+# K9's inputs, in the order of csrc/canopy_air.cu's In and Mask
+CANOPY_AIR_INPUTS = ("canopy_sensible", "soil_sensible", "pack_sensible",
+                     "cov_w", "tair", "air_dens", "ra_over", "tc", "tc_prev",
+                     "g_prev")
+CANOPY_AIR_MASKS = ("iter_mask", "lane_mask")
+
+
+def canopy_air_step(*, it, **inputs):
+    """K9: one CLOSE_ENERGY pass's canopy-air update on every lane and the
+    batch's largest masked change, reduced on the device. Same arguments and
+    result as physics.canopy_air.canopy_air_step_plain: (tc_next, g,
+    live_max as a 0-d float32 tensor, NaN if any change is NaN)."""
+    name = "canopy_air_step"
+    device = inputs["tc"].device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors required, got {device}")
+    expected = set(CANOPY_AIR_INPUTS + CANOPY_AIR_MASKS)
+    if set(inputs) != expected:
+        raise TypeError(f"{name}: missing inputs "
+                        f"{sorted(expected - set(inputs))}, unexpected "
+                        f"{sorted(set(inputs) - expected)}")
+    shape = torch.broadcast_shapes(*(t.shape for t in inputs.values()))
+    f32 = torch.float32
+    fin, f_ptr, f_stride = _lane_inputs(
+        [(k, inputs[k], f32, 0) for k in CANOPY_AIR_INPUTS], shape, device)
+    masks, m_ptr, m_stride = _lane_inputs(
+        [(k, inputs[k], torch.bool, 0) for k in CANOPY_AIR_MASKS], shape,
+        device)
+    tc_next = torch.empty(shape, dtype=f32, device=device)
+    g = torch.empty(shape, dtype=f32, device=device)
+    live_bits = torch.zeros((), dtype=torch.int32, device=device)
+    n = tc_next.numel()
+    if n:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = build.load().canopy_air_step(
+            f_ptr, f_stride, len(fin), m_ptr, m_stride, len(masks),
+            shape[-1], int(it), n, tc_next.data_ptr(), g.data_ptr(),
+            live_bits.data_ptr(), stream)
+        _check_launch(name, err)
+    return tc_next, g, live_bits.view(f32)

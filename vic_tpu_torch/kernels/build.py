@@ -87,6 +87,16 @@ _SURFACE_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int] * 2
                      + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
 _SWEEP_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 9)
+_FD_SURFACE_ARGTYPES = ([ctypes.c_int] + _INPUTS * 2 + [ctypes.c_int] * 2
+                        + [ctypes.c_float] + [ctypes.c_int] * 2
+                        + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                        + [ctypes.c_void_p] + [ctypes.c_int]
+                        + [ctypes.c_void_p] * 6)
+_BLOWING_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int, ctypes.c_float]
+                     + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                     + [ctypes.c_void_p] * 3)
+_CANOPY_AIR_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int] * 3
+                        + [ctypes.c_void_p] * 4)
 
 _lib = None
 
@@ -103,7 +113,10 @@ def load():
             fn.restype = ctypes.c_int
         for name, argtypes in (("runoff_hourly", _RUNOFF_ARGTYPES),
                                ("surface_brent", _SURFACE_ARGTYPES),
-                               ("node_sweep", _SWEEP_ARGTYPES)):
+                               ("node_sweep", _SWEEP_ARGTYPES),
+                               ("fd_surface_brent", _FD_SURFACE_ARGTYPES),
+                               ("blowing_snow", _BLOWING_ARGTYPES),
+                               ("canopy_air_step", _CANOPY_AIR_ARGTYPES)):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -1,11 +1,15 @@
 """The model step and the time loop.
 
 Counterpart of `vic_tpu/model.py` (make_step :39, run :1807) for FULL_ENERGY
-with snow, glacier HRUs and elevation bands, on QUICK_FLUX ground heat or on
-finite-difference soil nodes (QUICK_FLUX off, with or without FROZEN_SOIL):
-the per-record column physics over the whole [n_cell, max_hru] batch. `run`
-is a Python loop over records; month and day-of-year reach the step as host
-ints, so indexing the monthly veg tables needs no device-to-host sync.
+with snow, glacier HRUs and elevation bands, on QUICK_FLUX ground heat (with
+or without BLOWING and CLOSE_ENERGY) or on finite-difference soil nodes
+(QUICK_FLUX off, with or without FROZEN_SOIL): the per-record column physics
+over the whole [n_cell, max_hru] batch. The canopy -> snow -> glacier ->
+surface chain is `column(tca, luo)`, run once at Tair, or, with
+CLOSE_ENERGY, once per pass of the canopy-air fixed point and once more at
+its settled temperature. `run` is a Python loop over records; month and
+day-of-year reach the step as host ints, so indexing the monthly veg tables
+needs no device-to-host sync.
 
 Every option outside that configuration is refused when the step is built.
 """
@@ -17,6 +21,8 @@ import torch
 from . import constants as c
 from . import kernels
 from .physics.aero import calc_aerodynamic
+from .physics.blowing_snow import calc_blowing_snow
+from .physics.canopy_air import calc_atmos_energy_bal, canopy_air_step
 from .physics.canopy_snow import snow_intercept
 from .physics.evap import build_evap_pre, compute_pot_evap, svp
 from .physics.frozen_soil import (distribute_node_moisture,
@@ -30,6 +36,16 @@ from .physics.soil_thermal import layer_thermal_props, maximum_unfrozen_water
 from .physics.surface import solve_surface_temperature, surf_energy_terms
 from .prepare import DeviceParams
 from .state import ModelState
+
+# the CLOSE_ENERGY stop compares the float32 batch max with OVER_TOL rounded
+# to float32, as vic_tpu's jnp.max(live) <= OVER_TOL does
+OVER_TOL_F32 = float(np.float32(c.OVER_TOL))
+
+
+# why BLOWING and CLOSE_ENERGY are refused on finite-difference nodes
+HEAVY_FD = ("they come with the heavy path, whose CLOSE_ENERGY passes solve "
+            "the surface balance on the affine two-probe node residual, "
+            "vic_tpu/physics/surface.py:422-433")
 
 
 def _refuse(gp, geom, zwt_curves, lake_params):
@@ -46,9 +62,11 @@ def _refuse(gp, geom, zwt_curves, lake_params):
          and gp.nnode != kernels.SWEEP_NNODE),
         ("exp_trans", gp.exp_trans),
         ("dist_prcp", gp.dist_prcp),
-        ("blowing", gp.blowing),
+        (f"blowing on finite-difference nodes ({HEAVY_FD})",
+         gp.blowing and not gp.quick_flux),
+        (f"close_energy on finite-difference nodes ({HEAVY_FD})",
+         gp.close_energy and not gp.quick_flux),
         ("spatial_snow", gp.spatial_snow),
-        ("close_energy", gp.close_energy),
         ("lakes", gp.lakes or lake_params is not None),
         ("corrprec", gp.corrprec),
         ("zwt_curves", zwt_curves is not None),
@@ -59,10 +77,11 @@ def _refuse(gp, geom, zwt_curves, lake_params):
             raise NotImplementedError(
                 f"vic_tpu_torch.model.make_step: {name} is not ported; the "
                 "port runs FULL_ENERGY on QUICK_FLUX nodes without "
-                "FROZEN_SOIL, or on finite-difference nodes (a NodeGeometry "
-                "as geom, linear spacing) with or without FROZEN_SOIL; "
-                "without DIST_PRCP, BLOWING, SPATIAL_SNOW, CLOSE_ENERGY, "
-                "LAKES, CORRPREC, water-table curves or CONTINUEONERROR")
+                "FROZEN_SOIL, with or without BLOWING and CLOSE_ENERGY, or "
+                "on finite-difference nodes (a NodeGeometry as geom, linear "
+                "spacing) with or without FROZEN_SOIL; without DIST_PRCP, "
+                "SPATIAL_SNOW, LAKES, CORRPREC, water-table curves or "
+                "CONTINUEONERROR")
 
 
 def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
@@ -220,213 +239,339 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             surf_atten=surf_att_eff, grnd_flux_type=int(gp.grnd_flux_type),
             fd_solve=fd_solve, **frozen_kw)
 
-        # ---- overstory canopy snow interception (snow_intercept.c) ----
-        tca = tair      # canopy air at Tair: no CLOSE_ENERGY iteration
-        ci = snow_intercept(
-            snowfall_mm=snowfall, rainfall_mm=rainfall,
-            int_snow_m=state.snow_canopy, int_rain_m=wdew0 / 1000.0,
-            tfoliage_old=state.tfoliage, temp_int_storage=0.0 * wdew0,
-            lai=lai, wdmax_mm=wdmax, air_dens=air_dens, vp_air=vp_air,
-            vpd=vpd, pressure=pressure, le=le, tcanopy=tca,
-            net_short_over=(1.0 - B(p.new_snow_alb)) * short_over_in,
-            net_short_over_nosnow=(1.0 - veg_albedo) * short_over_in,
-            long_over_in=lw_in, long_under_out=state.long_under_out,
-            ra_overstory=aero.resist.canopy, wind_over=aero.wind.canopy,
-            liquid_evap=dict(wdew_mm=wdew0, prec_mm=rainfall, rarc=p.rarc,
-                             elevation=B(p.elevation)),
-            dt_sec=dt_sec, max_iter=gp.brent_maxiter,
-            active_mask=ov_snow & p.mask)
-        rainfall_base = rainfall
-        rainfall = W(ov_snow, ci.rain_throughfall * 1000.0, rainfall_base)
-        snowfall_ground = W(ov_snow, ci.snow_throughfall * 1000.0, snowfall)
-        snow_canopy_new = W(ov_snow, ci.int_snow, state.snow_canopy)
-        wdew0 = W(ov_snow, ci.int_rain * 1000.0, wdew0)
-        tfoliage_new = W(ov_snow, ci.tfoliage, tca)
-        canopy_sub_mm = W(ov_snow, ci.vapor_flux * 1000.0, 0.0)
-        cevap_liq_mm = W(ov_snow, ci.canopy_evap_mm, 0.0)
-        tfol_fb = W(ov_snow, ci.fbflag, False)
-        # snow-covered overstory lanes see the canopy's emission
-        lw_under = W(ov_snow, lw_in - ci.net_long_over, lw_in)
+        # ---- blowing-snow sublimation flux (BLOWING; CalcBlowingSnow.c),
+        # from the carried state only: outside the canopy-air chain ----
+        if gp.blowing:
+            blow_flux, _ = calc_blowing_snow(
+                dt_sec=dt_sec, tair=tair,
+                last_snow=state.last_snow.to(tair.dtype),
+                surf_water_m=state.surf_water, wind_2m=aero.wind.snow_covered,
+                ls=(677.0 - 0.07 * state.surf_temp) * c.JOULES_PER_CAL
+                * c.GRAMS_PER_KG,
+                air_dens=air_dens, pressure=pressure, eact=vp_air,
+                z0_snow=B(p.snow_rough), zrh=2.0, snowdepth=state.depth,
+                lag_one=p.lag_one, sigma_slope=p.sigma_slope,
+                tsnow=state.surf_temp, is_bare=p.is_bare, fetch=p.fetch,
+                displacement=torch.clamp(veg_displ, min=0.01),
+                roughness=torch.clamp(veg_rough, min=0.001))
+        else:
+            blow_flux = tair.new_zeros(())
+        rainfall_base, wdew0_base = rainfall, wdew0
 
-        # ---- snow albedo aging (solve_snow.c:418-439) ----
-        albedo_aged = snow_albedo(
-            snowfall_ground, state.swq, state.depth, state.albedo,
-            state.cold_content, dt_hours, last_snow.to(tair.dtype),
-            state.melting, B(p.new_snow_alb), B(p.snow_alb_accum_a),
-            B(p.snow_alb_accum_b), B(p.snow_alb_thaw_a),
-            B(p.snow_alb_thaw_b), sun1999=(int(gp.snow_albedo) == 1))
-        snow_alb = W(fresh, B(p.new_snow_alb), albedo_aged)
-        albedo_under = W(fresh, snow_alb,
-                         state.coverage * snow_alb
-                         + (1.0 - state.coverage) * bare_albedo)
-        net_short_snow = (1.0 - albedo_under) * sw_under
+        def column(tca, luo):
+            """One pass of the overstory -> understory chain at canopy-air
+            temperature tca (Tair on lanes that do not iterate), with luo
+            the understory's upward longwave that the canopy sees
+            (vic_tpu/model.py:361-785)."""
+            # ---- overstory canopy snow interception (snow_intercept.c) ----
+            ci = snow_intercept(
+                snowfall_mm=snowfall, rainfall_mm=rainfall_base,
+                int_snow_m=state.snow_canopy, int_rain_m=wdew0_base / 1000.0,
+                tfoliage_old=state.tfoliage, temp_int_storage=0.0 * wdew0_base,
+                lai=lai, wdmax_mm=wdmax, air_dens=air_dens, vp_air=vp_air,
+                vpd=vpd, pressure=pressure, le=le, tcanopy=tca,
+                net_short_over=(1.0 - B(p.new_snow_alb)) * short_over_in,
+                net_short_over_nosnow=(1.0 - veg_albedo) * short_over_in,
+                long_over_in=lw_in, long_under_out=luo,
+                ra_overstory=aero.resist.canopy, wind_over=aero.wind.canopy,
+                liquid_evap=dict(wdew_mm=wdew0_base, prec_mm=rainfall_base,
+                                 rarc=p.rarc,
+                                 elevation=B(p.elevation)),
+                dt_sec=dt_sec, max_iter=gp.brent_maxiter,
+                active_mask=ov_snow & p.mask)
+            rainfall = W(ov_snow, ci.rain_throughfall * 1000.0, rainfall_base)
+            snowfall_ground = W(ov_snow, ci.snow_throughfall * 1000.0,
+                                snowfall)
+            snow_canopy_new = W(ov_snow, ci.int_snow, state.snow_canopy)
+            wdew0 = W(ov_snow, ci.int_rain * 1000.0, wdew0_base)
+            tfoliage_new = W(ov_snow, ci.tfoliage, tca)
+            canopy_sub_mm = W(ov_snow, ci.vapor_flux * 1000.0, 0.0)
+            cevap_liq_mm = W(ov_snow, ci.canopy_evap_mm, 0.0)
+            tfol_fb = W(ov_snow, ci.fbflag, False)
+            # snow-covered overstory lanes see the canopy's emission
+            lw_under = W(ov_snow, lw_in - ci.net_long_over, lw_in)
 
-        # ---- snowpack accumulation/ablation (snow_melt.c) ----
-        sm = snow_melt(
-            swq=state.swq, surf_temp=state.surf_temp,
-            pack_temp=state.pack_temp, surf_water=state.surf_water,
-            pack_water=state.pack_water, snow_depth=state.depth,
-            snow_density=state.density, coldcontent=state.cold_content,
-            rainfall_mm=rainfall, snowfall_mm=snowfall_ground,
-            air_temp=tair, tcanopy=tca, tgrnd=tgrnd_eff,
-            wind=aero.wind.snow_covered, vp_air=vp_air, vpd=vpd,
-            air_dens=air_dens, pressure=pressure, longwave_in=lw_under,
-            net_short=net_short_snow, lv=le, ra=aero.resist.snow_covered,
-            z_ref=aero.ref_height.snow_covered,
-            roughness=aero.roughness.snow_covered, dt_sec=dt_sec,
-            max_iter=gp.brent_maxiter, active_mask=snow_present & p.mask,
-            is_glacier=glacier)
+            # ---- snow albedo aging (solve_snow.c:418-439) ----
+            albedo_aged = snow_albedo(
+                snowfall_ground, state.swq, state.depth, state.albedo,
+                state.cold_content, dt_hours, last_snow.to(tair.dtype),
+                state.melting, B(p.new_snow_alb), B(p.snow_alb_accum_a),
+                B(p.snow_alb_accum_b), B(p.snow_alb_thaw_a),
+                B(p.snow_alb_thaw_b), sun1999=(int(gp.snow_albedo) == 1))
+            snow_alb = W(fresh, B(p.new_snow_alb), albedo_aged)
+            albedo_under = W(fresh, snow_alb,
+                             state.coverage * snow_alb
+                             + (1.0 - state.coverage) * bare_albedo)
+            net_short_snow = (1.0 - albedo_under) * sw_under
 
-        def S(new, old):
-            return W(snow_present, new, old)
+            # ---- snowpack accumulation/ablation (snow_melt.c) ----
+            sm = snow_melt(
+                swq=state.swq, surf_temp=state.surf_temp,
+                pack_temp=state.pack_temp, surf_water=state.surf_water,
+                pack_water=state.pack_water, snow_depth=state.depth,
+                snow_density=state.density, coldcontent=state.cold_content,
+                rainfall_mm=rainfall, snowfall_mm=snowfall_ground,
+                air_temp=tair, tcanopy=tca, tgrnd=tgrnd_eff,
+                wind=aero.wind.snow_covered, vp_air=vp_air, vpd=vpd,
+                air_dens=air_dens, pressure=pressure, longwave_in=lw_under,
+                net_short=net_short_snow, lv=le, ra=aero.resist.snow_covered,
+                z_ref=aero.ref_height.snow_covered,
+                roughness=aero.roughness.snow_covered, dt_sec=dt_sec,
+                max_iter=gp.brent_maxiter, active_mask=snow_present & p.mask,
+                is_glacier=glacier, blowing_flux=blow_flux)
 
-        swq = S(sm.swq, state.swq)
-        surf_temp = S(sm.surf_temp, 0.0 * state.surf_temp)
-        pack_temp = S(sm.pack_temp, 0.0 * state.pack_temp)
-        surf_water = S(sm.surf_water, 0.0 * state.surf_water)
-        pack_water = S(sm.pack_water, 0.0 * state.pack_water)
-        melt_out = W(snow_present, sm.melt, 0.0)
-        # complete-melt reset keeps the stale cold content (solve_snow.c)
-        cold_content = S(sm.cold_content, state.cold_content)
-        vapor_flux = W(snow_present, sm.vapor_flux, 0.0)
-        glac_firn_mm = W(glacier & snow_present, sm.firn_to_ice, 0.0) * 1000.0
-        # thin-pack INCLUDE_SNOW lanes fold into the soil surface EB
-        inc = sm.include_snow & snow_present & ~glacier & p.mask
+            def S(new, old):
+                return W(snow_present, new, old)
 
-        # ---- glacier lane: bare-ice ablation once snow is gone ----
-        on_ice = glacier & ~snow_present
-        glac = glacier_ablation(
-            tair=tair, net_short=(1.0 - B(p.glac_albedo)) * sw_in,
-            longwave_in=lw_in, wind=aero.wind.glacier, vp_air=vp_air,
-            vpd=vpd, air_dens=air_dens, pressure=pressure, le=le,
-            rain_mm=W(on_ice, rainfall, 0.0), ra=aero.resist.glacier,
-            z_ref=aero.ref_height.glacier, roughness=aero.roughness.glacier,
-            old_tsurf=state.glac_surf_temp,
-            glac_surf_thick=B(p.glac_surf_thick), dt_sec=dt_sec,
-            max_iter=gp.brent_maxiter, active_mask=on_ice & p.mask)
-        glac_melt_mm = W(on_ice, glac.melt_mm, 0.0)
-        glac_surf_temp = W(on_ice, glac.surf_temp,
-                           W(glacier, 0.0, state.glac_surf_temp))
+            swq = S(sm.swq, state.swq)
+            surf_temp = S(sm.surf_temp, 0.0 * state.surf_temp)
+            pack_temp = S(sm.pack_temp, 0.0 * state.pack_temp)
+            surf_water = S(sm.surf_water, 0.0 * state.surf_water)
+            pack_water = S(sm.pack_water, 0.0 * state.pack_water)
+            melt_out = W(snow_present, sm.melt, 0.0)
+            # complete-melt reset keeps the stale cold content (solve_snow.c)
+            cold_content = S(sm.cold_content, state.cold_content)
+            vapor_flux = W(snow_present, sm.vapor_flux, 0.0)
+            glac_firn_mm = W(glacier & snow_present, sm.firn_to_ice,
+                             0.0) * 1000.0
+            # thin-pack INCLUDE_SNOW lanes fold into the soil surface EB
+            inc = sm.include_snow & snow_present & ~glacier & p.mask
 
-        # glacier water reservoir (surface_fluxes_glac.c:580-608)
-        glac_inflow = W(glacier,
-                        melt_out + glac_melt_mm + W(on_ice, rainfall, 0.0),
-                        0.0)
-        storage = state.glac_water_storage + glac_inflow
-        kfac = B(p.glac_kmin) + B(p.glac_dk) * torch.exp(
-            -B(p.glac_a) * swq * 1000.0)
-        glac_outflow = W(glacier, kfac * storage, 0.0)
-        glac_water_storage = W(glacier, storage - glac_outflow,
-                               state.glac_water_storage)
+            # ---- glacier lane: bare-ice ablation once snow is gone ----
+            on_ice = glacier & ~snow_present
+            glac = glacier_ablation(
+                tair=tair, net_short=(1.0 - B(p.glac_albedo)) * sw_in,
+                longwave_in=lw_in, wind=aero.wind.glacier, vp_air=vp_air,
+                vpd=vpd, air_dens=air_dens, pressure=pressure, le=le,
+                rain_mm=W(on_ice, rainfall, 0.0), ra=aero.resist.glacier,
+                z_ref=aero.ref_height.glacier,
+                roughness=aero.roughness.glacier,
+                old_tsurf=state.glac_surf_temp,
+                glac_surf_thick=B(p.glac_surf_thick), dt_sec=dt_sec,
+                max_iter=gp.brent_maxiter, active_mask=on_ice & p.mask)
+            glac_melt_mm = W(on_ice, glac.melt_mm, 0.0)
+            glac_surf_temp = W(on_ice, glac.surf_temp,
+                               W(glacier, 0.0, state.glac_surf_temp))
 
-        # ---- snowpack density/depth (solve_snow.c:478-496) ----
-        snthrm = int(gp.snow_density) == 1
-        density_new = snow_density_update(
-            state.swq, state.depth, state.density, surf_temp,
-            snowfall_ground, tair, dt_hours,
-            liquid_water=surf_water + pack_water, snthrm=snthrm)
-        density = W(swq > 0.0,
-                    W(state.swq > 0.0, density_new,
-                      new_snow_density(tair, snthrm=snthrm)), 0.0)
-        depth = W(density > 0.0,
-                  1000.0 * swq / torch.clamp(density, min=1.0), 0.0)
-        coverage = W(swq > 0.0, 1.0, 0.0)
+            # glacier water reservoir (surface_fluxes_glac.c:580-608)
+            glac_inflow = W(glacier,
+                            melt_out + glac_melt_mm + W(on_ice, rainfall, 0.0),
+                            0.0)
+            storage = state.glac_water_storage + glac_inflow
+            kfac = B(p.glac_kmin) + B(p.glac_dk) * torch.exp(
+                -B(p.glac_a) * swq * 1000.0)
+            glac_outflow = W(glacier, kfac * storage, 0.0)
+            glac_water_storage = W(glacier, storage - glac_outflow,
+                                   state.glac_water_storage)
 
-        # MELTING flag (solve_snow.c:500-510, lat-aware season window)
-        north = B(p.lat) >= 0
-        in_season = W(north, 60 < doy < 273, doy < 60 or doy > 273)
-        melting = W(swq > 0.0,
-                    W((cold_content >= 0.0) & in_season, True,
-                      W(state.melting & (snowfall_ground > c.TRACESNOW),
-                        False, state.melting)),
-                    False)
+            # ---- snowpack density/depth (solve_snow.c:478-496) ----
+            snthrm = int(gp.snow_density) == 1
+            density_new = snow_density_update(
+                state.swq, state.depth, state.density, surf_temp,
+                snowfall_ground, tair, dt_hours,
+                liquid_water=surf_water + pack_water, snthrm=snthrm)
+            density = W(swq > 0.0,
+                        W(state.swq > 0.0, density_new,
+                          new_snow_density(tair, snthrm=snthrm)), 0.0)
+            depth = W(density > 0.0,
+                      1000.0 * swq / torch.clamp(density, min=1.0), 0.0)
+            coverage = W(swq > 0.0, 1.0, 0.0)
 
-        # ---- coverage-change bookkeeping (solve_snow.c:406-448) ----
-        old_cov = state.coverage
-        delta_cov = W(snow_present, torch.clamp(old_cov - coverage, min=0.0),
-                      0.0)
-        same_step = snow_present & (old_cov == 0.0) & (coverage == 0.0)
-        delta_cov = W(same_step, 1.0, delta_cov)
-        cov_w = coverage + delta_cov
+            # MELTING flag (solve_snow.c:500-510, lat-aware season window)
+            north = B(p.lat) >= 0
+            in_season = W(north, 60 < doy < 273, doy < 60 or doy > 273)
+            melting = W(swq > 0.0,
+                        W((cold_content >= 0.0) & in_season, True,
+                          W(state.melting & (snowfall_ground > c.TRACESNOW),
+                            False, state.melting)),
+                        False)
+
+            # ---- coverage-change bookkeeping (solve_snow.c:406-448) ----
+            old_cov = state.coverage
+            delta_cov = W(snow_present,
+                          torch.clamp(old_cov - coverage, min=0.0), 0.0)
+            same_step = snow_present & (old_cov == 0.0) & (coverage == 0.0)
+            delta_cov = W(same_step, 1.0, delta_cov)
+            cov_w = coverage + delta_cov
+            t = sm.terms
+            pack_sum = (t.advection - t.delta_cc + t.latent + t.latent_sub
+                        + t.sensible + t.refreeze_energy)
+            melt_energy = W(snow_present & (delta_cov > 0.0),
+                            delta_cov * pack_sum, 0.0)
+
+            # pack -> soil conduction (calc_surf_energy_bal.c:254)
+            mean_depth = 0.5 * (state.depth + depth)
+            kappa_snow = W(depth > 0.0,
+                           c.K_SNOW * density * density
+                           / torch.clamp(mean_depth, min=1e-10), 0.0)
+
+            # ---- surface energy balance on snow-free ground ----
+            net_short_bare = sw_under * (
+                (1.0 - (coverage + delta_cov)) * (1.0 - bare_albedo)
+                + delta_cov * (1.0 - snow_alb))
+            long_bare_in = (1.0 - coverage) * lw_under
+            evap_pre = build_evap_pre(
+                moist0, ice0, wcr=B(p.wcr), wpwp=B(p.wpwp), root=p.root,
+                max_moist0=B(p.max_moist)[..., 0], b_infilt=B(p.b_infilt),
+                rmin=p.rmin, rgl=p.rgl, lai=lai, net_short=net_short_bare,
+                vpd=vpd, air_temp=tair, elevation=B(p.elevation))
+            eb_kwargs = dict(
+                eb_common, tair=tca, shortwave_net_bare=net_short_bare,
+                long_bare_in=long_bare_in,
+                overstory_snowing=p.overstory & snowing, wdew=wdew0,
+                rainfall=rainfall, snow_coverage=coverage,
+                kappa_snow=kappa_snow, tsnow_surf=surf_temp,
+                melt_energy=melt_energy, evap_pre=evap_pre,
+                inc_mask=inc,
+                inc_terms=dict(swq=swq, surf_water=surf_water, density=density,
+                               old_tsurf=state.surf_temp,
+                               advection0=sm.inc_advection0,
+                               lw_snow_in=coverage * lw_under,
+                               net_short_snow_cov=coverage * net_short_snow,
+                               cov=coverage, blowing_flux=blow_flux))
+            ts, fb = solve_surface_temperature(
+                eb_kwargs, state.node_temp[..., 0], tca,
+                max_iter=gp.brent_maxiter, active=p.mask)
+            eb = surf_energy_terms(ts, **eb_kwargs)
+
+            # thin-pack update from the joint solution
+            # (calc_surf_energy_bal.c:589-660)
+            vap = W(-eb.inc_vapor_flux > swq, -swq, eb.inc_vapor_flux)
+            swq_i = swq + vap
+            sw_i = torch.clamp(surf_water + vap, min=0.0)
+            re = eb.refreeze_energy
+            refroz = torch.minimum(
+                torch.clamp(re * dt_sec / (c.LF * c.RHO_W), min=0.0), sw_i)
+            re_pos = re >= 0.0
+            sw_i = W(re_pos, sw_i - refroz, sw_i)
+            melt_i = W(re_pos, 0.0, torch.abs(re) * dt_sec / (c.LF * c.RHO_W))
+            swq_i = swq_i - melt_i
+            melt_i = W(swq_i < 0.0, melt_i + swq_i, melt_i)
+            swq_i = torch.clamp(swq_i, min=0.0)
+            alive = swq_i > 0.0
+            st_i = torch.clamp(ts, max=0.0)
+
+            def I(new, old):
+                return W(inc, new, old)
+
+            swq = I(swq_i, swq)
+            surf_water = I(W(alive, sw_i, 0.0), surf_water)
+            surf_temp = I(W(alive, st_i, 0.0), surf_temp)
+            cold_content = I(W(alive, c.CH_ICE * st_i * swq_i, 0.0),
+                             cold_content)
+            depth = I(W(alive, 1000.0 * swq_i / torch.clamp(density, min=1.0),
+                        0.0), depth)
+            coverage = I(W(alive, 1.0, 0.0), coverage)
+            dead = inc & ~alive
+            pack_temp = W(dead, 0.0, pack_temp)
+            pack_water = W(dead, 0.0, pack_water)
+            density = W(dead, 0.0, density)
+            melt_out = melt_out + W(inc, melt_i * 1000.0, 0.0)
+            vapor_flux = I(-vap, vapor_flux)
+            melt_energy = W(inc, 0.0, melt_energy)
+            tk_s = surf_temp + c.KELVIN
+            tk_g = ts + c.KELVIN
+            tk_s2, tk_g2 = tk_s * tk_s, tk_g * tk_g
+            luo_out = (coverage * c.STEFAN_B * (tk_s2 * tk_s2)
+                       + (1.0 - coverage) * c.STEFAN_B * (tk_g2 * tk_g2))
+
+            return dict(
+                ci=ci, snow_canopy_new=snow_canopy_new, wdew0=wdew0,
+                tfoliage_new=tfoliage_new, canopy_sub_mm=canopy_sub_mm,
+                cevap_liq_mm=cevap_liq_mm, tfol_fb=tfol_fb, snow_alb=snow_alb,
+                albedo_under=albedo_under, net_short_snow=net_short_snow,
+                sm=sm, swq=swq, surf_temp=surf_temp, pack_temp=pack_temp,
+                surf_water=surf_water, pack_water=pack_water,
+                melt_out=melt_out, cold_content=cold_content,
+                vapor_flux=vapor_flux, glac_firn_mm=glac_firn_mm, inc=inc,
+                glac=glac, on_ice=on_ice, glac_melt_mm=glac_melt_mm,
+                glac_surf_temp=glac_surf_temp, glac_inflow=glac_inflow,
+                kfac=kfac, glac_outflow=glac_outflow,
+                glac_water_storage=glac_water_storage, density=density,
+                depth=depth, coverage=coverage, melting=melting, cov_w=cov_w,
+                melt_energy=melt_energy, net_short_bare=net_short_bare, ts=ts,
+                fb=fb, eb=eb, luo_out=luo_out)
+
+        # ---- CLOSE_ENERGY: the canopy-air temperature's fixed point over
+        # column() passes (surface_fluxes.c:455-656 + calc_atmos_energy_bal);
+        # only snow-covered overstory lanes iterate, the others keep
+        # Tcanopy = Tair (vic_tpu/model.py:796-851) ----
+        iter_mask = ov_snow & p.mask
+        if gp.close_energy:
+            # per-lane safeguarded secant on F(tc) - tc, every lane until the
+            # batch's largest change is within OVER_TOL (a NaN keeps it
+            # going), one host read per pass
+            tc_prev, g_prev, tc = tair, torch.zeros_like(tair), tair
+            luo = state.long_under_out
+            close_iters = 0
+            while close_iters < c.CLOSE_ENERGY_MAXITER:
+                ri = column(tc, luo)
+                tc_next, g_prev, live_max = canopy_air_step(
+                    it=close_iters, canopy_sensible=ri["ci"].sensible,
+                    soil_sensible=ri["eb"].sensible_heat,
+                    pack_sensible=ri["sm"].terms.sensible,
+                    cov_w=ri["cov_w"], tair=tair, air_dens=air_dens,
+                    ra_over=aero.resist.canopy, tc=tc, tc_prev=tc_prev,
+                    g_prev=g_prev, iter_mask=iter_mask, lane_mask=p.mask)
+                tc_prev, tc, luo = tc, tc_next, ri["luo_out"]
+                close_iters += 1
+                if float(live_max) <= OVER_TOL_F32:
+                    break
+            r = column(tc, luo)
+            # the final update at the settled temperature
+            under_sens = r["eb"].sensible_heat \
+                + r["sm"].terms.sensible * r["cov_w"]
+            ca = calc_atmos_energy_bal(r["ci"].sensible + under_sens, tair,
+                                       air_dens, aero.resist.canopy)
+            tcanopy = W(iter_mask, ca.tcanopy, tair)
+            tcanopy_fb = W(iter_mask, ca.fbflag, False)
+            atmos_sensible = W(iter_mask, ca.sensible, under_sens)
+        else:
+            close_iters = 0
+            tcanopy = tair
+            tcanopy_fb = torch.zeros_like(iter_mask)
+            r = column(tair, state.long_under_out)
+        ci = r["ci"]
+        snow_canopy_new = r["snow_canopy_new"]
+        wdew0 = r["wdew0"]
+        tfoliage_new = r["tfoliage_new"]
+        canopy_sub_mm = r["canopy_sub_mm"]
+        cevap_liq_mm = r["cevap_liq_mm"]
+        tfol_fb = r["tfol_fb"]
+        snow_alb = r["snow_alb"]
+        albedo_under = r["albedo_under"]
+        net_short_snow = r["net_short_snow"]
+        sm = r["sm"]
+        swq = r["swq"]
+        surf_temp = r["surf_temp"]
+        pack_temp = r["pack_temp"]
+        surf_water = r["surf_water"]
+        pack_water = r["pack_water"]
+        melt_out = r["melt_out"]
+        cold_content = r["cold_content"]
+        vapor_flux = r["vapor_flux"]
+        glac_firn_mm = r["glac_firn_mm"]
+        inc = r["inc"]
+        glac = r["glac"]
+        on_ice = r["on_ice"]
+        glac_melt_mm = r["glac_melt_mm"]
+        glac_surf_temp = r["glac_surf_temp"]
+        glac_inflow = r["glac_inflow"]
+        kfac = r["kfac"]
+        glac_outflow = r["glac_outflow"]
+        glac_water_storage = r["glac_water_storage"]
+        density = r["density"]
+        depth = r["depth"]
+        coverage = r["coverage"]
+        melting = r["melting"]
+        cov_w = r["cov_w"]
+        melt_energy = r["melt_energy"]
+        net_short_bare = r["net_short_bare"]
+        ts = r["ts"]
+        fb = r["fb"]
+        eb = r["eb"]
+        luo_out = r["luo_out"]
         t = sm.terms
-        pack_sum = (t.advection - t.delta_cc + t.latent + t.latent_sub
-                    + t.sensible + t.refreeze_energy)
-        melt_energy = W(snow_present & (delta_cov > 0.0),
-                        delta_cov * pack_sum, 0.0)
-
-        # pack -> soil conduction (calc_surf_energy_bal.c:254)
-        mean_depth = 0.5 * (state.depth + depth)
-        kappa_snow = W(depth > 0.0,
-                       c.K_SNOW * density * density
-                       / torch.clamp(mean_depth, min=1e-10), 0.0)
-
-        # ---- surface energy balance on snow-free ground ----
-        net_short_bare = sw_under * (
-            (1.0 - (coverage + delta_cov)) * (1.0 - bare_albedo)
-            + delta_cov * (1.0 - snow_alb))
-        long_bare_in = (1.0 - coverage) * lw_under
-        evap_pre = build_evap_pre(
-            moist0, ice0, wcr=B(p.wcr), wpwp=B(p.wpwp), root=p.root,
-            max_moist0=B(p.max_moist)[..., 0], b_infilt=B(p.b_infilt),
-            rmin=p.rmin, rgl=p.rgl, lai=lai, net_short=net_short_bare,
-            vpd=vpd, air_temp=tair, elevation=B(p.elevation))
-        eb_kwargs = dict(
-            eb_common, tair=tca, shortwave_net_bare=net_short_bare,
-            long_bare_in=long_bare_in,
-            overstory_snowing=p.overstory & snowing, wdew=wdew0,
-            rainfall=rainfall, snow_coverage=coverage, kappa_snow=kappa_snow,
-            tsnow_surf=surf_temp, melt_energy=melt_energy, evap_pre=evap_pre,
-            inc_mask=inc,
-            inc_terms=dict(swq=swq, surf_water=surf_water, density=density,
-                           old_tsurf=state.surf_temp,
-                           advection0=sm.inc_advection0,
-                           lw_snow_in=coverage * lw_under,
-                           net_short_snow_cov=coverage * net_short_snow,
-                           cov=coverage))
-        ts, fb = solve_surface_temperature(
-            eb_kwargs, state.node_temp[..., 0], tca,
-            max_iter=gp.brent_maxiter, active=p.mask)
-        eb = surf_energy_terms(ts, **eb_kwargs)
-
-        # thin-pack update from the joint solution
-        # (calc_surf_energy_bal.c:589-660)
-        vap = W(-eb.inc_vapor_flux > swq, -swq, eb.inc_vapor_flux)
-        swq_i = swq + vap
-        sw_i = torch.clamp(surf_water + vap, min=0.0)
-        re = eb.refreeze_energy
-        refroz = torch.minimum(
-            torch.clamp(re * dt_sec / (c.LF * c.RHO_W), min=0.0), sw_i)
-        re_pos = re >= 0.0
-        sw_i = W(re_pos, sw_i - refroz, sw_i)
-        melt_i = W(re_pos, 0.0, torch.abs(re) * dt_sec / (c.LF * c.RHO_W))
-        swq_i = swq_i - melt_i
-        melt_i = W(swq_i < 0.0, melt_i + swq_i, melt_i)
-        swq_i = torch.clamp(swq_i, min=0.0)
-        alive = swq_i > 0.0
-        st_i = torch.clamp(ts, max=0.0)
-
-        def I(new, old):
-            return W(inc, new, old)
-
-        swq = I(swq_i, swq)
-        surf_water = I(W(alive, sw_i, 0.0), surf_water)
-        surf_temp = I(W(alive, st_i, 0.0), surf_temp)
-        cold_content = I(W(alive, c.CH_ICE * st_i * swq_i, 0.0), cold_content)
-        depth = I(W(alive, 1000.0 * swq_i / torch.clamp(density, min=1.0),
-                    0.0), depth)
-        coverage = I(W(alive, 1.0, 0.0), coverage)
-        dead = inc & ~alive
-        pack_temp = W(dead, 0.0, pack_temp)
-        pack_water = W(dead, 0.0, pack_water)
-        density = W(dead, 0.0, density)
-        melt_out = melt_out + W(inc, melt_i * 1000.0, 0.0)
-        vapor_flux = I(-vap, vapor_flux)
-        melt_energy = W(inc, 0.0, melt_energy)
-        tk_s = surf_temp + c.KELVIN
-        tk_g = ts + c.KELVIN
-        tk_s2, tk_g2 = tk_s * tk_s, tk_g * tk_g
-        luo_out = (coverage * c.STEFAN_B * (tk_s2 * tk_s2)
-                   + (1.0 - coverage) * c.STEFAN_B * (tk_g2 * tk_g2))
 
         # pack terms of INCLUDE_SNOW lanes come from the joint soil balance
         adv_pack = W(inc, sm.inc_advection0, t.advection)
@@ -442,6 +587,20 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                          eb.latent_heat_sub + t.latent_sub * cov_w)
         ns_under = net_short_bare + net_short_snow * coverage
         nl_under = eb.net_long_bare + t.net_long * coverage
+        if gp.close_energy:
+            # iterated lanes report at the atmosphere's level: canopy plus
+            # understory, the net longwave the canopy's alone (put_data.c:
+            # 1068-1092, calc_atmos_energy_bal.c:77-90)
+            sens_rep = W(iter_mask, atmos_sensible, sens_under)
+            lat_rep = W(iter_mask, ci.latent + lat_under, lat_under)
+            latsub_rep = W(iter_mask, ci.latent_sub + latsub_under,
+                           latsub_under)
+            ns_rep = W(iter_mask, ci.net_short_over + ns_under, ns_under)
+            nl_rep = W(iter_mask, ci.net_long_over, nl_under)
+        else:
+            sens_rep, lat_rep, latsub_rep = sens_under, lat_under, \
+                latsub_under
+            ns_rep, nl_rep = ns_under, nl_under
 
         # no soil/canopy ET on snow-covered, snowing or glacier lanes
         no_soil_evap = snowing | glacier
@@ -548,12 +707,20 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             0.0, 1.0))
 
         ts_blend = coverage * surf_temp + (1.0 - coverage) * ts
-        rt_lane = W(p.overstory & snow_present, tca, ts_blend)
+        rt_lane = W(p.overstory & snow_present, tcanopy, ts_blend)
         rtk = rt_lane + c.KELVIN
         rtk2 = rtk * rtk
         rad_temp = agg(rtk2 * rtk2) ** 0.25
 
         zero_c = torch.zeros_like(cell_runoff)
+        if gp.blowing:
+            # the sublimation split: blowing vs pack surface
+            # (put_data.c:799-802), both loss-negative
+            sub_blow_lane = -blow_flux * dt_sec * W(snow_present, 1.0, 0.0)
+            out_sub_blowing = -agg(sub_blow_lane)
+            out_sub_surface = -agg(snow_sub_mm - sub_blow_lane)
+        else:
+            out_sub_blowing, out_sub_surface = zero_c, -agg(snow_sub_mm)
         ra_used = W(snow_present, aero.resist.snow_covered,
                     W(on_ice, aero.resist.glacier, aero.resist.snow_free))
         cond1 = 1.0 / torch.clamp(ra_used, min=c.SMALL)
@@ -617,11 +784,13 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                                     layer_evap.sum(-1))),
             "OUT_SUB_SNOW": agg(snow_sub_mm),
             "OUT_SUB_CANOP": agg(canopy_sub_mm),
-            "OUT_SUB_BLOWING": zero_c,
+            "OUT_SUB_BLOWING": out_sub_blowing,
             "OUT_TFOL_FBFLAG": agg(tfol_fb.to(f32)),
-            "OUT_TCAN_FBFLAG": zero_c,
-            "OUT_TCANOPY_ITER": zero_c,
-            "OUT_TCANOPY": agg(tca),
+            "OUT_TCAN_FBFLAG": agg(tcanopy_fb.to(f32)),
+            # the CLOSE_ENERGY passes of this record, the same for every cell
+            "OUT_TCANOPY_ITER": torch.full_like(cell_runoff,
+                                                float(close_iters)),
+            "OUT_TCANOPY": agg(tcanopy),
             "OUT_VEGT": agg(W(p.overstory & ~snow_present, tfoliage_new,
                               rt_lane)),
             "OUT_RUNOFF": cell_runoff,
@@ -635,12 +804,12 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             "OUT_PET_TALL": agg(pets["tall"]),
             "OUT_PET_NATVEG": agg(pets["natveg"]),
             "OUT_PET_VEGNOCR": agg(pets["vegnocr"]),
-            "OUT_NET_SHORT": agg(ns_under),
-            "OUT_NET_LONG": agg(nl_under),
+            "OUT_NET_SHORT": agg(ns_rep),
+            "OUT_NET_LONG": agg(nl_rep),
             # energy fluxes are reported positive-upward (put_data.c)
-            "OUT_LATENT": -agg(lat_under),
-            "OUT_LATENT_SUB": -agg(latsub_under),
-            "OUT_SENSIBLE": -agg(sens_under),
+            "OUT_LATENT": -agg(lat_rep),
+            "OUT_LATENT_SUB": -agg(latsub_rep),
+            "OUT_SENSIBLE": -agg(sens_rep),
             "OUT_GRND_FLUX": -agg(grnd_flux_rep),
             "OUT_DELTAH": -agg(W(glacier, 0.0, eb.delta_h)),
             "OUT_FUSION": -agg(W(glacier, 0.0, eb.fusion)),
@@ -702,7 +871,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                                - state.snow_canopy) * 1000.0),
             "OUT_DELINTERCEPT": agg(wdew_new - state.wdew),
             "OUT_REFREEZE": agg(rfz_pack * cov_w) / c.LF * dt_sec,
-            "OUT_SUB_SURFACE": -agg(snow_sub_mm),
+            "OUT_SUB_SURFACE": out_sub_surface,
             "OUT_ADV_SENS": zero_c,
             "OUT_AERO_COND": agg_cond,
             "OUT_AERO_COND1": agg_cond1,
@@ -710,7 +879,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             "OUT_AERO_RESIST": recip(agg_cond),
             "OUT_AERO_RESIST1": recip(agg_cond1),
             "OUT_AERO_RESIST2": recip(agg_cond2),
-            "OUT_R_NET": agg(ns_under + nl_under),
+            "OUT_R_NET": agg(ns_rep + nl_rep),
             "OUT_IN_LONG": agg(lw_in),
             "OUT_SOILT_FBFLAG": aggl(soilt_fb),
             "OUT_FDEPTH": fdepth_c,

@@ -1,8 +1,9 @@
 """Two-layer snowpack: rain/snow partition, albedo decay, densification and
 the surface-layer energy balance with the two-pass 0 C melt pattern.
 
-Counterpart of `vic_tpu/physics/snow.py` without the SPATIAL_SNOW and
-BLOWING terms. The subfreezing surface temperature is a Brent root of
+Counterpart of `vic_tpu/physics/snow.py` without the SPATIAL_SNOW terms;
+the BLOWING option's mass flux enters the surface vapor flux. The
+subfreezing surface temperature is a Brent root of
 `snow_energy_terms`: on the CPU through `snowpack_brent_plain`, on a CUDA
 device through the `snowpack_brent` kernel (`csrc/vic_kernels.cu`).
 """
@@ -151,13 +152,16 @@ def stability_correction(z, d, tsurf, tair, wind, z0):
     return torch.where(tsurf == tair, 1.0, corr)
 
 
-def latent_heat_from_snow(air_dens, eact_air, lv, press, ra, tmean, vpd):
+def latent_heat_from_snow(air_dens, eact_air, lv, press, ra, tmean, vpd,
+                          blowing_flux=0.0):
     """Latent heat fluxes over snow (latent_heat_from_snow.c:66-91).
+    blowing_flux: the blowing-snow mass flux, kg/m2/s (BLOWING).
     Returns (latent, latent_sub, vapor mass flux kg/m2/s)."""
     es_snow = svp(tmean)
-    vapor_flux = air_dens * (c.EPS_RATIO / press) * (eact_air - es_snow) / ra
-    vapor_flux = torch.where((vpd == 0.0) & (vapor_flux < 0.0), 0.0,
-                             vapor_flux)
+    surface_flux = air_dens * (c.EPS_RATIO / press) * (eact_air - es_snow) / ra
+    surface_flux = torch.where((vpd == 0.0) & (surface_flux < 0.0), 0.0,
+                               surface_flux)
+    vapor_flux = surface_flux + blowing_flux
     ls = (677.0 - 0.07 * tmean) * c.JOULES_PER_CAL * c.GRAMS_PER_KG
     latent = torch.where(tmean >= 0.0, lv * vapor_flux, 0.0)
     latent_sub = torch.where(tmean >= 0.0, 0.0, ls * vapor_flux)
@@ -180,7 +184,7 @@ class SnowEBTerms(NamedTuple):
 def snow_energy_terms(tsurf, *, dt, ra, z_ref, roughness, air_dens, vp_air,
                       longwave_in, lv, pressure, rain_m, net_short, vpd, wind,
                       old_tsurf, snow_depth, snow_density, surf_water,
-                      surface_swq, tair, tgrnd) -> SnowEBTerms:
+                      surface_swq, tair, tgrnd, blowing_flux) -> SnowEBTerms:
     """Snowpack surface energy balance at candidate tsurf
     (SnowPackEnergyBalance.c:calculate). The CUDA residual
     `SnowpackResidual` in csrc/vic_kernels.cu is a line-for-line copy."""
@@ -194,7 +198,7 @@ def snow_energy_terms(tsurf, *, dt, ra, z_ref, roughness, air_dens, vp_air,
     net_rad = net_short + net_long
     sensible = air_dens * c.CP * (tair - tsurf) / ra_corr
     latent, latent_sub, vapor_mass_flux = latent_heat_from_snow(
-        air_dens, vp_air, lv, pressure, ra_corr, tsurf, vpd)
+        air_dens, vp_air, lv, pressure, ra_corr, tsurf, vpd, blowing_flux)
     vapor_flux = vapor_mass_flux * dt / c.RHO_W
 
     advection = torch.where(tsurf == 0.0, c.CH_WATER * tair * rain_m / dt, 0.0)
@@ -248,9 +252,11 @@ def snow_melt(*, swq, surf_temp, pack_temp, surf_water, pack_water,
               air_temp, tcanopy, tgrnd, wind, vp_air, vpd, air_dens,
               pressure, longwave_in, net_short, lv, ra, z_ref, roughness,
               dt_sec, max_iter: int = 30, active_mask=None,
-              is_glacier=None) -> SnowMeltResult:
+              is_glacier=None, blowing_flux=None) -> SnowMeltResult:
     """Two-layer snowpack mass/energy update (snow_melt.c:119-560); snow
-    states in m of water, precip in mm/step. See vic_tpu/physics/snow.py."""
+    states in m of water, precip in mm/step. See vic_tpu/physics/snow.py.
+    blowing_flux: the BLOWING option's mass flux (kg/m2/s), a tensor that
+    broadcasts to the lanes; none (zero) by default."""
     W = torch.where
     MSW = c.MAX_SURFACE_SWE
     snowfall = snowfall_mm / 1000.0
@@ -309,7 +315,9 @@ def snow_melt(*, swq, surf_temp, pack_temp, surf_water, pack_water,
         pressure=pressure, rain_m=rainfall, net_short=net_short, vpd=vpd,
         wind=wind, old_tsurf=old_tsurf, snow_depth=snow_depth,
         snow_density=snow_density, surf_water=surf_water,
-        surface_swq=surface_swq, tair=tcanopy, tgrnd=tgrnd)
+        surface_swq=surface_swq, tair=tcanopy, tgrnd=tgrnd,
+        blowing_flux=(swq.new_zeros(()) if blowing_flux is None
+                      else blowing_flux))
 
     terms0 = snow_energy_terms(torch.zeros_like(swq), **term_kwargs)
     melt_cond = terms0.rest == 0.0

@@ -7,10 +7,11 @@ temperature (QUICK_FLUX off), the deltaH storage and frozen-soil fusion
 terms, evapotranspiration inside the residual, a stability-corrected
 resistance and the per-lane INCLUDE_SNOW fold of thin packs.
 
-The Brent solve: on the QUICK_FLUX path of a CUDA tensor, the
+The Brent solve of a CUDA tensor: on the QUICK_FLUX path the
 `surface_brent` kernel (one thread per lane, `csrc/surface_brent.cu`); on
-the CPU, and on the finite-difference path whose residual runs the node
-sweep, the plain batch loop `surface_brent_plain`.
+the finite-difference path, whose residual runs the batch-wide node sweep,
+the `fd_surface_brent` kernel sequence (`csrc/fd_surface_brent.cu`). On the
+CPU the plain batch loop `surface_brent_plain`.
 """
 from __future__ import annotations
 
@@ -67,7 +68,8 @@ def surf_energy_terms(
     """Every term of the surface energy balance at candidate Ts
     (func_surf_energy_bal.c:calculate). inc_mask lanes fold a thin pack
     into this balance; inc_terms keys: swq, surf_water, density, old_tsurf,
-    advection0, lw_snow_in, net_short_snow_cov, cov.
+    advection0, lw_snow_in, net_short_snow_cov, cov and, optionally,
+    blowing_flux (the BLOWING option's mass flux, kg/m2/s).
 
     Finite-difference path: fd_solve(Ts) solves the node profile with Ts as
     the node-0 boundary condition; ground heat then comes from nodes 1 and
@@ -168,7 +170,7 @@ def surf_energy_terms(
                    * (1.0 - snow_coverage))
     lat_i, lat_sub_i, vmf_i = latent_heat_from_snow(
         atmos_density, vp_air, latent_heat_le, atmos_pressure, ra_used,
-        tmean, vpd)
+        tmean, vpd, inc_terms.get("blowing_flux", 0.0))
     latent_heat = W(inc_mask, lat_i * cov_i, latent_heat)
     latent_heat_sub = W(inc_mask, lat_sub_i * cov_i, 0.0)
     # m water-equivalent/step via the reference's ice-density roundtrip
@@ -216,19 +218,21 @@ def solve_surface_temperature(kwargs, t0_old, tair, max_iter: int = 30,
     """Full-energy surface temperature: Brent on mid +/- SURF_DT with
     mid = 0.5*(T0_old + Tair), or [T0_old - SURF_DT, 0] on INCLUDE_SNOW
     lanes (calc_surf_energy_bal.c:277-346); TFALLBACK to T0_old.
-    The `surface_brent` kernel solves the QUICK_FLUX residual of CUDA
-    tensors; the CPU, and the finite-difference residual (whose node sweep
-    is a kernel of its own), take `surface_brent_plain`.
-    Returns (Ts, fbflag)."""
+    CUDA tensors take the `surface_brent` kernel on the QUICK_FLUX
+    residual and `fd_surface_brent` on the finite-difference one; the CPU
+    takes `surface_brent_plain`. Returns (Ts, fbflag)."""
     mid = 0.5 * (t0_old + tair)
     inc = kwargs["inc_mask"]
     t_lower = torch.where(inc, t0_old - c.SURF_DT, mid - c.SURF_DT)
     t_upper = torch.where(inc, 0.0, mid + c.SURF_DT)
     if active is None:
         active = torch.ones_like(inc)
-    solve = (kernels.surface_brent
-             if t0_old.device.type != "cpu" and kwargs.get("fd_solve") is None
-             else surface_brent_plain)
+    if t0_old.device.type == "cpu":
+        solve = surface_brent_plain
+    elif kwargs.get("fd_solve") is None:
+        solve = kernels.surface_brent
+    else:
+        solve = kernels.fd_surface_brent
     res = solve(t_lower, t_upper, active, max_iter=max_iter,
                 eb_kwargs=kwargs)
     ts = torch.where(res.converged, res.root, t0_old)  # TFALLBACK
