@@ -13,18 +13,19 @@ line) on failure:
    each kernel binding wrapped to capture its first real arguments: K1-K5
    in the light step's first record, K6, K7 (and K4 again) in the frozen
    step's third, K8, K9 (and K2 again, with a blowing-snow flux) in the
-   blowing_close step's fourth. Each kernel is re-run on those arguments
-   beside its plain PyTorch version on the card, compared, timed with CUDA
-   events and given its bound (the least time the card could take for the
-   same work).
+   blowing_close step's fourth, K10-K13 in the lakes step's second (open,
+   partly and fully iced lakes side by side). Each kernel is re-run on
+   those arguments beside its plain PyTorch version on the card, compared,
+   timed with CUDA events and given its bound (the least time the card
+   could take for the same work).
 3. reference: 16 cells x 4 records of each configuration through the port
    on the card against tests/fixtures/torch_port/<config>_16x4.npz,
    written by vic_tpu on CPU.
 4. slice: 32,768 cells x 8 daily records of each configuration through
    vic_tpu_torch.model.run, every kernel's launch counter set to 0 just
    before each run and read just after it, and every plain solver of the
-   port (ops.rootfind.batched_brent and each *_plain) made to fail if it is
-   handed a CUDA tensor during the run.
+   port (ops.rootfind.batched_brent, ops.tridiag.thomas_solve and each
+   *_plain) made to fail if it is handed a CUDA tensor during the run.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches, errors, times and bounds.
@@ -39,13 +40,15 @@ import numpy as np
 import torch
 
 from vic_tpu_torch.entry import CONFIGS
+from vic_tpu_torch.testing import lake_run_failures
 
 ROOT = Path(__file__).resolve().parent
 SMOKE_CELLS = 32768
 SMOKE_RECS = 8
 FROZEN_RECORD = 2          # record whose step gives K6 and K7 their arguments
 BLOWING_RECORD = 3         # record whose step gives K8 and K9 theirs
-CONFIG_NAMES = ("light", "frozen", "blowing_close")
+LAKES_RECORD = 1           # record whose step gives K10-K13 theirs
+CONFIG_NAMES = ("light", "frozen", "blowing_close", "lakes")
 FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
 CSRC = "vic_tpu_torch/csrc/"
 # kernel -> (source, TPU loop it replaces, module of its plain version,
@@ -72,7 +75,19 @@ KERNELS = {
     "canopy_air_step": ("canopy_air.cu", "vic_tpu/model.py:841",
                         "canopy_air", "canopy_air_step_plain",
                         "blowing_close"),
+    # K10 and K11 hold ops/tridiag.py:16's Thomas solve and lake.py:443's
+    # tracer_mixer inside
+    "lake_open_water": ("lake_open_water.cu", "vic_tpu/physics/lake.py:584",
+                        "lake", "lake_open_water_plain", "lakes"),
+    "lake_under_ice": ("lake_under_ice.cu", "vic_tpu/physics/lake.py:1112",
+                       "lake", "water_under_ice_plain", "lakes"),
+    "lake_ice_brent": ("lake_ice_brent.cu", "vic_tpu/physics/lake.py:960",
+                       "lake", "lake_ice_brent_plain", "lakes"),
+    "lake_depth": ("lake_depth.cu", "vic_tpu/physics/lake.py:204", "lake",
+                   "depth_from_volume_plain", "lakes"),
 }
+LAKE_KERNELS = ("lake_open_water", "lake_under_ice", "lake_ice_brent",
+                "lake_depth")
 # the kernels each configuration's step must launch
 PATH_KERNELS = {
     "light": ("glacier_brent", "snowpack_brent", "canopy_brent",
@@ -82,6 +97,8 @@ PATH_KERNELS = {
     "blowing_close": ("glacier_brent", "snowpack_brent", "canopy_brent",
                       "runoff_hourly", "surface_brent", "blowing_snow",
                       "canopy_air_step"),
+    "lakes": ("glacier_brent", "snowpack_brent", "canopy_brent",
+              "runoff_hourly", "surface_brent") + LAKE_KERNELS,
 }
 # Brent stops a lane anywhere inside its final bracket, |c - b| <= 2*tol_i
 # with tol_i = 2*FLT_EPSILON*|b| + 1e-4 C, so two runs whose residuals differ
@@ -117,6 +134,30 @@ FD_RESIDUAL_OPS = 150 + 20 + 30
 # bounds and probability; ~60 once per lane
 BLOWING_OPS_PER_LANE = 10 * (26 * 9 + 24 * 4 + 55 + 16 * 75 + 170) + 60
 CANOPY_AIR_OPS_PER_LANE = 40      # the closed form and the secant guards
+# The lake fixed points stop a lake at |change| <= 1e-4 (C for K10's skin
+# temperature, W/m^2 for K11's qw): two runs that stop one iteration apart
+# differ by about that much, so columns and qw agree within twice it, the
+# fluxes of K10 within LAKE_FLUX_TOL (~30 W/m^2/K of flux sensitivity x
+# 2e-4 C), and the rest at LAKE_RTOL; delta_h, a difference of float32
+# column sums of ~1e16 J, within its ulp bound (vic_tpu_torch.testing)
+LAKE_FP_TOL = 2e-4
+LAKE_FLUX_TOL = 1e-2       # W/m^2
+LAKE_RTOL = 1e-4
+# K10/K11 FP32 operations (counted from csrc/lake.cuh and the kernels): a
+# lake's set-up (density, heat capacity, energy, eddy diffusivity, the
+# matrix and its elimination), each fixed-point iteration (the fluxes, the
+# forward and back substitution, the column energy), and each red-black
+# mix pass over one pair of active layers (two densities and the test)
+LAKE_OPEN_SETUP_OPS = 2600
+LAKE_OPEN_ITER_OPS = 300
+LAKE_ICE_SETUP_OPS = 1900
+LAKE_ICE_ITER_OPS = 260
+LAKE_MIX_OPS_PER_PAIR = 25
+LAKE_MIX_SWEEPS = 20
+# K12: the ice residual and a Brent iteration; K13: 30 bisection steps of
+# an area (~8 operations a trapezoid) and a volume (~12) over 20 trapezoids
+RESIDUAL_OPS["lake_ice_brent"] = 60 + 30
+LAKE_DEPTH_OPS = 30 * 20 * (8 + 12)
 
 
 def phase(title):
@@ -153,30 +194,35 @@ def clone_args(obj):
         return obj.detach().clone()
     if isinstance(obj, dict):
         return {k: clone_args(v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):   # a NamedTuple
+        return type(obj)(*(clone_args(v) for v in obj))
     if isinstance(obj, (list, tuple)):
         return type(obj)(clone_args(v) for v in obj)
     return obj
 
 
-def capture_kernel_args(config, names, device, record=0):
+def capture_kernel_args(config, names, device, record=0, calls=None):
     """Run `config` at smoke size up to its record `record` with each
     binding in `names` wrapped in that record's step; returns
-    {kernel: (args, kwargs)} of its first call there."""
+    {kernel: (args, kwargs)} of its first call there (and counts each
+    kernel's calls in that step into the dict `calls`, if given)."""
     from vic_tpu_torch import kernels
     from vic_tpu_torch.model import make_step
 
     captured = {}
     originals = {name: getattr(kernels, name) for name in names}
+    calls = {} if calls is None else calls
 
     def wrap(name, fn):
         def wrapper(*args, **kwargs):
             captured.setdefault(name, (clone_args(args), clone_args(kwargs)))
+            calls[name] = calls.get(name, 0) + 1
             return fn(*args, **kwargs)
         return wrapper
 
-    gp, params, stack, state, geom = CONFIGS[config](SMOKE_CELLS,
-                                                     record + 1, device)
-    step = make_step(params, gp, geom=geom)
+    gp, params, stack, state, geom, lake = CONFIGS[config](
+        SMOKE_CELLS, record + 1, device)
+    step = make_step(params, gp, geom=geom, lake_params=lake)
     for r in range(record):
         state, _ = step(state, {k: v[r] for k, v in stack.items()})
     for name, fn in originals.items():
@@ -317,6 +363,142 @@ def compare_sweep(kern, plain):
     return diff
 
 
+def lake_energy_bound(kwargs, dt_sec):
+    """delta_h's bound per lake: LAKE_ENERGY_ULPS ulps of the column's
+    energy over (surface x dt) (vic_tpu_torch.testing)."""
+    from vic_tpu_torch.physics import lake
+    from vic_tpu_torch.testing import LAKE_ENERGY_ULPS
+    temp, grid = kwargs["temp"], kwargs["grid"]
+    energy = lake.energycalc(temp, grid, lake.specheat(temp),
+                             lake.water_density(temp)).cpu().numpy()
+    surface = grid.surface[..., 0].double().cpu().numpy()
+    return (LAKE_ENERGY_ULPS * np.spacing(np.abs(energy)).astype(np.float64)
+            / np.maximum(surface * dt_sec, 1e-12))
+
+
+def compare_lake_fields(name, kern, plain, atol, skip=()):
+    """Each float field of the lake results within atol[field] +
+    LAKE_RTOL*|plain| on the lakes whose converged flags agree."""
+    agree = kern.converged == plain.converged
+    for field in kern._fields:
+        a, b = getattr(kern, field), getattr(plain, field)
+        if field in skip or not isinstance(a, torch.Tensor) \
+                or a.dtype != torch.float32:
+            continue
+        ok = agree[..., None] if a.dim() == 2 else agree
+        diff = torch.where(ok, (a - b).abs(), 0.0)
+        tol = torch.as_tensor(atol[field], device=a.device)
+        tol = tol[..., None] if a.dim() == 2 and tol.dim() else tol
+        bad = int((diff > tol + LAKE_RTOL * b.abs()).sum())
+        print(f"  {name} {field}: max |diff| {float(diff.max()):.3e}, "
+              f"outside tolerance {bad}")
+        if bad:
+            raise AssertionError(f"{name} {field} outside tolerance")
+
+
+def compare_lake_flags(name, kern, plain, active):
+    n_active = int(active.sum())
+    dis = int((kern.converged != plain.converged).sum())
+    its = kern.iterations[active]
+    print(f"  {name}: lakes {kern.converged.numel()}, active {n_active}, "
+          f"converged {int(kern.converged[active].sum())}/"
+          f"{int(plain.converged[active].sum())} (kernel/plain), flag "
+          f"disagreements {dis}, kernel iterations mean "
+          f"{float(its.float().mean()) if n_active else 0.0:.2f} max "
+          f"{int(its.max()) if n_active else 0}, plain loop trips "
+          f"{plain.iterations}")
+    if not n_active:
+        raise AssertionError(f"{name}: no active lake; the path was not "
+                             "exercised")
+    if dis > FLAG_DISAGREE_FRAC * n_active:
+        raise AssertionError(f"{name}: {dis} converged disagreements of "
+                             f"{n_active} active lakes")
+
+
+def compare_mixed(name, got, ref):
+    """Columns within LAKE_FP_TOL but where a mix near 4 C fell the other
+    way (vic_tpu_torch.testing.mixed_column_excess)."""
+    from vic_tpu_torch.testing import mixed_column_excess
+    diff = (got - ref).abs()
+    over = int((diff.amax(-1) > LAKE_FP_TOL).sum())
+    bad = mixed_column_excess(got.cpu().numpy(), ref.cpu().numpy(),
+                              LAKE_FP_TOL)
+    print(f"  {name}: max |T diff| {float(diff.max()):.3e} C, lakes beyond "
+          f"{LAKE_FP_TOL} C {over} (each a mix near 4 C that fell the other "
+          f"way), unexplained {len(bad)}")
+    if bad:
+        raise AssertionError(f"{name}: columns differ beyond a mixing flip "
+                             f"at {bad[:5]}")
+    return float(diff.max())
+
+
+def compare_lake_open_water(kwargs):
+    """K10 vs its plain version: (the kernel's WaterEBResult, its mixed
+    column, the largest difference)."""
+    from vic_tpu_torch import kernels
+    from vic_tpu_torch.physics.lake import lake_open_water_plain
+    kern, t_open = kernels.lake_open_water(**kwargs)
+    plain, t_open_p = lake_open_water_plain(**kwargs)
+    torch.cuda.synchronize()
+    compare_lake_flags("lake_open_water (open-water lakes)", kern, plain,
+                       kwargs["active"])
+    atol = dict(qh=LAKE_FLUX_TOL, qle=LAKE_FLUX_TOL, lwnet=LAKE_FLUX_TOL,
+                delta_h=torch.as_tensor(lake_energy_bound(
+                    kwargs, kwargs["dt_sec"]), dtype=torch.float32,
+                    device=t_open.device) + LAKE_FLUX_TOL,
+                energy_ice_formation=LAKE_FLUX_TOL, new_ice_area=1.0,
+                new_ice_height=1e-6, new_ice_water_eq=1.0, evap_mm_s=1e-9,
+                energy_out_bottom=LAKE_FLUX_TOL)
+    compare_lake_fields("lake_open_water", kern, plain, atol,
+                        skip=("temp",))
+    # the reported error: the columns' (C)
+    err = compare_mixed("lake_open_water temp", kern.temp, plain.temp)
+    return kern, t_open, max(err, compare_mixed(
+        "lake_open_water t_open (mixed)", t_open, t_open_p))
+
+
+def compare_lake_under_ice(kwargs):
+    """K11 vs its plain version: (the kernel's UnderIceResult, the largest
+    difference)."""
+    from vic_tpu_torch import kernels
+    from vic_tpu_torch.physics.lake import water_under_ice_plain
+    kern = kernels.lake_under_ice(**kwargs)
+    plain = water_under_ice_plain(**kwargs)
+    torch.cuda.synchronize()
+    compare_lake_flags("lake_under_ice (ice-covered lakes)", kern, plain,
+                       kwargs["active"])
+    atol = dict(qw=LAKE_FP_TOL, energy_out_bottom=LAKE_FLUX_TOL,
+                delta_h=torch.as_tensor(lake_energy_bound(
+                    kwargs, kwargs["dt_sec"]), dtype=torch.float32,
+                    device=kern.qw.device) + LAKE_FLUX_TOL)
+    compare_lake_fields("lake_under_ice", kern, plain, atol, skip=("temp",))
+    # the reported error: the column's (C)
+    return kern, compare_mixed("lake_under_ice temp", kern.temp, plain.temp)
+
+
+def compare_lake_depth(args):
+    """K13 vs its plain version: depths equal, or within one final
+    bisection step (maxdepth / 2^30)."""
+    from types import SimpleNamespace
+
+    from vic_tpu_torch import kernels
+    from vic_tpu_torch.physics.lake import DEPTH_ITERS, depth_from_volume_plain
+    z, basin, maxdepth, volume = args
+    kern = kernels.lake_depth(*args)
+    plain = depth_from_volume_plain(
+        SimpleNamespace(z=z, basin=basin, maxdepth=maxdepth), volume)
+    torch.cuda.synchronize()
+    diff = (kern - plain).abs()
+    step = maxdepth.expand(diff.shape) / 2.0 ** DEPTH_ITERS
+    exact = int((diff == 0).sum())
+    print(f"  lake_depth: lakes {diff.numel()}, equal depths {exact}, max "
+          f"|diff| {float(diff.max()):.3e} m")
+    if bool((diff > step).any()):
+        raise AssertionError("lake_depth: depths differ by more than one "
+                             "bisection step")
+    return kern, float(diff.max())
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if isinstance(t, torch.Tensor))
@@ -409,6 +591,103 @@ def sweep_work(args, kwargs, kern):
     return bytes_moved, ops
 
 
+def lake_column_work(kwargs, kern, outputs, setup_ops, iter_ops,
+                     mix_each_iteration):
+    """Bytes in and out of one K10/K11 call and its FP32 operations: each
+    active lake's set-up and the iterations it ran, and the red-black mix
+    passes over its active layer pairs (once on every lake for K10, in
+    each iteration for K11)."""
+    grid, active = kwargs["grid"], kwargs["active"]
+    inputs = [v for v in kwargs.values() if isinstance(v, torch.Tensor)]
+    bytes_moved = nbytes(*inputs, *grid, *outputs)
+    its = kern.iterations.double()
+    pairs = (grid.numnod - 1).clamp(min=0).double()
+    mix = LAKE_MIX_SWEEPS * pairs * LAKE_MIX_OPS_PER_PAIR
+    act = active.double()
+    ops = act * (setup_ops + its * iter_ops)
+    ops = ops + (its * mix if mix_each_iteration else mix)
+    return bytes_moved, float(ops.sum())
+
+
+def lake_depth_work(args, kern):
+    return nbytes(*args, kern), kern.numel() * LAKE_DEPTH_OPS
+
+
+def check_lake_kernel(name, args, kwargs, calls):
+    """K10-K13 on the arguments of their first call in the lakes step
+    (`calls` calls in that record) against their plain versions; returns
+    (largest difference, (bytes, operations) of the call)."""
+    from vic_tpu_torch import kernels
+    from vic_tpu_torch.physics.lake import lake_ice_brent_plain
+    print(f"  {name}: {calls} calls in the lakes step's record "
+          f"{LAKES_RECORD}")
+    if name == "lake_open_water":
+        kern, t_open, err = compare_lake_open_water(kwargs)
+        return err, lake_column_work(kwargs, kern, list(kern) + [t_open],
+                                     LAKE_OPEN_SETUP_OPS, LAKE_OPEN_ITER_OPS,
+                                     mix_each_iteration=False)
+    if name == "lake_under_ice":
+        kern, err = compare_lake_under_ice(kwargs)
+        return err, lake_column_work(kwargs, kern, list(kern),
+                                     LAKE_ICE_SETUP_OPS, LAKE_ICE_ITER_OPS,
+                                     mix_each_iteration=True)
+    if name == "lake_depth":
+        kern, err = compare_lake_depth(args)
+        return err, lake_depth_work(args, kern)
+    kern = kernels.lake_ice_brent(*args, **kwargs)
+    plain = lake_ice_brent_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    err = compare_brent(name, kern, plain)
+    if not int(kern.bracketed.sum()):
+        raise AssertionError("lake_ice_brent: no lake bracketed; the path "
+                             "was not exercised")
+    return err, brent_work(name, args, kwargs, kern)
+
+
+def check_kernel(name, args, kwargs, kern_fn, plain_fn, captured):
+    """K1-K9 on their captured arguments against their plain versions;
+    returns (largest difference, (bytes, operations) of the call)."""
+    from vic_tpu_torch import kernels
+    sweeps_before = kernels.launches["node_sweep"]
+    kern = kern_fn(*args, **kwargs)
+    evaluations = kernels.launches["node_sweep"] - sweeps_before
+    plain = plain_fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    if name == "fd_surface_brent":
+        err = compare_brent(name, kern, plain)
+        print(f"  fd_surface_brent: {evaluations} residual evaluations "
+              "(node_sweep calls) in the kernel's solve")
+        work = fd_brent_work(kwargs, kern, evaluations)
+    elif name == "blowing_snow":
+        err = compare_blowing(kern, plain, kwargs["snowdepth"])
+        work = blowing_work(kwargs, kern)
+    elif name == "canopy_air_step":
+        err = compare_canopy_air(kern, plain)
+        work = canopy_air_work(kwargs, kern)
+    elif name == "runoff_hourly":
+        err = compare_runoff(kern, plain, "light")
+        fa, fkw = captured["frozen"][name]
+        err = max(err, compare_runoff(kernels.runoff_hourly(*fa, **fkw),
+                                      plain_fn(*fa, **fkw), "frozen"))
+        work = runoff_work(args, kern)
+    elif name == "node_sweep":
+        err = compare_sweep(kern, plain)
+        work = sweep_work(args, kwargs, kern)
+    else:
+        err = compare_brent(name, kern, plain)
+        work = brent_work(name, args, kwargs, kern)
+        if name == "snowpack_brent":
+            # again with the blowing-snow flux in its residual
+            ba, bkw = captured["blowing_close"][name]
+            print(f"  snowpack_brent (blowing_close): "
+                  f"{int((bkw['blowing_flux'] != 0).sum())} lanes with a "
+                  "blowing flux")
+            err = max(err, compare_brent(
+                name + " (blowing_close)", kern_fn(*ba, **bkw),
+                plain_fn(*ba, **bkw)))
+    return err, work
+
+
 def kernels_phase(device):
     phase(f"2 kernels at {SMOKE_CELLS} cells")
     from vic_tpu_torch import kernels
@@ -422,6 +701,11 @@ def kernels_phase(device):
     captured["blowing_close"] = capture_kernel_args(
         "blowing_close", ("blowing_snow", "canopy_air_step", "snowpack_brent"),
         device, record=BLOWING_RECORD)
+    # the lakes step's second record: open, partly and fully iced lakes
+    lake_calls = {}
+    captured["lakes"] = capture_kernel_args(
+        "lakes", LAKE_KERNELS, device, record=LAKES_RECORD, calls=lake_calls)
+    print(f"  lakes step record {LAKES_RECORD}: kernel calls {lake_calls}")
     results = {}
     for name, (source, replaces, module, plain_name, config) in \
             KERNELS.items():
@@ -429,43 +713,19 @@ def kernels_phase(device):
         kern_fn = getattr(kernels, name)
         plain_fn = getattr(importlib.import_module(
             f"vic_tpu_torch.physics.{module}"), plain_name)
-        sweeps_before = kernels.launches["node_sweep"]
-        kern = kern_fn(*args, **kwargs)
-        evaluations = kernels.launches["node_sweep"] - sweeps_before
-        plain = plain_fn(*args, **kwargs)
-        torch.cuda.synchronize()
-        if name == "fd_surface_brent":
-            err = compare_brent(name, kern, plain)
-            print(f"  fd_surface_brent: {evaluations} residual evaluations "
-                  "(node_sweep calls) in the kernel's solve")
-            work = fd_brent_work(kwargs, kern, evaluations)
-        elif name == "blowing_snow":
-            err = compare_blowing(kern, plain, kwargs["snowdepth"])
-            work = blowing_work(kwargs, kern)
-        elif name == "canopy_air_step":
-            err = compare_canopy_air(kern, plain)
-            work = canopy_air_work(kwargs, kern)
-        elif name == "runoff_hourly":
-            err = compare_runoff(kern, plain, "light")
-            fa, fkw = captured["frozen"][name]
-            err = max(err, compare_runoff(kernels.runoff_hourly(*fa, **fkw),
-                                          plain_fn(*fa, **fkw), "frozen"))
-            work = runoff_work(args, kern)
-        elif name == "node_sweep":
-            err = compare_sweep(kern, plain)
-            work = sweep_work(args, kwargs, kern)
+        if name == "lake_depth":
+            # the plain version takes the lake parameters, the kernel their
+            # profiles
+            from types import SimpleNamespace
+            z, basin, maxdepth, _ = args
+            lp = SimpleNamespace(z=z, basin=basin, maxdepth=maxdepth)
+            plain_fn = (lambda fn: lambda *a: fn(lp, a[3]))(plain_fn)
+        if name in LAKE_KERNELS:
+            err, work = check_lake_kernel(name, args, kwargs,
+                                          lake_calls[name])
         else:
-            err = compare_brent(name, kern, plain)
-            work = brent_work(name, args, kwargs, kern)
-            if name == "snowpack_brent":
-                # again with the blowing-snow flux in its residual
-                ba, bkw = captured["blowing_close"][name]
-                print(f"  snowpack_brent (blowing_close): "
-                      f"{int((bkw['blowing_flux'] != 0).sum())} lanes with a "
-                      "blowing flux")
-                err = max(err, compare_brent(
-                    name + " (blowing_close)", kern_fn(*ba, **bkw),
-                    plain_fn(*ba, **bkw)))
+            err, work = check_kernel(name, args, kwargs, kern_fn, plain_fn,
+                                     captured)
         ms = cuda_ms(lambda: kern_fn(*args, **kwargs), reps=20)
         plain_ms = cuda_ms(lambda: plain_fn(*args, **kwargs), reps=3)
         bound_ms, bound_by = bound(*work)
@@ -486,27 +746,24 @@ def reference_phase(device, config):
 
     ref = np.load(FIXTURES / f"{config}_16x4.npz")
     n_rec, n_cell = ref["out/OUT_EVAP"].shape
-    gp, params, stack, state, geom = CONFIGS[config](n_cell, n_rec,
-                                                     device)
-    final, outs = run(state, stack, params, gp, geom=geom)
+    gp, params, stack, state, geom, lake = CONFIGS[config](n_cell, n_rec,
+                                                           device)
+    final, outs = run(state, stack, params, gp, geom=geom, lake_params=lake)
     torch.cuda.synchronize()
     got = {f"out/{k}": v for k, v in outs.items()}
     got.update({f"state/{k}": v for k, v in final.numpy().items()})
     if set(got) != set(ref.files):
         raise AssertionError(f"fixture keys differ: "
                              f"{sorted(set(got) ^ set(ref.files))}")
-    worst, failed = {}, []
-    for key in ref.files:
-        a = ref[key]
-        b = got[key]
-        b = b.cpu().numpy() if isinstance(b, torch.Tensor) else b
-        if a.dtype.kind != "f":
-            if not np.array_equal(a, b):
-                failed.append(key)
-            continue
-        worst[key] = float(np.abs(a - b).max())
-        if not np.allclose(b, a, rtol=REF_TOL, atol=REF_TOL):
-            failed.append(key)
+    got = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+           for k, v in got.items()}
+    ref = dict(ref)
+    worst = {k: float(np.abs(a - got[k]).max()) for k, a in ref.items()
+             if a.dtype.kind == "f"}
+    # the lakes' tolerance leaves as the CPU tests hold them
+    # (vic_tpu_torch.testing.lake_run_failures); elsewhere rtol = atol
+    failed = lake_run_failures(ref, got, REF_TOL,
+                               params.cell_area.cpu().numpy())
     top = sorted(worst, key=worst.get, reverse=True)[:8]
     print("  largest differences: " + ", ".join(
         f"{k} {worst[k]:.3e}" for k in top) + f"; {len(worst)} float arrays")
@@ -526,7 +783,8 @@ def flat_tensors(obj):
 
 
 def guard_plain_solvers():
-    """Replace ops.rootfind.batched_brent and every *_plain solver, in each
+    """Replace ops.rootfind.batched_brent, ops.tridiag.thomas_solve and
+    every *_plain solver, in each
     vic_tpu_torch module that holds one, by a wrapper that raises if it is
     handed a CUDA tensor. Returns the function that puts them back."""
     import sys
@@ -544,7 +802,7 @@ def guard_plain_solvers():
         if mod is None or not mod_name.startswith("vic_tpu_torch"):
             continue
         for attr, fn in list(vars(mod).items()):
-            if callable(fn) and (attr == "batched_brent"
+            if callable(fn) and (attr in ("batched_brent", "thomas_solve")
                                  or attr.endswith("_plain")):
                 patched.append((mod, attr, fn))
                 setattr(mod, attr, guarded(f"{mod_name}.{attr}", fn))
@@ -561,10 +819,11 @@ def slice_phase(device, config):
     from vic_tpu_torch import kernels
     from vic_tpu_torch.model import run
 
-    gp, params, stack, state, geom = CONFIGS[config](SMOKE_CELLS,
-                                                     SMOKE_RECS, device)
+    gp, params, stack, state, geom, lake = CONFIGS[config](
+        SMOKE_CELLS, SMOKE_RECS, device)
     # warm-up record, outside the timed and counted run
-    run(state, {k: v[:1] for k, v in stack.items()}, params, gp, geom=geom)
+    run(state, {k: v[:1] for k, v in stack.items()}, params, gp, geom=geom,
+        lake_params=lake)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     restore = guard_plain_solvers()
@@ -572,7 +831,8 @@ def slice_phase(device, config):
         kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        final, outs = run(state, stack, params, gp, geom=geom)
+        final, outs = run(state, stack, params, gp, geom=geom,
+                          lake_params=lake)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kernels.launches)
@@ -603,6 +863,17 @@ def slice_phase(device, config):
         print(f"  CLOSE_ENERGY passes per record: {passes}; max "
               f"|OUT_SUB_BLOWING| "
               f"{float(outs['OUT_SUB_BLOWING'].abs().max()):.4g} mm")
+    if config == "lakes":
+        ice = outs["OUT_LAKE_ICE_FRACT"]
+        print(f"  lakes: ice fraction per record min/max "
+              f"{[round(float(x), 4) for x in ice.amin(1)]} / "
+              f"{[round(float(x), 4) for x in ice.amax(1)]}; lakes with "
+              f"snow at the end {int((final.lake_swe > 0).sum())}; max "
+              f"|OUT_LAKE_WATER_ERROR| "
+              f"{float(outs['OUT_LAKE_WATER_ERROR'].abs().max()):.3e} mm; "
+              f"OUT_LAKE_ENERGY_ERROR "
+              f"{float(outs['OUT_LAKE_ENERGY_ERROR'].min()):.4g} to "
+              f"{float(outs['OUT_LAKE_ENERGY_ERROR'].max()):.4g} W/m^2")
     if werr > WATER_TOL:
         raise AssertionError(f"water balance error {werr} mm")
     idle = [k for k in PATH_KERNELS[config] if launches[k] == 0]

@@ -94,14 +94,14 @@ def test_water_closure_and_the_paths_run():
 
 
 def test_cpu_blowing_close_step_takes_the_plain_versions():
-    gp, params, stack, state, _ = build_blowing_close(2, 1, "cpu")
+    gp, params, stack, state, _, _ = build_blowing_close(2, 1, "cpu")
     kernels.reset_launches()
     model.make_step(params, gp)(state, {k: v[0] for k, v in stack.items()})
     assert kernels.launches == dict.fromkeys(kernels.launches, 0)
 
 
 def test_blowing_close_step_does_not_write_into_its_inputs():
-    gp, params, stack, state, _ = build_blowing_close(3, 2, "cpu")
+    gp, params, stack, state, _, _ = build_blowing_close(3, 2, "cpu")
     before = {k: v.copy() for k, v in state.numpy().items()}
     model.make_step(params, gp)(state, {k: v[0] for k, v in stack.items()})
     for k, v in state.numpy().items():
@@ -112,7 +112,7 @@ def test_blowing_close_step_does_not_write_into_its_inputs():
 def test_refused_on_finite_difference_nodes(flag):
     from vic_tpu_torch.entry import build_frozen, frozen_params
     gp = frozen_params(1).replace(**{flag: True})
-    _, params, _, _, geom = build_frozen(1, 1, "cpu")
+    _, params, _, _, geom, _ = build_frozen(1, 1, "cpu")
     with pytest.raises(NotImplementedError,
                        match=f"{flag} on finite-difference nodes"):
         model.make_step(params, gp, geom=geom)

@@ -74,3 +74,56 @@ def test_make_time_axis_matches(start, n_rec, dt):
         np.testing.assert_array_equal(np.asarray(getattr(got, f.name)),
                                       np.asarray(getattr(ref, f.name)),
                                       err_msg=f.name)
+
+
+def test_make_lake_params_matches_field_by_field():
+    """The port's numpy copy of the synthetic parabolic basin equals
+    vic_tpu's, and lake_params_from_numpy carries either onto a device as
+    the same float32 tensors."""
+    from vic_tpu.physics.lake import LakeParams, make_lake_params as jmake
+    from vic_tpu.testing import synthetic_domain as jdomain
+    from vic_tpu_torch.physics.lake import LakeParams as TLakeParams
+    from vic_tpu_torch.physics.lake import make_lake_params as tmake
+    from vic_tpu_torch.prepare import lake_params_from_numpy
+    from vic_tpu_torch.testing import synthetic_domain as tdomain
+    ref = jmake(jdomain(n_cell=5).soil, jconfig.GlobalParams())
+    got = tmake(tdomain(n_cell=5).soil, tconfig.GlobalParams())
+    assert list(got) == [f.name for f in dataclasses.fields(LakeParams)]
+    assert [f.name for f in dataclasses.fields(TLakeParams)] == list(got)
+    for k in got:
+        a, b = np.asarray(getattr(ref, k)), got[k]
+        assert a.dtype == b.dtype, k
+        np.testing.assert_array_equal(b, a, err_msg=k)
+    from_ref = lake_params_from_numpy(ref, "cpu").numpy()
+    for k, v in lake_params_from_numpy(got, "cpu").numpy().items():
+        np.testing.assert_array_equal(v, from_ref[k], err_msg=k)
+        assert v.dtype == {"has_lake": np.bool_,
+                           "numnod": np.int32}.get(k, np.float32), k
+
+
+def test_initial_lake_state_matches_field_by_field():
+    """The cold-start lake state of the port's initial_state equals
+    vic_tpu's (initialize_lake.c), every lake_* field."""
+    import jax
+    import jax.numpy as jnp
+    from vic_tpu.physics.lake import make_lake_params as jmake
+    from vic_tpu.state import initial_state as jinit
+    from vic_tpu.testing import synthetic_domain as jdomain
+    from vic_tpu_torch.entry import build_lakes
+    gp = jconfig.GlobalParams(dt=24, nlayer=3, snow_band=2, glacier_id=99,
+                              lakes=True)
+    domain = jdomain(n_cell=5, n_band=2, with_glacier=True)
+    lp = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, jnp.float32)
+        if np.asarray(a).dtype.kind == "f" else jnp.asarray(a),
+        jmake(domain.soil, gp))
+    ref = jinit(domain, gp, lake_params=lp)
+    _, _, _, state, _, _ = build_lakes(5, 1, "cpu")
+    got = state.numpy()
+    lake_fields = [f.name for f in dataclasses.fields(ref)
+                   if f.name.startswith("lake_")]
+    assert len(lake_fields) == 14
+    for k in lake_fields:
+        a = np.asarray(getattr(ref, k))
+        assert got[k].dtype == a.dtype, k
+        np.testing.assert_array_equal(got[k], a, err_msg=k)

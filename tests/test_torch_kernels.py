@@ -29,6 +29,10 @@ from vic_tpu_torch.physics.canopy_air import canopy_air_step_plain
 from vic_tpu_torch.physics.canopy_snow import canopy_brent_plain
 from vic_tpu_torch.physics.frozen_soil import solve_t_profile_explicit_plain
 from vic_tpu_torch.physics.glacier import glacier_brent_plain
+from vic_tpu_torch.physics.lake import (depth_from_volume_plain,
+                                        lake_ice_brent_plain,
+                                        lake_open_water_plain,
+                                        water_under_ice_plain)
 from vic_tpu_torch.physics.runoff import runoff_hourly_plain
 from vic_tpu_torch.physics.snow import snowpack_brent_plain
 from vic_tpu_torch.physics.surface import surface_brent_plain
@@ -78,14 +82,14 @@ def test_runoff_wrapper_refuses_cpu_tensors():
 
 
 def test_cpu_step_takes_the_plain_versions():
-    gp, params, stack, state, _ = build_light(2, 1, "cpu")
+    gp, params, stack, state, _, _ = build_light(2, 1, "cpu")
     kernels.reset_launches()
     make_step(params, gp)(state, {k: v[0] for k, v in stack.items()})
     assert kernels.launches == dict.fromkeys(kernels.launches, 0)
 
 
 def test_cpu_frozen_step_takes_the_plain_versions():
-    gp, params, stack, state, geom = build_frozen(2, 1, "cpu")
+    gp, params, stack, state, geom, _ = build_frozen(2, 1, "cpu")
     kernels.reset_launches()
     make_step(params, gp, geom=geom)(state,
                                      {k: v[0] for k, v in stack.items()})
@@ -96,7 +100,7 @@ def test_new_wrappers_refuse_cpu_tensors():
     t = torch.zeros(2, 4)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.surface_brent(t, t, t > 0, max_iter=60, eb_kwargs={})
-    gp, _, _, state, geom = build_frozen(2, 1, "cpu")
+    gp, _, _, state, geom, _ = build_frozen(2, 1, "cpu")
     nodes = state.node_temp
     with pytest.raises(ValueError, match="CUDA"):
         kernels.node_sweep(nodes, nodes[..., 0], nodes, nodes, nodes, nodes,
@@ -157,7 +161,7 @@ def test_make_step_refuses_node_counts_the_sweep_kernel_lacks():
     """On CUDA tensors a node count K6 is not built for is refused by name
     when the step is built."""
     gp = frozen_params(1).replace(nnode=6)
-    _, params, _, _, _ = build_frozen(1, 1, "cpu")
+    _, params, _, _, _, _ = build_frozen(1, 1, "cpu")
     on_card = SimpleNamespace(alpha=SimpleNamespace(is_cuda=True))
     with pytest.raises(NotImplementedError, match="nnode=6"):
         make_step(params, gp, geom=on_card)
@@ -172,7 +176,7 @@ def test_surface_inputs_are_the_kernels_rows():
     surface.surface_brent_plain = lambda *a, **k: (captured.append(k),
                                                    orig(*a, **k))[1]
     try:
-        gp, params, stack, state, _ = build_light(2, 1, "cpu")
+        gp, params, stack, state, _, _ = build_light(2, 1, "cpu")
         make_step(params, gp)(state, {k: v[0] for k, v in stack.items()})
     finally:
         surface.surface_brent_plain = orig
@@ -206,9 +210,9 @@ def _captured_args(device, n_cell=64, names=tuple(PLAIN)[:5],
             return fn(*args, **kwargs)
         return wrapper
 
-    gp, params, stack, state, geom = CONFIGS[config](n_cell, record + 1,
-                                                     device)
-    step = make_step(params, gp, geom=geom)
+    gp, params, stack, state, geom, lake = CONFIGS[config](
+        n_cell, record + 1, device)
+    step = make_step(params, gp, geom=geom, lake_params=lake)
     for r in range(record):
         state, _ = step(state, {k: v[r] for k, v in stack.items()})
     for name, fn in originals.items():
@@ -373,3 +377,99 @@ def test_canopy_air_step_kernel_matches_plain(cuda):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
                                    rtol=0.0, atol=1e-5)
     assert (float(got[2]) <= OVER_TOL_F32) == (float(ref[2]) <= OVER_TOL_F32)
+
+
+LAKE_KERNELS = ("lake_open_water", "lake_under_ice", "lake_ice_brent",
+                "lake_depth")
+# the lake fixed points stop a lake at |change| <= 1e-4 (C, W/m^2): two runs
+# stopping one iteration apart may differ by about that much
+LAKE_FIXED_POINT_TOL = 2e-4
+
+
+def test_lake_wrappers_refuse_cpu_tensors():
+    from vic_tpu_torch.physics.lake import make_grid
+    from vic_tpu_torch.entry import build_lakes
+    _, _, _, state, _, lp = build_lakes(2, 1, "cpu")
+    t, c = state.lake_temp, state.lake_volume
+    grid = make_grid(lp, torch.full_like(c, 5.0))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.lake_depth(lp.z, lp.basin, lp.maxdepth, c)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.lake_ice_brent(c, c, c > 0, dt=86400.0, max_iter=30,
+                               max_tries=5,
+                               **dict.fromkeys(kernels.ICE_EB_INPUTS, c))
+    for name, keys in (("lake_open_water", kernels.OPEN_WATER_INPUTS[2:]),
+                       ("lake_under_ice", kernels.UNDER_ICE_INPUTS[2:]
+                        + kernels.UNDER_ICE_UNUSED)):
+        with pytest.raises(ValueError, match="CUDA"):
+            getattr(kernels, name)(temp=t, grid=grid, dt_sec=86400.0,
+                                   active=c > 0, **dict.fromkeys(keys, c))
+
+
+def _lake_args(device, n_cell=64):
+    """The lake kernels' first calls in the lakes step's second record,
+    where open, partly and fully iced lakes coexist."""
+    return _captured_args(device, n_cell, names=LAKE_KERNELS, config="lakes",
+                          record=1)
+
+
+@pytest.mark.gpu
+def test_lake_open_water_kernel_matches_plain(cuda):
+    """K10: the same converged flags; on converged lakes the column within
+    the fixed point's reach and the fluxes within 1e-2 W/m^2."""
+    a, kw = _lake_args(cuda)["lake_open_water"]
+    assert bool(kw["active"].any())
+    before = kernels.launches["lake_open_water"]
+    got, t_open = kernels.lake_open_water(**kw)
+    ref, t_open_ref = lake_open_water_plain(**kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["lake_open_water"] == before + 1
+    assert torch.equal(got.converged, ref.converged)
+    ok = got.converged
+    assert float((got.temp - ref.temp).abs()[ok].max()) \
+        <= LAKE_FIXED_POINT_TOL
+    assert float((t_open - t_open_ref).abs().max()) <= LAKE_FIXED_POINT_TOL
+    for k in ("qh", "qle", "lwnet"):
+        assert float((getattr(got, k) - getattr(ref, k)).abs().max()) \
+            <= 1e-2, k
+
+
+@pytest.mark.gpu
+def test_lake_under_ice_kernel_matches_plain(cuda):
+    """K11: the same converged flags, the column and qw within the fixed
+    point's reach."""
+    a, kw = _lake_args(cuda)["lake_under_ice"]
+    assert bool(kw["active"].any())
+    got = kernels.lake_under_ice(**kw)
+    ref = water_under_ice_plain(**kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.converged, ref.converged)
+    assert float((got.temp - ref.temp).abs().max()) <= LAKE_FIXED_POINT_TOL
+    assert float((got.qw - ref.qw).abs().max()) <= LAKE_FIXED_POINT_TOL
+
+
+@pytest.mark.gpu
+def test_lake_ice_brent_kernel_matches_plain(cuda):
+    """K12: the same flags, roots within the final bracket width."""
+    a, kw = _lake_args(cuda)["lake_ice_brent"]
+    got = kernels.lake_ice_brent(*a, **kw)
+    ref = lake_ice_brent_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert bool(ref.bracketed.any())
+    assert torch.equal(got.bracketed, ref.bracketed)
+    assert torch.equal(got.converged, ref.converged)
+    both = got.converged & ref.converged
+    tol = 2.0 * (2.0 * torch.finfo(torch.float32).eps * got.root.abs() + 1e-4)
+    assert bool(((got.root - ref.root).abs() <= tol)[both].all())
+
+
+@pytest.mark.gpu
+def test_lake_depth_kernel_matches_plain(cuda):
+    """K13: the bisection's depths bit for bit."""
+    a, kw = _lake_args(cuda)["lake_depth"]
+    z, basin, maxdepth, volume = a
+    got = kernels.lake_depth(*a)
+    ref = depth_from_volume_plain(
+        SimpleNamespace(z=z, basin=basin, maxdepth=maxdepth), volume)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)

@@ -118,7 +118,7 @@ def test_water_closure_on_both(config):
 
 
 def test_step_does_not_write_into_its_inputs():
-    gp, params, stack, state, _ = build_light(3, 2, "cpu")
+    gp, params, stack, state, _, _ = build_light(3, 2, "cpu")
     before = {k: v.copy() for k, v in state.numpy().items()}
     step = model.make_step(params, gp)
     step(state, {k: v[0] for k, v in stack.items()})
@@ -127,7 +127,7 @@ def test_step_does_not_write_into_its_inputs():
 
 
 def test_outvars_prunes_but_keeps_water_error():
-    gp, params, stack, state, _ = build_light(2, 2, "cpu")
+    gp, params, stack, state, _, _ = build_light(2, 2, "cpu")
     _, outs = model.run(state, stack, params, gp,
                         outvars=["OUT_EVAP", "OUT_SWE"])
     assert sorted(outs) == ["OUT_EVAP", "OUT_SWE", "OUT_WATER_ERROR"]
@@ -139,7 +139,7 @@ def test_params_from_jax_objects_run_identically():
     give the same step as the port's own prepare_domain."""
     _, params, _, _, _ = __graft_entry__._build(2, n_rec=1)
     p_from_jax = device_params_from_numpy(fields_of(params), "cpu")
-    t_gp, t_params, t_stack, t_state, _ = build_light(2, 1, "cpu")
+    t_gp, t_params, t_stack, t_state, _, _ = build_light(2, 1, "cpu")
     forc = {k: v[0] for k, v in t_stack.items()}
     _, a = model.make_step(p_from_jax, t_gp)(t_state, forc)
     _, b = model.make_step(t_params, t_gp)(t_state, forc)
@@ -161,13 +161,13 @@ ON_NODES = ("blowing", "close_energy")
     ids=lambda d: next(iter(d)))
 def test_make_step_refuses_options_outside_the_slice(flag):
     gp = light_params(1).replace(**flag)
-    _, params, _, _, geom = build_frozen(1, 1, "cpu")
+    _, params, _, _, geom, _ = build_frozen(1, 1, "cpu")
     name = next(iter(flag))
     with pytest.raises(NotImplementedError, match=name):
         model.make_step(params, gp, geom=geom if name in ON_NODES else None)
 
 
 def test_make_step_refuses_water_table_curves():
-    gp, params, _, _, _ = build_light(1, 1, "cpu")
+    gp, params, _, _, _, _ = build_light(1, 1, "cpu")
     with pytest.raises(NotImplementedError, match="zwt_curves"):
         model.make_step(params, gp, zwt_curves={})

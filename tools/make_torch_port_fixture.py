@@ -9,13 +9,16 @@ compressed, of
   nodes (vic_tpu_torch.entry.frozen_params) -> frozen_16x4.npz;
 - blowing_close: the light configuration with BLOWING and CLOSE_ENERGY on
   the windy, cold forcing of vic_tpu_torch.entry.blowing_close_forcing
-  -> blowing_close_16x4.npz.
+  -> blowing_close_16x4.npz;
+- lakes: the light configuration with LAKES on the synthetic parabolic
+  basin of vic_tpu.physics.lake.make_lake_params, its floats cast to
+  float32 as __graft_entry__ casts them -> lakes_16x4.npz.
 
 The PyTorch port is checked against these files by tests/test_torch_golden*.py
 and by chip_smoke.py's reference phase.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py \
-        [light|frozen|blowing_close]
+        [light|frozen|blowing_close|lakes]
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ FIXTURE_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_port")
 FIXTURE = os.path.join(FIXTURE_DIR, "light_16x4.npz")
 FROZEN_FIXTURE = os.path.join(FIXTURE_DIR, "frozen_16x4.npz")
 BLOWING_CLOSE_FIXTURE = os.path.join(FIXTURE_DIR, "blowing_close_16x4.npz")
+LAKES_FIXTURE = os.path.join(FIXTURE_DIR, "lakes_16x4.npz")
 N_CELL, N_REC = 16, 4
 
 
@@ -129,11 +133,53 @@ def blowing_close_reference(n_cell: int = N_CELL, n_rec: int = N_REC) -> dict:
     return _arrays(final, outs)
 
 
+def lakes_inputs(n_cell: int, n_rec: int):
+    """vic_tpu's (gp, params, stack, state, lake_params) of the lakes
+    configuration; lake_params holds jnp arrays, floats in float32."""
+    sys.path.insert(0, ROOT)
+    import jax
+    import jax.numpy as jnp
+    from vic_tpu.config import GlobalParams
+    from vic_tpu.model import make_forcing_stack
+    from vic_tpu.physics.lake import make_lake_params
+    from vic_tpu.prepare import prepare_domain
+    from vic_tpu.state import initial_state
+    from vic_tpu.testing import synthetic_domain, synthetic_forcing
+    from vic_tpu.timeaxis import make_time_axis
+
+    gp = GlobalParams(dt=24, nlayer=3, startyear=1995, startmonth=1,
+                      startday=1, nrecs=n_rec, full_energy=True,
+                      glacier_id=99, snow_band=2, lakes=True)
+    domain = synthetic_domain(n_cell=n_cell, n_band=2, with_glacier=True)
+    lake_params = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, jnp.float32)
+        if np.asarray(a).dtype.kind == "f" else jnp.asarray(a),
+        make_lake_params(domain.soil, gp))
+    stack = make_forcing_stack(
+        synthetic_forcing(n_rec, n_cell, dt_hours=gp.dt),
+        make_time_axis(1995, 1, 1, 0, n_rec, gp.dt))
+    return (gp, prepare_domain(domain, gp), stack,
+            initial_state(domain, gp, lake_params=lake_params), lake_params)
+
+
+def lakes_reference(n_cell: int = N_CELL, n_rec: int = N_REC) -> dict:
+    """As light_reference, for the lakes configuration."""
+    import jax
+    jax.config.update("jax_enable_x64", False)
+    gp, params, stack, state, lp = lakes_inputs(n_cell, n_rec)
+    from vic_tpu.model import run
+
+    final, outs = jax.jit(lambda s, f: run(s, f, params, gp,
+                                           lake_params=lp))(state, stack)
+    return _arrays(final, outs)
+
+
 def main(which: str = "light"):
     path, make = {"light": (FIXTURE, light_reference),
                   "frozen": (FROZEN_FIXTURE, frozen_reference),
                   "blowing_close": (BLOWING_CLOSE_FIXTURE,
-                                    blowing_close_reference)}[which]
+                                    blowing_close_reference),
+                  "lakes": (LAKES_FIXTURE, lakes_reference)}[which]
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(path, **make())
     print(f"wrote {path} ({os.path.getsize(path)} bytes)")

@@ -1,6 +1,7 @@
 """Where the time of the port's step goes on one NVIDIA GPU.
 
-    python tools/profile_torch_light.py [--config light|frozen|blowing_close]
+    python tools/profile_torch_light.py [--config light|frozen|
+                                                  blowing_close|lakes]
                                         [--cells 32768] [--records 8]
                                         [--repeats 5] [--out FILE.json]
 
@@ -9,7 +10,10 @@
    around torch.cuda.synchronize(); cell-steps/s median and quartiles.
 2. breakdown: one run with each physics call of the step wrapped in
    synchronize() + host clock, so every call's wall time (launch overhead
-   included) is attributed to it; the rest of the step is "other".
+   included) is attributed to it; the rest of the step is "other". With
+   LAKES, lake_step's calls inside it (solve_lake and, inside that, the
+   K10-K12 call sites; the K13 depth bisections) are timed as a nested
+   "lake" breakdown whose "other" is lake_step's own glue.
 3. profile: torch.profiler over two records: device time by kernel name,
    the hand-written kernels' own device time, and the device's busy share.
 
@@ -32,6 +36,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from vic_tpu_torch import model  # noqa: E402
 from vic_tpu_torch.entry import CONFIGS  # noqa: E402
+from vic_tpu_torch.physics import lake  # noqa: E402
 
 STEP_CALLS = ("calc_aerodynamic", "snow_intercept", "snow_albedo",
               "snow_melt", "glacier_ablation", "snow_density_update",
@@ -46,12 +51,21 @@ CONFIG_CALLS = {
     "frozen": ("distribute_node_moisture", "estimate_layer_ice",
                "find_zero_fronts"),
     "blowing_close": ("calc_blowing_snow", "canopy_air_step"),
+    # the lake coupling's pre-step depth (K13) and the lake step
+    "lakes": ("depth_from_volume", "lake_step"),
 }
+# inside lake_step (physics/lake.py): solve_lake, within it the open-water
+# column (K10), the snow-on-ice update (K12 inside) and the under-ice
+# column (K11); every depth bisection (K13) of solve_lake and the water
+# balance
+LAKE_CALLS = ("solve_lake", "lake_open_water", "lake_ice_melt",
+              "water_under_ice", "depth_from_volume")
 HAND_WRITTEN = ("brent_kernel", "runoff_hourly_kernel", "node_sweep_kernel",
                 "node_finish_kernel", "fd_eval_kernel", "fd_expand_kernel",
                 "fd_init_kernel", "fd_propose_kernel", "fd_accept_kernel",
                 "fd_finish_kernel", "blowing_snow_kernel",
-                "canopy_air_kernel")
+                "canopy_air_kernel", "lake_open_water_kernel",
+                "lake_under_ice_kernel", "lake_depth_kernel")
 
 
 def quartiles(xs):
@@ -60,53 +74,79 @@ def quartiles(xs):
             "n": len(xs)}
 
 
+def build(config, n_cell, n_rec, device):
+    """(gp, params, stack, state, run keyword arguments) after a warm-up
+    record."""
+    gp, params, stack, state, geom, lake_params = CONFIGS[config](
+        n_cell, n_rec, device)
+    kw = dict(geom=geom, lake_params=lake_params)
+    model.run(state, {k: v[:1] for k, v in stack.items()}, params, gp, **kw)
+    return gp, params, stack, state, kw
+
+
 def throughput(config, n_cell, n_rec, repeats, device):
-    gp, params, stack, state, geom = CONFIGS[config](n_cell, n_rec, device)
-    model.run(state, {k: v[:1] for k, v in stack.items()}, params, gp,
-              geom=geom)
+    gp, params, stack, state, kw = build(config, n_cell, n_rec, device)
     rates = []
     for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.run(state, stack, params, gp, geom=geom)
+        model.run(state, stack, params, gp, **kw)
         torch.cuda.synchronize()
         rates.append(n_cell * n_rec / (time.perf_counter() - t0))
     return quartiles(rates)
 
 
 def breakdown(config, n_cell, n_rec, device):
-    gp, params, stack, state, geom = CONFIGS[config](n_cell, n_rec, device)
-    model.run(state, {k: v[:1] for k, v in stack.items()}, params, gp,
-              geom=geom)
-    calls = STEP_CALLS + CONFIG_CALLS[config]
-    spent = dict.fromkeys(calls, 0.0)
-    originals = {name: getattr(model, name) for name in calls}
+    gp, params, stack, state, kw = build(config, n_cell, n_rec, device)
+    wrapped = [(model, name) for name in STEP_CALLS + CONFIG_CALLS[config]]
+    if config == "lakes":
+        wrapped += [(lake, name) for name in LAKE_CALLS]
+    spent = {(mod, name): 0.0 for mod, name in wrapped}
+    originals = {(mod, name): getattr(mod, name) for mod, name in wrapped}
 
-    def timed(name, fn):
+    def timed(key, fn):
         def wrapper(*args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            spent[name] += time.perf_counter() - t0
+            spent[key] += time.perf_counter() - t0
             return out
         return wrapper
 
-    for name, fn in originals.items():
-        setattr(model, name, timed(name, fn))
+    for (mod, name), fn in originals.items():
+        setattr(mod, name, timed((mod, name), fn))
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.run(state, stack, params, gp, geom=geom)
+        model.run(state, stack, params, gp, **kw)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
-        for name, fn in originals.items():
-            setattr(model, name, fn)
-    per_rec = {k: v / n_rec * 1e3 for k, v in spent.items()}
-    per_rec["other"] = (total - sum(spent.values())) / n_rec * 1e3
-    return {"ms_per_record": per_rec, "total_ms_per_record":
-            total / n_rec * 1e3}
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
+
+    def ms(key):
+        return spent[key] / n_rec * 1e3
+
+    per_rec = {name: ms((model, name)) for mod, name in wrapped
+               if mod is model}
+    per_rec["other"] = total / n_rec * 1e3 - sum(per_rec.values())
+    result = {"ms_per_record": per_rec,
+              "total_ms_per_record": total / n_rec * 1e3}
+    if config == "lakes":
+        # nested: solve_lake's calls inside it, the rest of lake_step
+        inner = {name: ms((lake, name)) for name in LAKE_CALLS}
+        nested = ("lake_open_water", "lake_ice_melt", "water_under_ice")
+        inner["solve_lake own glue"] = inner["solve_lake"] - sum(
+            inner[n] for n in nested)
+        # depth_from_volume: all of physics.lake's calls, the one inside
+        # solve_lake included, so it is counted in solve_lake's too
+        inner["lake_step own glue"] = (per_rec["lake_step"]
+                                       - inner["solve_lake"]
+                                       - inner["depth_from_volume"])
+        result["lake_ms_per_record"] = inner
+    return result
 
 
 def profile(config, n_cell, device, step_ms):
@@ -116,14 +156,12 @@ def profile(config, n_cell, device, step_ms):
     time `step_ms`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
-    gp, params, stack, state, geom = CONFIGS[config](n_cell, 2, device)
-    model.run(state, {k: v[:1] for k, v in stack.items()}, params, gp,
-              geom=geom)
+    gp, params, stack, state, kw = build(config, n_cell, 2, device)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.run(state, stack, params, gp, geom=geom)
+        model.run(state, stack, params, gp, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side kernel events only: CPU-side aten ops also carry the

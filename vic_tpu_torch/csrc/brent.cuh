@@ -15,7 +15,12 @@
 // [lo, hi] with converged = bracketed = false (rootfind.py:205).
 #pragma once
 
+#include <cuda_runtime.h>
+
 #include <cfloat>
+#include <cstdint>
+
+#include "lanes.cuh"
 
 struct BrentOut {
   float root;
@@ -110,4 +115,44 @@ __device__ __forceinline__ BrentOut brent_solve(const Residual& f, float lo,
   out.converged = fabsf(0.5f * (c - b)) <= tol_f || fb == 0.0f;
   out.root = b;
   return out;
+}
+
+// Outputs of a one-thread-per-lane Brent kernel.
+struct BrentOutputs {
+  float* root;
+  uint8_t* converged;
+  uint8_t* bracketed;
+  int32_t* iterations;
+};
+
+__device__ __forceinline__ void store(const BrentOutputs& out, int i,
+                                      const BrentOut& r) {
+  out.root[i] = r.root;
+  out.converged[i] = r.converged;
+  out.bracketed[i] = r.bracketed;
+  out.iterations[i] = r.iterations;
+}
+
+// Launches kernel(in, lo, hi, dt, max_iter, max_tries, n, out) over n lanes
+// in blocks of kBrentBlock; cudaErrorInvalidValue unless the input counts
+// are the kernel's, else cudaGetLastError().
+constexpr int kBrentBlock = 128;
+
+template <class Kernel>
+int launch_brent(Kernel kernel, const void* const* f,
+                 const int32_t* f_stride, int nf, int nf_expected,
+                 const void* const* m, const int32_t* m_stride, int nm,
+                 int nm_expected, int h, const float* lo, const float* hi,
+                 float dt, int max_iter, int max_tries, int n, float* root,
+                 uint8_t* converged, uint8_t* bracketed, int32_t* iterations,
+                 void* stream) {
+  LaneInputs in{};
+  if (n <= 0 || !fill_lane_inputs(&in, f, f_stride, nf, nf_expected, m,
+                                  m_stride, nm, nm_expected, h))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BrentOutputs out{root, converged, bracketed, iterations};
+  kernel<<<(n + kBrentBlock - 1) / kBrentBlock, kBrentBlock, 0,
+           static_cast<cudaStream_t>(stream)>>>(in, lo, hi, dt, max_iter,
+                                                 max_tries, n, out);
+  return static_cast<int>(cudaGetLastError());
 }

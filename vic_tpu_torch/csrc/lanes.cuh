@@ -1,4 +1,4 @@
-// Inputs of the one-thread-per-lane kernels K1-K5.
+// Inputs of the one-thread-per-lane kernels (K1-K5, K7-K13).
 //
 // The lanes are [n_cell, h] (h HRUs per cell), flattened: lane i is HRU
 // i % h of cell i / h. Each input comes as the wrapper's view of it
@@ -53,6 +53,13 @@ __device__ __forceinline__ float lane_fl(const LaneInputs& in, int k,
 __device__ __forceinline__ bool lane_m(const LaneInputs& in, int k,
                                        LaneRow r) {
   return in.m[k][lane_offset(in.m_stride[k], r)] != 0;
+}
+
+// value l of layered mask input k
+__device__ __forceinline__ bool lane_ml(const LaneInputs& in, int k,
+                                        LaneRow r, int l) {
+  return in.m[k][lane_offset(in.m_stride[k], r) +
+                 static_cast<int64_t>(l) * in.m_stride[k][2]] != 0;
 }
 
 // Fills `in` from the host's arrays of device pointers and of strides

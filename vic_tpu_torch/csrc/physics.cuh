@@ -90,4 +90,21 @@ __device__ __forceinline__ float ls_of(float t) {
   return (677.0f - 0.07f * t) * kJoulesPerCal * kGramsPerKg;
 }
 
+// snow.latent_heat_from_snow (latent_heat_from_snow.c:66-91): the latent
+// and sublimation fluxes and the vapor mass flux (kg/m^2/s, the blowing
+// flux added) over snow or ice at surface temperature t, resistance ra.
+struct SnowLatent {
+  float latent, latent_sub, vapor_flux;
+};
+
+__device__ __forceinline__ SnowLatent latent_heat_from_snow(
+    float air_dens, float eact_air, float lv, float press, float ra, float t,
+    float vpd, float blowing_flux) {
+  float vf = air_dens * (kEpsRatio / press) * (eact_air - svp(t)) / ra;
+  if (vpd == 0.0f && vf < 0.0f) vf = 0.0f;
+  vf = vf + blowing_flux;
+  return SnowLatent{t >= 0.0f ? lv * vf : 0.0f,
+                    t >= 0.0f ? 0.0f : ls_of(t) * vf, vf};
+}
+
 }  // namespace vicphys

@@ -126,11 +126,10 @@ struct SnowpackResidual {
     const float net_long = longwave_in - kStefanB * pow4(ts + kKelvin);
     const float net_rad = net_short + net_long;
     const float sensible = air_dens * kCp * (tair - ts) / ra_corr;
-    float vf = air_dens * (kEpsRatio / pressure) * (vp_air - svp(ts)) / ra_corr;
-    if (vpd == 0.0f && vf < 0.0f) vf = 0.0f;
-    vf = vf + blowing_flux;
-    const float latent = ts >= 0.0f ? lv * vf : 0.0f;
-    const float latent_sub = ts >= 0.0f ? 0.0f : ls_of(ts) * vf;
+    const SnowLatent lh = latent_heat_from_snow(
+        air_dens, vp_air, lv, pressure, ra_corr, ts, vpd, blowing_flux);
+    const float latent = lh.latent;
+    const float latent_sub = lh.latent_sub;
     const float advection = ts == 0.0f ? kChWater * tair * rain_m / dt : 0.0f;
     const float delta_cc = kChIce * surface_swq * (ts - old_tsurf) / dt;
     const float grnd_flux =
@@ -184,21 +183,6 @@ struct CanopyResidual {
     return rest + refreeze;
   }
 };
-
-struct BrentOutputs {
-  float* root;
-  uint8_t* converged;
-  uint8_t* bracketed;
-  int32_t* iterations;
-};
-
-__device__ __forceinline__ void store(const BrentOutputs& out, int i,
-                                      const BrentOut& r) {
-  out.root[i] = r.root;
-  out.converged[i] = r.converged;
-  out.bracketed[i] = r.bracketed;
-  out.iterations[i] = r.iterations;
-}
 
 __global__ void glacier_brent_kernel(const __grid_constant__ LaneInputs in,
                                      const float* lo, const float* hi,
@@ -336,25 +320,6 @@ __global__ void runoff_hourly_kernel(const __grid_constant__ LaneInputs in,
   for (int l = 0; l < NL; ++l) liq_out[i * NL + l] = liq[l];
   runoff_out[i] = runoff_acc;
   base_out[i] = base_acc;
-}
-
-template <class Kernel>
-int launch_brent(Kernel kernel, const void* const* f,
-                 const int32_t* f_stride, int nf, int nf_expected,
-                 const void* const* m, const int32_t* m_stride, int nm,
-                 int nm_expected, int h,
-                 const float* lo, const float* hi, float dt, int max_iter,
-                 int max_tries, int n, float* root, uint8_t* converged,
-                 uint8_t* bracketed, int32_t* iterations, void* stream) {
-  LaneInputs in{};
-  if (n <= 0 || !fill_lane_inputs(&in, f, f_stride, nf, nf_expected, m,
-                                  m_stride, nm, nm_expected, h))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const BrentOutputs out{root, converged, bracketed, iterations};
-  kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
-           static_cast<cudaStream_t>(stream)>>>(in, lo, hi, dt, max_iter,
-                                                 max_tries, n, out);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -8,9 +8,15 @@
   soil nodes (QUICK_FLUX off), IMPLICIT, a 10-sweep Gauss-Seidel cap.
 - `build_blowing_close`: the light configuration plus BLOWING and
   CLOSE_ENERGY (`__graft_entry__.py:37`), on a windy, cold forcing.
+- `build_lakes`: the light configuration plus LAKES, one lake per cell on
+  the synthetic parabolic basin of `physics.lake.make_lake_params` (the
+  heavy configuration's basin, `__graft_entry__.py:56-62`).
 
 All run on the seeded synthetic domain and forcing, on the CUDA device
-unless the caller names another one.
+unless the caller names another one. Each returns (gp, params, stack,
+state, geom, lake_params), ready for `model.run(state, stack, params, gp,
+geom=geom, lake_params=lake_params)`; geom is None but for frozen,
+lake_params None but for lakes.
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ import numpy as np
 from .config import GlobalParams
 from .model import make_forcing_stack
 from .physics.frozen_soil import build_node_geometry
-from .prepare import prepare_domain
+from .physics.lake import make_lake_params
+from .prepare import lake_params_from_numpy, prepare_domain
 from .state import initial_state
 from .testing import synthetic_domain, synthetic_forcing
 from .timeaxis import make_time_axis
@@ -41,6 +48,10 @@ def frozen_params(n_rec: int) -> GlobalParams:
 
 def blowing_close_params(n_rec: int) -> GlobalParams:
     return light_params(n_rec).replace(blowing=True, close_energy=True)
+
+
+def lakes_params(n_rec: int) -> GlobalParams:
+    return light_params(n_rec).replace(lakes=True)
 
 
 # the forcing offsets that take the synthetic forcing to blowing snow and
@@ -68,45 +79,50 @@ def blowing_close_forcing(n_rec: int, n_cell: int, dt_hours: int = 24):
     return forc
 
 
-def _build(gp, n_cell: int, n_rec: int, device, frozen: bool,
-           forcing=synthetic_forcing):
+def _build(gp, n_cell: int, n_rec: int, device, frozen: bool = False,
+           lakes: bool = False, forcing=synthetic_forcing):
     domain = synthetic_domain(n_cell=n_cell, n_band=2, with_glacier=True)
     params = prepare_domain(domain, gp, device)
     ax = make_time_axis(1995, 1, 1, 0, n_rec, gp.dt)
     stack = make_forcing_stack(forcing(n_rec, n_cell, dt_hours=gp.dt), ax,
                                device)
     geom = build_node_geometry(domain.soil, gp).to(device) if frozen else None
-    state = initial_state(domain, gp, device, geom=geom)
-    return params, stack, state, geom
+    lake_params = (lake_params_from_numpy(make_lake_params(domain.soil, gp),
+                                          device) if lakes else None)
+    state = initial_state(domain, gp, device, geom=geom,
+                          lake_params=lake_params)
+    return gp, params, stack, state, geom, lake_params
 
 
 def build_light(n_cell: int, n_rec: int, device="cuda"):
-    """(gp, params, stack, state, geom) of the light configuration on
-    `device`, ready for `model.run(state, stack, params, gp, geom=geom)`;
-    geom is None (no finite-difference nodes)."""
-    gp = light_params(n_rec)
-    return (gp, *_build(gp, n_cell, n_rec, device, False))
+    """The light configuration on `device` (see the module docstring for
+    the returned tuple)."""
+    return _build(light_params(n_rec), n_cell, n_rec, device)
 
 
 def build_frozen(n_cell: int, n_rec: int, device="cuda"):
-    """(gp, params, stack, state, geom) of the frozen-soil configuration on
-    `device`, ready for `model.run(state, stack, params, gp, geom=geom)`."""
-    gp = frozen_params(n_rec)
-    return (gp, *_build(gp, n_cell, n_rec, device, True))
+    """The frozen-soil configuration on `device`; geom is its NodeGeometry
+    of finite-difference nodes."""
+    return _build(frozen_params(n_rec), n_cell, n_rec, device, frozen=True)
 
 
 def build_blowing_close(n_cell: int, n_rec: int, device="cuda"):
-    """(gp, params, stack, state, None) of the light configuration with
-    BLOWING and CLOSE_ENERGY on `device`, ready for `model.run(state,
-    stack, params, gp)`. Its forcing is synthetic_forcing with 8 m/s more
-    wind and 12 C colder air (blowing_close_forcing), so that packs blow
-    and overstory canopies hold snow and iterate their canopy air."""
-    gp = blowing_close_params(n_rec)
-    return (gp, *_build(gp, n_cell, n_rec, device, False,
-                        forcing=blowing_close_forcing))
+    """The light configuration with BLOWING and CLOSE_ENERGY on `device`.
+    Its forcing is synthetic_forcing with 8 m/s more wind and 12 C colder
+    air (blowing_close_forcing), so that packs blow and overstory canopies
+    hold snow and iterate their canopy air."""
+    return _build(blowing_close_params(n_rec), n_cell, n_rec, device,
+                  forcing=blowing_close_forcing)
+
+
+def build_lakes(n_cell: int, n_rec: int, device="cuda"):
+    """The light configuration with LAKES on `device`, on the light forcing
+    unchanged (January: the lakes freeze over and carry snow within the
+    first records); lake_params is the synthetic basin's LakeParams."""
+    return _build(lakes_params(n_rec), n_cell, n_rec, device, lakes=True)
 
 
 # configuration name -> the function that builds it, for callers that
 # take the name
 CONFIGS = {"light": build_light, "frozen": build_frozen,
-           "blowing_close": build_blowing_close}
+           "blowing_close": build_blowing_close, "lakes": build_lakes}

@@ -1,14 +1,14 @@
 """Python bindings of the CUDA kernels (csrc/*.cu).
 
 Each wrapper takes CUDA tensors only: it checks device and dtype, passes
-each lane input of K1-K5 and K7-K9 as its view broadcast to the lanes, a
+each lane input of K1-K5 and K7-K13 as its view broadcast to the lanes, a
 data pointer and element strides (`_lane_inputs`, csrc/lanes.cuh), so no
 input is copied, allocates the outputs, launches on the current stream,
 raises if the launch was refused, and adds one to its entry of `launches`.
 The plain PyTorch versions live beside each call site (physics/glacier.py,
 snow.py, canopy_snow.py, runoff.py, surface.py, frozen_soil.py,
-blowing_snow.py, canopy_air.py); the call sites pick one or the other by
-the tensors' device.
+blowing_snow.py, canopy_air.py, lake.py); the call sites pick one or the
+other by the tensors' device.
 """
 from __future__ import annotations
 
@@ -25,7 +25,9 @@ from . import build
 # a whole Brent solve, a fixed sequence of launches with K6 calls inside)
 launches = {"glacier_brent": 0, "snowpack_brent": 0, "canopy_brent": 0,
             "runoff_hourly": 0, "surface_brent": 0, "node_sweep": 0,
-            "fd_surface_brent": 0, "blowing_snow": 0, "canopy_air_step": 0}
+            "fd_surface_brent": 0, "blowing_snow": 0, "canopy_air_step": 0,
+            "lake_open_water": 0, "lake_under_ice": 0, "lake_ice_brent": 0,
+            "lake_depth": 0}
 
 # per-lane float inputs of each Brent residual, in the C functors' order
 GLACIER_INPUTS = ("ra", "z_ref", "roughness", "air_dens", "vp_air",
@@ -523,3 +525,144 @@ def canopy_air_step(*, it, **inputs):
             live_bits.data_ptr(), stream)
         _check_launch(name, err)
     return tc_next, g, live_bits.view(f32)
+
+
+# the lake kernels K10-K13 (one thread per lake; lanes [n_cell])
+LAKE_NN = 20
+# K10's and K11's per-lake inputs after the layered temp, z, zhalf and
+# surface, in the order of csrc/lake_open_water.cu's and
+# csrc/lake_under_ice.cu's In
+OPEN_WATER_INPUTS = ("surfdz", "dz", "lat", "tcutoff", "tair", "wind",
+                     "pressure", "vp", "air_density", "longwave",
+                     "shortwave_net", "wind_h", "fracprv", "lvolume")
+UNDER_ICE_INPUTS = ("surfdz", "dz", "tcutoff", "sw_ice", "hice", "sdepth")
+# water_under_ice's arguments that only enter its molecular-only
+# diffusivity, which discards them
+UNDER_ICE_UNUSED = ("lat", "wind")
+# K12's residual inputs (csrc/lake_ice_brent.cu IceResidual)
+ICE_EB_INPUTS = ("ra", "z_ref", "roughness", "wind", "net_short",
+                 "longwave_in", "air_dens", "lv", "tair", "pressure", "vpd",
+                 "vp_air", "rain_m", "surf_water", "tcutoff", "avgcond",
+                 "sw_conducted")
+
+
+def _column_lanes(name, temp, grid, active, named, keys):
+    """The inputs of K10/K11 as _lane_inputs passes them over the lakes:
+    temp, the grid's z, zhalf and surface (layered), the per-lake `keys` of
+    `named`, and the masks active, grid.mask, grid.last."""
+    device = temp.device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors required, got {device}")
+    if temp.dim() != 2 or temp.shape[1] != LAKE_NN:
+        raise ValueError(f"{name}: temp must be [n_cell, {LAKE_NN}], got "
+                         f"{tuple(temp.shape)}")
+    shape = (temp.shape[0],)
+    f32, flag = torch.float32, torch.bool
+    floats = ([("temp", temp, f32, LAKE_NN), ("z", grid.z, f32, LAKE_NN),
+               ("zhalf", grid.zhalf, f32, LAKE_NN),
+               ("surface", grid.surface, f32, LAKE_NN + 1)]
+              + [(k, named[k], f32, 0) for k in keys])
+    masks = [("active", active, flag, 0), ("mask", grid.mask, flag, LAKE_NN),
+             ("last", grid.last, flag, LAKE_NN)]
+    fin, f_ptr, f_stride = _lane_inputs(floats, shape, device)
+    mviews, m_ptr, m_stride = _lane_inputs(masks, shape, device)
+    return shape, (fin, mviews), f_ptr, f_stride, len(fin), m_ptr, \
+        m_stride, len(mviews)
+
+
+def _check_names(name, inputs, expected):
+    if set(inputs) != set(expected):
+        raise TypeError(f"{name}: missing inputs "
+                        f"{sorted(set(expected) - set(inputs))}, unexpected "
+                        f"{sorted(set(inputs) - set(expected))}")
+
+
+def lake_open_water(*, temp, grid, dt_sec, active, **inputs):
+    """K10: the open-water skin-temperature fixed point and the mix of its
+    column, one thread per lake. Same arguments and result as
+    physics.lake.lake_open_water_plain: (WaterEBResult, t_open), with the
+    iterations each lake ran."""
+    from ..physics.lake import WaterEBResult
+    name = "lake_open_water"
+    _check_names(name, inputs, set(OPEN_WATER_INPUTS) - {"surfdz", "dz"})
+    named = dict(inputs, surfdz=grid.surfdz, dz=grid.dz)
+    shape, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = _column_lanes(
+        name, temp, grid, active, named, OPEN_WATER_INPUTS)
+    device, n = temp.device, shape[0]
+    t_out = torch.empty((n, LAKE_NN), dtype=torch.float32, device=device)
+    t_open = torch.empty_like(t_out)
+    sc = torch.empty((10, n), dtype=torch.float32, device=device)
+    converged = torch.empty(shape, dtype=torch.bool, device=device)
+    iterations = torch.empty(shape, dtype=torch.int32, device=device)
+    if n:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = build.load().lake_open_water(
+            f_ptr, f_stride, nf, m_ptr, m_stride, nm, n, float(dt_sec), n,
+            t_out.data_ptr(), t_open.data_ptr(), sc.data_ptr(),
+            converged.data_ptr(), iterations.data_ptr(), stream)
+        _check_launch(name, err)
+    return WaterEBResult(t_out, *sc.unbind(0), converged, iterations), t_open
+
+
+def lake_under_ice(*, temp, grid, dt_sec, active, **inputs):
+    """K11: the ice/water interface flux fixed point of the column under
+    lake ice, its column solved and mixed every iteration, one thread per
+    lake. Same arguments and result as physics.lake.water_under_ice_plain
+    (UnderIceResult, with the iterations each lake ran)."""
+    from ..physics.lake import UnderIceResult
+    name = "lake_under_ice"
+    _check_names(name, inputs, (set(UNDER_ICE_INPUTS) - {"surfdz", "dz"})
+                 | set(UNDER_ICE_UNUSED))
+    named = dict(inputs, surfdz=grid.surfdz, dz=grid.dz)
+    shape, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = _column_lanes(
+        name, temp, grid, active, named, UNDER_ICE_INPUTS)
+    device, n = temp.device, shape[0]
+    t_out = torch.empty((n, LAKE_NN), dtype=torch.float32, device=device)
+    sc = torch.empty((3, n), dtype=torch.float32, device=device)
+    converged = torch.empty(shape, dtype=torch.bool, device=device)
+    iterations = torch.empty(shape, dtype=torch.int32, device=device)
+    if n:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = build.load().lake_under_ice(
+            f_ptr, f_stride, nf, m_ptr, m_stride, nm, n, float(dt_sec), n,
+            t_out.data_ptr(), sc.data_ptr(), converged.data_ptr(),
+            iterations.data_ptr(), stream)
+        _check_launch(name, err)
+    qw, delta_h, e_bot = sc.unbind(0)
+    return UnderIceResult(temp=t_out, qw=qw, delta_h=delta_h,
+                          energy_out_bottom=e_bot, converged=converged,
+                          iterations=iterations)
+
+
+def lake_ice_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
+    """K12: expand-then-Brent on the lake snow/ice surface residual, one
+    thread per lake. Same arguments and result as
+    physics.lake.lake_ice_brent_plain (iterations per lake)."""
+    return _brent("lake_ice_brent", ICE_EB_INPUTS, (), lo, hi, active, dt,
+                  max_iter, max_tries, inputs)
+
+
+def lake_depth(z, basin, maxdepth, volume):
+    """K13: the depth of each lake's liquid volume by 30 bisection steps on
+    its basin (z, basin [n_cell, 21]). Same result as
+    physics.lake.depth_from_volume_plain."""
+    name = "lake_depth"
+    device = volume.device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors required, got {device}")
+    shape = tuple(volume.shape)
+    if len(shape) != 1:
+        raise ValueError(f"{name}: volume must be [n_cell], got {shape}")
+    f32 = torch.float32
+    fin, f_ptr, f_stride = _lane_inputs(
+        [("z", z, f32, LAKE_NN + 1), ("basin", basin, f32, LAKE_NN + 1),
+         ("maxdepth", maxdepth, f32, 0), ("volume", volume, f32, 0)], shape,
+        device)
+    depth = torch.empty(shape, dtype=f32, device=device)
+    n = shape[0]
+    if n:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = build.load().lake_depth(f_ptr, f_stride, len(fin), n, n,
+                                      depth.data_ptr(), stream)
+        _check_launch(name, err)
+    return depth

@@ -97,6 +97,12 @@ _BLOWING_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int, ctypes.c_float]
                      + [ctypes.c_void_p] * 3)
 _CANOPY_AIR_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int] * 3
                         + [ctypes.c_void_p] * 4)
+_LAKE_OPEN_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int, ctypes.c_float,
+                                      ctypes.c_int] + [ctypes.c_void_p] * 6)
+_LAKE_ICE_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_int] + [ctypes.c_void_p] * 5)
+_LAKE_DEPTH_ARGTYPES = (_INPUTS + [ctypes.c_int] * 2
+                        + [ctypes.c_void_p] * 2)
 
 _lib = None
 
@@ -107,7 +113,8 @@ def load():
     if _lib is None:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
-        for name in ("glacier_brent", "snowpack_brent", "canopy_brent"):
+        for name in ("glacier_brent", "snowpack_brent", "canopy_brent",
+                     "lake_ice_brent"):
             fn = getattr(lib, name)
             fn.argtypes = _BRENT_ARGTYPES
             fn.restype = ctypes.c_int
@@ -116,7 +123,10 @@ def load():
                                ("node_sweep", _SWEEP_ARGTYPES),
                                ("fd_surface_brent", _FD_SURFACE_ARGTYPES),
                                ("blowing_snow", _BLOWING_ARGTYPES),
-                               ("canopy_air_step", _CANOPY_AIR_ARGTYPES)):
+                               ("canopy_air_step", _CANOPY_AIR_ARGTYPES),
+                               ("lake_open_water", _LAKE_OPEN_ARGTYPES),
+                               ("lake_under_ice", _LAKE_ICE_ARGTYPES),
+                               ("lake_depth", _LAKE_DEPTH_ARGTYPES)):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

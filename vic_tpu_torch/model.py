@@ -7,9 +7,11 @@ or without BLOWING and CLOSE_ENERGY) or on finite-difference soil nodes
 over the whole [n_cell, max_hru] batch. The canopy -> snow -> glacier ->
 surface chain is `column(tca, luo)`, run once at Tair, or, with
 CLOSE_ENERGY, once per pass of the canopy-air fixed point and once more at
-its settled temperature. `run` is a Python loop over records; month and
-day-of-year reach the step as host ints, so indexing the monthly veg tables
-needs no device-to-host sync.
+its settled temperature. With LAKES (on QUICK_FLUX, without BLOWING) each
+cell's lake steps after the column (`physics.lake.lake_step`) and its
+wetland lanes take the lake's recharge and area change. `run` is a Python
+loop over records; month and day-of-year reach the step as host ints, so
+indexing the monthly veg tables needs no device-to-host sync.
 
 Every option outside that configuration is refused when the step is built.
 """
@@ -29,6 +31,8 @@ from .physics.frozen_soil import (distribute_node_moisture,
                                   estimate_layer_ice, find_zero_fronts,
                                   layer_ice_params, solve_t_profile_explicit)
 from .physics.glacier import glacier_ablation
+from .physics.lake import (LakeState, area_from_depth, depth_from_volume,
+                           lake_step)
 from .physics.runoff import runoff_step
 from .physics.snow import (calc_rainonly, new_snow_density, snow_albedo,
                            snow_density_update, snow_melt)
@@ -42,10 +46,28 @@ from .state import ModelState
 OVER_TOL_F32 = float(np.float32(c.OVER_TOL))
 
 
+# the lake fields of ModelState and the LakeState fields they carry
+LAKE_STATE_FIELDS = (
+    "lake_volume", "lake_temp", "lake_ice_we", "lake_ice_area",
+    "lake_ice_height", "lake_swe", "lake_tempi", "lake_snow_surf_temp",
+    "lake_snow_pack_temp", "lake_snow_surf_water", "lake_snow_pack_water",
+    "lake_salbedo", "lake_last_snow", "lake_melting")
+LAKE_STATE_NAMES = (
+    "volume", "temp", "ice_water_eq", "ice_area", "ice_height", "swe",
+    "tempi", "surf_temp", "pack_temp", "surf_water", "pack_water", "salbedo",
+    "last_snow", "melting")
+
 # why BLOWING and CLOSE_ENERGY are refused on finite-difference nodes
 HEAVY_FD = ("they come with the heavy path, whose CLOSE_ENERGY passes solve "
             "the surface balance on the affine two-probe node residual, "
             "vic_tpu/physics/surface.py:422-433")
+
+
+# why LAKES is refused with BLOWING, on finite-difference nodes or with
+# DIST_PRCP
+HEAVY_LAKE = ("they come with the heavy configuration: the blowing-snow flux "
+              "over lake ice, vic_tpu/physics/lake.py:1364-1384, and the lake "
+              "on finite-difference nodes with DIST_PRCP")
 
 
 def _refuse(gp, geom, zwt_curves, lake_params):
@@ -61,13 +83,19 @@ def _refuse(gp, geom, zwt_curves, lake_params):
          geom is not None and geom.alpha.is_cuda
          and gp.nnode != kernels.SWEEP_NNODE),
         ("exp_trans", gp.exp_trans),
+        (f"lakes with dist_prcp ({HEAVY_LAKE})", gp.lakes and gp.dist_prcp),
         ("dist_prcp", gp.dist_prcp),
         (f"blowing on finite-difference nodes ({HEAVY_FD})",
          gp.blowing and not gp.quick_flux),
         (f"close_energy on finite-difference nodes ({HEAVY_FD})",
          gp.close_energy and not gp.quick_flux),
         ("spatial_snow", gp.spatial_snow),
-        ("lakes", gp.lakes or lake_params is not None),
+        (f"lakes with blowing ({HEAVY_LAKE})", gp.lakes and gp.blowing),
+        (f"lakes on finite-difference nodes ({HEAVY_LAKE})",
+         gp.lakes and not gp.quick_flux),
+        ("lakes without lake_params", gp.lakes and lake_params is None),
+        ("lake_params without lakes", lake_params is not None
+         and not gp.lakes),
         ("corrprec", gp.corrprec),
         ("zwt_curves", zwt_curves is not None),
         ("continue_on_error", gp.continue_on_error),
@@ -78,9 +106,10 @@ def _refuse(gp, geom, zwt_curves, lake_params):
                 f"vic_tpu_torch.model.make_step: {name} is not ported; the "
                 "port runs FULL_ENERGY on QUICK_FLUX nodes without "
                 "FROZEN_SOIL, with or without BLOWING and CLOSE_ENERGY, or "
-                "on finite-difference nodes (a NodeGeometry as geom, linear "
+                "with LAKES (lake_params) without BLOWING; or on "
+                "finite-difference nodes (a NodeGeometry as geom, linear "
                 "spacing) with or without FROZEN_SOIL; without DIST_PRCP, "
-                "SPATIAL_SNOW, LAKES, CORRPREC, water-table curves or "
+                "SPATIAL_SNOW, CORRPREC, water-table curves or "
                 "CONTINUEONERROR")
 
 
@@ -93,7 +122,9 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
     'density' (kg/m^3), optional 'tskc', and host ints 'month' (1-12),
     'day_in_year'. geom: the NodeGeometry of finite-difference nodes on the
     parameters' device (physics.frozen_soil.build_node_geometry(...).to),
-    required with quick_flux=False. outvars: optional OUT_* names to return
+    required with quick_flux=False. lake_params: the lakes' LakeParams on
+    the parameters' device (prepare.lake_params_from_numpy), required with
+    LAKES. outvars: optional OUT_* names to return
     (plus OUT_WATER_ERROR, always kept)."""
     _refuse(gp, geom, zwt_curves, lake_params)
     dt_hours = gp.dt
@@ -644,8 +675,206 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
         cell_runoff = agg(ro.runoff + glac_outflow)
         cell_baseflow = agg(ro.baseflow)
 
+        # ---- lake/wetland coupling (full_energy.c:714-800, lakes.eb.c;
+        # vic_tpu/model.py:993-1310), before the state so the wetland
+        # recharge enters the soil and the closure ----
+        moist_wet_f = ro.moist
+        recharge_lane_mm = torch.zeros_like(ro.runoff)
+        lake_evap_mm = torch.zeros_like(cell_runoff)
+        prec_cell = rain_cell = snow_cell = None
+        lake_out = {}
+        lake_state = {k: getattr(state, k) for k in LAKE_STATE_FIELDS}
+        if lake_params is not None:
+            lp = lake_params
+            cell_area = p.cell_area
+            rperc = lp.rpercent
+            # wetland host lane: the first valid non-glacier band-0 lane
+            # (argmax over 0/1 returns the first maximal index, as
+            # jnp.argmax does over the bool mask)
+            cand = p.mask & (p.band == 0) & ~p.is_glacier
+            wl_idx = cand.to(torch.uint8).argmax(dim=1)
+            wl_mask = ((torch.arange(p.max_hru, device=cand.device)[None, :]
+                        == wl_idx[:, None]) & cand.any(1)[:, None])
+
+            def take_wl(x):
+                idx = wl_idx.reshape((-1,) + (1,) * (x.dim() - 1))
+                return torch.take_along_dim(x, idx, 1)[:, 0]
+
+            # pre-step dynamic lake fraction (full_energy.c:239)
+            basin0 = lp.basin[..., 0]
+            has_l = lp.has_lake
+            liq_pre = torch.clamp(state.lake_volume - state.lake_ice_we,
+                                  min=0.0)
+            sarea_pre = torch.maximum(
+                area_from_depth(lp, depth_from_volume(lp, liq_pre)),
+                state.lake_ice_area)
+            clake_pre = W(has_l, torch.clamp(
+                sarea_pre / torch.clamp(basin0, min=1.0), 0.0, 1.0), 0.0)
+            # the wetland lane routes all of its runoff into the lake at its
+            # land share (1-lakefrac), the other lanes rpercent of theirs
+            wl_w = (w * wl_mask).sum(-1)
+            wet_ro = ((ro.runoff + glac_outflow) * w * wl_mask).sum(-1)
+            wet_bf = (ro.baseflow * w * wl_mask).sum(-1)
+            oth_ro = cell_runoff - wet_ro
+            oth_bf = cell_baseflow - wet_bf
+            r_in = (oth_ro * rperc
+                    + wet_ro * (1.0 - clake_pre)) / 1000.0 * cell_area
+            b_in = (oth_bf * rperc
+                    + wet_bf * (1.0 - clake_pre)) / 1000.0 * cell_area
+            # cell-level rain/snow partition for the lake column
+            tair_c = forcing["air_temp"]
+            rainonly_c = calc_rainonly(tair_c, forcing["prec"],
+                                       p.max_snow_temp, p.min_rain_temp,
+                                       int(gp.temp_th_type))
+            vpd_c = torch.clamp(svp(tair_c) - forcing["vp"], min=0.0)
+            lstate = LakeState(**{n: getattr(state, f) for f, n in zip(
+                LAKE_STATE_FIELDS, LAKE_STATE_NAMES)})
+            # bottom-layer relative moisture of each lane for the lake-bed
+            # ARNO curve (lakes.eb.c:2104-2115)
+            mm_bot = p.max_moist[..., -1]
+            resid_bot = p.resid_moist[..., -1] * p.depth[..., -1] * 1000.0
+            wl_rel_moist = (mm_bot[:, None] - ice_new[..., -1]
+                            - resid_bot[:, None]) / torch.clamp(
+                mm_bot - resid_bot, min=1.0)[:, None]
+            lres = lake_step(
+                lp, lstate, tair=tair_c, wind=forcing["wind"],
+                sw_in=forcing["shortwave"], lw_in=forcing["longwave"],
+                vp_air=forcing["vp"], vpd=vpd_c,
+                pressure=forcing["pressure"],
+                air_density=forcing["density"], rainfall_mm=rainonly_c,
+                snowfall_mm=forcing["prec"] - rainonly_c, runoff_in_m3=r_in,
+                baseflow_in_m3=b_in, lat=p.lat, day_in_year=doy,
+                wind_h=take_wl(p.wind_h), snow_rough=p.snow_rough,
+                new_snow_alb=p.new_snow_alb,
+                alb_accum_a=p.snow_alb_accum_a,
+                alb_accum_b=p.snow_alb_accum_b,
+                alb_thaw_a=p.snow_alb_thaw_a, alb_thaw_b=p.snow_alb_thaw_b,
+                ds=p.ds, dsmax=p.dsmax, ws_arno=p.ws, c_expt=p.c_expt,
+                dt_sec=dt_sec, wetland_moist=ro.moist,
+                wetland_max_moist=p.max_moist, wetland_rel_moist=wl_rel_moist,
+                lane_mask=p.mask)
+            clake_post = W(has_l, torch.clamp(
+                lres.sarea / torch.clamp(basin0, min=1.0), 0.0, 1.0), 0.0)
+
+            # ---- per-lane storage advection for the changing lake area
+            # (lakes.eb.c:2307-2334,2374-2533): the flooding recharge
+            # saturates each lane's fringe, excess spilling down then up;
+            # each column is blended with the saturated strip the lake
+            # exposed or flooded ----
+            mm_max = p.max_moist[:, None, :]
+            cols = list((ro.moist + lres.wetland_dmoist_mm).unbind(-1))
+            nlay = len(cols)
+            for lay in range(nlay - 1):
+                exc = torch.clamp(cols[lay] - mm_max[..., lay], min=0.0)
+                cols[lay] = cols[lay] - exc
+                cols[lay + 1] = cols[lay + 1] + exc
+            for lay in range(nlay - 1, 0, -1):
+                exc = torch.clamp(cols[lay] - mm_max[..., lay], min=0.0)
+                cols[lay] = cols[lay] - exc
+                cols[lay - 1] = cols[lay - 1] + exc
+            cols[0] = torch.minimum(cols[0], mm_max[..., 0])
+            m1 = torch.stack(cols, -1)
+            lf = clake_pre[:, None]
+            nf_l = W(has_l[:, None], lres.lane_nf, 0.0)
+            maxnf_l = W(has_l[:, None], lres.lane_maxnf, 0.0)
+            one_m_nf = torch.clamp(1.0 - nf_l, min=1e-6)
+            m_adv = torch.minimum(torch.clamp(
+                (m1 * (1.0 - lf)[..., None]
+                 + mm_max * (lf - nf_l)[..., None]) / one_m_nf[..., None],
+                min=0.0), mm_max)
+            live_l = has_l[:, None] & (lf < 1.0) & p.mask
+            dmoist_total = W(live_l[..., None], m_adv - ro.moist, 0.0)
+            moist_wet_f = ro.moist + dmoist_total
+            # snow and dew rescaled onto the new land fraction
+            # (advect_snow_storage, advect_soil_veg_storage)
+            sscale = W(live_l, W(maxnf_l > lf, 1.0 - maxnf_l, 1.0 - lf)
+                       / one_m_nf, 1.0)
+            snow_adv_mm = (swq + snow_canopy_new) * (sscale - 1.0) * 1000.0
+            swq = swq * sscale
+            surf_water = surf_water * sscale
+            pack_water = pack_water * sscale
+            depth = depth * sscale
+            snow_canopy_new = snow_canopy_new * sscale
+            wdew_adv_mm = wdew_new * (sscale - 1.0)
+            wdew_new = wdew_new * sscale
+            # closure credit: the advected water is exchanged with the lake
+            recharge_lane_mm = (dmoist_total.sum(-1) + snow_adv_mm
+                                + wdew_adv_mm)
+            to_mm = 1000.0 / cell_area
+            # the lake's own fluxes at Cv*Clake (put_data.c:405-413,789)
+            lake_w = wl_w * clake_post
+            over_lake_mm = 1000.0 / torch.clamp(lres.sarea, min=1.0)
+            cell_runoff = ((1.0 - rperc) * oth_ro
+                           + lres.runoff_out_m3 * over_lake_mm * lake_w)
+            cell_baseflow = ((1.0 - rperc) * oth_bf
+                             + lres.baseflow_out_m3 * over_lake_mm * lake_w)
+            lake_evap_mm = lres.evap_m3 * over_lake_mm * lake_w
+            # precip echoes at the PRE-step lake-scaled weights, plus the
+            # lake's own precip on OUT_PREC only (full_energy.c:240-243,781)
+            w_pre = w * (1.0 - wl_mask * clake_pre[:, None])
+            cl0 = basin0 / torch.clamp(cell_area, min=1.0)
+            lake_prec_add = ((forcing["prec"] - rainonly_c) * p.padj_s
+                             + rainonly_c * p.padj_r) * cl0 * clake_pre
+            prec_cell = (out_prec * w_pre).sum(-1) + lake_prec_add
+            rain_cell = (out_rain * w_pre).sum(-1)
+            snow_cell = (out_snow * w_pre).sum(-1)
+            ls = lres.state
+            dvol = ls.volume - state.lake_volume
+            dswe = ls.swe - state.lake_swe
+            lake_out = {
+                "OUT_LAKE_DEPTH": lres.depth,
+                "OUT_LAKE_VOLUME": ls.volume,
+                "OUT_LAKE_SURF_AREA": lres.sarea,
+                "OUT_LAKE_ICE_FRACT": lres.ice_fract,
+                # lake_var.hice in m (put_data.c:447)
+                "OUT_LAKE_ICE_HEIGHT": ls.ice_height,
+                # the top water layer (put_data.c:475)
+                "OUT_LAKE_SURF_TEMP": ls.temp[..., 0],
+                "OUT_LAKE_EVAP": lake_evap_mm,
+                "OUT_LAKE_RCHRG": lres.recharge_m3 * to_mm,
+                "OUT_LAKE_AREA_FRAC": lake_w,
+                "OUT_LAKE_ICE": W(ls.ice_area > 0.0, ls.ice_water_eq
+                                  / torch.clamp(ls.ice_area, min=1.0)
+                                  * c.ICE_DENSITY / c.RHO_W, 0.0),
+                "OUT_LAKE_ICE_TEMP": W(ls.ice_area > 0.0, ls.tempi, 0.0),
+                "OUT_LAKE_SWE": ls.swe,
+                "OUT_LAKE_SWE_V": ls.swe * lres.sarea,
+                "OUT_LAKE_DSWE_V": dswe * lres.sarea,
+                "OUT_LAKE_DSWE": dswe * lres.sarea * to_mm,
+                "OUT_LAKE_DSTOR_V": dvol,
+                "OUT_LAKE_DSTOR": dvol * to_mm,
+                "OUT_LAKE_MOIST": ls.volume * to_mm,
+                "OUT_SURFSTOR": ls.volume * to_mm,
+                "OUT_DELSURFSTOR": dvol * to_mm,
+                "OUT_LAKE_BF_IN_V": b_in,
+                "OUT_LAKE_BF_IN": b_in * to_mm,
+                "OUT_LAKE_BF_OUT_V": lres.baseflow_out_m3,
+                "OUT_LAKE_BF_OUT": lres.baseflow_out_m3 * to_mm,
+                # no channel routing in the standalone model
+                "OUT_LAKE_CHAN_IN_V": torch.zeros_like(b_in),
+                "OUT_LAKE_CHAN_IN": torch.zeros_like(cell_runoff),
+                "OUT_LAKE_CHAN_OUT_V": lres.runoff_out_m3,
+                "OUT_LAKE_CHAN_OUT": lres.runoff_out_m3 * to_mm,
+                "OUT_LAKE_EVAP_V": lres.evap_m3,
+                "OUT_LAKE_PREC_V": lres.precip_in_m3,
+                "OUT_LAKE_RCHRG_V": lres.recharge_m3,
+                "OUT_LAKE_RO_IN_V": r_in,
+                "OUT_LAKE_RO_IN": r_in * to_mm,
+                "OUT_LAKE_VAPFLX_V": lres.vapor_flux_m3,
+                "OUT_LAKE_VAPFLX": lres.vapor_flux_m3 * to_mm,
+                "OUT_LAKE_WATER_ERROR": lres.water_error_mm,
+                "OUT_LAKE_ENERGY_ERROR": lres.energy_error,
+                # soil nodes under the wetland lane (put_data.c:368)
+                "OUT_SOIL_TNODE_WL": take_wl(node_temp),
+            }
+            lake_state = {k: getattr(ls, n) for k, n in zip(
+                LAKE_STATE_FIELDS, LAKE_STATE_NAMES)}
+            # the wetland lane aggregates at Cv*(1-Clake) from here on
+            # (put_data.c:195-196,271,789)
+            w = w * (1.0 - wl_mask * clake_post[:, None])
+
         new_state = ModelState(
-            moist=ro.moist, ice=ice_new, wdew=wdew_new,
+            moist=moist_wet_f, ice=ice_new, wdew=wdew_new,
             moist_dry=state.moist_dry, ice_dry=state.ice_dry,
             wdew_dry=state.wdew_dry, snow_canopy=snow_canopy_new,
             swq=swq, surf_temp=surf_temp, pack_temp=pack_temp,
@@ -671,24 +900,15 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             + sm.surf_temp_fbflag.to(torch.int32),
             mu=state.mu, still_storm=state.still_storm,
             dry_time=state.dry_time, cell_valid=state.cell_valid,
-            lake_volume=state.lake_volume, lake_temp=state.lake_temp,
-            lake_ice_we=state.lake_ice_we, lake_ice_area=state.lake_ice_area,
-            lake_ice_height=state.lake_ice_height, lake_swe=state.lake_swe,
-            lake_tempi=state.lake_tempi,
-            lake_snow_surf_temp=state.lake_snow_surf_temp,
-            lake_snow_pack_temp=state.lake_snow_pack_temp,
-            lake_snow_surf_water=state.lake_snow_surf_water,
-            lake_snow_pack_water=state.lake_snow_pack_water,
-            lake_salbedo=state.lake_salbedo,
-            lake_last_snow=state.lake_last_snow,
-            lake_melting=state.lake_melting)
+            **lake_state)
 
         # ---- water balance closure (put_data.c aggregation) ----
         storage0 = state.moist.sum(-1) + state.wdew + state.swq * 1000.0 \
             + state.snow_canopy * 1000.0 + state.glac_water_storage
-        storage1 = ro.moist.sum(-1) + wdew_new + swq * 1000.0 \
+        storage1 = moist_wet_f.sum(-1) + wdew_new + swq * 1000.0 \
             + snow_canopy_new * 1000.0 + glac_water_storage
-        influx = out_prec + W(glacier, glac_melt_mm, 0.0) - glac_firn_mm
+        influx = out_prec + W(glacier, glac_melt_mm, 0.0) \
+            + recharge_lane_mm - glac_firn_mm
         wb_err = (storage1 - storage0) - (
             influx - total_evap - (ro.runoff + glac_outflow) - ro.baseflow)
 
@@ -697,7 +917,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             aero.resist.snow_free, aero.resist.canopy, p.rmin, p.rarc,
             p.rgl, lai, veg_albedo, p.overstory)
 
-        moist_f = ro.moist
+        moist_f = moist_wet_f
         ice_f = ice_new
         liq_f = moist_f - ice_f
         wpwp_b = B(p.wpwp)
@@ -773,10 +993,10 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             "OUT_ROOTMOIST": agg((moist_f * (p.root > 0.0)).sum(-1)),
             "OUT_SOIL_WET": soil_wet,
             "OUT_ASAT": agg(ro.asat),
-            "OUT_PREC": agg(out_prec),
-            "OUT_RAINF": agg(out_rain),
-            "OUT_SNOWF": agg(out_snow),
-            "OUT_EVAP": agg(total_evap),
+            "OUT_PREC": agg(out_prec) if prec_cell is None else prec_cell,
+            "OUT_RAINF": agg(out_rain) if rain_cell is None else rain_cell,
+            "OUT_SNOWF": agg(out_snow) if snow_cell is None else snow_cell,
+            "OUT_EVAP": agg(total_evap) + lake_evap_mm,
             "OUT_EVAP_BARE": agg(W(bare, evap_sfree, 0.0)),
             "OUT_EVAP_CANOP": agg(W(snowing, cevap_liq_mm,
                                     eb.canopy_evap_mm)),
@@ -866,7 +1086,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             "OUT_SMFROZFRAC": 1.0 - smliqfrac,
             "OUT_POROSITY": p.max_moist / (p.depth * 1000.0),
             "OUT_SOIL_DEPTH": p.depth,
-            "OUT_DELSOILMOIST": agg(ro.moist.sum(-1) - state.moist.sum(-1)),
+            "OUT_DELSOILMOIST": agg(moist_wet_f.sum(-1)
+                                    - state.moist.sum(-1)),
             "OUT_DELSWE": agg((swq + snow_canopy_new - state.swq
                                - state.snow_canopy) * 1000.0),
             "OUT_DELINTERCEPT": agg(wdew_new - state.wdew),
@@ -946,6 +1167,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                 "OUT_GLAC_FLUX_BAND": band_agg(glac_flux),
             })
 
+        outputs.update(lake_out)
+
         if outvars is not None:
             keep = set(outvars) | {"OUT_WATER_ERROR"}
             outputs = {k: v for k, v in outputs.items() if k in keep}
@@ -969,7 +1192,8 @@ def surf_atten_of(lai, p: DeviceParams):
 
 def run(state: ModelState, forcing_stacked: dict, params: DeviceParams, gp,
         geom=None, zwt_curves=None, lake_params=None, outvars=None):
-    """Step through [n_rec, ...] stacked forcing. Returns (final_state,
+    """Step through [n_rec, ...] stacked forcing (see make_step for geom
+    and lake_params). Returns (final_state,
     outputs stacked over records)."""
     step = make_step(params, gp, geom, zwt_curves, lake_params,
                      outvars=outvars)

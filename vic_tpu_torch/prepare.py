@@ -6,6 +6,7 @@ max_hru(, ...)]` tensors, so the step only indexes the month.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -155,3 +156,15 @@ def device_params_from_numpy(arrays: dict, device) -> DeviceParams:
     """DeviceParams from one numpy array per field (floats become float32,
     masks bool, indices int32)."""
     return DeviceParams.from_numpy(arrays, device)
+
+
+def lake_params_from_numpy(lp, device):
+    """The port's LakeParams on `device` from per-cell lake parameters held
+    as numpy arrays: a {field: array} dict (physics.lake.make_lake_params)
+    or any object with those fields as attributes, such as vic_tpu's
+    LakeParams. Floats become float32, as vic_tpu's callers cast them."""
+    from .physics.lake import LakeParams
+    get = lp.get if isinstance(lp, dict) else (lambda k: getattr(lp, k))
+    return LakeParams.from_numpy(
+        {f.name: get(f.name) for f in dataclasses.fields(LakeParams)},
+        device)

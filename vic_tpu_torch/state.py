@@ -13,6 +13,7 @@ import torch
 
 from .constants import MAX_LAKE_NODES
 from .physics.frozen_soil import estimate_layer_ice, layer_ice_params
+from .physics.lake import initial_lake_state
 from .tensors import TensorDataclass
 
 
@@ -73,9 +74,11 @@ class ModelState(TensorDataclass):
 
 
 def initial_state(domain, gp, device, surf_temp_init=None,
-                  geom=None) -> ModelState:
-    """Cold-start state (vic_tpu/state.py:108-217; initialize_model_state.c),
-    no lake. Node temperatures: [surf, surf, avg_temp, ...], or with
+                  geom=None, lake_params=None) -> ModelState:
+    """Cold-start state (vic_tpu/state.py:108-217; initialize_model_state.c).
+    lake_params: the lakes' LakeParams on `device` (physics.lake), whose
+    cold start fills the lake_* fields (initialize_lake.c), else zeros.
+    Node temperatures: [surf, surf, avg_temp, ...], or with
     FROZEN_SOIL on finite-difference nodes (`geom`, a NodeGeometry on
     `device`) the exponential profile avg + (surf - avg)*exp(-Zsum) with the
     bottom node at avg, whose layer water then starts partitioned into ice
@@ -127,6 +130,27 @@ def initial_state(domain, gp, device, surf_temp_init=None,
         return torch.zeros(s or sh, dtype=torch.bool, device=device)
 
     zc = torch.zeros((n_cell,), **f32)
+    if lake_params is not None:
+        ls = initial_lake_state(lake_params, avg)
+        lake = dict(lake_volume=ls.volume, lake_temp=ls.temp,
+                    lake_ice_we=ls.ice_water_eq, lake_ice_area=ls.ice_area,
+                    lake_ice_height=ls.ice_height, lake_swe=ls.swe,
+                    lake_tempi=ls.tempi, lake_snow_surf_temp=ls.surf_temp,
+                    lake_snow_pack_temp=ls.pack_temp,
+                    lake_snow_surf_water=ls.surf_water,
+                    lake_snow_pack_water=ls.pack_water,
+                    lake_salbedo=ls.salbedo, lake_last_snow=ls.last_snow,
+                    lake_melting=ls.melting)
+    else:
+        lake = dict(
+            lake_volume=zc,
+            lake_temp=torch.zeros((n_cell, MAX_LAKE_NODES), **f32),
+            lake_ice_we=zc.clone(), lake_ice_area=zc.clone(),
+            lake_ice_height=zc.clone(), lake_swe=zc.clone(),
+            lake_tempi=zc.clone(), lake_snow_surf_temp=zc.clone(),
+            lake_snow_pack_temp=zc.clone(), lake_snow_surf_water=zc.clone(),
+            lake_snow_pack_water=zc.clone(), lake_salbedo=zc.clone(),
+            lake_last_snow=zc.clone(), lake_melting=ZB(n_cell))
     return ModelState(
         moist=moist, ice=ice, moist_dry=moist.clone(), ice_dry=ice.clone(),
         wdew=Z(), wdew_dry=Z(), snow_canopy=Z(),
@@ -143,13 +167,7 @@ def initial_state(domain, gp, device, surf_temp_init=None,
         mu=torch.ones(sh, **f32), still_storm=ZB(),
         dry_time=torch.full(sh, 24, dtype=torch.int32, device=device),
         cell_valid=torch.ones((n_cell,), dtype=torch.bool, device=device),
-        lake_volume=zc, lake_temp=torch.zeros((n_cell, MAX_LAKE_NODES), **f32),
-        lake_ice_we=zc.clone(), lake_ice_area=zc.clone(),
-        lake_ice_height=zc.clone(), lake_swe=zc.clone(),
-        lake_tempi=zc.clone(), lake_snow_surf_temp=zc.clone(),
-        lake_snow_pack_temp=zc.clone(), lake_snow_surf_water=zc.clone(),
-        lake_snow_pack_water=zc.clone(), lake_salbedo=zc.clone(),
-        lake_last_snow=zc.clone(), lake_melting=ZB(n_cell),
+        **lake,
     )
 
 

@@ -1,7 +1,9 @@
-"""Synthetic domain and forcing builders (numpy only, seeded).
+"""Synthetic domain and forcing builders (numpy only, seeded), and the
+rules a lakes run is compared with vic_tpu's by.
 
-Counterparts of `vic_tpu.testing`: the same random streams and the same
-parameter ranges, so both packages build identical inputs from a seed.
+The builders are counterparts of `vic_tpu.testing`: the same random streams
+and the same parameter ranges, so both packages build identical inputs
+from a seed.
 """
 from __future__ import annotations
 
@@ -173,3 +175,91 @@ def synthetic_forcing(n_rec: int, n_cell: int, dt_hours: int = 24,
         "shortwave": shortwave, "longwave": longwave,
         "pressure": pressure, "vp": vp, "density": density,
     }
+
+
+# --------------------------------------------------------------------------
+# Comparing a lakes run with vic_tpu's (the tests and chip_smoke.py)
+# --------------------------------------------------------------------------
+
+# Two kinds of lake leaf cannot agree at a fixed tolerance between two
+# float32 programs that round differently (ROADMAP.md queue 3):
+# - the storage residuals OUT_LAKE_ENERGY_ERROR and OUT_LAKE_WATER_ERROR
+#   are differences of float32 sums of ~1e16 J and ~1e8 m^3; they are held
+#   within LAKE_ENERGY_ULPS ulps of the column energy over (area x dt) and
+#   LAKE_WATER_ULPS ulps of the lake volume over the area;
+# - the convective mix near 4 C compares neighbouring layers' densities
+#   that differ by about one float32 ulp, so an ulp of difference in a
+#   temperature can decide whether a pair mixes: a lake temperature may
+#   differ only inside a run of adjacent layers whose densities lie within
+#   LAKE_RHO_BAND of each other, by at most that run's temperature spread.
+# The m^3 leaves (OUT_LAKE_*_V) are compared in mm over the cell, the unit
+# of their mm twins.
+LAKE_ENERGY_ULPS = 20
+LAKE_WATER_ULPS = 32
+LAKE_RHO_BAND = 2.5e-4     # kg/m^3, four float32 ulps at 1000 kg/m^3
+
+
+def mixed_column_excess(got, ref, tol):
+    """(cell, layer) of the lake temperatures [..., n_layer] that differ
+    from `ref` beyond tol and are not explained by a mix that fell the other
+    way (see LAKE_RHO_BAND)."""
+    import torch
+
+    from .physics.lake import water_density
+    got = np.asarray(got).reshape(-1, np.shape(ref)[-1])
+    ref = np.asarray(ref, np.float32).reshape(got.shape)
+    rho = water_density(torch.from_numpy(ref)).numpy()
+    diff = np.abs(got - ref)
+    bad = []
+    for c_, k in zip(*np.nonzero(diff > tol + tol * np.abs(ref))):
+        lo = hi = k
+        while lo > 0 and abs(rho[c_, lo - 1] - rho[c_, k]) <= LAKE_RHO_BAND:
+            lo -= 1
+        while hi < ref.shape[1] - 1 and \
+                abs(rho[c_, hi + 1] - rho[c_, k]) <= LAKE_RHO_BAND:
+            hi += 1
+        spread = ref[c_, lo:hi + 1].max() - ref[c_, lo:hi + 1].min()
+        if hi == lo or diff[c_, k] > spread + tol:
+            bad.append((int(c_), int(k)))
+    return bad
+
+
+def lake_run_failures(ref: dict, got: dict, tol: float, cell_area,
+                      dt_sec: float = 86400.0) -> list:
+    """Keys of `ref` ({"out/OUT_*": [n_rec, n_cell, ...], "state/<field>":
+    ...}, the golden fixtures' layout) whose value in `got` differs beyond
+    rtol = atol = tol, the lakes' leaves held as above. cell_area: [n_cell]
+    m^2."""
+    bounds = {}
+    if "out/OUT_LAKE_VOLUME" in ref:
+        vol = np.asarray(ref["out/OUT_LAKE_VOLUME"], np.float64)
+        area = np.maximum(np.asarray(ref["out/OUT_LAKE_SURF_AREA"],
+                                     np.float64), 1.0)
+        energy = (vol * 1000.0 * 4220.0 * 300.0).astype(np.float32)
+        bounds = {
+            "out/OUT_LAKE_ENERGY_ERROR":
+                LAKE_ENERGY_ULPS * np.spacing(energy) / (area * dt_sec) + tol,
+            "out/OUT_LAKE_WATER_ERROR":
+                LAKE_WATER_ULPS * np.spacing(vol.astype(np.float32)) / area
+                * 1000.0 + tol}
+    to_mm = 1000.0 / np.asarray(cell_area, np.float64)
+    failed = []
+    for key, a in ref.items():
+        a, b = np.asarray(a), np.asarray(got[key])
+        if a.shape != b.shape or a.dtype != b.dtype:
+            failed.append(key)
+        elif a.dtype.kind != "f":
+            if not np.array_equal(a, b):
+                failed.append(key)
+        elif key in bounds:
+            if not (np.abs(b - a) <= bounds[key]).all():
+                failed.append(key)
+        elif key == "state/lake_temp":
+            if mixed_column_excess(b, a, tol):
+                failed.append(key)
+        elif key.startswith("out/OUT_LAKE_") and key.endswith("_V"):
+            if not np.allclose(b * to_mm, a * to_mm, rtol=tol, atol=tol):
+                failed.append(key)
+        elif not np.allclose(b, a, rtol=tol, atol=tol):
+            failed.append(key)
+    return failed
