@@ -94,14 +94,14 @@ def test_water_closure_and_the_paths_run():
 
 
 def test_cpu_blowing_close_step_takes_the_plain_versions():
-    gp, params, stack, state, _, _ = build_blowing_close(2, 1, "cpu")
+    gp, params, stack, state, _ = build_blowing_close(2, 1, "cpu")
     kernels.reset_launches()
     model.make_step(params, gp)(state, {k: v[0] for k, v in stack.items()})
     assert kernels.launches == dict.fromkeys(kernels.launches, 0)
 
 
 def test_blowing_close_step_does_not_write_into_its_inputs():
-    gp, params, stack, state, _, _ = build_blowing_close(3, 2, "cpu")
+    gp, params, stack, state, _ = build_blowing_close(3, 2, "cpu")
     before = {k: v.copy() for k, v in state.numpy().items()}
     model.make_step(params, gp)(state, {k: v[0] for k, v in stack.items()})
     for k, v in state.numpy().items():
@@ -110,9 +110,26 @@ def test_blowing_close_step_does_not_write_into_its_inputs():
 
 @pytest.mark.parametrize("flag", ["blowing", "close_energy"])
 def test_refused_on_finite_difference_nodes(flag):
+    """On finite-difference nodes BLOWING and CLOSE_ENERGY step (below), but
+    not with LAKES: the lake on finite-difference nodes is not ported."""
     from vic_tpu_torch.entry import build_frozen, frozen_params
-    gp = frozen_params(1).replace(**{flag: True})
-    _, params, _, _, geom, _ = build_frozen(1, 1, "cpu")
+    gp = frozen_params(1).replace(**{flag: True, "lakes": True})
+    _, params, _, _, extras = build_frozen(1, 1, "cpu")
     with pytest.raises(NotImplementedError,
-                       match=f"{flag} on finite-difference nodes"):
-        model.make_step(params, gp, geom=geom)
+                       match="lakes (with blowing|on finite-difference "
+                             "nodes)"):
+        model.make_step(params, gp, **extras)
+
+
+@pytest.mark.parametrize("flag", ["blowing", "close_energy"])
+def test_steps_on_finite_difference_nodes(flag):
+    """BLOWING and CLOSE_ENERGY, once refused on finite-difference nodes,
+    step the frozen configuration at 2 x 2: its 151 outputs, finite."""
+    from vic_tpu_torch.entry import build_frozen
+    gp, params, stack, state, extras = build_frozen(2, 2, "cpu")
+    final, outs = model.run(state, stack, params, gp.replace(**{flag: True}),
+                            **extras)
+    assert len(outs) == 151
+    assert all(bool(torch.isfinite(v).all()) for v in outs.values())
+    assert all(np.isfinite(v).all() for v in final.numpy().values()
+               if v.dtype.kind == "f")

@@ -176,7 +176,7 @@ def test_calc_blowing_snow_on_the_steps_inputs():
     tbs.calc_blowing_snow_plain = lambda **k: (captured.append(k),
                                                orig(**k))[1]
     try:
-        gp, params, stack, state, _, _ = build_blowing_close(4, 4, "cpu")
+        gp, params, stack, state, _ = build_blowing_close(4, 4, "cpu")
         step = make_step(params, gp)
         for r in range(4):
             state, _ = step(state, {k: v[r] for k, v in stack.items()})
@@ -217,7 +217,7 @@ def test_snow_melt_with_a_blowing_flux():
     import vic_tpu_torch.model as tmodel
     tmodel.snow_melt = lambda **k: (captured.append(k), orig(**k))[1]
     try:
-        gp, params, stack, state, _, _ = build_blowing_close(4, 4, "cpu")
+        gp, params, stack, state, _ = build_blowing_close(4, 4, "cpu")
         step = make_step(params, gp)
         for r in range(4):
             state, _ = step(state, {k: v[r] for k, v in stack.items()})

@@ -118,7 +118,7 @@ def test_initial_lake_state_matches_field_by_field():
         if np.asarray(a).dtype.kind == "f" else jnp.asarray(a),
         jmake(domain.soil, gp))
     ref = jinit(domain, gp, lake_params=lp)
-    _, _, _, state, _, _ = build_lakes(5, 1, "cpu")
+    _, _, _, state, _ = build_lakes(5, 1, "cpu")
     got = state.numpy()
     lake_fields = [f.name for f in dataclasses.fields(ref)
                    if f.name.startswith("lake_")]

@@ -105,7 +105,8 @@ def test_water_closure_and_frozen_soil_on_both():
 
 
 def test_frozen_step_does_not_write_into_its_inputs():
-    gp, params, stack, state, geom, _ = build_frozen(3, 2, "cpu")
+    gp, params, stack, state, extras = build_frozen(3, 2, "cpu")
+    geom = extras["geom"]
     before = {k: v.copy() for k, v in state.numpy().items()}
     step = model.make_step(params, gp, geom=geom)
     step(state, {k: v[0] for k, v in stack.items()})
@@ -137,6 +138,7 @@ def test_unfrozen_finite_difference_nodes_match():
 def test_make_step_refuses_frozen_options_outside_the_slice(flag, geom_given,
                                                            refused):
     gp = light_params(1).replace(**flag)
-    _, params, _, _, geom, _ = build_frozen(1, 1, "cpu")
+    _, params, _, _, extras = build_frozen(1, 1, "cpu")
+    geom = extras["geom"]
     with pytest.raises(NotImplementedError, match=refused):
         model.make_step(params, gp, geom=geom if geom_given else None)

@@ -47,7 +47,7 @@ def test_committed_fixture_is_fresh():
 def test_port_on_cpu_matches_fixture():
     committed = dict(np.load(fixture.FIXTURE))
     n_rec, n_cell = committed["out/OUT_EVAP"].shape
-    gp, params, stack, state, _, _ = build_light(n_cell, n_rec, "cpu")
+    gp, params, stack, state, _ = build_light(n_cell, n_rec, "cpu")
     final, outs = run(state, stack, params, gp)
     got = {f"out/{k}": v.numpy() for k, v in outs.items()}
     got.update({f"state/{k}": v for k, v in final.numpy().items()})

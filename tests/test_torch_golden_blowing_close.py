@@ -49,7 +49,7 @@ def test_committed_blowing_close_fixture_is_fresh():
 def test_port_on_cpu_matches_blowing_close_fixture():
     committed = dict(np.load(fixture.BLOWING_CLOSE_FIXTURE))
     n_rec, n_cell = committed["out/OUT_EVAP"].shape
-    gp, params, stack, state, _, _ = build_blowing_close(n_cell, n_rec, "cpu")
+    gp, params, stack, state, _ = build_blowing_close(n_cell, n_rec, "cpu")
     final, outs = run(state, stack, params, gp)
     got = {f"out/{k}": v.numpy() for k, v in outs.items()}
     got.update({f"state/{k}": v for k, v in final.numpy().items()})

@@ -52,7 +52,8 @@ def test_committed_frozen_fixture_is_fresh():
 def test_port_on_cpu_matches_frozen_fixture():
     committed = dict(np.load(fixture.FROZEN_FIXTURE))
     n_rec, n_cell = committed["out/OUT_EVAP"].shape
-    gp, params, stack, state, geom, _ = build_frozen(n_cell, n_rec, "cpu")
+    gp, params, stack, state, extras = build_frozen(n_cell, n_rec, "cpu")
+    geom = extras["geom"]
     final, outs = run(state, stack, params, gp, geom=geom)
     got = {f"out/{k}": v.numpy() for k, v in outs.items()}
     got.update({f"state/{k}": v for k, v in final.numpy().items()})

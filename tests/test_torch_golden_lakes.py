@@ -48,7 +48,8 @@ def test_committed_lakes_fixture_is_fresh():
 def test_port_on_cpu_matches_lakes_fixture():
     committed = dict(np.load(fixture.LAKES_FIXTURE))
     n_rec, n_cell = committed["out/OUT_EVAP"].shape
-    gp, params, stack, state, _, lp = build_lakes(n_cell, n_rec, "cpu")
+    gp, params, stack, state, extras = build_lakes(n_cell, n_rec, "cpu")
+    lp = extras["lake_params"]
     final, outs = run(state, stack, params, gp, lake_params=lp)
     got = {f"out/{k}": v.numpy() for k, v in outs.items()}
     got.update({f"state/{k}": v for k, v in final.numpy().items()})

@@ -14,8 +14,8 @@ torch.set_num_threads(1)
 import vic_tpu_torch
 import vic_tpu_torch.model
 from vic_tpu_torch.entry import CONFIGS
-gp, params, stack, state, geom, lake = CONFIGS[sys.argv[1]](2, 1, "cpu")
-step = vic_tpu_torch.model.make_step(params, gp, geom=geom, lake_params=lake)
+gp, params, stack, state, extras = CONFIGS[sys.argv[1]](2, 1, "cpu")
+step = vic_tpu_torch.model.make_step(params, gp, **extras)
 new_state, out = step(state, {k: v[0] for k, v in stack.items()})
 assert all(bool(torch.isfinite(v).all()) for v in out.values())
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
@@ -28,7 +28,9 @@ print("ok", len(out))
 
 @pytest.mark.parametrize("config,n_out", [("light", 150), ("frozen", 151),
                                           ("blowing_close", 150),
-                                          ("lakes", 186)])
+                                          ("lakes", 186),
+                                          ("dist_prcp", 150),
+                                          ("heavy_nolakes", 155)])
 def test_port_imports_and_steps_without_jax(config, n_out):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, config], cwd=ROOT,

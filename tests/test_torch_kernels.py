@@ -47,7 +47,8 @@ PLAIN = {"glacier_brent": glacier_brent_plain,
          "node_sweep": solve_t_profile_explicit_plain,
          "fd_surface_brent": surface_brent_plain,
          "blowing_snow": calc_blowing_snow_plain,
-         "canopy_air_step": canopy_air_step_plain}
+         "canopy_air_step": canopy_air_step_plain,
+         "affine_surface_brent": surface_brent_plain}
 
 
 @pytest.fixture
@@ -82,14 +83,15 @@ def test_runoff_wrapper_refuses_cpu_tensors():
 
 
 def test_cpu_step_takes_the_plain_versions():
-    gp, params, stack, state, _, _ = build_light(2, 1, "cpu")
+    gp, params, stack, state, _ = build_light(2, 1, "cpu")
     kernels.reset_launches()
     make_step(params, gp)(state, {k: v[0] for k, v in stack.items()})
     assert kernels.launches == dict.fromkeys(kernels.launches, 0)
 
 
 def test_cpu_frozen_step_takes_the_plain_versions():
-    gp, params, stack, state, geom, _ = build_frozen(2, 1, "cpu")
+    gp, params, stack, state, extras = build_frozen(2, 1, "cpu")
+    geom = extras["geom"]
     kernels.reset_launches()
     make_step(params, gp, geom=geom)(state,
                                      {k: v[0] for k, v in stack.items()})
@@ -100,7 +102,8 @@ def test_new_wrappers_refuse_cpu_tensors():
     t = torch.zeros(2, 4)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.surface_brent(t, t, t > 0, max_iter=60, eb_kwargs={})
-    gp, _, _, state, geom, _ = build_frozen(2, 1, "cpu")
+    gp, _, _, state, extras = build_frozen(2, 1, "cpu")
+    geom = extras["geom"]
     nodes = state.node_temp
     with pytest.raises(ValueError, match="CUDA"):
         kernels.node_sweep(nodes, nodes[..., 0], nodes, nodes, nodes, nodes,
@@ -119,6 +122,17 @@ def test_slice_three_wrappers_refuse_cpu_tensors():
                              tair=t)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.canopy_air_step(it=0, tc=t)
+
+
+def test_affine_surface_brent_refuses_cpu_tensors():
+    t = torch.zeros(2, 4)
+    nodes = torch.zeros(2, 4, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.affine_surface_brent(
+            t, t, t > 0, max_iter=60,
+            eb_kwargs={"fd_interp": (t, nodes, t, nodes)})
+    with pytest.raises(ValueError, match="affine two-probe residual only"):
+        kernels.affine_surface_brent(t, t, t > 0, max_iter=60, eb_kwargs={})
 
 
 def test_lane_inputs_are_strided_views_of_the_inputs():
@@ -161,7 +175,7 @@ def test_make_step_refuses_node_counts_the_sweep_kernel_lacks():
     """On CUDA tensors a node count K6 is not built for is refused by name
     when the step is built."""
     gp = frozen_params(1).replace(nnode=6)
-    _, params, _, _, _, _ = build_frozen(1, 1, "cpu")
+    _, params, _, _, _ = build_frozen(1, 1, "cpu")
     on_card = SimpleNamespace(alpha=SimpleNamespace(is_cuda=True))
     with pytest.raises(NotImplementedError, match="nnode=6"):
         make_step(params, gp, geom=on_card)
@@ -176,7 +190,7 @@ def test_surface_inputs_are_the_kernels_rows():
     surface.surface_brent_plain = lambda *a, **k: (captured.append(k),
                                                    orig(*a, **k))[1]
     try:
-        gp, params, stack, state, _, _ = build_light(2, 1, "cpu")
+        gp, params, stack, state, _ = build_light(2, 1, "cpu")
         make_step(params, gp)(state, {k: v[0] for k, v in stack.items()})
     finally:
         surface.surface_brent_plain = orig
@@ -197,6 +211,36 @@ def test_surface_inputs_are_the_kernels_rows():
         assert rows[-1].startswith("kNum") and len(rows) - 1 == len(group)
 
 
+def test_dry_surface_inputs_are_the_kernels_rows():
+    """With DIST_PRCP surface_inputs adds one tensor for each of the dry
+    column's inputs (as many as csrc/surface_brent.cuh's DryIn and
+    DryLayerIn count), from the dist_prcp step's surface Brent."""
+    captured = []
+    orig = surface.surface_brent_plain
+    surface.surface_brent_plain = lambda *a, **k: (captured.append(k),
+                                                   orig(*a, **k))[1]
+    try:
+        gp, params, stack, state, extras = CONFIGS["dist_prcp"](2, 1, "cpu")
+        make_step(params, gp, **extras)(state,
+                                        {k: v[0] for k, v in stack.items()})
+    finally:
+        surface.surface_brent_plain = orig
+    named = kernels.surface_inputs(captured[0]["eb_kwargs"])
+    names = (kernels.SURFACE_INPUTS + kernels.SURFACE_LAYER_INPUTS
+             + kernels.SURFACE_MASKS + kernels.DRY_INPUTS
+             + kernels.DRY_LAYER_INPUTS + kernels.DRY_MASKS)
+    assert sorted(named) == sorted(set(names) - {"active"})
+    nl = named["root"].shape[-1]
+    for k in kernels.DRY_LAYER_INPUTS:
+        assert named[k].shape[-1] == nl, k
+    header = (build.CSRC / "surface_brent.cuh").read_text()
+    for enum, group in (("DryIn", kernels.DRY_INPUTS),
+                        ("DryLayerIn", kernels.DRY_LAYER_INPUTS)):
+        body = re.search(r"enum %s \{([^}]*)\}" % enum, header).group(1)
+        rows = [w.strip() for w in body.split(",") if w.strip()]
+        assert rows[-1].startswith("kNum") and len(rows) - 1 == len(group)
+
+
 def _captured_args(device, n_cell=64, names=tuple(PLAIN)[:5],
                    config="light", record=0):
     """The first call of each kernel in `names` in the step of record
@@ -210,9 +254,9 @@ def _captured_args(device, n_cell=64, names=tuple(PLAIN)[:5],
             return fn(*args, **kwargs)
         return wrapper
 
-    gp, params, stack, state, geom, lake = CONFIGS[config](
-        n_cell, record + 1, device)
-    step = make_step(params, gp, geom=geom, lake_params=lake)
+    gp, params, stack, state, extras = CONFIGS[config](n_cell, record + 1,
+                                                       device)
+    step = make_step(params, gp, **extras)
     for r in range(record):
         state, _ = step(state, {k: v[r] for k, v in stack.items()})
     for name, fn in originals.items():
@@ -349,6 +393,37 @@ def test_slice_three_brent_kernels_match_plain(cuda, name, config, record):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name,config,record", [
+    ("surface_brent", "dist_prcp", 1),
+    ("fd_surface_brent", "heavy_nolakes", 3),
+    ("affine_surface_brent", "heavy_nolakes", 3)])
+def test_dry_lane_and_affine_brent_kernels_match_plain(cuda, name, config,
+                                                       record):
+    """K5 and K7 with DIST_PRCP's dry column in their residual, and K14 on
+    the affine two-probe residual of a CLOSE_ENERGY pass: the same flags,
+    roots within the final bracket width, on lanes raining on a wet
+    fraction mu < 1."""
+    a, kw = _captured_args(cuda, names=(name,), config=config,
+                           record=record)[name]
+    eb = kw["eb_kwargs"]
+    assert eb["dist_dry"] is not None and bool((eb["mu_wet"] < 1.0).any())
+    affine = name == "affine_surface_brent"
+    assert (eb.get("fd_interp") is not None) == affine
+    before = kernels.launches[name]
+    got = getattr(kernels, name)(*a, **kw)
+    ref = PLAIN[name](*a, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 1
+    assert bool(got.bracketed.any())
+    assert torch.equal(got.bracketed, ref.bracketed)
+    assert torch.equal(got.converged, ref.converged)
+    both = got.converged & ref.converged
+    tol = 2.0 * (2.0 * torch.finfo(torch.float32).eps * got.root.abs() + 1e-4)
+    assert bool(((got.root - ref.root).abs() <= tol)[both].all())
+    assert torch.equal(got.root[~got.bracketed], ref.root[~ref.bracketed])
+
+
+@pytest.mark.gpu
 def test_blowing_snow_kernel_matches_plain(cuda):
     """K8 on the blowing_close step's fourth record: flux and transport at
     rtol 1e-4, atol 1e-9, with snow blowing on some lanes."""
@@ -389,7 +464,8 @@ LAKE_FIXED_POINT_TOL = 2e-4
 def test_lake_wrappers_refuse_cpu_tensors():
     from vic_tpu_torch.physics.lake import make_grid
     from vic_tpu_torch.entry import build_lakes
-    _, _, _, state, _, lp = build_lakes(2, 1, "cpu")
+    _, _, _, state, extras = build_lakes(2, 1, "cpu")
+    lp = extras["lake_params"]
     t, c = state.lake_temp, state.lake_volume
     grid = make_grid(lp, torch.full_like(c, 5.0))
     with pytest.raises(ValueError, match="CUDA"):

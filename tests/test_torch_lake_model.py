@@ -100,7 +100,8 @@ def test_water_closure_and_the_lake_paths_run():
 
 
 def test_cpu_lakes_step_takes_the_plain_versions():
-    gp, params, stack, state, _, lp = build_lakes(2, 1, "cpu")
+    gp, params, stack, state, extras = build_lakes(2, 1, "cpu")
+    lp = extras["lake_params"]
     kernels.reset_launches()
     model.make_step(params, gp, lake_params=lp)(
         state, {k: v[0] for k, v in stack.items()})
@@ -108,7 +109,8 @@ def test_cpu_lakes_step_takes_the_plain_versions():
 
 
 def test_lakes_step_does_not_write_into_its_inputs():
-    gp, params, stack, state, _, lp = build_lakes(3, 2, "cpu")
+    gp, params, stack, state, extras = build_lakes(3, 2, "cpu")
+    lp = extras["lake_params"]
     before = {k: v.copy() for k, v in state.numpy().items()}
     lp_before = {k: v.copy() for k, v in lp.numpy().items()}
     model.make_step(params, gp, lake_params=lp)(
@@ -137,8 +139,10 @@ def test_wetland_host_is_the_first_candidate_lane():
     (dict(dist_prcp=True), "lakes with dist_prcp")])
 def test_heavy_lake_options_are_refused(flags, match):
     from vic_tpu_torch.entry import build_frozen
-    _, params, _, _, geom, _ = build_frozen(1, 1, "cpu")
-    _, _, _, _, _, lp = build_lakes(1, 1, "cpu")
+    _, params, _, _, extras = build_frozen(1, 1, "cpu")
+    geom = extras["geom"]
+    _, _, _, _, extras = build_lakes(1, 1, "cpu")
+    lp = extras["lake_params"]
     gp = lakes_params(1).replace(**flags)
     with pytest.raises(NotImplementedError, match=match):
         model.make_step(params, gp, geom=None if gp.quick_flux else geom,
@@ -146,6 +150,7 @@ def test_heavy_lake_options_are_refused(flags, match):
 
 
 def test_lake_params_without_lakes_are_refused():
-    gp, params, _, _, _, lp = build_lakes(1, 1, "cpu")
+    gp, params, _, _, extras = build_lakes(1, 1, "cpu")
+    lp = extras["lake_params"]
     with pytest.raises(NotImplementedError, match="lake_params without"):
         model.make_step(params, gp.replace(lakes=False), lake_params=lp)

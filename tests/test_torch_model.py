@@ -7,7 +7,11 @@ from vic_tpu's. All 150 OUT_* and all 51 final-state fields at
 rtol = atol = 1e-4, water closure within 1e-2 mm on both. A second
 configuration takes every other option value the light step reads: one
 band without a glacier, SUN1999 albedo, SNTHRM density, the VIC_412
-rain/snow ramp, GF_FULL ground flux and a minimum wind speed.
+rain/snow ramp, GF_FULL ground flux and a minimum wind speed. A third adds
+DIST_PRCP to the light one (entry.dist_prcp_params) on the split forcing of
+entry.heavy_forcing, where rain falls on a wet fraction mu < 1; there the
+reference leaves a closure residual on the raining glacier lanes (ROADMAP.md
+queue 3), so only its cold cells are held to 1e-2 mm.
 """
 import dataclasses
 import functools
@@ -28,9 +32,14 @@ from vic_tpu.testing import synthetic_domain as jax_synthetic_domain
 from vic_tpu.testing import synthetic_forcing as jax_synthetic_forcing
 from vic_tpu.timeaxis import make_time_axis
 from vic_tpu_torch import model
-from vic_tpu_torch.entry import build_frozen, build_light, light_params
+from vic_tpu_torch.entry import (build_dist_prcp, build_frozen, build_light,
+                                 dist_prcp_params, heavy_forcing,
+                                 light_params)
+from vic_tpu_torch.physics.hydrology_misc import (build_zwt_curves,
+                                                  zwt_curves_to)
 from vic_tpu_torch.prepare import device_params_from_numpy
 from vic_tpu_torch.state import state_from_numpy
+from vic_tpu_torch.testing import synthetic_domain
 
 torch.set_num_threads(1)
 
@@ -58,7 +67,16 @@ def _variant_inputs():
             jax_initial_state(domain, gp))
 
 
-CONFIGS = ("light", "variant")
+def _dist_prcp_inputs():
+    gp = dist_prcp_params(N_REC)
+    domain = jax_synthetic_domain(n_cell=N_CELL, n_band=2, with_glacier=True)
+    stack = jax_forcing_stack(heavy_forcing(N_REC, N_CELL, dt_hours=24),
+                              make_time_axis(1995, 1, 1, 0, N_REC, 24))
+    return (gp, jax_prepare_domain(domain, gp), stack,
+            jax_initial_state(domain, gp))
+
+
+CONFIGS = ("light", "variant", "dist_prcp")
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,8 +84,10 @@ def both_runs(config):
     if config == "light":
         gp, params, stack, state, _ = __graft_entry__._build(N_CELL,
                                                              n_rec=N_REC)
-    else:
+    elif config == "variant":
         gp, params, stack, state = _variant_inputs()
+    else:
+        gp, params, stack, state = _dist_prcp_inputs()
     j_final, j_outs = jax.jit(lambda s, f: jax_run(s, f, params, gp))(
         state, stack)
     t_stack = {k: torch.tensor(np.asarray(v)) for k, v in stack.items()
@@ -84,7 +104,7 @@ def both_runs(config):
 @pytest.mark.parametrize("config", CONFIGS)
 def test_all_outputs_match(config):
     _, j_outs, _, t_outs = both_runs(config)
-    assert len(j_outs) == (150 if config == "light" else 116)
+    assert len(j_outs) == (116 if config == "variant" else 150)
     assert sorted(t_outs) == sorted(j_outs)
     for k, a in j_outs.items():
         b = t_outs[k]
@@ -110,15 +130,21 @@ def test_final_state_matches(config):
 
 @pytest.mark.parametrize("config", CONFIGS)
 def test_water_closure_on_both(config):
-    _, j_outs, _, t_outs = both_runs(config)
-    assert np.abs(j_outs["OUT_WATER_ERROR"]).max() <= WATER_TOL
-    assert np.abs(t_outs["OUT_WATER_ERROR"]).max() <= WATER_TOL
+    _, j_outs, t_final, t_outs = both_runs(config)
+    if config == "dist_prcp":
+        # the odd cells are cold: no rain on a wet fraction there
+        cells = slice(1, None, 2)
+        assert bool((t_final.mu < 1.0).any())
+    else:
+        cells = slice(None)
+    assert np.abs(j_outs["OUT_WATER_ERROR"][:, cells]).max() <= WATER_TOL
+    assert np.abs(t_outs["OUT_WATER_ERROR"][:, cells]).max() <= WATER_TOL
     # water moves: precipitation falls and the snowpack builds
     assert t_outs["OUT_PREC"].sum() > 0 and t_outs["OUT_SWE"].max() > 0
 
 
 def test_step_does_not_write_into_its_inputs():
-    gp, params, stack, state, _, _ = build_light(3, 2, "cpu")
+    gp, params, stack, state, _ = build_light(3, 2, "cpu")
     before = {k: v.copy() for k, v in state.numpy().items()}
     step = model.make_step(params, gp)
     step(state, {k: v[0] for k, v in stack.items()})
@@ -127,7 +153,7 @@ def test_step_does_not_write_into_its_inputs():
 
 
 def test_outvars_prunes_but_keeps_water_error():
-    gp, params, stack, state, _, _ = build_light(2, 2, "cpu")
+    gp, params, stack, state, _ = build_light(2, 2, "cpu")
     _, outs = model.run(state, stack, params, gp,
                         outvars=["OUT_EVAP", "OUT_SWE"])
     assert sorted(outs) == ["OUT_EVAP", "OUT_SWE", "OUT_WATER_ERROR"]
@@ -139,7 +165,7 @@ def test_params_from_jax_objects_run_identically():
     give the same step as the port's own prepare_domain."""
     _, params, _, _, _ = __graft_entry__._build(2, n_rec=1)
     p_from_jax = device_params_from_numpy(fields_of(params), "cpu")
-    t_gp, t_params, t_stack, t_state, _, _ = build_light(2, 1, "cpu")
+    t_gp, t_params, t_stack, t_state, _ = build_light(2, 1, "cpu")
     forc = {k: v[0] for k, v in t_stack.items()}
     _, a = model.make_step(p_from_jax, t_gp)(t_state, forc)
     _, b = model.make_step(t_params, t_gp)(t_state, forc)
@@ -147,27 +173,56 @@ def test_params_from_jax_objects_run_identically():
         assert torch.equal(a[k], b[k]), k
 
 
-# BLOWING and CLOSE_ENERGY run on QUICK_FLUX; on finite-difference nodes
-# (QUICK_FLUX off, with a node geometry) they are refused
-ON_NODES = ("blowing", "close_energy")
-
-
+# DIST_PRCP and BLOWING are refused with LAKES, the lake over ice and the
+# wetland's dry column not being ported
 @pytest.mark.parametrize("flag", [
     dict(full_energy=False), dict(frozen_soil=True), dict(quick_flux=False),
-    dict(dist_prcp=True), dict(blowing=True, quick_flux=False),
-    dict(spatial_snow=True), dict(close_energy=True, quick_flux=False),
+    dict(dist_prcp=True, lakes=True), dict(blowing=True, lakes=True),
+    dict(spatial_snow=True), dict(close_energy=True, quick_flux=False,
+                                  lakes=True),
     dict(lakes=True), dict(corrprec=True), dict(continue_on_error=True),
     dict(exp_trans=True)],
     ids=lambda d: next(iter(d)))
 def test_make_step_refuses_options_outside_the_slice(flag):
     gp = light_params(1).replace(**flag)
-    _, params, _, _, geom, _ = build_frozen(1, 1, "cpu")
-    name = next(iter(flag))
-    with pytest.raises(NotImplementedError, match=name):
-        model.make_step(params, gp, geom=geom if name in ON_NODES else None)
+    _, params, _, _, extras = build_frozen(1, 1, "cpu")
+    # CLOSE_ENERGY steps on finite-difference nodes, the lake there is
+    # refused
+    on_nodes = "close_energy" in flag
+    with pytest.raises(NotImplementedError,
+                       match="lakes" if on_nodes else next(iter(flag))):
+        model.make_step(params, gp, geom=extras["geom"] if on_nodes
+                        else None)
 
 
 def test_make_step_refuses_water_table_curves():
-    gp, params, _, _, _, _ = build_light(1, 1, "cpu")
-    with pytest.raises(NotImplementedError, match="zwt_curves"):
-        model.make_step(params, gp, zwt_curves={})
+    """Water-table curves step with every configuration but LAKES on
+    finite-difference nodes, which is refused whatever the curves."""
+    gp, params, _, _, extras = build_frozen(1, 1, "cpu")
+    curves = zwt_curves_to(build_zwt_curves(
+        synthetic_domain(1, n_band=2, with_glacier=True).soil), "cpu")
+    model.make_step(params, gp, geom=extras["geom"], zwt_curves=curves)
+    with pytest.raises(NotImplementedError,
+                       match="lakes on finite-difference nodes"):
+        model.make_step(params, gp.replace(lakes=True), geom=extras["geom"],
+                        zwt_curves=curves)
+
+
+@pytest.mark.parametrize("option", ["dist_prcp", "zwt_curves"])
+def test_heavy_options_step_on_the_light_base(option):
+    """DIST_PRCP and the water-table curves, once refused, step at 2 x 2:
+    finite outputs, the light set plus OUT_ZWT, ZWT2, ZWT3 and ZWTL with
+    the curves."""
+    if option == "dist_prcp":
+        gp, params, stack, state, extras = build_dist_prcp(2, 2, "cpu")
+        n_out = 150
+    else:
+        gp, params, stack, state, extras = build_light(2, 2, "cpu")
+        extras["zwt_curves"] = zwt_curves_to(build_zwt_curves(
+            synthetic_domain(2, n_band=2, with_glacier=True).soil), "cpu")
+        n_out = 154
+    final, outs = model.run(state, stack, params, gp, **extras)
+    assert len(outs) == n_out
+    assert all(bool(torch.isfinite(v).all()) for v in outs.values())
+    assert all(np.isfinite(v).all() for v in final.numpy().values()
+               if v.dtype.kind == "f")

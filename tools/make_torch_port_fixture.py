@@ -1,8 +1,8 @@
 """Write the golden fixtures of the port's configurations from vic_tpu on CPU.
 
-16 cells x 4 daily records through `vic_tpu.model.run`: every OUT_* output
-("out/<name>", [n_rec, ...]) and every final-state field ("state/<name>"),
-compressed, of
+16 cells x 4 daily records (8 3-hourly ones for heavy_nolakes) through
+`vic_tpu.model.run`: every OUT_* output ("out/<name>", [n_rec, ...]) and
+every final-state field ("state/<name>"), compressed, of
 
 - light: `__graft_entry__._build(heavy=False)` -> light_16x4.npz;
 - frozen: the light configuration with FROZEN_SOIL on 5 finite-difference
@@ -12,13 +12,18 @@ compressed, of
   -> blowing_close_16x4.npz;
 - lakes: the light configuration with LAKES on the synthetic parabolic
   basin of vic_tpu.physics.lake.make_lake_params, its floats cast to
-  float32 as __graft_entry__ casts them -> lakes_16x4.npz.
+  float32 as __graft_entry__ casts them -> lakes_16x4.npz;
+- heavy_nolakes: `__graft_entry__._build(heavy=True)`'s flags without
+  LAKES (3-hourly steps, FROZEN_SOIL on 5 finite-difference nodes,
+  CLOSE_ENERGY, DIST_PRCP, BLOWING) with the water-table curves cast to
+  float32, on the split forcing of vic_tpu_torch.entry.heavy_forcing, one
+  day -> heavy_nolakes_16x8.npz.
 
 The PyTorch port is checked against these files by tests/test_torch_golden*.py
 and by chip_smoke.py's reference phase.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py \
-        [light|frozen|blowing_close|lakes]
+        [light|frozen|blowing_close|lakes|heavy_nolakes]
 """
 from __future__ import annotations
 
@@ -33,7 +38,9 @@ FIXTURE = os.path.join(FIXTURE_DIR, "light_16x4.npz")
 FROZEN_FIXTURE = os.path.join(FIXTURE_DIR, "frozen_16x4.npz")
 BLOWING_CLOSE_FIXTURE = os.path.join(FIXTURE_DIR, "blowing_close_16x4.npz")
 LAKES_FIXTURE = os.path.join(FIXTURE_DIR, "lakes_16x4.npz")
+HEAVY_NOLAKES_FIXTURE = os.path.join(FIXTURE_DIR, "heavy_nolakes_16x8.npz")
 N_CELL, N_REC = 16, 4
+HEAVY_N_REC = 8     # one day of 3-hourly records
 
 
 def _arrays(final, outs) -> dict:
@@ -174,12 +181,61 @@ def lakes_reference(n_cell: int = N_CELL, n_rec: int = N_REC) -> dict:
     return _arrays(final, outs)
 
 
+def heavy_nolakes_inputs(n_cell: int, n_rec: int):
+    """vic_tpu's (gp, params, stack, state, geom, zwt_curves) of the heavy
+    configuration without LAKES, its forcing from the port's numpy
+    heavy_forcing; zwt_curves holds jnp float32 arrays, geom numpy float64
+    ones."""
+    sys.path.insert(0, ROOT)
+    import jax.numpy as jnp
+    from vic_tpu.config import GlobalParams
+    from vic_tpu.model import make_forcing_stack
+    from vic_tpu.physics.frozen_soil import build_node_geometry
+    from vic_tpu.physics.hydrology_misc import build_zwt_curves
+    from vic_tpu.prepare import prepare_domain
+    from vic_tpu.state import initial_state
+    from vic_tpu.testing import synthetic_domain
+    from vic_tpu.timeaxis import make_time_axis
+    from vic_tpu_torch.entry import heavy_forcing
+
+    gp = GlobalParams(dt=3, snow_step=3, nlayer=3, startyear=1995,
+                      startmonth=1, startday=1, nrecs=n_rec, full_energy=True,
+                      glacier_id=99, snow_band=2, frozen_soil=True,
+                      implicit=True, quick_flux=False, nnode=5,
+                      close_energy=True, dist_prcp=True, blowing=True)
+    domain = synthetic_domain(n_cell=n_cell, n_band=2, with_glacier=True)
+    geom = build_node_geometry(domain.soil, gp)
+    zwt = {k: jnp.asarray(v, jnp.float32)
+           for k, v in build_zwt_curves(domain.soil).items()}
+    stack = make_forcing_stack(
+        heavy_forcing(n_rec, n_cell, dt_hours=gp.dt),
+        make_time_axis(1995, 1, 1, 0, n_rec, gp.dt))
+    return (gp, prepare_domain(domain, gp), stack,
+            initial_state(domain, gp, geom=geom), geom, zwt)
+
+
+def heavy_nolakes_reference(n_cell: int = N_CELL,
+                            n_rec: int = HEAVY_N_REC) -> dict:
+    """As light_reference, for the heavy configuration without LAKES."""
+    import jax
+    jax.config.update("jax_enable_x64", False)
+    gp, params, stack, state, geom, zwt = heavy_nolakes_inputs(n_cell, n_rec)
+    from vic_tpu.model import run
+
+    final, outs = jax.jit(lambda s, f, z: run(s, f, params, gp, geom=geom,
+                                              zwt_curves=z))(state, stack,
+                                                             zwt)
+    return _arrays(final, outs)
+
+
 def main(which: str = "light"):
     path, make = {"light": (FIXTURE, light_reference),
                   "frozen": (FROZEN_FIXTURE, frozen_reference),
                   "blowing_close": (BLOWING_CLOSE_FIXTURE,
                                     blowing_close_reference),
-                  "lakes": (LAKES_FIXTURE, lakes_reference)}[which]
+                  "lakes": (LAKES_FIXTURE, lakes_reference),
+                  "heavy_nolakes": (HEAVY_NOLAKES_FIXTURE,
+                                    heavy_nolakes_reference)}[which]
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(path, **make())
     print(f"wrote {path} ({os.path.getsize(path)} bytes)")

@@ -1,11 +1,12 @@
 """Where the time of the port's step goes on one NVIDIA GPU.
 
     python tools/profile_torch_light.py [--config light|frozen|
-                                                  blowing_close|lakes]
+                                                  blowing_close|lakes|
+                                                  dist_prcp|heavy_nolakes]
                                         [--cells 32768] [--records 8]
                                         [--repeats 5] [--out FILE.json]
 
-1. throughput: `--repeats` runs of `--records` daily records through
+1. throughput: `--repeats` runs of `--records` records through
    vic_tpu_torch.model.run after a warm-up record, timed on the host clock
    around torch.cuda.synchronize(); cell-steps/s median and quartiles.
 2. breakdown: one run with each physics call of the step wrapped in
@@ -53,6 +54,12 @@ CONFIG_CALLS = {
     "blowing_close": ("calc_blowing_snow", "canopy_air_step"),
     # the lake coupling's pre-step depth (K13) and the lake step
     "lakes": ("depth_from_volume", "lake_step"),
+    "dist_prcp": ("storm_transfer",),
+    # the affine passes' probes and the final pass's Brent each run K6
+    # inside solve_surface_temperature, and are timed with it
+    "heavy_nolakes": ("distribute_node_moisture", "estimate_layer_ice",
+                      "find_zero_fronts", "calc_blowing_snow",
+                      "canopy_air_step", "storm_transfer", "compute_zwt"),
 }
 # inside lake_step (physics/lake.py): solve_lake, within it the open-water
 # column (K10), the snow-on-ice update (K12 inside) and the under-ice
@@ -77,9 +84,7 @@ def quartiles(xs):
 def build(config, n_cell, n_rec, device):
     """(gp, params, stack, state, run keyword arguments) after a warm-up
     record."""
-    gp, params, stack, state, geom, lake_params = CONFIGS[config](
-        n_cell, n_rec, device)
-    kw = dict(geom=geom, lake_params=lake_params)
+    gp, params, stack, state, kw = CONFIGS[config](n_cell, n_rec, device)
     model.run(state, {k: v[:1] for k, v in stack.items()}, params, gp, **kw)
     return gp, params, stack, state, kw
 

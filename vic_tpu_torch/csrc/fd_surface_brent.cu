@@ -21,8 +21,9 @@
 // still need widening), the sync the plain loop pays too; the ~300 PyTorch
 // launches of each plain residual evaluation become one launch.
 //
-// Each residual launch reads a lane's ~64 inputs (~300 B) and two node
-// temperatures and does one ~150-flop residual: bound by bytes at these
+// Each residual launch reads a lane's ~64 inputs (~300 B; with DIST_PRCP the
+// dry column's ~80 B more) and two node temperatures and does one ~150-flop
+// residual (two ET evaluations with DIST_PRCP): bound by bytes at these
 // sizes, and by K6's sweeps and the launch latency of the sequence overall.
 //
 // C interface for ctypes: one entry, `op` choosing the launch; returns
@@ -80,19 +81,19 @@ __device__ __forceinline__ void vote(bool cond, int32_t* flag) {
 }
 
 // the residual at x = row x_row from nodes 1-2 of `nodes` ([n, nn])
-template <int NL>
+template <int NL, bool DIST>
 __device__ __forceinline__ float residual(const LaneInputs& in, LaneRow row,
                                           float dt, int gft, bool frozen,
                                           float x, const float* nodes, int nn,
                                           int i) {
-  vicsurf::SurfaceResidual<NL> r;
+  vicsurf::SurfaceResidual<NL, DIST> r;
   r.init(in, row, dt, gft);
   r.init_fd(in, row, frozen);
   const int64_t base = static_cast<int64_t>(i) * nn;
   return r.fd(x, nodes[base + 1], nodes[base + 2]);
 }
 
-template <int NL>
+template <int NL, bool DIST>
 __global__ void fd_eval_kernel(const __grid_constant__ LaneInputs in, float dt,
                                int gft, int frozen, State st, int x_row,
                                int f_row, int need_only, const float* nodes,
@@ -100,8 +101,8 @@ __global__ void fd_eval_kernel(const __grid_constant__ LaneInputs in, float dt,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= st.n) return;
   if (need_only && !st.flag(kNeed, i)) return;
-  st(f_row, i) = residual<NL>(in, lane_row(in, i), dt, gft, frozen != 0,
-                              st(x_row, i), nodes, nn, i);
+  st(f_row, i) = residual<NL, DIST>(in, lane_row(in, i), dt, gft,
+                                    frozen != 0, st(x_row, i), nodes, nn, i);
 }
 
 // expand_brackets' round: need = f_lo*f_hi >= 0 on active lanes, widened by
@@ -210,7 +211,7 @@ __global__ void fd_propose_kernel(State st, int32_t* flag) {
 
 // f(b_next) and the update of the lanes that are neither done nor
 // unbracketed (ops/rootfind.py:114-123)
-template <int NL>
+template <int NL, bool DIST>
 __global__ void fd_accept_kernel(const __grid_constant__ LaneInputs in,
                                  float dt, int gft, int frozen, State st,
                                  const float* nodes, int nn) {
@@ -218,8 +219,8 @@ __global__ void fd_accept_kernel(const __grid_constant__ LaneInputs in,
   if (i >= st.n) return;
   if (st.flag(kDone, i) || !st.flag(kBracketed, i)) return;
   const float b_next = st(kBNext, i);
-  const float fb_next = residual<NL>(in, lane_row(in, i), dt, gft,
-                                     frozen != 0, b_next, nodes, nn, i);
+  const float fb_next = residual<NL, DIST>(in, lane_row(in, i), dt, gft,
+                                           frozen != 0, b_next, nodes, nn, i);
   st(kA, i) = st(kB, i);
   st(kFa, i) = st(kFb, i);
   st(kB, i) = b_next;
@@ -244,26 +245,24 @@ __global__ void fd_finish_kernel(State st, const float* lo, const float* hi,
   root[i] = br ? b : 0.5f * (lo[i] + hi[i]);
 }
 
-template <int NL>
+template <int NL, bool DIST>
 void launch_residual(int op, const LaneInputs& in, float dt, int gft,
                      int frozen, const State& st, const float* nodes, int nn,
                      dim3 grid, cudaStream_t s) {
   switch (op) {
     case kEvalLo:
     case kEvalLoNeed:
-      fd_eval_kernel<NL><<<grid, kBlock, 0, s>>>(in, dt, gft, frozen, st, kA,
-                                                 kFa, op == kEvalLoNeed, nodes,
-                                                 nn);
+      fd_eval_kernel<NL, DIST><<<grid, kBlock, 0, s>>>(
+          in, dt, gft, frozen, st, kA, kFa, op == kEvalLoNeed, nodes, nn);
       break;
     case kEvalHi:
     case kEvalHiNeed:
-      fd_eval_kernel<NL><<<grid, kBlock, 0, s>>>(in, dt, gft, frozen, st, kB,
-                                                 kFb, op == kEvalHiNeed, nodes,
-                                                 nn);
+      fd_eval_kernel<NL, DIST><<<grid, kBlock, 0, s>>>(
+          in, dt, gft, frozen, st, kB, kFb, op == kEvalHiNeed, nodes, nn);
       break;
     default:
-      fd_accept_kernel<NL><<<grid, kBlock, 0, s>>>(in, dt, gft, frozen, st,
-                                                   nodes, nn);
+      fd_accept_kernel<NL, DIST><<<grid, kBlock, 0, s>>>(in, dt, gft, frozen,
+                                                         st, nodes, nn);
   }
 }
 
@@ -272,23 +271,24 @@ void launch_residual(int op, const LaneInputs& in, float dt, int gft,
 extern "C" {
 
 // nf, nm: the input counts, checked against the residual's; h: lanes per
-// cell; nl: soil layers (2 or 3); state: float [11][n]; lane_flags: uint8
+// cell; nl: soil layers (2 or 3); dist: the dry column is read (DIST_PRCP);
+// state: float [11][n]; lane_flags: uint8
 // [3][n]; nodes: the profile K6 solved at the op's candidate ([n, nn], the
 // residual ops only); flag: the int32 this op's vote goes to (kExpand,
 // kInit, kPropose); lo/hi/root/converged/bracketed: [n] (kFinish).
 int fd_surface_brent(int op, const void* const* f, const int32_t* f_stride,
                      int nf, const void* const* m, const int32_t* m_stride,
-                     int nm, int h, int nl, float dt, int grnd_flux_type,
-                     int frozen, float* state, uint8_t* lane_flags,
+                     int nm, int h, int nl, int dist, float dt,
+                     int grnd_flux_type, int frozen, float* state,
+                     uint8_t* lane_flags,
                      const float* nodes, int nn, int32_t* flag, int n,
                      const float* lo, const float* hi, float* root,
                      uint8_t* converged, uint8_t* bracketed, void* stream) {
   LaneInputs in{};
   if (n <= 0 ||
       !fill_lane_inputs(&in, f, f_stride, nf,
-                        vicsurf::kNumIn + vicsurf::kNumLayerIn +
-                            vicsurf::kNumFdIn,
-                        m, m_stride, nm, vicsurf::kNumMask + 1, h))
+                        vicsurf::kNumSurfaceIn + vicsurf::kNumFdIn, m,
+                        m_stride, nm, vicsurf::kNumSurfaceMask + 1, h))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + kBlock - 1) / kBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -313,12 +313,18 @@ int fd_surface_brent(int op, const void* const* f, const int32_t* f_stride,
     case kEvalHiNeed:
     case kAccept:
       if (nn < 3) return static_cast<int>(cudaErrorInvalidValue);
-      if (nl == 2) {
-        launch_residual<2>(op, in, dt, grnd_flux_type, frozen, st, nodes, nn,
-                           grid, s);
+      if (nl == 2 && dist) {
+        launch_residual<2, true>(op, in, dt, grnd_flux_type, frozen, st,
+                                 nodes, nn, grid, s);
+      } else if (nl == 2) {
+        launch_residual<2, false>(op, in, dt, grnd_flux_type, frozen, st,
+                                  nodes, nn, grid, s);
+      } else if (nl == 3 && dist) {
+        launch_residual<3, true>(op, in, dt, grnd_flux_type, frozen, st,
+                                 nodes, nn, grid, s);
       } else if (nl == 3) {
-        launch_residual<3>(op, in, dt, grnd_flux_type, frozen, st, nodes, nn,
-                           grid, s);
+        launch_residual<3, false>(op, in, dt, grnd_flux_type, frozen, st,
+                                  nodes, nn, grid, s);
       } else {
         return static_cast<int>(cudaErrorInvalidValue);
       }

@@ -1,4 +1,4 @@
-// Inputs of the one-thread-per-lane kernels (K1-K5, K7-K13).
+// Inputs of the one-thread-per-lane kernels (K1-K5, K7-K14).
 //
 // The lanes are [n_cell, h] (h HRUs per cell), flattened: lane i is HRU
 // i % h of cell i / h. Each input comes as the wrapper's view of it
@@ -11,7 +11,7 @@
 
 #include <cstdint>
 
-constexpr int kMaxFloatInputs = 64;
+constexpr int kMaxFloatInputs = 96;
 constexpr int kMaxMaskInputs = 8;
 
 struct LaneInputs {

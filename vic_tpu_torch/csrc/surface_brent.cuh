@@ -5,9 +5,12 @@
 // coefficients, ARNO beta, the transpiration split) and the INCLUDE_SNOW
 // fold with its blowing-snow flux: func_surf_energy_bal.c:7-397. Ground heat
 // comes either from estimate_T1 (QUICK_FLUX, operator(); K5) or from the
-// finite-difference node profile solved at Ts, nodes 1 and 2, with the
-// frozen-soil fusion of the top node pair (fd(); K7). The terms that do not
-// depend on Ts are formed once per lane by init() and init_fd(), in the
+// finite-difference node profile at Ts, nodes 1 and 2, with the frozen-soil
+// fusion of the top node pair (fd(); the profile solved at Ts in K7,
+// interpolated between two probes in K14). With DIST (DIST_PRCP) the ET is
+// evaluated on the wet and the dry column, and the latent term sees
+// mu*evap_wet + (1-mu)*evap_dry (canopy_evap.c:124-206). The terms that do
+// not depend on Ts are formed once per lane by init() and init_fd(), in the
 // plain version's operation order (divisions by a host scalar as PyTorch
 // does them on the card, physics.cuh), so every evaluation repeats the plain
 // version's arithmetic on this lane.
@@ -38,11 +41,23 @@ enum In {
 enum LayerIn { kRoot, kGsm, kRc2, kW1, kCap, kNumLayerIn };
 // uint8 masks (kernels.SURFACE_MASKS)
 enum Mask { kActive, kInc, kOverSnow, kIsVeg, kCase1, kNumMask };
-// K7's fusion inputs follow the layered ones (kernels.FD_SURFACE_INPUTS),
-// and its frozen-soil mask the others (kernels.FD_SURFACE_MASKS)
+// DIST_PRCP's dry column follows the layered inputs (kernels.DRY_INPUTS,
+// then kernels.DRY_LAYER_INPUTS), its case1 mask the others; without
+// DIST_PRCP they are never read
+enum DryIn { kWdewDry, kRainfallDry, kMoist0Dry, kIce0Dry, kArnoBetaDry,
+             kRc1Dry, kMuWet, kNumDryIn };
+enum DryLayerIn { kGsmDry, kRc2Dry, kW1Dry, kCapDry, kNumDryLayerIn };
+constexpr int kDryIn = kNumIn + kNumLayerIn;
+constexpr int kDryLayerIn = kDryIn + kNumDryIn;
+constexpr int kCase1Dry = kNumMask;
+// K5's float inputs and masks
+constexpr int kNumSurfaceIn = kDryLayerIn + kNumDryLayerIn;
+constexpr int kNumSurfaceMask = kNumMask + 1;
+// the fusion inputs of K7 and K14 follow K5's (kernels.FD_SURFACE_INPUTS),
+// and their frozen-soil mask K5's masks
 enum FdIn { kMoist0Vol, kMaxMoist0Vol, kIce0Vol, kBubble0, kExpt0,
             kNumFdIn };
-constexpr int kFsActive = kNumMask;
+constexpr int kFsActive = kNumSurfaceMask;
 
 // evap.penman with the hoisted coefficients (penman.c:96-143)
 __device__ __forceinline__ float penman(float slope, float lv, float gamma,
@@ -56,11 +71,50 @@ __device__ __forceinline__ float penman(float slope, float lv, float gamma,
   return evap;
 }
 
+// the Ts-independent ET terms of one soil column (evap.build_evap_pre and
+// the parts of evap.canopy_evap and evap.arno_evap that do not see Ts)
 template <int NL>
+struct EtColumn {
+  bool case1;
+  float beta, rc1;
+  float cev_pow, wdew_c, storage, wdew_frac_pow, arno_cap;
+  float gsm[NL], rc2[NL], w1[NL], cap[NL];
+
+  // k_gsm: the index of this column's first layered input, in the order
+  // gsm, rc2, w1, cap
+  __device__ void init(const LaneInputs& inputs, LaneRow row, float dt,
+                       float wdew, float wdmax, float rainfall, float moist0,
+                       float ice0, float max_moist0, float resid0,
+                       float depth0, float beta_, float rc1_, bool case1_,
+                       int k_gsm) {
+    case1 = case1_;
+    beta = beta_;
+    rc1 = rc1_;
+    // evap.wet_canopy_evap's Ts-independent part
+    const float wdmax_safe = fmaxf(wdmax, 1e-10f);
+    wdew_c = fminf(wdew, wdmax);
+    cev_pow = powf(fminf(fmaxf(wdew_c / wdmax_safe, 0.0f), 1.0f), kTwoThirds);
+    storage = dt == kSecPerDay ? wdew_c + rainfall : wdew_c;
+    wdew_frac_pow =
+        powf(fmaxf(wdew, 0.0f) / fmaxf(wdmax, 1e-10f), kTwoThirds);
+    // evap.arno_evap's Ts-independent part
+    const float moist = fminf(fmaxf(moist0 - ice0, 0.0f), max_moist0);
+    arno_cap = fmaxf(moist - resid0 * depth0 * 1000.0f, 0.0f);
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      gsm[l] = lane_fl(inputs, k_gsm, row, l);
+      rc2[l] = lane_fl(inputs, k_gsm + 1, row, l);
+      w1[l] = lane_fl(inputs, k_gsm + 2, row, l);
+      cap[l] = lane_fl(inputs, k_gsm + 3, row, l);
+    }
+  }
+};
+
+template <int NL, bool DIST>
 struct SurfaceResidual {
   float dt;
   int grnd_flux_type;
-  bool inc, veg, case1;
+  bool inc, veg;
   float tair, vpd, vp_air, sw_net_bare, lw_bare_in, air_dens, pressure, le;
   float ra_under, z_ref, d_eff, rough, wind, ra_canopy, rarc;
   // estimate_T1 and ground-flux terms
@@ -73,10 +127,13 @@ struct SurfaceResidual {
   float k2d2;
   bool frozen, fs_active;
   float moist0_vol, max_moist0_vol, ice0_vol, bubble0, expt0;
-  // ET
-  float slope, lv, gamma, r_air, beta, rc1;
-  float cev_pow, wdew_c, storage, wdew_frac_pow, arno_cap;
-  float root[NL], gsm[NL], rc2[NL], w1[NL], cap[NL];
+  // ET: the Penman terms and root fractions the columns share, the wet
+  // column, and with DIST the dry one and the wet fraction mu
+  float slope, lv, gamma, r_air;
+  float root[NL];
+  EtColumn<NL> wet;
+  EtColumn<NL> dry;
+  float mu;
 
   __device__ void init(const LaneInputs& inputs, LaneRow row, float dt_,
                        int gft) {
@@ -85,7 +142,6 @@ struct SurfaceResidual {
     dt = dt_;
     grnd_flux_type = gft;
     inc = mask(kInc);
-    case1 = mask(kCase1);
     const float lai = in(kLai);
     veg = mask(kIsVeg) && lai > 0.0f;
     tair = in(kTair);
@@ -143,37 +199,29 @@ struct SurfaceResidual {
     lv = in(kPenLv);
     gamma = in(kPenGamma);
     r_air = in(kPenRAir);
-    beta = in(kArnoBeta);
-    rc1 = in(kRc1);
-    // evap.wet_canopy_evap's Ts-independent part
-    const float wdew = in(kWdew), wdmax = in(kWdmax);
-    const float wdmax_safe = fmaxf(wdmax, 1e-10f);
-    wdew_c = fminf(wdew, wdmax);
-    cev_pow = powf(fminf(fmaxf(wdew_c / wdmax_safe, 0.0f), 1.0f), kTwoThirds);
-    storage = dt == kSecPerDay ? wdew_c + in(kRainfall) : wdew_c;
-    wdew_frac_pow =
-        powf(fmaxf(wdew, 0.0f) / fmaxf(wdmax, 1e-10f), kTwoThirds);
-    // evap.arno_evap's Ts-independent part
-    const float moist =
-        fminf(fmaxf(in(kMoist0) - in(kIce0), 0.0f), in(kMaxMoist0));
-    arno_cap = fmaxf(moist - in(kResid0) * in(kDepth0) * 1000.0f, 0.0f);
 #pragma unroll
     for (int l = 0; l < NL; ++l) {
-      auto layer = [&](int k) {
-        return lane_fl(inputs, kNumIn + k, row, l);
-      };
-      root[l] = layer(kRoot);
-      gsm[l] = layer(kGsm);
-      rc2[l] = layer(kRc2);
-      w1[l] = layer(kW1);
-      cap[l] = layer(kCap);
+      root[l] = lane_fl(inputs, kNumIn + kRoot, row, l);
+    }
+    const float wdmax = in(kWdmax), max_moist0 = in(kMaxMoist0);
+    const float resid0 = in(kResid0), depth0 = in(kDepth0);
+    wet.init(inputs, row, dt, in(kWdew), wdmax, in(kRainfall), in(kMoist0),
+             in(kIce0), max_moist0, resid0, depth0, in(kArnoBeta), in(kRc1),
+             mask(kCase1), kNumIn + kGsm);
+    if constexpr (DIST) {
+      auto dry_in = [&](int k) { return in(kDryIn + k); };
+      dry.init(inputs, row, dt, dry_in(kWdewDry), wdmax,
+               dry_in(kRainfallDry), dry_in(kMoist0Dry), dry_in(kIce0Dry),
+               max_moist0, resid0, depth0, dry_in(kArnoBetaDry),
+               dry_in(kRc1Dry), mask(kCase1Dry), kDryLayerIn + kGsmDry);
+      mu = dry_in(kMuWet);
     }
   }
 
   // the finite-difference terms (K7): FROZEN_SOIL's fusion when frozen
   __device__ void init_fd(const LaneInputs& inputs, LaneRow row, bool frz) {
     auto fd_in = [&](int k) {
-      return lane_f(inputs, kNumIn + kNumLayerIn + k, row);
+      return lane_f(inputs, kNumSurfaceIn + k, row);
     };
     k2d2 = lane_f(inputs, kKappa2, row) / lane_f(inputs, kD2, row);
     frozen = frz;
@@ -185,8 +233,15 @@ struct SurfaceResidual {
     expt0 = fd_in(kExpt0);
   }
 
-  // evap.canopy_evap's total, mm/step (canopy_evap.c:46-445)
-  __device__ float canopy_evap(float rad) const {
+  // evap.canopy_evap's total on column `col`, mm/step (canopy_evap.c:46-445)
+  __device__ float canopy_evap(float rad, const EtColumn<NL>& col) const {
+    const float cev_pow = col.cev_pow, storage = col.storage;
+    const float wdew_frac_pow = col.wdew_frac_pow, rc1 = col.rc1;
+    const bool case1 = col.case1;
+    const float* w1 = col.w1;
+    const float* gsm = col.gsm;
+    const float* rc2 = col.rc2;
+    const float* cap = col.cap;
     float cevap = div_s(cev_pow *
                             penman(slope, lv, gamma, r_air, rad, vpd,
                                    ra_canopy, 0.0f, rarc) *
@@ -223,13 +278,15 @@ struct SurfaceResidual {
     return cevap + layer_sum;
   }
 
-  // evap.arno_evap from the top layer, mm/step (arno_evap.c:61-228)
-  __device__ float arno_evap(float rad, float ra_used) const {
+  // evap.arno_evap from the top layer of column `col`, mm/step
+  // (arno_evap.c:61-228)
+  __device__ float arno_evap(float rad, float ra_used,
+                             const EtColumn<NL>& col) const {
     const float epot = div_s(
         penman(slope, lv, gamma, r_air, rad, vpd, ra_used, 0.0f, 0.0f) * dt,
         kSecPerDay);
-    const float evap = epot * beta;
-    return evap > 0.0f ? fminf(evap, arno_cap) : evap;
+    const float evap = epot * col.beta;
+    return evap > 0.0f ? fminf(evap, col.arno_cap) : evap;
   }
 
   // QUICK_FLUX: estimate_T1 ground heat (func_surf_energy_bal.c:171-181)
@@ -286,8 +343,13 @@ struct SurfaceResidual {
                                                       tair, wind, rough)
                     : kHugeResist;
     // evapotranspiration inside the residual (:320-336)
-    const float evap =
-        veg ? canopy_evap(net_bare_rad) : arno_evap(net_bare_rad, ra_used);
+    float evap = veg ? canopy_evap(net_bare_rad, wet)
+                     : arno_evap(net_bare_rad, ra_used, wet);
+    if constexpr (DIST) {
+      const float evap_d = veg ? canopy_evap(net_bare_rad, dry)
+                               : arno_evap(net_bare_rad, ra_used, dry);
+      evap = mu * evap + (1.0f - mu) * evap_d;
+    }
     // latent heat (:339-363)
     float latent =
         -kRhoW * le * div_s(div_s(evap, 1000.0f), dt) * (1.0f - snow_cov);

@@ -11,12 +11,19 @@
 - `build_lakes`: the light configuration plus LAKES, one lake per cell on
   the synthetic parabolic basin of `physics.lake.make_lake_params` (the
   heavy configuration's basin, `__graft_entry__.py:56-62`).
+- `build_dist_prcp`: the light configuration plus DIST_PRCP, on
+  `heavy_forcing`'s split forcing at daily steps.
+- `build_heavy_nolakes`: the heavy configuration of
+  `__graft_entry__._build(heavy=True)` without LAKES: 3-hourly steps,
+  FROZEN_SOIL on 5 finite-difference nodes, CLOSE_ENERGY, DIST_PRCP,
+  BLOWING, with the water-table curves (`bench.py:66-68`), on
+  `heavy_forcing`.
 
 All run on the seeded synthetic domain and forcing, on the CUDA device
 unless the caller names another one. Each returns (gp, params, stack,
-state, geom, lake_params), ready for `model.run(state, stack, params, gp,
-geom=geom, lake_params=lake_params)`; geom is None but for frozen,
-lake_params None but for lakes.
+state, extras), extras the dict of `model.run`'s keyword arguments geom,
+zwt_curves and lake_params (each None where the configuration has none),
+ready for `model.run(state, stack, params, gp, **extras)`.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import numpy as np
 from .config import GlobalParams
 from .model import make_forcing_stack
 from .physics.frozen_soil import build_node_geometry
+from .physics.hydrology_misc import build_zwt_curves, zwt_curves_to
 from .physics.lake import make_lake_params
 from .prepare import lake_params_from_numpy, prepare_domain
 from .state import initial_state
@@ -54,6 +62,18 @@ def lakes_params(n_rec: int) -> GlobalParams:
     return light_params(n_rec).replace(lakes=True)
 
 
+def dist_prcp_params(n_rec: int) -> GlobalParams:
+    return light_params(n_rec).replace(dist_prcp=True)
+
+
+def heavy_nolakes_params(n_rec: int) -> GlobalParams:
+    # __graft_entry__._build(heavy=True)'s flags but LAKES; the sweep cap and
+    # the affine residual keep their defaults there (10, True)
+    return light_params(n_rec).replace(
+        dt=3, snow_step=3, frozen_soil=True, implicit=True, quick_flux=False,
+        nnode=5, close_energy=True, dist_prcp=True, blowing=True)
+
+
 # the forcing offsets that take the synthetic forcing to blowing snow and
 # to snow-laden overstory canopies, as vic_tpu's own tests reach those
 # paths (tests/test_blowing_snow.py:85, tests/test_close_energy.py:22)
@@ -79,19 +99,46 @@ def blowing_close_forcing(n_rec: int, n_cell: int, dt_hours: int = 24):
     return forc
 
 
-def _build(gp, n_cell: int, n_rec: int, device, frozen: bool = False,
-           lakes: bool = False, forcing=synthetic_forcing):
+# the heavy forcing's warm cells: the air this much warmer, as vic_tpu's
+# own DIST_PRCP tests keep lanes snow-free (tests/test_dist_prcp.py:19)
+HEAVY_WARM_AIR_TEMP = 10.0      # C
+
+
+def heavy_forcing(n_rec: int, n_cell: int, dt_hours: int = 3):
+    """The heavy configuration's test forcing, split by cell: odd cells get
+    blowing_close_forcing (8 m/s more wind, 12 C colder air, the relative
+    humidity kept), so packs blow and overstory canopies hold snow and
+    iterate their canopy air; even cells get synthetic_forcing with the air
+    HEAVY_WARM_AIR_TEMP warmer and the vapor pressure unchanged, so they
+    stay snow-free and rain falls on a wet fraction mu < 1. synthetic_forcing
+    alone reaches no blowing snow."""
+    forc = synthetic_forcing(n_rec, n_cell, dt_hours=dt_hours)
+    cold = blowing_close_forcing(n_rec, n_cell, dt_hours=dt_hours)
+    forc["air_temp"] = forc["air_temp"] + HEAVY_WARM_AIR_TEMP
+    odd = np.arange(n_cell) % 2 == 1
+    return {k: np.where(odd, cold[k], v) for k, v in forc.items()}
+
+
+def _build(gp, n_cell: int, n_rec: int, device, zwt: bool = False,
+           forcing=synthetic_forcing):
+    """The synthetic domain under `gp` on `device`: its node geometry with
+    QUICK_FLUX off, its lakes' parameters with LAKES, its water-table curves
+    if `zwt`."""
     domain = synthetic_domain(n_cell=n_cell, n_band=2, with_glacier=True)
     params = prepare_domain(domain, gp, device)
     ax = make_time_axis(1995, 1, 1, 0, n_rec, gp.dt)
     stack = make_forcing_stack(forcing(n_rec, n_cell, dt_hours=gp.dt), ax,
                                device)
-    geom = build_node_geometry(domain.soil, gp).to(device) if frozen else None
+    geom = (None if gp.quick_flux
+            else build_node_geometry(domain.soil, gp).to(device))
     lake_params = (lake_params_from_numpy(make_lake_params(domain.soil, gp),
-                                          device) if lakes else None)
+                                          device) if gp.lakes else None)
+    zwt_curves = (zwt_curves_to(build_zwt_curves(domain.soil), device)
+                  if zwt else None)
     state = initial_state(domain, gp, device, geom=geom,
                           lake_params=lake_params)
-    return gp, params, stack, state, geom, lake_params
+    return gp, params, stack, state, dict(geom=geom, zwt_curves=zwt_curves,
+                                          lake_params=lake_params)
 
 
 def build_light(n_cell: int, n_rec: int, device="cuda"):
@@ -101,9 +148,9 @@ def build_light(n_cell: int, n_rec: int, device="cuda"):
 
 
 def build_frozen(n_cell: int, n_rec: int, device="cuda"):
-    """The frozen-soil configuration on `device`; geom is its NodeGeometry
-    of finite-difference nodes."""
-    return _build(frozen_params(n_rec), n_cell, n_rec, device, frozen=True)
+    """The frozen-soil configuration on `device`; extras["geom"] is its
+    NodeGeometry of finite-difference nodes."""
+    return _build(frozen_params(n_rec), n_cell, n_rec, device)
 
 
 def build_blowing_close(n_cell: int, n_rec: int, device="cuda"):
@@ -118,11 +165,28 @@ def build_blowing_close(n_cell: int, n_rec: int, device="cuda"):
 def build_lakes(n_cell: int, n_rec: int, device="cuda"):
     """The light configuration with LAKES on `device`, on the light forcing
     unchanged (January: the lakes freeze over and carry snow within the
-    first records); lake_params is the synthetic basin's LakeParams."""
-    return _build(lakes_params(n_rec), n_cell, n_rec, device, lakes=True)
+    first records); extras["lake_params"] is the synthetic basin's
+    LakeParams."""
+    return _build(lakes_params(n_rec), n_cell, n_rec, device)
+
+
+def build_dist_prcp(n_cell: int, n_rec: int, device="cuda"):
+    """The light configuration with DIST_PRCP on `device`, daily records of
+    heavy_forcing: rain falls on a wet fraction mu < 1 of the warm cells."""
+    return _build(dist_prcp_params(n_rec), n_cell, n_rec, device,
+                  forcing=heavy_forcing)
+
+
+def build_heavy_nolakes(n_cell: int, n_rec: int, device="cuda"):
+    """The heavy configuration without LAKES on `device`, 3-hourly records
+    on heavy_forcing; extras carries its node geometry and water-table
+    curves."""
+    return _build(heavy_nolakes_params(n_rec), n_cell, n_rec, device,
+                  zwt=True, forcing=heavy_forcing)
 
 
 # configuration name -> the function that builds it, for callers that
 # take the name
 CONFIGS = {"light": build_light, "frozen": build_frozen,
-           "blowing_close": build_blowing_close, "lakes": build_lakes}
+           "blowing_close": build_blowing_close, "lakes": build_lakes,
+           "dist_prcp": build_dist_prcp, "heavy_nolakes": build_heavy_nolakes}

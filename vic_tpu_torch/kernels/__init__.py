@@ -1,7 +1,7 @@
 """Python bindings of the CUDA kernels (csrc/*.cu).
 
 Each wrapper takes CUDA tensors only: it checks device and dtype, passes
-each lane input of K1-K5 and K7-K13 as its view broadcast to the lanes, a
+each lane input of K1-K5 and K7-K14 as its view broadcast to the lanes, a
 data pointer and element strides (`_lane_inputs`, csrc/lanes.cuh), so no
 input is copied, allocates the outputs, launches on the current stream,
 raises if the launch was refused, and adds one to its entry of `launches`.
@@ -27,7 +27,7 @@ launches = {"glacier_brent": 0, "snowpack_brent": 0, "canopy_brent": 0,
             "runoff_hourly": 0, "surface_brent": 0, "node_sweep": 0,
             "fd_surface_brent": 0, "blowing_snow": 0, "canopy_air_step": 0,
             "lake_open_water": 0, "lake_under_ice": 0, "lake_ice_brent": 0,
-            "lake_depth": 0}
+            "lake_depth": 0, "affine_surface_brent": 0}
 
 # per-lane float inputs of each Brent residual, in the C functors' order
 GLACIER_INPUTS = ("ra", "z_ref", "roughness", "air_dens", "vp_air",
@@ -208,12 +208,19 @@ SURFACE_INPUTS = (
 SURFACE_LAYER_INPUTS = ("root", "gsm_l", "rc2", "w1", "cap")
 SURFACE_MASKS = ("active", "inc_mask", "overstory_snowing", "is_veg",
                  "case1")
+# DIST_PRCP's dry column and wet fraction, after K5's layered inputs and
+# masks (csrc/surface_brent.cuh DryIn, DryLayerIn, kCase1Dry)
+DRY_INPUTS = ("wdew_dry", "rainfall_dry", "moist0_dry", "ice0_dry",
+              "arno_beta_dry", "rc1_dry", "mu_wet")
+DRY_LAYER_INPUTS = ("gsm_l_dry", "rc2_dry", "w1_dry", "cap_dry")
+DRY_MASKS = ("case1_dry",)
 
 
 def surface_inputs(eb_kwargs):
     """K5's inputs from physics.surface.surf_energy_terms' keyword
     arguments: {name: tensor} over SURFACE_INPUTS, SURFACE_LAYER_INPUTS and
-    SURFACE_MASKS but `active`."""
+    SURFACE_MASKS but `active`, and with DIST_PRCP (dist_dry) over
+    DRY_INPUTS, DRY_LAYER_INPUTS and DRY_MASKS."""
     kw = eb_kwargs
     pre = kw["evap_pre"]
     named = {k: kw[k] for k in SURFACE_INPUTS + SURFACE_LAYER_INPUTS
@@ -223,17 +230,27 @@ def surface_inputs(eb_kwargs):
     named.update({f"inc_{k}": v for k, v in kw["inc_terms"].items()})
     named.update(zip(("pen_slope", "pen_lv", "pen_gamma", "pen_r_air"),
                      pre["coeffs"]))
-    named.update(arno_beta=pre["arno_beta"], **{
-        k: pre["transp"][k] for k in ("rc1", "gsm_l", "rc2", "w1", "cap",
-                                      "case1")})
+    transp = ("rc1", "gsm_l", "rc2", "w1", "cap", "case1")
+    named.update(arno_beta=pre["arno_beta"],
+                 **{k: pre["transp"][k] for k in transp})
+    dry = kw.get("dist_dry")
+    if dry is not None:
+        pre_d = kw["evap_pre_dry"]
+        named.update(wdew_dry=dry["wdew"], rainfall_dry=dry["rainfall"],
+                     moist0_dry=dry["moist_l"][..., 0],
+                     ice0_dry=dry["ice_l"][..., 0],
+                     arno_beta_dry=pre_d["arno_beta"], mu_wet=kw["mu_wet"],
+                     **{f"{k}_dry": pre_d["transp"][k] for k in transp})
     return named
 
 
-def _surface_lanes(name, lo, hi, active, eb_kwargs, fd):
-    """The inputs of K5 (fd False) or K7 (fd True) from the residual's
-    keyword arguments, as _lane_inputs passes them: (lanes shape, layers,
-    the views to keep alive, float pointers, strides, count, mask pointers,
-    strides, count)."""
+def _surface_lanes(name, lo, hi, active, eb_kwargs, fd, extra=()):
+    """The inputs of K5 (fd False) or K7 and K14 (fd True) from the
+    residual's keyword arguments, as _lane_inputs passes them, the float
+    inputs `extra` ((name, tensor, dtype, nl) items) last: (lanes shape,
+    layers, DIST_PRCP's dry column read, the views to keep alive, float
+    pointers, strides, count, mask pointers, strides, count). Without
+    DIST_PRCP the dry column's inputs are zeros the kernels never read."""
     device = lo.device
     if device.type != "cuda":
         raise ValueError(f"{name}: CUDA tensors required, got {device}")
@@ -243,9 +260,16 @@ def _surface_lanes(name, lo, hi, active, eb_kwargs, fd):
     named = dict(surface_inputs(eb_kwargs), active=active)
     nl = named["root"].shape[-1]
     f32, flag = torch.float32, torch.bool
+    dist = eb_kwargs.get("dist_dry") is not None
+    if not dist:
+        named.update(dict.fromkeys(DRY_INPUTS + DRY_LAYER_INPUTS, torch.zeros(
+            (), dtype=f32, device=device)), case1_dry=torch.zeros(
+                (), dtype=flag, device=device))
     floats = ([(k, named[k], f32, 0) for k in SURFACE_INPUTS]
-              + [(k, named[k], f32, nl) for k in SURFACE_LAYER_INPUTS])
-    masks = [(k, named[k], flag, 0) for k in SURFACE_MASKS]
+              + [(k, named[k], f32, nl) for k in SURFACE_LAYER_INPUTS]
+              + [(k, named[k], f32, 0) for k in DRY_INPUTS]
+              + [(k, named[k], f32, nl) for k in DRY_LAYER_INPUTS])
+    masks = [(k, named[k], flag, 0) for k in SURFACE_MASKS + DRY_MASKS]
     if fd:
         # without FROZEN_SOIL the fusion inputs are never read: zeros
         frozen = bool(eb_kwargs.get("frozen_soil"))
@@ -255,9 +279,9 @@ def _surface_lanes(name, lo, hi, active, eb_kwargs, fd):
         masks.append(("fs_active", eb_kwargs["fs_active"] if frozen
                       else torch.zeros((), dtype=flag, device=device),
                       flag, 0))
-    fin, f_ptr, f_stride = _lane_inputs(floats, shape, device)
+    fin, f_ptr, f_stride = _lane_inputs(floats + list(extra), shape, device)
     mviews, m_ptr, m_stride = _lane_inputs(masks, shape, device)
-    return (shape, nl, (fin, mviews), f_ptr, f_stride, len(fin), m_ptr,
+    return (shape, nl, dist, (fin, mviews), f_ptr, f_stride, len(fin), m_ptr,
             m_stride, len(mviews))
 
 
@@ -266,10 +290,11 @@ def surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     thread per lane. Same arguments and result as
     physics.surface.surface_brent_plain (iterations per lane)."""
     name = "surface_brent"
-    if eb_kwargs.get("frozen_soil") or eb_kwargs.get("fd_solve") is not None:
+    if eb_kwargs.get("frozen_soil") or eb_kwargs.get("fd_solve") is not None \
+            or eb_kwargs.get("fd_interp") is not None:
         raise ValueError(f"{name}: solves the QUICK_FLUX residual without "
                          "frozen soil only")
-    shape, nl, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = \
+    shape, nl, dist, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = \
         _surface_lanes(name, lo, hi, active, eb_kwargs, fd=False)
     device, f32 = lo.device, torch.float32
     lo_c = _lanes(lo, shape, device, f32, "lo")
@@ -283,7 +308,7 @@ def surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = build.load().surface_brent(
             f_ptr, f_stride, nf, m_ptr, m_stride, nm, shape[-1],
-            nl, lo_c.data_ptr(), hi_c.data_ptr(),
+            nl, int(dist), lo_c.data_ptr(), hi_c.data_ptr(),
             float(eb_kwargs["delta_t"]),
             int(eb_kwargs.get("grnd_flux_type", 1)), int(max_iter), MAXTRIES,
             n, root.data_ptr(), converged.data_ptr(), bracketed.data_ptr(),
@@ -315,7 +340,7 @@ def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     if fd_solve is None:
         raise ValueError(f"{name}: solves the finite-difference residual "
                          "only (fd_solve)")
-    shape, nl, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = \
+    shape, nl, dist, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = \
         _surface_lanes(name, lo, hi, active, eb_kwargs, fd=True)
     device, f32 = lo.device, torch.float32
     lo_c = _lanes(lo, shape, device, f32, "lo")
@@ -350,8 +375,8 @@ def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
             nn = nodes.shape[-1]
         err = lib.fd_surface_brent(
             op, f_ptr, f_stride, nf, m_ptr, m_stride, nm, shape[-1], nl,
-            args["dt"], args["gft"], args["frozen"], state.data_ptr(),
-            lane_flags.data_ptr(),
+            int(dist), args["dt"], args["gft"], args["frozen"],
+            state.data_ptr(), lane_flags.data_ptr(),
             nodes.data_ptr() if nodes is not None else None, nn,
             votes.data_ptr() + 4 * vote, n, lo_c.data_ptr(),
             hi_c.data_ptr(), root.data_ptr(), converged.data_ptr(),
@@ -384,6 +409,51 @@ def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     launch(_FD_FINISH)
     _check_launch(name, 0)
     return RootResult(root, converged, bracketed, i)
+
+
+# K14's inputs after K7's: the bracket ends of the two probes and the probe
+# profiles (csrc/affine_surface_brent.cu AffIn)
+AFFINE_INPUTS = ("ts_a", "ts_b", "probe_lo", "probe_hi")
+
+
+def affine_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
+    """K14: expand-then-Brent on the finite-difference residual whose nodes
+    1-2 are interpolated affinely between two probe profiles,
+    eb_kwargs["fd_interp"] = (ts_a, t_a, ts_b, t_b), one thread per lane.
+    Same arguments and result as physics.surface.surface_brent_plain on
+    that residual (iterations per lane)."""
+    name = "affine_surface_brent"
+    fd_interp = eb_kwargs.get("fd_interp")
+    if fd_interp is None or eb_kwargs.get("fd_solve") is not None:
+        raise ValueError(f"{name}: solves the affine two-probe residual "
+                         "only (fd_interp, no fd_solve)")
+    ts_a, t_a, ts_b, t_b = fd_interp
+    nn = t_a.shape[-1]
+    f32 = torch.float32
+    extra = [("ts_a", ts_a, f32, 0), ("ts_b", ts_b, f32, 0),
+             ("probe_lo", t_a, f32, nn), ("probe_hi", t_b, f32, nn)]
+    shape, nl, dist, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = \
+        _surface_lanes(name, lo, hi, active, eb_kwargs, fd=True, extra=extra)
+    device = lo.device
+    lo_c = _lanes(lo, shape, device, f32, "lo")
+    hi_c = _lanes(hi, shape, device, f32, "hi")
+    root = torch.empty(shape, dtype=f32, device=device)
+    converged = torch.empty(shape, dtype=torch.bool, device=device)
+    bracketed = torch.empty(shape, dtype=torch.bool, device=device)
+    iterations = torch.empty(shape, dtype=torch.int32, device=device)
+    n = root.numel()
+    if n:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = build.load().affine_surface_brent(
+            f_ptr, f_stride, nf, m_ptr, m_stride, nm, shape[-1], nl,
+            int(dist), nn, lo_c.data_ptr(), hi_c.data_ptr(),
+            float(eb_kwargs["delta_t"]),
+            int(eb_kwargs.get("grnd_flux_type", 1)),
+            int(bool(eb_kwargs.get("frozen_soil"))), int(max_iter), MAXTRIES,
+            n, root.data_ptr(), converged.data_ptr(), bracketed.data_ptr(),
+            iterations.data_ptr(), stream)
+        _check_launch(name, err)
+    return RootResult(root, converged, bracketed, iterations)
 
 
 # the node count K6 is instantiated for (csrc/node_sweep.cu): the frozen

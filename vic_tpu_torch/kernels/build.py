@@ -82,12 +82,16 @@ _BRENT_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int, ctypes.c_void_p,
                                   ctypes.c_void_p, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
 _RUNOFF_ARGTYPES = (_INPUTS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4)
-_SURFACE_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int] * 2
+_SURFACE_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int] * 3
                      + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
                      + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
+_AFFINE_SURFACE_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int] * 4
+                            + [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_float]
+                            + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5)
 _SWEEP_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 9)
-_FD_SURFACE_ARGTYPES = ([ctypes.c_int] + _INPUTS * 2 + [ctypes.c_int] * 2
+_FD_SURFACE_ARGTYPES = ([ctypes.c_int] + _INPUTS * 2 + [ctypes.c_int] * 3
                         + [ctypes.c_float] + [ctypes.c_int] * 2
                         + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                         + [ctypes.c_void_p] + [ctypes.c_int]
@@ -122,6 +126,8 @@ def load():
                                ("surface_brent", _SURFACE_ARGTYPES),
                                ("node_sweep", _SWEEP_ARGTYPES),
                                ("fd_surface_brent", _FD_SURFACE_ARGTYPES),
+                               ("affine_surface_brent",
+                                _AFFINE_SURFACE_ARGTYPES),
                                ("blowing_snow", _BLOWING_ARGTYPES),
                                ("canopy_air_step", _CANOPY_AIR_ARGTYPES),
                                ("lake_open_water", _LAKE_OPEN_ARGTYPES),

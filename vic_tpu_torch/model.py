@@ -1,17 +1,23 @@
 """The model step and the time loop.
 
 Counterpart of `vic_tpu/model.py` (make_step :39, run :1807) for FULL_ENERGY
-with snow, glacier HRUs and elevation bands, on QUICK_FLUX ground heat (with
-or without BLOWING and CLOSE_ENERGY) or on finite-difference soil nodes
-(QUICK_FLUX off, with or without FROZEN_SOIL): the per-record column physics
-over the whole [n_cell, max_hru] batch. The canopy -> snow -> glacier ->
-surface chain is `column(tca, luo)`, run once at Tair, or, with
-CLOSE_ENERGY, once per pass of the canopy-air fixed point and once more at
-its settled temperature. With LAKES (on QUICK_FLUX, without BLOWING) each
-cell's lake steps after the column (`physics.lake.lake_step`) and its
-wetland lanes take the lake's recharge and area change. `run` is a Python
-loop over records; month and day-of-year reach the step as host ints, so
-indexing the monthly veg tables needs no device-to-host sync.
+with snow, glacier HRUs and elevation bands, on QUICK_FLUX ground heat or on
+finite-difference soil nodes (QUICK_FLUX off, with or without FROZEN_SOIL),
+each with or without BLOWING, CLOSE_ENERGY and DIST_PRCP: the per-record
+column physics over the whole [n_cell, max_hru] batch, at any step length.
+The canopy -> snow -> glacier -> surface chain is `column(tca, luo)`, run
+once at Tair, or, with CLOSE_ENERGY, once per pass of the canopy-air fixed
+point and once more at its settled temperature; on finite-difference nodes
+the passes solve the surface balance on the affine two-probe node profile
+(`fd_cheap`) and the last one on the full node sweep. With DIST_PRCP every
+HRU carries a wet and a dry column (`physics.dist_prcp`), rain falls on the
+wet fraction mu at intensity P/mu, and the cell sees their mu-weighted sum.
+With LAKES (on QUICK_FLUX, without BLOWING or DIST_PRCP) each cell's lake
+steps after the column (`physics.lake.lake_step`) and its wetland lanes take
+the lake's recharge and area change. With water-table curves the step adds
+OUT_ZWT, ZWT2, ZWT3 and ZWTL. `run` is a Python loop over records; month
+and day-of-year reach the step as host ints, so indexing the monthly veg
+tables needs no device-to-host sync.
 
 Every option outside that configuration is refused when the step is built.
 """
@@ -26,11 +32,13 @@ from .physics.aero import calc_aerodynamic
 from .physics.blowing_snow import calc_blowing_snow
 from .physics.canopy_air import calc_atmos_energy_bal, canopy_air_step
 from .physics.canopy_snow import snow_intercept
+from .physics.dist_prcp import storm_transfer
 from .physics.evap import build_evap_pre, compute_pot_evap, svp
 from .physics.frozen_soil import (distribute_node_moisture,
                                   estimate_layer_ice, find_zero_fronts,
                                   layer_ice_params, solve_t_profile_explicit)
 from .physics.glacier import glacier_ablation
+from .physics.hydrology_misc import compute_zwt
 from .physics.lake import (LakeState, area_from_depth, depth_from_volume,
                            lake_step)
 from .physics.runoff import runoff_step
@@ -57,12 +65,6 @@ LAKE_STATE_NAMES = (
     "tempi", "surf_temp", "pack_temp", "surf_water", "pack_water", "salbedo",
     "last_snow", "melting")
 
-# why BLOWING and CLOSE_ENERGY are refused on finite-difference nodes
-HEAVY_FD = ("they come with the heavy path, whose CLOSE_ENERGY passes solve "
-            "the surface balance on the affine two-probe node residual, "
-            "vic_tpu/physics/surface.py:422-433")
-
-
 # why LAKES is refused with BLOWING, on finite-difference nodes or with
 # DIST_PRCP
 HEAVY_LAKE = ("they come with the heavy configuration: the blowing-snow flux "
@@ -84,11 +86,6 @@ def _refuse(gp, geom, zwt_curves, lake_params):
          and gp.nnode != kernels.SWEEP_NNODE),
         ("exp_trans", gp.exp_trans),
         (f"lakes with dist_prcp ({HEAVY_LAKE})", gp.lakes and gp.dist_prcp),
-        ("dist_prcp", gp.dist_prcp),
-        (f"blowing on finite-difference nodes ({HEAVY_FD})",
-         gp.blowing and not gp.quick_flux),
-        (f"close_energy on finite-difference nodes ({HEAVY_FD})",
-         gp.close_energy and not gp.quick_flux),
         ("spatial_snow", gp.spatial_snow),
         (f"lakes with blowing ({HEAVY_LAKE})", gp.lakes and gp.blowing),
         (f"lakes on finite-difference nodes ({HEAVY_LAKE})",
@@ -97,7 +94,6 @@ def _refuse(gp, geom, zwt_curves, lake_params):
         ("lake_params without lakes", lake_params is not None
          and not gp.lakes),
         ("corrprec", gp.corrprec),
-        ("zwt_curves", zwt_curves is not None),
         ("continue_on_error", gp.continue_on_error),
     ]
     for name, on in flags:
@@ -105,12 +101,12 @@ def _refuse(gp, geom, zwt_curves, lake_params):
             raise NotImplementedError(
                 f"vic_tpu_torch.model.make_step: {name} is not ported; the "
                 "port runs FULL_ENERGY on QUICK_FLUX nodes without "
-                "FROZEN_SOIL, with or without BLOWING and CLOSE_ENERGY, or "
-                "with LAKES (lake_params) without BLOWING; or on "
-                "finite-difference nodes (a NodeGeometry as geom, linear "
-                "spacing) with or without FROZEN_SOIL; without DIST_PRCP, "
-                "SPATIAL_SNOW, CORRPREC, water-table curves or "
-                "CONTINUEONERROR")
+                "FROZEN_SOIL, or on finite-difference nodes (a NodeGeometry "
+                "as geom, linear spacing) with or without FROZEN_SOIL, each "
+                "with or without BLOWING, CLOSE_ENERGY, DIST_PRCP and "
+                "water-table curves; LAKES (lake_params) on QUICK_FLUX "
+                "without BLOWING or DIST_PRCP; without SPATIAL_SNOW, "
+                "CORRPREC or CONTINUEONERROR")
 
 
 def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
@@ -124,7 +120,9 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
     parameters' device (physics.frozen_soil.build_node_geometry(...).to),
     required with quick_flux=False. lake_params: the lakes' LakeParams on
     the parameters' device (prepare.lake_params_from_numpy), required with
-    LAKES. outvars: optional OUT_* names to return
+    LAKES. zwt_curves: the water-table curves on the parameters' device
+    (physics.hydrology_misc.build_zwt_curves, then zwt_curves_to), for the
+    OUT_ZWT* outputs. outvars: optional OUT_* names to return
     (plus OUT_WATER_ERROR, always kept)."""
     _refuse(gp, geom, zwt_curves, lake_params)
     dt_hours = gp.dt
@@ -187,10 +185,68 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
         snow_present = (state.swq > 0.0) | (snowfall > 0.0) \
             | (p.overstory & (state.snow_canopy > 0.0))
 
+        # ---- DIST_PRCP storm tracking (dist_prec.c:76-152) ----
+        if gp.dist_prcp:
+            prec_c = B(forcing["prec"])
+            raining = prec_c > 0.0
+            # the wet fraction: 1 with any snow, from the intensity when it
+            # rains, else unchanged (dist_prec.c:81-124)
+            new_mu = W(snow_present, 1.0,
+                       W(raining, 1.0 - torch.exp(-gp.prec_expt * prec_c),
+                         state.mu))
+            # DRY_TIME accumulates over the dry spells of a storm; rain does
+            # not reset it (dist_prec.c:116-124)
+            storm_end = ~snow_present & ~raining & (state.dry_time >= 24)
+            still0 = W(storm_end, False, state.still_storm)
+            dry_time = W(raining | snow_present, state.dry_time,
+                         W(storm_end, 0, state.dry_time + dt_hours))
+            new_storm = ~still0 & ((prec_c > c.STORM_THRES) | snow_present)
+            redist = ~new_storm & still0 & (new_mu != state.mu)
+            mu = W(new_storm | redist, new_mu, state.mu)
+            still_storm = still0 | new_storm
+            # wet/dry transfers at a storm's onset and mid-storm
+            # (initialize_new_storm.c, redistribute_during_storm.c)
+            mu_old = state.mu
+            am, rm = new_storm[..., None], redist[..., None]
+            moist_w, moist_d = storm_transfer(
+                state.moist, state.moist_dry, B(p.max_moist),
+                mu_old[..., None], mu[..., None], am, rm)
+            ice_w, ice_d = storm_transfer(
+                state.ice, state.ice_dry, B(p.max_moist), mu_old[..., None],
+                mu[..., None], am, rm)
+            wdew_w, wdew_d = storm_transfer(state.wdew, state.wdew_dry, wdmax,
+                                            mu_old, mu, new_storm, redist)
+            # the frozen part cannot exceed the transferred total
+            ice_w = torch.minimum(ice_w, moist_w)
+            ice_d = torch.minimum(ice_d, moist_d)
+
+            def dw(wet, dry):
+                return mu * wet + (1.0 - mu) * dry
+
+            def dwl(wet, dry):
+                return mu[..., None] * wet + (1.0 - mu[..., None]) * dry
+
+            # precipitation falls on the wet fraction at intensity P/mu
+            # (surface_fluxes.c:420)
+            mu_safe = torch.clamp(mu, min=1e-6)
+            rainfall = rainfall / mu_safe
+            snowfall = snowfall / mu_safe
+        else:
+            mu, still_storm, dry_time = state.mu, state.still_storm, \
+                state.dry_time
+            moist_w, moist_d = state.moist, state.moist_dry
+            ice_w, ice_d = state.ice, state.ice_dry
+            wdew_w, wdew_d = state.wdew, state.wdew_dry
+
+            def dw(wet, dry):
+                return wet
+
+            dwl = dw
+
         # no-overstory canopy dump when snow falls on stored dew
-        dump = ~p.overstory & (snowfall > 0.0) & (state.wdew > 0.0)
-        rainfall = rainfall + W(dump, state.wdew, 0.0)
-        wdew0 = W(dump, 0.0, state.wdew)
+        dump = ~p.overstory & (snowfall > 0.0) & (wdew_w > 0.0)
+        rainfall = rainfall + W(dump, wdew_w, 0.0)
+        wdew0 = W(dump, 0.0, wdew_w)
 
         surf_att = surf_atten_of(lai, p)
         short_over_in = (1.0 - surf_att) * sw_in
@@ -203,11 +259,14 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
         snowing = snow_present
         ov_snow = p.overstory & snow_present
 
-        # ---- soil thermal properties of the top two layers ----
-        moist0, ice0 = state.moist, state.ice
+        # ---- soil thermal properties of the top two layers, of the
+        # mu-averaged column (prepare_full_energy.c:52-56); the wet column
+        # drives evaporation and runoff ----
+        moist0, ice0 = moist_w, ice_w
+        moist_avg, ice_avg = dwl(moist_w, moist_d), dwl(ice_w, ice_d)
         l2 = slice(0, 2)
         kappa, cs = layer_thermal_props(
-            moist0[..., l2], ice0[..., l2], B(p.depth)[..., l2],
+            moist_avg[..., l2], ice_avg[..., l2], B(p.depth)[..., l2],
             B(p.soil_dens_min)[..., l2], B(p.bulk_dens_min)[..., l2],
             B(p.quartz)[..., l2], B(p.soil_density)[..., l2],
             B(p.bulk_density)[..., l2], B(p.organic)[..., l2])
@@ -224,7 +283,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             # fusion inputs: top-layer ice recomputed from the carried node
             # temperatures (prepare_full_energy.c:64-76)
             depth0_mm = B(p.depth)[..., 0] * 1000.0
-            moist0_vol = moist0[..., 0] / depth0_mm
+            moist0_vol = moist_avg[..., 0] / depth0_mm
             max_moist0_vol = B(p.max_moist)[..., 0] / depth0_mm
             bubble0, expt0 = B(p.bubble)[..., 0], B(p.expt)[..., 0]
             tavg01 = 0.5 * (state.node_temp[..., 0] + state.node_temp[..., 1])
@@ -241,8 +300,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             # temperatures, fixed over the step; the profile is re-solved
             # with each candidate Ts as the node-0 boundary condition inside
             # every residual evaluation (func_surf_energy_bal.c:190-228)
-            nodep = distribute_node_moisture(moist0, state.node_temp, geom, p,
-                                             frozen=frozen)
+            nodep = distribute_node_moisture(moist_avg, state.node_temp,
+                                             geom, p, frozen=frozen)
 
             def fd_solve(ts_candidate):
                 return solve_t_profile_explicit(
@@ -289,11 +348,13 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             blow_flux = tair.new_zeros(())
         rainfall_base, wdew0_base = rainfall, wdew0
 
-        def column(tca, luo):
+        def column(tca, luo, fd_cheap=False):
             """One pass of the overstory -> understory chain at canopy-air
             temperature tca (Tair on lanes that do not iterate), with luo
             the understory's upward longwave that the canopy sees
-            (vic_tpu/model.py:361-785)."""
+            (vic_tpu/model.py:361-785). fd_cheap: on finite-difference nodes,
+            solve the surface balance on the affine two-probe profile, as
+            the CLOSE_ENERGY passes before the last one do."""
             # ---- overstory canopy snow interception (snow_intercept.c) ----
             ci = snow_intercept(
                 snowfall_mm=snowfall, rainfall_mm=rainfall_base,
@@ -441,11 +502,12 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                 (1.0 - (coverage + delta_cov)) * (1.0 - bare_albedo)
                 + delta_cov * (1.0 - snow_alb))
             long_bare_in = (1.0 - coverage) * lw_under
-            evap_pre = build_evap_pre(
-                moist0, ice0, wcr=B(p.wcr), wpwp=B(p.wpwp), root=p.root,
+            pre_args = dict(
+                wcr=B(p.wcr), wpwp=B(p.wpwp), root=p.root,
                 max_moist0=B(p.max_moist)[..., 0], b_infilt=B(p.b_infilt),
                 rmin=p.rmin, rgl=p.rgl, lai=lai, net_short=net_short_bare,
                 vpd=vpd, air_temp=tair, elevation=B(p.elevation))
+            evap_pre = build_evap_pre(moist0, ice0, **pre_args)
             eb_kwargs = dict(
                 eb_common, tair=tca, shortwave_net_bare=net_short_bare,
                 long_bare_in=long_bare_in,
@@ -460,10 +522,21 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                                lw_snow_in=coverage * lw_under,
                                net_short_snow_cov=coverage * net_short_snow,
                                cov=coverage, blowing_flux=blow_flux))
-            ts, fb = solve_surface_temperature(
+            if gp.dist_prcp:
+                # the dry column's ET in the residual: no rain reaches it
+                eb_kwargs.update(
+                    dist_dry=dict(moist_l=moist_d, ice_l=ice_d, wdew=wdew_d,
+                                  rainfall=torch.zeros_like(rainfall)),
+                    evap_pre_dry=build_evap_pre(moist_d, ice_d, **pre_args),
+                    mu_wet=mu)
+            ts, fb, fd_interp = solve_surface_temperature(
                 eb_kwargs, state.node_temp[..., 0], tca,
-                max_iter=gp.brent_maxiter, active=p.mask)
-            eb = surf_energy_terms(ts, **eb_kwargs)
+                max_iter=gp.brent_maxiter, active=p.mask,
+                fd_affine=fd_cheap and gp.fd_affine_residual)
+            # the accepted root's terms on the profile the Brent used
+            eb = surf_energy_terms(ts, **(
+                eb_kwargs if fd_interp is None
+                else dict(eb_kwargs, fd_solve=None, fd_interp=fd_interp)))
 
             # thin-pack update from the joint solution
             # (calc_surf_energy_bal.c:589-660)
@@ -536,7 +609,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             luo = state.long_under_out
             close_iters = 0
             while close_iters < c.CLOSE_ENERGY_MAXITER:
-                ri = column(tc, luo)
+                ri = column(tc, luo, fd_cheap=True)
                 tc_next, g_prev, live_max = canopy_air_step(
                     it=close_iters, canopy_sensible=ri["ci"].sensible,
                     soil_sensible=ri["eb"].sensible_heat,
@@ -642,10 +715,24 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
         ppt = W(glacier, 0.0, W(snowing, melt_out, throughfall))
 
         # ---- runoff & baseflow ----
-        ro = runoff_step(
-            moist0, ice0, layer_evap, ppt, B(p.max_moist), B(p.resid_moist),
-            B(p.depth), B(p.ksat), B(p.expt), B(p.b_infilt), B(p.ds),
-            B(p.dsmax), B(p.ws), B(p.c_expt), dt_hours)
+        def runoff_of(moist, ice, lay_evap, ppt_col):
+            return runoff_step(
+                moist, ice, lay_evap, ppt_col, B(p.max_moist),
+                B(p.resid_moist), B(p.depth), B(p.ksat), B(p.expt),
+                B(p.b_infilt), B(p.ds), B(p.dsmax), B(p.ws), B(p.c_expt),
+                dt_hours)
+
+        ro = runoff_of(moist0, ice0, layer_evap, ppt)
+        if gp.dist_prcp:
+            # the dry column: no precipitation, its own ET and drainage
+            # (runoff.c:222-241 with mu -> 1-mu)
+            layer_evap_d = W(no_soil_evap[..., None], 0.0, eb.layer_evap_dry)
+            wdew_new_d = W(no_soil_evap, wdew_d, eb.wdew_new_dry)
+            ppt_d = W(snowing | glacier, 0.0, eb.throughfall_dry)
+            ro_d = runoff_of(moist_d, ice_d, layer_evap_d, ppt_d)
+        else:
+            layer_evap_d, wdew_new_d, ppt_d, ro_d = layer_evap, wdew_new, \
+                ppt, ro
 
         if fd_nodes:
             # the profile solved at the accepted Ts in the final evaluation
@@ -658,8 +745,12 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
         if frozen:
             _, ice_new = estimate_layer_ice(node_temp, ro.moist, geom,
                                             soil_ice)
+            ice_new_d = (estimate_layer_ice(node_temp, ro_d.moist, geom,
+                                            soil_ice)[1]
+                         if gp.dist_prcp else ice_new)
         else:
             ice_new = ice0
+            ice_new_d = ice_d if gp.dist_prcp else ice_new
 
         snow_sub_mm = vapor_flux * 1000.0
         total_evap = evap_sfree + snow_sub_mm + canopy_sub_mm + cevap_liq_mm
@@ -672,13 +763,15 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
         def aggl(x):
             return (x * w[..., None]).sum(-2)
 
-        cell_runoff = agg(ro.runoff + glac_outflow)
-        cell_baseflow = agg(ro.baseflow)
+        runoff_c = dw(ro.runoff, ro_d.runoff)
+        baseflow_c = dw(ro.baseflow, ro_d.baseflow)
+        cell_runoff = agg(runoff_c + glac_outflow)
+        cell_baseflow = agg(baseflow_c)
 
         # ---- lake/wetland coupling (full_energy.c:714-800, lakes.eb.c;
         # vic_tpu/model.py:993-1310), before the state so the wetland
         # recharge enters the soil and the closure ----
-        moist_wet_f = ro.moist
+        moist_wet_f, moist_dry_f = ro.moist, ro_d.moist
         recharge_lane_mm = torch.zeros_like(ro.runoff)
         lake_evap_mm = torch.zeros_like(cell_runoff)
         prec_cell = rain_cell = snow_cell = None
@@ -713,8 +806,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             # the wetland lane routes all of its runoff into the lake at its
             # land share (1-lakefrac), the other lanes rpercent of theirs
             wl_w = (w * wl_mask).sum(-1)
-            wet_ro = ((ro.runoff + glac_outflow) * w * wl_mask).sum(-1)
-            wet_bf = (ro.baseflow * w * wl_mask).sum(-1)
+            wet_ro = ((runoff_c + glac_outflow) * w * wl_mask).sum(-1)
+            wet_bf = (baseflow_c * w * wl_mask).sum(-1)
             oth_ro = cell_runoff - wet_ro
             oth_bf = cell_baseflow - wet_bf
             r_in = (oth_ro * rperc
@@ -750,7 +843,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                 alb_accum_b=p.snow_alb_accum_b,
                 alb_thaw_a=p.snow_alb_thaw_a, alb_thaw_b=p.snow_alb_thaw_b,
                 ds=p.ds, dsmax=p.dsmax, ws_arno=p.ws, c_expt=p.c_expt,
-                dt_sec=dt_sec, wetland_moist=ro.moist,
+                dt_sec=dt_sec, wetland_moist=dwl(moist_wet_f, moist_dry_f),
                 wetland_max_moist=p.max_moist, wetland_rel_moist=wl_rel_moist,
                 lane_mask=p.mask)
             clake_post = W(has_l, torch.clamp(
@@ -762,7 +855,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             # each column is blended with the saturated strip the lake
             # exposed or flooded ----
             mm_max = p.max_moist[:, None, :]
-            cols = list((ro.moist + lres.wetland_dmoist_mm).unbind(-1))
+            m0_lane = dwl(moist_wet_f, moist_dry_f)
+            cols = list((m0_lane + lres.wetland_dmoist_mm).unbind(-1))
             nlay = len(cols)
             for lay in range(nlay - 1):
                 exc = torch.clamp(cols[lay] - mm_max[..., lay], min=0.0)
@@ -783,8 +877,9 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                  + mm_max * (lf - nf_l)[..., None]) / one_m_nf[..., None],
                 min=0.0), mm_max)
             live_l = has_l[:, None] & (lf < 1.0) & p.mask
-            dmoist_total = W(live_l[..., None], m_adv - ro.moist, 0.0)
-            moist_wet_f = ro.moist + dmoist_total
+            dmoist_total = W(live_l[..., None], m_adv - m0_lane, 0.0)
+            moist_wet_f = moist_wet_f + dmoist_total
+            moist_dry_f = moist_dry_f + dmoist_total
             # snow and dew rescaled onto the new land fraction
             # (advect_snow_storage, advect_soil_veg_storage)
             sscale = W(live_l, W(maxnf_l > lf, 1.0 - maxnf_l, 1.0 - lf)
@@ -873,10 +968,13 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             # (put_data.c:195-196,271,789)
             w = w * (1.0 - wl_mask * clake_post[:, None])
 
+        # without DIST_PRCP the dry columns are carried as they are
         new_state = ModelState(
             moist=moist_wet_f, ice=ice_new, wdew=wdew_new,
-            moist_dry=state.moist_dry, ice_dry=state.ice_dry,
-            wdew_dry=state.wdew_dry, snow_canopy=snow_canopy_new,
+            moist_dry=moist_dry_f if gp.dist_prcp else state.moist_dry,
+            ice_dry=ice_new_d if gp.dist_prcp else state.ice_dry,
+            wdew_dry=wdew_new_d if gp.dist_prcp else state.wdew_dry,
+            snow_canopy=snow_canopy_new,
             swq=swq, surf_temp=surf_temp, pack_temp=pack_temp,
             surf_water=surf_water, pack_water=pack_water,
             density=density, depth=depth, albedo=snow_alb,
@@ -898,27 +996,31 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             surf_temp_fbcount=state.surf_temp_fbcount + fb.to(torch.int32),
             snow_temp_fbcount=state.snow_temp_fbcount
             + sm.surf_temp_fbflag.to(torch.int32),
-            mu=state.mu, still_storm=state.still_storm,
-            dry_time=state.dry_time, cell_valid=state.cell_valid,
+            mu=mu, still_storm=still_storm, dry_time=dry_time,
+            cell_valid=state.cell_valid,
             **lake_state)
 
-        # ---- water balance closure (put_data.c aggregation) ----
-        storage0 = state.moist.sum(-1) + state.wdew + state.swq * 1000.0 \
-            + state.snow_canopy * 1000.0 + state.glac_water_storage
-        storage1 = moist_wet_f.sum(-1) + wdew_new + swq * 1000.0 \
-            + snow_canopy_new * 1000.0 + glac_water_storage
+        # ---- water balance closure (put_data.c aggregation): the
+        # baseline is the transferred columns at the new mu, which the storm
+        # transfers conserve ----
+        wdew_c = dw(wdew_new, wdew_new_d)
+        storage0 = dw(moist_w.sum(-1), moist_d.sum(-1)) + dw(wdew_w, wdew_d) \
+            + state.swq * 1000.0 + state.snow_canopy * 1000.0 \
+            + state.glac_water_storage
+        storage1 = dw(moist_wet_f.sum(-1), moist_dry_f.sum(-1)) + wdew_c \
+            + swq * 1000.0 + snow_canopy_new * 1000.0 + glac_water_storage
         influx = out_prec + W(glacier, glac_melt_mm, 0.0) \
             + recharge_lane_mm - glac_firn_mm
         wb_err = (storage1 - storage0) - (
-            influx - total_evap - (ro.runoff + glac_outflow) - ro.baseflow)
+            influx - total_evap - (runoff_c + glac_outflow) - baseflow_c)
 
         pets = compute_pot_evap(
             tair, vpd, sw_in, eb.net_long_bare, B(p.elevation), dt_hours,
             aero.resist.snow_free, aero.resist.canopy, p.rmin, p.rarc,
             p.rgl, lai, veg_albedo, p.overstory)
 
-        moist_f = moist_wet_f
-        ice_f = ice_new
+        moist_f = dwl(moist_wet_f, moist_dry_f)
+        ice_f = dwl(ice_new, ice_new_d)
         liq_f = moist_f - ice_f
         wpwp_b = B(p.wpwp)
         soil_wet = agg(torch.clamp(
@@ -985,23 +1087,23 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             "OUT_SNOW_DEPTH": agg(depth * 100.0),
             "OUT_SNOW_COVER": agg(coverage),
             "OUT_SNOW_CANOPY": agg(snow_canopy_new * 1000.0),
-            "OUT_WDEW": agg(wdew_new),
+            "OUT_WDEW": agg(wdew_c),
             "OUT_SOIL_MOIST": soil_moist_l,
             "OUT_SOIL_LIQ": aggl(liq_f),
             "OUT_SOIL_ICE": aggl(ice_f),
             "OUT_SOIL_MOIST_TOT": agg(moist_f.sum(-1)),
             "OUT_ROOTMOIST": agg((moist_f * (p.root > 0.0)).sum(-1)),
             "OUT_SOIL_WET": soil_wet,
-            "OUT_ASAT": agg(ro.asat),
+            "OUT_ASAT": agg(dw(ro.asat, ro_d.asat)),
             "OUT_PREC": agg(out_prec) if prec_cell is None else prec_cell,
             "OUT_RAINF": agg(out_rain) if rain_cell is None else rain_cell,
             "OUT_SNOWF": agg(out_snow) if snow_cell is None else snow_cell,
             "OUT_EVAP": agg(total_evap) + lake_evap_mm,
             "OUT_EVAP_BARE": agg(W(bare, evap_sfree, 0.0)),
-            "OUT_EVAP_CANOP": agg(W(snowing, cevap_liq_mm,
-                                    eb.canopy_evap_mm)),
-            "OUT_TRANSP_VEG": agg(W(bare | snowing, 0.0,
-                                    layer_evap.sum(-1))),
+            "OUT_EVAP_CANOP": agg(W(snowing, cevap_liq_mm, dw(
+                eb.canopy_evap_mm, eb.canopy_evap_mm_dry))),
+            "OUT_TRANSP_VEG": agg(W(bare | snowing, 0.0, dw(
+                layer_evap.sum(-1), layer_evap_d.sum(-1)))),
             "OUT_SUB_SNOW": agg(snow_sub_mm),
             "OUT_SUB_CANOP": agg(canopy_sub_mm),
             "OUT_SUB_BLOWING": out_sub_blowing,
@@ -1015,7 +1117,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                               rt_lane)),
             "OUT_RUNOFF": cell_runoff,
             "OUT_BASEFLOW": cell_baseflow,
-            "OUT_INFLOW": agg(ppt),
+            "OUT_INFLOW": agg(dw(ppt, ppt_d)),
             "OUT_SNOW_MELT": agg(melt_out),
             "OUT_WATER_ERROR": agg(wb_err),
             "OUT_PET_SATSOIL": agg(pets["satsoil"]),
@@ -1086,11 +1188,12 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             "OUT_SMFROZFRAC": 1.0 - smliqfrac,
             "OUT_POROSITY": p.max_moist / (p.depth * 1000.0),
             "OUT_SOIL_DEPTH": p.depth,
-            "OUT_DELSOILMOIST": agg(moist_wet_f.sum(-1)
-                                    - state.moist.sum(-1)),
+            "OUT_DELSOILMOIST": agg(dw(moist_wet_f.sum(-1),
+                                       moist_dry_f.sum(-1))
+                                    - dw(moist_w.sum(-1), moist_d.sum(-1))),
             "OUT_DELSWE": agg((swq + snow_canopy_new - state.swq
                                - state.snow_canopy) * 1000.0),
-            "OUT_DELINTERCEPT": agg(wdew_new - state.wdew),
+            "OUT_DELINTERCEPT": agg(wdew_c - dw(wdew_w, wdew_d)),
             "OUT_REFREEZE": agg(rfz_pack * cov_w) / c.LF * dt_sec,
             "OUT_SUB_SURFACE": out_sub_surface,
             "OUT_ADV_SENS": zero_c,
@@ -1166,6 +1269,23 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                     W(on_ice, glac.terms.delta_cc, 0.0)),
                 "OUT_GLAC_FLUX_BAND": band_agg(glac_flux),
             })
+
+        if zwt_curves is not None:
+            # water-table positions (wrap_compute_zwt, compute_zwt.c): each
+            # layer, the top nl-1 layers lumped, the whole column; method 1
+            # reports the lowest layer's unless every layer is saturated
+            cz = zwt_curves["zwt"][:, None]
+            cm = zwt_curves["moist"][:, None]
+            zwt_l = compute_zwt(moist_f, cz[:, :, :nl], cm[:, :, :nl])
+            zwt2 = compute_zwt(moist_f[..., :-1].sum(-1), cz[:, :, nl],
+                               cm[:, :, nl])
+            zwt3 = compute_zwt(moist_f.sum(-1), cz[:, :, nl + 1],
+                               cm[:, :, nl + 1])
+            all_sat = ((B(p.max_moist) - moist_f) <= 1e-10).all(-1)
+            outputs.update({
+                "OUT_ZWT": agg(W(all_sat, 0.0, zwt_l[..., -1])),
+                "OUT_ZWT2": agg(zwt2), "OUT_ZWT3": agg(zwt3),
+                "OUT_ZWTL": aggl(zwt_l)})
 
         outputs.update(lake_out)
 

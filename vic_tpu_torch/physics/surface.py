@@ -7,11 +7,18 @@ temperature (QUICK_FLUX off), the deltaH storage and frozen-soil fusion
 terms, evapotranspiration inside the residual, a stability-corrected
 resistance and the per-lane INCLUDE_SNOW fold of thin packs.
 
+With DIST_PRCP the ET inside the residual is evaluated on the wet and the
+dry column and the latent term sees their mu-weighted sum
+(canopy_evap.c:124-206).
+
 The Brent solve of a CUDA tensor: on the QUICK_FLUX path the
 `surface_brent` kernel (one thread per lane, `csrc/surface_brent.cu`); on
 the finite-difference path, whose residual runs the batch-wide node sweep,
-the `fd_surface_brent` kernel sequence (`csrc/fd_surface_brent.cu`). On the
-CPU the plain batch loop `surface_brent_plain`.
+the `fd_surface_brent` kernel sequence (`csrc/fd_surface_brent.cu`); on the
+affine two-probe form of that residual (fd_affine) the
+`affine_surface_brent` kernel (one thread per lane,
+`csrc/affine_surface_brent.cu`). On the CPU the plain batch loop
+`surface_brent_plain`.
 """
 from __future__ import annotations
 
@@ -51,6 +58,13 @@ class SurfEBResult(NamedTuple):
     # (func_surf_energy_bal.c:190-228) and its per-node TFALLBACK counts
     t_nodes: torch.Tensor = None
     node_fbcount: torch.Tensor = None
+    # DIST_PRCP: the dry column's ET (canopy_evap.c:124-146); evap above is
+    # then the mu-weighted total
+    layer_evap_dry: torch.Tensor = None
+    canopy_evap_mm_dry: torch.Tensor = None
+    throughfall_dry: torch.Tensor = None
+    wdew_new_dry: torch.Tensor = None
+    evap_dry: torch.Tensor = None
 
 
 def surf_energy_terms(
@@ -64,7 +78,8 @@ def surf_energy_terms(
         evap_pre, inc_mask, inc_terms, grnd_flux_type: int = 1,
         frozen_soil: bool = False, moist0_vol=None, max_moist0_vol=None,
         ice0_vol=None, bubble0=None, expt0=None, fs_active=None,
-        fd_solve=None) -> SurfEBResult:
+        fd_solve=None, fd_interp=None, dist_dry=None, evap_pre_dry=None,
+        mu_wet=None) -> SurfEBResult:
     """Every term of the surface energy balance at candidate Ts
     (func_surf_energy_bal.c:calculate). inc_mask lanes fold a thin pack
     into this balance; inc_terms keys: swq, surf_water, density, old_tsurf,
@@ -72,10 +87,15 @@ def surf_energy_terms(
     blowing_flux (the BLOWING option's mass flux, kg/m2/s).
 
     Finite-difference path: fd_solve(Ts) solves the node profile with Ts as
-    the node-0 boundary condition; ground heat then comes from nodes 1 and
-    2. frozen_soil adds
-    the fusion term of the top node pair, from moist0_vol, max_moist0_vol,
-    ice0_vol, bubble0, expt0 and fs_active."""
+    the node-0 boundary condition, or fd_interp = (ts_a, t_a, ts_b, t_b)
+    interpolates it affinely between two profiles solved at ts_a and ts_b
+    (surface.py:155-158 of vic_tpu); ground heat then comes from nodes 1
+    and 2. frozen_soil adds the fusion term of the top node pair, from
+    moist0_vol, max_moist0_vol, ice0_vol, bubble0, expt0 and fs_active.
+
+    DIST_PRCP: dist_dry (the dry column's moist_l, ice_l, wdew, rainfall),
+    evap_pre_dry (its build_evap_pre terms) and mu_wet, the wet fraction;
+    the latent term then sees mu*evap_wet + (1-mu)*evap_dry."""
     W = torch.where
     tmean = ts
     tkelv = tmean + c.KELVIN
@@ -87,10 +107,17 @@ def surf_energy_terms(
 
     cover_atten = snow_coverage + (1.0 - snow_coverage) * surf_atten
     t_nodes = node_fbcount = None
-    if fd_solve is not None:
-        # node profile at this Ts; no exp(-D1/dp) damping (:185-240)
+    if fd_interp is not None:
+        # the profile interpolated between the two probes
+        ts_a, t_a, ts_b, t_b = fd_interp
+        wq = ((tmean - ts_a) / (ts_b - ts_a))[..., None]
+        t_nodes = t_a + wq * (t_b - t_a)
+    elif fd_solve is not None:
+        # node profile at this Ts
         prof = fd_solve(tmean)
         t_nodes, node_fbcount = prof.temp, prof.fbcount
+    if t_nodes is not None:
+        # ground heat from nodes 1-2, no exp(-D1/dp) damping (:185-240)
         t1 = t_nodes[..., 1]
         lower_flux = kappa2 / d2 * (t_nodes[..., 2] - t1)
     else:
@@ -146,24 +173,39 @@ def surf_energy_terms(
                                                 wind, roughness),
                 c.HUGE_RESIST)
 
-    # evapotranspiration inside the residual (:320-336)
-    evap_veg, layer_evap_veg, cevap_veg, thrufall_veg, wdew_veg = \
-        canopy_evap(moist_l, ice_l, wcr, wpwp, root, wdew, rainfall, wdmax,
-                    rmin, rgl, lai, rarc, net_bare_rad, shortwave_net_bare,
-                    vpd, tair, elevation, ra_canopy, delta_t, pre=evap_pre)
-    evap_bare = arno_evap(moist_l[..., 0], ice_l[..., 0], max_moist_l[..., 0],
-                          depth_l[..., 0], resid_moist0, b_infilt,
-                          net_bare_rad, tair, vpd, elevation, ra_used,
-                          delta_t, beta=evap_pre["arno_beta"],
-                          coeffs=evap_pre["coeffs"])
+    # evapotranspiration inside the residual (:320-336), of one column
     veg = is_veg & (lai > 0.0)
-    evap = W(veg, evap_veg, evap_bare)
-    layer_evap = W(veg[..., None], layer_evap_veg,
-                   torch.cat([evap_bare[..., None],
-                              torch.zeros_like(layer_evap_veg[..., 1:])], -1))
-    canopy_evap_mm = W(veg, cevap_veg, 0.0)
-    throughfall = W(veg, thrufall_veg, rainfall)
-    wdew_new = W(veg, wdew_veg, wdew)
+
+    def column_evap(moist_c, ice_c, wdew_c, rainfall_c, pre):
+        evap_veg, layer_evap_veg, cevap_veg, thrufall_veg, wdew_veg = \
+            canopy_evap(moist_c, ice_c, wcr, wpwp, root, wdew_c, rainfall_c,
+                        wdmax, rmin, rgl, lai, rarc, net_bare_rad,
+                        shortwave_net_bare, vpd, tair, elevation, ra_canopy,
+                        delta_t, pre=pre)
+        evap_bare = arno_evap(moist_c[..., 0], ice_c[..., 0],
+                              max_moist_l[..., 0], depth_l[..., 0],
+                              resid_moist0, b_infilt, net_bare_rad, tair, vpd,
+                              elevation, ra_used, delta_t,
+                              beta=pre["arno_beta"], coeffs=pre["coeffs"])
+        layer_bare = torch.cat([evap_bare[..., None], torch.zeros_like(
+            layer_evap_veg[..., 1:])], -1)
+        return (W(veg, evap_veg, evap_bare),
+                W(veg[..., None], layer_evap_veg, layer_bare),
+                W(veg, cevap_veg, 0.0), W(veg, thrufall_veg, rainfall_c),
+                W(veg, wdew_veg, wdew_c))
+
+    evap, layer_evap, canopy_evap_mm, throughfall, wdew_new = column_evap(
+        moist_l, ice_l, wdew, rainfall, evap_pre)
+    dry = {}
+    if dist_dry is not None:
+        evap_d, *rest = column_evap(dist_dry["moist_l"], dist_dry["ice_l"],
+                                    dist_dry["wdew"], dist_dry["rainfall"],
+                                    evap_pre_dry)
+        dry = dict(zip(("layer_evap_dry", "canopy_evap_mm_dry",
+                        "throughfall_dry", "wdew_new_dry"), rest),
+                   evap_dry=evap_d)
+        # the latent term sees the mu-weighted ET (canopy_evap.c:206)
+        evap = mu_wet * evap + (1.0 - mu_wet) * evap_d
 
     # latent heat (:339-363); evap mm/step -> m/s
     latent_heat = (-c.RHO_W * latent_heat_le * (evap / 1000.0 / delta_t)
@@ -203,7 +245,7 @@ def surf_energy_terms(
         canopy_evap_mm=canopy_evap_mm, throughfall=throughfall,
         wdew_new=wdew_new, refreeze_energy=refreeze_energy, delta_cc=delta_cc,
         inc_vapor_flux=inc_vapor_flux, t_nodes=t_nodes,
-        node_fbcount=node_fbcount)
+        node_fbcount=node_fbcount, **dry)
 
 
 def surface_brent_plain(lo, hi, active, *, max_iter: int, eb_kwargs):
@@ -214,21 +256,37 @@ def surface_brent_plain(lo, hi, active, *, max_iter: int, eb_kwargs):
 
 
 def solve_surface_temperature(kwargs, t0_old, tair, max_iter: int = 30,
-                              active=None):
+                              active=None, fd_affine: bool = False):
     """Full-energy surface temperature: Brent on mid +/- SURF_DT with
     mid = 0.5*(T0_old + Tair), or [T0_old - SURF_DT, 0] on INCLUDE_SNOW
     lanes (calc_surf_energy_bal.c:277-346); TFALLBACK to T0_old.
+
+    fd_affine (finite-difference nodes only): the node profile is solved
+    once at each bracket end, both from the carried temperatures, and the
+    residual interpolates it affinely between the two (vic_tpu/physics/
+    surface.py:421-433); the returned fd_interp lets the caller evaluate
+    the accepted root's terms on the same profile.
+
     CUDA tensors take the `surface_brent` kernel on the QUICK_FLUX
-    residual and `fd_surface_brent` on the finite-difference one; the CPU
-    takes `surface_brent_plain`. Returns (Ts, fbflag)."""
+    residual, `fd_surface_brent` on the finite-difference one and
+    `affine_surface_brent` on its affine form; the CPU takes
+    `surface_brent_plain`. Returns (Ts, fbflag, fd_interp or None)."""
     mid = 0.5 * (t0_old + tair)
     inc = kwargs["inc_mask"]
     t_lower = torch.where(inc, t0_old - c.SURF_DT, mid - c.SURF_DT)
     t_upper = torch.where(inc, 0.0, mid + c.SURF_DT)
     if active is None:
         active = torch.ones_like(inc)
+    fd_interp = None
+    if fd_affine and kwargs.get("fd_solve") is not None:
+        fd_solve = kwargs["fd_solve"]
+        fd_interp = (t_lower, fd_solve(t_lower).temp, t_upper,
+                     fd_solve(t_upper).temp)
+        kwargs = dict(kwargs, fd_solve=None, fd_interp=fd_interp)
     if t0_old.device.type == "cpu":
         solve = surface_brent_plain
+    elif fd_interp is not None:
+        solve = kernels.affine_surface_brent
     elif kwargs.get("fd_solve") is None:
         solve = kernels.surface_brent
     else:
@@ -236,4 +294,4 @@ def solve_surface_temperature(kwargs, t0_old, tair, max_iter: int = 30,
     res = solve(t_lower, t_upper, active, max_iter=max_iter,
                 eb_kwargs=kwargs)
     ts = torch.where(res.converged, res.root, t0_old)  # TFALLBACK
-    return ts, ~res.converged
+    return ts, ~res.converged, fd_interp

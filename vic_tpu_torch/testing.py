@@ -263,3 +263,83 @@ def lake_run_failures(ref: dict, got: dict, tol: float, cell_area,
         elif not np.allclose(b, a, rtol=tol, atol=tol):
             failed.append(key)
     return failed
+
+
+# --------------------------------------------------------------------------
+# Comparing a heavy run (3-hourly steps, frozen soil on finite-difference
+# nodes) with vic_tpu's (the tests and chip_smoke.py)
+# --------------------------------------------------------------------------
+
+# On a cell whose frozen top soil sits at the thaw edge, the fusion term
+# reads the unfrozen-water curve where it is steepest, just below 0 C, and
+# at 3-hourly steps weighs it by d1/dt, eight times the daily weight: one
+# float32 ulp of a node temperature moves it by up to ~1 W/m^2, and the
+# layer ice, the node profile and the fluxes follow over the records. The
+# port's own run moves that much when its carried node temperatures or soil
+# moisture move by one ulp (ROADMAP.md queue 3), so two programs that round
+# differently cannot agree there at a fixed 1e-4. On such thaw-edge cells
+# -- OUT_FUSION nonzero and the cell's top node within THAW_BAND of 0 C in
+# some record of the reference -- the energy fluxes (W/m^2,
+# THAW_FLUX_LEAVES and their band twins) are held within THAW_FLUX_ATOL,
+# about twice the largest spread measured (1.56 W/m^2 after one ulp on CPU,
+# 2.32 on an H100 against vic_tpu's fixture), and every other float leaf
+# within THAW_ATOL + THAW_RTOL*|ref|; every other cell at rtol = atol = tol,
+# but OUT_ENERGY_ERROR, the residual at an accepted Brent root, within
+# ROOT_RESIDUAL_ATOL as on the frozen configuration's daily steps.
+# OUT_WATER_ERROR is held at tol on every cell: the port reproduces
+# vic_tpu's own DIST_PRCP closure residual cell for cell.
+THAW_BAND = 2.0            # C
+THAW_FLUX_ATOL = 5.0       # W/m^2
+THAW_ATOL = 1e-2           # C, mm, cm
+THAW_RTOL = 1e-3
+ROOT_RESIDUAL_ATOL = 1e-3  # W/m^2
+THAW_FLUX_LEAVES = (
+    "OUT_FUSION", "OUT_ENERGY_ERROR", "OUT_DELTAH", "OUT_GRND_FLUX",
+    "OUT_LATENT", "OUT_LATENT_SUB", "OUT_SENSIBLE", "OUT_SNOW_FLUX",
+    "OUT_NET_LONG", "OUT_NET_SHORT", "OUT_R_NET", "OUT_ADVECTION",
+    "OUT_DELTACC", "OUT_RFRZ_ENERGY", "OUT_MELT_ENERGY")
+
+
+def thaw_edge_cells(ref: dict) -> np.ndarray:
+    """bool [n_cell]: the thaw-edge cells of a reference run (see
+    THAW_BAND), from its out/OUT_FUSION and out/OUT_SOIL_TNODE."""
+    fusion = np.abs(np.asarray(ref["out/OUT_FUSION"])).max(0) > 0.0
+    top = np.abs(np.asarray(ref["out/OUT_SOIL_TNODE"])[..., 0]).min(0)
+    return fusion & (top <= THAW_BAND)
+
+
+def heavy_run_failures(ref: dict, got: dict, tol: float) -> list:
+    """Keys of `ref` ({"out/OUT_*": [n_rec, n_cell, ...], "state/<field>":
+    [n_cell, ...]}, the golden fixtures' layout) whose value in `got`
+    differs beyond rtol = atol = tol, the thaw-edge cells held as above;
+    integer and boolean leaves equal everywhere."""
+    edge = thaw_edge_cells(ref)
+    failed = []
+    for key, a in ref.items():
+        a, b = np.asarray(a), np.asarray(got[key])
+        if a.shape != b.shape or a.dtype != b.dtype:
+            failed.append(key)
+            continue
+        if a.dtype.kind != "f":
+            if not np.array_equal(a, b):
+                failed.append(key)
+            continue
+        # the cell axis: [n_rec, n_cell, ...] outputs, [n_cell, ...] state
+        cell_axis = 1 if key.startswith("out/") else 0
+        shape = [1] * a.ndim
+        shape[cell_axis] = edge.size
+        on_edge = edge.reshape(shape)
+        name = key.split("/", 1)[1].removesuffix("_BAND")
+        if name == "OUT_WATER_ERROR":
+            edge_atol, edge_rtol = tol, tol
+        elif name in THAW_FLUX_LEAVES:
+            edge_atol, edge_rtol = THAW_FLUX_ATOL, tol
+        else:
+            edge_atol, edge_rtol = THAW_ATOL, THAW_RTOL
+        atol = max(tol, ROOT_RESIDUAL_ATOL) if name == "OUT_ENERGY_ERROR" \
+            else tol
+        limit = np.where(on_edge, edge_atol + edge_rtol * np.abs(a),
+                         atol + tol * np.abs(a))
+        if not (np.abs(b - a) <= limit).all():
+            failed.append(key)
+    return failed
