@@ -10,24 +10,28 @@ line) on failure:
 1. build: compiles the CUDA kernels from vic_tpu_torch/csrc with nvcc (one
    process per source) and prints ptxas' registers and spills.
 2. kernels: each configuration at its slice's size (32,768 cells, 262,144
-   HRU lanes; heavy_nolakes 8,192 cells) with each kernel binding wrapped
-   to capture its real arguments: K1-K5 in the light step's first record,
-   K6, K7 (and K4 again) in the frozen step's third, K8, K9 (and K2 again,
-   with a blowing-snow flux) in the blowing_close step's fourth, K10-K13 in
-   the lakes step's second (open, partly and fully iced lakes side by
-   side), K14 and again K7 (with DIST_PRCP's dry column), K4 (its dry
+   HRU lanes; heavy_nolakes and heavy 8,192 cells) with each kernel binding
+   wrapped to capture its real arguments: K1-K5 in the light step's first
+   record, K6, K7 (and K4 again) in the frozen step's third, K8, K9 (and
+   K2 again, with a blowing-snow flux) in the blowing_close step's fourth,
+   K10-K13 in the lakes step's second (open, partly and fully iced lakes
+   side by side), K14 and again K7 (with DIST_PRCP's dry column), K4 (its dry
    column's call) and K6 (the lower probe of a CLOSE_ENERGY pass) in the
-   heavy_nolakes step's fourth, and K5 again with the dry column in the
-   dist_prcp step's second. Each kernel is re-run on those arguments beside
-   its plain PyTorch version on the card, compared, timed with CUDA events
-   and given its bound (the least time the card could take for the same
+   heavy_nolakes step's fourth, K5 again with the dry column in the
+   dist_prcp step's second, and every kernel of the heavy path (K12 with
+   the blowing-snow flux over lake ice, K8 on the lake lanes) in the heavy
+   step's seventh, where lakes carry snow on ice that blows (K12 and K8
+   timed on those arguments too). Each kernel is re-run on those arguments
+   beside its plain PyTorch version on the card, compared, timed with CUDA
+   events and given its bound (the least time the card could take for the same
    work).
 3. reference: each configuration's fixture size (16 cells x 4 records;
-   heavy_nolakes 16 x 8 3-hourly) through the port on the card against
+   heavy_nolakes and heavy 16 x 8 3-hourly) through the port on the card
+   against
    tests/fixtures/torch_port/<config>_16x<records>.npz, written by vic_tpu
    on CPU.
 4. slice: 32,768 cells x 8 daily records of each configuration, 8,192
-   cells x 8 3-hourly records of heavy_nolakes, through
+   cells x 8 3-hourly records of heavy_nolakes and heavy, through
    vic_tpu_torch.model.run, every kernel's launch counter set to 0 just
    before each run and read just after it, and every plain solver of the
    port (ops.rootfind.batched_brent, ops.tridiag.thomas_solve and each
@@ -46,7 +50,8 @@ import numpy as np
 import torch
 
 from vic_tpu_torch.entry import CONFIGS
-from vic_tpu_torch.testing import (heavy_run_failures, lake_run_failures,
+from vic_tpu_torch.testing import (heavy_lake_run_failures,
+                                   heavy_run_failures, lake_run_failures,
                                    thaw_edge_cells)
 
 ROOT = Path(__file__).resolve().parent
@@ -58,11 +63,17 @@ BLOWING_RECORD = 3         # record whose step gives K8 and K9 theirs
 LAKES_RECORD = 1           # record whose step gives K10-K13 theirs
 HEAVY_RECORD = 3           # record whose step gives K14 and the heavy K4/6/7
 DIST_PRCP_RECORD = 1       # record whose step gives K5's dry column
-CONFIG_NAMES = ("light", "frozen", "blowing_close", "lakes", "heavy_nolakes")
+# record whose step gives every kernel of the heavy path its arguments: the
+# lakes froze over from the third record and carry snow that blows from the
+# sixth (16 cells on CPU)
+HEAVY_LAKE_RECORD = 6
+CONFIG_NAMES = ("light", "frozen", "blowing_close", "lakes", "heavy_nolakes",
+                "heavy")
 # cells of each configuration's kernel capture and slice
-CELLS = {"heavy_nolakes": HEAVY_CELLS}
+CELLS = {"heavy_nolakes": HEAVY_CELLS, "heavy": HEAVY_CELLS}
 FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
-FIXTURE_FILES = {"heavy_nolakes": "heavy_nolakes_16x8.npz"}
+FIXTURE_FILES = {"heavy_nolakes": "heavy_nolakes_16x8.npz",
+                 "heavy": "heavy_16x8.npz"}
 CSRC = "vic_tpu_torch/csrc/"
 # kernel -> (source, TPU loop it replaces, module of its plain version,
 # plain name, configuration whose step captures its arguments)
@@ -104,10 +115,13 @@ KERNELS = {
 }
 LAKE_KERNELS = ("lake_open_water", "lake_under_ice", "lake_ice_brent",
                 "lake_depth")
+# the kernels also timed on the heavy step's arguments, and what they are
+HEAVY_LAKE_TIMED = {"lake_ice_brent": "heavy, with the blowing-snow flux",
+                    "blowing_snow": "heavy, lake lanes"}
 SURFACE_KERNELS = ("surface_brent", "fd_surface_brent", "affine_surface_brent")
 # the configurations with DIST_PRCP: their surface residuals carry the dry
 # column
-DIST_PRCP_CONFIGS = ("dist_prcp", "heavy_nolakes")
+DIST_PRCP_CONFIGS = ("dist_prcp", "heavy_nolakes", "heavy")
 # the kernels each configuration's step must launch
 PATH_KERNELS = {
     "light": ("glacier_brent", "snowpack_brent", "canopy_brent",
@@ -124,21 +138,29 @@ PATH_KERNELS = {
                       "blowing_snow", "canopy_air_step",
                       "affine_surface_brent"),
 }
+PATH_KERNELS["heavy"] = PATH_KERNELS["heavy_nolakes"] + LAKE_KERNELS
 # the steps whose arguments each kernel is also held on, besides its own
 # configuration's: the frozen step's K4, the blowing_close step's K2 (a
 # blowing-snow flux in its residual), the dist_prcp step's K5 (DIST_PRCP's
-# dry column), and the heavy_nolakes step's every kernel of its path (K4's
-# dry column, K6's lower probe, K7 with the dry column)
+# dry column), the heavy_nolakes step's every kernel of its path (K4's
+# dry column, K6's lower probe, K7 with the dry column), and the heavy
+# step's every kernel of its path (K8's call on the lake lanes, K12 with the
+# blowing-snow flux over lake ice; K5 is not on it)
 ALSO_ON = {
-    "glacier_brent": ("heavy_nolakes",),
-    "snowpack_brent": ("blowing_close", "heavy_nolakes"),
-    "canopy_brent": ("heavy_nolakes",),
-    "runoff_hourly": ("frozen", "heavy_nolakes"),
+    "glacier_brent": ("heavy_nolakes", "heavy"),
+    "snowpack_brent": ("blowing_close", "heavy_nolakes", "heavy"),
+    "canopy_brent": ("heavy_nolakes", "heavy"),
+    "runoff_hourly": ("frozen", "heavy_nolakes", "heavy"),
     "surface_brent": ("dist_prcp",),
-    "node_sweep": ("heavy_nolakes",),
-    "fd_surface_brent": ("heavy_nolakes",),
-    "blowing_snow": ("heavy_nolakes",),
-    "canopy_air_step": ("heavy_nolakes",),
+    "node_sweep": ("heavy_nolakes", "heavy"),
+    "fd_surface_brent": ("heavy_nolakes", "heavy"),
+    "blowing_snow": ("heavy_nolakes", "heavy"),
+    "canopy_air_step": ("heavy_nolakes", "heavy"),
+    "affine_surface_brent": ("heavy",),
+    "lake_open_water": ("heavy",),
+    "lake_under_ice": ("heavy",),
+    "lake_ice_brent": ("heavy",),
+    "lake_depth": ("heavy",),
 }
 # Brent stops a lane anywhere inside its final bracket, |c - b| <= 2*tol_i
 # with tol_i = 2*FLT_EPSILON*|b| + 1e-4 C, so two runs whose residuals differ
@@ -677,14 +699,16 @@ def lake_depth_work(args, kern):
     return nbytes(*args, kern), kern.numel() * LAKE_DEPTH_OPS
 
 
-def check_lake_kernel(name, args, kwargs, calls):
-    """K10-K13 on the arguments of their first call in the lakes step
-    (`calls` calls in that record) against their plain versions; returns
-    (largest difference, (bytes, operations) of the call)."""
+def check_lake_kernel(name, args, kwargs, calls, label="lakes",
+                      record=LAKES_RECORD):
+    """K10-K13 on the arguments of their first call in the `label` step's
+    record `record` (`calls` calls in that record) against their plain
+    versions; returns (largest difference, (bytes, operations) of the
+    call). On the heavy step K12 must see the blowing-snow flux over lake
+    ice on some bracketed lake."""
     from vic_tpu_torch import kernels
     from vic_tpu_torch.physics.lake import lake_ice_brent_plain
-    print(f"  {name}: {calls} calls in the lakes step's record "
-          f"{LAKES_RECORD}")
+    print(f"  {name}: {calls} calls in the {label} step's record {record}")
     if name == "lake_open_water":
         kern, t_open, err = compare_lake_open_water(kwargs)
         return err, lake_column_work(kwargs, kern, list(kern) + [t_open],
@@ -701,10 +725,19 @@ def check_lake_kernel(name, args, kwargs, calls):
     kern = kernels.lake_ice_brent(*args, **kwargs)
     plain = lake_ice_brent_plain(*args, **kwargs)
     torch.cuda.synchronize()
-    err = compare_brent(name, kern, plain)
+    err = compare_brent(f"{name} ({label})", kern, plain)
     if not int(kern.bracketed.sum()):
         raise AssertionError("lake_ice_brent: no lake bracketed; the path "
                              "was not exercised")
+    if label == "heavy":
+        blown = kwargs["blowing_flux"].expand(kern.root.shape) != 0.0
+        print(f"  lake_ice_brent (heavy): {int(blown.sum())} lakes with a "
+              f"blowing-snow flux, {int((blown & kern.bracketed).sum())} of "
+              "them bracketed")
+        if not bool((blown & kern.bracketed).any()):
+            raise AssertionError("lake_ice_brent: no bracketed lake with a "
+                                 "blowing-snow flux; the path was not "
+                                 "exercised")
     return err, brent_work(name, args, kwargs, kern)
 
 
@@ -723,6 +756,8 @@ def compare(name, label, kern, plain, kwargs):
     """A kernel's result against its plain version's on the arguments the
     `label` step gave it; returns the largest difference."""
     if name == "blowing_snow":
+        if label == "heavy":
+            label = "heavy, lake lanes"
         return compare_blowing(kern, plain, kwargs["snowdepth"], label)
     if name == "canopy_air_step":
         return compare_canopy_air(kern, plain, label)
@@ -801,6 +836,14 @@ def kernels_phase(device):
     # K5's dry column: the light configuration with DIST_PRCP
     captured["dist_prcp"] = capture_kernel_args(
         "dist_prcp", ("surface_brent",), device, record=DIST_PRCP_RECORD)
+    # the heavy step's seventh record: lakes under snow that blows; K8's
+    # second call is the lake lanes', K4's the dry column's
+    heavy_lake_calls = {}
+    captured["heavy"] = capture_kernel_args(
+        "heavy", PATH_KERNELS["heavy"], device, record=HEAVY_LAKE_RECORD,
+        calls=heavy_lake_calls, nth={"runoff_hourly": 1, "blowing_snow": 1})
+    print(f"  heavy step record {HEAVY_LAKE_RECORD}: kernel calls "
+          f"{heavy_lake_calls}")
     results = {}
     for name, (source, replaces, module, plain_name, config) in \
             KERNELS.items():
@@ -818,6 +861,11 @@ def kernels_phase(device):
         if name in LAKE_KERNELS:
             err, work = check_lake_kernel(name, args, kwargs,
                                           lake_calls[name])
+            for label in ALSO_ON[name]:
+                a, kw = captured[label][name]
+                err = max(err, check_lake_kernel(
+                    name, a, kw, heavy_lake_calls[name], label,
+                    HEAVY_LAKE_RECORD)[0])
         else:
             err, work = check_kernel(name, config, args, kwargs, kern_fn,
                                      plain_fn, captured)
@@ -831,6 +879,20 @@ def kernels_phase(device):
             name=name, route="cuda", source=CSRC + source, replaces=replaces,
             launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        if name in HEAVY_LAKE_TIMED:
+            # the heavy path's own form of the kernel: K12 with the
+            # blowing-snow flux, K8 on the 8,192 lake lanes
+            a, kw = captured["heavy"][name]
+            kern = kern_fn(*a, **kw)
+            work = (brent_work(name, a, kw, kern) if name == "lake_ice_brent"
+                    else blowing_work(kw, kern))
+            bound_ms, bound_by = bound(*work)
+            print(f"  {name} ({HEAVY_LAKE_TIMED[name]}): kernel "
+                  f"{cuda_ms(lambda: kern_fn(*a, **kw), reps=20):.4f} ms, "
+                  f"plain torch "
+                  f"{cuda_ms(lambda: plain_fn(*a, **kw), reps=3):.4f} ms, "
+                  f"bound {bound_ms:.4f} ms by {bound_by} ({work[0]} bytes, "
+                  f"{work[1]:.4g} FP32 operations)")
     return results
 
 
@@ -856,10 +918,13 @@ def reference_phase(device, config):
     worst = {k: float(np.abs(a - got[k]).max()) for k, a in ref.items()
              if a.dtype.kind == "f"}
     # the tolerance leaves as the CPU tests hold them
-    # (vic_tpu_torch.testing.lake_run_failures, heavy_run_failures);
-    # elsewhere rtol = atol
-    if config == "heavy_nolakes":
-        failed = heavy_run_failures(ref, got, REF_TOL)
+    # (vic_tpu_torch.testing.lake_run_failures, heavy_run_failures,
+    # heavy_lake_run_failures); elsewhere rtol = atol
+    if config in ("heavy_nolakes", "heavy"):
+        failed = (heavy_run_failures(ref, got, REF_TOL)
+                  if config == "heavy_nolakes" else heavy_lake_run_failures(
+                      ref, got, REF_TOL, params.cell_area.cpu().numpy(),
+                      gp.dt * 3600.0))
         edge = thaw_edge_cells(ref)
         for key in failed:
             d = np.abs(got[key] - ref[key])
@@ -974,12 +1039,12 @@ def slice_phase(device, config, ref_werr):
         ice = float(final.ice.sum())
         print(f"  layer ice at the end {ice:.1f} mm summed over lanes; "
               f"OUT_FDEPTH max {float(outs['OUT_FDEPTH'].max()):.3f} cm")
-    if config in ("blowing_close", "heavy_nolakes"):
+    if config in ("blowing_close", "heavy_nolakes", "heavy"):
         passes = [int(x) for x in outs["OUT_TCANOPY_ITER"][:, 0].tolist()]
         print(f"  CLOSE_ENERGY passes per record: {passes}; max "
               f"|OUT_SUB_BLOWING| "
               f"{float(outs['OUT_SUB_BLOWING'].abs().max()):.4g} mm")
-    if config == "lakes":
+    if config in ("lakes", "heavy"):
         ice = outs["OUT_LAKE_ICE_FRACT"]
         print(f"  lakes: ice fraction per record min/max "
               f"{[round(float(x), 4) for x in ice.amin(1)]} / "
@@ -990,7 +1055,7 @@ def slice_phase(device, config, ref_werr):
               f"OUT_LAKE_ENERGY_ERROR "
               f"{float(outs['OUT_LAKE_ENERGY_ERROR'].min()):.4g} to "
               f"{float(outs['OUT_LAKE_ENERGY_ERROR'].max()):.4g} W/m^2")
-    if config == "heavy_nolakes":
+    if config in ("heavy_nolakes", "heavy"):
         ice = float(final.ice.max())
         print(f"  lanes with a wet fraction mu < 1 at the end "
               f"{int((final.mu < 1.0).sum())}; max layer ice {ice:.1f} mm; "

@@ -110,14 +110,14 @@ def test_blowing_close_step_does_not_write_into_its_inputs():
 
 @pytest.mark.parametrize("flag", ["blowing", "close_energy"])
 def test_refused_on_finite_difference_nodes(flag):
-    """On finite-difference nodes BLOWING and CLOSE_ENERGY step (below), but
-    not with LAKES: the lake on finite-difference nodes is not ported."""
+    """On finite-difference nodes BLOWING and CLOSE_ENERGY step (below), with
+    LAKES too (the heavy configuration), but LAKES without its lakes'
+    parameters is refused there by name."""
     from vic_tpu_torch.entry import build_frozen, frozen_params
     gp = frozen_params(1).replace(**{flag: True, "lakes": True})
     _, params, _, _, extras = build_frozen(1, 1, "cpu")
     with pytest.raises(NotImplementedError,
-                       match="lakes (with blowing|on finite-difference "
-                             "nodes)"):
+                       match="lakes without lake_params"):
         model.make_step(params, gp, **extras)
 
 

@@ -30,7 +30,8 @@ print("ok", len(out))
                                           ("blowing_close", 150),
                                           ("lakes", 186),
                                           ("dist_prcp", 150),
-                                          ("heavy_nolakes", 155)])
+                                          ("heavy_nolakes", 155),
+                                          ("heavy", 191)])
 def test_port_imports_and_steps_without_jax(config, n_out):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, config], cwd=ROOT,

@@ -549,3 +549,80 @@ def test_lake_depth_kernel_matches_plain(cuda):
         SimpleNamespace(z=z, basin=basin, maxdepth=maxdepth), volume)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+def test_ice_residual_fields_are_the_kernels_inputs():
+    """csrc/lake_ice_brent.cu's IceResidual reads dt, then
+    kernels.ICE_EB_INPUTS in that order (the blowing-snow flux last), and
+    its launcher expects as many float inputs."""
+    src = (build.CSRC / "lake_ice_brent.cu").read_text()
+    body = re.search(r"struct IceResidual \{\s*float([^;]*);", src).group(1)
+    fields = [w.strip() for w in body.split(",")]
+    assert fields == ["dt"] + list(kernels.ICE_EB_INPUTS)
+    assert kernels.ICE_EB_INPUTS[-1] == "blowing_flux"
+    launch = re.search(r"launch_brent\(lake_ice_brent_kernel, f, f_stride, "
+                       r"nf, (\d+),", src)
+    assert int(launch.group(1)) == len(kernels.ICE_EB_INPUTS)
+
+
+def _heavy_lake_args(device, n_cell=64, record=6):
+    """K12's call and K8's call on the lake lanes (its second in a step) in
+    the heavy step's seventh record, where lakes carry snow that blows."""
+    calls = {"lake_ice_brent": [], "blowing_snow": []}
+    originals = {name: getattr(kernels, name) for name in calls}
+
+    def wrap(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return fn(*args, **kwargs)
+        return wrapper
+
+    gp, params, stack, state, extras = CONFIGS["heavy"](n_cell, record + 1,
+                                                        device)
+    step = make_step(params, gp, **extras)
+    for r in range(record):
+        state, _ = step(state, {k: v[r] for k, v in stack.items()})
+    for name, fn in originals.items():
+        setattr(kernels, name, wrap(name, fn))
+    try:
+        step(state, {k: v[record] for k, v in stack.items()})
+    finally:
+        for name, fn in originals.items():
+            setattr(kernels, name, fn)
+    return calls["lake_ice_brent"][0], calls["blowing_snow"][1]
+
+
+@pytest.mark.gpu
+def test_lake_ice_brent_kernel_matches_plain_with_blowing_flux(cuda):
+    """K12 on the heavy step's lakes, some of them bracketed under a
+    blowing-snow flux: the same flags, roots within the final bracket
+    width."""
+    (a, kw), _ = _heavy_lake_args(cuda)
+    got = kernels.lake_ice_brent(*a, **kw)
+    ref = lake_ice_brent_plain(*a, **kw)
+    torch.cuda.synchronize()
+    blown = kw["blowing_flux"].expand(ref.root.shape) != 0.0
+    assert bool((blown & ref.bracketed).any())
+    assert torch.equal(got.bracketed, ref.bracketed)
+    assert torch.equal(got.converged, ref.converged)
+    both = got.converged & ref.converged
+    tol = 2.0 * (2.0 * torch.finfo(torch.float32).eps * got.root.abs() + 1e-4)
+    assert bool(((got.root - ref.root).abs() <= tol)[both].all())
+
+
+@pytest.mark.gpu
+def test_blowing_snow_kernel_matches_plain_on_lake_lanes(cuda):
+    """K8 on the heavy step's [n_cell] lake lanes with the frozen-pond
+    scalars broadcast: flux and transport within rtol 1e-4, atol 1e-9
+    kg/m^2/s, and some snow-covered lake blows."""
+    _, (a, kw) = _heavy_lake_args(cuda)
+    assert kw["tair"].dim() == 1 and kw["lag_one"].dim() == 0
+    before = kernels.launches["blowing_snow"]
+    got = kernels.blowing_snow(*a, **kw)
+    ref = calc_blowing_snow_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["blowing_snow"] == before + 1
+    for g, r in zip(got, ref):
+        assert g.shape == kw["tair"].shape
+        assert bool(((g - r).abs() <= 1e-9 + 1e-4 * r.abs()).all())
+    assert bool(((kw["snowdepth"] > 0.0) & (ref[0] != 0.0)).any())

@@ -138,15 +138,24 @@ def test_wetland_host_is_the_first_candidate_lane():
     (dict(quick_flux=False), "lakes on finite-difference nodes"),
     (dict(dist_prcp=True), "lakes with dist_prcp")])
 def test_heavy_lake_options_are_refused(flags, match):
+    """LAKES with BLOWING, on finite-difference nodes and with DIST_PRCP
+    were refused (`match` named the refusal) until the heavy configuration
+    came: each now builds its step, and with FROZEN_SOIL's SPATIAL_FROST it
+    is refused by that name."""
     from vic_tpu_torch.entry import build_frozen
     _, params, _, _, extras = build_frozen(1, 1, "cpu")
     geom = extras["geom"]
     _, _, _, _, extras = build_lakes(1, 1, "cpu")
     lp = extras["lake_params"]
     gp = lakes_params(1).replace(**flags)
-    with pytest.raises(NotImplementedError, match=match):
+    try:
         model.make_step(params, gp, geom=None if gp.quick_flux else geom,
                         lake_params=lp)
+    except NotImplementedError as err:
+        pytest.fail(f"{match} is refused again: {err}")
+    frost = gp.replace(frozen_soil=True, quick_flux=False, spatial_frost=True)
+    with pytest.raises(NotImplementedError, match="SPATIAL_FROST"):
+        model.make_step(params, frost, geom=geom, lake_params=lp)
 
 
 def test_lake_params_without_lakes_are_refused():

@@ -173,8 +173,8 @@ def test_params_from_jax_objects_run_identically():
         assert torch.equal(a[k], b[k]), k
 
 
-# DIST_PRCP and BLOWING are refused with LAKES, the lake over ice and the
-# wetland's dry column not being ported
+# LAKES steps with DIST_PRCP, BLOWING and CLOSE_ENERGY, but not without its
+# lakes' parameters, which these calls do not pass
 @pytest.mark.parametrize("flag", [
     dict(full_energy=False), dict(frozen_soil=True), dict(quick_flux=False),
     dict(dist_prcp=True, lakes=True), dict(blowing=True, lakes=True),
@@ -186,24 +186,25 @@ def test_params_from_jax_objects_run_identically():
 def test_make_step_refuses_options_outside_the_slice(flag):
     gp = light_params(1).replace(**flag)
     _, params, _, _, extras = build_frozen(1, 1, "cpu")
-    # CLOSE_ENERGY steps on finite-difference nodes, the lake there is
-    # refused
+    # CLOSE_ENERGY steps on finite-difference nodes; every combination with
+    # LAKES is refused for the missing lake_params
     on_nodes = "close_energy" in flag
-    with pytest.raises(NotImplementedError,
-                       match="lakes" if on_nodes else next(iter(flag))):
+    match = "lakes without lake_params" if flag.get("lakes") \
+        else next(iter(flag))
+    with pytest.raises(NotImplementedError, match=match):
         model.make_step(params, gp, geom=extras["geom"] if on_nodes
                         else None)
 
 
 def test_make_step_refuses_water_table_curves():
-    """Water-table curves step with every configuration but LAKES on
-    finite-difference nodes, which is refused whatever the curves."""
+    """Water-table curves step with every configuration; LAKES without its
+    lakes' parameters is refused whatever the curves."""
     gp, params, _, _, extras = build_frozen(1, 1, "cpu")
     curves = zwt_curves_to(build_zwt_curves(
         synthetic_domain(1, n_band=2, with_glacier=True).soil), "cpu")
     model.make_step(params, gp, geom=extras["geom"], zwt_curves=curves)
     with pytest.raises(NotImplementedError,
-                       match="lakes on finite-difference nodes"):
+                       match="lakes without lake_params"):
         model.make_step(params, gp.replace(lakes=True), geom=extras["geom"],
                         zwt_curves=curves)
 

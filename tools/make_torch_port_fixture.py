@@ -17,13 +17,16 @@ every final-state field ("state/<name>"), compressed, of
   LAKES (3-hourly steps, FROZEN_SOIL on 5 finite-difference nodes,
   CLOSE_ENERGY, DIST_PRCP, BLOWING) with the water-table curves cast to
   float32, on the split forcing of vic_tpu_torch.entry.heavy_forcing, one
-  day -> heavy_nolakes_16x8.npz.
+  day -> heavy_nolakes_16x8.npz;
+- heavy: `__graft_entry__._build(heavy=True)`'s flags, LAKES included, its
+  lake parameters cast to float32 as __graft_entry__ casts them, on the
+  same split forcing, one day -> heavy_16x8.npz.
 
 The PyTorch port is checked against these files by tests/test_torch_golden*.py
 and by chip_smoke.py's reference phase.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py \
-        [light|frozen|blowing_close|lakes|heavy_nolakes]
+        [light|frozen|blowing_close|lakes|heavy_nolakes|heavy]
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ FROZEN_FIXTURE = os.path.join(FIXTURE_DIR, "frozen_16x4.npz")
 BLOWING_CLOSE_FIXTURE = os.path.join(FIXTURE_DIR, "blowing_close_16x4.npz")
 LAKES_FIXTURE = os.path.join(FIXTURE_DIR, "lakes_16x4.npz")
 HEAVY_NOLAKES_FIXTURE = os.path.join(FIXTURE_DIR, "heavy_nolakes_16x8.npz")
+HEAVY_FIXTURE = os.path.join(FIXTURE_DIR, "heavy_16x8.npz")
 N_CELL, N_REC = 16, 4
 HEAVY_N_REC = 8     # one day of 3-hourly records
 
@@ -186,12 +190,22 @@ def heavy_nolakes_inputs(n_cell: int, n_rec: int):
     configuration without LAKES, its forcing from the port's numpy
     heavy_forcing; zwt_curves holds jnp float32 arrays, geom numpy float64
     ones."""
+    return heavy_inputs(n_cell, n_rec, lakes=False)[:6]
+
+
+def heavy_inputs(n_cell: int, n_rec: int, lakes: bool = True):
+    """vic_tpu's (gp, params, stack, state, geom, zwt_curves, lake_params)
+    of the heavy configuration, with LAKES unless not `lakes`, as
+    heavy_nolakes_inputs; lake_params holds jnp arrays, floats in float32
+    as __graft_entry__ casts them (None without LAKES)."""
     sys.path.insert(0, ROOT)
+    import jax
     import jax.numpy as jnp
     from vic_tpu.config import GlobalParams
     from vic_tpu.model import make_forcing_stack
     from vic_tpu.physics.frozen_soil import build_node_geometry
     from vic_tpu.physics.hydrology_misc import build_zwt_curves
+    from vic_tpu.physics.lake import make_lake_params
     from vic_tpu.prepare import prepare_domain
     from vic_tpu.state import initial_state
     from vic_tpu.testing import synthetic_domain
@@ -202,16 +216,22 @@ def heavy_nolakes_inputs(n_cell: int, n_rec: int):
                       startmonth=1, startday=1, nrecs=n_rec, full_energy=True,
                       glacier_id=99, snow_band=2, frozen_soil=True,
                       implicit=True, quick_flux=False, nnode=5,
-                      close_energy=True, dist_prcp=True, blowing=True)
+                      close_energy=True, dist_prcp=True, blowing=True,
+                      lakes=lakes)
     domain = synthetic_domain(n_cell=n_cell, n_band=2, with_glacier=True)
     geom = build_node_geometry(domain.soil, gp)
     zwt = {k: jnp.asarray(v, jnp.float32)
            for k, v in build_zwt_curves(domain.soil).items()}
+    lake_params = (jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, jnp.float32)
+        if np.asarray(a).dtype.kind == "f" else jnp.asarray(a),
+        make_lake_params(domain.soil, gp)) if lakes else None)
     stack = make_forcing_stack(
         heavy_forcing(n_rec, n_cell, dt_hours=gp.dt),
         make_time_axis(1995, 1, 1, 0, n_rec, gp.dt))
     return (gp, prepare_domain(domain, gp), stack,
-            initial_state(domain, gp, geom=geom), geom, zwt)
+            initial_state(domain, gp, geom=geom, lake_params=lake_params),
+            geom, zwt, lake_params)
 
 
 def heavy_nolakes_reference(n_cell: int = N_CELL,
@@ -228,6 +248,19 @@ def heavy_nolakes_reference(n_cell: int = N_CELL,
     return _arrays(final, outs)
 
 
+def heavy_reference(n_cell: int = N_CELL, n_rec: int = HEAVY_N_REC) -> dict:
+    """As light_reference, for the heavy configuration with LAKES."""
+    import jax
+    jax.config.update("jax_enable_x64", False)
+    gp, params, stack, state, geom, zwt, lp = heavy_inputs(n_cell, n_rec)
+    from vic_tpu.model import run
+
+    final, outs = jax.jit(lambda s, f, z, l: run(
+        s, f, params, gp, geom=geom, zwt_curves=z, lake_params=l))(
+            state, stack, zwt, lp)
+    return _arrays(final, outs)
+
+
 def main(which: str = "light"):
     path, make = {"light": (FIXTURE, light_reference),
                   "frozen": (FROZEN_FIXTURE, frozen_reference),
@@ -235,7 +268,8 @@ def main(which: str = "light"):
                                     blowing_close_reference),
                   "lakes": (LAKES_FIXTURE, lakes_reference),
                   "heavy_nolakes": (HEAVY_NOLAKES_FIXTURE,
-                                    heavy_nolakes_reference)}[which]
+                                    heavy_nolakes_reference),
+                  "heavy": (HEAVY_FIXTURE, heavy_reference)}[which]
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(path, **make())
     print(f"wrote {path} ({os.path.getsize(path)} bytes)")

@@ -2,7 +2,8 @@
 
     python tools/profile_torch_light.py [--config light|frozen|
                                                   blowing_close|lakes|
-                                                  dist_prcp|heavy_nolakes]
+                                                  dist_prcp|heavy_nolakes|
+                                                  heavy]
                                         [--cells 32768] [--records 8]
                                         [--repeats 5] [--out FILE.json]
 
@@ -14,7 +15,8 @@
    included) is attributed to it; the rest of the step is "other". With
    LAKES, lake_step's calls inside it (solve_lake and, inside that, the
    K10-K12 call sites; the K13 depth bisections) are timed as a nested
-   "lake" breakdown whose "other" is lake_step's own glue.
+   "lake" breakdown whose "other" is lake_step's own glue (with BLOWING,
+   the blowing-snow call over lake ice, K8, inside solve_lake too).
 3. profile: torch.profiler over two records: device time by kernel name,
    the hand-written kernels' own device time, and the device's busy share.
 
@@ -61,6 +63,7 @@ CONFIG_CALLS = {
                       "find_zero_fronts", "calc_blowing_snow",
                       "canopy_air_step", "storm_transfer", "compute_zwt"),
 }
+CONFIG_CALLS["heavy"] = CONFIG_CALLS["heavy_nolakes"] + CONFIG_CALLS["lakes"]
 # inside lake_step (physics/lake.py): solve_lake, within it the open-water
 # column (K10), the snow-on-ice update (K12 inside) and the under-ice
 # column (K11); every depth bisection (K13) of solve_lake and the water
@@ -104,8 +107,9 @@ def throughput(config, n_cell, n_rec, repeats, device):
 def breakdown(config, n_cell, n_rec, device):
     gp, params, stack, state, kw = build(config, n_cell, n_rec, device)
     wrapped = [(model, name) for name in STEP_CALLS + CONFIG_CALLS[config]]
-    if config == "lakes":
-        wrapped += [(lake, name) for name in LAKE_CALLS]
+    lake_calls = LAKE_CALLS + (("calc_blowing_snow",) if gp.blowing else ())
+    if gp.lakes:
+        wrapped += [(lake, name) for name in lake_calls]
     spent = {(mod, name): 0.0 for mod, name in wrapped}
     originals = {(mod, name): getattr(mod, name) for mod, name in wrapped}
 
@@ -139,10 +143,11 @@ def breakdown(config, n_cell, n_rec, device):
     per_rec["other"] = total / n_rec * 1e3 - sum(per_rec.values())
     result = {"ms_per_record": per_rec,
               "total_ms_per_record": total / n_rec * 1e3}
-    if config == "lakes":
+    if gp.lakes:
         # nested: solve_lake's calls inside it, the rest of lake_step
-        inner = {name: ms((lake, name)) for name in LAKE_CALLS}
-        nested = ("lake_open_water", "lake_ice_melt", "water_under_ice")
+        inner = {name: ms((lake, name)) for name in lake_calls}
+        nested = ("lake_open_water", "lake_ice_melt", "water_under_ice") \
+            + lake_calls[len(LAKE_CALLS):]
         inner["solve_lake own glue"] = inner["solve_lake"] - sum(
             inner[n] for n in nested)
         # depth_from_volume: all of physics.lake's calls, the one inside

@@ -7,14 +7,15 @@
 // it runs csrc/brent.cuh in each thread, so a lake pays only its own trips.
 // The residual is a line-for-line copy of physics.lake.ice_energy_terms:
 // the stability-corrected sensible term, latent_heat_from_snow at the
-// UNcorrected resistance without a blowing-snow flux (the
-// IceEnergyBalance.c:132 quirk vic_tpu keeps), the conduction through snow
-// and ice to the freezing point, and the exact tsurf == 0 melt branch.
+// UNcorrected resistance (the IceEnergyBalance.c:132 quirk vic_tpu keeps)
+// with the lake's blowing-snow flux added to the vapor flux (zero without
+// BLOWING), the conduction through snow and ice to the freezing point, and
+// the exact tsurf == 0 melt branch.
 //
 // Bound by latency: up to ~40 residual evaluations of ~60 operations in a
-// dependent chain per lake, 72 B read and 10 B written per lake.
+// dependent chain per lake, 76 B read and 10 B written per lake.
 //
-// C interface for ctypes: as glacier_brent (vic_kernels.cu); 17 float
+// C interface for ctypes: as glacier_brent (vic_kernels.cu); 18 float
 // inputs in IceResidual's order after dt; masks: [active].
 
 #include <cuda_runtime.h>
@@ -35,7 +36,7 @@ constexpr float kSmall = 1.0e-12f;
 struct IceResidual {
   float dt, ra, z_ref, roughness, wind, net_short, longwave_in, air_dens,
       lv, tair, pressure, vpd, vp_air, rain_m, surf_water, tcutoff, avgcond,
-      sw_conducted;
+      sw_conducted, blowing_flux;
 
   __device__ float operator()(float t) const {
     const float ra_corr =
@@ -46,7 +47,8 @@ struct IceResidual {
     const float net_rad = net_short + lwnet;
     const float sensible = air_dens * kCp * (tair - t) / ra_corr;
     const SnowLatent lh = latent_heat_from_snow(air_dens, vp_air, lv,
-                                                pressure, ra, t, vpd, 0.0f);
+                                                pressure, ra, t, vpd,
+                                                blowing_flux);
     const float advection = div_s(kChWater * tair * rain_m, dt);
     const float qnull = (tcutoff - t + sw_conducted) / fmaxf(avgcond, kSmall);
     const float rest = net_rad + sensible + lh.latent + lh.latent_sub +
@@ -67,7 +69,7 @@ __global__ void lake_ice_brent_kernel(const __grid_constant__ LaneInputs in,
   auto f = [&](int k) { return lane_f(in, k, row); };
   const IceResidual r{dt,    f(0),  f(1),  f(2),  f(3),  f(4),  f(5),
                       f(6),  f(7),  f(8),  f(9),  f(10), f(11), f(12),
-                      f(13), f(14), f(15), f(16)};
+                      f(13), f(14), f(15), f(16), f(17)};
   store(out, i, brent_solve(r, lo[i], hi[i], lane_m(in, 0, row), max_iter,
                             max_tries));
 }
@@ -83,7 +85,7 @@ int lake_ice_brent(const void* const* f, const int32_t* f_stride, int nf,
                    int max_iter, int max_tries, int n, float* root,
                    uint8_t* converged, uint8_t* bracketed,
                    int32_t* iterations, void* stream) {
-  return launch_brent(lake_ice_brent_kernel, f, f_stride, nf, 17, m,
+  return launch_brent(lake_ice_brent_kernel, f, f_stride, nf, 18, m,
                       m_stride, nm, 1, h, lo, hi, dt, max_iter, max_tries, n,
                       root, converged, bracketed, iterations, stream);
 }

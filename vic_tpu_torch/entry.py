@@ -18,6 +18,9 @@
   FROZEN_SOIL on 5 finite-difference nodes, CLOSE_ENERGY, DIST_PRCP,
   BLOWING, with the water-table curves (`bench.py:66-68`), on
   `heavy_forcing`.
+- `build_heavy`: the heavy configuration of
+  `__graft_entry__._build(heavy=True)` itself: `build_heavy_nolakes` with
+  LAKES, one lake per cell on the synthetic parabolic basin.
 
 All run on the seeded synthetic domain and forcing, on the CUDA device
 unless the caller names another one. Each returns (gp, params, stack,
@@ -72,6 +75,11 @@ def heavy_nolakes_params(n_rec: int) -> GlobalParams:
     return light_params(n_rec).replace(
         dt=3, snow_step=3, frozen_soil=True, implicit=True, quick_flux=False,
         nnode=5, close_energy=True, dist_prcp=True, blowing=True)
+
+
+def heavy_params(n_rec: int) -> GlobalParams:
+    # __graft_entry__._build(heavy=True)'s flags (__graft_entry__.py:27-40)
+    return heavy_nolakes_params(n_rec).replace(lakes=True)
 
 
 # the forcing offsets that take the synthetic forcing to blowing snow and
@@ -185,8 +193,17 @@ def build_heavy_nolakes(n_cell: int, n_rec: int, device="cuda"):
                   zwt=True, forcing=heavy_forcing)
 
 
+def build_heavy(n_cell: int, n_rec: int, device="cuda"):
+    """The heavy configuration with LAKES on `device`, 3-hourly records on
+    heavy_forcing; extras carries its node geometry, water-table curves and
+    lake parameters."""
+    return _build(heavy_params(n_rec), n_cell, n_rec, device, zwt=True,
+                  forcing=heavy_forcing)
+
+
 # configuration name -> the function that builds it, for callers that
 # take the name
 CONFIGS = {"light": build_light, "frozen": build_frozen,
            "blowing_close": build_blowing_close, "lakes": build_lakes,
-           "dist_prcp": build_dist_prcp, "heavy_nolakes": build_heavy_nolakes}
+           "dist_prcp": build_dist_prcp, "heavy_nolakes": build_heavy_nolakes,
+           "heavy": build_heavy}

@@ -609,11 +609,12 @@ UNDER_ICE_INPUTS = ("surfdz", "dz", "tcutoff", "sw_ice", "hice", "sdepth")
 # water_under_ice's arguments that only enter its molecular-only
 # diffusivity, which discards them
 UNDER_ICE_UNUSED = ("lat", "wind")
-# K12's residual inputs (csrc/lake_ice_brent.cu IceResidual)
+# K12's residual inputs (csrc/lake_ice_brent.cu IceResidual); blowing_flux
+# is a zero broadcast to the lakes without BLOWING
 ICE_EB_INPUTS = ("ra", "z_ref", "roughness", "wind", "net_short",
                  "longwave_in", "air_dens", "lv", "tair", "pressure", "vpd",
                  "vp_air", "rain_m", "surf_water", "tcutoff", "avgcond",
-                 "sw_conducted")
+                 "sw_conducted", "blowing_flux")
 
 
 def _column_lanes(name, temp, grid, active, named, keys):

@@ -12,12 +12,13 @@ the passes solve the surface balance on the affine two-probe node profile
 (`fd_cheap`) and the last one on the full node sweep. With DIST_PRCP every
 HRU carries a wet and a dry column (`physics.dist_prcp`), rain falls on the
 wet fraction mu at intensity P/mu, and the cell sees their mu-weighted sum.
-With LAKES (on QUICK_FLUX, without BLOWING or DIST_PRCP) each cell's lake
-steps after the column (`physics.lake.lake_step`) and its wetland lanes take
-the lake's recharge and area change. With water-table curves the step adds
-OUT_ZWT, ZWT2, ZWT3 and ZWTL. `run` is a Python loop over records; month
-and day-of-year reach the step as host ints, so indexing the monthly veg
-tables needs no device-to-host sync.
+With LAKES each cell's lake steps once after the column and its CLOSE_ENERGY
+passes (`physics.lake.lake_step`, with the blowing-snow flux over lake ice
+under BLOWING), and its wetland lanes take the lake's recharge and area
+change. With water-table curves the step adds OUT_ZWT, ZWT2, ZWT3 and
+ZWTL. `run` is a Python loop over records; month and day-of-year reach the
+step as host ints, so indexing the monthly veg tables needs no
+device-to-host sync.
 
 Every option outside that configuration is refused when the step is built.
 """
@@ -65,11 +66,10 @@ LAKE_STATE_NAMES = (
     "tempi", "surf_temp", "pack_temp", "surf_water", "pack_water", "salbedo",
     "last_snow", "melting")
 
-# why LAKES is refused with BLOWING, on finite-difference nodes or with
-# DIST_PRCP
-HEAVY_LAKE = ("they come with the heavy configuration: the blowing-snow flux "
-              "over lake ice, vic_tpu/physics/lake.py:1364-1384, and the lake "
-              "on finite-difference nodes with DIST_PRCP")
+# why FROZEN_SOIL with SPATIAL_FROST is refused
+SPATIAL_FROST = ("spatial_frost with frozen_soil (SPATIAL_FROST: the layer "
+                 "ice averaged over frost_subareas temperature offsets, "
+                 "vic_tpu/physics/frozen_soil.py:731-740)")
 
 
 def _refuse(gp, geom, zwt_curves, lake_params):
@@ -85,11 +85,8 @@ def _refuse(gp, geom, zwt_curves, lake_params):
          geom is not None and geom.alpha.is_cuda
          and gp.nnode != kernels.SWEEP_NNODE),
         ("exp_trans", gp.exp_trans),
-        (f"lakes with dist_prcp ({HEAVY_LAKE})", gp.lakes and gp.dist_prcp),
+        (SPATIAL_FROST, gp.frozen_soil and gp.spatial_frost),
         ("spatial_snow", gp.spatial_snow),
-        (f"lakes with blowing ({HEAVY_LAKE})", gp.lakes and gp.blowing),
-        (f"lakes on finite-difference nodes ({HEAVY_LAKE})",
-         gp.lakes and not gp.quick_flux),
         ("lakes without lake_params", gp.lakes and lake_params is None),
         ("lake_params without lakes", lake_params is not None
          and not gp.lakes),
@@ -103,10 +100,9 @@ def _refuse(gp, geom, zwt_curves, lake_params):
                 "port runs FULL_ENERGY on QUICK_FLUX nodes without "
                 "FROZEN_SOIL, or on finite-difference nodes (a NodeGeometry "
                 "as geom, linear spacing) with or without FROZEN_SOIL, each "
-                "with or without BLOWING, CLOSE_ENERGY, DIST_PRCP and "
-                "water-table curves; LAKES (lake_params) on QUICK_FLUX "
-                "without BLOWING or DIST_PRCP; without SPATIAL_SNOW, "
-                "CORRPREC or CONTINUEONERROR")
+                "with or without BLOWING, CLOSE_ENERGY, DIST_PRCP, LAKES "
+                "(lake_params) and water-table curves; without "
+                "SPATIAL_FROST, SPATIAL_SNOW, CORRPREC or CONTINUEONERROR")
 
 
 def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
@@ -843,7 +839,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                 alb_accum_b=p.snow_alb_accum_b,
                 alb_thaw_a=p.snow_alb_thaw_a, alb_thaw_b=p.snow_alb_thaw_b,
                 ds=p.ds, dsmax=p.dsmax, ws_arno=p.ws, c_expt=p.c_expt,
-                dt_sec=dt_sec, wetland_moist=dwl(moist_wet_f, moist_dry_f),
+                dt_sec=dt_sec, blowing=gp.blowing,
+                wetland_moist=dwl(moist_wet_f, moist_dry_f),
                 wetland_max_moist=p.max_moist, wetland_rel_moist=wl_rel_moist,
                 lane_mask=p.mask)
             clake_post = W(has_l, torch.clamp(

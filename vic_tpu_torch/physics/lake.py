@@ -2,12 +2,11 @@
 
 Counterpart of `vic_tpu/physics/lake.py` (lakes.eb.c, ice_melt.c,
 IceEnergyBalance.c, water_energy_balance.c, water_under_ice.c,
-initialize_lake.c), one lake per cell with MAX_LAKE_NODES layers, without
-the blowing-snow flux over lake ice (LAKES with BLOWING is refused by
-`model.make_step`). Every function repeats vic_tpu's arithmetic in its
-order: integer powers as the products lax.integer_pow forms, and every
-sum over the layer axis in index order (`_isum`), as XLA's CPU reduction
-runs it.
+initialize_lake.c), one lake per cell with MAX_LAKE_NODES layers, with
+the blowing-snow flux over lake ice under BLOWING. Every function repeats
+vic_tpu's arithmetic in its order: integer powers as the products
+lax.integer_pow forms, and every sum over the layer axis in index order
+(`_isum`), as XLA's CPU reduction runs it.
 
 Four of the lake's loops run on the card as CUDA kernels; each call site
 takes the plain version beside it on CPU tensors and the kernel on CUDA
@@ -19,7 +18,10 @@ tensors:
   `lake_open_water`;
 - `water_under_ice` -> `water_under_ice_plain` / K11 `lake_under_ice`;
 - the Brent solve of `lake_ice_melt` -> `lake_ice_brent_plain` / K12
-  `lake_ice_brent`.
+  `lake_ice_brent`;
+- under BLOWING, the blowing-snow flux over lake ice ->
+  `blowing_snow.calc_blowing_snow_plain` / K8 `blowing_snow` on the
+  [n_cell] lake lanes.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from .. import kernels
 from ..ops.rootfind import MAXTRIES, batched_brent
 from ..ops.tridiag import thomas_solve
 from ..tensors import TensorDataclass
+from .blowing_snow import calc_blowing_snow
 from .snow import latent_heat_from_snow, snow_albedo, stability_correction
 
 MAX_LAKE_NODES = c.MAX_LAKE_NODES
@@ -64,6 +67,10 @@ EB_MAX_ITER = 50         # water_energy_balance.c / water_under_ice.c MAX_ITER
 EB_EPS = 1.0e-4
 DEPTH_ITERS = 30         # bisection steps of depth_from_volume
 MIX_SWEEPS = MAX_LAKE_NODES  # red-black sweeps of tracer_mixer
+# calc_blowing_snow's hard-wired frozen-pond parameters over lake ice
+# (ice_melt.c:264-288): 10-cm protrusions
+FROZEN_POND = dict(lag_one=0.95, sigma_slope=0.005, fetch=100.0,
+                   displacement=0.067, roughness=0.0123)
 
 W = torch.where
 
@@ -715,13 +722,15 @@ class IceEBTerms(NamedTuple):
 
 def ice_energy_terms(tsurf, *, dt_sec, ra, z_ref, roughness, wind, net_short,
                      longwave_in, air_dens, lv, tair, pressure, vpd, vp_air,
-                     rain_m, surf_water, tcutoff, avgcond,
-                     sw_conducted) -> IceEBTerms:
+                     rain_m, surf_water, tcutoff, avgcond, sw_conducted,
+                     blowing_flux=0.0) -> IceEBTerms:
     """The lake snow/ice surface energy balance at candidate tsurf
-    (vic_tpu/physics/lake.py:752), without the blowing-snow flux; the
-    latent term keeps the UNcorrected resistance (IceEnergyBalance.c:132).
-    `IceResidual` in csrc/lake_ice_brent.cu is a line-for-line copy of
-    `rest`, its inputs in the order of kernels.ICE_EB_INPUTS."""
+    (vic_tpu/physics/lake.py:752); blowing_flux, the blowing-snow
+    sublimation flux over the ice (kg/m^2/s, BLOWING), enters the vapor
+    flux through latent_heat_from_snow. The latent term keeps the
+    UNcorrected resistance (IceEnergyBalance.c:132). `IceResidual` in
+    csrc/lake_ice_brent.cu is a line-for-line copy of `rest`, its inputs in
+    the order of kernels.ICE_EB_INPUTS."""
     ra_corr = W(wind > 0.0,
                 ra / stability_correction(z_ref, 0.0, tsurf, tair, wind,
                                           roughness),
@@ -732,7 +741,7 @@ def ice_energy_terms(tsurf, *, dt_sec, ra, z_ref, roughness, wind, net_short,
     net_rad = net_short + lwnet
     sensible = air_dens * c.CP_PM * (tair - tsurf) / ra_corr
     latent, latent_sub, vapor_mass_flux = latent_heat_from_snow(
-        air_dens, vp_air, lv, pressure, ra, tsurf, vpd)
+        air_dens, vp_air, lv, pressure, ra, tsurf, vpd, blowing_flux)
     vapor_flux = vapor_mass_flux * dt_sec / c.RHO_W
     advection = c.CH_WATER * tair * rain_m / dt_sec
     qnull = (tcutoff - tsurf + sw_conducted) / torch.clamp(avgcond,
@@ -781,11 +790,13 @@ def lake_ice_melt(*, swq, surf_temp, pack_temp, surf_water, pack_water,
                   lake_ice_m, hice, rainfall_mm, snowfall_mm, tair, wind,
                   vp_air, vpd, pressure, air_dens, longwave_in, net_short,
                   tcutoff, ra, z_ref, roughness, dt_sec, max_iter: int = 30,
-                  active=None) -> IceMeltResult:
+                  blowing_flux=0.0, active=None) -> IceMeltResult:
     """Two-layer snow over lake ice (vic_tpu/physics/lake.py:805), masses in
     m of water over the ICE area; the subfreezing surface temperature is a
     Brent root of ice_energy_terms: `lake_ice_brent_plain` on CPU tensors,
-    the `lake_ice_brent` kernel (K12) on CUDA tensors."""
+    the `lake_ice_brent` kernel (K12) on CUDA tensors. blowing_flux: the
+    blowing-snow flux over the ice (kg/m^2/s), a number or a tensor that
+    broadcasts to the lakes."""
     MSW = c.MAX_SURFACE_SWE
     snowfall = snowfall_mm / 1000.0
     rainfall = rainfall_mm / 1000.0
@@ -836,7 +847,9 @@ def lake_ice_melt(*, swq, surf_temp, pack_temp, surf_water, pack_water,
         net_short=net_short, longwave_in=longwave_in, air_dens=air_dens,
         lv=lv_ice, tair=tair, pressure=pressure, vpd=vpd, vp_air=vp_air,
         rain_m=rainfall, surf_water=surf_water, tcutoff=tcutoff,
-        avgcond=avgcond, sw_conducted=sw_conducted)
+        avgcond=avgcond, sw_conducted=sw_conducted,
+        blowing_flux=torch.as_tensor(blowing_flux, dtype=swq.dtype,
+                                     device=swq.device))
 
     terms0 = ice_energy_terms(torch.zeros_like(swq), dt_sec=dt_sec,
                               **term_kwargs)
@@ -1181,10 +1194,10 @@ def solve_lake(lp: LakeParams, st: LakeState, *, snowfall_mm, rainfall_mm,
                tair, wind, vp, sw_in, lw_in, vpd, pressure, air_density,
                dt_sec, wind_h, snow_rough, lat, day_in_year, new_snow_alb,
                alb_accum_a, alb_accum_b, alb_thaw_a, alb_thaw_b,
-               active) -> SolveLakeResult:
-    """One energy-budget pass over every lake (vic_tpu/physics/lake.py:1243)
-    without the blowing-snow flux over lake ice. vp/vpd/pressure in Pa. The
-    water balance is left to lake_step."""
+               active, blowing: bool = False) -> SolveLakeResult:
+    """One energy-budget pass over every lake (vic_tpu/physics/lake.py:1243),
+    with the blowing-snow flux over lake ice if `blowing`. vp/vpd/pressure
+    in Pa. The water balance is left to lake_step."""
     dt_h = dt_sec / 3600.0
     liquid = torch.clamp(st.volume - st.ice_water_eq, min=0.0)
     ldepth = depth_from_volume(lp, liquid)
@@ -1281,6 +1294,23 @@ def solve_lake(lp: LakeParams, st: LakeState, *, snowfall_mm, rainfall_mm,
     aero_resist_i = (log_i * log_h / (c.VON_K ** 2)) / windi
     lake_ice_m = W(st.ice_area > 0.0,
                    st.ice_water_eq / torch.clamp(st.ice_area, min=1.0), 0.0)
+    if blowing:
+        # blowing-snow sublimation over lake ice (ice_melt.c:264-288) on the
+        # lake lanes, with the reference's hard-wired frozen-pond parameters
+        # as float32 scalars broadcast to the lakes
+        ls_lake = (677.0 - 0.07 * st.surf_temp) \
+            * c.JOULES_PER_CAL * c.GRAMS_PER_KG
+        pond = {k: tair.new_tensor(v) for k, v in FROZEN_POND.items()}
+        blow_lake, _ = calc_blowing_snow(
+            dt_sec=dt_sec, tair=tair, last_snow=st.last_snow.to(tair.dtype),
+            surf_water_m=surf_water_i, wind_2m=windi, ls=ls_lake,
+            air_dens=air_density, pressure=pressure, eact=vp,
+            z0_snow=snow_rough, zrh=wind_h + snow_rough,
+            snowdepth=swq_i * c.RHO_W / RHOSNOW, tsnow=st.surf_temp,
+            is_bare=torch.zeros_like(swq_i, dtype=torch.bool), **pond)
+        blow_lake = W(swq_i > 0.0, blow_lake, 0.0)
+    else:
+        blow_lake = 0.0
     im = lake_ice_melt(
         swq=swq_i, surf_temp=st.surf_temp, pack_temp=st.pack_temp,
         surf_water=surf_water_i, pack_water=pack_water_i,
@@ -1289,7 +1319,8 @@ def solve_lake(lp: LakeParams, st: LakeState, *, snowfall_mm, rainfall_mm,
         wind=windi, vp_air=vp, vpd=vpd, pressure=pressure,
         air_dens=air_density, longwave_in=lw_in, net_short=sw_ice,
         tcutoff=tcutoff, ra=aero_resist_i, z_ref=wind_h + snow_rough,
-        roughness=snow_rough, dt_sec=dt_sec, active=active & has_icefrac)
+        roughness=snow_rough, dt_sec=dt_sec, blowing_flux=blow_lake,
+        active=active & has_icefrac)
 
     ui = water_under_ice(
         temp=st.temp, grid=grid, lat=lat, tcutoff=tcutoff, wind=wind,
@@ -1443,13 +1474,14 @@ def lake_step(lp: LakeParams, st: LakeState, *, tair, wind, sw_in, lw_in,
               snow_rough, new_snow_alb, alb_accum_a, alb_accum_b,
               alb_thaw_a, alb_thaw_b, ds, dsmax, ws_arno, dt_sec,
               c_expt=None, wetland_moist=None, wetland_max_moist=None,
-              wetland_rel_moist=None, active=None,
-              lane_mask=None) -> LakeStepResult:
+              wetland_rel_moist=None, active=None, lane_mask=None,
+              blowing: bool = False) -> LakeStepResult:
     """One model step: solve_lake then the water balance once PER HRU lane,
     as full_energy.c:793-800 calls it (vic_tpu/physics/lake.py:1553; the
     quirk is kept: inflow and evaporation are re-booked on every pass and
     the last lane's fluxes are the ones reported). wetland_moist etc.:
-    [cell, lane, nl] with lane_mask [cell, lane]."""
+    [cell, lane, nl] with lane_mask [cell, lane]. blowing: the blowing-snow
+    flux over lake ice (BLOWING)."""
     if active is None:
         active = torch.ones_like(st.volume, dtype=torch.bool)
     basin0 = lp.basin[..., 0]
@@ -1461,7 +1493,8 @@ def lake_step(lp: LakeParams, st: LakeState, *, tair, wind, sw_in, lw_in,
         wind_h=wind_h, snow_rough=snow_rough, lat=lat,
         day_in_year=day_in_year, new_snow_alb=new_snow_alb,
         alb_accum_a=alb_accum_a, alb_accum_b=alb_accum_b,
-        alb_thaw_a=alb_thaw_a, alb_thaw_b=alb_thaw_b, active=active)
+        alb_thaw_a=alb_thaw_a, alb_thaw_b=alb_thaw_b, active=active,
+        blowing=blowing)
 
     s1 = res.state
     sarea = res.sarea

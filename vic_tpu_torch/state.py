@@ -89,6 +89,11 @@ def initial_state(domain, gp, device, surf_temp_init=None,
     if gp.exp_trans:
         raise NotImplementedError("initial_state: EXP_TRANS node spacing "
                                   "is not ported")
+    if gp.frozen_soil and gp.spatial_frost:
+        raise NotImplementedError(
+            "initial_state: SPATIAL_FROST (spatial_frost with frozen_soil: "
+            "the layer ice averaged over frost_subareas temperature "
+            "offsets) is not ported")
     f32 = dict(dtype=torch.float32, device=device)
     n_cell, max_hru = domain.hru.mask.shape
     nl = domain.soil.depth.shape[1]

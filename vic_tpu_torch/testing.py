@@ -200,9 +200,9 @@ LAKE_RHO_BAND = 2.5e-4     # kg/m^3, four float32 ulps at 1000 kg/m^3
 
 
 def mixed_column_excess(got, ref, tol):
-    """(cell, layer) of the lake temperatures [..., n_layer] that differ
-    from `ref` beyond tol and are not explained by a mix that fell the other
-    way (see LAKE_RHO_BAND)."""
+    """(row, layer) of the lake temperatures [..., n_layer], flattened to
+    rows of layers, that differ from `ref` beyond tol and are not explained
+    by a mix that fell the other way (see LAKE_RHO_BAND)."""
     import torch
 
     from .physics.lake import water_density
@@ -224,12 +224,26 @@ def mixed_column_excess(got, ref, tol):
     return bad
 
 
-def lake_run_failures(ref: dict, got: dict, tol: float, cell_area,
-                      dt_sec: float = 86400.0) -> list:
-    """Keys of `ref` ({"out/OUT_*": [n_rec, n_cell, ...], "state/<field>":
-    ...}, the golden fixtures' layout) whose value in `got` differs beyond
-    rtol = atol = tol, the lakes' leaves held as above. cell_area: [n_cell]
-    m^2."""
+def _failed(ref: dict, got: dict, ok_of) -> list:
+    """Keys of `ref` whose value in `got` has another shape or dtype,
+    differs where it is not a float, or fails ok_of(key, ref value, got
+    value), a bool array of the elements that agree, anywhere."""
+    failed = []
+    for key, a in ref.items():
+        a, b = np.asarray(a), np.asarray(got[key])
+        if a.shape != b.shape or a.dtype != b.dtype:
+            failed.append(key)
+        elif a.dtype.kind != "f":
+            if not np.array_equal(a, b):
+                failed.append(key)
+        elif not ok_of(key, a, b).all():
+            failed.append(key)
+    return failed
+
+
+def _lake_ok(ref: dict, tol: float, cell_area, dt_sec: float):
+    """ok_of (see _failed) of the lakes' rule: rtol = atol = tol, the
+    lakes' leaves held as above."""
     bounds = {}
     if "out/OUT_LAKE_VOLUME" in ref:
         vol = np.asarray(ref["out/OUT_LAKE_VOLUME"], np.float64)
@@ -243,26 +257,29 @@ def lake_run_failures(ref: dict, got: dict, tol: float, cell_area,
                 LAKE_WATER_ULPS * np.spacing(vol.astype(np.float32)) / area
                 * 1000.0 + tol}
     to_mm = 1000.0 / np.asarray(cell_area, np.float64)
-    failed = []
-    for key, a in ref.items():
-        a, b = np.asarray(a), np.asarray(got[key])
-        if a.shape != b.shape or a.dtype != b.dtype:
-            failed.append(key)
-        elif a.dtype.kind != "f":
-            if not np.array_equal(a, b):
-                failed.append(key)
-        elif key in bounds:
-            if not (np.abs(b - a) <= bounds[key]).all():
-                failed.append(key)
-        elif key == "state/lake_temp":
-            if mixed_column_excess(b, a, tol):
-                failed.append(key)
-        elif key.startswith("out/OUT_LAKE_") and key.endswith("_V"):
-            if not np.allclose(b * to_mm, a * to_mm, rtol=tol, atol=tol):
-                failed.append(key)
-        elif not np.allclose(b, a, rtol=tol, atol=tol):
-            failed.append(key)
-    return failed
+
+    def ok(key, a, b):
+        if key in bounds:
+            return np.abs(b - a) <= bounds[key]
+        if key == "state/lake_temp":
+            good = np.ones(a.shape, bool)
+            rows = good.reshape(-1, a.shape[-1])
+            for row, layer in mixed_column_excess(b, a, tol):
+                rows[row, layer] = False
+            return good
+        if key.startswith("out/OUT_LAKE_") and key.endswith("_V"):
+            return np.isclose(b * to_mm, a * to_mm, rtol=tol, atol=tol)
+        return np.isclose(b, a, rtol=tol, atol=tol)
+    return ok
+
+
+def lake_run_failures(ref: dict, got: dict, tol: float, cell_area,
+                      dt_sec: float = 86400.0) -> list:
+    """Keys of `ref` ({"out/OUT_*": [n_rec, n_cell, ...], "state/<field>":
+    ...}, the golden fixtures' layout) whose value in `got` differs beyond
+    rtol = atol = tol, the lakes' leaves held as above. cell_area: [n_cell]
+    m^2."""
+    return _failed(ref, got, _lake_ok(ref, tol, cell_area, dt_sec))
 
 
 # --------------------------------------------------------------------------
@@ -308,27 +325,22 @@ def thaw_edge_cells(ref: dict) -> np.ndarray:
     return fusion & (top <= THAW_BAND)
 
 
-def heavy_run_failures(ref: dict, got: dict, tol: float) -> list:
-    """Keys of `ref` ({"out/OUT_*": [n_rec, n_cell, ...], "state/<field>":
-    [n_cell, ...]}, the golden fixtures' layout) whose value in `got`
-    differs beyond rtol = atol = tol, the thaw-edge cells held as above;
-    integer and boolean leaves equal everywhere."""
+def _on_cells(key: str, a, cells):
+    """cells (bool [n_cell]) shaped to broadcast over the value `a` of
+    `key`: the cell axis of [n_rec, n_cell, ...] outputs and [n_cell, ...]
+    state."""
+    shape = [1] * a.ndim
+    shape[1 if key.startswith("out/") else 0] = cells.size
+    return cells.reshape(shape)
+
+
+def _heavy_ok(ref: dict, tol: float):
+    """ok_of (see _failed) of the heavy rule: rtol = atol = tol, the
+    thaw-edge cells held as above."""
     edge = thaw_edge_cells(ref)
-    failed = []
-    for key, a in ref.items():
-        a, b = np.asarray(a), np.asarray(got[key])
-        if a.shape != b.shape or a.dtype != b.dtype:
-            failed.append(key)
-            continue
-        if a.dtype.kind != "f":
-            if not np.array_equal(a, b):
-                failed.append(key)
-            continue
-        # the cell axis: [n_rec, n_cell, ...] outputs, [n_cell, ...] state
-        cell_axis = 1 if key.startswith("out/") else 0
-        shape = [1] * a.ndim
-        shape[cell_axis] = edge.size
-        on_edge = edge.reshape(shape)
+
+    def ok(key, a, b):
+        on_edge = _on_cells(key, a, edge)
         name = key.split("/", 1)[1].removesuffix("_BAND")
         if name == "OUT_WATER_ERROR":
             edge_atol, edge_rtol = tol, tol
@@ -340,6 +352,64 @@ def heavy_run_failures(ref: dict, got: dict, tol: float) -> list:
             else tol
         limit = np.where(on_edge, edge_atol + edge_rtol * np.abs(a),
                          atol + tol * np.abs(a))
-        if not (np.abs(b - a) <= limit).all():
-            failed.append(key)
-    return failed
+        return np.abs(b - a) <= limit
+    return ok
+
+
+def heavy_run_failures(ref: dict, got: dict, tol: float) -> list:
+    """Keys of `ref` ({"out/OUT_*": [n_rec, n_cell, ...], "state/<field>":
+    [n_cell, ...]}, the golden fixtures' layout) whose value in `got`
+    differs beyond rtol = atol = tol, the thaw-edge cells held as above;
+    integer and boolean leaves equal everywhere."""
+    return _failed(ref, got, _heavy_ok(ref, tol))
+
+
+# The heavy configuration with LAKES couples the two: the lake's storage,
+# held at ulp bounds above, sets the lake fraction whose change moves every
+# lane's soil water (the area-change advection), and the thaw-edge soil
+# under the wetland lane sets the lake-bed moisture. Three leaves follow
+# that neither rule above holds (ROADMAP.md queue 3):
+# - the energy fluxes (THAW_FLUX_LEAVES and their band twins) of cells off
+#   the thaw edge, within HEAVY_LAKE_FLUX_ATOL: 1.7e-3 W/m^2 measured on a
+#   band's flux of -5.5 W/m^2 summed from lane fluxes of up to ~400 W/m^2,
+#   tens of ulps of those terms;
+# - OUT_LAKE_SURF_TEMP, the top lake layer, within HEAVY_LAKE_SKIN_ATOL
+#   while a lake cools to freezing before its first ice: 5.2e-4 C
+#   measured, grown over the records from 1.4e-5 C that solve_lake leaves
+#   on the same inputs in one step;
+# - OUT_SOIL_TNODE_WL on the thaw-edge cells, one lane's nodes where
+#   THAW_ATOL holds cell means, within HEAVY_LAKE_WL_NODE_ATOL: 0.016 C
+#   measured against vic_tpu, 0.026 C between the port's own runs a
+#   float32 ulp of the starting lake volume apart.
+# tools/heavy_lake_leaves.py measures each of them.
+HEAVY_LAKE_FLUX_ATOL = 1e-2    # W/m^2
+HEAVY_LAKE_SKIN_ATOL = 2e-3    # C
+HEAVY_LAKE_WL_NODE_ATOL = 5e-2  # C
+
+
+def heavy_lake_run_failures(ref: dict, got: dict, tol: float, cell_area,
+                            dt_sec: float) -> list:
+    """Keys of `ref` (as heavy_run_failures) whose value in `got` fails
+    the heavy rule (the thaw-edge cells), the lakes' rule (the lakes'
+    leaves) and the coupled leaves above somewhere: an element agrees if
+    it agrees under any of them, each at its own bound. For the heavy
+    configuration with LAKES."""
+    heavy_ok = _heavy_ok(ref, tol)
+    lake_ok = _lake_ok(ref, tol, cell_area, dt_sec)
+    edge = thaw_edge_cells(ref)
+
+    def coupled_ok(key, a, b):
+        name = key.split("/", 1)[1].removesuffix("_BAND")
+        diff = np.abs(b - a)
+        if name in THAW_FLUX_LEAVES:
+            return diff <= max(tol, HEAVY_LAKE_FLUX_ATOL) + tol * np.abs(a)
+        if name == "OUT_LAKE_SURF_TEMP":
+            return diff <= max(tol, HEAVY_LAKE_SKIN_ATOL) + tol * np.abs(a)
+        if name == "OUT_SOIL_TNODE_WL":
+            return diff <= np.where(_on_cells(key, a, edge),
+                                    HEAVY_LAKE_WL_NODE_ATOL, tol) \
+                + tol * np.abs(a)
+        return np.zeros(a.shape, bool)
+
+    return _failed(ref, got, lambda key, a, b: heavy_ok(key, a, b)
+                   | lake_ok(key, a, b) | coupled_ok(key, a, b))
