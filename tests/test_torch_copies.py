@@ -1,6 +1,6 @@
-"""The port's own copies of vic_tpu's jax-free modules (constants, config,
-timeaxis) say what the originals say: the port imports nothing of vic_tpu,
-so these copies are how it shares them."""
+"""The port's own copies of vic_tpu's jax-free modules (constants, config
+with its global-file parser, timeaxis) say what the originals say: the
+port imports nothing of vic_tpu, so these copies are how it shares them."""
 import dataclasses
 
 import numpy as np
@@ -62,6 +62,39 @@ def test_global_params_fields_and_defaults_match():
         assert (tb.snow_step, tb.nf, tb.nr) == (ja.snow_step, ja.nf,
                                                 ja.nr), kw
     assert b.replace(dt=3).dt == 3 and b.dt == a.dt
+
+
+def test_global_file_grammar_matches():
+    """The parser's keyword tables and output specs are vic_tpu's."""
+    for name in ("FORCING_TYPES", "_BOOL_KEYS", "_INT_KEYS", "_FLOAT_KEYS",
+                 "_STR_KEYS", "_TRUE"):
+        assert getattr(tconfig, name) == getattr(jconfig, name), name
+    assert plain(tconfig._ENUM_KEYS) == plain(jconfig._ENUM_KEYS)
+    for cls in ("OutVarSpec", "OutFileSpec"):
+        assert [f.name for f in dataclasses.fields(getattr(tconfig, cls))] \
+            == [f.name for f in dataclasses.fields(getattr(jconfig, cls))]
+    for tok in ("NETCDF", "netcdf_format", "BINARY", "x"):
+        assert tconfig._norm_format(tok) == jconfig._norm_format(tok)
+    for tok in ("TRUE", "yes", "1", "on", "FALSE", "0"):
+        assert tconfig._as_bool(tok) == jconfig._as_bool(tok)
+
+
+@pytest.mark.parametrize("dt,snow_step,out_step", [(24, 24, 0), (24, 3, 0),
+                                                   (3, 24, 6)])
+def test_parser_post_processing_matches(tmp_path, dt, snow_step, out_step):
+    """OUT_STEP 0 becomes the model step and SNOW_STEP is clamped to it,
+    field for field as vic_tpu's parser leaves them."""
+    path = tmp_path / "global.txt"
+    path.write_text(f"TIME_STEP {dt}\nSNOW_STEP {snow_step}\n"
+                    f"OUT_STEP {out_step}\nSTARTYEAR 1990 # trailing\n"
+                    "OUTFILE wb 2\nOUTVAR OUT_PREC %.4f OUT_TYPE_SINT 10\n"
+                    "OUTVAR OUT_EVAP\nFORCING1 f_\nFORCE_TYPE PREC\n"
+                    "COMPUTE_TREELINE 11\nLAKES lake.txt\nBINARY_OUTPUT "
+                    "TRUE\nSTATENAME st\nBINARY_STATE_FILE TRUE\n")
+    a = jconfig.parse_global_param_file(str(path))
+    b = tconfig.parse_global_param_file(str(path))
+    assert plain(b) == plain(a)
+    assert (b.dt, b.snow_step, b.out_step) == (a.dt, a.snow_step, a.out_step)
 
 
 @pytest.mark.parametrize("start,n_rec,dt", [

@@ -1,4 +1,5 @@
-"""The PyTorch port imports and steps without JAX and without vic_tpu."""
+"""The PyTorch port imports, steps and runs its driver without JAX and
+without vic_tpu."""
 import os
 import subprocess
 import sys
@@ -39,3 +40,35 @@ def test_port_imports_and_steps_without_jax(config, n_out):
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith(f"ok {n_out}"), proc.stdout
+
+
+DRIVER_SCRIPT = """
+import runpy
+import sys
+sys.argv = ["vic_tpu_torch", "-g", sys.argv[1], "--device", "cpu"]
+try:
+    runpy.run_module("vic_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+loaded = sorted(m for m in sys.modules
+                if m == "vic_tpu" or m.startswith("vic_tpu."))
+assert not loaded, loaded
+assert "vic_tpu_torch.driver" in sys.modules
+print("ok")
+"""
+
+
+def test_driver_cli_runs_without_jax(tmp_path):
+    """`python -m vic_tpu_torch -g <file> --device cpu` on
+    tests/test_driver.py's fixture loads neither jax nor vic_tpu."""
+    from test_driver import write_fixture
+    gfile = write_fixture(tmp_path, n_day=5, fmt="ASCII")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", DRIVER_SCRIPT, str(gfile)],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok"), proc.stdout
+    assert len([f for f in os.listdir(tmp_path)
+                if f.startswith("fluxes_")]) == 2

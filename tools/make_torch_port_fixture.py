@@ -22,11 +22,19 @@ every final-state field ("state/<name>"), compressed, of
   lake parameters cast to float32 as __graft_entry__ casts them, on the
   same split forcing, one day -> heavy_16x8.npz.
 
+- driver: a run of the main path in the reference's file formats, 16
+  cells x 12 daily records from 1995-09-25 with the glacier mass-balance
+  interval starting 1994-10-01 (vic_tpu_torch.testing.write_driver_run),
+  its inputs written to driver/ with their paths as @FIXDIR@, through
+  `vic_tpu.driver.run_simulation`: the aggregated OUT_* ("out/<name>",
+  [n_out, ...]), the final state and the GMB fit ("gmb/b0|b1|b2",
+  [n_interval, n_cell]) -> driver_16x12.npz.
+
 The PyTorch port is checked against these files by tests/test_torch_golden*.py
-and by chip_smoke.py's reference phase.
+and by chip_smoke.py's reference phases.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py \
-        [light|frozen|blowing_close|lakes|heavy_nolakes|heavy]
+        [light|frozen|blowing_close|lakes|heavy_nolakes|heavy|driver]
 """
 from __future__ import annotations
 
@@ -43,6 +51,10 @@ BLOWING_CLOSE_FIXTURE = os.path.join(FIXTURE_DIR, "blowing_close_16x4.npz")
 LAKES_FIXTURE = os.path.join(FIXTURE_DIR, "lakes_16x4.npz")
 HEAVY_NOLAKES_FIXTURE = os.path.join(FIXTURE_DIR, "heavy_nolakes_16x8.npz")
 HEAVY_FIXTURE = os.path.join(FIXTURE_DIR, "heavy_16x8.npz")
+DRIVER_DIR = os.path.join(FIXTURE_DIR, "driver")
+DRIVER_FIXTURE = os.path.join(FIXTURE_DIR, "driver_16x12.npz")
+DRIVER_RUN = dict(n_cell=16, start=(1995, 9, 25), n_day=12,
+                  accum_start=(1994, 10, 1), july_tavg=(6.0, 16.0))
 N_CELL, N_REC = 16, 4
 HEAVY_N_REC = 8     # one day of 3-hourly records
 
@@ -261,6 +273,30 @@ def heavy_reference(n_cell: int = N_CELL, n_rec: int = HEAVY_N_REC) -> dict:
     return _arrays(final, outs)
 
 
+def write_driver_inputs(root) -> str:
+    """The driver fixture's input files under `root`, paths as @FIXDIR@."""
+    sys.path.insert(0, ROOT)
+    from vic_tpu_torch.testing import write_driver_run
+    return write_driver_run(root, fixdir="@FIXDIR@", **DRIVER_RUN)
+
+
+def driver_reference() -> dict:
+    """vic_tpu's run of the committed driver inputs (written afresh)."""
+    import tempfile
+
+    import jax
+    jax.config.update("jax_enable_x64", False)
+    sys.path.insert(0, ROOT)
+    from vic_tpu.config import parse_global_param_file
+    from vic_tpu.driver import run_simulation
+    from vic_tpu_torch.testing import relocate_run, run_arrays
+
+    write_driver_inputs(DRIVER_DIR)
+    with tempfile.TemporaryDirectory() as tmp:
+        gp = parse_global_param_file(relocate_run(DRIVER_DIR, tmp))
+        return run_arrays(run_simulation(gp, progress=False))
+
+
 def main(which: str = "light"):
     path, make = {"light": (FIXTURE, light_reference),
                   "frozen": (FROZEN_FIXTURE, frozen_reference),
@@ -269,7 +305,8 @@ def main(which: str = "light"):
                   "lakes": (LAKES_FIXTURE, lakes_reference),
                   "heavy_nolakes": (HEAVY_NOLAKES_FIXTURE,
                                     heavy_nolakes_reference),
-                  "heavy": (HEAVY_FIXTURE, heavy_reference)}[which]
+                  "heavy": (HEAVY_FIXTURE, heavy_reference),
+                  "driver": (DRIVER_FIXTURE, driver_reference)}[which]
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(path, **make())
     print(f"wrote {path} ({os.path.getsize(path)} bytes)")

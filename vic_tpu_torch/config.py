@@ -1,21 +1,33 @@
 """Run configuration of the port.
 
-A copy of `GlobalParams` (and the `ForcingInput` its `forcing` field
-defaults to) from `vic_tpu/config.py:1-220`, field for field and default
-for default, so that the port imports nothing of the JAX package. Every
-runtime option of the reference's global-parameter file is a typed field
-(defaults: initialize_global.c:48-150); options are static Python values
-that select which branches the step takes. The global-file parser is not
-ported yet; its `snow_step <= dt` clamp is applied on construction.
+A copy of `vic_tpu/config.py`: `GlobalParams` (and the `ForcingInput` its
+`forcing` field defaults to, the OUTFILE/OUTVAR specs) field for field and
+default for default, and `parse_global_param_file`, so that the port
+imports nothing of the JAX package. Every runtime option of the
+reference's global-parameter file is a typed field (defaults:
+initialize_global.c:48-150); options are static Python values that select
+which branches the step takes. The parser's `snow_step <= dt` clamp is also
+applied on construction.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Optional
 
 from .constants import (AeroResist, Baseflow, ForceFormat, GroundFlux,
                         LWCloud, LWType, RainSnowMethod, SnowAlbedo,
                         SnowDensity, VPIter)
+
+
+# Forcing variable names accepted in FORCE_TYPE sections
+# (vicNl_def.h:321-349, 24 forcing types).
+FORCING_TYPES = (
+    "AIR_TEMP", "ALBEDO", "CHANNEL_IN", "CRAINF", "CSNOWF", "DENSITY", "LONGWAVE",
+    "LSRAINF", "LSSNOWF", "PREC", "PRESSURE", "QAIR", "RAINF", "REL_HUMID",
+    "SHORTWAVE", "SNOWF", "TMAX", "TMIN", "TSKC", "VP", "WIND", "WIND_E", "WIND_N",
+    "SKIP",
+)
 
 
 @dataclass
@@ -32,6 +44,21 @@ class ForcingInput:
     month: int = 1
     day: int = 1
     hour: int = 0
+
+
+@dataclass
+class OutVarSpec:
+    name: str
+    format: str = "*"
+    type: str = "*"
+    multiplier: float = 1.0
+
+
+@dataclass
+class OutFileSpec:
+    prefix: str
+    nvars: int = 0
+    varnames: list = field(default_factory=list)
 
 
 @dataclass
@@ -188,3 +215,248 @@ class GlobalParams:
 
     def replace(self, **kw) -> "GlobalParams":
         return dataclasses.replace(self, **kw)
+
+
+_BOOL_KEYS = {
+    "FULL_ENERGY": "full_energy", "FROZEN_SOIL": "frozen_soil",
+    "QUICK_FLUX": "quick_flux", "QUICK_SOLVE": "quick_solve",
+    "IMPLICIT": "implicit", "EXP_TRANS": "exp_trans", "NOFLUX": "noflux",
+    "TFALLBACK": "tfallback", "BLOWING": "blowing", "DIST_PRCP": "dist_prcp",
+    "CORRPREC": "corrprec", "COMPUTE_TREELINE": "_compute_treeline_special",
+    "LAKES": "_lakes_special", "LAKE_PROFILE": "lake_profile",
+    "MTCLIM_SWE_CORR": "mtclim_swe_corr", "PLAPSE": "plapse",
+    "VP_INTERP": "vp_interp", "EQUAL_AREA": "equal_area",
+    "ORGANIC_FRACT": "organic_fract", "CONTINUEONERROR": "continue_on_error",
+    "GLACIER_DYNAMICS": "glacier_dynamics", "OUTPUT_FORCE": "output_force",
+    "ALMA_INPUT": "alma_input", "ALMA_OUTPUT": "alma_output",
+    "MOISTFRACT": "moistfract", "COMPRESS": "compress",
+    "PRT_HEADER": "prt_header", "PRT_SNOW_BAND": "prt_snow_band",
+    "JULY_TAVG_SUPPLIED": "july_tavg_supplied", "ARC_SOIL": "arc_soil",
+    "CLOSE_ENERGY": "close_energy",
+    "FD_AFFINE_RESIDUAL": "fd_affine_residual",
+}
+
+_INT_KEYS = {
+    "TIME_STEP": "dt", "SNOW_STEP": "snow_step",
+    "STARTYEAR": "startyear", "STARTMONTH": "startmonth", "STARTDAY": "startday",
+    "STARTHOUR": "starthour", "ENDYEAR": "endyear", "ENDMONTH": "endmonth",
+    "ENDDAY": "endday", "NRECS": "nrecs", "SKIPYEAR": "skipyear",
+    "NLAYER": "nlayer", "NODES": "nnode", "GRID_DECIMAL": "grid_decimal",
+    "SNOW_BAND": "_snow_band_special", "ROOT_ZONES": "root_zones",
+    "GLACIER_ID": "glacier_id",
+    "GLACIER_ACCUM_START_YEAR": "glacier_accum_start_year",
+    "GLACIER_ACCUM_START_MONTH": "glacier_accum_start_month",
+    "GLACIER_ACCUM_START_DAY": "glacier_accum_start_day",
+    "GLACIER_ACCUM_INTERVAL": "glacier_accum_interval",
+    "OUT_STEP": "out_step", "STATEYEAR": "stateyear", "STATEMONTH": "statemonth",
+    "STATEDAY": "stateday", "PARALLEL_THREADS": "parallel_threads",
+    "DISAGG_WRITE_CHUNK_SIZE": "disagg_write_chunk_size",
+    "MAX_CELLS": "max_cells", "CELL_CHUNK": "cell_chunk",
+}
+
+_FLOAT_KEYS = {
+    "PREC_EXPT": "prec_expt", "MIN_WIND_SPEED": "min_wind_speed",
+    "SW_PREC_THRESH": "sw_prec_thresh", "RESOLUTION": "resolution",
+    "MAX_MEMORY": "max_memory",
+}
+
+_STR_KEYS = {
+    "SOIL": "soil_file", "VEGPARAM": "veg_file", "VEGLIB": "veglib_file",
+    "SNOW_BAND_FILE": "snowband_file", "LAKES_FILE": "lakeparam_file",
+    "RESULT_DIR": "result_dir", "NETCDF_OUTPUT_FILENAME": "netcdf_output_filename",
+    "NETCDF_OUTPUT_SHARDS": "output_shards",
+    "INIT_STATE_FILE": "init_state_file", "STATENAME": "_statename_special",
+}
+
+_ENUM_KEYS = {
+    "SNOW_ALBEDO": ("snow_albedo", {"USACE": SnowAlbedo.USACE, "SUN1999": SnowAlbedo.SUN1999}),
+    "SNOW_DENSITY": ("snow_density", {"DENS_BRAS": SnowDensity.DENS_BRAS,
+                                      "DENS_SNTHRM": SnowDensity.DENS_SNTHRM}),
+    "BASEFLOW": ("baseflow", {"ARNO": Baseflow.ARNO, "NIJSSEN2001": Baseflow.NIJSSEN2001}),
+    "AERO_RESIST_CANSNOW": ("aero_resist_cansnow", {
+        "AR_406": AeroResist.AR_406, "AR_406_LS": AeroResist.AR_406_LS,
+        "AR_406_FULL": AeroResist.AR_406_FULL, "AR_410": AeroResist.AR_410,
+        "AR_COMBO": AeroResist.AR_COMBO}),
+    "GRND_FLUX_TYPE": ("grnd_flux_type", {
+        "GF_406": GroundFlux.GF_406, "GF_410": GroundFlux.GF_410,
+        "GF_FULL": GroundFlux.GF_FULL}),
+    "LW_TYPE": ("lw_type", {
+        "LW_TVA": LWType.LW_TVA, "LW_ANDERSON": LWType.LW_ANDERSON,
+        "LW_BRUTSAERT": LWType.LW_BRUTSAERT, "LW_SATTERLUND": LWType.LW_SATTERLUND,
+        "LW_IDSO": LWType.LW_IDSO, "LW_PRATA": LWType.LW_PRATA}),
+    "LW_CLOUD": ("lw_cloud", {"LW_CLOUD_BRAS": LWCloud.LW_CLOUD_BRAS,
+                              "LW_CLOUD_DEARDORFF": LWCloud.LW_CLOUD_DEARDORFF}),
+    "VP_ITER": ("vp_iter", {
+        "VP_ITER_NONE": VPIter.VP_ITER_NONE, "VP_ITER_ALWAYS": VPIter.VP_ITER_ALWAYS,
+        "VP_ITER_ANNUAL": VPIter.VP_ITER_ANNUAL,
+        "VP_ITER_CONVERGE": VPIter.VP_ITER_CONVERGE}),
+    "TEMP_TH_TYPE": ("temp_th_type", {"VIC_412": RainSnowMethod.VIC_412,
+                                      "KIENZLE": RainSnowMethod.KIENZLE}),
+}
+
+_TRUE = {"TRUE", "YES", "1", "ON"}
+
+
+def _as_bool(tok: str) -> bool:
+    return tok.upper() in _TRUE
+
+
+def parse_global_param_file(path: str) -> GlobalParams:
+    """Parse a reference-format global parameter file into GlobalParams.
+
+    Grammar per the reference's get_global_param.c: one ``KEYWORD value...`` per line,
+    '#' comments, case-insensitive keywords, plus sectioned N_OUTFILES/OUTFILE/OUTVAR
+    output definitions (parse_output_info.c:8) and FORCE_TYPE blocks attached to the
+    most recent FORCING1/FORCING2 keyword.
+    """
+    gp = GlobalParams()
+    cur_force: Optional[int] = None
+    cur_outfile: Optional[OutFileSpec] = None
+
+    with open(path) as f:
+        lines = f.readlines()
+
+    for raw in lines:
+        line = raw.strip()
+        if not line or line.startswith("#"):
+            continue
+        # strip trailing inline comments ("SNOW_BAND 1 #comment" — common in
+        # reference sample files, whose parser reads only the leading tokens)
+        toks = []
+        for t in line.split():
+            if t.startswith("#"):
+                break
+            toks.append(t)
+        if not toks:
+            continue
+        key = toks[0].upper()
+        args = toks[1:]
+        if not args and key not in ():
+            continue
+
+        if key in _BOOL_KEYS:
+            dest = _BOOL_KEYS[key]
+            if dest == "_compute_treeline_special":
+                # COMPUTE_TREELINE FALSE | <default veg id>
+                if _as_bool(args[0]):
+                    gp.compute_treeline = True
+                elif args[0].upper() == "FALSE":
+                    gp.compute_treeline = False
+                else:
+                    gp.compute_treeline = True
+                    gp.above_treeline_veg = int(args[0])
+            elif dest == "_lakes_special":
+                # LAKES FALSE | <lake param file path>
+                if args[0].upper() == "FALSE":
+                    gp.lakes = False
+                else:
+                    gp.lakes = True
+                    gp.lakeparam_file = args[0]
+            else:
+                setattr(gp, dest, _as_bool(args[0]))
+        elif key in _INT_KEYS:
+            dest = _INT_KEYS[key]
+            if dest == "_snow_band_special":
+                # SNOW_BAND <n> [bandfile]
+                gp.snow_band = int(args[0])
+                if len(args) > 1:
+                    gp.snowband_file = args[1]
+            else:
+                setattr(gp, dest, int(float(args[0])))
+        elif key in _FLOAT_KEYS:
+            setattr(gp, _FLOAT_KEYS[key], float(args[0]))
+        elif key in _STR_KEYS:
+            dest = _STR_KEYS[key]
+            if dest == "_statename_special":
+                gp.state_name = args[0]
+                gp.save_state = True
+            else:
+                setattr(gp, dest, args[0])
+        elif key in _ENUM_KEYS:
+            dest, mapping = _ENUM_KEYS[key]
+            setattr(gp, dest, mapping[args[0].upper()])
+        elif key == "INIT_STATE":
+            if args and args[0].upper() != "FALSE":
+                gp.init_state = True
+                gp.init_state_file = args[0]
+        elif key == "STATE_FORMAT":
+            gp.state_format = _norm_format(args[0])
+        elif key == "BINARY_STATE_FILE":
+            gp.state_format = "BINARY" if _as_bool(args[0]) else "ASCII"
+        elif key == "OUTPUT_FORMAT":
+            gp.output_format = _norm_format(args[0])
+        elif key == "BINARY_OUTPUT":
+            gp.output_format = "BINARY" if _as_bool(args[0]) else "ASCII"
+        elif key == "NETCDF_ATTRIBUTE":
+            if len(args) >= 2:
+                gp.netcdf_attributes[args[0]] = " ".join(args[1:])
+        elif key in ("FORCING1", "FORCING2"):
+            cur_force = 0 if key == "FORCING1" else 1
+            if args[0].upper() != "FALSE":
+                gp.forcing[cur_force].prefix = args[0]
+        elif key == "FORCE_FORMAT":
+            fmt = args[0].upper()
+            gp.forcing[cur_force].format = ForceFormat[fmt if fmt != "NETCDF" else "NETCDF"]
+        elif key == "FORCE_ENDIAN":
+            gp.forcing[cur_force].endian = args[0].upper()
+        elif key == "FORCE_DT":
+            gp.forcing[cur_force].dt = int(args[0])
+        elif key == "N_TYPES":
+            gp.forcing[cur_force].n_types = int(args[0])
+        elif key == "FORCE_TYPE":
+            name = args[0].upper()
+            extra = args[1:]
+            gp.forcing[cur_force].types.append((name, extra))
+        elif key == "FORCEYEAR":
+            gp.forcing[cur_force].year = int(args[0])
+        elif key == "FORCEMONTH":
+            gp.forcing[cur_force].month = int(args[0])
+        elif key == "FORCEDAY":
+            gp.forcing[cur_force].day = int(args[0])
+        elif key == "FORCEHOUR":
+            gp.forcing[cur_force].hour = int(args[0])
+        elif key == "GRID_START_LAT":
+            gp.grid_start_lat = float(args[0])
+        elif key == "GRID_START_LON":
+            gp.grid_start_lon = float(args[0])
+        elif key == "GRID_STEP_LAT":
+            gp.grid_step_lat = float(args[0])
+        elif key == "GRID_STEP_LON":
+            gp.grid_step_lon = float(args[0])
+        elif key == "N_OUTFILES":
+            gp.outfiles = []
+        elif key == "OUTFILE":
+            cur_outfile = OutFileSpec(prefix=args[0],
+                                      nvars=int(args[1]) if len(args) > 1 else 0)
+            gp.outfiles.append(cur_outfile)
+        elif key == "OUTVAR":
+            name = args[0]
+            spec = OutVarSpec(name=name)
+            if len(args) > 1:
+                spec.format = args[1]
+            if len(args) > 2:
+                spec.type = args[2]
+            if len(args) > 3:
+                try:
+                    spec.multiplier = float(args[3])
+                except ValueError:
+                    pass
+            gp.outvar_specs[name] = spec
+            if cur_outfile is not None:
+                cur_outfile.varnames.append(name)
+        # unknown keywords are ignored (reference warns and continues)
+
+    if gp.out_step == 0:
+        gp.out_step = gp.dt
+    if gp.snow_step > gp.dt:
+        gp.snow_step = gp.dt
+    return gp
+
+
+def _norm_format(tok: str) -> str:
+    t = tok.upper()
+    if t in ("NETCDF", "NETCDF_FORMAT"):
+        return "NETCDF"
+    if t in ("BINARY", "BINARY_FORMAT"):
+        return "BINARY"
+    return "ASCII"

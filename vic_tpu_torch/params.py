@@ -1,9 +1,10 @@
 """Host-side (numpy) parameter containers for the port.
 
 Plain-dataclass copies of `vic_tpu.params` (`SoilParams`, `VegLib`,
-`HruParams`, `BandParams`, `Domain`) and of the two helpers the synthetic
-domain needs from `vic_tpu.io` (`derive_band_factors`, the veg library's
-appended PET reference surfaces). They carry the same fields with the same
+`HruParams`, `BandParams`, `Domain`), of `compute_root_fractions`, and of
+the two helpers `vic_tpu.io` shares with the parameter readers
+(`derive_band_factors`, the veg library's appended PET reference
+surfaces). They carry the same fields with the same
 meaning; see `vic_tpu/params.py` for the reference-file provenance of each.
 """
 from __future__ import annotations
@@ -148,6 +149,38 @@ class Domain:
     @property
     def n_cell(self) -> int:
         return self.soil.n_cell
+
+
+def compute_root_fractions(zone_depth: np.ndarray, zone_fract: np.ndarray,
+                           layer_depth: np.ndarray) -> np.ndarray:
+    """Distribute root-zone fractions onto soil layers.
+
+    Same contract as the reference (calc_root_fraction.c: roots linearly
+    distributed within each zone), expressed as a piecewise-linear cumulative
+    root distribution evaluated at layer boundaries:
+      root[l] = CDF(bottom_l) - CDF(top_l); mass below the column goes to the
+      bottom layer; fractions < 1e-4 zeroed; result normalized to sum 1.
+
+    zone_depth, zone_fract: [n_zone]; layer_depth: [n_layer]. Returns [n_layer].
+    """
+    zone_depth = np.asarray(zone_depth, np.float64)
+    zone_fract = np.asarray(zone_fract, np.float64)
+    layer_depth = np.asarray(layer_depth, np.float64)
+    zb = np.concatenate([[0.0], np.cumsum(zone_depth)])   # zone boundaries
+    cf = np.concatenate([[0.0], np.cumsum(zone_fract)])   # cumulative fraction
+
+    def cdf(z):
+        return np.interp(z, zb, cf)
+
+    lb = np.concatenate([[0.0], np.cumsum(layer_depth)])
+    root = cdf(lb[1:]) - cdf(lb[:-1])
+    # everything below the soil column accrues to the bottom layer
+    root[-1] += cf[-1] - cdf(lb[-1])
+    root[root < 1.0e-4] = 0.0
+    s = root.sum()
+    if s <= 0:
+        raise ValueError("root fractions sum to zero")
+    return root / s
 
 
 def derive_band_factors(soil: SoilParams, area_fract: np.ndarray,

@@ -4,8 +4,9 @@ Counterpart of `vic_tpu/physics/hydrology_misc.py`'s `build_zwt_curves`
 (read_soilparam.c:1150-1245: an 11-point Brooks-Corey curve for each soil
 layer, the lumped top N-1 layers and the whole column; numpy, float64) and
 `compute_zwt` (compute_zwt.c: the interpolated lookup; zwt in cm, negative
-below the surface). The gauge correction and the treeline functions are not
-on a ported path.
+below the surface), and the driver's treeline test (`compute_treeline`,
+`july_avg_temperature`, numpy). The gauge correction (CORRPREC) is not
+ported: `make_step` refuses it.
 """
 from __future__ import annotations
 
@@ -93,3 +94,20 @@ def compute_zwt(moist, curve_zwt, curve_moist):
                                                     m_lo - m_hi), 0.0, 1.0)
     zwt = z_hi + (z_lo - z_hi) * frac
     return torch.where(moist < curve_moist[..., -1], curve_zwt[..., -1], zwt)
+
+
+def compute_treeline(avg_july_temp, tfactor_bands):
+    """Bands above treeline: lapsed July Tavg <= 10 C (compute_treeline.c).
+    avg_july_temp: [n_cell]; tfactor_bands: [n_cell, n_band].
+    Returns bool [n_cell, n_band]."""
+    return (np.asarray(avg_july_temp)[:, None]
+            + np.asarray(tfactor_bands)) <= 10.0
+
+
+def july_avg_temperature(air_temp, months) -> np.ndarray:
+    """Average July air temperature from the forcing record
+    (compute_treeline.c:60-90). air_temp [n_rec, n_cell]; months [n_rec]."""
+    july = np.asarray(months) == 7
+    if not july.any():
+        return np.full(air_temp.shape[1], np.nan)
+    return np.asarray(air_temp)[july].mean(0)

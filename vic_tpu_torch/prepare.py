@@ -102,9 +102,15 @@ class DeviceParams(TensorDataclass):
         return self.mask.shape[1]
 
 
-def prepare_domain(domain: Domain, gp, device) -> DeviceParams:
+def prepare_domain(domain: Domain, gp, device,
+                   above_treeline: np.ndarray = None) -> DeviceParams:
     """Gather the domain's parameters into per-HRU tensors on `device`
-    (vic_tpu/prepare.py:127-231, without the treeline exclusion)."""
+    (vic_tpu/prepare.py:127-231).
+
+    above_treeline: optional [n_cell, n_band] bool (compute_treeline):
+    overstory HRUs in above-treeline bands are excluded from the mosaic and
+    the remaining weights in those bands are rescaled by the TreeAdjustFactor
+    1/(1 - sum(Cv_excluded)) (put_data.c:196-211, read_vegparam.c:301)."""
     hru, soil, lib, bands = domain.hru, domain.soil, domain.veglib, domain.bands
     vi = hru.veg_idx
 
@@ -118,6 +124,22 @@ def prepare_domain(domain: Domain, gp, device) -> DeviceParams:
     weight = np.where(hru.mask & (band_af > 0.0), weight, 0.0)
     mask = hru.mask & (band_af > 0.0)
     no_veg = hru.is_bare | hru.is_glacier
+
+    if above_treeline is not None:
+        hru_above = np.take_along_axis(np.asarray(above_treeline), hru.band,
+                                       axis=1)
+        excluded = np.where(no_veg, False, lib.overstory[vi]) & hru_above \
+            & mask
+        if excluded.any():
+            # TreeAdjustFactor per band: 1/(1 - sum Cv_excluded_in_band)
+            for b in range(bands.area_fract.shape[1]):
+                in_band = (hru.band == b) & mask
+                cv_excl = np.where(excluded & in_band, hru.cv, 0.0).sum(1)
+                adj = 1.0 / np.maximum(1.0 - cv_excl, 1e-10)
+                keep = in_band & ~excluded
+                weight = np.where(keep, weight * adj[:, None], weight)
+            weight = np.where(excluded, 0.0, weight)
+            mask = mask & ~excluded
 
     arrays = dict(
         mask=mask, weight=weight, cv=hru.cv, is_glacier=hru.is_glacier,

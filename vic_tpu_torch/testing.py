@@ -413,3 +413,253 @@ def heavy_lake_run_failures(ref: dict, got: dict, tol: float, cell_area,
 
     return _failed(ref, got, lambda key, a, b: heavy_ok(key, a, b)
                    | lake_ok(key, a, b) | coupled_ok(key, a, b))
+
+
+# ---------------------------------------------------------------------------
+# A run in the reference's file formats, for the driver
+# ---------------------------------------------------------------------------
+
+# veg library rows: conifer (overstory, excluded above the treeline),
+# grassland, glacier (GLACIER_ID 99)
+_VEGLIB_ROWS = (
+    (1, 1, 60.0, 250.0, 3.4, 0.12, 1.476, 8.04, 20.0, 30.0, 0.5, 0.5, 0.2),
+    (10, 0, 2.0, 120.0, 2.2, 0.20, 0.0738, 0.402, 2.0, 100.0, 0.0, 0.0, 0.0),
+    (99, 0, 2.0, 100.0, 0.0, 0.30, 0.002, 0.01, 2.0, 100.0, 0.0, 0.0, 0.0),
+)
+# (class, Cv) of each cell's tiles; the rest is bare soil
+_TILES = ((1, 0.35), (10, 0.3), (99, 0.2))
+DRIVER_OUTVARS = (  # (name, OUT_TYPE); OUT_SURF_TEMP as truncated int16
+    ("OUT_PREC", "OUT_TYPE_FLOAT"), ("OUT_EVAP", "OUT_TYPE_FLOAT"),
+    ("OUT_RUNOFF", "OUT_TYPE_FLOAT"), ("OUT_BASEFLOW", "OUT_TYPE_FLOAT"),
+    ("OUT_SWE", "OUT_TYPE_FLOAT"), ("OUT_SOIL_MOIST", "OUT_TYPE_FLOAT"),
+    ("OUT_SURF_TEMP", "OUT_TYPE_SINT"), ("OUT_GLAC_MELT", "OUT_TYPE_FLOAT"),
+    ("OUT_SWE_BAND", "OUT_TYPE_FLOAT"), ("OUT_ZWT", "OUT_TYPE_FLOAT"),
+    ("OUT_SNOW_MELT", "OUT_TYPE_FLOAT"), ("OUT_WATER_ERROR", "OUT_TYPE_DOUBLE"),
+)
+# VIC BINARY forcing: (FORCE_TYPE, SIGNED/UNSIGNED, multiplier)
+_BINARY_TYPES = (("PREC", "UNSIGNED", 40.0), ("TMAX", "SIGNED", 100.0),
+                 ("TMIN", "SIGNED", 100.0), ("WIND", "UNSIGNED", 100.0))
+
+
+def write_driver_run(root, n_cell: int, start=(1995, 10, 1), n_day: int = 370,
+                     accum_start=(1995, 10, 1), july_tavg=None,
+                     snow_step: int = 24, output_format: str = "BINARY",
+                     fixdir: str = None, seed: int = 0) -> str:
+    """Write a run of the main path (FULL_ENERGY, QUICK_FLUX, a glacier
+    tile, 2 snow bands, daily records) in the reference's formats under
+    `root` and return the global file's path: a glacier-format soil file,
+    a veg library and veg parameters with conifer, grass and glacier tiles,
+    a snow-band file, daily PREC/TMAX/TMIN/WIND per cell in VIC BINARY (so
+    MTCLIM and the disaggregation run), COMPUTE_TREELINE, an OUTFILE
+    section (`DRIVER_OUTVARS`), an ASCII state file at the end and the
+    glacier mass-balance accumulation from `accum_start`, every year.
+
+    Cells lie on a 1/16-degree grid. july_tavg: None takes the July mean
+    from the forcing (the run must hold a July); a (lo, hi) range gives
+    each cell a supplied July mean (JULY_TAVG_SUPPLIED, the soil file's
+    column). fixdir: the directory the global file names (default `root`,
+    e.g. "@FIXDIR@" for a relocatable fixture)."""
+    import os
+
+    from .io.soil import GLACIER_COLS, GLACIER_DEFAULTS
+    root = str(root)
+    fixdir = root if fixdir is None else fixdir
+    os.makedirs(os.path.join(root, "forcing"), exist_ok=True)
+    if fixdir == root:
+        os.makedirs(os.path.join(root, "results"), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n_lon = max(1, int(np.sqrt(n_cell / 2)))
+    idx = np.arange(n_cell)
+    lat = 49.03125 + 0.0625 * (idx // n_lon)
+    lon = -120.96875 + 0.0625 * (idx % n_lon)
+    elev = rng.uniform(900.0, 2600.0, n_cell)
+    glac = " ".join(repr(GLACIER_DEFAULTS[k]) for k in GLACIER_COLS)
+    july = (None if july_tavg is None
+            else rng.uniform(july_tavg[0], july_tavg[1], n_cell))
+
+    with open(os.path.join(root, "soil.txt"), "w") as f:
+        for ci in range(n_cell):
+            cols = [1, ci + 1, f"{lat[ci]:.5f}", f"{lon[ci]:.5f}",
+                    f"{rng.uniform(0.1, 0.4):.4f}", 0.02, 12.0, 0.8, 2.0,
+                    10.0, 10.0, 12.0, 400.0, 300.0, 200.0, -999, -999, -999,
+                    20.0, 90.0, 250.0, f"{elev[ci]:.1f}", 0.1, 0.4, 1.2,
+                    4.0, 4.0, 20.0, 20.0, 20.0, 0.5, 0.5, 0.5,
+                    1400.0, 1400.0, 1450.0, 2685.0, 2685.0, 2685.0, -8,
+                    0.42, 0.42, 0.42, 0.25, 0.25, 0.25, 0.01, 0.0005, 800.0,
+                    0.02, 0.02, 0.02, 1]
+            if july is not None:
+                cols.append(f"{july[ci]:.3f}")
+            f.write(" ".join(str(c) for c in cols) + " " + glac + "\n")
+    with open(os.path.join(root, "veglib.txt"), "w") as f:
+        f.write("#class over rarc rmin LAI*12 albedo*12 rough*12 displ*12 "
+                "wind_h RGL rad_atten wind_atten trunk_ratio\n")
+        for (vc, over, rarc, rmin, lai, alb, rough, displ, wh, rgl, ra, wa,
+             tr) in _VEGLIB_ROWS:
+            vals = [vc, over, rarc, rmin] + [lai] * 12 + [alb] * 12 \
+                + [rough] * 12 + [displ] * 12 + [wh, rgl, ra, wa, tr]
+            f.write(" ".join(str(v) for v in vals) + "\n")
+    with open(os.path.join(root, "vegparam.txt"), "w") as f:
+        for ci in range(n_cell):
+            f.write(f"{ci + 1} {len(_TILES)}\n")
+            for vc, cv in _TILES:
+                f.write(f"{vc} {cv} 0.3 0.6 0.7 0.4\n")
+    with open(os.path.join(root, "snowbands.txt"), "w") as f:
+        # area-weighted band elevation = the cell's, so no reset
+        for ci in range(n_cell):
+            f.write(f"{ci + 1} 0.6 0.4 {elev[ci] - 200.0:.1f} "
+                    f"{elev[ci] + 300.0:.1f}\n")
+
+    # daily forcing: a seasonal cycle (coldest in late January) offset per
+    # cell, wet days with gamma amounts, gusty wind
+    day = np.arange(n_day)
+    doy = (np.datetime64(f"{start[0]:04d}-{start[1]:02d}-{start[2]:02d}")
+           - np.datetime64(f"{start[0]:04d}-01-01")).astype(int) + day
+    season = -np.cos(2.0 * np.pi * (doy - 25) / 365.25)
+    for ci in range(n_cell):
+        tmean = 1.0 + 12.0 * season + rng.uniform(-6.0, 2.0) \
+            + rng.normal(0.0, 2.5, n_day)
+        rang = rng.uniform(6.0, 14.0, n_day)
+        prec = np.where(rng.random(n_day) < 0.35,
+                        rng.gamma(1.5, 5.0, n_day), 0.0)
+        wind = rng.gamma(2.0, 1.5, n_day) + 0.3
+        data = np.stack([prec, tmean + rang / 2, tmean - rang / 2, wind], 1)
+        raw = np.empty((n_day, 4), "<u2")
+        for k, (_, sign, mult) in enumerate(_BINARY_TYPES):
+            v = np.round(data[:, k] * mult)
+            raw[:, k] = (v.astype("<i2").view("<u2") if sign == "SIGNED"
+                         else np.clip(v, 0, 65535).astype("<u2"))
+        raw.tofile(os.path.join(
+            root, "forcing", f"data_{lat[ci]:.5f}_{lon[ci]:.5f}"))
+
+    end = np.datetime64(f"{start[0]:04d}-{start[1]:02d}-{start[2]:02d}") \
+        + np.timedelta64(n_day - 1, "D")
+    ey, em, ed = (int(x) for x in str(end).split("-"))
+    outvars = "\n".join(f"OUTVAR {name} %.4f {kind} 1"
+                        for name, kind in DRIVER_OUTVARS)
+    ftypes = "\n".join(f"FORCE_TYPE {n} {s} {m:g}"
+                       for n, s, m in _BINARY_TYPES)
+    text = f"""# a run of the main path in the reference's formats
+NLAYER 3
+NODES 3
+TIME_STEP 24
+SNOW_STEP {snow_step}
+STARTYEAR {start[0]}
+STARTMONTH {start[1]:02d}
+STARTDAY {start[2]:02d}
+STARTHOUR 00
+ENDYEAR {ey}
+ENDMONTH {em:02d}
+ENDDAY {ed:02d}
+FULL_ENERGY TRUE
+FROZEN_SOIL FALSE
+QUICK_FLUX TRUE
+COMPUTE_TREELINE TRUE
+JULY_TAVG_SUPPLIED {"FALSE" if july is None else "TRUE"}
+GRID_DECIMAL 5
+RESOLUTION 0.0625
+SNOW_BAND 2 {fixdir}/snowbands.txt
+GLACIER_ID 99
+GLACIER_ACCUM_START_YEAR {accum_start[0]}
+GLACIER_ACCUM_START_MONTH {accum_start[1]}
+GLACIER_ACCUM_START_DAY {accum_start[2]}
+GLACIER_ACCUM_INTERVAL 1
+SOIL {fixdir}/soil.txt
+VEGLIB {fixdir}/veglib.txt
+VEGPARAM {fixdir}/vegparam.txt
+ROOT_ZONES 2
+FORCING1 {fixdir}/forcing/data_
+FORCE_FORMAT BINARY
+FORCE_ENDIAN LITTLE
+FORCE_DT 24
+N_TYPES {len(_BINARY_TYPES)}
+{ftypes}
+FORCEYEAR {start[0]}
+FORCEMONTH {start[1]:02d}
+FORCEDAY {start[2]:02d}
+RESULT_DIR {fixdir}/results
+OUTPUT_FORMAT {output_format}
+OUT_STEP 24
+STATENAME {fixdir}/results/state
+STATE_FORMAT ASCII
+N_OUTFILES 1
+OUTFILE fluxes {len(DRIVER_OUTVARS)}
+{outvars}
+"""
+    path = os.path.join(root, "global.txt")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def relocate_run(src, dest) -> str:
+    """Copy a run written with fixdir="@FIXDIR@" (its files under `src`) to
+    `dest` with a results directory, the global file pointing there, and
+    return the global file's path."""
+    import os
+    import shutil
+    shutil.copytree(src, dest, dirs_exist_ok=True)
+    os.makedirs(os.path.join(dest, "results"), exist_ok=True)
+    path = os.path.join(dest, "global.txt")
+    with open(path) as f:
+        text = f.read().replace("@FIXDIR@", str(dest))
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def run_arrays(res) -> dict:
+    """A driver RunResult of either package as flat arrays: "out/<OUT_*>"
+    (aggregated), "state/<field>" (final state), "gmb/<b0|b1|b2>"
+    ([n_interval, n_cell])."""
+    arrays = {f"out/{k}": np.asarray(v) for k, v in res.outputs.items()}
+    final = res.final_state
+    arrays.update({f"state/{f}": np.asarray(getattr(final, f))
+                   for f in final.__dataclass_fields__})
+    for k in ("b0", "b1", "b2"):
+        arrays[f"gmb/{k}"] = np.array([getattr(r, k)
+                                       for r in res.gmb_results])
+    return arrays
+
+
+def binary_readback_error(path, outputs: dict, ci: int, var_names) -> float:
+    """Largest |value in the packed BINARY flux file `path` - the run's
+    aggregated value packed the same way| over cell `ci`'s columns: the
+    writer's variables are `outputs`' keys (in their order) that
+    `var_names` names; an integer type truncates, as the writer does. 0 when
+    the file holds the run's outputs."""
+    from .output import read_binary_output
+    meta, dates, cols = read_binary_output(path)
+    want = []
+    for name in (k for k in outputs if k in set(var_names)):
+        v = np.asarray(outputs[name])[:, ci]
+        want += list(v.reshape(v.shape[0], -1).T)
+    if len(want) != len(cols) or meta["nrecs"] != len(dates):
+        return float("inf")
+    err = 0.0
+    for col, v in zip(cols, want):
+        packed = np.trunc(v) if col.dtype.kind in "iu" else v
+        err = max(err, float(np.abs(col.astype(np.float64)
+                                    - packed.astype(col.dtype)).max()))
+    return err
+
+
+def water_closure(outputs: dict, tol: float = 1e-2):
+    """The water balance as vic_tpu closes it, from a run's daily
+    OUT_WATER_ERROR, OUT_SWE and OUT_SNOW_MELT: |error| <= tol (mm) on
+    every record, but on records where snow melts, vic_tpu's snow budget
+    drops the liquid water of a lane's pack that melts out within the
+    record (its complete-melt branch, vic_tpu/physics/snow.py:420-429),
+    which the liquid-water capacity bounds; there the bound is tol +
+    SNOW_LIQUID_WATER_CAPACITY x the previous record's OUT_SWE (ROADMAP.md
+    queue 3). Returns (largest excess over the bound, the number of
+    elements on melt records above tol, the largest |error| there, the
+    largest |error| elsewhere)."""
+    err = np.abs(np.asarray(outputs["OUT_WATER_ERROR"], np.float64))
+    swe = np.asarray(outputs["OUT_SWE"], np.float64)
+    swe_before = np.concatenate([np.zeros_like(swe[:1]), swe[:-1]])
+    melt = np.asarray(outputs["OUT_SNOW_MELT"]) > 0.0
+    bound = tol + np.where(melt, c.SNOW_LIQUID_WATER_CAPACITY * swe_before,
+                           0.0)
+    return (float((err - bound).max()), int((melt & (err > tol)).sum()),
+            float(err[melt].max(initial=0.0)),
+            float(err[~melt].max(initial=0.0)))

@@ -1,9 +1,9 @@
 """Simulation time axis (make_dmy.c: year/month/day/hour/day_in_year of
 every record, leap years included).
 
-A copy of `make_time_axis` and its helpers from `vic_tpu/timeaxis.py`, so
-that the port imports nothing of the JAX package. Built host-side once; the
-step receives month and day-of-year as host ints.
+A copy of `make_time_axis`, `time_axis_from_params` and their helpers from
+`vic_tpu/timeaxis.py`, so that the port imports nothing of the JAX package.
+Built host-side once; the step receives month and day-of-year as host ints.
 """
 from __future__ import annotations
 
@@ -66,3 +66,32 @@ def make_time_axis(startyear: int, startmonth: int, startday: int,
                     y += 1
                     doy = 1
     return TimeAxis(years, months, days, hours, doys)
+
+
+def count_records(startyear: int, startmonth: int, startday: int, starthour: int,
+                  endyear: int, endmonth: int, endday: int, dt_hours: int) -> int:
+    """Number of records from start date through the END of endday
+    (get_global_param.c derives nrecs from ENDYEAR/ENDMONTH/ENDDAY inclusively)."""
+    days = 0
+    y, m, d = startyear, startmonth, startday
+    while (y, m, d) <= (endyear, endmonth, endday):
+        days += 1
+        d += 1
+        if d > days_in_month(y, m):
+            d = 1
+            m += 1
+            if m > 12:
+                m = 1
+                y += 1
+    hours = days * 24 - starthour
+    return hours // dt_hours
+
+
+def time_axis_from_params(gp) -> TimeAxis:
+    """Build the axis straight from GlobalParams (deriving nrecs if needed)."""
+    nrecs = gp.nrecs
+    if nrecs is None or nrecs < 0:
+        nrecs = count_records(gp.startyear, gp.startmonth, gp.startday, gp.starthour,
+                              gp.endyear, gp.endmonth, gp.endday, gp.dt)
+    return make_time_axis(gp.startyear, gp.startmonth, gp.startday, gp.starthour,
+                          nrecs, gp.dt)
