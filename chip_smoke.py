@@ -21,10 +21,15 @@ line) on failure:
    dist_prcp step's second, and every kernel of the heavy path (K12 with
    the blowing-snow flux over lake ice, K8 on the lake lanes) in the heavy
    step's seventh, where lakes carry snow on ice that blows (K12 and K8
-   timed on those arguments too). Each kernel is re-run on those arguments
+   timed on those arguments too); then the forms frozen soil adds as its
+   users set it up (the last rows of ROWS): K6 and K7 on 10 EXP_TRANS nodes
+   in the frozen_exp step's third record, K5 with the fusion term in the
+   frozen_quick step's second, and K6 at 3, 18 and 50 EXP_TRANS nodes in
+   the third record of frozen_exp's configuration with its node count
+   replaced, at 4,096 cells. Each row's kernel is re-run on those arguments
    beside its plain PyTorch version on the card, compared, timed with CUDA
-   events and given its bound (the least time the card could take for the same
-   work).
+   events and given its bound (the least time the card could take for the
+   same work).
 3. reference: each configuration's fixture size (16 cells x 4 records;
    heavy_nolakes and heavy 16 x 8 3-hourly) through the port on the card
    against
@@ -35,7 +40,11 @@ line) on failure:
    vic_tpu_torch.model.run, every kernel's launch counter set to 0 just
    before each run and read just after it, and every plain solver of the
    port (ops.rootfind.batched_brent, ops.tridiag.thomas_solve and each
-   *_plain) made to fail if it is handed a CUDA tensor during the run.
+   *_plain) made to fail if it is handed a CUDA tensor during the run;
+   frozen_exp also times its SPATIAL_FROST layer ice; then frozen_exp's
+   configuration at 3, 18 and 50 nodes, 4,096 cells x 8 records, the same
+   way. Each row's launches in the kernels line are its kernel's count in
+   the slice of the configuration its arguments came from.
 5. driver: a run of the main path in the reference's file formats
    (vic_tpu_torch.testing.write_driver_run: 8,192 cells x 370 daily records
    from 1995-10-01, a glacier tile, 2 snow bands, COMPUTE_TREELINE with the
@@ -67,7 +76,8 @@ import numpy as np
 import torch
 
 from vic_tpu_torch.entry import CONFIGS
-from vic_tpu_torch.testing import (heavy_lake_run_failures,
+from vic_tpu_torch.testing import (frozen_run_failures,
+                                   heavy_lake_run_failures,
                                    heavy_run_failures, lake_run_failures,
                                    thaw_edge_cells)
 
@@ -85,7 +95,9 @@ DIST_PRCP_RECORD = 1       # record whose step gives K5's dry column
 # sixth (16 cells on CPU)
 HEAVY_LAKE_RECORD = 6
 CONFIG_NAMES = ("light", "frozen", "blowing_close", "lakes", "heavy_nolakes",
-                "heavy")
+                "heavy", "frozen_exp", "frozen_quick")
+FROZEN_QUICK_RECORD = 1    # record whose step gives K5 its fusion term
+NODE_COUNT_CELLS = 4096    # cells of the 3-, 18- and 50-node K6 rows
 # cells of each configuration's kernel capture and slice
 CELLS = {"heavy_nolakes": HEAVY_CELLS, "heavy": HEAVY_CELLS}
 FIXTURES = ROOT / "tests" / "fixtures" / "torch_port"
@@ -156,6 +168,36 @@ PATH_KERNELS = {
                       "affine_surface_brent"),
 }
 PATH_KERNELS["heavy"] = PATH_KERNELS["heavy_nolakes"] + LAKE_KERNELS
+PATH_KERNELS["frozen_exp"] = PATH_KERNELS["frozen"]
+PATH_KERNELS["frozen_quick"] = PATH_KERNELS["light"]
+# the record of each configuration's step that gives its kernels their
+# arguments (the first where not named), and the call of a kernel in that
+# step whose arguments are taken (the first where not named): in the
+# heavy_nolakes step K4's second call is the dry column's and K6's first the
+# lower probe of the first CLOSE_ENERGY pass; in the heavy step K8's second
+# is the lake lanes'
+RECORD = {"frozen": FROZEN_RECORD, "blowing_close": BLOWING_RECORD,
+          "lakes": LAKES_RECORD, "heavy_nolakes": HEAVY_RECORD,
+          "dist_prcp": DIST_PRCP_RECORD, "heavy": HEAVY_LAKE_RECORD,
+          "frozen_exp": FROZEN_RECORD, "frozen_quick": FROZEN_QUICK_RECORD}
+NTH = {"heavy_nolakes": {"runoff_hourly": 1},
+       "heavy": {"runoff_hourly": 1, "blowing_snow": 1}}
+# the node counts that replace frozen_exp's 10 in K6's rows and slices at
+# NODE_COUNT_CELLS cells
+NODE_COUNTS = (3, 18, 50)
+# the rows of the kernels line: row -> (kernel, configuration, node count
+# that replaces frozen_exp's or None); each kernel on its own
+# configuration's step, then the forms frozen soil adds as its users set it
+# up: K6 and K7 on 10 EXP_TRANS nodes, K5 with the fusion term, and K6 at
+# each of NODE_COUNTS EXP_TRANS nodes
+ROWS = {name: (name, k[4], None) for name, k in KERNELS.items()}
+ROWS.update({
+    "node_sweep/exp_trans_10": ("node_sweep", "frozen_exp", None),
+    "fd_surface_brent/exp_trans_10": ("fd_surface_brent", "frozen_exp", None),
+    "surface_brent/fusion": ("surface_brent", "frozen_quick", None),
+})
+ROWS.update({f"node_sweep/exp_trans_{n}": ("node_sweep", "frozen_exp", n)
+             for n in NODE_COUNTS})
 # the steps whose arguments each kernel is also held on, besides its own
 # configuration's: the frozen step's K4, the blowing_close step's K2 (a
 # blowing-snow flux in its residual), the dist_prcp step's K5 (DIST_PRCP's
@@ -200,12 +242,13 @@ FP32_OPS_PER_S = 67e12
 # residuals in csrc/; per hourly trip and layer for K4; per node for K6
 RESIDUAL_OPS = {"glacier_brent": 55 + 30, "snowpack_brent": 55 + 30,
                 "canopy_brent": 70 + 30, "surface_brent": 150 + 30}
+FUSION_OPS = 20                   # the fusion term of K5, K7 and K14
 RUNOFF_OPS_PER_LAYER_HOUR = 30
 SWEEP_OPS_PER_NODE = 20           # t_lin and the bookkeeping
 NODE_RESIDUAL_OPS = 30            # SoilThermalEqn with its unfrozen water
-# K7: the FD residual (K5's plus the fusion term's ~20) and the propose and
+# K7: the FD residual (K5's plus the fusion term's) and the propose and
 # accept steps' Brent arithmetic (~30) per lane and evaluation
-FD_RESIDUAL_OPS = 150 + 20 + 30
+FD_RESIDUAL_OPS = 150 + FUSION_OPS + 30
 # K14 per evaluation: K7's residual and Brent step with nodes 1-2
 # interpolated between the two probes (a division and 7 more); with
 # DIST_PRCP every residual (K5, K7, K14) evaluates the dry column's ET too:
@@ -288,9 +331,10 @@ def clone_args(obj):
 
 
 def capture_kernel_args(config, names, device, record=0, calls=None,
-                        nth=None):
-    """Run `config` at its slice's size up to its record `record` with each
-    binding in `names` wrapped in that record's step; returns
+                        nth=None, build=None, cells=None):
+    """Run `config` at its slice's size (or `cells`; build(n_cell, n_rec,
+    device) in place of its builder, if given) up to its record `record`
+    with each binding in `names` wrapped in that record's step; returns
     {kernel: (args, kwargs)} of its first call there, or of its call number
     nth[kernel] (from 0), and counts each kernel's calls in that step into
     the dict `calls`, if given."""
@@ -310,8 +354,8 @@ def capture_kernel_args(config, names, device, record=0, calls=None,
             return fn(*args, **kwargs)
         return wrapper
 
-    gp, params, stack, state, extras = CONFIGS[config](
-        CELLS.get(config, SMOKE_CELLS), record + 1, device)
+    gp, params, stack, state, extras = (build or CONFIGS[config])(
+        cells or CELLS.get(config, SMOKE_CELLS), record + 1, device)
     step = make_step(params, gp, **extras)
     for r in range(record):
         state, _ = step(state, {k: v[r] for k, v in stack.items()})
@@ -616,11 +660,13 @@ def brent_work(name, args, kwargs, kern):
     if name in ("surface_brent", "affine_surface_brent"):
         kw = kwargs["eb_kwargs"]
         inputs = list(surface_inputs(kw).values())
+        if kw.get("frozen_soil"):
+            inputs += [kw[k] for k in FD_SURFACE_INPUTS + ("fs_active",)]
+            if name == "surface_brent":
+                ops_per_eval += FUSION_OPS
         if name == "affine_surface_brent":
             ts_a, t_a, ts_b, t_b = kw["fd_interp"]
-            inputs += [kw[k] for k in FD_SURFACE_INPUTS + ("fs_active",)
-                       if k in kw] + [ts_a, ts_b, t_a[..., 1:3],
-                                      t_b[..., 1:3]]
+            inputs += [ts_a, ts_b, t_a[..., 1:3], t_b[..., 1:3]]
         if kw.get("dist_dry") is not None:
             ops_per_eval += DRY_ET_OPS
         max_tries = MAXTRIES
@@ -679,9 +725,10 @@ def sweep_work(args, kwargs, kern):
     start below 0 C where frozen soil is active (2 for nodes above the
     soil-layer count, 2 + 16 for deeper nodes; expansions not counted)."""
     t0, surf, kappa, cs, moist, ice0, geom, fs_active = args
-    geo = [getattr(geom, k) for k in ("alpha", "beta", "gamma", "e_coef",
-                                      "solver_max_moist", "solver_bubble",
-                                      "solver_expt")]
+    read = ("e_coef", "solver_max_moist", "solver_bubble", "solver_expt") + (
+        ("zp1", "exp_a", "bexp") if kwargs.get("exp_trans")
+        else ("alpha", "beta", "gamma"))
+    geo = [getattr(geom, k) for k in read]
     bytes_moved = nbytes(t0, surf, kappa, cs, moist, ice0, fs_active, *geo,
                          kern.temp, kern.fbcount)
     nn = t0.shape[-1]
@@ -787,9 +834,10 @@ def compare(name, label, kern, plain, kwargs):
     return compare_brent(f"{name} ({label})", kern, plain)
 
 
-def check_kernel(name, config, args, kwargs, kern_fn, plain_fn, captured):
-    """K1-K9 and K14 on the arguments `config`'s step gave them against
-    their plain versions, then on those of the steps in ALSO_ON; returns
+def check_kernel(name, label, args, kwargs, kern_fn, plain_fn, captured,
+                 also_on=()):
+    """K1-K9 and K14 on the arguments the `label` step gave them against
+    their plain versions, then on those of the steps in `also_on`; returns
     (largest difference, (bytes, operations) of the first call)."""
     from vic_tpu_torch import kernels
     sweeps_before = kernels.launches["node_sweep"]
@@ -797,10 +845,10 @@ def check_kernel(name, config, args, kwargs, kern_fn, plain_fn, captured):
     evaluations = kernels.launches["node_sweep"] - sweeps_before
     plain = plain_fn(*args, **kwargs)
     torch.cuda.synchronize()
-    err = compare(name, config, kern, plain, kwargs)
+    err = compare(name, label, kern, plain, kwargs)
     if name == "fd_surface_brent":
-        print(f"  fd_surface_brent: {evaluations} residual evaluations "
-              "(node_sweep calls) in the kernel's solve")
+        print(f"  fd_surface_brent ({label}): {evaluations} residual "
+              "evaluations (node_sweep calls) in the kernel's solve")
         work = fd_brent_work(kwargs, kern, evaluations)
     elif name == "blowing_snow":
         work = blowing_work(kwargs, kern)
@@ -812,59 +860,48 @@ def check_kernel(name, config, args, kwargs, kern_fn, plain_fn, captured):
         work = sweep_work(args, kwargs, kern)
     else:
         work = brent_work(name, args, kwargs, kern)
-    for label in ALSO_ON.get(name, ()):
-        a, kw = captured[label][name]
-        if name == "snowpack_brent" and label == "blowing_close":
+    for also in also_on:
+        a, kw = captured[also][name]
+        if name == "snowpack_brent" and also == "blowing_close":
             print(f"  snowpack_brent (blowing_close): "
                   f"{int((kw['blowing_flux'] != 0).sum())} lanes with a "
                   "blowing flux")
-        err = max(err, compare(name, label, kern_fn(*a, **kw),
+        err = max(err, compare(name, also, kern_fn(*a, **kw),
                                plain_fn(*a, **kw), kw))
     return err, work
+
+
+def step_label(config, nnode):
+    return f"{config}/nnode={nnode}" if nnode else config
 
 
 def kernels_phase(device):
     phase(f"2 kernels at {SMOKE_CELLS} cells (heavy_nolakes {HEAVY_CELLS})")
     from vic_tpu_torch import kernels
-    captured = {"light": capture_kernel_args(
-        "light", PATH_KERNELS["light"], device)}
-    # the frozen step's third record: nodes below 0 C, layer ice, fallbacks
-    captured["frozen"] = capture_kernel_args(
-        "frozen", ("node_sweep", "runoff_hourly", "fd_surface_brent"), device,
-        record=FROZEN_RECORD)
-    # the blowing_close step's fourth record: packs on the ground blow
-    captured["blowing_close"] = capture_kernel_args(
-        "blowing_close", ("blowing_snow", "canopy_air_step", "snowpack_brent"),
-        device, record=BLOWING_RECORD)
-    # the lakes step's second record: open, partly and fully iced lakes
-    lake_calls = {}
-    captured["lakes"] = capture_kernel_args(
-        "lakes", LAKE_KERNELS, device, record=LAKES_RECORD, calls=lake_calls)
-    print(f"  lakes step record {LAKES_RECORD}: kernel calls {lake_calls}")
-    # the heavy_nolakes step's fourth record: CLOSE_ENERGY passes on frozen
-    # nodes, rain on wet fractions mu < 1; K4's second call is the dry
-    # column's, K6's first the lower probe of the first pass
-    heavy_calls = {}
-    captured["heavy_nolakes"] = capture_kernel_args(
-        "heavy_nolakes", PATH_KERNELS["heavy_nolakes"], device,
-        record=HEAVY_RECORD, calls=heavy_calls, nth={"runoff_hourly": 1})
-    print(f"  heavy_nolakes step record {HEAVY_RECORD}: kernel calls "
-          f"{heavy_calls}")
-    # K5's dry column: the light configuration with DIST_PRCP
-    captured["dist_prcp"] = capture_kernel_args(
-        "dist_prcp", ("surface_brent",), device, record=DIST_PRCP_RECORD)
-    # the heavy step's seventh record: lakes under snow that blows; K8's
-    # second call is the lake lanes', K4's the dry column's
-    heavy_lake_calls = {}
-    captured["heavy"] = capture_kernel_args(
-        "heavy", PATH_KERNELS["heavy"], device, record=HEAVY_LAKE_RECORD,
-        calls=heavy_lake_calls, nth={"runoff_hourly": 1, "blowing_snow": 1})
-    print(f"  heavy step record {HEAVY_LAKE_RECORD}: kernel calls "
-          f"{heavy_lake_calls}")
+    # one capture run per step, wrapping the kernels of the rows on it and
+    # those ALSO_ON holds on it
+    steps = {}
+    for name, config, nnode in ROWS.values():
+        steps.setdefault((config, nnode), set()).add(name)
+    for name, labels in ALSO_ON.items():
+        for config in labels:
+            steps.setdefault((config, None), set()).add(name)
+    captured, calls = {}, {}
+    for (config, nnode), names in steps.items():
+        label = step_label(config, nnode)
+        calls[label] = {}
+        captured[label] = capture_kernel_args(
+            config, sorted(names), device, record=RECORD.get(config, 0),
+            calls=calls[label], nth=NTH.get(config),
+            build=node_count_build(nnode) if nnode else None,
+            cells=NODE_COUNT_CELLS if nnode else None)
+        print(f"  {label} step record {RECORD.get(config, 0)}: kernel calls "
+              f"{calls[label]}")
     results = {}
-    for name, (source, replaces, module, plain_name, config) in \
-            KERNELS.items():
-        args, kwargs = captured[config][name]
+    for row, (name, config, nnode) in ROWS.items():
+        source, replaces, module, plain_name, _ = KERNELS[name]
+        label = step_label(config, nnode)
+        args, kwargs = captured[label][name]
         kern_fn = getattr(kernels, name)
         plain_fn = getattr(importlib.import_module(
             f"vic_tpu_torch.physics.{module}"), plain_name)
@@ -875,28 +912,31 @@ def kernels_phase(device):
             z, basin, maxdepth, _ = args
             lp = SimpleNamespace(z=z, basin=basin, maxdepth=maxdepth)
             plain_fn = (lambda fn: lambda *a: fn(lp, a[3]))(plain_fn)
+        if row != name:
+            check_form(row, nnode, args, kwargs)
         if name in LAKE_KERNELS:
             err, work = check_lake_kernel(name, args, kwargs,
-                                          lake_calls[name])
-            for label in ALSO_ON[name]:
-                a, kw = captured[label][name]
+                                          calls[label][name])
+            for also in ALSO_ON[name]:
+                a, kw = captured[also][name]
                 err = max(err, check_lake_kernel(
-                    name, a, kw, heavy_lake_calls[name], label,
-                    HEAVY_LAKE_RECORD)[0])
+                    name, a, kw, calls[also][name], also, RECORD[also])[0])
         else:
-            err, work = check_kernel(name, config, args, kwargs, kern_fn,
-                                     plain_fn, captured)
+            err, work = check_kernel(
+                name, label if row == name else row, args, kwargs, kern_fn,
+                plain_fn, captured, ALSO_ON.get(name, ()) if row == name
+                else ())
         ms = cuda_ms(lambda: kern_fn(*args, **kwargs), reps=20)
         plain_ms = cuda_ms(lambda: plain_fn(*args, **kwargs), reps=3)
         bound_ms, bound_by = bound(*work)
-        print(f"  {name}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, "
+        print(f"  {row}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms by {bound_by} ({work[0]} bytes, "
               f"{work[1]:.4g} FP32 operations)")
-        results[name] = dict(
-            name=name, route="cuda", source=CSRC + source, replaces=replaces,
+        results[row] = dict(
+            name=row, route="cuda", source=CSRC + source, replaces=replaces,
             launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        if name in HEAVY_LAKE_TIMED:
+        if row in HEAVY_LAKE_TIMED:
             # the heavy path's own form of the kernel: K12 with the
             # blowing-snow flux, K8 on the 8,192 lake lanes
             a, kw = captured["heavy"][name]
@@ -911,6 +951,40 @@ def kernels_phase(device):
                   f"bound {bound_ms:.4f} ms by {bound_by} ({work[0]} bytes, "
                   f"{work[1]:.4g} FP32 operations)")
     return results
+
+
+def node_count_build(nnode):
+    """frozen_exp's builder with its node count replaced."""
+    from vic_tpu_torch import entry
+
+    def build(n_cell, n_rec, device):
+        gp = entry.frozen_exp_params(n_rec).replace(nnode=nnode)
+        return entry._build(gp, n_cell, n_rec, device)
+    return build
+
+
+def check_form(row, nnode, args, kwargs):
+    """Raise unless a row frozen soil adds carries what it stands for: K6
+    on frozen_exp's EXP_TRANS profile (at its node count or `nnode`) with
+    interior nodes below 0 C where frozen soil is active, K5 with the
+    fusion term on active lanes with top-layer ice."""
+    if row.startswith("node_sweep/"):
+        nn = args[0].shape[-1]
+        cold = int(((args[0][..., 1:nn - 1] < 0.0)
+                    & args[7][:, None, None]).sum())
+        print(f"  {row}: {nn} nodes, exp_trans {kwargs['exp_trans']}, "
+              f"{cold} interior nodes below 0 C with frozen soil active")
+        if not kwargs["exp_trans"] or nn != (nnode or 10) or not cold:
+            raise AssertionError(f"{row}: not the EXP_TRANS profile with "
+                                 "frozen nodes it stands for")
+    elif row.startswith("surface_brent/"):
+        eb = kwargs["eb_kwargs"]
+        live = int((args[2] & (eb["ice0_vol"] > 0.0)).sum())
+        print(f"  {row}: {live} active lanes with top-layer ice in the "
+              "fusion term")
+        if not eb.get("frozen_soil") or not live:
+            raise AssertionError(f"{row}: no fusion term; the path was not "
+                                 "exercised")
 
 
 def reference_phase(device, config):
@@ -937,7 +1011,9 @@ def reference_phase(device, config):
     # the tolerance leaves as the CPU tests hold them
     # (vic_tpu_torch.testing.lake_run_failures, heavy_run_failures,
     # heavy_lake_run_failures); elsewhere rtol = atol
-    if config in ("heavy_nolakes", "heavy"):
+    if config in ("frozen_exp", "frozen_quick"):
+        failed = frozen_run_failures(ref, got, REF_TOL)
+    elif config in ("heavy_nolakes", "heavy"):
         failed = (heavy_run_failures(ref, got, REF_TOL)
                   if config == "heavy_nolakes" else heavy_lake_run_failures(
                       ref, got, REF_TOL, params.cell_area.cpu().numpy(),
@@ -1006,17 +1082,19 @@ def guard_plain_solvers():
     return restore
 
 
-def slice_phase(device, config, ref_werr):
+def slice_phase(device, config, ref_werr=None, nnode=None):
     """ref_werr: the configuration's fixture's largest |OUT_WATER_ERROR|,
-    printed beside the slice's."""
+    printed beside the slice's; nnode: frozen_exp's configuration with its
+    node count replaced, at NODE_COUNT_CELLS cells."""
     from vic_tpu_torch import kernels
     from vic_tpu_torch.model import run
 
-    n_cell = CELLS.get(config, SMOKE_CELLS)
-    gp, params, stack, state, extras = CONFIGS[config](n_cell, SMOKE_RECS,
-                                                       device)
-    phase(f"4 slice: {config}, {n_cell} cells x {SMOKE_RECS} records of "
-          f"{gp.dt} h")
+    n_cell = NODE_COUNT_CELLS if nnode else CELLS.get(config, SMOKE_CELLS)
+    gp, params, stack, state, extras = (
+        node_count_build(nnode) if nnode else CONFIGS[config])(
+            n_cell, SMOKE_RECS, device)
+    phase(f"4 slice: {step_label(config, nnode)}, {n_cell} cells x "
+          f"{SMOKE_RECS} records of {gp.dt} h")
     # warm-up record, outside the timed and counted run
     run(state, {k: v[:1] for k, v in stack.items()}, params, gp, **extras)
     torch.cuda.synchronize()
@@ -1045,17 +1123,25 @@ def slice_phase(device, config, ref_werr):
     werr_cell = outs["OUT_WATER_ERROR"].abs().amax(0)
     werr = float(werr_cell.max())
     rate = n_cell * SMOKE_RECS / wall
-    print(f"  {len(outs)} outputs finite; max |OUT_WATER_ERROR| {werr:.3e} mm "
-          f"(the fixture's {ref_werr:.3e} mm)")
+    print(f"  {len(outs)} outputs finite; max |OUT_WATER_ERROR| {werr:.3e} mm"
+          + (f" (the fixture's {ref_werr:.3e} mm)" if ref_werr is not None
+             else ""))
     print(f"  {rate:.1f} cell-steps/s ({wall:.3f} s for {SMOKE_RECS} records, "
           f"warm-up record excluded); peak device memory {peak} bytes")
     print(f"  kernel launches in this run: {launches}")
     print("  kernel launches per record: " + json.dumps(
         {k: v / SMOKE_RECS for k, v in launches.items() if v}))
-    if config == "frozen":
+    if config in ("frozen", "frozen_exp", "frozen_quick"):
         ice = float(final.ice.sum())
         print(f"  layer ice at the end {ice:.1f} mm summed over lanes; "
-              f"OUT_FDEPTH max {float(outs['OUT_FDEPTH'].max()):.3f} cm")
+              f"OUT_FDEPTH max {float(outs['OUT_FDEPTH'].max()):.3f} cm; "
+              f"max |OUT_FUSION| {float(outs['OUT_FUSION'].abs().max()):.4g}"
+              f" W/m^2; node temperatures {tuple(final.node_temp.shape)}")
+        if not ice > 0.0:
+            raise AssertionError(f"{config}: no layer ice; frozen soil was "
+                                 "not exercised")
+    if config == "frozen_exp" and not nnode:
+        layer_ice_cost(device, final, params, gp, extras["geom"])
     if config in ("blowing_close", "heavy_nolakes", "heavy"):
         passes = [int(x) for x in outs["OUT_TCANOPY_ITER"][:, 0].tolist()]
         print(f"  CLOSE_ENERGY passes per record: {passes}; max "
@@ -1090,6 +1176,28 @@ def slice_phase(device, config, ref_werr):
         raise AssertionError(f"kernels never launched by the {config} "
                              f"slice: {idle}")
     return launches
+
+
+def layer_ice_cost(device, final, params, gp, geom):
+    """CUDA-event ms and peak extra device bytes of one estimate_layer_ice
+    call over SPATIAL_FROST's subareas and over one area, on the slice's
+    final node temperatures and moisture (the step makes one call a
+    record, two with DIST_PRCP)."""
+    from vic_tpu_torch.physics.frozen_soil import (estimate_layer_ice,
+                                                   frost_kwargs,
+                                                   layer_ice_params)
+    soil = layer_ice_params(params.max_moist, params.bubble, params.expt,
+                            params.fs_active)
+    for label, kw in (("frost subareas", frost_kwargs(gp)),
+                      ("one area", dict(frost_subareas=1))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        ms = cuda_ms(lambda: estimate_layer_ice(final.node_temp, final.moist,
+                                                geom, soil, **kw), reps=10)
+        extra = torch.cuda.max_memory_allocated(device) - base
+        print(f"  layer ice ({label}: {kw}): {ms:.4f} ms a call, peak "
+              f"{extra} bytes above the run's")
 
 
 DRIVER_CELLS = HEAVY_CELLS   # a basin: bench.py's heavy size
@@ -1309,11 +1417,14 @@ def main():
                 for config in CONFIG_NAMES}
     launches = {config: slice_phase(device, config, ref_werr[config])
                 for config in CONFIG_NAMES}
+    for nnode in NODE_COUNTS:
+        launches[step_label("frozen_exp", nnode)] = slice_phase(
+            device, "frozen_exp", nnode=nnode)
     driver_phase(device)
-    for name, result in results.items():
-        # each kernel's count from the run of the path it was captured on
-        result["launches"] = launches[KERNELS[name][4]][name]
-    print(json.dumps({"kernels": [results[k] for k in KERNELS]}))
+    # each row's count from the slice of the path its arguments came from
+    for row, (name, config, nnode) in ROWS.items():
+        results[row]["launches"] = launches[step_label(config, nnode)][name]
+    print(json.dumps({"kernels": [results[row] for row in ROWS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -129,14 +129,19 @@ def test_unfrozen_finite_difference_nodes_match():
 
 
 @pytest.mark.parametrize("flag,geom_given,refused", [
-    (dict(frozen_soil=True), True, "frozen_soil with quick_flux"),
-    (dict(exp_trans=True, quick_flux=False), True, "exp_trans"),
+    (dict(frozen_soil=True, quick_flux=False, spatial_snow=True), True,
+     "spatial_snow"),
+    (dict(frozen_soil=True, quick_flux=False, corrprec=True), True,
+     "corrprec"),
     (dict(frozen_soil=True, quick_flux=False), False,
      "frozen_soil without geom"),
     (dict(), True, "geom with quick_flux"),
 ], ids=lambda v: v if isinstance(v, str) else None)
 def test_make_step_refuses_frozen_options_outside_the_slice(flag, geom_given,
                                                            refused):
+    """The options of the frozen path the port still refuses by name
+    (FROZEN_SOIL on QUICK_FLUX and EXP_TRANS step now:
+    tests/test_torch_golden_frozen_quick.py, test_torch_frozen_exp.py)."""
     gp = light_params(1).replace(**flag)
     _, params, _, _, extras = build_frozen(1, 1, "cpu")
     geom = extras["geom"]

@@ -285,21 +285,33 @@ def test_heavy_flags_are_graft_entrys():
 
 @pytest.mark.parametrize("config", ["frozen", "heavy"])
 def test_make_step_refuses_spatial_frost(config):
-    """FROZEN_SOIL with SPATIAL_FROST is refused by name: the port has no
+    """FROZEN_SOIL with SPATIAL_FROST was refused by name until the
     subarea average of the layer ice (vic_tpu/physics/frozen_soil.py:
-    731-740)."""
+    731-740) came: the frozen and heavy steps now build with it and step
+    their first record to finite values, and with SPATIAL_SNOW they are
+    refused by that name."""
     build = build_frozen if config == "frozen" else build_heavy
-    gp, params, _, _, extras = build(1, 1, "cpu")
-    with pytest.raises(NotImplementedError, match="SPATIAL_FROST"):
-        model.make_step(params, gp.replace(spatial_frost=True), **extras)
-    # without FROZEN_SOIL the option has nothing to average
-    model.make_step(params, gp.replace(spatial_frost=True,
-                                       frozen_soil=False), **extras)
+    gp, params, stack, state, extras = build(1, 1, "cpu")
+    frost = gp.replace(spatial_frost=True)
+    _, outs = model.make_step(params, frost, **extras)(
+        state, {k: v[0] for k, v in stack.items()})
+    assert all(bool(torch.isfinite(v).all()) for v in outs.values())
+    with pytest.raises(NotImplementedError, match="spatial_snow"):
+        model.make_step(params, frost.replace(spatial_snow=True), **extras)
 
 
 def test_initial_state_refuses_spatial_frost():
+    """initial_state refused SPATIAL_FROST with FROZEN_SOIL until the
+    subarea average came: it now partitions the cold start's layer water
+    over the subareas, into more ice than a single area gives on a cold
+    start at the thaw edge."""
     gp = frozen_params(1).replace(spatial_frost=True)
     _, _, _, _, extras = build_frozen(1, 1, "cpu")
     domain = t_synthetic_domain(n_cell=1, n_band=2, with_glacier=True)
-    with pytest.raises(NotImplementedError, match="SPATIAL_FROST"):
-        initial_state(domain, gp, "cpu", geom=extras["geom"])
+    surf = [-0.5]
+    frost = initial_state(domain, gp, "cpu", surf_temp_init=surf,
+                          geom=extras["geom"])
+    one = initial_state(domain, gp.replace(spatial_frost=False), "cpu",
+                        surf_temp_init=surf, geom=extras["geom"])
+    assert torch.equal(frost.node_temp, one.node_temp)
+    assert not torch.equal(frost.ice, one.ice)

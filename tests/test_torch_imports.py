@@ -32,7 +32,9 @@ print("ok", len(out))
                                           ("lakes", 186),
                                           ("dist_prcp", 150),
                                           ("heavy_nolakes", 155),
-                                          ("heavy", 191)])
+                                          ("heavy", 191),
+                                          ("frozen_exp", 151),
+                                          ("frozen_quick", 151)])
 def test_port_imports_and_steps_without_jax(config, n_out):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, config], cwd=ROOT,

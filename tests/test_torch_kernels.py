@@ -18,8 +18,9 @@ import pytest
 import torch
 
 from vic_tpu_torch import kernels
+from vic_tpu_torch import entry
 from vic_tpu_torch.entry import (CONFIGS, build_frozen, build_light,
-                                 frozen_params)
+                                 frozen_exp_params, frozen_params)
 from vic_tpu_torch.kernels import build
 from vic_tpu_torch.model import make_step
 from vic_tpu_torch.model import OVER_TOL_F32
@@ -172,12 +173,12 @@ def test_lane_inputs_are_strided_views_of_the_inputs():
 
 
 def test_make_step_refuses_node_counts_the_sweep_kernel_lacks():
-    """On CUDA tensors a node count K6 is not built for is refused by name
-    when the step is built."""
-    gp = frozen_params(1).replace(nnode=6)
+    """On CUDA tensors a node count K6 does not run, above the reference's
+    MAX_NODES = 50, is refused by name when the step is built."""
+    gp = frozen_params(1).replace(nnode=51)
     _, params, _, _, _ = build_frozen(1, 1, "cpu")
     on_card = SimpleNamespace(alpha=SimpleNamespace(is_cuda=True))
-    with pytest.raises(NotImplementedError, match="nnode=6"):
+    with pytest.raises(NotImplementedError, match="nnode=51"):
         make_step(params, gp, geom=on_card)
 
 
@@ -241,10 +242,40 @@ def test_dry_surface_inputs_are_the_kernels_rows():
         assert rows[-1].startswith("kNum") and len(rows) - 1 == len(group)
 
 
+def test_fusion_inputs_are_the_kernels_rows():
+    """FROZEN_SOIL on QUICK_FLUX hands K5 the fusion inputs
+    (kernels.FD_SURFACE_INPUTS, as many as csrc/surface_brent.cuh's FdIn
+    counts) and the frozen-soil mask, on the frozen_quick step's lanes."""
+    captured = []
+    orig = surface.surface_brent_plain
+    surface.surface_brent_plain = lambda *a, **k: (captured.append(k),
+                                                   orig(*a, **k))[1]
+    try:
+        gp, params, stack, state, extras = CONFIGS["frozen_quick"](2, 1,
+                                                                   "cpu")
+        make_step(params, gp, **extras)(state,
+                                        {k: v[0] for k, v in stack.items()})
+    finally:
+        surface.surface_brent_plain = orig
+    eb = captured[0]["eb_kwargs"]
+    assert eb["frozen_soil"] and eb.get("fd_solve") is None
+    lanes = state.swq.shape
+    for k in kernels.FD_SURFACE_INPUTS:
+        assert eb[k].dtype == torch.float32 and \
+            torch.broadcast_shapes(eb[k].shape, lanes) == lanes, k
+    assert eb["fs_active"].dtype == torch.bool
+    header = (build.CSRC / "surface_brent.cuh").read_text()
+    body = re.search(r"enum FdIn \{([^}]*)\}", header).group(1)
+    rows = [w.strip() for w in body.split(",") if w.strip()]
+    assert rows[-1].startswith("kNum") and \
+        len(rows) - 1 == len(kernels.FD_SURFACE_INPUTS)
+
+
 def _captured_args(device, n_cell=64, names=tuple(PLAIN)[:5],
-                   config="light", record=0):
+                   config="light", record=0, build=None):
     """The first call of each kernel in `names` in the step of record
-    `record` of `config` on `device`."""
+    `record` of `config` (or of build(n_cell, n_rec, device)'s
+    configuration) on `device`."""
     captured = {}
     originals = {name: getattr(kernels, name) for name in names}
 
@@ -254,8 +285,8 @@ def _captured_args(device, n_cell=64, names=tuple(PLAIN)[:5],
             return fn(*args, **kwargs)
         return wrapper
 
-    gp, params, stack, state, extras = CONFIGS[config](n_cell, record + 1,
-                                                       device)
+    gp, params, stack, state, extras = (build or CONFIGS[config])(
+        n_cell, record + 1, device)
     step = make_step(params, gp, **extras)
     for r in range(record):
         state, _ = step(state, {k: v[r] for k, v in stack.items()})
@@ -317,6 +348,52 @@ def test_node_sweep_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("nnode", [3, 10, 50])
+def test_exp_trans_node_sweep_kernel_matches_plain(cuda, nnode):
+    """K6 on EXP_TRANS nodes at 3, 10 (the frozen_exp configuration's
+    count) and 50 nodes, on the first sweep call of the frozen_exp step's
+    third record with its node count replaced: the same sweep count,
+    fallback counts and node temperatures within 1e-4 C."""
+    def build_nodes(n_cell, n_rec, device):
+        gp = frozen_exp_params(n_rec).replace(nnode=nnode)
+        return entry._build(gp, n_cell, n_rec, device)
+
+    a, kw = _captured_args(cuda, names=("node_sweep",), record=2,
+                           build=build_nodes)["node_sweep"]
+    assert kw["exp_trans"] and a[0].shape[-1] == nnode
+    before = kernels.launches["node_sweep"]
+    got = kernels.node_sweep(*a, **kw)
+    ref = solve_t_profile_explicit_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["node_sweep"] == before + 1
+    assert int(got.iterations) == ref.iterations
+    assert torch.equal(got.fbcount, ref.fbcount)
+    assert float((got.temp - ref.temp).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_surface_brent_kernel_with_fusion_matches_plain(cuda):
+    """K5 with FROZEN_SOIL's fusion term, on the frozen_quick step's second
+    record (top-layer ice on some lanes): the same flags, roots within the
+    final bracket width."""
+    a, kw = _captured_args(cuda, names=("surface_brent",),
+                           config="frozen_quick", record=1)["surface_brent"]
+    eb = kw["eb_kwargs"]
+    assert eb["frozen_soil"] and bool((eb["ice0_vol"] > 0).any())
+    before = kernels.launches["surface_brent"]
+    got = kernels.surface_brent(*a, **kw)
+    ref = surface_brent_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["surface_brent"] == before + 1
+    assert torch.equal(got.bracketed, ref.bracketed)
+    assert torch.equal(got.converged, ref.converged)
+    both = got.converged & ref.converged
+    tol = 2.0 * (2.0 * torch.finfo(torch.float32).eps * got.root.abs() + 1e-4)
+    assert bool(((got.root - ref.root).abs() <= tol)[both].all())
+    assert torch.equal(got.root[~got.bracketed], ref.root[~ref.bracketed])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name", ["glacier_brent", "runoff_hourly"])
 def test_cell_inputs_match_their_lane_copies(cuda, name):
     """Every input but the first (which keeps the lanes' shape) made the
@@ -344,8 +421,8 @@ def test_cell_inputs_match_their_lane_copies(cuda, name):
 
 @pytest.mark.gpu
 def test_node_sweep_refuses_node_counts_it_lacks(cuda):
-    t = torch.zeros(2, 4, 6, device=cuda)
-    with pytest.raises(ValueError, match="nnode=6"):
+    t = torch.zeros(2, 4, 51, device=cuda)
+    with pytest.raises(ValueError, match="nnode=51"):
         kernels.node_sweep(t, t[..., 0], t, t, t, t, None,
                            torch.ones(2, dtype=torch.bool, device=cuda),
                            nlayer=3, dt_sec=86400.0, noflux=False,

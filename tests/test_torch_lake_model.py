@@ -140,8 +140,8 @@ def test_wetland_host_is_the_first_candidate_lane():
 def test_heavy_lake_options_are_refused(flags, match):
     """LAKES with BLOWING, on finite-difference nodes and with DIST_PRCP
     were refused (`match` named the refusal) until the heavy configuration
-    came: each now builds its step, and with FROZEN_SOIL's SPATIAL_FROST it
-    is refused by that name."""
+    came: each now builds its step, with FROZEN_SOIL's SPATIAL_FROST too;
+    with SPATIAL_SNOW it is refused by that name."""
     from vic_tpu_torch.entry import build_frozen
     _, params, _, _, extras = build_frozen(1, 1, "cpu")
     geom = extras["geom"]
@@ -154,8 +154,10 @@ def test_heavy_lake_options_are_refused(flags, match):
     except NotImplementedError as err:
         pytest.fail(f"{match} is refused again: {err}")
     frost = gp.replace(frozen_soil=True, quick_flux=False, spatial_frost=True)
-    with pytest.raises(NotImplementedError, match="SPATIAL_FROST"):
-        model.make_step(params, frost, geom=geom, lake_params=lp)
+    model.make_step(params, frost, geom=geom, lake_params=lp)
+    with pytest.raises(NotImplementedError, match="spatial_snow"):
+        model.make_step(params, frost.replace(spatial_snow=True), geom=geom,
+                        lake_params=lp)
 
 
 def test_lake_params_without_lakes_are_refused():

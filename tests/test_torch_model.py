@@ -181,15 +181,18 @@ def test_params_from_jax_objects_run_identically():
     dict(spatial_snow=True), dict(close_energy=True, quick_flux=False,
                                   lakes=True),
     dict(lakes=True), dict(corrprec=True), dict(continue_on_error=True),
-    dict(exp_trans=True)],
+    dict(exp_trans=True, frozen_soil=True)],
     ids=lambda d: next(iter(d)))
 def test_make_step_refuses_options_outside_the_slice(flag):
     gp = light_params(1).replace(**flag)
     _, params, _, _, extras = build_frozen(1, 1, "cpu")
     # CLOSE_ENERGY steps on finite-difference nodes; every combination with
-    # LAKES is refused for the missing lake_params
+    # LAKES is refused for the missing lake_params; EXP_TRANS steps, but
+    # not FROZEN_SOIL without its node geometry, which these calls do not
+    # pass
     on_nodes = "close_energy" in flag
     match = "lakes without lake_params" if flag.get("lakes") \
+        else "frozen_soil without geom" if flag.get("exp_trans") \
         else next(iter(flag))
     with pytest.raises(NotImplementedError, match=match):
         model.make_step(params, gp, geom=extras["geom"] if on_nodes

@@ -20,7 +20,12 @@ every final-state field ("state/<name>"), compressed, of
   day -> heavy_nolakes_16x8.npz;
 - heavy: `__graft_entry__._build(heavy=True)`'s flags, LAKES included, its
   lake parameters cast to float32 as __graft_entry__ casts them, on the
-  same split forcing, one day -> heavy_16x8.npz.
+  same split forcing, one day -> heavy_16x8.npz;
+- frozen_exp: the frozen configuration on 10 EXP_TRANS nodes with
+  SPATIAL_FROST's 10 frost subareas (vic_tpu_torch.entry.frozen_exp_params)
+  -> frozen_exp_16x4.npz;
+- frozen_quick: the light configuration with FROZEN_SOIL on QUICK_FLUX's 3
+  nodes (vic_tpu_torch.entry.frozen_quick_params) -> frozen_quick_16x4.npz.
 
 - driver: a run of the main path in the reference's file formats, 16
   cells x 12 daily records from 1995-09-25 with the glacier mass-balance
@@ -34,7 +39,8 @@ The PyTorch port is checked against these files by tests/test_torch_golden*.py
 and by chip_smoke.py's reference phases.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py \
-        [light|frozen|blowing_close|lakes|heavy_nolakes|heavy|driver]
+        [light|frozen|blowing_close|lakes|heavy_nolakes|heavy|frozen_exp|
+         frozen_quick|driver]
 """
 from __future__ import annotations
 
@@ -51,6 +57,12 @@ BLOWING_CLOSE_FIXTURE = os.path.join(FIXTURE_DIR, "blowing_close_16x4.npz")
 LAKES_FIXTURE = os.path.join(FIXTURE_DIR, "lakes_16x4.npz")
 HEAVY_NOLAKES_FIXTURE = os.path.join(FIXTURE_DIR, "heavy_nolakes_16x8.npz")
 HEAVY_FIXTURE = os.path.join(FIXTURE_DIR, "heavy_16x8.npz")
+FROZEN_EXP_FIXTURE = os.path.join(FIXTURE_DIR, "frozen_exp_16x4.npz")
+FROZEN_QUICK_FIXTURE = os.path.join(FIXTURE_DIR, "frozen_quick_16x4.npz")
+# the flags frozen_exp and frozen_quick set on the frozen configuration's
+FROZEN_EXP_FLAGS = dict(nnode=10, exp_trans=True, spatial_frost=True,
+                        frost_subareas=10, frost_slope=2.0)
+FROZEN_QUICK_FLAGS = dict(quick_flux=True, nnode=3, implicit=False)
 DRIVER_DIR = os.path.join(FIXTURE_DIR, "driver")
 DRIVER_FIXTURE = os.path.join(FIXTURE_DIR, "driver_16x12.npz")
 DRIVER_RUN = dict(n_cell=16, start=(1995, 9, 25), n_day=12,
@@ -79,10 +91,11 @@ def light_reference(n_cell: int = N_CELL, n_rec: int = N_REC) -> dict:
     return _arrays(final, outs)
 
 
-def frozen_inputs(n_cell: int, n_rec: int, frozen: bool = True):
+def frozen_inputs(n_cell: int, n_rec: int, frozen: bool = True, **flags):
     """vic_tpu's (gp, params, stack, state, geom) of the frozen-soil
     configuration (finite-difference nodes without frozen soil if not
-    `frozen`); geom holds numpy float64 arrays."""
+    `frozen`), with the GlobalParams `flags` replaced (FROZEN_EXP_FLAGS,
+    FROZEN_QUICK_FLAGS); geom holds numpy float64 arrays."""
     sys.path.insert(0, ROOT)
     from vic_tpu.config import GlobalParams
     from vic_tpu.model import make_forcing_stack
@@ -96,7 +109,8 @@ def frozen_inputs(n_cell: int, n_rec: int, frozen: bool = True):
                       startday=1, nrecs=n_rec, full_energy=True,
                       glacier_id=99, snow_band=2, frozen_soil=frozen,
                       quick_flux=False, nnode=5, implicit=True,
-                      soil_sweep_maxiter=10, fd_affine_residual=True)
+                      soil_sweep_maxiter=10,
+                      fd_affine_residual=True).replace(**flags)
     domain = synthetic_domain(n_cell=n_cell, n_band=2, with_glacier=True)
     geom = build_node_geometry(domain.soil, gp)
     stack = make_forcing_stack(
@@ -106,18 +120,29 @@ def frozen_inputs(n_cell: int, n_rec: int, frozen: bool = True):
             initial_state(domain, gp, geom=geom), geom)
 
 
-def frozen_reference(n_cell: int = N_CELL, n_rec: int = N_REC) -> dict:
-    """As light_reference, for the frozen-soil configuration. The node
-    geometry enters the jitted run as numpy constants, as `make_step`'s
-    callers build it."""
+def frozen_reference(n_cell: int = N_CELL, n_rec: int = N_REC,
+                     **flags) -> dict:
+    """As light_reference, for the frozen-soil configuration (with the
+    GlobalParams `flags` replaced). The node geometry enters the jitted run
+    as numpy constants, as `make_step`'s callers build it."""
     import jax
     jax.config.update("jax_enable_x64", False)
-    gp, params, stack, state, geom = frozen_inputs(n_cell, n_rec)
+    gp, params, stack, state, geom = frozen_inputs(n_cell, n_rec, **flags)
     from vic_tpu.model import run
 
     final, outs = jax.jit(lambda s, f: run(s, f, params, gp, geom=geom))(
         state, stack)
     return _arrays(final, outs)
+
+
+def frozen_exp_reference(n_cell: int = N_CELL, n_rec: int = N_REC) -> dict:
+    """As light_reference, for the frozen_exp configuration."""
+    return frozen_reference(n_cell, n_rec, **FROZEN_EXP_FLAGS)
+
+
+def frozen_quick_reference(n_cell: int = N_CELL, n_rec: int = N_REC) -> dict:
+    """As light_reference, for the frozen_quick configuration."""
+    return frozen_reference(n_cell, n_rec, **FROZEN_QUICK_FLAGS)
 
 
 def blowing_close_inputs(n_cell: int, n_rec: int):
@@ -306,6 +331,9 @@ def main(which: str = "light"):
                   "heavy_nolakes": (HEAVY_NOLAKES_FIXTURE,
                                     heavy_nolakes_reference),
                   "heavy": (HEAVY_FIXTURE, heavy_reference),
+                  "frozen_exp": (FROZEN_EXP_FIXTURE, frozen_exp_reference),
+                  "frozen_quick": (FROZEN_QUICK_FIXTURE,
+                                   frozen_quick_reference),
                   "driver": (DRIVER_FIXTURE, driver_reference)}[which]
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(path, **make())

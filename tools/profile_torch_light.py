@@ -3,7 +3,8 @@
     python tools/profile_torch_light.py [--config light|frozen|
                                                   blowing_close|lakes|
                                                   dist_prcp|heavy_nolakes|
-                                                  heavy]
+                                                  heavy|frozen_exp|
+                                                  frozen_quick]
                                         [--cells 32768] [--records 8]
                                         [--repeats 5] [--out FILE.json]
 
@@ -64,6 +65,8 @@ CONFIG_CALLS = {
                       "canopy_air_step", "storm_transfer", "compute_zwt"),
 }
 CONFIG_CALLS["heavy"] = CONFIG_CALLS["heavy_nolakes"] + CONFIG_CALLS["lakes"]
+CONFIG_CALLS["frozen_exp"] = CONFIG_CALLS["frozen"]
+CONFIG_CALLS["frozen_quick"] = ("estimate_layer_ice", "find_zero_fronts")
 # inside lake_step (physics/lake.py): solve_lake, within it the open-water
 # column (K10), the snow-on-ice update (K12 inside) and the under-ice
 # column (K11); every depth bisection (K13) of solve_lake and the water

@@ -2,13 +2,20 @@
 //
 // A line-for-line copy of vic_tpu_torch/physics/frozen_soil
 // .solve_t_profile_explicit_plain for ONE lane (frozen_soil.c:305-494 with
-// the reference's layer-array ice quirk): the finite-difference coefficients,
+// the reference's layer-array ice quirk): the finite-difference coefficients
+// on linear or, with exp_trans, EXP_TRANS node spacing,
 // one sweep over nodes 1..nn-2 in ascending order (closed-form root of the
 // quirk's linear residual for nodes < nlayer, the first bracketing pair of
 // six and 16 bisection steps below, both only for frozen nodes where frozen
 // soil is active), the no-flux bottom node, the post-sweep cold-nose fix and
 // the revert of an unconverged lane. Whether another sweep runs is decided
 // over the whole batch (node_sweep.cu), as the plain loop decides it.
+//
+// A lane holds up to CAP nodes. EXACT instances run exactly CAP nodes with
+// every node loop unrolled, so the lane's arrays live in registers (the
+// 5-node instance of the frozen and heavy configurations); the others run
+// the launch's node count nn <= CAP with the loops rolled, the arrays in
+// local memory.
 #pragma once
 
 #include <cstdint>
@@ -39,10 +46,15 @@ struct SweepArgs {
   const float* solver_max_moist;
   const float* solver_bubble;
   const float* solver_expt;
+  // EXP_TRANS: Zsum + 1 ([n_cell, nn]), 4*bexp^2 and bexp ([n_cell])
+  const float* zp1;
+  const float* exp_a;
+  const float* bexp;
   const float* surf_temp;      // [n] node-0 boundary condition
   const uint8_t* fs_active;    // [n_cell]
-  int n, h, nlayer, frozen, noflux, max_sweeps;
-  float dt, two_dt;            // dt_sec and the float of 2.0 * dt_sec
+  int n, h, nn, nlayer, frozen, noflux, exp_trans, max_sweeps;
+  // dt_sec and the floats of 2.0 * dt_sec and 4.0 * dt_sec
+  float dt, two_dt, four_dt;
   // scratch carried between the sweep launches
   float* t_work;               // [n, nn]
   int32_t* fb_work;            // [n, nn]
@@ -62,39 +74,82 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return fmaxf(a, b);
 }
 
-template <int NN>
+// Node loops unroll fully on an EXACT lane (unroll count CAP) and not at all
+// on the others (1).
+template <int CAP, bool EXACT>
 struct NodeLane {
-  float t0[NN], A[NN], B[NN], C[NN], D[NN], E[NN], ice0[NN], moist[NN];
-  float mmax[NN], bub[NN], expt[NN];
+  float t0[CAP], A[CAP], B[CAP], C[CAP], D[CAP], E[CAP], ice0[CAP];
+  float moist[CAP], mmax[CAP], bub[CAP], expt[CAP];
   float b_last;   // no-flux coefficient of the bottom node
   bool fs;        // frozen soil active on this lane
+  bool exp_trans;
+  int nn_;
+
+  // the lane's node count
+  __device__ __forceinline__ int nn() const { return EXACT ? CAP : nn_; }
 
   __device__ void load(const SweepArgs& a, int i) {
+    nn_ = a.nn;
+    const int nn = this->nn();
     const int64_t cell = i / a.h;
-    float kap[NN];
-#pragma unroll
-    for (int j = 0; j < NN; ++j) {
-      const int64_t k = static_cast<int64_t>(i) * NN + j;
-      const int64_t g = cell * NN + j;
+    exp_trans = a.exp_trans != 0;
+    float kap[CAP];
+#pragma unroll (EXACT ? CAP : 1)
+    for (int j = 0; j < nn; ++j) {
+      const int64_t k = static_cast<int64_t>(i) * nn + j;
+      const int64_t g = cell * nn + j;
       t0[j] = a.t0[k];
       kap[j] = a.kappa[k];
       ice0[j] = a.ice0[k];
       moist[j] = a.moist[k];
-      const float alpha = a.alpha[g];
-      A[j] = a.cs[k] * alpha * alpha;
-      C[j] = a.two_dt * kap[j] * alpha / a.gamma[g];
-      D[j] = a.two_dt * kap[j] * alpha / a.beta[g];
+      if (exp_trans) {
+        // the coefficients on the exponential grid (frozen_soil.c:190-212)
+        const float zp1 = a.zp1[g];
+        A[j] = a.exp_a[cell] * a.cs[k] * zp1 * zp1;
+        C[j] = a.four_dt * kap[j];
+        D[j] = a.two_dt * kap[j] * a.bexp[cell];
+      } else {
+        const float alpha = a.alpha[g];
+        A[j] = a.cs[k] * alpha * alpha;
+        C[j] = a.two_dt * kap[j] * alpha / a.gamma[g];
+        D[j] = a.two_dt * kap[j] * alpha / a.beta[g];
+      }
       E[j] = a.e_coef[g];
       mmax[j] = a.solver_max_moist[g];
       bub[j] = a.solver_bubble[g];
       expt[j] = a.solver_expt[g];
     }
     // kappa[j+1] - kappa[j-1], wrapping at the ends like torch.roll
-#pragma unroll
-    for (int j = 0; j < NN; ++j)
-      B[j] = (kap[(j + 1) % NN] - kap[(j + NN - 1) % NN]) * a.dt;
-    b_last = (kap[NN - 1] - kap[NN - 2]) * a.dt;
+#pragma unroll (EXACT ? CAP : 1)
+    for (int j = 0; j < nn; ++j)
+      B[j] = (kap[(j + 1) % nn] - kap[(j + nn - 1) % nn]) * a.dt;
+    b_last = (kap[nn - 1] - kap[nn - 2]) * a.dt;
     fs = a.frozen != 0 && a.fs_active[cell] != 0;
+  }
+
+  // the C/D terms of the residual at node j (soil_thermal_eqn.c)
+  __device__ __forceinline__ float flux2(int j, float t, float tl,
+                                         float tu) const {
+    if (exp_trans) return C[j] * (tl - 2.0f * t + tu) - D[j] * (tl - tu);
+    return C[j] * (tl - t) - D[j] * (t - tu);
+  }
+
+  // the denominator of the closed-form update at node j
+  __device__ __forceinline__ float denom(int j) const {
+    return exp_trans ? A[j] + 2.0f * C[j] : A[j] + C[j] + D[j];
+  }
+
+  // the unfrozen closed-form update at node j with the B coefficient b
+  // (frozen_soil.c:390-392)
+  __device__ __forceinline__ float closed_form(int j, float tl, float tu,
+                                               float b) const {
+    if (exp_trans)
+      return (A[j] * t0[j] + b * (tl - tu) + C[j] * (tl + tu) -
+              D[j] * (tl - tu) + E[j] * (0.0f - ice0[j])) /
+             denom(j);
+    return (A[j] * t0[j] + b * (tl - tu) + C[j] * tl + D[j] * tu +
+            E[j] * (0.0f - ice0[j])) /
+           denom(j);
   }
 
   // SoilThermalEqn at node j (soil_thermal_eqn.c) with the node-1 cold-nose
@@ -108,7 +163,7 @@ struct NodeLane {
       ice = fminf(iw, mmax[j]);
     }
     const float f1 = B[j] * (tl - tu);
-    const float f2 = C[j] * (tl - t) - D[j] * (t - tu);
+    const float f2 = flux2(j, t, tl, tu);
     float val = -A[j] * (t - t0[j]) + f1 + f2 + E[j] * (ice - ice0[j]);
     if (j == 1 && fabsf(tl - tu) > 5.0f && t < tl && t < tu && f1 < 0.0f &&
         f2 > 0.0f && fabsf(f1) > fabsf(f2))
@@ -119,14 +174,12 @@ struct NodeLane {
   // one Gauss-Seidel sweep in place; adds the per-node fallbacks to fb and
   // returns the largest |change| (NaN if any change is NaN)
   __device__ float sweep(float* T, int32_t* fb, int nlayer, bool noflux) const {
+    const int nn = this->nn();
     float maxdiff = 0.0f;
-#pragma unroll
-    for (int j = 1; j < NN - 1; ++j) {
+#pragma unroll (EXACT ? CAP : 1)
+    for (int j = 1; j < nn - 1; ++j) {
       const float old_t = T[j], tl = T[j + 1], tu = T[j - 1];
-      const float denom = A[j] + C[j] + D[j];
-      const float t_lin = (A[j] * t0[j] + B[j] * (tl - tu) + C[j] * tl +
-                           D[j] * tu + E[j] * (0.0f - ice0[j])) /
-                          denom;
+      const float t_lin = closed_form(j, tl, tu, B[j]);
       float t_new = t_lin;
       if (old_t < 0.0f && fs) {
         bool bracketed;
@@ -137,8 +190,8 @@ struct NodeLane {
           t_root = t_lin;
           if (j == 1) {
             const float f1 = B[j] * (tl - tu);
-            const float r1 = t_lin - f1 / denom;
-            const float f2_r1 = C[j] * (tl - r1) - D[j] * (r1 - tu);
+            const float r1 = t_lin - f1 / denom(j);
+            const float f2_r1 = flux2(j, r1, tl, tu);
             if (fabsf(tl - tu) > 5.0f && r1 < tl && r1 < tu && f1 < 0.0f &&
                 f2_r1 > 0.0f && fabsf(f1) > fabsf(f2_r1))
               t_root = r1;
@@ -187,11 +240,9 @@ struct NodeLane {
     }
     if (noflux) {
       // no-flux bottom: the node mirrors itself (B_last)
-      constexpr int j = NN - 1;
-      const float old_t = T[j], tl = T[j], tu = T[j - 1];
-      const float t_lin = (A[j] * t0[j] + b_last * (tl - tu) + C[j] * tl +
-                           D[j] * tu + E[j] * (0.0f - ice0[j])) /
-                          (A[j] + C[j] + D[j]);
+      const int j = nn - 1;
+      const float old_t = T[j];
+      const float t_lin = closed_form(j, T[j], T[j - 1], b_last);
       T[j] = t_lin;
       maxdiff = nan_max(maxdiff, fabsf(old_t - t_lin));
     }
@@ -200,27 +251,28 @@ struct NodeLane {
 };
 
 // The initial iterate: the old temperatures with the new node-0 boundary
-// condition (frozen_soil.c:305)
-template <int NN>
+// condition (frozen_soil.c:305); nn nodes
+template <int CAP, bool EXACT>
 __device__ __forceinline__ void initial_profile(const SweepArgs& a, int i,
-                                                float* T) {
+                                                int nn, float* T) {
   T[0] = a.surf_temp[i];
-#pragma unroll
-  for (int j = 1; j < NN; ++j) T[j] = a.t0[static_cast<int64_t>(i) * NN + j];
+#pragma unroll (EXACT ? CAP : 1)
+  for (int j = 1; j < nn; ++j)
+    T[j] = a.t0[static_cast<int64_t>(i) * nn + j];
 }
 
 // After the last sweep: the runaway-cold-nose fix (frozen_soil.c:470-484,
 // the reference's old/new mix, ascending j with the already-fixed T[j-1])
 // and the whole-profile revert of a lane whose last sweep moved more than
 // the tolerance (:486-494). T, fb: the lane's final iterate and counts.
-template <int NN>
+template <int CAP, bool EXACT>
 __device__ __forceinline__ void finish_profile(const SweepArgs& a, int i,
-                                               float* T, int32_t* fb,
+                                               int nn, float* T, int32_t* fb,
                                                float lastdiff) {
-  float tlast[NN];
-  initial_profile<NN>(a, i, tlast);
-#pragma unroll
-  for (int j = 1; j < NN - 1; ++j) {
+  float tlast[CAP];
+  initial_profile<CAP, EXACT>(a, i, nn, tlast);
+#pragma unroll (EXACT ? CAP : 1)
+  for (int j = 1; j < nn - 1; ++j) {
     const bool nose = tlast[j - 1] - tlast[j] > 0.0f &&
                       tlast[j + 1] - T[j] > 0.0f &&
                       (T[j - 1] - T[j]) - (tlast[j - 1] - tlast[j]) > 0.0f &&
@@ -231,8 +283,8 @@ __device__ __forceinline__ void finish_profile(const SweepArgs& a, int i,
     }
   }
   if (lastdiff > kSweepTol) {
-#pragma unroll
-    for (int j = 0; j < NN; ++j) {
+#pragma unroll (EXACT ? CAP : 1)
+    for (int j = 0; j < nn; ++j) {
       T[j] = tlast[j];
       fb[j] += 1;
     }

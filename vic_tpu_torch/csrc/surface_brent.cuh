@@ -5,12 +5,13 @@
 // coefficients, ARNO beta, the transpiration split) and the INCLUDE_SNOW
 // fold with its blowing-snow flux: func_surf_energy_bal.c:7-397. Ground heat
 // comes either from estimate_T1 (QUICK_FLUX, operator(); K5) or from the
-// finite-difference node profile at Ts, nodes 1 and 2, with the frozen-soil
-// fusion of the top node pair (fd(); the profile solved at Ts in K7,
-// interpolated between two probes in K14). With DIST (DIST_PRCP) the ET is
-// evaluated on the wet and the dry column, and the latent term sees
-// mu*evap_wet + (1-mu)*evap_dry (canopy_evap.c:124-206). The terms that do
-// not depend on Ts are formed once per lane by init() and init_fd(), in the
+// finite-difference node profile at Ts, nodes 1 and 2 (fd(); the profile
+// solved at Ts in K7, interpolated between two probes in K14); with
+// FROZEN_SOIL either adds the fusion of the top node pair (init_fusion).
+// With DIST (DIST_PRCP) the ET is evaluated on the wet and the dry column,
+// and the latent term sees mu*evap_wet + (1-mu)*evap_dry
+// (canopy_evap.c:124-206). The terms that do not depend on Ts are formed
+// once per lane by init(), init_fusion() and init_fd(), in the
 // plain version's operation order (divisions by a host scalar as PyTorch
 // does them on the card, physics.cuh), so every evaluation repeats the plain
 // version's arithmetic on this lane.
@@ -53,8 +54,8 @@ constexpr int kCase1Dry = kNumMask;
 // K5's float inputs and masks
 constexpr int kNumSurfaceIn = kDryLayerIn + kNumDryLayerIn;
 constexpr int kNumSurfaceMask = kNumMask + 1;
-// the fusion inputs of K7 and K14 follow K5's (kernels.FD_SURFACE_INPUTS),
-// and their frozen-soil mask K5's masks
+// the fusion inputs follow K5's (kernels.FD_SURFACE_INPUTS), and their
+// frozen-soil mask K5's masks: K5, K7 and K14 all take them
 enum FdIn { kMoist0Vol, kMaxMoist0Vol, kIce0Vol, kBubble0, kExpt0,
             kNumFdIn };
 constexpr int kFsActive = kNumSurfaceMask;
@@ -218,12 +219,12 @@ struct SurfaceResidual {
     }
   }
 
-  // the finite-difference terms (K7): FROZEN_SOIL's fusion when frozen
-  __device__ void init_fd(const LaneInputs& inputs, LaneRow row, bool frz) {
+  // FROZEN_SOIL's fusion terms, read when frz (K5, K7, K14)
+  __device__ void init_fusion(const LaneInputs& inputs, LaneRow row,
+                              bool frz) {
     auto fd_in = [&](int k) {
       return lane_f(inputs, kNumSurfaceIn + k, row);
     };
-    k2d2 = lane_f(inputs, kKappa2, row) / lane_f(inputs, kD2, row);
     frozen = frz;
     fs_active = lane_m(inputs, kFsActive, row);
     moist0_vol = fd_in(kMoist0Vol);
@@ -231,6 +232,13 @@ struct SurfaceResidual {
     ice0_vol = fd_in(kIce0Vol);
     bubble0 = fd_in(kBubble0);
     expt0 = fd_in(kExpt0);
+  }
+
+  // the finite-difference terms (K7, K14): the lower flux's kappa2/d2 and
+  // the fusion terms
+  __device__ void init_fd(const LaneInputs& inputs, LaneRow row, bool frz) {
+    k2d2 = lane_f(inputs, kKappa2, row) / lane_f(inputs, kD2, row);
+    init_fusion(inputs, row, frz);
   }
 
   // evap.canopy_evap's total on column `col`, mm/step (canopy_evap.c:46-445)

@@ -21,6 +21,13 @@
 - `build_heavy`: the heavy configuration of
   `__graft_entry__._build(heavy=True)` itself: `build_heavy_nolakes` with
   LAKES, one lake per cell on the synthetic parabolic basin.
+- `build_frozen_exp`: frozen soil as cold-region users set it up: the
+  frozen configuration on 10 EXP_TRANS (exponentially spaced) nodes with
+  SPATIAL_FROST's 10 frost subareas over +-1 C (`vic_tpu/config.py:126-128`
+  defaults).
+- `build_frozen_quick`: the light configuration with FROZEN_SOIL on
+  QUICK_FLUX's 3 nodes: the fusion of the top node pair in the surface
+  balance, the layer ice from [Ts, T1, T2].
 
 All run on the seeded synthetic domain and forcing, on the CUDA device
 unless the caller names another one. Each returns (gp, params, stack,
@@ -82,6 +89,16 @@ def heavy_params(n_rec: int) -> GlobalParams:
     return heavy_nolakes_params(n_rec).replace(lakes=True)
 
 
+def frozen_exp_params(n_rec: int) -> GlobalParams:
+    return frozen_params(n_rec).replace(
+        nnode=10, exp_trans=True, spatial_frost=True, frost_subareas=10,
+        frost_slope=2.0)
+
+
+def frozen_quick_params(n_rec: int) -> GlobalParams:
+    return light_params(n_rec).replace(frozen_soil=True, nnode=3)
+
+
 # the forcing offsets that take the synthetic forcing to blowing snow and
 # to snow-laden overstory canopies, as vic_tpu's own tests reach those
 # paths (tests/test_blowing_snow.py:85, tests/test_close_energy.py:22)
@@ -130,15 +147,15 @@ def heavy_forcing(n_rec: int, n_cell: int, dt_hours: int = 3):
 def _build(gp, n_cell: int, n_rec: int, device, zwt: bool = False,
            forcing=synthetic_forcing):
     """The synthetic domain under `gp` on `device`: its node geometry with
-    QUICK_FLUX off, its lakes' parameters with LAKES, its water-table curves
-    if `zwt`."""
+    QUICK_FLUX off or FROZEN_SOIL on (as the driver and vic_tpu build it),
+    its lakes' parameters with LAKES, its water-table curves if `zwt`."""
     domain = synthetic_domain(n_cell=n_cell, n_band=2, with_glacier=True)
     params = prepare_domain(domain, gp, device)
     ax = make_time_axis(1995, 1, 1, 0, n_rec, gp.dt)
     stack = make_forcing_stack(forcing(n_rec, n_cell, dt_hours=gp.dt), ax,
                                device)
-    geom = (None if gp.quick_flux
-            else build_node_geometry(domain.soil, gp).to(device))
+    geom = (build_node_geometry(domain.soil, gp).to(device)
+            if gp.frozen_soil or not gp.quick_flux else None)
     lake_params = (lake_params_from_numpy(make_lake_params(domain.soil, gp),
                                           device) if gp.lakes else None)
     zwt_curves = (zwt_curves_to(build_zwt_curves(domain.soil), device)
@@ -201,9 +218,23 @@ def build_heavy(n_cell: int, n_rec: int, device="cuda"):
                   forcing=heavy_forcing)
 
 
+def build_frozen_exp(n_cell: int, n_rec: int, device="cuda"):
+    """The frozen configuration on 10 EXP_TRANS nodes with SPATIAL_FROST on
+    `device`, on the light forcing; extras["geom"] is its NodeGeometry."""
+    return _build(frozen_exp_params(n_rec), n_cell, n_rec, device)
+
+
+def build_frozen_quick(n_cell: int, n_rec: int, device="cuda"):
+    """The light configuration with FROZEN_SOIL on QUICK_FLUX nodes on
+    `device`, on the light forcing; extras["geom"] is its 3-node QUICK_FLUX
+    NodeGeometry (the layer-ice samples and D1/D2)."""
+    return _build(frozen_quick_params(n_rec), n_cell, n_rec, device)
+
+
 # configuration name -> the function that builds it, for callers that
 # take the name
 CONFIGS = {"light": build_light, "frozen": build_frozen,
            "blowing_close": build_blowing_close, "lakes": build_lakes,
            "dist_prcp": build_dist_prcp, "heavy_nolakes": build_heavy_nolakes,
-           "heavy": build_heavy}
+           "heavy": build_heavy, "frozen_exp": build_frozen_exp,
+           "frozen_quick": build_frozen_quick}

@@ -244,13 +244,14 @@ def surface_inputs(eb_kwargs):
     return named
 
 
-def _surface_lanes(name, lo, hi, active, eb_kwargs, fd, extra=()):
-    """The inputs of K5 (fd False) or K7 and K14 (fd True) from the
-    residual's keyword arguments, as _lane_inputs passes them, the float
-    inputs `extra` ((name, tensor, dtype, nl) items) last: (lanes shape,
-    layers, DIST_PRCP's dry column read, the views to keep alive, float
-    pointers, strides, count, mask pointers, strides, count). Without
-    DIST_PRCP the dry column's inputs are zeros the kernels never read."""
+def _surface_lanes(name, lo, hi, active, eb_kwargs, extra=()):
+    """The inputs of K5, K7 and K14 from the residual's keyword arguments,
+    as _lane_inputs passes them, the float inputs `extra` ((name, tensor,
+    dtype, nl) items) last: (lanes shape, layers, DIST_PRCP's dry column
+    read, the views to keep alive, float pointers, strides, count, mask
+    pointers, strides, count). Without DIST_PRCP the dry column's inputs,
+    and without FROZEN_SOIL the fusion's, are zeros the kernels never
+    read."""
     device = lo.device
     if device.type != "cuda":
         raise ValueError(f"{name}: CUDA tensors required, got {device}")
@@ -270,15 +271,12 @@ def _surface_lanes(name, lo, hi, active, eb_kwargs, fd, extra=()):
               + [(k, named[k], f32, 0) for k in DRY_INPUTS]
               + [(k, named[k], f32, nl) for k in DRY_LAYER_INPUTS])
     masks = [(k, named[k], flag, 0) for k in SURFACE_MASKS + DRY_MASKS]
-    if fd:
-        # without FROZEN_SOIL the fusion inputs are never read: zeros
-        frozen = bool(eb_kwargs.get("frozen_soil"))
-        zero = torch.zeros((), dtype=f32, device=device)
-        floats += [(k, eb_kwargs[k] if frozen else zero, f32, 0)
-                   for k in FD_SURFACE_INPUTS]
-        masks.append(("fs_active", eb_kwargs["fs_active"] if frozen
-                      else torch.zeros((), dtype=flag, device=device),
-                      flag, 0))
+    frozen = bool(eb_kwargs.get("frozen_soil"))
+    zero = torch.zeros((), dtype=f32, device=device)
+    floats += [(k, eb_kwargs[k] if frozen else zero, f32, 0)
+               for k in FD_SURFACE_INPUTS]
+    masks.append(("fs_active", eb_kwargs["fs_active"] if frozen
+                  else torch.zeros((), dtype=flag, device=device), flag, 0))
     fin, f_ptr, f_stride = _lane_inputs(floats + list(extra), shape, device)
     mviews, m_ptr, m_stride = _lane_inputs(masks, shape, device)
     return (shape, nl, dist, (fin, mviews), f_ptr, f_stride, len(fin), m_ptr,
@@ -286,16 +284,16 @@ def _surface_lanes(name, lo, hi, active, eb_kwargs, fd, extra=()):
 
 
 def surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
-    """K5: expand-then-Brent on the QUICK_FLUX soil-surface residual, one
-    thread per lane. Same arguments and result as
+    """K5: expand-then-Brent on the QUICK_FLUX soil-surface residual, with
+    FROZEN_SOIL's fusion term where eb_kwargs["frozen_soil"], one thread
+    per lane. Same arguments and result as
     physics.surface.surface_brent_plain (iterations per lane)."""
     name = "surface_brent"
-    if eb_kwargs.get("frozen_soil") or eb_kwargs.get("fd_solve") is not None \
+    if eb_kwargs.get("fd_solve") is not None \
             or eb_kwargs.get("fd_interp") is not None:
-        raise ValueError(f"{name}: solves the QUICK_FLUX residual without "
-                         "frozen soil only")
+        raise ValueError(f"{name}: solves the QUICK_FLUX residual only")
     shape, nl, dist, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = \
-        _surface_lanes(name, lo, hi, active, eb_kwargs, fd=False)
+        _surface_lanes(name, lo, hi, active, eb_kwargs)
     device, f32 = lo.device, torch.float32
     lo_c = _lanes(lo, shape, device, f32, "lo")
     hi_c = _lanes(hi, shape, device, f32, "hi")
@@ -310,15 +308,16 @@ def surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
             f_ptr, f_stride, nf, m_ptr, m_stride, nm, shape[-1],
             nl, int(dist), lo_c.data_ptr(), hi_c.data_ptr(),
             float(eb_kwargs["delta_t"]),
-            int(eb_kwargs.get("grnd_flux_type", 1)), int(max_iter), MAXTRIES,
+            int(eb_kwargs.get("grnd_flux_type", 1)),
+            int(bool(eb_kwargs.get("frozen_soil"))), int(max_iter), MAXTRIES,
             n, root.data_ptr(), converged.data_ptr(), bracketed.data_ptr(),
             iterations.data_ptr(), stream)
         _check_launch(name, err)
     return RootResult(root, converged, bracketed, iterations)
 
 
-# K7's fusion inputs and frozen-soil mask, after K5's (csrc/surface_brent.cuh
-# FdIn, kFsActive)
+# FROZEN_SOIL's fusion inputs and frozen-soil mask of K5, K7 and K14, after
+# K5's others (csrc/surface_brent.cuh FdIn, kFsActive)
 FD_SURFACE_INPUTS = ("moist0_vol", "max_moist0_vol", "ice0_vol", "bubble0",
                      "expt0")
 # K7's launches (csrc/fd_surface_brent.cu Op) and its state's float rows
@@ -341,7 +340,7 @@ def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
         raise ValueError(f"{name}: solves the finite-difference residual "
                          "only (fd_solve)")
     shape, nl, dist, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = \
-        _surface_lanes(name, lo, hi, active, eb_kwargs, fd=True)
+        _surface_lanes(name, lo, hi, active, eb_kwargs)
     device, f32 = lo.device, torch.float32
     lo_c = _lanes(lo, shape, device, f32, "lo")
     hi_c = _lanes(hi, shape, device, f32, "hi")
@@ -433,7 +432,7 @@ def affine_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     extra = [("ts_a", ts_a, f32, 0), ("ts_b", ts_b, f32, 0),
              ("probe_lo", t_a, f32, nn), ("probe_hi", t_b, f32, nn)]
     shape, nl, dist, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = \
-        _surface_lanes(name, lo, hi, active, eb_kwargs, fd=True, extra=extra)
+        _surface_lanes(name, lo, hi, active, eb_kwargs, extra=extra)
     device = lo.device
     lo_c = _lanes(lo, shape, device, f32, "lo")
     hi_c = _lanes(hi, shape, device, f32, "hi")
@@ -456,18 +455,22 @@ def affine_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     return RootResult(root, converged, bracketed, iterations)
 
 
-# the node count K6 is instantiated for (csrc/node_sweep.cu): the frozen
-# configuration's; another count would cost one more template instance
-SWEEP_NNODE = 5
+# the node counts K6 runs (csrc/node_sweep.cu): 3 to the reference's
+# MAX_NODES
+SWEEP_MIN_NODES, SWEEP_MAX_NODES = 3, 50
 SWEEP_LANE_INPUTS = ("t0", "kappa", "cs", "moist_node", "ice0_node")
+# [n_cell, nn] geometry, then the [n_cell] EXP_TRANS terms
 SWEEP_GEOMETRY = ("alpha", "beta", "gamma", "e_coef", "solver_max_moist",
-                  "solver_bubble", "solver_expt")
+                  "solver_bubble", "solver_expt", "zp1")
+SWEEP_CELL_GEOMETRY = ("exp_a", "bexp")
 
 
 def node_sweep(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
-               fs_active, *, nlayer, dt_sec, noflux, frozen, max_sweeps):
+               fs_active, *, nlayer, dt_sec, noflux, frozen, max_sweeps,
+               exp_trans=False):
     """K6: the Gauss-Seidel node sweep of every lane, the batch-wide sweep
-    count decided on the device. Same arguments and result as
+    count decided on the device, at 3 to 50 nodes on linear or (exp_trans)
+    EXP_TRANS spacing. Same arguments and result as
     physics.frozen_soil.solve_t_profile_explicit_plain (the sweep count as
     an int32 0-d tensor)."""
     from ..physics.frozen_soil import ProfileResult
@@ -477,15 +480,17 @@ def node_sweep(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
         raise ValueError(f"{name}: CUDA tensors required, got {device}")
     f32, i32 = torch.float32, torch.int32
     c, h, nn = t0.shape
-    if nn != SWEEP_NNODE:
-        raise ValueError(f"{name}: built for nnode={SWEEP_NNODE}, got "
-                         f"nnode={nn}")
+    if not SWEEP_MIN_NODES <= nn <= SWEEP_MAX_NODES:
+        raise ValueError(f"{name}: runs {SWEEP_MIN_NODES} to "
+                         f"{SWEEP_MAX_NODES} nodes, got nnode={nn}")
     named = dict(t0=t0, kappa=kappa, cs=cs, moist_node=moist_node,
                  ice0_node=ice0_node)
     lane = [_lanes(named[k], t0.shape, device, f32, k)
             for k in SWEEP_LANE_INPUTS]
-    geo = [_lanes(getattr(geom, k), (c, nn), device, f32, k)
-           for k in SWEEP_GEOMETRY]
+    geo = ([_lanes(getattr(geom, k), (c, nn), device, f32, k)
+            for k in SWEEP_GEOMETRY]
+           + [_lanes(getattr(geom, k), (c,), device, f32, k)
+              for k in SWEEP_CELL_GEOMETRY])
     surf = _lanes(surf_temp, (c, h), device, f32, "surf_temp")
     fs = _lanes(fs_active, (c,), device, torch.bool, "fs_active")
     temp = torch.empty(t0.shape, dtype=f32, device=device)
@@ -501,8 +506,9 @@ def node_sweep(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = build.load().node_sweep(
             _ptrs(lane), _ptrs(geo), surf.data_ptr(), fs.data_ptr(), n, h, nn,
-            int(nlayer), int(frozen), int(noflux), int(max_sweeps),
-            float(dt_sec), float(2.0 * dt_sec), work_t.data_ptr(),
+            int(nlayer), int(frozen), int(noflux), int(bool(exp_trans)),
+            int(max_sweeps), float(dt_sec), float(2.0 * dt_sec),
+            float(4.0 * dt_sec), work_t.data_ptr(),
             work_fb.data_ptr(), lastdiff.data_ptr(), control[0].data_ptr(),
             control[1].data_ptr(), temp.data_ptr(), fbcount.data_ptr(),
             sweeps.data_ptr(), stream)

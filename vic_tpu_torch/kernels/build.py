@@ -84,13 +84,13 @@ _BRENT_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int, ctypes.c_void_p,
 _RUNOFF_ARGTYPES = (_INPUTS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4)
 _SURFACE_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int] * 3
                      + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
-                     + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
+                     + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5)
 _AFFINE_SURFACE_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int] * 4
                             + [ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_float]
                             + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5)
-_SWEEP_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 9)
+_SWEEP_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 9)
 _FD_SURFACE_ARGTYPES = ([ctypes.c_int] + _INPUTS * 2 + [ctypes.c_int] * 3
                         + [ctypes.c_float] + [ctypes.c_int] * 2
                         + [ctypes.c_void_p] * 3 + [ctypes.c_int]

@@ -2,23 +2,23 @@
 
 Counterpart of `vic_tpu/model.py` (make_step :39, run :1807) for FULL_ENERGY
 with snow, glacier HRUs and elevation bands, on QUICK_FLUX ground heat or on
-finite-difference soil nodes (QUICK_FLUX off, with or without FROZEN_SOIL),
-each with or without BLOWING, CLOSE_ENERGY and DIST_PRCP: the per-record
-column physics over the whole [n_cell, max_hru] batch, at any step length.
-The canopy -> snow -> glacier -> surface chain is `column(tca, luo)`, run
-once at Tair, or, with CLOSE_ENERGY, once per pass of the canopy-air fixed
-point and once more at its settled temperature; on finite-difference nodes
-the passes solve the surface balance on the affine two-probe node profile
-(`fd_cheap`) and the last one on the full node sweep. With DIST_PRCP every
-HRU carries a wet and a dry column (`physics.dist_prcp`), rain falls on the
-wet fraction mu at intensity P/mu, and the cell sees their mu-weighted sum.
-With LAKES each cell's lake steps once after the column and its CLOSE_ENERGY
-passes (`physics.lake.lake_step`, with the blowing-snow flux over lake ice
-under BLOWING), and its wetland lanes take the lake's recharge and area
-change. With water-table curves the step adds OUT_ZWT, ZWT2, ZWT3 and
-ZWTL. `run` is a Python loop over records; month and day-of-year reach the
-step as host ints, so indexing the monthly veg tables needs no
-device-to-host sync.
+finite-difference soil nodes (QUICK_FLUX off; linear or EXP_TRANS spacing, 3 to
+50 nodes), either with or without FROZEN_SOIL (and its SPATIAL_FROST subareas),
+each with or without BLOWING, CLOSE_ENERGY and DIST_PRCP: the per-record column
+physics over the whole [n_cell, max_hru] batch, at any step length. The canopy
+-> snow -> glacier -> surface chain is `column(tca, luo)`, run once at Tair,
+or, with CLOSE_ENERGY, once per pass of the canopy-air fixed point and once
+more at its settled temperature; on finite-difference nodes the passes solve
+the surface balance on the affine two-probe node profile (`fd_cheap`) and the
+last one on the full node sweep. With DIST_PRCP every HRU carries a wet and a
+dry column (`physics.dist_prcp`), rain falls on the wet fraction mu at
+intensity P/mu, and the cell sees their mu-weighted sum. With LAKES each cell's
+lake steps once after the column and its CLOSE_ENERGY passes
+(`physics.lake.lake_step`, with the blowing-snow flux over lake ice under
+BLOWING), and its wetland lanes take the lake's recharge and area change. With
+water-table curves the step adds OUT_ZWT, ZWT2, ZWT3 and ZWTL. `run` is a
+Python loop over records; month and day-of-year reach the step as host ints, so
+indexing the monthly veg tables needs no device-to-host sync.
 
 Every option outside that configuration is refused when the step is built.
 """
@@ -37,7 +37,8 @@ from .physics.dist_prcp import storm_transfer
 from .physics.evap import build_evap_pre, compute_pot_evap, svp
 from .physics.frozen_soil import (distribute_node_moisture,
                                   estimate_layer_ice, find_zero_fronts,
-                                  layer_ice_params, solve_t_profile_explicit)
+                                  frost_kwargs, layer_ice_params,
+                                  solve_t_profile_explicit)
 from .physics.glacier import glacier_ablation
 from .physics.hydrology_misc import compute_zwt
 from .physics.lake import (LakeState, area_from_depth, depth_from_volume,
@@ -66,26 +67,20 @@ LAKE_STATE_NAMES = (
     "tempi", "surf_temp", "pack_temp", "surf_water", "pack_water", "salbedo",
     "last_snow", "melting")
 
-# why FROZEN_SOIL with SPATIAL_FROST is refused
-SPATIAL_FROST = ("spatial_frost with frozen_soil (SPATIAL_FROST: the layer "
-                 "ice averaged over frost_subareas temperature offsets, "
-                 "vic_tpu/physics/frozen_soil.py:731-740)")
-
 
 def _refuse(gp, geom, zwt_curves, lake_params):
     """NotImplementedError naming the first option outside the slice."""
     flags = [
         ("full_energy=False", not gp.full_energy),
-        ("frozen_soil with quick_flux", gp.frozen_soil and gp.quick_flux),
         ("frozen_soil without geom", gp.frozen_soil and geom is None),
         ("quick_flux=False without geom", not gp.quick_flux and geom is None),
-        ("geom with quick_flux", gp.quick_flux and geom is not None),
-        (f"nnode={gp.nnode} on CUDA (the node sweep kernel is built for "
-         f"nnode={kernels.SWEEP_NNODE})",
+        ("geom with quick_flux without frozen_soil",
+         gp.quick_flux and not gp.frozen_soil and geom is not None),
+        (f"nnode={gp.nnode} on CUDA (the node sweep kernel runs "
+         f"{kernels.SWEEP_MIN_NODES} to {kernels.SWEEP_MAX_NODES} nodes, "
+         "the reference's MAX_NODES)",
          geom is not None and geom.alpha.is_cuda
-         and gp.nnode != kernels.SWEEP_NNODE),
-        ("exp_trans", gp.exp_trans),
-        (SPATIAL_FROST, gp.frozen_soil and gp.spatial_frost),
+         and gp.nnode > kernels.SWEEP_MAX_NODES),
         ("spatial_snow", gp.spatial_snow),
         ("lakes without lake_params", gp.lakes and lake_params is None),
         ("lake_params without lakes", lake_params is not None
@@ -97,39 +92,43 @@ def _refuse(gp, geom, zwt_curves, lake_params):
         if on:
             raise NotImplementedError(
                 f"vic_tpu_torch.model.make_step: {name} is not ported; the "
-                "port runs FULL_ENERGY on QUICK_FLUX nodes without "
-                "FROZEN_SOIL, or on finite-difference nodes (a NodeGeometry "
-                "as geom, linear spacing) with or without FROZEN_SOIL, each "
-                "with or without BLOWING, CLOSE_ENERGY, DIST_PRCP, LAKES "
-                "(lake_params) and water-table curves; without "
-                "SPATIAL_FROST, SPATIAL_SNOW, CORRPREC or CONTINUEONERROR")
+                "port runs FULL_ENERGY on QUICK_FLUX nodes or on "
+                "finite-difference nodes (a NodeGeometry as geom, linear or "
+                "EXP_TRANS spacing), with or without FROZEN_SOIL (geom "
+                "required; with SPATIAL_FROST or not), BLOWING, "
+                "CLOSE_ENERGY, DIST_PRCP, LAKES (lake_params) and "
+                "water-table curves; without SPATIAL_SNOW, CORRPREC or "
+                "CONTINUEONERROR")
 
 
 def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
               lake_params=None, outvars=None):
     """Build step(state, forcing) -> (new_state, outputs).
 
-    forcing: [n_cell] float32 tensors 'prec' (mm/step), 'air_temp' (C),
-    'wind' (m/s), 'shortwave', 'longwave' (W/m^2), 'pressure', 'vp' (Pa),
-    'density' (kg/m^3), optional 'tskc', and host ints 'month' (1-12),
-    'day_in_year'. geom: the NodeGeometry of finite-difference nodes on the
-    parameters' device (physics.frozen_soil.build_node_geometry(...).to),
-    required with quick_flux=False. lake_params: the lakes' LakeParams on
-    the parameters' device (prepare.lake_params_from_numpy), required with
-    LAKES. zwt_curves: the water-table curves on the parameters' device
+    forcing: [n_cell] float32 tensors 'prec' (mm/step), 'air_temp' (C), 'wind'
+    (m/s), 'shortwave', 'longwave' (W/m^2), 'pressure', 'vp' (Pa), 'density'
+    (kg/m^3), optional 'tskc', and host ints 'month' (1-12), 'day_in_year'.
+    geom: the NodeGeometry of finite-difference nodes on the parameters' device
+    (physics.frozen_soil.build_node_geometry(...).to), required with
+    quick_flux=False or frozen_soil. lake_params: the lakes' LakeParams on the
+    parameters' device (prepare.lake_params_from_numpy), required with LAKES.
+    zwt_curves: the water-table curves on the parameters' device
     (physics.hydrology_misc.build_zwt_curves, then zwt_curves_to), for the
-    OUT_ZWT* outputs. outvars: optional OUT_* names to return
-    (plus OUT_WATER_ERROR, always kept)."""
+    OUT_ZWT* outputs. outvars: optional OUT_* names to return (plus
+    OUT_WATER_ERROR, always kept)."""
     _refuse(gp, geom, zwt_curves, lake_params)
     dt_hours = gp.dt
     dt_sec = float(dt_hours) * 3600.0
     n_band = max(1, gp.snow_band)
     p = params
     frozen = gp.frozen_soil
-    fd_nodes = geom is not None
+    # QUICK_FLUX alone selects the ground-heat method; FROZEN_SOIL adds the
+    # ice and fusion physics on either (vic_tpu/model.py:65-68)
+    fd_nodes = not gp.quick_flux and geom is not None
     nl = gp.nlayer
     soil_ice = (layer_ice_params(p.max_moist, p.bubble, p.expt, p.fs_active)
                 if frozen else None)
+    frost_kw = frost_kwargs(gp)
 
     def step(state: ModelState, forcing):
         W = torch.where
@@ -267,8 +266,9 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             B(p.quartz)[..., l2], B(p.soil_density)[..., l2],
             B(p.bulk_density)[..., l2], B(p.organic)[..., l2])
         # D1/D2 are node spacings (calc_surf_energy_bal.c:242-243): on the
-        # QUICK_FLUX geometry depth[0] and dp - depth[0]
-        if fd_nodes:
+        # QUICK_FLUX geometry depth[0] and dp - depth[0]; from the node
+        # geometry wherever there is one (vic_tpu/model.py:274-277)
+        if geom is not None:
             d1 = (geom.zsum[:, 1] - geom.zsum[:, 0])[:, None]
             d2 = (geom.zsum[:, 2] - geom.zsum[:, 1])[:, None]
         else:
@@ -304,7 +304,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                     state.node_temp, ts_candidate, nodep["kappa"],
                     nodep["cs"], nodep["moist"], nodep["ice"], geom,
                     p.fs_active, nlayer=nl, dt_sec=dt_sec, noflux=gp.noflux,
-                    frozen=frozen, max_sweeps=gp.soil_sweep_maxiter)
+                    frozen=frozen, max_sweeps=gp.soil_sweep_maxiter,
+                    exp_trans=gp.exp_trans)
 
         eb_common = dict(
             ts_old=state.node_temp[..., 0], t1_old=state.node_temp[..., 1],
@@ -740,9 +741,9 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                                    state.node_temp[..., 2:]], dim=-1)
         if frozen:
             _, ice_new = estimate_layer_ice(node_temp, ro.moist, geom,
-                                            soil_ice)
+                                            soil_ice, **frost_kw)
             ice_new_d = (estimate_layer_ice(node_temp, ro_d.moist, geom,
-                                            soil_ice)[1]
+                                            soil_ice, **frost_kw)[1]
                          if gp.dist_prcp else ice_new)
         else:
             ice_new = ice0
@@ -1069,7 +1070,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             tdep, fdep = find_zero_fronts(node_temp, geom.zsum[:, None, :])
             tdepth_c = aggl(tdep) * 100.0
             fdepth_c = aggl(fdep) * 100.0
-            soilt_fb = (eb.node_fbcount > 0).to(f32)
+            soilt_fb = ((eb.node_fbcount > 0).to(f32) if fd_nodes
+                        else torch.zeros_like(node_temp))
             soil_temp = estimate_layer_ice(node_temp, moist_f, geom)[0]
         else:
             tdepth_c = torch.zeros(cell_runoff.shape + (3,),
@@ -1211,7 +1213,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             "OUT_DELSURFSTOR": zero_c,
             "OUT_SURF_COND": zero_c,
         }
-        if fd_nodes:
+        if geom is not None:
             # static node-depth echo (put_data.c:522)
             outputs["OUT_ZSUM_NODE"] = geom.zsum.expand(p.n_cell, -1)
         if "tskc" in forcing:

@@ -3,7 +3,8 @@
 Counterpart of `vic_tpu/physics/frozen_soil.py` (frozen_soil.c,
 soil_conduction.c) on the explicit path the step runs:
 
-- `build_node_geometry`: the node depths, finite-difference spacings,
+- `build_node_geometry`: the node depths (QUICK_FLUX's 3 nodes, linear or
+  EXP_TRANS spacing, any node count), finite-difference spacings,
   node->layer maps, the layer-averaging trapezoid samples and the
   reference-quirk solver arrays, on the host in float64
   (initialize_model_state.c:505-660, set_node_parameters);
@@ -13,10 +14,10 @@ soil_conduction.c) on the explicit path the step runs:
   (frozen_soil.c:305-494) -- on the CPU through
   `solve_t_profile_explicit_plain`, on a CUDA device through the
   `node_sweep` kernel (`csrc/node_sweep.cu`);
-- `estimate_layer_ice` and `find_zero_fronts` (soil_conduction.c:444-830).
+- `estimate_layer_ice` (with SPATIAL_FROST's frost subareas) and
+  `find_zero_fronts` (soil_conduction.c:444-830).
 
-EXP_TRANS node spacing and the implicit Newton-Raphson solve are not
-ported: the step refuses exp_trans, and never calls the implicit solve.
+The implicit Newton-Raphson solve is not ported: the step never calls it.
 """
 from __future__ import annotations
 
@@ -63,9 +64,13 @@ class NodeGeometry:
     solver_bubble: object
     solver_expt: object
     # parameter-only terms the JAX package forms in float64 from its numpy
-    # geometry before rounding to float32: the sweep's E = rho_ice*Lf*alpha^2
-    # and maximum_unfrozen_water's 9.81*bubble/100 and -2/(expt-3) per node
+    # geometry before rounding to float32: the sweep's E (rho_ice*Lf*alpha^2,
+    # with EXP_TRANS 4*bexp^2*rho_ice*Lf*(Zsum+1)^2), EXP_TRANS's 4*bexp^2
+    # and Zsum+1 of its A = 4*bexp^2*Cs*(Zsum+1)^2, and
+    # maximum_unfrozen_water's 9.81*bubble/100 and -2/(expt-3) per node
     e_coef: object
+    exp_a: object         # [n_cell] 4*bexp^2 (0 if unused)
+    zp1: object           # Zsum + 1
     bubble_term_node: object
     power_node: object
 
@@ -93,9 +98,6 @@ def build_node_geometry(soil, gp) -> NodeGeometry:
     """Host-side construction (initialize_model_state.c:505-660 +
     set_node_parameters + the layer-averaging sample maps), float64.
     A copy of vic_tpu's, array for array."""
-    if gp.exp_trans:
-        raise NotImplementedError("build_node_geometry: EXP_TRANS node "
-                                  "spacing is not ported")
     n_cell = soil.n_cell
     nn = max(gp.nnode, 3)
     nl = gp.nlayer
@@ -115,6 +117,14 @@ def build_node_geometry(soil, gp) -> NodeGeometry:
         dz[:, 2] = 2.0 * (dp - 1.5 * depth[:, 0])
         for j in range(3, nn):
             zsum[:, j] = dp
+    elif gp.exp_trans:
+        # exponential spacing Zsum = exp(bexp*j) - 1 down to dp
+        # (vic_tpu/physics/frozen_soil.py:110-115)
+        bexp = np.log(dp + 1.0) / (nn - 1)
+        for j in range(nn):
+            zsum[:, j] = np.exp(bexp * j) - 1.0
+        dz[:, :-1] = np.diff(zsum, axis=1)
+        dz[:, -1] = dz[:, -2]
     else:
         # linear-ish spacing (initialize_model_state.c:560-600)
         d0 = depth[:, 0]
@@ -218,14 +228,21 @@ def build_node_geometry(soil, gp) -> NodeGeometry:
         for out, lay, nod in zip(solver, layer_vals, node_vals):
             out[:, j] = lay[:, min(j, nl - 1)] if j < 3 else nod[:, j - 3]
 
+    # vic_tpu's sweep forms these from its numpy geometry in float64,
+    # left to right as written (frozen_soil.py:375-389)
+    b3 = bexp[:, None]
+    zp1 = zsum + 1.0
+    e_coef = (4.0 * b3 * b3 * c.ICE_DENSITY * c.LF * zp1 * zp1
+              if gp.exp_trans and not gp.quick_flux
+              else c.ICE_DENSITY * c.LF * alpha * alpha)
     return NodeGeometry(
         zsum=zsum, dz=dz, alpha=alpha, beta=beta, gamma=gamma,
         node_layer=node_layer, on_boundary=on_boundary,
         max_moist_node=max_moist_node, expt_node=expt_node,
         bubble_node=bubble_node, samp_i0=samp_i0, samp_w=samp_w,
         samp_trap=samp_trap, bexp=bexp, solver_max_moist=solver[0],
-        solver_bubble=solver[1], solver_expt=solver[2],
-        e_coef=c.ICE_DENSITY * c.LF * alpha * alpha,
+        solver_bubble=solver[1], solver_expt=solver[2], e_coef=e_coef,
+        exp_a=4.0 * bexp * bexp, zp1=zp1,
         bubble_term_node=9.81 * bubble_node / 100.0,
         power_node=-(2.0 / (expt_node - 3.0)))
 
@@ -285,24 +302,27 @@ class ProfileResult(NamedTuple):
 def solve_t_profile_explicit(t0, surf_temp, kappa, cs, moist_node, ice0_node,
                              geom: NodeGeometry, fs_active, *, nlayer: int,
                              dt_sec: float, noflux: bool, frozen: bool,
-                             max_sweeps: int) -> ProfileResult:
+                             max_sweeps: int,
+                             exp_trans: bool = False) -> ProfileResult:
     """The Gauss-Seidel node sweep: `solve_t_profile_explicit_plain` for
     CPU tensors, the `node_sweep` kernel for CUDA tensors."""
     solve = (solve_t_profile_explicit_plain if t0.device.type == "cpu"
              else kernels.node_sweep)
     return solve(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
                  fs_active, nlayer=nlayer, dt_sec=dt_sec, noflux=noflux,
-                 frozen=frozen, max_sweeps=max_sweeps)
+                 frozen=frozen, max_sweeps=max_sweeps, exp_trans=exp_trans)
 
 
 def solve_t_profile_explicit_plain(t0, surf_temp, kappa, cs, moist_node,
                                    ice0_node, geom: NodeGeometry, fs_active,
                                    *, nlayer: int, dt_sec: float,
                                    noflux: bool, frozen: bool,
-                                   max_sweeps: int) -> ProfileResult:
+                                   max_sweeps: int,
+                                   exp_trans: bool = False) -> ProfileResult:
     """Plain version of the `node_sweep` kernel: vic_tpu's
     solve_t_profile_explicit (frozen_soil.py:311-598) with the reference's
-    ice quirk, no warm start and no EXP_TRANS.
+    ice quirk and no warm start, at any node count, on linear or (exp_trans)
+    EXP_TRANS node spacing.
 
     t0: [c,h,nn] previous temperatures; surf_temp: [c,h] node-0 boundary
     condition; kappa/cs/moist_node/ice0_node: [c,h,nn] at the old
@@ -332,12 +352,41 @@ def solve_t_profile_explicit_plain(t0, surf_temp, kappa, cs, moist_node,
 
     kap_p1 = torch.roll(kappa, -1, dims=-1)
     kap_m1 = torch.roll(kappa, 1, dims=-1)
-    A = cs * alpha * alpha
     B = (kap_p1 - kap_m1) * deltat
     B_last = (kappa - kap_m1) * deltat
-    C = 2.0 * deltat * kappa * alpha / gamma
-    D = 2.0 * deltat * kappa * alpha / beta
     E = B1(geom.e_coef)
+    if exp_trans:
+        # the coefficients on the exponential grid (frozen_soil.c:190-212)
+        zp1 = B1(geom.zp1)
+        bexp = geom.bexp[:, None, None]
+        A = geom.exp_a[:, None, None] * cs * zp1 * zp1
+        C = 4.0 * deltat * kappa
+        D = 2.0 * deltat * kappa * bexp
+    else:
+        A = cs * alpha * alpha
+        C = 2.0 * deltat * kappa * alpha / gamma
+        D = 2.0 * deltat * kappa * alpha / beta
+
+    def flux2(j, t, tl, tu):
+        """The C/D terms of the residual at node j (soil_thermal_eqn.c)."""
+        if exp_trans:
+            return C[..., j] * (tl - 2.0 * t + tu) - D[..., j] * (tl - tu)
+        return C[..., j] * (tl - t) - D[..., j] * (t - tu)
+
+    def closed_form(j, tl, tu, b):
+        """The unfrozen closed-form update at node j (frozen_soil.c:390-392)
+        with the B coefficient b, and its denominator."""
+        if exp_trans:
+            denom = A[..., j] + 2.0 * C[..., j]
+            num = (A[..., j] * t0[..., j] + b * (tl - tu)
+                   + C[..., j] * (tl + tu) - D[..., j] * (tl - tu)
+                   + E[..., j] * (0.0 - ice0_node[..., j]))
+        else:
+            denom = A[..., j] + C[..., j] + D[..., j]
+            num = (A[..., j] * t0[..., j] + b * (tl - tu)
+                   + C[..., j] * tl + D[..., j] * tu
+                   + E[..., j] * (0.0 - ice0_node[..., j]))
+        return num / denom, denom
 
     def ice_at(t, j):
         iw = torch.clamp(moist_node[..., j] - maximum_unfrozen_water(
@@ -351,7 +400,7 @@ def solve_t_profile_explicit_plain(t0, surf_temp, kappa, cs, moist_node,
         ice = W(t < 0.0, ice_at(t, j), 0.0) if frozen else \
             torch.zeros_like(t)
         f1 = B[..., j] * (tl - tu)
-        f2 = C[..., j] * (tl - t) - D[..., j] * (t - tu)
+        f2 = flux2(j, t, tl, tu)
         val = (-A[..., j] * (t - t0[..., j]) + f1 + f2
                + E[..., j] * (ice - ice0_node[..., j]))
         if j == 1:
@@ -371,10 +420,7 @@ def solve_t_profile_explicit_plain(t0, surf_temp, kappa, cs, moist_node,
         maxdiff = torch.zeros_like(t0[..., 0])
         for j in range(1, nn - 1):
             oldT, tl, tu = T[j], T[j + 1], T[j - 1]
-            denom = A[..., j] + C[..., j] + D[..., j]
-            t_lin = (A[..., j] * t0[..., j] + B[..., j] * (tl - tu)
-                     + C[..., j] * tl + D[..., j] * tu
-                     + E[..., j] * (0.0 - ice0_node[..., j])) / denom
+            t_lin, denom = closed_form(j, tl, tu, B[..., j])
             if frozen and j < nlayer:
                 # the quirk's residual is linear in t here (ice == 0 for
                 # every reachable t): its root in closed form, then the
@@ -383,7 +429,7 @@ def solve_t_profile_explicit_plain(t0, surf_temp, kappa, cs, moist_node,
                 if j == 1:
                     f1 = B[..., j] * (tl - tu)
                     r1 = t_lin - f1 / denom
-                    f2_r1 = C[..., j] * (tl - r1) - D[..., j] * (r1 - tu)
+                    f2_r1 = flux2(j, r1, tl, tu)
                     cn_r1 = ((torch.abs(tl - tu) > 5.0) & (r1 < tl)
                              & (r1 < tu) & (f1 < 0.0) & (f2_r1 > 0.0)
                              & (torch.abs(f1) > torch.abs(f2_r1)))
@@ -427,10 +473,7 @@ def solve_t_profile_explicit_plain(t0, surf_temp, kappa, cs, moist_node,
             # no-flux bottom: the node mirrors itself (B_last)
             j = nn - 1
             oldT, tl, tu = T[j], T[j], T[j - 1]
-            t_lin = (A[..., j] * t0[..., j] + B_last[..., j] * (tl - tu)
-                     + C[..., j] * tl + D[..., j] * tu
-                     + E[..., j] * (0.0 - ice0_node[..., j])) / (
-                A[..., j] + C[..., j] + D[..., j])
+            t_lin = closed_form(j, tl, tu, B_last[..., j])[0]
             T[j] = t_lin
             maxdiff = torch.maximum(maxdiff, torch.abs(oldT - t_lin))
         return fb, maxdiff
@@ -495,12 +538,37 @@ def layer_ice_params(max_moist, bubble, expt, fs_active,
                                           dtype=torch.bool, device=device))
 
 
+def frost_kwargs(gp) -> dict:
+    """estimate_layer_ice's SPATIAL_FROST arguments under `gp`, as vic_tpu
+    passes them (model.py:974-977): one subarea without spatial_frost."""
+    return dict(frost_subareas=gp.frost_subareas if gp.spatial_frost else 1,
+                frost_slope=gp.frost_slope)
+
+
+def frost_offsets(frost_subareas: int, frost_slope: float, device=None):
+    """SPATIAL_FROST's temperature offsets of the frost subareas, spread
+    uniformly over +-frost_slope/2: vic_tpu's
+    jnp.linspace(-0.5, 0.5, n) * frost_slope in float32, as jnp.linspace
+    forms it (start*(1-s) + stop*s with s = k/(n-1), the last point stop)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    div = frost_subareas - 1
+    step = torch.arange(div, **f32) / torch.tensor(float(div), **f32)
+    offs = torch.cat([-0.5 * (1.0 - step) + 0.5 * step,
+                      torch.tensor([0.5], **f32)])
+    return offs * frost_slope
+
+
 def estimate_layer_ice(node_temp, moist_mm, geom: NodeGeometry,
-                       soil: LayerIceParams = None):
+                       soil: LayerIceParams = None, frost_subareas: int = 1,
+                       frost_slope: float = 0.0):
     """Layer-average temperature and ice content from node temperatures
-    (soil_conduction.c:444-616) through the trapezoid sample maps, without
-    SPATIAL_FROST. node_temp: [c,h,nn]; moist_mm: [c,h,nl]; soil None for
-    the temperatures alone (ice zero). Returns (layer_T, layer_ice_mm)."""
+    (soil_conduction.c:444-616) through the trapezoid sample maps.
+    node_temp: [c,h,nn]; moist_mm: [c,h,nl]; soil None for the temperatures
+    alone (ice zero). With frost_subareas > 1 (SPATIAL_FROST, vic_tpu/
+    physics/frozen_soil.py:731-740) each sample's ice is the mean over the
+    subareas of the ice at the sample temperature plus the subarea's offset
+    (frost_offsets), summed subarea by subarea so that no [.., n_subarea]
+    temporary is formed. Returns (layer_T, layer_ice_mm)."""
     nn = node_temp.shape[-1]
     c_, h = node_temp.shape[:2]
     nl, ns = geom.samp_i0.shape[1:]
@@ -515,10 +583,21 @@ def estimate_layer_ice(node_temp, moist_mm, geom: NodeGeometry,
 
     if soil is None:
         return layer_t, torch.zeros_like(moist_mm)
-    ice_samp = torch.clamp(moist_mm[..., None] - unfrozen_water_from_terms(
-        t_samp, soil.max_moist[:, None, :, None],
-        soil.bubble_term[:, None, :, None], soil.power[:, None, :, None]),
-        min=0.0)
+
+    def ice_at(t):
+        return torch.clamp(moist_mm[..., None] - unfrozen_water_from_terms(
+            t, soil.max_moist[:, None, :, None],
+            soil.bubble_term[:, None, :, None],
+            soil.power[:, None, :, None]), min=0.0)
+
+    if frost_subareas > 1:
+        offs = frost_offsets(frost_subareas, frost_slope, node_temp.device)
+        ice_samp = ice_at(t_samp + offs[0])
+        for k in range(1, frost_subareas):
+            ice_samp = ice_samp + ice_at(t_samp + offs[k])
+        ice_samp = ice_samp / float(frost_subareas)
+    else:
+        ice_samp = ice_at(t_samp)
     layer_ice = (ice_samp * trap).sum(-1)
     layer_ice = torch.where(soil.fs_active[:, None, None], layer_ice, 0.0)
     return layer_t, torch.minimum(layer_ice, moist_mm)

@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 from .constants import MAX_LAKE_NODES
-from .physics.frozen_soil import estimate_layer_ice, layer_ice_params
+from .physics.frozen_soil import (estimate_layer_ice, frost_kwargs,
+                                  layer_ice_params)
 from .physics.lake import initial_lake_state
 from .tensors import TensorDataclass
 
@@ -82,18 +83,11 @@ def initial_state(domain, gp, device, surf_temp_init=None,
     FROZEN_SOIL on finite-difference nodes (`geom`, a NodeGeometry on
     `device`) the exponential profile avg + (surf - avg)*exp(-Zsum) with the
     bottom node at avg, whose layer water then starts partitioned into ice
-    (initialize_model_state.c:553-585, :927).
+    (initialize_model_state.c:553-585, :927), over the frost subareas with
+    SPATIAL_FROST.
 
     surf_temp_init: optional per-cell first-step air temperature, clamped
     to >= -1 C like the reference; defaults to the soil's avg_temp."""
-    if gp.exp_trans:
-        raise NotImplementedError("initial_state: EXP_TRANS node spacing "
-                                  "is not ported")
-    if gp.frozen_soil and gp.spatial_frost:
-        raise NotImplementedError(
-            "initial_state: SPATIAL_FROST (spatial_frost with frozen_soil: "
-            "the layer ice averaged over frost_subareas temperature "
-            "offsets) is not ported")
     f32 = dict(dtype=torch.float32, device=device)
     n_cell, max_hru = domain.hru.mask.shape
     nl = domain.soil.depth.shape[1]
@@ -120,8 +114,10 @@ def initial_state(domain, gp, device, surf_temp_init=None,
                      * torch.exp(-geom.zsum)[:, None, :]).contiguous()
         node_temp[..., -1] = t_bot
         soil = domain.soil
-        _, ice = estimate_layer_ice(node_temp, moist, geom, layer_ice_params(
-            soil.max_moist, soil.bubble, soil.expt, soil.fs_active, device))
+        _, ice = estimate_layer_ice(
+            node_temp, moist, geom, layer_ice_params(
+                soil.max_moist, soil.bubble, soil.expt, soil.fs_active,
+                device), **frost_kwargs(gp))
     else:
         node_temp = torch.stack(
             [t_surf, t_surf] + [t_bot] * (n_node - 2), dim=-1).contiguous()
