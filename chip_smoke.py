@@ -26,11 +26,19 @@ line) on failure:
    in the frozen_exp step's third record, K5 with the fusion term in the
    frozen_quick step's second, and K6 at 3, 18 and 50 EXP_TRANS nodes in
    the third record of frozen_exp's configuration with its node count
-   replaced, at 4,096 cells. Each row's kernel is re-run on those arguments
-   beside its plain PyTorch version on the card, compared, timed with CUDA
-   events and given its bound (the least time the card could take for the
-   same work).
-3. reference: each configuration's fixture size (16 cells x 4 records;
+   replaced, at 4,096 cells; then K2 and K5 in the spatial_snow step's
+   second record, where packs cover part of their lanes (SPATIAL_SNOW's
+   advected sensible heat in K2), and the three loops no step calls: K15
+   mass_release on the light step's canopy snow and melt storage (and on
+   seeded storage that releases), K16 implicit_profile on K6's arguments of
+   the frozen (5 nodes) and frozen_exp (10 EXP_TRANS nodes) steps, NOFLUX
+   both ways, and K17 bisection on K2's and K1's arguments of the light
+   step, 40 steps. Each row's kernel is re-run on those arguments beside its
+   plain PyTorch version on the card, compared, timed with CUDA events and
+   given its bound (the least time the card could take for the same
+   work).
+3. reference: each configuration's fixture size (16 cells x 4 records,
+   spatial_snow's too;
    heavy_nolakes and heavy 16 x 8 3-hourly) through the port on the card
    against
    tests/fixtures/torch_port/<config>_16x<records>.npz, written by vic_tpu
@@ -39,12 +47,17 @@ line) on failure:
    cells x 8 3-hourly records of heavy_nolakes and heavy, through
    vic_tpu_torch.model.run, every kernel's launch counter set to 0 just
    before each run and read just after it, and every plain solver of the
-   port (ops.rootfind.batched_brent, ops.tridiag.thomas_solve and each
-   *_plain) made to fail if it is handed a CUDA tensor during the run;
+   port (ops.rootfind.batched_brent and batched_bisection,
+   ops.tridiag.thomas_solve and each *_plain) made to fail if it is handed a CUDA tensor during the run;
    frozen_exp also times its SPATIAL_FROST layer ice; then frozen_exp's
    configuration at 3, 18 and 50 nodes, 4,096 cells x 8 records, the same
    way. Each row's launches in the kernels line are its kernel's count in
-   the slice of the configuration its arguments came from.
+   the slice of the configuration its arguments came from (0 for K15-K17,
+   which no step calls). The spatial_snow slice prints the share of snow
+   lanes with fractional coverage, then runs again with NaN air
+   temperature in 64 cells from its fourth record: CONTINUEONERROR must
+   freeze them there (OUT_CELL_VALID 0, the state after the third record)
+   and leave every other cell equal to the first run.
 5. driver: a run of the main path in the reference's file formats
    (vic_tpu_torch.testing.write_driver_run: 8,192 cells x 370 daily records
    from 1995-10-01, a glacier tile, 2 snow bands, COMPUTE_TREELINE with the
@@ -95,8 +108,14 @@ DIST_PRCP_RECORD = 1       # record whose step gives K5's dry column
 # sixth (16 cells on CPU)
 HEAVY_LAKE_RECORD = 6
 CONFIG_NAMES = ("light", "frozen", "blowing_close", "lakes", "heavy_nolakes",
-                "heavy", "frozen_exp", "frozen_quick")
+                "heavy", "frozen_exp", "frozen_quick", "spatial_snow")
 FROZEN_QUICK_RECORD = 1    # record whose step gives K5 its fusion term
+# record whose step gives K2 and K5 fractional coverage (the packs melt
+# into patches from the first record)
+SPATIAL_SNOW_RECORD = 1
+NAN_CELLS = 64             # cells of the spatial_snow slice made NaN
+NAN_FROM = 3               # from this record on
+BISECTION_ITERS = 40
 NODE_COUNT_CELLS = 4096    # cells of the 3-, 18- and 50-node K6 rows
 # cells of each configuration's kernel capture and slice
 CELLS = {"heavy_nolakes": HEAVY_CELLS, "heavy": HEAVY_CELLS}
@@ -141,7 +160,24 @@ KERNELS = {
     "affine_surface_brent": ("affine_surface_brent.cu",
                              "vic_tpu/physics/surface.py:438", "surface",
                              "surface_brent_plain", "heavy_nolakes"),
+    # the loops no step calls, on arguments the steps give their neighbours
+    "mass_release": ("mass_release.cu",
+                     "vic_tpu/physics/canopy_snow.py:126", "canopy_snow",
+                     "mass_release_plain", "light"),
+    "implicit_profile": ("implicit_profile.cu",
+                         "vic_tpu/physics/frozen_soil.py:601", "frozen_soil",
+                         "solve_t_profile_implicit_plain", "frozen"),
+    "bisection": ("bisection.cu", "vic_tpu/ops/rootfind.py:210", "bisection",
+                  "bisection_plain", "light"),
 }
+# where K15-K17 take their arguments: the result of the step's
+# snow_intercept (vic_tpu_torch.model), or another kernel's call
+CAPTURED_FROM = {"mass_release": "snow_intercept",
+                 "implicit_profile": "node_sweep",
+                 "bisection/snowpack": "snowpack_brent",
+                 "bisection/glacier": "glacier_brent"}
+# functions of vic_tpu_torch.model whose result capture_kernel_args takes
+MODEL_RESULTS = ("snow_intercept",)
 LAKE_KERNELS = ("lake_open_water", "lake_under_ice", "lake_ice_brent",
                 "lake_depth")
 # the kernels also timed on the heavy step's arguments, and what they are
@@ -170,6 +206,7 @@ PATH_KERNELS = {
 PATH_KERNELS["heavy"] = PATH_KERNELS["heavy_nolakes"] + LAKE_KERNELS
 PATH_KERNELS["frozen_exp"] = PATH_KERNELS["frozen"]
 PATH_KERNELS["frozen_quick"] = PATH_KERNELS["light"]
+PATH_KERNELS["spatial_snow"] = PATH_KERNELS["light"]
 # the record of each configuration's step that gives its kernels their
 # arguments (the first where not named), and the call of a kernel in that
 # step whose arguments are taken (the first where not named): in the
@@ -179,7 +216,8 @@ PATH_KERNELS["frozen_quick"] = PATH_KERNELS["light"]
 RECORD = {"frozen": FROZEN_RECORD, "blowing_close": BLOWING_RECORD,
           "lakes": LAKES_RECORD, "heavy_nolakes": HEAVY_RECORD,
           "dist_prcp": DIST_PRCP_RECORD, "heavy": HEAVY_LAKE_RECORD,
-          "frozen_exp": FROZEN_RECORD, "frozen_quick": FROZEN_QUICK_RECORD}
+          "frozen_exp": FROZEN_RECORD, "frozen_quick": FROZEN_QUICK_RECORD,
+          "spatial_snow": SPATIAL_SNOW_RECORD}
 NTH = {"heavy_nolakes": {"runoff_hourly": 1},
        "heavy": {"runoff_hourly": 1, "blowing_snow": 1}}
 # the node counts that replace frozen_exp's 10 in K6's rows and slices at
@@ -190,7 +228,8 @@ NODE_COUNTS = (3, 18, 50)
 # configuration's step, then the forms frozen soil adds as its users set it
 # up: K6 and K7 on 10 EXP_TRANS nodes, K5 with the fusion term, and K6 at
 # each of NODE_COUNTS EXP_TRANS nodes
-ROWS = {name: (name, k[4], None) for name, k in KERNELS.items()}
+ROWS = {name: (name, k[4], None) for name, k in KERNELS.items()
+        if name != "bisection"}
 ROWS.update({
     "node_sweep/exp_trans_10": ("node_sweep", "frozen_exp", None),
     "fd_surface_brent/exp_trans_10": ("fd_surface_brent", "frozen_exp", None),
@@ -198,6 +237,14 @@ ROWS.update({
 })
 ROWS.update({f"node_sweep/exp_trans_{n}": ("node_sweep", "frozen_exp", n)
              for n in NODE_COUNTS})
+# SPATIAL_SNOW's forms of K2 and K5, and the rest of K16's and K17's rows
+ROWS.update({
+    "snowpack_brent/spatial_snow": ("snowpack_brent", "spatial_snow", None),
+    "surface_brent/spatial_snow": ("surface_brent", "spatial_snow", None),
+    "implicit_profile/exp_trans_10": ("implicit_profile", "frozen_exp", None),
+    "bisection/snowpack": ("bisection", "light", None),
+    "bisection/glacier": ("bisection", "light", None),
+})
 # the steps whose arguments each kernel is also held on, besides its own
 # configuration's: the frozen step's K4, the blowing_close step's K2 (a
 # blowing-snow flux in its residual), the dist_prcp step's K5 (DIST_PRCP's
@@ -287,6 +334,17 @@ LAKE_MIX_SWEEPS = 20
 RESIDUAL_OPS["lake_ice_brent"] = 60 + 30
 RESIDUAL_OPS["affine_surface_brent"] = AFFINE_RESIDUAL_OPS
 LAKE_DEPTH_OPS = 30 * 20 * (8 + 12)
+# K15: ~15 operations a round, 8 rounds a lane; K16 a node per Newton step:
+# the residual and the Jacobian row (~25) and the row scaling and Thomas
+# solve (~15), and ~30 more for the three unfrozen-water evaluations of a
+# node below 0 C where frozen soil is active; K17 a residual evaluation and
+# a bisection step (~4)
+MASS_RELEASE_OPS_PER_LANE = 8 * 15
+IMPLICIT_OPS_PER_NODE = 40
+IMPLICIT_ICE_OPS_PER_NODE = 30
+BISECTION_STEP_OPS = 4
+LOOP_TOL = 1e-5            # K15 and K17 vs their plain versions
+IMPLICIT_TOL = 1e-4        # C, K16 vs its plain version
 
 
 def phase(title):
@@ -337,21 +395,29 @@ def capture_kernel_args(config, names, device, record=0, calls=None,
     with each binding in `names` wrapped in that record's step; returns
     {kernel: (args, kwargs)} of its first call there, or of its call number
     nth[kernel] (from 0), and counts each kernel's calls in that step into
-    the dict `calls`, if given."""
-    from vic_tpu_torch import kernels
+    the dict `calls`, if given. Names in MODEL_RESULTS are functions of
+    vic_tpu_torch.model whose result is taken in place of their
+    arguments."""
+    from vic_tpu_torch import kernels, model
     from vic_tpu_torch.model import make_step
 
     captured = {}
-    originals = {name: getattr(kernels, name) for name in names}
+    home = {name: model if name in MODEL_RESULTS else kernels
+            for name in names}
+    originals = {name: getattr(home[name], name) for name in names}
     calls = {} if calls is None else calls
     nth = nth or {}
 
     def wrap(name, fn):
         def wrapper(*args, **kwargs):
-            if calls.get(name, 0) == nth.get(name, 0):
-                captured[name] = (clone_args(args), clone_args(kwargs))
+            first = calls.get(name, 0) == nth.get(name, 0)
             calls[name] = calls.get(name, 0) + 1
-            return fn(*args, **kwargs)
+            if first and name not in MODEL_RESULTS:
+                captured[name] = (clone_args(args), clone_args(kwargs))
+            out = fn(*args, **kwargs)
+            if first and name in MODEL_RESULTS:
+                captured[name] = clone_args(out)
+            return out
         return wrapper
 
     gp, params, stack, state, extras = (build or CONFIGS[config])(
@@ -360,13 +426,13 @@ def capture_kernel_args(config, names, device, record=0, calls=None,
     for r in range(record):
         state, _ = step(state, {k: v[r] for k, v in stack.items()})
     for name, fn in originals.items():
-        setattr(kernels, name, wrap(name, fn))
+        setattr(home[name], name, wrap(name, fn))
     try:
         step(state, {k: v[record] for k, v in stack.items()})
         torch.cuda.synchronize()
     finally:
         for name, fn in originals.items():
-            setattr(kernels, name, fn)
+            setattr(home[name], name, fn)
     missing = set(names) - set(captured)
     if missing:
         raise RuntimeError(f"kernels not reached by the {config} step: "
@@ -881,8 +947,9 @@ def kernels_phase(device):
     # one capture run per step, wrapping the kernels of the rows on it and
     # those ALSO_ON holds on it
     steps = {}
-    for name, config, nnode in ROWS.values():
-        steps.setdefault((config, nnode), set()).add(name)
+    for row, (name, config, nnode) in ROWS.items():
+        steps.setdefault((config, nnode), set()).add(
+            CAPTURED_FROM.get(row, CAPTURED_FROM.get(name, name)))
     for name, labels in ALSO_ON.items():
         for config in labels:
             steps.setdefault((config, None), set()).add(name)
@@ -901,8 +968,12 @@ def kernels_phase(device):
     for row, (name, config, nnode) in ROWS.items():
         source, replaces, module, plain_name, _ = KERNELS[name]
         label = step_label(config, nnode)
-        args, kwargs = captured[label][name]
         kern_fn = getattr(kernels, name)
+        if name in LOOP_KERNELS:
+            results[row] = check_loop_kernel(row, name, captured[label],
+                                             label)
+            continue
+        args, kwargs = captured[label][name]
         plain_fn = getattr(importlib.import_module(
             f"vic_tpu_torch.physics.{module}"), plain_name)
         if name == "lake_depth":
@@ -953,6 +1024,126 @@ def kernels_phase(device):
     return results
 
 
+# the kernels no step calls (K15-K17)
+LOOP_KERNELS = ("mass_release", "implicit_profile", "bisection")
+
+
+def loop_args(row, name, captured):
+    """(args, kwargs) of K15-K17's row `row` from what the step gave:
+    snow_intercept's canopy snow and melt storage for K15; K6's arguments
+    for K16, with the step's NOFLUX; K2's or K1's for K17, BISECTION_ITERS
+    steps."""
+    if name == "mass_release":
+        ci = captured["snow_intercept"]
+        return (ci.int_snow, ci.temp_int_storage), {}
+    if name == "implicit_profile":
+        a, kw = captured["node_sweep"]
+        return a, dict(dt_sec=kw["dt_sec"], noflux=kw["noflux"],
+                       frozen=kw["frozen"])
+    a, kw = captured[CAPTURED_FROM[row]]
+    inputs = {k: v for k, v in kw.items()
+              if k not in ("max_iter", "max_tries")}
+    return (row.split("/")[1],) + tuple(a) + (BISECTION_ITERS,), inputs
+
+
+def compare_loop(row, name, kern, plain):
+    """K15-K17 against their plain versions; returns the largest
+    difference."""
+    if name == "implicit_profile":
+        diff = float((kern.temp - plain.temp).abs().max())
+        fb_dis = int((kern.fbcount != plain.fbcount).sum())
+        print(f"  {row}: lanes {kern.temp[..., 0].numel()}, max |T diff| "
+              f"{diff:.3e} C, fallback-count disagreements {fb_dis}, lanes "
+              f"with a fallback {int((plain.fbcount > 0).any(-1).sum())}")
+        if fb_dis or not diff <= IMPLICIT_TOL:
+            raise AssertionError(f"{row}: max |T diff| {diff} C, {fb_dis} "
+                                 "fallback-count disagreements")
+        return diff
+    if name == "bisection":
+        flag_dis = int((kern.bracketed != plain.bracketed).sum())
+        diff = float((kern.root - plain.root).abs().max())
+        print(f"  {row}: lanes {kern.root.numel()}, bracketed "
+              f"{int(kern.bracketed.sum())}, flag disagreements {flag_dis}, "
+              f"max |root diff| {diff:.3e} C")
+        if flag_dis or not diff <= LOOP_TOL or not bool(kern.bracketed.any()):
+            raise AssertionError(f"{row}: {flag_dis} flag disagreements, "
+                                 f"max |root diff| {diff} C")
+        return diff
+    diffs = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
+    print(f"  {row}: lanes {kern[0].numel()}, lanes releasing "
+          f"{int((plain[2] > 0).sum())}, dripping {int((plain[3] > 0).sum())}"
+          f", max |diff| {max(diffs):.3e} m")
+    if not max(diffs) <= LOOP_TOL:
+        raise AssertionError(f"{row}: max |diff| {max(diffs)} m")
+    return max(diffs)
+
+
+def loop_work(name, args, kwargs, kern):
+    """Bytes in and out of one K15-K17 call and its FP32 operations (K16:
+    every node of every Newton step, the unfrozen-water terms on the nodes
+    that start below 0 C where frozen soil is active; K17: BISECTION_ITERS +
+    2 residual evaluations on active lanes)."""
+    if name == "mass_release":
+        return (nbytes(*args, *kern),
+                kern[0].numel() * MASS_RELEASE_OPS_PER_LANE)
+    if name == "implicit_profile":
+        from vic_tpu_torch.kernels import IMPLICIT_GEOMETRY
+        t0, surf, kappa, cs, moist, ice0, geom, fs_active = args
+        geo = [getattr(geom, k) for k in IMPLICIT_GEOMETRY]
+        cold = (t0 < 0.0) & fs_active[:, None, None] if kwargs["frozen"] \
+            else torch.zeros_like(t0, dtype=torch.bool)
+        ops = kern.iterations * (t0.numel() * IMPLICIT_OPS_PER_NODE
+                                 + float(cold.sum())
+                                 * IMPLICIT_ICE_OPS_PER_NODE)
+        return (nbytes(t0, surf, kappa, cs, moist, ice0, fs_active, *geo,
+                       kern.temp, kern.fbcount), ops)
+    residual, lo, hi, active, n_iter = args
+    ops = RESIDUAL_OPS[f"{residual}_brent"] - 30 + BISECTION_STEP_OPS
+    act = float(active.expand(kern.root.shape).sum())
+    return (nbytes(lo, hi, active, *kwargs.values(), *kern),
+            act * (n_iter + 2) * ops)
+
+
+def check_loop_kernel(row, name, captured, label):
+    """K15-K17's row `row` on what the `label` step gave: compared with its
+    plain version (K16 with NOFLUX both ways; K15 also on seeded storage
+    that releases), timed, and given its bound; returns its row of the
+    kernels line."""
+    from vic_tpu_torch import kernels
+    source, replaces, module, plain_name, _ = KERNELS[name]
+    kern_fn = getattr(kernels, name)
+    plain_fn = getattr(importlib.import_module(
+        f"vic_tpu_torch.physics.{module}"), plain_name)
+    args, kwargs = loop_args(row, name, captured)
+    print(f"  {row}: on the {label} step's record {RECORD.get(label, 0)}")
+    kern = kern_fn(*args, **kwargs)
+    err = compare_loop(row, name, kern, plain_fn(*args, **kwargs))
+    if name == "implicit_profile":
+        other = dict(kwargs, noflux=not kwargs["noflux"])
+        err = max(err, compare_loop(f"{row} (noflux={other['noflux']})",
+                                    name, kern_fn(*args, **other),
+                                    plain_fn(*args, **other)))
+    if name == "mass_release":
+        # storage up to 30% of the canopy snow: the release branch too
+        gen = torch.Generator(device=args[0].device).manual_seed(3)
+        storage = args[0] * 0.3 * torch.rand(
+            args[0].shape, generator=gen, device=args[0].device)
+        err = max(err, compare_loop(f"{row} (seeded storage)", name,
+                                    kern_fn(args[0], storage),
+                                    plain_fn(args[0], storage)))
+    ms = cuda_ms(lambda: kern_fn(*args, **kwargs), reps=20)
+    plain_ms = cuda_ms(lambda: plain_fn(*args, **kwargs), reps=3)
+    work = loop_work(name, args, kwargs, kern)
+    bound_ms, bound_by = bound(*work)
+    print(f"  {row}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({work[0]} bytes, "
+          f"{work[1]:.4g} FP32 operations)")
+    return dict(name=row, route="cuda", source=CSRC + source,
+                replaces=replaces, launches=None, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
 def node_count_build(nnode):
     """frozen_exp's builder with its node count replaced."""
     from vic_tpu_torch import entry
@@ -964,11 +1155,17 @@ def node_count_build(nnode):
 
 
 def check_form(row, nnode, args, kwargs):
-    """Raise unless a row frozen soil adds carries what it stands for: K6
-    on frozen_exp's EXP_TRANS profile (at its node count or `nnode`) with
-    interior nodes below 0 C where frozen soil is active, K5 with the
-    fusion term on active lanes with top-layer ice."""
-    if row.startswith("node_sweep/"):
+    """Raise unless a row frozen soil or SPATIAL_SNOW adds carries what it
+    stands for: K6 on frozen_exp's EXP_TRANS profile (at its node count or
+    `nnode`) with interior nodes below 0 C where frozen soil is active, K5
+    with the fusion term on active lanes with top-layer ice, K2 and K5 on
+    active lanes whose pack covers part of the lane."""
+    if row.endswith("/spatial_snow"):
+        coverage = (kwargs["eb_kwargs"]["snow_coverage"]
+                    if row.startswith("surface_brent/")
+                    else kwargs["snow_cover_fract"])
+        check_coverage(row, coverage, args[2])
+    elif row.startswith("node_sweep/"):
         nn = args[0].shape[-1]
         cold = int(((args[0][..., 1:nn - 1] < 0.0)
                     & args[7][:, None, None]).sum())
@@ -985,6 +1182,17 @@ def check_form(row, nnode, args, kwargs):
         if not eb.get("frozen_soil") or not live:
             raise AssertionError(f"{row}: no fusion term; the path was not "
                                  "exercised")
+
+
+def check_coverage(row, coverage, active):
+    """Print the active lanes whose pack covers part of the lane, and raise
+    if there is none."""
+    cov = coverage.expand(active.shape)
+    partial = int(((cov > 0.0) & (cov < 1.0) & active).sum())
+    print(f"  {row}: {partial} active lanes with 0 < coverage < 1")
+    if not partial:
+        raise AssertionError(f"{row}: no fractional coverage; the path was "
+                             "not exercised")
 
 
 def reference_phase(device, config):
@@ -1052,8 +1260,8 @@ def flat_tensors(obj):
 
 
 def guard_plain_solvers():
-    """Replace ops.rootfind.batched_brent, ops.tridiag.thomas_solve and
-    every *_plain solver, in each
+    """Replace ops.rootfind.batched_brent and batched_bisection,
+    ops.tridiag.thomas_solve and every *_plain solver, in each
     vic_tpu_torch module that holds one, by a wrapper that raises if it is
     handed a CUDA tensor. Returns the function that puts them back."""
     import sys
@@ -1071,7 +1279,8 @@ def guard_plain_solvers():
         if mod is None or not mod_name.startswith("vic_tpu_torch"):
             continue
         for attr, fn in list(vars(mod).items()):
-            if callable(fn) and (attr in ("batched_brent", "thomas_solve")
+            if callable(fn) and (attr in ("batched_brent", "batched_bisection",
+                                         "thomas_solve")
                                  or attr.endswith("_plain")):
                 patched.append((mod, attr, fn))
                 setattr(mod, attr, guarded(f"{mod_name}.{attr}", fn))
@@ -1171,11 +1380,78 @@ def slice_phase(device, config, ref_werr=None, nnode=None):
         werr = float(werr_cell[1::2].max())
     if werr > WATER_TOL:
         raise AssertionError(f"water balance error {werr} mm")
+    if config == "spatial_snow":
+        spatial_snow_checks(state, stack, params, gp, extras, final, outs)
     idle = [k for k in PATH_KERNELS[config] if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels never launched by the {config} "
                              f"slice: {idle}")
     return launches
+
+
+def spatial_snow_checks(state, stack, params, gp, extras, final, outs):
+    """The share of snow lanes whose pack covers part of the lane at the
+    end of the spatial_snow slice, then CONTINUEONERROR: the slice again
+    with NaN air temperature in NAN_CELLS cells from record NAN_FROM, the
+    plain solvers guarded. Those cells must read OUT_CELL_VALID 0 from
+    there and end with their state after record NAN_FROM - 1; every other
+    cell's outputs and state must equal the first run's (nothing in the
+    light step couples cells)."""
+    from vic_tpu_torch.model import run
+    snow = (final.swq > 0.0) & params.mask
+    partial = snow & (final.coverage > 0.0) & (final.coverage < 1.0)
+    cell_cov = outs["OUT_SNOW_COVER"]
+    print(f"  snow lanes with 0 < coverage < 1 at the end: "
+          f"{int(partial.sum())} of {int(snow.sum())} "
+          f"({float(partial.sum()) / max(float(snow.sum()), 1.0):.4f}); "
+          f"cells with 0 < OUT_SNOW_COVER < 1 per record "
+          f"{((cell_cov > 0.0) & (cell_cov < 1.0)).sum(1).tolist()}; max "
+          f"|OUT_ADV_SENS| {float(outs['OUT_ADV_SENS'].abs().max()):.4g} "
+          "W/m^2")
+    if not bool(partial.any()):
+        raise AssertionError("spatial_snow: no fractional coverage")
+    n_cell = cell_cov.shape[1]
+    cells = torch.arange(0, n_cell, n_cell // NAN_CELLS,
+                         device=cell_cov.device)[:NAN_CELLS]
+    others = torch.ones(n_cell, dtype=torch.bool, device=cell_cov.device)
+    others[cells] = False
+    air = stack["air_temp"].clone()
+    air[NAN_FROM:, cells] = float("nan")
+    restore = guard_plain_solvers()
+    try:
+        final_n, outs_n = run(state, dict(stack, air_temp=air), params, gp,
+                              **extras)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    before, _ = run(state, {k: v[:NAN_FROM] for k, v in stack.items()},
+                    params, gp, **extras)
+    valid = torch.ones_like(outs_n["OUT_CELL_VALID"])
+    valid[NAN_FROM:, cells] = 0.0
+    bad = []
+    if not torch.equal(outs_n["OUT_CELL_VALID"], valid):
+        bad.append("OUT_CELL_VALID")
+    bad += [k for k, v in outs_n.items()
+            if not torch.equal(v[:, others], outs[k][:, others])]
+    frozen_fields = 0
+    for name in (f.name for f in dataclasses.fields(final_n)):
+        if name == "cell_valid":
+            continue
+        got = getattr(final_n, name)
+        if not torch.equal(got[others], getattr(final, name)[others]):
+            bad.append(f"state/{name} (other cells)")
+        if not torch.equal(got[cells], getattr(before, name)[cells]):
+            bad.append(f"state/{name} (NaN cells)")
+        frozen_fields += 1
+    print(f"  CONTINUEONERROR: NaN air temperature in {len(cells)} cells "
+          f"from record {NAN_FROM}: cells valid at the end "
+          f"{int(final_n.cell_valid.sum())} of {n_cell}; {frozen_fields} "
+          f"state fields of the NaN cells held at record {NAN_FROM - 1}'s; "
+          f"outputs and state of the other cells equal to the first run: "
+          f"{'yes' if not bad else 'no'}")
+    if bad:
+        raise AssertionError(f"CONTINUEONERROR: differs from the first run "
+                             f"or not frozen: {bad}")
 
 
 def layer_ice_cost(device, final, params, gp, geom):

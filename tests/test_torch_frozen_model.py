@@ -9,7 +9,10 @@ rtol = atol = 1e-4, but for two leaves held looser, each with its cause in
 ROADMAP.md queue 3: OUT_ENERGY_ERROR, the residual at an accepted Brent root
 (1e-3 W/m^2, as the light step's residual-at-root leaves), and the layer
 ice, whose unfrozen-water curve is steep just below 0 C (rtol 1e-3).
-Water closure within 1e-2 mm on both.
+Water closure within 1e-2 mm on both. SPATIAL_SNOW and CORRPREC on the
+frozen configuration's nodes (with CONTINUEONERROR, from 1 May with a
+melting spring pack: tools/make_torch_port_fixture.spatial_snow_inputs), 2
+cells x 3 records, under the same rule.
 """
 import dataclasses
 import functools
@@ -128,6 +131,47 @@ def test_unfrozen_finite_difference_nodes_match():
     assert np.abs(t_outs["OUT_WATER_ERROR"]).max() <= WATER_TOL
 
 
+# the frozen configuration's flags on the spatial_snow configuration
+FROZEN_FLAGS = dict(frozen_soil=True, quick_flux=False, nnode=5,
+                    implicit=True, soil_sweep_maxiter=10,
+                    fd_affine_residual=True)
+
+
+@functools.lru_cache(maxsize=None)
+def spatial_runs(n_cell=2, n_rec=3):
+    """vic_tpu's and the port's spatial_snow runs on the frozen
+    configuration's finite-difference nodes: (j_final, j_outs, t_final,
+    t_outs)."""
+    inputs = fixture.spatial_snow_inputs(n_cell, n_rec, **FROZEN_FLAGS)
+    j_final, j_outs = fixture.run_inputs(inputs)
+    t_gp, t_params, t_stack, t_state, extras = fixture.port_inputs(inputs,
+                                                                   n_cell)
+    t_final, t_outs = model.run(t_state, t_stack, t_params, t_gp, **extras)
+    return (j_final, {k: np.asarray(v) for k, v in j_outs.items()},
+            t_final, {k: v.numpy() for k, v in t_outs.items()})
+
+
+def _spatial_runs_match():
+    j_final, j_outs, t_final, t_outs = spatial_runs()
+    assert sorted(t_outs) == sorted(j_outs) and "OUT_CELL_VALID" in t_outs
+    for k, a in j_outs.items():
+        rtol, atol = LOOSE.get(k, (TOL, TOL))
+        np.testing.assert_allclose(t_outs[k], a, rtol=rtol, atol=atol,
+                                   err_msg=k)
+    for f in dataclasses.fields(j_final):
+        a = np.asarray(getattr(j_final, f.name))
+        b = getattr(t_final, f.name).numpy()
+        if a.dtype.kind == "f":
+            rtol, atol = LOOSE.get(f.name, (TOL, TOL))
+            np.testing.assert_allclose(b, a, rtol=rtol, atol=atol,
+                                       err_msg=f.name)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=f.name)
+    cov = t_outs["OUT_SNOW_COVER"]
+    assert ((cov > 0.0) & (cov < 1.0)).any()
+    assert np.abs(t_outs["OUT_WATER_ERROR"]).max() <= WATER_TOL
+
+
 @pytest.mark.parametrize("flag,geom_given,refused", [
     (dict(frozen_soil=True, quick_flux=False, spatial_snow=True), True,
      "spatial_snow"),
@@ -141,9 +185,17 @@ def test_make_step_refuses_frozen_options_outside_the_slice(flag, geom_given,
                                                            refused):
     """The options of the frozen path the port still refuses by name
     (FROZEN_SOIL on QUICK_FLUX and EXP_TRANS step now:
-    tests/test_torch_golden_frozen_quick.py, test_torch_frozen_exp.py)."""
+    tests/test_torch_golden_frozen_quick.py, test_torch_frozen_exp.py).
+    SPATIAL_SNOW and CORRPREC, refused until they were ported, step a
+    record on the nodes and match vic_tpu there."""
     gp = light_params(1).replace(**flag)
-    _, params, _, _, extras = build_frozen(1, 1, "cpu")
+    _, params, stack, state, extras = build_frozen(1, 1, "cpu")
     geom = extras["geom"]
+    if refused in ("spatial_snow", "corrprec"):
+        _, outs = model.make_step(params, gp, geom=geom)(
+            state, {k: v[0] for k, v in stack.items()})
+        assert all(bool(torch.isfinite(v).all()) for v in outs.values())
+        _spatial_runs_match()
+        return
     with pytest.raises(NotImplementedError, match=refused):
         model.make_step(params, gp, geom=geom if geom_given else None)

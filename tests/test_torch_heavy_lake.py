@@ -10,11 +10,14 @@ same float32 values. Tolerances: the energy-balance terms and the functions
 holding a Brent at rtol = atol = 1e-4 with their converged flags equal;
 calc_blowing_snow at rtol 1e-4 (BLOWING_RTOL, a flipped decision late in its
 24 bisection steps), atol 1e-9 kg/m^2/s; solve_lake as tests/test_torch_lake.py
-holds it. No test here compiles vic_tpu's heavy step
-(tests/test_torch_golden_heavy.py does).
+holds it. Only the SPATIAL_FROST case compiles vic_tpu's frozen and heavy
+steps, at one cell and one record, to hold SPATIAL_SNOW on them
+(tests/test_torch_golden_heavy.py holds the heavy step itself).
 """
 import dataclasses
 import functools
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -23,18 +26,25 @@ import pytest
 import torch
 
 import vic_tpu.physics.blowing_snow as jbs
+from vic_tpu.model import run as jax_run
 import vic_tpu.physics.lake as jl
 from vic_tpu.config import GlobalParams
 from vic_tpu.testing import synthetic_domain
 from vic_tpu_torch import model
-from vic_tpu_torch.entry import (build_frozen, build_heavy, heavy_params,
-                                 frozen_params)
+from vic_tpu_torch.entry import (_build, build_frozen, build_heavy,
+                                 frozen_params, heavy_forcing, heavy_params)
 from vic_tpu_torch.physics import blowing_snow as tbs
 from vic_tpu_torch.physics import lake as tl
 from vic_tpu_torch.prepare import lake_params_from_numpy
 from vic_tpu_torch.state import initial_state
-from vic_tpu_torch.testing import LAKE_ENERGY_ULPS, mixed_column_excess
+from vic_tpu_torch.testing import (LAKE_ENERGY_ULPS, frozen_run_failures,
+                                   heavy_lake_run_failures,
+                                   mixed_column_excess)
 from vic_tpu_torch.testing import synthetic_domain as t_synthetic_domain
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+import make_torch_port_fixture as fixture  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -288,16 +298,44 @@ def test_make_step_refuses_spatial_frost(config):
     """FROZEN_SOIL with SPATIAL_FROST was refused by name until the
     subarea average of the layer ice (vic_tpu/physics/frozen_soil.py:
     731-740) came: the frozen and heavy steps now build with it and step
-    their first record to finite values, and with SPATIAL_SNOW they are
-    refused by that name."""
+    their first record to finite values. With SPATIAL_SNOW too, refused by
+    that name until it was ported, the first record of one cell matches
+    vic_tpu's (the frozen rule; the heavy configuration's with LAKES)."""
     build = build_frozen if config == "frozen" else build_heavy
     gp, params, stack, state, extras = build(1, 1, "cpu")
     frost = gp.replace(spatial_frost=True)
     _, outs = model.make_step(params, frost, **extras)(
         state, {k: v[0] for k, v in stack.items()})
     assert all(bool(torch.isfinite(v).all()) for v in outs.values())
-    with pytest.raises(NotImplementedError, match="spatial_snow"):
-        model.make_step(params, frost.replace(spatial_snow=True), **extras)
+    flags = dict(spatial_frost=True, spatial_snow=True)
+    if config == "frozen":
+        t_gp, params, stack, state, extras = _build(
+            frozen_params(1).replace(**flags), 1, 1, "cpu")
+        jgp, jparams, jstack, jstate, jgeom = fixture.frozen_inputs(
+            1, 1, **flags)
+        j_final, j_outs = jax.jit(lambda s, f: jax_run(
+            s, f, jparams, jgp, geom=jgeom))(jstate, jstack)
+    else:
+        t_gp, params, stack, state, extras = _build(
+            heavy_params(1).replace(**flags), 1, 1, "cpu", zwt=True,
+            forcing=heavy_forcing)
+        jgp, jparams, jstack, jstate, jgeom, jzwt, jlp = \
+            fixture.heavy_inputs(1, 1, **flags)
+        j_final, j_outs = jax.jit(lambda s, f, z, lp: jax_run(
+            s, f, jparams, jgp, geom=jgeom, zwt_curves=z, lake_params=lp))(
+                jstate, jstack, jzwt, jlp)
+    t_final, t_outs = model.run(state, stack, params, t_gp, **extras)
+    ref = {f"out/{k}": np.asarray(v) for k, v in j_outs.items()}
+    ref.update({f"state/{f.name}": np.asarray(getattr(j_final, f.name))
+                for f in dataclasses.fields(j_final)})
+    got = {f"out/{k}": v.numpy() for k, v in t_outs.items()}
+    got.update({f"state/{k}": v for k, v in t_final.numpy().items()})
+    assert sorted(got) == sorted(ref)
+    if config == "frozen":
+        assert frozen_run_failures(ref, got, FP_TOL) == []
+    else:
+        assert heavy_lake_run_failures(
+            ref, got, FP_TOL, params.cell_area.numpy(), DT) == []
 
 
 def test_initial_state_refuses_spatial_frost():

@@ -14,6 +14,8 @@ import torch
 torch.set_num_threads(1)
 import vic_tpu_torch
 import vic_tpu_torch.model
+import vic_tpu_torch.ops.interp
+import vic_tpu_torch.physics.bisection
 from vic_tpu_torch.entry import CONFIGS
 gp, params, stack, state, extras = CONFIGS[sys.argv[1]](2, 1, "cpu")
 step = vic_tpu_torch.model.make_step(params, gp, **extras)
@@ -34,7 +36,8 @@ print("ok", len(out))
                                           ("heavy_nolakes", 155),
                                           ("heavy", 191),
                                           ("frozen_exp", 151),
-                                          ("frozen_quick", 151)])
+                                          ("frozen_quick", 151),
+                                          ("spatial_snow", 151)])
 def test_port_imports_and_steps_without_jax(config, n_out):
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, config], cwd=ROOT,

@@ -703,3 +703,148 @@ def test_blowing_snow_kernel_matches_plain_on_lake_lanes(cuda):
         assert g.shape == kw["tair"].shape
         assert bool(((g - r).abs() <= 1e-9 + 1e-4 * r.abs()).all())
     assert bool(((kw["snowdepth"] > 0.0) & (ref[0] != 0.0)).any())
+
+
+def test_loop_wrappers_refuse_cpu_tensors():
+    """K15-K17 take CUDA tensors only; on the CPU their call sites take the
+    plain versions."""
+    t = torch.zeros(2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.mass_release(t, t)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.bisection("glacier", t, t, t > 0, 40, dt=86400.0)
+    _, _, _, state, extras = build_frozen(2, 1, "cpu")
+    nodes = state.node_temp
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.implicit_profile(nodes, nodes[..., 0], nodes, nodes, nodes,
+                                 nodes, extras["geom"],
+                                 torch.ones(2, dtype=torch.bool),
+                                 dt_sec=86400.0, noflux=False, frozen=True)
+
+
+def test_snowpack_residual_fields_are_the_kernels_inputs():
+    """csrc/pack_residuals.cuh's SnowpackResidual reads dt, then
+    kernels.SNOWPACK_INPUTS in that order (SPATIAL_SNOW's coverage last)
+    and its flag, and the launchers of K2 and K17 expect as many float
+    inputs and masks; GlacierResidual reads GLACIER_INPUTS."""
+    src = (build.CSRC / "pack_residuals.cuh").read_text()
+    body = re.search(r"struct SnowpackResidual \{\s*float([^;]*);\s*bool "
+                     r"(\w+);", src)
+    assert [w.strip() for w in body.group(1).split(",")] == \
+        ["dt"] + list(kernels.SNOWPACK_INPUTS)
+    assert (body.group(2),) == kernels.SNOWPACK_FLAGS
+    glac = re.search(r"struct GlacierResidual \{\s*float([^;]*);", src)
+    assert [w.strip() for w in glac.group(1).split(",")] == \
+        ["dt"] + list(kernels.GLACIER_INPUTS)
+    k2 = (build.CSRC / "vic_kernels.cu").read_text()
+    launch = re.search(r"launch_brent\(snowpack_brent_kernel, f, f_stride, "
+                       r"nf, (\d+), m, m_stride,\s*nm, (\d+),", k2)
+    assert (int(launch.group(1)), int(launch.group(2))) == \
+        (len(kernels.SNOWPACK_INPUTS), 1 + len(kernels.SNOWPACK_FLAGS))
+    k17 = (build.CSRC / "bisection.cu").read_text()
+    counts = re.search(r"nf, snow \? (\d+) : (\d+), m, m_stride,\s*nm, "
+                       r"snow \? (\d+) : (\d+)", k17)
+    assert tuple(int(g) for g in counts.groups()) == (
+        len(kernels.SNOWPACK_INPUTS), len(kernels.GLACIER_INPUTS), 2, 1)
+
+
+def test_implicit_geometry_is_the_kernels_rows():
+    """kernels.IMPLICIT_GEOMETRY is the order of csrc/implicit_profile.cu's
+    geometry pointers, and every name is a NodeGeometry field."""
+    src = (build.CSRC / "implicit_profile.cu").read_text()
+    args = re.search(r"const float\* alpha;(.*?)const float\* surf_temp;",
+                     src, re.S).group(1)
+    names = ["alpha"] + re.findall(r"const float\* (\w+);", args)
+    assert len(names) == len(kernels.IMPLICIT_GEOMETRY)
+    from vic_tpu_torch.physics.frozen_soil import NodeGeometry
+    fields = set(NodeGeometry.__dataclass_fields__)
+    assert set(kernels.IMPLICIT_GEOMETRY) <= fields
+
+
+@pytest.mark.gpu
+def test_mass_release_kernel_matches_plain(cuda):
+    """K15 on seeded canopy snow and melt storage (both branches, the
+    MIN_INTERCEPTION_STORAGE gate) within 1e-5."""
+    from vic_tpu_torch.physics.canopy_snow import mass_release_plain
+    rng = np.random.default_rng(3)
+    int_snow = torch.tensor(rng.uniform(0.0, 0.03, (64, 5)),
+                            dtype=torch.float32, device=cuda)
+    storage = int_snow * torch.tensor(rng.uniform(0.0, 0.3, (64, 5)),
+                                      dtype=torch.float32, device=cuda)
+    before = kernels.launches["mass_release"]
+    got = kernels.mass_release(int_snow, storage)
+    ref = mass_release_plain(int_snow, storage)
+    torch.cuda.synchronize()
+    assert kernels.launches["mass_release"] == before + 1
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    assert bool((ref[2] > 0).any()) and bool((ref[3] > 0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("residual,config,record", [
+    ("snowpack", "light", 0), ("glacier", "light", 0),
+    ("snowpack", "spatial_snow", 1)])
+def test_bisection_kernel_matches_plain(cuda, residual, config, record):
+    """K17 on K2's and K1's arguments in the light step (K2's also in the
+    spatial_snow step, with the advected sensible heat), 40 steps: equal
+    flags, roots within 1e-5."""
+    from vic_tpu_torch.physics.bisection import bisection_plain
+    name = {"snowpack": "snowpack_brent", "glacier": "glacier_brent"}[
+        residual]
+    a, kw = _captured_args(cuda, names=(name,), config=config,
+                           record=record)[name]
+    lo, hi, active = a
+    inputs = {k: v for k, v in kw.items()
+              if k not in ("dt", "max_iter", "max_tries")}
+    before = kernels.launches["bisection"]
+    got = kernels.bisection(residual, lo, hi, active, 40, dt=kw["dt"],
+                            **inputs)
+    ref = bisection_plain(residual, lo, hi, active, 40, dt=kw["dt"],
+                          **inputs)
+    torch.cuda.synchronize()
+    assert kernels.launches["bisection"] == before + 1
+    assert torch.equal(got.bracketed, ref.bracketed)
+    assert bool(got.bracketed.any())
+    assert float((got.root - ref.root).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_snowpack_brent_kernel_with_coverage_matches_plain(cuda):
+    """K2 on the spatial_snow step's second record, where packs cover part
+    of their lanes: equal flags, roots within the final bracket width."""
+    a, kw = _captured_args(cuda, names=("snowpack_brent",),
+                           config="spatial_snow", record=1)["snowpack_brent"]
+    cov = kw["snow_cover_fract"].expand(a[0].shape)
+    assert bool(((cov > 0.0) & (cov < 1.0) & a[2]).any())
+    got = kernels.snowpack_brent(*a, **kw)
+    ref = snowpack_brent_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.bracketed, ref.bracketed)
+    assert torch.equal(got.converged, ref.converged)
+    both = got.converged & ref.converged
+    tol = 2.0 * (2.0 * torch.finfo(torch.float32).eps * got.root.abs() + 1e-4)
+    assert bool(((got.root - ref.root).abs() <= tol)[both].all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["frozen", "frozen_exp"])
+@pytest.mark.parametrize("noflux", [False, True])
+def test_implicit_profile_kernel_matches_plain(cuda, config, noflux):
+    """K16 on K6's arguments in the third record of the frozen (5 nodes,
+    the exact lane) and frozen_exp (10 EXP_TRANS nodes, the rolled lane)
+    steps, NOFLUX both ways: temperatures within 1e-4 C, equal fallback
+    counts."""
+    from vic_tpu_torch.physics.frozen_soil import \
+        solve_t_profile_implicit_plain
+    a, kw = _captured_args(cuda, names=("node_sweep",), config=config,
+                           record=2)["node_sweep"]
+    args = dict(dt_sec=kw["dt_sec"], noflux=noflux, frozen=kw["frozen"])
+    before = kernels.launches["implicit_profile"]
+    got = kernels.implicit_profile(*a, **args)
+    ref = solve_t_profile_implicit_plain(*a, **args)
+    torch.cuda.synchronize()
+    assert kernels.launches["implicit_profile"] == before + 1
+    assert torch.equal(got.fbcount, ref.fbcount)
+    assert float((got.temp - ref.temp).abs().max()) <= 1e-4

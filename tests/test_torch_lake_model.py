@@ -9,6 +9,11 @@ fields at rtol = atol = 1e-4, water closure within 1e-2 mm on both; the
 lakes' tolerance leaves (the two storage residuals at their ulp bounds, the
 mix near 4 C, the m^3 leaves in mm over the cell) as
 vic_tpu_torch.testing.lake_run_failures holds them (ROADMAP.md queue 3).
+SPATIAL_SNOW with LAKES (with CORRPREC and CONTINUEONERROR, from 1 May with
+a melting spring pack: tools/make_torch_port_fixture.spatial_snow_inputs),
+2 cells x 3 records, under the same rule, with one more leaf: the open
+lakes' OUT_LAKE_SURF_TEMP, set by a convective mix near 4 C that can fall
+the other way, at 2e-3 C (ROADMAP.md queue 3).
 """
 import dataclasses
 import functools
@@ -62,9 +67,49 @@ def both_runs():
             t_final, {k: v.numpy() for k, v in t_outs.items()})
 
 
-def _cell_area():
-    return synthetic_domain(n_cell=N_CELL, n_band=2,
+def _cell_area(n_cell=N_CELL):
+    return synthetic_domain(n_cell=n_cell, n_band=2,
                             with_glacier=True).soil.cell_area
+
+
+SPATIAL_CELLS, SPATIAL_RECS = 2, 3
+SPRING_SURF_TEMP_TOL = 2e-3     # C, as the heavy configuration's rule
+
+
+@functools.lru_cache(maxsize=None)
+def spatial_runs():
+    """vic_tpu's and the port's spatial_snow runs with LAKES:
+    (j_final, j_outs, t_final, t_outs)."""
+    inputs = fixture.spatial_snow_inputs(SPATIAL_CELLS, SPATIAL_RECS,
+                                         lakes=True)
+    j_final, j_outs = fixture.run_inputs(inputs)
+    t_gp, t_params, t_stack, t_state, extras = fixture.port_inputs(
+        inputs, SPATIAL_CELLS)
+    t_final, t_outs = model.run(t_state, t_stack, t_params, t_gp, **extras)
+    return (j_final, {k: np.asarray(v) for k, v in j_outs.items()},
+            t_final, {k: v.numpy() for k, v in t_outs.items()})
+
+
+def _spatial_runs_match():
+    j_final, j_outs, t_final, t_outs = spatial_runs()
+    assert sorted(t_outs) == sorted(j_outs) and "OUT_CELL_VALID" in t_outs
+    ref = {f"out/{k}": v for k, v in j_outs.items()}
+    got = {f"out/{k}": v for k, v in t_outs.items()}
+    for f in dataclasses.fields(j_final):
+        ref[f"state/{f.name}"] = np.asarray(getattr(j_final, f.name))
+        got[f"state/{f.name}"] = getattr(t_final, f.name).numpy()
+    # in May the lakes are open at 4-7 C, and a convective mix of their
+    # top layers can fall the other way: the column passes the mixing rule,
+    # the surface temperature it sets is held at SPRING_SURF_TEMP_TOL
+    # (ROADMAP.md queue 3)
+    failed = lake_run_failures(ref, got, TOL, _cell_area(SPATIAL_CELLS))
+    assert set(failed) <= {"out/OUT_LAKE_SURF_TEMP"}, failed
+    np.testing.assert_allclose(got["out/OUT_LAKE_SURF_TEMP"],
+                               ref["out/OUT_LAKE_SURF_TEMP"], rtol=TOL,
+                               atol=SPRING_SURF_TEMP_TOL)
+    cov = t_outs["OUT_SNOW_COVER"]
+    assert ((cov > 0.0) & (cov < 1.0)).any()
+    assert np.abs(t_outs["OUT_WATER_ERROR"]).max() <= WATER_TOL
 
 
 def test_all_outputs_match():
@@ -140,8 +185,9 @@ def test_wetland_host_is_the_first_candidate_lane():
 def test_heavy_lake_options_are_refused(flags, match):
     """LAKES with BLOWING, on finite-difference nodes and with DIST_PRCP
     were refused (`match` named the refusal) until the heavy configuration
-    came: each now builds its step, with FROZEN_SOIL's SPATIAL_FROST too;
-    with SPATIAL_SNOW it is refused by that name."""
+    came: each now builds its step, with FROZEN_SOIL's SPATIAL_FROST too.
+    With SPATIAL_SNOW, refused by that name until it was ported, each steps
+    its first record, and SPATIAL_SNOW with LAKES matches vic_tpu."""
     from vic_tpu_torch.entry import build_frozen
     _, params, _, _, extras = build_frozen(1, 1, "cpu")
     geom = extras["geom"]
@@ -155,9 +201,14 @@ def test_heavy_lake_options_are_refused(flags, match):
         pytest.fail(f"{match} is refused again: {err}")
     frost = gp.replace(frozen_soil=True, quick_flux=False, spatial_frost=True)
     model.make_step(params, frost, geom=geom, lake_params=lp)
-    with pytest.raises(NotImplementedError, match="spatial_snow"):
-        model.make_step(params, frost.replace(spatial_snow=True), geom=geom,
-                        lake_params=lp)
+    gp_l, _, stack, state, _ = build_lakes(1, 1, "cpu")
+    state = dataclasses.replace(state, node_temp=torch.zeros(
+        state.node_temp.shape[:2] + (geom.n_node,)))
+    _, outs = model.make_step(params, frost.replace(spatial_snow=True),
+                              geom=geom, lake_params=lp)(
+        state, {k: v[0] for k, v in stack.items()})
+    assert all(bool(torch.isfinite(v).all()) for v in outs.values())
+    _spatial_runs_match()
 
 
 def test_lake_params_without_lakes_are_refused():

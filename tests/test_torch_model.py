@@ -11,10 +11,14 @@ rain/snow ramp, GF_FULL ground flux and a minimum wind speed. A third adds
 DIST_PRCP to the light one (entry.dist_prcp_params) on the split forcing of
 entry.heavy_forcing, where rain falls on a wet fraction mu < 1; there the
 reference leaves a closure residual on the raining glacier lanes (ROADMAP.md
-queue 3), so only its cold cells are held to 1e-2 mm.
+queue 3), so only its cold cells are held to 1e-2 mm. A fourth is the
+spatial_snow configuration (SPATIAL_SNOW, CORRPREC and CONTINUEONERROR from
+1 May with a melting spring pack, entry.build_spatial_snow), 151 OUT_*.
 """
 import dataclasses
 import functools
+import os
+import sys
 
 import jax
 import numpy as np
@@ -40,6 +44,10 @@ from vic_tpu_torch.physics.hydrology_misc import (build_zwt_curves,
 from vic_tpu_torch.prepare import device_params_from_numpy
 from vic_tpu_torch.state import state_from_numpy
 from vic_tpu_torch.testing import synthetic_domain
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+import make_torch_port_fixture as fixture  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -76,11 +84,21 @@ def _dist_prcp_inputs():
             jax_initial_state(domain, gp))
 
 
-CONFIGS = ("light", "variant", "dist_prcp")
+CONFIGS = ("light", "variant", "dist_prcp", "spatial_snow")
+N_OUT = {"variant": 116, "spatial_snow": 151}
 
 
 @functools.lru_cache(maxsize=None)
 def both_runs(config):
+    if config == "spatial_snow":
+        inputs = fixture.spatial_snow_inputs(N_CELL, N_REC)
+        j_final, j_outs = fixture.run_inputs(inputs)
+        t_gp, t_params, t_stack, t_state, extras = fixture.port_inputs(
+            inputs, N_CELL)
+        t_final, t_outs = model.run(t_state, t_stack, t_params, t_gp,
+                                    **extras)
+        return (j_final, {k: np.asarray(v) for k, v in j_outs.items()},
+                t_final, {k: v.numpy() for k, v in t_outs.items()})
     if config == "light":
         gp, params, stack, state, _ = __graft_entry__._build(N_CELL,
                                                              n_rec=N_REC)
@@ -104,7 +122,7 @@ def both_runs(config):
 @pytest.mark.parametrize("config", CONFIGS)
 def test_all_outputs_match(config):
     _, j_outs, _, t_outs = both_runs(config)
-    assert len(j_outs) == (116 if config == "variant" else 150)
+    assert len(j_outs) == N_OUT.get(config, 150)
     assert sorted(t_outs) == sorted(j_outs)
     for k, a in j_outs.items():
         b = t_outs[k]
@@ -173,8 +191,48 @@ def test_params_from_jax_objects_run_identically():
         assert torch.equal(a[k], b[k]), k
 
 
+# the options this test once refused that step since they were ported, and
+# the outputs that show each one in the spatial_snow configuration
+PORTED = {"spatial_snow": ("OUT_SNOW_COVER", "OUT_ADV_SENS",
+                           "OUT_ADV_SENS_BAND", "OUT_SNOW_COVER_BAND"),
+          "corrprec": ("OUT_PREC", "OUT_RAINF", "OUT_SNOWF"),
+          "continue_on_error": ("OUT_CELL_VALID",)}
+
+
+def _steps_and_matches(name):
+    """The light step with option `name` alone steps a record to finite
+    outputs; with all three (the spatial_snow configuration) the outputs
+    that show it match vic_tpu's at 1e-4, and it does what it is for."""
+    gp = light_params(1).replace(**{name: True})
+    _, params, stack, state, _ = build_light(8, 1, "cpu")
+    _, outs = model.make_step(params, gp)(
+        state, {k: v[0] for k, v in stack.items()})
+    assert all(bool(torch.isfinite(v).all()) for v in outs.values())
+    assert ("OUT_CELL_VALID" in outs) == (name == "continue_on_error")
+    _, j_outs, _, t_outs = both_runs("spatial_snow")
+    for k in PORTED[name]:
+        np.testing.assert_allclose(t_outs[k], j_outs[k], rtol=TOL, atol=TOL,
+                                   err_msg=k)
+    if name == "spatial_snow":
+        cov = t_outs["OUT_SNOW_COVER"]
+        partial = (cov > 0.0) & (cov < 1.0)
+        assert partial.any() and np.abs(t_outs["OUT_ADV_SENS"][partial]).max() > 0
+    elif name == "corrprec":
+        # the gauge catch ratio: the corrected precipitation exceeds the
+        # uncorrected one's where it falls
+        _, raw = model.make_step(params, light_params(1))(
+            state, {k: v[0] for k, v in stack.items()})
+        wet = raw["OUT_PREC"] > 0.0
+        assert bool(wet.any())
+        assert bool((outs["OUT_PREC"][wet] > raw["OUT_PREC"][wet]).all())
+    else:
+        assert (t_outs["OUT_CELL_VALID"] == 1.0).all()
+
+
 # LAKES steps with DIST_PRCP, BLOWING and CLOSE_ENERGY, but not without its
-# lakes' parameters, which these calls do not pass
+# lakes' parameters, which these calls do not pass; SPATIAL_SNOW, CORRPREC
+# and CONTINUEONERROR are no longer refused: their cases check that each
+# steps and matches vic_tpu
 @pytest.mark.parametrize("flag", [
     dict(full_energy=False), dict(frozen_soil=True), dict(quick_flux=False),
     dict(dist_prcp=True, lakes=True), dict(blowing=True, lakes=True),
@@ -184,6 +242,9 @@ def test_params_from_jax_objects_run_identically():
     dict(exp_trans=True, frozen_soil=True)],
     ids=lambda d: next(iter(d)))
 def test_make_step_refuses_options_outside_the_slice(flag):
+    if next(iter(flag)) in PORTED:
+        _steps_and_matches(next(iter(flag)))
+        return
     gp = light_params(1).replace(**flag)
     _, params, _, _, extras = build_frozen(1, 1, "cpu")
     # CLOSE_ENERGY steps on finite-difference nodes; every combination with

@@ -25,7 +25,11 @@ every final-state field ("state/<name>"), compressed, of
   SPATIAL_FROST's 10 frost subareas (vic_tpu_torch.entry.frozen_exp_params)
   -> frozen_exp_16x4.npz;
 - frozen_quick: the light configuration with FROZEN_SOIL on QUICK_FLUX's 3
-  nodes (vic_tpu_torch.entry.frozen_quick_params) -> frozen_quick_16x4.npz.
+  nodes (vic_tpu_torch.entry.frozen_quick_params) -> frozen_quick_16x4.npz;
+- spatial_snow: the light configuration with SPATIAL_SNOW, CORRPREC and
+  CONTINUEONERROR from 1 May with the spring pack of
+  vic_tpu_torch.testing.spring_pack (vic_tpu_torch.entry
+  .build_spatial_snow) -> spatial_snow_16x4.npz.
 
 - driver: a run of the main path in the reference's file formats, 16
   cells x 12 daily records from 1995-09-25 with the glacier mass-balance
@@ -40,7 +44,7 @@ and by chip_smoke.py's reference phases.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py \
         [light|frozen|blowing_close|lakes|heavy_nolakes|heavy|frozen_exp|
-         frozen_quick|driver]
+         frozen_quick|spatial_snow|driver]
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ HEAVY_NOLAKES_FIXTURE = os.path.join(FIXTURE_DIR, "heavy_nolakes_16x8.npz")
 HEAVY_FIXTURE = os.path.join(FIXTURE_DIR, "heavy_16x8.npz")
 FROZEN_EXP_FIXTURE = os.path.join(FIXTURE_DIR, "frozen_exp_16x4.npz")
 FROZEN_QUICK_FIXTURE = os.path.join(FIXTURE_DIR, "frozen_quick_16x4.npz")
+SPATIAL_SNOW_FIXTURE = os.path.join(FIXTURE_DIR, "spatial_snow_16x4.npz")
 # the flags frozen_exp and frozen_quick set on the frozen configuration's
 FROZEN_EXP_FLAGS = dict(nnode=10, exp_trans=True, spatial_frost=True,
                         frost_subareas=10, frost_slope=2.0)
@@ -230,11 +235,12 @@ def heavy_nolakes_inputs(n_cell: int, n_rec: int):
     return heavy_inputs(n_cell, n_rec, lakes=False)[:6]
 
 
-def heavy_inputs(n_cell: int, n_rec: int, lakes: bool = True):
+def heavy_inputs(n_cell: int, n_rec: int, lakes: bool = True, **flags):
     """vic_tpu's (gp, params, stack, state, geom, zwt_curves, lake_params)
-    of the heavy configuration, with LAKES unless not `lakes`, as
-    heavy_nolakes_inputs; lake_params holds jnp arrays, floats in float32
-    as __graft_entry__ casts them (None without LAKES)."""
+    of the heavy configuration, with LAKES unless not `lakes` and the
+    GlobalParams `flags` replaced, as heavy_nolakes_inputs; lake_params
+    holds jnp arrays, floats in float32 as __graft_entry__ casts them (None
+    without LAKES)."""
     sys.path.insert(0, ROOT)
     import jax
     import jax.numpy as jnp
@@ -254,7 +260,7 @@ def heavy_inputs(n_cell: int, n_rec: int, lakes: bool = True):
                       glacier_id=99, snow_band=2, frozen_soil=True,
                       implicit=True, quick_flux=False, nnode=5,
                       close_energy=True, dist_prcp=True, blowing=True,
-                      lakes=lakes)
+                      lakes=lakes).replace(**flags)
     domain = synthetic_domain(n_cell=n_cell, n_band=2, with_glacier=True)
     geom = build_node_geometry(domain.soil, gp)
     zwt = {k: jnp.asarray(v, jnp.float32)
@@ -298,6 +304,106 @@ def heavy_reference(n_cell: int = N_CELL, n_rec: int = HEAVY_N_REC) -> dict:
     return _arrays(final, outs)
 
 
+def spatial_snow_inputs(n_cell: int, n_rec: int, **flags):
+    """vic_tpu's (gp, params, stack, state, geom, lake_params) of the
+    spatial_snow configuration (vic_tpu_torch.entry.spatial_snow_params with
+    the GlobalParams `flags` replaced: FROZEN_SOIL on finite-difference
+    nodes, LAKES, ...), from 1 May on vic_tpu_torch.entry.spring_forcing,
+    its state the cold start with vic_tpu_torch.testing.spring_pack's pack;
+    geom holds numpy float64 arrays (None on QUICK_FLUX without
+    FROZEN_SOIL), lake_params jnp arrays, floats in float32 (None without
+    LAKES)."""
+    sys.path.insert(0, ROOT)
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from vic_tpu.config import GlobalParams
+    from vic_tpu.model import make_forcing_stack
+    from vic_tpu.physics.frozen_soil import build_node_geometry
+    from vic_tpu.physics.lake import make_lake_params
+    from vic_tpu.prepare import prepare_domain
+    from vic_tpu.state import initial_state
+    from vic_tpu.testing import synthetic_domain
+    from vic_tpu.timeaxis import make_time_axis
+    from vic_tpu_torch.entry import spatial_snow_params, spring_forcing
+    from vic_tpu_torch.testing import SPRING_START, spring_pack
+
+    t_gp = spatial_snow_params(n_rec).replace(**flags)
+    gp = GlobalParams(**{f.name: getattr(t_gp, f.name)
+                         for f in dataclasses.fields(t_gp)})
+    domain = synthetic_domain(n_cell=n_cell, n_band=2, with_glacier=True)
+    geom = (build_node_geometry(domain.soil, gp)
+            if gp.frozen_soil or not gp.quick_flux else None)
+    lake_params = (jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, jnp.float32)
+        if np.asarray(a).dtype.kind == "f" else jnp.asarray(a),
+        make_lake_params(domain.soil, gp)) if gp.lakes else None)
+    params = prepare_domain(domain, gp)
+    stack = make_forcing_stack(
+        spring_forcing(n_rec, n_cell, dt_hours=gp.dt),
+        make_time_axis(*SPRING_START, 0, n_rec, gp.dt))
+    state = initial_state(domain, gp, geom=geom, lake_params=lake_params)
+    state = dataclasses.replace(state, **{
+        k: jnp.asarray(v)
+        for k, v in spring_pack(np.asarray(params.mask)).items()})
+    return gp, params, stack, state, geom, lake_params
+
+
+def run_inputs(inputs):
+    """vic_tpu.model.run, jitted, on (gp, params, stack, state, geom,
+    lake_params): (final state, outputs)."""
+    import jax
+    jax.config.update("jax_enable_x64", False)
+    from vic_tpu.model import run
+
+    gp, params, stack, state, geom, lake_params = inputs
+    return jax.jit(lambda s, f, l: run(s, f, params, gp, geom=geom,
+                                       lake_params=l))(state, stack,
+                                                       lake_params)
+
+
+def port_inputs(inputs, n_cell: int):
+    """The port's (gp, params, stack, state, extras) of vic_tpu's `inputs`
+    (spatial_snow_inputs) on CPU, from the very same float32 bits: the
+    parameters, state, forcing and lake parameters field by field, the node
+    geometry built by the port from the same synthetic soil."""
+    import dataclasses
+
+    import torch
+    from vic_tpu_torch.config import GlobalParams as TGlobalParams
+    from vic_tpu_torch.physics.frozen_soil import build_node_geometry
+    from vic_tpu_torch.prepare import (device_params_from_numpy,
+                                       lake_params_from_numpy)
+    from vic_tpu_torch.state import state_from_numpy
+    from vic_tpu_torch.testing import synthetic_domain
+
+    def fields_of(obj):
+        return {f.name: np.asarray(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+
+    gp, params, stack, state, geom, lake_params = inputs
+    t_gp = TGlobalParams(**{f.name: getattr(gp, f.name)
+                            for f in dataclasses.fields(gp)})
+    t_stack = {k: torch.tensor(np.asarray(v)) for k, v in stack.items()
+               if k not in ("month", "day_in_year")}
+    t_stack.update(month=np.asarray(stack["month"]),
+                   day_in_year=np.asarray(stack["day_in_year"]))
+    t_geom = (build_node_geometry(
+        synthetic_domain(n_cell, n_band=2, with_glacier=True).soil,
+        t_gp).to("cpu") if geom is not None else None)
+    t_lp = (lake_params_from_numpy(lake_params, "cpu")
+            if lake_params is not None else None)
+    return (t_gp, device_params_from_numpy(fields_of(params), "cpu"),
+            t_stack, state_from_numpy(fields_of(state), "cpu"),
+            dict(geom=t_geom, lake_params=t_lp))
+
+
+def spatial_snow_reference(n_cell: int = N_CELL, n_rec: int = N_REC) -> dict:
+    """As light_reference, for the spatial_snow configuration."""
+    return _arrays(*run_inputs(spatial_snow_inputs(n_cell, n_rec)))
+
+
 def write_driver_inputs(root) -> str:
     """The driver fixture's input files under `root`, paths as @FIXDIR@."""
     sys.path.insert(0, ROOT)
@@ -334,6 +440,8 @@ def main(which: str = "light"):
                   "frozen_exp": (FROZEN_EXP_FIXTURE, frozen_exp_reference),
                   "frozen_quick": (FROZEN_QUICK_FIXTURE,
                                    frozen_quick_reference),
+                  "spatial_snow": (SPATIAL_SNOW_FIXTURE,
+                                   spatial_snow_reference),
                   "driver": (DRIVER_FIXTURE, driver_reference)}[which]
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(path, **make())

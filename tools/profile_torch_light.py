@@ -4,7 +4,8 @@
                                                   blowing_close|lakes|
                                                   dist_prcp|heavy_nolakes|
                                                   heavy|frozen_exp|
-                                                  frozen_quick]
+                                                  frozen_quick|
+                                                  spatial_snow]
                                         [--cells 32768] [--records 8]
                                         [--repeats 5] [--out FILE.json]
 
@@ -67,6 +68,8 @@ CONFIG_CALLS = {
 CONFIG_CALLS["heavy"] = CONFIG_CALLS["heavy_nolakes"] + CONFIG_CALLS["lakes"]
 CONFIG_CALLS["frozen_exp"] = CONFIG_CALLS["frozen"]
 CONFIG_CALLS["frozen_quick"] = ("estimate_layer_ice", "find_zero_fronts")
+# SPATIAL_SNOW's depletion curve and CORRPREC's gauge correction
+CONFIG_CALLS["spatial_snow"] = ("calc_snow_coverage", "correct_precip")
 # inside lake_step (physics/lake.py): solve_lake, within it the open-water
 # column (K10), the snow-on-ice update (K12 inside) and the under-ice
 # column (K11); every depth bisection (K13) of solve_lake and the water

@@ -67,13 +67,6 @@ struct SweepArgs {
   int32_t* sweeps;             // [1]
 };
 
-// NaN-propagating max, as torch.maximum / jnp.maximum
-__device__ __forceinline__ float nan_max(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return fmaxf(a, b);
-}
-
 // Node loops unroll fully on an EXACT lane (unroll count CAP) and not at all
 // on the others (1).
 template <int CAP, bool EXACT>
@@ -159,8 +152,8 @@ struct NodeLane {
     float ice = 0.0f;
     if (t < 0.0f && fs) {
       const float iw =
-          fmaxf(moist[j] - max_unfrozen(t, mmax[j], bub[j], expt[j]), 0.0f);
-      ice = fminf(iw, mmax[j]);
+          nan_max(moist[j] - max_unfrozen(t, mmax[j], bub[j], expt[j]), 0.0f);
+      ice = nan_min(iw, mmax[j]);
     }
     const float f1 = B[j] * (tl - tu);
     const float f2 = flux2(j, t, tl, tu);

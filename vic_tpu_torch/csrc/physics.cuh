@@ -41,6 +41,21 @@ __device__ __forceinline__ float rdiv_s(float s, float x) {
   return (1.0f / x) * s;
 }
 
+// torch.maximum / torch.minimum / torch.clamp (and jnp's): a NaN operand
+// gives NaN, where fmaxf / fminf return the other operand. The residuals
+// use these wherever their plain versions clamp, so a NaN lane stays NaN as
+// it does in vic_tpu and is frozen under CONTINUEONERROR.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return fmaxf(a, b);
+}
+__device__ __forceinline__ float nan_min(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return fminf(a, b);
+}
+
 // evap.svp (svp.c:7-23)
 __device__ __forceinline__ float svp(float t) {
   float s = 0.61078f * expf((17.269f * t) / (237.3f + t));
@@ -53,17 +68,17 @@ __device__ __forceinline__ float stability_correction(float z, float d,
                                                       float tsurf, float tair,
                                                       float wind, float z0) {
   const float denom_t = ((tair + kKelvin) + (tsurf + kKelvin)) / 2.0f;
-  const float wind2 = fmaxf(wind * wind, 1e-10f);
+  const float wind2 = nan_max(wind * wind, 1e-10f);
   float ri = kG * (tair - tsurf) * (z - d) / (denom_t * wind2);
   const float ri_limit =
       (tair + kKelvin) / (denom_t * (logf((z - d) / z0) + 5.0f));
-  ri = fminf(ri, ri_limit);
+  ri = nan_min(ri, ri_limit);
   float corr;
   if (ri > 0.0f) {
     const float s = 1.0f - div_s(ri, 0.2f);
     corr = s * s;
   } else {
-    corr = sqrtf(1.0f - 16.0f * fmaxf(ri, -0.5f));
+    corr = sqrtf(1.0f - 16.0f * nan_max(ri, -0.5f));
   }
   return tsurf == tair ? 1.0f : corr;
 }
@@ -73,16 +88,25 @@ __device__ __forceinline__ float pow4(float x) {
   return x2 * x2;
 }
 
-// soil_thermal.maximum_unfrozen_water (soil_conduction.c)
+// soil_thermal.unfrozen_water_from_terms: the unfrozen-water curve with
+// its parameter-only terms given (bubble_term = 9.81*bubble/100, power =
+// -2/(expt-3))
+__device__ __forceinline__ float unfrozen_from_terms(float t, float max_moist,
+                                                     float bubble_term,
+                                                     float power) {
+  const float arg =
+      div_s(-kLf * nan_min(t, -1e-10f), 273.16f) / bubble_term;
+  float unfrozen = max_moist * powf(nan_max(arg, 1e-30f), power);
+  unfrozen = nan_min(nan_max(unfrozen, 0.0f), max_moist);
+  return t <= 0.0f ? unfrozen : max_moist;
+}
+
+// soil_thermal.maximum_unfrozen_water (soil_conduction.c), its terms
+// formed in float32
 __device__ __forceinline__ float max_unfrozen(float t, float max_moist,
                                               float bubble, float expt) {
-  const float bubble_term = div_s(9.81f * bubble, 100.0f);
-  const float power = -rdiv_s(2.0f, expt - 3.0f);
-  const float arg =
-      div_s(-kLf * fminf(t, -1e-10f), 273.16f) / bubble_term;
-  float unfrozen = max_moist * powf(fmaxf(arg, 1e-30f), power);
-  unfrozen = fminf(fmaxf(unfrozen, 0.0f), max_moist);
-  return t <= 0.0f ? unfrozen : max_moist;
+  return unfrozen_from_terms(t, max_moist, div_s(9.81f * bubble, 100.0f),
+                             -rdiv_s(2.0f, expt - 3.0f));
 }
 
 // sublimation latent heat, J/kg

@@ -64,7 +64,7 @@ constexpr int kFsActive = kNumSurfaceMask;
 __device__ __forceinline__ float penman(float slope, float lv, float gamma,
                                         float r_air, float rad, float vpd,
                                         float ra, float rc, float rarc) {
-  const float ra_safe = fmaxf(ra, 1e-10f);
+  const float ra_safe = nan_max(ra, 1e-10f);
   float evap = (slope * rad + r_air * 1013.0f * vpd / ra_safe) /
                (lv * (slope + gamma * (1.0f + (rc + rarc) / ra_safe))) *
                kSecPerDay;
@@ -92,15 +92,15 @@ struct EtColumn {
     beta = beta_;
     rc1 = rc1_;
     // evap.wet_canopy_evap's Ts-independent part
-    const float wdmax_safe = fmaxf(wdmax, 1e-10f);
-    wdew_c = fminf(wdew, wdmax);
-    cev_pow = powf(fminf(fmaxf(wdew_c / wdmax_safe, 0.0f), 1.0f), kTwoThirds);
+    const float wdmax_safe = nan_max(wdmax, 1e-10f);
+    wdew_c = nan_min(wdew, wdmax);
+    cev_pow = powf(nan_min(nan_max(wdew_c / wdmax_safe, 0.0f), 1.0f), kTwoThirds);
     storage = dt == kSecPerDay ? wdew_c + rainfall : wdew_c;
     wdew_frac_pow =
-        powf(fmaxf(wdew, 0.0f) / fmaxf(wdmax, 1e-10f), kTwoThirds);
+        powf(nan_max(wdew, 0.0f) / nan_max(wdmax, 1e-10f), kTwoThirds);
     // evap.arno_evap's Ts-independent part
-    const float moist = fminf(fmaxf(moist0 - ice0, 0.0f), max_moist0);
-    arno_cap = fmaxf(moist - resid0 * depth0 * 1000.0f, 0.0f);
+    const float moist = nan_min(nan_max(moist0 - ice0, 0.0f), max_moist0);
+    arno_cap = nan_max(moist - resid0 * depth0 * 1000.0f, 0.0f);
 #pragma unroll
     for (int l = 0; l < NL; ++l) {
       gsm[l] = lane_fl(inputs, k_gsm, row, l);
@@ -256,7 +256,7 @@ struct SurfaceResidual {
                             dt,
                         kSecPerDay);
     const float f =
-        cevap > 0.0f ? fminf(storage / fmaxf(cevap, 1e-20f), 1.0f) : 1.0f;
+        cevap > 0.0f ? nan_min(storage / nan_max(cevap, 1e-20f), 1.0f) : 1.0f;
     cevap = cevap * f;
     const float trans_factor = 1.0f - f * wdew_frac_pow;
     const float evap1 =
@@ -280,7 +280,7 @@ struct SurfaceResidual {
                          root[l] * trans_factor
                    : 0.0f;
       }
-      le_l = fminf(fmaxf(le_l, 0.0f), cap[l]);
+      le_l = nan_min(nan_max(le_l, 0.0f), cap[l]);
       layer_sum = l == 0 ? le_l : layer_sum + le_l;
     }
     return cevap + layer_sum;
@@ -294,7 +294,7 @@ struct SurfaceResidual {
         penman(slope, lv, gamma, r_air, rad, vpd, ra_used, 0.0f, 0.0f) * dt,
         kSecPerDay);
     const float evap = epot * col.beta;
-    return evap > 0.0f ? fminf(evap, col.arno_cap) : evap;
+    return evap > 0.0f ? nan_min(evap, col.arno_cap) : evap;
   }
 
   // QUICK_FLUX: estimate_T1 ground heat (func_surf_energy_bal.c:171-181)
@@ -315,7 +315,7 @@ struct SurfaceResidual {
     const float unfrozen =
         max_unfrozen(tavg01, max_moist0_vol, bubble0, expt0);
     const float ice_new =
-        tavg01 < 0.0f ? fmaxf(moist0_vol - unfrozen, 0.0f) : 0.0f;
+        tavg01 < 0.0f ? nan_max(moist0_vol - unfrozen, 0.0f) : 0.0f;
     float fus = div_s(kNegRhoIceLf * (ice0_vol - ice_new) * d1, dt);
     if (grnd_flux_type == 2) fus = cover_atten * fus;
     return fs_active ? fus : 0.0f;

@@ -32,11 +32,13 @@
 
 #include "brent.cuh"
 #include "lanes.cuh"
+#include "pack_residuals.cuh"
 #include "physics.cuh"
 
 namespace {
 
 using namespace vicphys;
+using namespace vicres;
 
 constexpr int kBlock = 128;
 
@@ -53,7 +55,7 @@ __device__ __forceinline__ float penman_rc0(float tair, float elevation,
   const float lv = 2501000.0f - 2361.0f * tair;
   const float gamma = 1628.6f * pz / lv;
   const float r_air = 0.003486f * pz / (275.0f + tair);
-  const float ra_safe = fmaxf(ra, 1e-10f);
+  const float ra_safe = nan_max(ra, 1e-10f);
   float evap = (slope * rad + r_air * 1013.0f * vpd / ra_safe) /
                (lv * (slope + gamma * (1.0f + (0.0f + rarc) / ra_safe))) *
                kSecPerDay;
@@ -68,82 +70,16 @@ __device__ __forceinline__ float wet_canopy_evap(float wdew, float prec,
                                                  float air_temp,
                                                  float elevation, float ra,
                                                  float dt) {
-  const float wdmax_safe = fmaxf(wdmax, 1e-10f);
-  const float wdew_c = fminf(wdew, wdmax);
-  const float x = fminf(fmaxf(wdew_c / wdmax_safe, 0.0f), 1.0f);
+  const float wdmax_safe = nan_max(wdmax, 1e-10f);
+  const float wdew_c = nan_min(wdew, wdmax);
+  const float x = nan_min(nan_max(wdew_c / wdmax_safe, 0.0f), 1.0f);
   const float ce = powf(x, kTwoThirds) *
                    penman_rc0(air_temp, elevation, rad, vpd, ra, rarc) * dt /
                    kSecPerDay;
   const float storage = dt == kSecPerDay ? wdew_c + prec : wdew_c;
-  const float f = ce > 0.0f ? fminf(storage / fmaxf(ce, 1e-20f), 1.0f) : 1.0f;
+  const float f = ce > 0.0f ? nan_min(storage / nan_max(ce, 1e-20f), 1.0f) : 1.0f;
   return ce * f;
 }
-
-// K1 residual: glacier.glacier_energy_terms(t).rest
-struct GlacierResidual {
-  float dt, ra, z_ref, roughness, air_dens, vp_air, longwave_in, lv,
-      pressure, rain_m, net_short, vpd, wind, old_tsurf, ice_depth_mm, tair;
-
-  __device__ float operator()(float ts) const {
-    const float tgrnd = 0.0f;  // GLAC_TEMP
-    const float tmean = (ts + tgrnd) / 2.0f;
-    const float old_tmean = (old_tsurf + tgrnd) / 2.0f;
-    const float ice_depth = ice_depth_mm / 1000.0f;
-    const float ra_corr =
-        wind > 0.0f
-            ? ra / stability_correction(z_ref, 0.0f, ts, tair, wind, roughness)
-            : kHugeResist;
-    const float net_long = longwave_in - kStefanB * pow4(ts + kKelvin);
-    const float net_rad = net_short + net_long;
-    const float sensible = air_dens * kCp * (tair - ts) / ra_corr;
-    float vmf = air_dens * (kEpsRatio / pressure) * (vp_air - svp(ts)) / ra_corr;
-    if (vpd == 0.0f && vmf < 0.0f) vmf = 0.0f;
-    const float latent = ts >= 0.0f ? lv * vmf : 0.0f;
-    const float latent_sub = ts >= 0.0f ? 0.0f : ls_of(ts) * vmf;
-    const float advection = ts == 0.0f ? kChWater * tair * rain_m / dt : 0.0f;
-    const float delta_cc = kChIce * ice_depth * (tmean - old_tmean) / dt;
-    const float grnd_flux = (kGlacKIce + ts * (-0.0142f)) * (tgrnd - ts) /
-                            fmaxf(ice_depth, 1e-6f);
-    float rest = net_rad + sensible + latent + latent_sub + advection -
-                 delta_cc + grnd_flux;
-    if (ts == 0.0f && rest >= 0.0f) rest = 0.0f;
-    return rest;
-  }
-};
-
-// K2 residual: snow.snow_energy_terms(t).rest, with the blowing-snow mass
-// flux (kg/m^2/s) added to the surface vapor flux
-struct SnowpackResidual {
-  float dt, ra, z_ref, roughness, air_dens, vp_air, longwave_in, lv,
-      pressure, rain_m, net_short, vpd, wind, old_tsurf, snow_depth,
-      snow_density, surf_water, surface_swq, tair, tgrnd, blowing_flux;
-
-  __device__ float operator()(float ts) const {
-    const float ra_corr =
-        wind > 0.0f
-            ? ra / stability_correction(z_ref, 0.0f, ts, tair, wind, roughness)
-            : kHugeResist;
-    const float net_long = longwave_in - kStefanB * pow4(ts + kKelvin);
-    const float net_rad = net_short + net_long;
-    const float sensible = air_dens * kCp * (tair - ts) / ra_corr;
-    const SnowLatent lh = latent_heat_from_snow(
-        air_dens, vp_air, lv, pressure, ra_corr, ts, vpd, blowing_flux);
-    const float latent = lh.latent;
-    const float latent_sub = lh.latent_sub;
-    const float advection = ts == 0.0f ? kChWater * tair * rain_m / dt : 0.0f;
-    const float delta_cc = kChIce * surface_swq * (ts - old_tsurf) / dt;
-    const float grnd_flux =
-        snow_depth > 0.0f ? kKSnow * snow_density * snow_density *
-                                (tgrnd - ts) / fmaxf(snow_depth, 1e-10f) / dt
-                          : 0.0f;
-    const float refreeze = surf_water * kLf * kRhoW / dt;
-    const float rest = net_rad + sensible + latent + latent_sub + advection -
-                       delta_cc + grnd_flux;
-    // two-pass 0 C pattern (SnowPackEnergyBalance.c:186-195)
-    if (ts == 0.0f && rest > -refreeze) return 0.0f;
-    return rest + refreeze;
-  }
-};
 
 // K3 residual: canopy_snow.canopy_energy_terms(t)["rest"]
 struct CanopyResidual {
@@ -210,7 +146,7 @@ __global__ void snowpack_brent_kernel(const __grid_constant__ LaneInputs in,
   const SnowpackResidual r{dt,    f(0),  f(1),  f(2),  f(3),  f(4),  f(5),
                            f(6),  f(7),  f(8),  f(9),  f(10), f(11), f(12),
                            f(13), f(14), f(15), f(16), f(17), f(18),
-                           f(19)};
+                           f(19), f(20), lane_m(in, 1, row)};
   store(out, i, brent_solve(r, lo[i], hi[i], lane_m(in, 0, row), max_iter,
                             max_tries));
 }
@@ -260,8 +196,8 @@ __global__ void runoff_hourly_kernel(const __grid_constant__ LaneInputs in,
   auto cascade_up = [&](int top, float amount) {
     for (int up = top; up >= 0; --up) {
       liq[up] = liq[up] + amount;
-      amount = fmaxf(liq[up] + ice[up] - mm[up], 0.0f);
-      liq[up] = fminf(liq[up], mm[up] - ice[up]);
+      amount = nan_max(liq[up] + ice[up] - mm[up], 0.0f);
+      liq[up] = nan_min(liq[up], mm[up] - ice[up]);
     }
     return amount;
   };
@@ -272,9 +208,9 @@ __global__ void runoff_hourly_kernel(const __grid_constant__ LaneInputs in,
     float q12[NL - 1];
 #pragma unroll
     for (int l = 0; l < NL - 1; ++l) {
-      const float tmp_liq = fmaxf(liq[l] - evap[l], resid[l]);
-      const float frac = fminf(
-          fmaxf((tmp_liq - resid[l]) / fmaxf(mm[l] - resid[l], 1e-10f), 0.0f),
+      const float tmp_liq = nan_max(liq[l] - evap[l], resid[l]);
+      const float frac = nan_min(
+          nan_max((tmp_liq - resid[l]) / nan_max(mm[l] - resid[l], 1e-10f), 0.0f),
           1.0f);
       q12[l] = liq[l] > resid[l] ? ksat[l] * powf(frac, expt[l]) : 0.0f;
     }
@@ -284,34 +220,34 @@ __global__ void runoff_hourly_kernel(const __grid_constant__ LaneInputs in,
     for (int l = 0; l < NL - 1; ++l) {
       const float dro = l == 0 ? dt_runoff : 0.0f;
       liq[l] = liq[l] + (inflow - dro) - (q12[l] + evap[l]);
-      const float excess = fmaxf(liq[l] + ice[l] - mm[l], 0.0f);
-      liq[l] = fminf(liq[l], mm[l] - ice[l]);
+      const float excess = nan_max(liq[l] + ice[l] - mm[l], 0.0f);
+      liq[l] = nan_min(liq[l], mm[l] - ice[l]);
       if (l == 0) {
         q12[0] = q12[0] + excess;
       } else {
         runoff_h = runoff_h + cascade_up(l - 1, excess);
       }
-      const float deficit = fminf(liq[l] + ice[l] - resid[l], 0.0f);
+      const float deficit = nan_min(liq[l] + ice[l] - resid[l], 0.0f);
       q12[l] = q12[l] + deficit;
-      liq[l] = fmaxf(liq[l], resid[l] - ice[l]);
+      liq[l] = nan_max(liq[l], resid[l] - ice[l]);
       inflow = q12[l];
     }
     // ARNO baseflow from the bottom layer
     const float rel_moist =
-        (liq[lb] - resid[lb]) / fmaxf(mm[lb] - resid[lb], 1e-10f);
+        (liq[lb] - resid[lb]) / nan_max(mm[lb] - resid[lb], 1e-10f);
     float base = dsmax_hr * ds / ws * rel_moist;
-    const float over_ws = fmaxf((rel_moist - ws) / fmaxf(1.0f - ws, 1e-10f),
+    const float over_ws = nan_max((rel_moist - ws) / nan_max(1.0f - ws, 1e-10f),
                                 0.0f);
     base = base + (rel_moist > ws ? dsmax_hr * (1.0f - ds / ws) *
                                         powf(over_ws, c_expt)
                                   : 0.0f);
-    base = fmaxf(base, 0.0f);
+    base = nan_max(base, 0.0f);
     liq[lb] = liq[lb] + q12[lb - 1] - (evap[lb] + base);
-    const float deficit = fminf(liq[lb] + ice[lb] - resid[lb], 0.0f);
+    const float deficit = nan_min(liq[lb] + ice[lb] - resid[lb], 0.0f);
     base = base + deficit;
-    liq[lb] = fmaxf(liq[lb], resid[lb] - ice[lb]);
-    const float over = fmaxf(liq[lb] + ice[lb] - mm[lb], 0.0f);
-    liq[lb] = fminf(liq[lb], mm[lb] - ice[lb]);
+    liq[lb] = nan_max(liq[lb], resid[lb] - ice[lb]);
+    const float over = nan_max(liq[lb] + ice[lb] - mm[lb], 0.0f);
+    liq[lb] = nan_min(liq[lb], mm[lb] - ice[lb]);
     runoff_h = runoff_h + cascade_up(lb - 1, over);
     runoff_acc = runoff_acc + runoff_h;
     base_acc = base_acc + base;
@@ -343,16 +279,17 @@ int glacier_brent(const void* const* f, const int32_t* f_stride, int nf,
 
 // Replaces vic_tpu/physics/snow.py:443 (snow_melt's batched_brent). Bound
 // by latency and occupancy: one lane per thread, divergent Brent trip
-// counts, ~95 B read per lane. 20 float inputs in SnowpackResidual order
-// after dt; masks: [active].
+// counts, ~100 B read per lane. 21 float inputs in SnowpackResidual order
+// after dt; masks: [active, spatial] (spatial: SPATIAL_SNOW's advected
+// sensible heat in the residual, a flag broadcast to the lanes).
 int snowpack_brent(const void* const* f, const int32_t* f_stride, int nf,
                    const void* const* m, const int32_t* m_stride, int nm,
                    int h,
                    const float* lo, const float* hi, float dt, int max_iter,
                    int max_tries, int n, float* root, uint8_t* converged,
                    uint8_t* bracketed, int32_t* iterations, void* stream) {
-  return launch_brent(snowpack_brent_kernel, f, f_stride, nf, 20, m, m_stride,
-                      nm, 1, h, lo, hi, dt, max_iter, max_tries, n, root,
+  return launch_brent(snowpack_brent_kernel, f, f_stride, nf, 21, m, m_stride,
+                      nm, 2, h, lo, hi, dt, max_iter, max_tries, n, root,
                       converged, bracketed, iterations, stream);
 }
 

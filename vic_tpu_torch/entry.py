@@ -28,6 +28,10 @@
 - `build_frozen_quick`: the light configuration with FROZEN_SOIL on
   QUICK_FLUX's 3 nodes: the fusion of the top node pair in the surface
   balance, the layer ice from [Ts, T1, T2].
+- `build_spatial_snow`: the light configuration with SPATIAL_SNOW, CORRPREC
+  and CONTINUEONERROR, from 1 May with a melting spring pack
+  (`testing.spring_pack`), so the packs' coverage is partial within the
+  first records.
 
 All run on the seeded synthetic domain and forcing, on the CUDA device
 unless the caller names another one. Each returns (gp, params, stack,
@@ -37,7 +41,10 @@ ready for `model.run(state, stack, params, gp, **extras)`.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from .config import GlobalParams
 from .model import make_forcing_stack
@@ -46,7 +53,8 @@ from .physics.hydrology_misc import build_zwt_curves, zwt_curves_to
 from .physics.lake import make_lake_params
 from .prepare import lake_params_from_numpy, prepare_domain
 from .state import initial_state
-from .testing import synthetic_domain, synthetic_forcing
+from .testing import (SPRING_DOY, SPRING_START, spring_pack,
+                      synthetic_domain, synthetic_forcing)
 from .timeaxis import make_time_axis
 
 
@@ -97,6 +105,19 @@ def frozen_exp_params(n_rec: int) -> GlobalParams:
 
 def frozen_quick_params(n_rec: int) -> GlobalParams:
     return light_params(n_rec).replace(frozen_soil=True, nnode=3)
+
+
+def spatial_snow_params(n_rec: int) -> GlobalParams:
+    year, month, day = SPRING_START
+    return light_params(n_rec).replace(
+        startyear=year, startmonth=month, startday=day, spatial_snow=True,
+        corrprec=True, continue_on_error=True)
+
+
+def spring_forcing(n_rec: int, n_cell: int, dt_hours: int = 24):
+    """synthetic_forcing from SPRING_START's day of the year."""
+    return synthetic_forcing(n_rec, n_cell, dt_hours=dt_hours,
+                             start_doy=SPRING_DOY)
 
 
 # the forcing offsets that take the synthetic forcing to blowing snow and
@@ -151,7 +172,8 @@ def _build(gp, n_cell: int, n_rec: int, device, zwt: bool = False,
     its lakes' parameters with LAKES, its water-table curves if `zwt`."""
     domain = synthetic_domain(n_cell=n_cell, n_band=2, with_glacier=True)
     params = prepare_domain(domain, gp, device)
-    ax = make_time_axis(1995, 1, 1, 0, n_rec, gp.dt)
+    ax = make_time_axis(gp.startyear, gp.startmonth, gp.startday, 0, n_rec,
+                        gp.dt)
     stack = make_forcing_stack(forcing(n_rec, n_cell, dt_hours=gp.dt), ax,
                                device)
     geom = (build_node_geometry(domain.soil, gp).to(device)
@@ -231,10 +253,26 @@ def build_frozen_quick(n_cell: int, n_rec: int, device="cuda"):
     return _build(frozen_quick_params(n_rec), n_cell, n_rec, device)
 
 
+def build_spatial_snow(n_cell: int, n_rec: int, device="cuda"):
+    """The light configuration with SPATIAL_SNOW, CORRPREC and
+    CONTINUEONERROR on `device`, from 1 May (spring_forcing) with a melting
+    spring pack on every lane (testing.spring_pack) in place of the cold
+    start's bare ground."""
+    gp, params, stack, state, extras = _build(
+        spatial_snow_params(n_rec), n_cell, n_rec, device,
+        forcing=spring_forcing)
+    pack = spring_pack(params.mask.cpu().numpy())
+    state = dataclasses.replace(state, **{
+        k: torch.as_tensor(v, device=state.swq.device)
+        for k, v in pack.items()})
+    return gp, params, stack, state, extras
+
+
 # configuration name -> the function that builds it, for callers that
 # take the name
 CONFIGS = {"light": build_light, "frozen": build_frozen,
            "blowing_close": build_blowing_close, "lakes": build_lakes,
            "dist_prcp": build_dist_prcp, "heavy_nolakes": build_heavy_nolakes,
            "heavy": build_heavy, "frozen_exp": build_frozen_exp,
-           "frozen_quick": build_frozen_quick}
+           "frozen_quick": build_frozen_quick,
+           "spatial_snow": build_spatial_snow}

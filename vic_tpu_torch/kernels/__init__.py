@@ -1,14 +1,14 @@
 """Python bindings of the CUDA kernels (csrc/*.cu).
 
 Each wrapper takes CUDA tensors only: it checks device and dtype, passes
-each lane input of K1-K5 and K7-K14 as its view broadcast to the lanes, a
+each lane input of K1-K5, K7-K15 and K17 as its view broadcast to the lanes, a
 data pointer and element strides (`_lane_inputs`, csrc/lanes.cuh), so no
 input is copied, allocates the outputs, launches on the current stream,
 raises if the launch was refused, and adds one to its entry of `launches`.
 The plain PyTorch versions live beside each call site (physics/glacier.py,
 snow.py, canopy_snow.py, runoff.py, surface.py, frozen_soil.py,
-blowing_snow.py, canopy_air.py, lake.py); the call sites pick one or the
-other by the tensors' device.
+blowing_snow.py, canopy_air.py, lake.py, bisection.py); the call sites pick
+one or the other by the tensors' device.
 """
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ launches = {"glacier_brent": 0, "snowpack_brent": 0, "canopy_brent": 0,
             "runoff_hourly": 0, "surface_brent": 0, "node_sweep": 0,
             "fd_surface_brent": 0, "blowing_snow": 0, "canopy_air_step": 0,
             "lake_open_water": 0, "lake_under_ice": 0, "lake_ice_brent": 0,
-            "lake_depth": 0, "affine_surface_brent": 0}
+            "lake_depth": 0, "affine_surface_brent": 0, "mass_release": 0,
+            "implicit_profile": 0, "bisection": 0}
 
 # per-lane float inputs of each Brent residual, in the C functors' order
 GLACIER_INPUTS = ("ra", "z_ref", "roughness", "air_dens", "vp_air",
@@ -37,7 +38,9 @@ SNOWPACK_INPUTS = ("ra", "z_ref", "roughness", "air_dens", "vp_air",
                    "longwave_in", "lv", "pressure", "rain_m", "net_short",
                    "vpd", "wind", "old_tsurf", "snow_depth", "snow_density",
                    "surf_water", "surface_swq", "tair", "tgrnd",
-                   "blowing_flux")
+                   "blowing_flux", "snow_cover_fract")
+# K2's flag: SPATIAL_SNOW's advected sensible heat in the residual
+SNOWPACK_FLAGS = ("spatial",)
 CANOPY_INPUTS = ("lai_ra_over", "air_dens", "vp_air", "pressure", "le",
                  "tcanopy", "vpd", "rainfall_m", "net_short_over",
                  "long_over_in", "long_under_out", "int_rain", "ra_plain",
@@ -98,16 +101,15 @@ def _check_launch(name, err):
     launches[name] += 1
 
 
-def _brent(name, float_names, flag_names, lo, hi, active, dt, max_iter,
-           max_tries, inputs):
+def _brent_call(name, float_names, flag_names, lo, hi, active, inputs):
+    """The lanes of a one-thread-per-lane root finder (K1-K3, K12, K17):
+    returns (the views to keep alive; the C arguments from the float and
+    mask inputs' pointers, strides and counts to the lanes per cell, lo and
+    hi; the outputs, a RootResult; the lane count)."""
     device = lo.device
     if device.type != "cuda":
         raise ValueError(f"{name}: CUDA tensors required, got {device}")
-    expected = set(float_names) | set(flag_names)
-    if set(inputs) != expected:
-        raise TypeError(f"{name}: missing inputs "
-                        f"{sorted(expected - set(inputs))}, unexpected "
-                        f"{sorted(set(inputs) - expected)}")
+    _check_names(name, inputs, tuple(float_names) + tuple(flag_names))
     shape = torch.broadcast_shapes(lo.shape, hi.shape, active.shape)
     f32, flag = torch.float32, torch.bool
     lo_c = _lanes(lo, shape, device, f32, "lo")
@@ -117,20 +119,30 @@ def _brent(name, float_names, flag_names, lo, hi, active, dt, max_iter,
     masks, m_ptr, m_stride = _lane_inputs(
         [("active", active, flag, 0)]
         + [(k, inputs[k], flag, 0) for k in flag_names], shape, device)
-    root = torch.empty(shape, dtype=f32, device=device)
-    converged = torch.empty(shape, dtype=flag, device=device)
-    bracketed = torch.empty(shape, dtype=flag, device=device)
-    iterations = torch.empty(shape, dtype=torch.int32, device=device)
-    n = root.numel()
+    outs = RootResult(torch.empty(shape, dtype=f32, device=device),
+                      torch.empty(shape, dtype=flag, device=device),
+                      torch.empty(shape, dtype=flag, device=device),
+                      torch.empty(shape, dtype=torch.int32, device=device))
+    args = (f_ptr, f_stride, len(fin), m_ptr, m_stride, len(masks),
+            shape[-1], lo_c.data_ptr(), hi_c.data_ptr())
+    return (fin, masks, lo_c, hi_c), args, outs, outs.root.numel()
+
+
+def _out_ptrs(outs):
+    return tuple(t.data_ptr() for t in outs)
+
+
+def _brent(name, float_names, flag_names, lo, hi, active, dt, max_iter,
+           max_tries, inputs):
+    _views, args, outs, n = _brent_call(name, float_names, flag_names, lo,
+                                        hi, active, inputs)
     if n:
-        stream = torch.cuda.current_stream(device).cuda_stream
+        stream = torch.cuda.current_stream(lo.device).cuda_stream
         err = getattr(build.load(), name)(
-            f_ptr, f_stride, len(fin), m_ptr, m_stride, len(masks), shape[-1],
-            lo_c.data_ptr(), hi_c.data_ptr(), float(dt), int(max_iter),
-            int(max_tries), n, root.data_ptr(), converged.data_ptr(),
-            bracketed.data_ptr(), iterations.data_ptr(), stream)
+            *args, float(dt), int(max_iter), int(max_tries), n,
+            *_out_ptrs(outs), stream)
         _check_launch(name, err)
-    return RootResult(root, converged, bracketed, iterations)
+    return outs
 
 
 def glacier_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
@@ -141,11 +153,23 @@ def glacier_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
                   max_iter, max_tries, inputs)
 
 
+def _snowpack_inputs(inputs, device):
+    """K2's inputs with SPATIAL_SNOW's coverage and flag: a zero and False
+    on `device` where snow_cover_fract is None or not given."""
+    scf = inputs.get("snow_cover_fract")
+    return dict(inputs, snow_cover_fract=(
+        torch.zeros((), dtype=torch.float32, device=device) if scf is None
+        else scf), spatial=(torch.zeros if scf is None else torch.ones)(
+            (), dtype=torch.bool, device=device))
+
+
 def snowpack_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
-    """K2: expand-then-Brent on the snowpack surface residual. Same arguments
-    and result as physics.snow.snowpack_brent_plain."""
-    return _brent("snowpack_brent", SNOWPACK_INPUTS, (), lo, hi, active, dt,
-                  max_iter, max_tries, inputs)
+    """K2: expand-then-Brent on the snowpack surface residual, with
+    SPATIAL_SNOW's advected sensible heat where snow_cover_fract is given.
+    Same arguments and result as physics.snow.snowpack_brent_plain."""
+    return _brent("snowpack_brent", SNOWPACK_INPUTS, SNOWPACK_FLAGS, lo, hi,
+                  active, dt, max_iter, max_tries,
+                  _snowpack_inputs(inputs, lo.device))
 
 
 def canopy_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
@@ -153,6 +177,61 @@ def canopy_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
     and result as physics.canopy_snow.canopy_brent_plain."""
     return _brent("canopy_brent", CANOPY_INPUTS, CANOPY_FLAGS, lo, hi,
                   active, dt, max_iter, max_tries, inputs)
+
+
+# K17's residuals: name -> (C code, float inputs, flags)
+BISECTION_RESIDUALS = {"snowpack": (0, SNOWPACK_INPUTS, SNOWPACK_FLAGS),
+                       "glacier": (1, GLACIER_INPUTS, ())}
+
+
+def bisection(residual, lo, hi, active, n_iter=40, *, dt, **inputs):
+    """K17: vic_tpu's fixed-count bisection (ops/rootfind.py:210) on one of
+    the residuals the library compiles, "snowpack" (K2's, SPATIAL_SNOW's
+    term where snow_cover_fract is given) or "glacier" (K1's), one thread
+    per lane. Same arguments and result as
+    physics.bisection.bisection_plain (iterations per lane: n_iter, 0 on
+    inactive lanes)."""
+    name = "bisection"
+    if residual not in BISECTION_RESIDUALS:
+        raise ValueError(f"{name}: residual {residual!r} is not one of "
+                         f"{sorted(BISECTION_RESIDUALS)}")
+    code, floats, flags = BISECTION_RESIDUALS[residual]
+    if residual == "snowpack":
+        inputs = _snowpack_inputs(inputs, lo.device)
+    _views, args, outs, n = _brent_call(name, floats, flags, lo, hi, active,
+                                        inputs)
+    if n:
+        stream = torch.cuda.current_stream(lo.device).cuda_stream
+        err = build.load().bisection(code, *args, float(dt), int(n_iter), n,
+                                     *_out_ptrs(outs), stream)
+        _check_launch(name, err)
+    return outs
+
+
+def mass_release(int_snow, temp_int_storage, n_iter=8):
+    """K15: vic_tpu's 8-round canopy snow release (canopy_snow.py:126), one
+    thread per lane. Same arguments and result as
+    physics.canopy_snow.mass_release_plain: (int_snow, temp_int_storage,
+    released, drip), each of the inputs' broadcast shape."""
+    name = "mass_release"
+    device = int_snow.device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors required, got {device}")
+    shape = torch.broadcast_shapes(int_snow.shape, temp_int_storage.shape)
+    f32 = torch.float32
+    fin, f_ptr, f_stride = _lane_inputs(
+        [("int_snow", int_snow, f32, 0),
+         ("temp_int_storage", temp_int_storage, f32, 0)], shape, device)
+    outs = tuple(torch.empty(shape, dtype=f32, device=device)
+                 for _ in range(4))
+    n = outs[0].numel()
+    if n:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = build.load().mass_release(
+            f_ptr, f_stride, len(fin), shape[-1], int(n_iter), n,
+            *_out_ptrs(outs), stream)
+        _check_launch(name, err)
+    return outs
 
 
 def runoff_hourly(liq0, ice, evap_hr, resid_mm, max_moist, ksat_hr, expt,
@@ -463,6 +542,50 @@ SWEEP_LANE_INPUTS = ("t0", "kappa", "cs", "moist_node", "ice0_node")
 SWEEP_GEOMETRY = ("alpha", "beta", "gamma", "e_coef", "solver_max_moist",
                   "solver_bubble", "solver_expt", "zp1")
 SWEEP_CELL_GEOMETRY = ("exp_a", "bexp")
+
+
+# K16's [n_cell, nn] geometry, in csrc/implicit_profile.cu's order
+IMPLICIT_GEOMETRY = ("alpha", "beta", "gamma", "e_lin", "max_moist_node",
+                     "bubble_term_node", "power_node")
+
+
+def implicit_profile(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
+                     fs_active, *, dt_sec, noflux, frozen, max_nr=12,
+                     relax=None):
+    """K16: the IMPLICIT soil-heat solve of every lane (Newton-Raphson with
+    a Thomas solve per step), one thread per lane, at 3 to 50 nodes. Same
+    arguments and result as
+    physics.frozen_soil.solve_t_profile_implicit_plain."""
+    from ..physics.frozen_soil import ProfileResult
+    name = "implicit_profile"
+    device = t0.device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors required, got {device}")
+    f32 = torch.float32
+    c, h, nn = t0.shape
+    if not SWEEP_MIN_NODES <= nn <= SWEEP_MAX_NODES:
+        raise ValueError(f"{name}: runs {SWEEP_MIN_NODES} to "
+                         f"{SWEEP_MAX_NODES} nodes, got nnode={nn}")
+    named = dict(t0=t0, kappa=kappa, cs=cs, moist_node=moist_node,
+                 ice0_node=ice0_node)
+    lane = [_lanes(named[k], t0.shape, device, f32, k)
+            for k in SWEEP_LANE_INPUTS]
+    geo = [_lanes(getattr(geom, k), (c, nn), device, f32, k)
+           for k in IMPLICIT_GEOMETRY]
+    surf = _lanes(surf_temp, (c, h), device, f32, "surf_temp")
+    fs = _lanes(fs_active, (c,), device, torch.bool, "fs_active")
+    temp = torch.empty(t0.shape, dtype=f32, device=device)
+    fbcount = torch.empty(t0.shape, dtype=torch.int32, device=device)
+    n = c * h
+    if n:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = build.load().implicit_profile(
+            _ptrs(lane), _ptrs(geo), surf.data_ptr(), fs.data_ptr(), n, h,
+            nn, int(bool(frozen)), int(bool(noflux)), int(max_nr),
+            int(relax is not None), float(relax or 0.0), float(dt_sec),
+            float(2.0 * dt_sec), temp.data_ptr(), fbcount.data_ptr(), stream)
+        _check_launch(name, err)
+    return ProfileResult(temp=temp, fbcount=fbcount, iterations=int(max_nr))
 
 
 def node_sweep(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,

@@ -107,6 +107,14 @@ _LAKE_ICE_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int, ctypes.c_float,
                                      ctypes.c_int] + [ctypes.c_void_p] * 5)
 _LAKE_DEPTH_ARGTYPES = (_INPUTS + [ctypes.c_int] * 2
                         + [ctypes.c_void_p] * 2)
+_BISECTION_ARGTYPES = ([ctypes.c_int] + _INPUTS * 2
+                       + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_float, ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_void_p] * 5)
+_MASS_RELEASE_ARGTYPES = (_INPUTS + [ctypes.c_int] * 3
+                          + [ctypes.c_void_p] * 5)
+_IMPLICIT_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                      + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3)
 
 _lib = None
 
@@ -132,7 +140,10 @@ def load():
                                ("canopy_air_step", _CANOPY_AIR_ARGTYPES),
                                ("lake_open_water", _LAKE_OPEN_ARGTYPES),
                                ("lake_under_ice", _LAKE_ICE_ARGTYPES),
-                               ("lake_depth", _LAKE_DEPTH_ARGTYPES)):
+                               ("lake_depth", _LAKE_DEPTH_ARGTYPES),
+                               ("bisection", _BISECTION_ARGTYPES),
+                               ("mass_release", _MASS_RELEASE_ARGTYPES),
+                               ("implicit_profile", _IMPLICIT_ARGTYPES)):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

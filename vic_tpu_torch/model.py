@@ -16,13 +16,19 @@ intensity P/mu, and the cell sees their mu-weighted sum. With LAKES each cell's
 lake steps once after the column and its CLOSE_ENERGY passes
 (`physics.lake.lake_step`, with the blowing-snow flux over lake ice under
 BLOWING), and its wetland lanes take the lake's recharge and area change. With
-water-table curves the step adds OUT_ZWT, ZWT2, ZWT3 and ZWTL. `run` is a
-Python loop over records; month and day-of-year reach the step as host ints, so
-indexing the monthly veg tables needs no device-to-host sync.
+water-table curves the step adds OUT_ZWT, ZWT2, ZWT3 and ZWTL. SPATIAL_SNOW
+gives each pack a fractional coverage with the depletion curve's memory and
+the sensible heat advected from the snow-free patches; CORRPREC corrects rain
+and snow for gauge undercatch; CONTINUEONERROR freezes the state of a cell
+whose state goes non-finite and writes OUT_CELL_VALID. `run` is a Python loop
+over records; month and day-of-year reach the step as host ints, so indexing
+the monthly veg tables needs no device-to-host sync.
 
 Every option outside that configuration is refused when the step is built.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -40,11 +46,12 @@ from .physics.frozen_soil import (distribute_node_moisture,
                                   frost_kwargs, layer_ice_params,
                                   solve_t_profile_explicit)
 from .physics.glacier import glacier_ablation
-from .physics.hydrology_misc import compute_zwt
+from .physics.hydrology_misc import compute_zwt, correct_precip
 from .physics.lake import (LakeState, area_from_depth, depth_from_volume,
                            lake_step)
 from .physics.runoff import runoff_step
-from .physics.snow import (calc_rainonly, new_snow_density, snow_albedo,
+from .physics.snow import (calc_rainonly, calc_snow_coverage,
+                           new_snow_density, snow_albedo,
                            snow_density_update, snow_melt)
 from .physics.soil_thermal import layer_thermal_props, maximum_unfrozen_water
 from .physics.surface import solve_surface_temperature, surf_energy_terms
@@ -55,6 +62,11 @@ from .state import ModelState
 # to float32, as vic_tpu's jnp.max(live) <= OVER_TOL does
 OVER_TOL_F32 = float(np.float32(c.OVER_TOL))
 
+
+# SPATIAL_SNOW's depletion-curve state, carried unchanged without it
+COVERAGE_STATE = ("snow_store_snow", "snow_store_swq", "snow_max_swq",
+                  "snow_swq_slope", "snow_store_coverage")
+STATE_FIELDS = tuple(f.name for f in dataclasses.fields(ModelState))
 
 # the lake fields of ModelState and the LakeState fields they carry
 LAKE_STATE_FIELDS = (
@@ -81,12 +93,9 @@ def _refuse(gp, geom, zwt_curves, lake_params):
          "the reference's MAX_NODES)",
          geom is not None and geom.alpha.is_cuda
          and gp.nnode > kernels.SWEEP_MAX_NODES),
-        ("spatial_snow", gp.spatial_snow),
         ("lakes without lake_params", gp.lakes and lake_params is None),
         ("lake_params without lakes", lake_params is not None
          and not gp.lakes),
-        ("corrprec", gp.corrprec),
-        ("continue_on_error", gp.continue_on_error),
     ]
     for name, on in flags:
         if on:
@@ -96,8 +105,8 @@ def _refuse(gp, geom, zwt_curves, lake_params):
                 "finite-difference nodes (a NodeGeometry as geom, linear or "
                 "EXP_TRANS spacing), with or without FROZEN_SOIL (geom "
                 "required; with SPATIAL_FROST or not), BLOWING, "
-                "CLOSE_ENERGY, DIST_PRCP, LAKES (lake_params) and "
-                "water-table curves; without SPATIAL_SNOW, CORRPREC or "
+                "CLOSE_ENERGY, DIST_PRCP, LAKES (lake_params), "
+                "water-table curves, SPATIAL_SNOW, CORRPREC and "
                 "CONTINUEONERROR")
 
 
@@ -115,7 +124,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
     zwt_curves: the water-table curves on the parameters' device
     (physics.hydrology_misc.build_zwt_curves, then zwt_curves_to), for the
     OUT_ZWT* outputs. outvars: optional OUT_* names to return (plus
-    OUT_WATER_ERROR, always kept)."""
+    OUT_WATER_ERROR, always kept, and OUT_CELL_VALID under
+    CONTINUEONERROR)."""
     _refuse(gp, geom, zwt_curves, lake_params)
     dt_hours = gp.dt
     dt_sec = float(dt_hours) * 3600.0
@@ -170,8 +180,14 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
         # ---- rain/snow partition (solve_snow.c:149-156) ----
         rainonly = calc_rainonly(tair, prec, B(p.max_snow_temp),
                                  B(p.min_rain_temp), int(gp.temp_th_type))
-        snowfall = (prec - rainonly) * B(p.padj_s)
-        rainfall = rainonly * B(p.padj_r)
+        snow_part, rain_part = prec - rainonly, rainonly
+        if gp.corrprec:
+            # gauge undercatch (correct_precip.c, CORRPREC)
+            gc_rain, gc_snow = correct_precip(
+                wind, gs_wind_h(p, veg_displ), B(p.rough), B(p.snow_rough))
+            snow_part, rain_part = gc_snow * snow_part, gc_rain * rain_part
+        snowfall = snow_part * B(p.padj_s)
+        rainfall = rain_part * B(p.padj_r)
         out_prec = snowfall + rainfall
         out_rain = rainfall
         out_snow = snowfall
@@ -407,7 +423,10 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                 z_ref=aero.ref_height.snow_covered,
                 roughness=aero.roughness.snow_covered, dt_sec=dt_sec,
                 max_iter=gp.brent_maxiter, active_mask=snow_present & p.mask,
-                is_glacier=glacier, blowing_flux=blow_flux)
+                is_glacier=glacier, blowing_flux=blow_flux,
+                # SPATIAL_SNOW: the pack sees last step's coverage
+                # (solve_snow.c calls calc_snow_coverage after snow_melt)
+                snow_cover_fract=state.coverage if gp.spatial_snow else None)
 
             def S(new, old):
                 return W(snow_present, new, old)
@@ -464,7 +483,34 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                           new_snow_density(tair, snthrm=snthrm)), 0.0)
             depth = W(density > 0.0,
                       1000.0 * swq / torch.clamp(density, min=1.0), 0.0)
-            coverage = W(swq > 0.0, 1.0, 0.0)
+            if gp.spatial_snow:
+                # partial coverage with the depletion curve's memory
+                # (calc_snow_coverage.c:7-150), from the new pack and the
+                # old distribution state (solve_snow.c:384)
+                cr = calc_snow_coverage(
+                    store_snow=state.snow_store_snow,
+                    dfsc=torch.clamp(B(p.depth_full_snow_cover), min=1e-4),
+                    old_coverage=state.coverage, swq=swq, old_swq=state.swq,
+                    depth=depth, old_depth=state.depth,
+                    melt_m=melt_out / 1000.0 + vapor_flux,
+                    max_swq=state.snow_max_swq, snowfall_mm=snowfall_ground,
+                    store_swq=state.snow_store_swq,
+                    swq_slope=state.snow_swq_slope,
+                    store_coverage=state.snow_store_coverage)
+                coverage = W(swq > 0.0, cr.coverage, 0.0)
+                # the complete-melt (solve_snow.c:462-476) and no-snow
+                # (:500-501, 533-534) resets
+                full_melt = snow_present & (swq <= 0.0)
+                cov_state = dict(
+                    snow_store_snow=W(full_melt, True, cr.store_snow),
+                    snow_store_swq=W(~snow_present, 0.0, cr.store_swq),
+                    snow_max_swq=cr.max_swq,
+                    snow_swq_slope=W(full_melt, 0.0, cr.swq_slope),
+                    snow_store_coverage=W(~snow_present, 1.0,
+                                          cr.store_coverage))
+            else:
+                coverage = W(swq > 0.0, 1.0, 0.0)
+                cov_state = {k: getattr(state, k) for k in COVERAGE_STATE}
 
             # MELTING flag (solve_snow.c:500-510, lat-aware season window)
             north = B(p.lat) >= 0
@@ -485,6 +531,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             t = sm.terms
             pack_sum = (t.advection - t.delta_cc + t.latent + t.latent_sub
                         + t.sensible + t.refreeze_energy)
+            if gp.spatial_snow:
+                pack_sum = pack_sum + t.advected_sensible
             melt_energy = W(snow_present & (delta_cov > 0.0),
                             delta_cov * pack_sum, 0.0)
 
@@ -591,7 +639,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                 glac_water_storage=glac_water_storage, density=density,
                 depth=depth, coverage=coverage, melting=melting, cov_w=cov_w,
                 melt_energy=melt_energy, net_short_bare=net_short_bare, ts=ts,
-                fb=fb, eb=eb, luo_out=luo_out)
+                fb=fb, eb=eb, luo_out=luo_out, cov_state=cov_state)
 
         # ---- CLOSE_ENERGY: the canopy-air temperature's fixed point over
         # column() passes (surface_fluxes.c:455-656 + calc_atmos_energy_bal);
@@ -978,11 +1026,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             density=density, depth=depth, albedo=snow_alb,
             last_snow=last_snow, melting=melting, coverage=coverage,
             cold_content=cold_content, snow_flag=snow_present,
-            snow_store_snow=state.snow_store_snow,
-            snow_store_swq=state.snow_store_swq,
-            snow_max_swq=state.snow_max_swq,
-            snow_swq_slope=state.snow_swq_slope,
-            snow_store_coverage=state.snow_store_coverage,
+            **r["cov_state"],
             node_temp=node_temp, tfoliage=tfoliage_new,
             long_under_out=luo_out, glac_water_storage=glac_water_storage,
             # mass balance = precip - water reaching the surface -
@@ -1195,7 +1239,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             "OUT_DELINTERCEPT": agg(wdew_c - dw(wdew_w, wdew_d)),
             "OUT_REFREEZE": agg(rfz_pack * cov_w) / c.LF * dt_sec,
             "OUT_SUB_SURFACE": out_sub_surface,
-            "OUT_ADV_SENS": zero_c,
+            "OUT_ADV_SENS": (-agg(t.advected_sensible * cov_w)
+                             if gp.spatial_snow else zero_c),
             "OUT_AERO_COND": agg_cond,
             "OUT_AERO_COND1": agg_cond1,
             "OUT_AERO_COND2": agg_cond2,
@@ -1245,7 +1290,10 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                 "OUT_ELEV_BAND": band_agg(B(p.elevation) * 0.0
                                           + p.band_elev),
                 "OUT_ADVECTION_BAND": band_agg(adv_pack * cov_w),
-                "OUT_ADV_SENS_BAND": band_agg(torch.zeros_like(coverage)),
+                "OUT_ADV_SENS_BAND": (
+                    -band_agg(t.advected_sensible * cov_w)
+                    if gp.spatial_snow else band_agg(
+                        torch.zeros_like(coverage))),
                 "OUT_DELTACC_BAND": band_agg(dcc_pack * cov_w),
                 "OUT_GRND_FLUX_BAND": -band_agg(grnd_flux_rep),
                 "OUT_IN_LONG_BAND": band_agg(lw_in),
@@ -1288,8 +1336,31 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
 
         outputs.update(lake_out)
 
+        if gp.continue_on_error:
+            # freeze the cells whose state went non-finite (vicNl.c:521-558
+            # isValid, as a masked update); their outputs are multiplied by
+            # 0, so a NaN output stays NaN, as vic_tpu's do
+            finite = (torch.isfinite(new_state.moist).all(-1).all(-1)
+                      & torch.isfinite(new_state.swq).all(-1)
+                      & torch.isfinite(new_state.node_temp).all(-1).all(-1))
+            cell_valid = state.cell_valid & finite
+
+            def by_cell(v, x):
+                return v.reshape((-1,) + (1,) * (x.dim() - 1))
+
+            new_state = ModelState(**{
+                f: W(by_cell(cell_valid, getattr(new_state, f)),
+                     getattr(new_state, f), getattr(state, f))
+                for f in STATE_FIELDS})
+            new_state.cell_valid = cell_valid
+            vmask = cell_valid.to(f32)
+            outputs = {k: v * by_cell(vmask, v) for k, v in outputs.items()}
+            outputs["OUT_CELL_VALID"] = vmask
+
         if outvars is not None:
             keep = set(outvars) | {"OUT_WATER_ERROR"}
+            if gp.continue_on_error:
+                keep.add("OUT_CELL_VALID")
             outputs = {k: v for k, v in outputs.items() if k in keep}
         return new_state, outputs
 

@@ -7,7 +7,11 @@ evaluated on the whole batch each iteration and per-lane branches are
 converged, which costs one device-to-host sync per iteration on a GPU.
 
 This is the plain version that the CUDA Brent kernels (`csrc/brent.cuh`,
-one thread per lane) are checked against.
+one thread per lane) are checked against. `batched_bisection` is
+`vic_tpu/ops/rootfind.py:210`'s fixed-count bisection; it takes any Python
+callable and runs on any device. The bisection kernel (`csrc/bisection.cu`)
+runs it on the residuals the kernel library compiles
+(`physics.bisection`).
 """
 from __future__ import annotations
 
@@ -128,3 +132,30 @@ def batched_brent(f: Callable, lo, hi, max_iter: int = 60,
     root = torch.where(bracketed, b, 0.5 * (lo + hi))
     return RootResult(root=root, converged=converged, bracketed=bracketed,
                       iterations=i)
+
+
+def batched_bisection(f: Callable, lo, hi, n_iter: int = 40,
+                      active=None) -> RootResult:
+    """Fixed-count bisection of `f` lane-wise on [lo, hi]
+    (vic_tpu/ops/rootfind.py:210-234): n_iter halvings keeping the left
+    half where f(lo)*f(mid) <= 0, the root the midpoint of the final
+    bracket, converged = bracketed = f(lo)*f(hi) < 0 at the start; lanes
+    that do not bracket are bisected all the same. Plain PyTorch, any
+    device. With `active`, inactive lanes return the midpoint of [lo, hi]
+    unbracketed, as the bisection kernel does."""
+    lo0, hi0 = lo, hi
+    f_lo = f(lo)
+    bracketed = f_lo * f(hi) < 0.0
+    for _ in range(n_iter):
+        mid = 0.5 * (lo + hi)
+        f_mid = f(mid)
+        go_left = f_lo * f_mid <= 0.0   # f_mid == 0: shrink hi onto the root
+        lo, hi, f_lo = (torch.where(go_left, lo, mid),
+                        torch.where(go_left, mid, hi),
+                        torch.where(go_left, f_lo, f_mid))
+    root = 0.5 * (lo + hi)
+    if active is not None:
+        bracketed = bracketed & active
+        root = torch.where(active, root, 0.5 * (lo0 + hi0))
+    return RootResult(root=root, converged=bracketed, bracketed=bracketed,
+                      iterations=n_iter)

@@ -5,8 +5,10 @@ func_canopy_energy_bal.c:9-150). The foliage temperature is a Brent root of
 `canopy_energy_terms`: on the CPU through `canopy_brent_plain`, on a CUDA
 device through the `canopy_brent` kernel (`csrc/vic_kernels.cu`).
 
-`vic_tpu`'s `mass_release` has no counterpart: no code calls it, the
-single-pass release inside `snow_intercept` is what runs.
+`mass_release` is vic_tpu's 8-round release of intercepted snow
+(canopy_snow.py:126): `mass_release_plain` on the CPU, the `mass_release`
+kernel (`csrc/mass_release.cu`) on a CUDA device. No step calls it, in
+vic_tpu or here: `snow_intercept` releases in one pass.
 """
 from __future__ import annotations
 
@@ -100,6 +102,43 @@ def canopy_brent_plain(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
     return batched_brent(
         lambda t: canopy_energy_terms(t, dt=dt, **inputs)["rest"], lo, hi,
         max_iter=max_iter, max_tries=max_tries, active=active)
+
+
+def mass_release_plain(int_snow, temp_int_storage, n_iter: int = 8):
+    """Fixed-round MassRelease (massrelease.c, vic_tpu canopy_snow.py:126):
+    while the melt storage reaches 10% of the intercepted snow, release up
+    to 17% of it above MIN_INTERCEPTION_STORAGE per round, else the storage
+    drips off. All in m. Returns (int_snow, temp_int_storage, released,
+    drip)."""
+    W = torch.where
+    isnow, tstore = torch.broadcast_tensors(int_snow, temp_int_storage)
+    released = torch.zeros_like(isnow)
+    drip = torch.zeros_like(isnow)
+    for _ in range(n_iter):
+        big = isnow > c.MIN_INTERCEPTION_STORAGE
+        threshold = 0.10 * isnow
+        max_release = 0.17 * isnow
+        do_release = big & (tstore >= threshold)
+        amount = torch.minimum(
+            torch.clamp(isnow - c.MIN_INTERCEPTION_STORAGE, min=0.0),
+            max_release)
+        isnow2 = W(do_release, isnow - amount, isnow)
+        released = released + W(do_release, amount, 0.0)
+        # drip branch: the storage drains as liquid
+        do_drip = ~do_release
+        tempdrip = torch.minimum(tstore, isnow2)
+        drip = drip + W(do_drip, tempdrip, 0.0)
+        isnow = W(do_drip, isnow2 - tempdrip, isnow2)
+        tstore = W(do_drip, tstore - tempdrip, tstore)
+    return isnow, tstore, released, drip
+
+
+def mass_release(int_snow, temp_int_storage, n_iter: int = 8):
+    """`mass_release_plain` for CPU tensors, the `mass_release` kernel for
+    CUDA tensors."""
+    release = (mass_release_plain if int_snow.device.type == "cpu"
+               else kernels.mass_release)
+    return release(int_snow, temp_int_storage, n_iter)
 
 
 def snow_intercept(*, snowfall_mm, rainfall_mm, int_snow_m, int_rain_m,

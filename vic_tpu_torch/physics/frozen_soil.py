@@ -14,10 +14,13 @@ soil_conduction.c) on the explicit path the step runs:
   (frozen_soil.c:305-494) -- on the CPU through
   `solve_t_profile_explicit_plain`, on a CUDA device through the
   `node_sweep` kernel (`csrc/node_sweep.cu`);
+- `solve_t_profile_implicit`: the IMPLICIT Newton-Raphson solve with a
+  Thomas solve per step (frozen_soil.c:229-300) -- on the CPU through
+  `solve_t_profile_implicit_plain`, on a CUDA device through the
+  `implicit_profile` kernel (`csrc/implicit_profile.cu`). No step calls it,
+  in vic_tpu or here, whatever IMPLICIT says;
 - `estimate_layer_ice` (with SPATIAL_FROST's frost subareas) and
   `find_zero_fronts` (soil_conduction.c:444-830).
-
-The implicit Newton-Raphson solve is not ported: the step never calls it.
 """
 from __future__ import annotations
 
@@ -69,6 +72,7 @@ class NodeGeometry:
     # and Zsum+1 of its A = 4*bexp^2*Cs*(Zsum+1)^2, and
     # maximum_unfrozen_water's 9.81*bubble/100 and -2/(expt-3) per node
     e_coef: object
+    e_lin: object         # rho_ice*Lf*alpha^2 on any spacing (implicit solve)
     exp_a: object         # [n_cell] 4*bexp^2 (0 if unused)
     zp1: object           # Zsum + 1
     bubble_term_node: object
@@ -232,9 +236,9 @@ def build_node_geometry(soil, gp) -> NodeGeometry:
     # left to right as written (frozen_soil.py:375-389)
     b3 = bexp[:, None]
     zp1 = zsum + 1.0
+    e_lin = c.ICE_DENSITY * c.LF * alpha * alpha
     e_coef = (4.0 * b3 * b3 * c.ICE_DENSITY * c.LF * zp1 * zp1
-              if gp.exp_trans and not gp.quick_flux
-              else c.ICE_DENSITY * c.LF * alpha * alpha)
+              if gp.exp_trans and not gp.quick_flux else e_lin)
     return NodeGeometry(
         zsum=zsum, dz=dz, alpha=alpha, beta=beta, gamma=gamma,
         node_layer=node_layer, on_boundary=on_boundary,
@@ -242,7 +246,7 @@ def build_node_geometry(soil, gp) -> NodeGeometry:
         bubble_node=bubble_node, samp_i0=samp_i0, samp_w=samp_w,
         samp_trap=samp_trap, bexp=bexp, solver_max_moist=solver[0],
         solver_bubble=solver[1], solver_expt=solver[2], e_coef=e_coef,
-        exp_a=4.0 * bexp * bexp, zp1=zp1,
+        e_lin=e_lin, exp_a=4.0 * bexp * bexp, zp1=zp1,
         bubble_term_node=9.81 * bubble_node / 100.0,
         power_node=-(2.0 / (expt_node - 3.0)))
 
@@ -507,6 +511,115 @@ def solve_t_profile_explicit_plain(t0, surf_temp, kappa, cs, moist_node,
     fbcount = torch.stack(fb_tot, -1)
     fbcount = W(not_done, fbcount + 1, fbcount)
     return ProfileResult(temp=temp, fbcount=fbcount, iterations=iters)
+
+
+def solve_t_profile_implicit(t0, surf_temp, kappa, cs, moist_node,
+                             ice0_node, geom: NodeGeometry, fs_active, *,
+                             dt_sec: float, noflux: bool, frozen: bool,
+                             max_nr: int = 12,
+                             relax: float = None) -> ProfileResult:
+    """The IMPLICIT Newton-Raphson solve: `solve_t_profile_implicit_plain`
+    for CPU tensors, the `implicit_profile` kernel for CUDA tensors."""
+    solve = (solve_t_profile_implicit_plain if t0.device.type == "cpu"
+             else kernels.implicit_profile)
+    return solve(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
+                 fs_active, dt_sec=dt_sec, noflux=noflux, frozen=frozen,
+                 max_nr=max_nr, relax=relax)
+
+
+def solve_t_profile_implicit_plain(t0, surf_temp, kappa, cs, moist_node,
+                                   ice0_node, geom: NodeGeometry, fs_active,
+                                   *, dt_sec: float, noflux: bool,
+                                   frozen: bool, max_nr: int = 12,
+                                   relax: float = None) -> ProfileResult:
+    """Plain version of the `implicit_profile` kernel: vic_tpu's
+    solve_t_profile_implicit (frozen_soil.py:601-700; frozen_soil.c:229-300
+    with fda_heat_eqn's residual). max_nr Newton-Raphson steps on the node
+    system with the reference's relaxation 0.9/0.7/0.2 (or `relax`); each
+    step solves the tridiagonal Jacobian, its rows divided by |diagonal| +
+    1e-6 (the raw coefficients reach ~1e8), by the Thomas algorithm, and
+    clips the update to +-10 C. The linear-spacing coefficients on any
+    geometry, as vic_tpu; kappa[j+1] - kappa[j-1] wraps at the ends as
+    jnp.roll does, so under NOFLUX the bottom row reads kappa[0]. A lane
+    with a non-finite node or one more than 40 C from its old temperature
+    reverts to the old profile with the new surface temperature; fbcount
+    marks those nodes.
+
+    Arguments as solve_t_profile_explicit_plain's: t0 and the node
+    properties [c,h,nn], surf_temp [c,h], geometry [c,nn], fs_active [c].
+    """
+    from ..ops.tridiag import thomas_solve
+    W = torch.where
+    nn = t0.shape[-1]
+
+    def B1(a):
+        return a[:, None, :]
+
+    alpha, beta, gamma = B1(geom.alpha), B1(geom.beta), B1(geom.gamma)
+    mmax = B1(geom.max_moist_node)
+    bubble_term = B1(geom.bubble_term_node)
+    power = B1(geom.power_node)
+    fs = fs_active[:, None, None]
+    deltat = dt_sec
+
+    kap_p1 = torch.roll(kappa, -1, dims=-1)
+    kap_m1 = torch.roll(kappa, 1, dims=-1)
+    A = cs * alpha * alpha
+    Bc = (kap_p1 - kap_m1) * deltat
+    C = 2.0 * deltat * kappa * alpha / gamma
+    D = 2.0 * deltat * kappa * alpha / beta
+    E = B1(geom.e_lin)
+
+    def ice_of(t):
+        if not frozen:
+            return torch.zeros_like(t)
+        iw = torch.clamp(moist_node - unfrozen_water_from_terms(
+            t, mmax, bubble_term, power), min=0.0)
+        return W(fs & (t < 0.0), torch.minimum(iw, mmax), 0.0)
+
+    interior = torch.zeros(nn, dtype=torch.bool, device=t0.device)
+    interior[1:nn - 1] = True
+    if noflux:
+        interior[nn - 1] = True
+
+    def residual(T):
+        tl = torch.roll(T, -1, dims=-1)
+        tu = torch.roll(T, 1, dims=-1)
+        if noflux:
+            # NOFLUX bottom: the node mirrors itself
+            tl = torch.cat([tl[..., :nn - 1], T[..., nn - 1:]], -1)
+        f = (-A * (T - t0) + Bc * (tl - tu) + C * (tl - T) - D * (T - tu)
+             + E * (ice_of(T) - ice0_node))
+        return W(interior, f, 0.0)
+
+    T = torch.cat([surf_temp[..., None], t0[..., 1:]], -1)
+    for i in range(max_nr):
+        relax_i = (0.9 if i == 0 else 0.7 if i == 1 else 0.2) \
+            if relax is None else relax
+        f = residual(T)
+        # the tridiagonal Jacobian
+        dice = (ice_of(T + 0.05) - ice_of(T - 0.05)) / 0.1
+        dmain = W(interior, -A - C - D + E * dice, 1.0)
+        dl = W(interior, -Bc + D, 0.0)
+        du = W(interior, Bc + C, 0.0)
+        if noflux:
+            # the bottom row: tl == T folds the super-diagonal into the
+            # diagonal
+            dmain = torch.cat([dmain[..., :nn - 1], dmain[..., nn - 1:]
+                               + (Bc[..., nn - 1:] + C[..., nn - 1:])], -1)
+            du = torch.cat([du[..., :nn - 1],
+                            torch.zeros_like(du[..., nn - 1:])], -1)
+        scale = W(interior, torch.abs(dmain) + 1e-6, 1.0)
+        delta = thomas_solve(dl / scale, dmain / scale, du / scale,
+                             -f / scale)
+        delta = torch.clamp(delta, -10.0, 10.0)
+        T = T + relax_i * W(interior, delta, 0.0)
+    # fallback (TFALLBACK): non-finite or wild nodes revert the lane
+    bad = ~torch.isfinite(T) | (torch.abs(T - t0) > 40.0)
+    T_init = torch.cat([surf_temp[..., None], t0[..., 1:]], -1)
+    T = W(bad.any(-1, keepdim=True), T_init, T)
+    return ProfileResult(temp=T, fbcount=bad.to(torch.int32),
+                         iterations=max_nr)
 
 
 class LayerIceParams(NamedTuple):

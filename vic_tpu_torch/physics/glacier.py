@@ -36,7 +36,7 @@ def glacier_energy_terms(tsurf, *, dt, ra, z_ref, roughness, air_dens, vp_air,
                          wind, old_tsurf, ice_depth_mm, tair) -> GlacierEBTerms:
     """Glacier surface EB terms at candidate tsurf, ice body at GLAC_TEMP
     (GlacierEnergyBalance.c:calculate). The CUDA residual
-    `GlacierResidual` in csrc/vic_kernels.cu is a line-for-line copy."""
+    `GlacierResidual` in csrc/pack_residuals.cuh is a line-for-line copy."""
     tgrnd = c.GLAC_TEMP
     tmean = (tsurf + tgrnd) / 2.0
     old_tmean = (old_tsurf + tgrnd) / 2.0

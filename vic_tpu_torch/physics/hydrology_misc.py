@@ -5,8 +5,8 @@ Counterpart of `vic_tpu/physics/hydrology_misc.py`'s `build_zwt_curves`
 layer, the lumped top N-1 layers and the whole column; numpy, float64) and
 `compute_zwt` (compute_zwt.c: the interpolated lookup; zwt in cm, negative
 below the surface), and the driver's treeline test (`compute_treeline`,
-`july_avg_temperature`, numpy). The gauge correction (CORRPREC) is not
-ported: `make_step` refuses it.
+`july_avg_temperature`, numpy), and CORRPREC's WMO gauge-undercatch
+correction (`correct_precip`, correct_precip.c).
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 MAX_ZWTVMOIST = 11  # vicNl_def.h MAX_ZWTVMOIST
+GAUGE_HEIGHT = 1.0  # m, correct_precip.c:7
 
 
 def build_zwt_curves(soil) -> dict:
@@ -94,6 +95,21 @@ def compute_zwt(moist, curve_zwt, curve_moist):
                                                     m_lo - m_hi), 0.0, 1.0)
     zwt = z_hi + (z_lo - z_hi) * frac
     return torch.where(moist < curve_moist[..., -1], curve_zwt[..., -1], zwt)
+
+
+def correct_precip(wind, wind_h, roughness, snow_roughness):
+    """WMO gauge catch-ratio corrections (correct_precip.c:9-50): the wind
+    at the gauge's height from the log profile over each surface, then
+    (rain, snow) multiplicative factors."""
+    wh = torch.clamp(wind_h, min=GAUGE_HEIGHT + 0.01)
+    gw_rain = wind * (torch.log((GAUGE_HEIGHT + roughness) / roughness)
+                      / torch.log(wh / roughness))
+    rain = 100.0 / torch.exp(4.606 - 0.041 * torch.pow(gw_rain, 0.69))
+    gw_snow = wind * (torch.log((GAUGE_HEIGHT + snow_roughness)
+                                / snow_roughness)
+                      / torch.log(wh / snow_roughness))
+    snow = 100.0 / torch.exp(4.606 - 0.036 * torch.pow(gw_snow, 1.75))
+    return rain, snow
 
 
 def compute_treeline(avg_july_temp, tfactor_bands):

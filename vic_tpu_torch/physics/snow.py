@@ -1,11 +1,14 @@
 """Two-layer snowpack: rain/snow partition, albedo decay, densification and
 the surface-layer energy balance with the two-pass 0 C melt pattern.
 
-Counterpart of `vic_tpu/physics/snow.py` without the SPATIAL_SNOW terms;
-the BLOWING option's mass flux enters the surface vapor flux. The
-subfreezing surface temperature is a Brent root of
-`snow_energy_terms`: on the CPU through `snowpack_brent_plain`, on a CUDA
-device through the `snowpack_brent` kernel (`csrc/vic_kernels.cu`).
+Counterpart of `vic_tpu/physics/snow.py`; the BLOWING option's mass flux
+enters the surface vapor flux, and under SPATIAL_SNOW the pack covers a
+fraction of the lane (`calc_snow_coverage`, the depletion curve) and takes
+the sensible heat advected from its snow-free patches
+(`advected_sensible_heat`). The subfreezing surface temperature is a Brent
+root of `snow_energy_terms`: on the CPU through `snowpack_brent_plain`, on a
+CUDA device through the `snowpack_brent` kernel (`csrc/vic_kernels.cu`,
+its residual in `csrc/pack_residuals.cuh`).
 """
 from __future__ import annotations
 
@@ -168,6 +171,23 @@ def latent_heat_from_snow(air_dens, eact_air, lv, press, ra, tmean, vpd,
     return latent, latent_sub, vapor_flux
 
 
+def advected_sensible_heat(snow_cover_fract, air_dens, tair, tgrnd, ra):
+    """Sensible heat advected from snow-free patches onto the snow-covered
+    ones (advected_sensible_heat.c:8-48, Marsh, Pomeroy and Neumann 1997);
+    zero where the coverage is 0. Under SPATIAL_SNOW only."""
+    scf = snow_cover_fract
+    qbare = air_dens * c.CP * (tair - tgrnd) / ra
+    fs = torch.where(
+        scf > 0.6, 1.0,
+        torch.where(scf > 0.5, torch.pow(10.0, 3.0 * scf - 1.8),
+                    torch.where(scf > 0.2,
+                                torch.pow(10.0, 5.6667 * scf - 3.1333),
+                                0.01)))
+    cov = torch.clamp(scf, min=c.SMALL)
+    qadv = qbare * (1.0 - scf) / cov * fs
+    return torch.where(scf > 0.0, qadv, 0.0)
+
+
 class SnowEBTerms(NamedTuple):
     rest: torch.Tensor
     refreeze_energy: torch.Tensor
@@ -179,15 +199,19 @@ class SnowEBTerms(NamedTuple):
     delta_cc: torch.Tensor
     grnd_flux: torch.Tensor
     net_long: torch.Tensor
+    advected_sensible: torch.Tensor
 
 
 def snow_energy_terms(tsurf, *, dt, ra, z_ref, roughness, air_dens, vp_air,
                       longwave_in, lv, pressure, rain_m, net_short, vpd, wind,
                       old_tsurf, snow_depth, snow_density, surf_water,
-                      surface_swq, tair, tgrnd, blowing_flux) -> SnowEBTerms:
+                      surface_swq, tair, tgrnd, blowing_flux,
+                      snow_cover_fract=None) -> SnowEBTerms:
     """Snowpack surface energy balance at candidate tsurf
-    (SnowPackEnergyBalance.c:calculate). The CUDA residual
-    `SnowpackResidual` in csrc/vic_kernels.cu is a line-for-line copy."""
+    (SnowPackEnergyBalance.c:calculate); with SPATIAL_SNOW's
+    snow_cover_fract, the advected sensible heat too (:132-143). The CUDA
+    residual `SnowpackResidual` in csrc/pack_residuals.cuh is a
+    line-for-line copy."""
     ra_corr = torch.where(
         wind > 0.0,
         ra / stability_correction(z_ref, 0.0, tsurf, tair, wind, roughness),
@@ -209,8 +233,14 @@ def snow_energy_terms(tsurf, *, dt, ra, z_ref, roughness, air_dens, vp_air,
         / torch.clamp(snow_depth, min=1e-10) / dt,
         0.0)
     refreeze_energy = surf_water * c.LF * c.RHO_W / dt
-    rest = (net_rad + sensible + latent + latent_sub + advection
-            - delta_cc + grnd_flux)
+    rest = net_rad + sensible + latent + latent_sub + advection
+    if snow_cover_fract is None:
+        adv_sens = torch.zeros_like(sensible)
+    else:
+        adv_sens = advected_sensible_heat(snow_cover_fract, air_dens, tair,
+                                          tgrnd, ra_corr)
+        rest = rest + adv_sens
+    rest = rest - delta_cc + grnd_flux
     # two-pass 0 C pattern (SnowPackEnergyBalance.c:186-195)
     melt_branch = (tsurf == 0.0) & (rest > -refreeze_energy)
     return SnowEBTerms(
@@ -218,7 +248,7 @@ def snow_energy_terms(tsurf, *, dt, ra, z_ref, roughness, air_dens, vp_air,
         refreeze_energy=torch.where(melt_branch, -rest, refreeze_energy),
         vapor_flux=vapor_flux, latent=latent, latent_sub=latent_sub,
         sensible=sensible, advection=advection, delta_cc=delta_cc,
-        grnd_flux=grnd_flux, net_long=net_long)
+        grnd_flux=grnd_flux, net_long=net_long, advected_sensible=adv_sens)
 
 
 def snowpack_brent_plain(lo, hi, active, *, dt, max_iter, max_tries,
@@ -252,11 +282,14 @@ def snow_melt(*, swq, surf_temp, pack_temp, surf_water, pack_water,
               air_temp, tcanopy, tgrnd, wind, vp_air, vpd, air_dens,
               pressure, longwave_in, net_short, lv, ra, z_ref, roughness,
               dt_sec, max_iter: int = 30, active_mask=None,
-              is_glacier=None, blowing_flux=None) -> SnowMeltResult:
+              is_glacier=None, blowing_flux=None,
+              snow_cover_fract=None) -> SnowMeltResult:
     """Two-layer snowpack mass/energy update (snow_melt.c:119-560); snow
     states in m of water, precip in mm/step. See vic_tpu/physics/snow.py.
     blowing_flux: the BLOWING option's mass flux (kg/m2/s), a tensor that
-    broadcasts to the lanes; none (zero) by default."""
+    broadcasts to the lanes; none (zero) by default. snow_cover_fract:
+    SPATIAL_SNOW's coverage, which puts the advected sensible heat in the
+    pack's balance; none by default."""
     W = torch.where
     MSW = c.MAX_SURFACE_SWE
     snowfall = snowfall_mm / 1000.0
@@ -317,7 +350,8 @@ def snow_melt(*, swq, surf_temp, pack_temp, surf_water, pack_water,
         snow_density=snow_density, surf_water=surf_water,
         surface_swq=surface_swq, tair=tcanopy, tgrnd=tgrnd,
         blowing_flux=(swq.new_zeros(()) if blowing_flux is None
-                      else blowing_flux))
+                      else blowing_flux),
+        snow_cover_fract=snow_cover_fract)
 
     terms0 = snow_energy_terms(torch.zeros_like(swq), **term_kwargs)
     melt_cond = terms0.rest == 0.0
@@ -468,3 +502,71 @@ def snow_melt(*, swq, surf_temp, pack_temp, surf_water, pack_water,
         vapor_flux=-vapor_flux, cold_content=cold_content, qnet=terms.rest,
         surf_temp_fbflag=fbflag, firn_to_ice=firn_to_ice, terms=terms,
         include_snow=thin, inc_advection0=terms0.advection)
+
+
+class SnowCoverageResult(NamedTuple):
+    coverage: torch.Tensor
+    store_snow: torch.Tensor      # bool
+    store_swq: torch.Tensor       # m
+    swq_slope: torch.Tensor       # m/fract (negative)
+    store_coverage: torch.Tensor
+    max_swq: torch.Tensor         # m
+
+
+def calc_snow_coverage(*, store_snow, dfsc, old_coverage, swq, old_swq,
+                       depth, old_depth, melt_m, max_swq, snowfall_mm,
+                       store_swq, swq_slope,
+                       store_coverage) -> SnowCoverageResult:
+    """SPATIAL_SNOW's partial snow coverage with the depletion curve's
+    memory (calc_snow_coverage.c:7-150, Cherkauer 2001): snow spread with a
+    slope anchored at depth_full_snow_cover (dfsc); melt shrinks the
+    coverage along the stored slope; fresh snow on a partial pack is kept
+    apart (store_swq), so that melting it off restores the buried
+    depletion state. The reference's branch tree as three lanes evaluated
+    in full (accumulating, melting, unchanged); water in m."""
+    W = torch.where
+    one = torch.ones_like(old_coverage)
+    accum = snowfall_mm > 0.0
+    melting = ~accum & (melt_m > 0.0)
+
+    # ---- accumulation (calc_snow_coverage.c:44-80) ----
+    sc_keep = W(store_swq == 0.0, W(old_coverage < 1.0, old_coverage, one),
+                store_coverage)
+    ssw_acc = store_swq + (swq - old_swq)
+    bury = depth >= dfsc / 2.0   # deep enough to erase the melt memory
+    a_store_snow = W(store_snow, ~bury, old_coverage < 1.0)
+    a_store_swq = W(store_snow, W(bury, 0.0, ssw_acc),
+                    W(old_coverage < 1.0, swq - old_swq, store_swq))
+    a_swq_slope = W(store_snow & bury, 0.0, swq_slope)
+    a_store_cov = W(store_snow, W(bury, one, sc_keep), store_coverage)
+
+    # ---- melt (calc_snow_coverage.c:82-141) ----
+    thin = (store_swq > 0.0) & (swq < old_swq)
+    m_ssw1 = W(thin, store_swq + swq - old_swq, store_swq)
+    cleared = thin & (m_ssw1 <= 0.0)   # the stored new snow is all gone
+    m_ssw = W(cleared, 0.0, m_ssw1)
+    m_oldcov = W(cleared, store_coverage, old_coverage)
+    m_store_cov = W(cleared, one, store_coverage)
+    depleting = m_ssw == 0.0
+    need_slope = depleting & (swq_slope == 0.0)
+    m_slope = W(need_slope,
+                W(old_depth > dfsc / 2.0, -dfsc, -2.0 * old_depth),
+                swq_slope)
+    m_max0 = W(need_slope, -m_slope, max_swq)
+    m_store_snow = W(need_slope, True, store_snow)
+    m_max = W(depleting, 2.0 * depth, m_max0)
+    # rain or sublimation can raise swq mid-melt: the coverage stays then
+    reduce_cov = depleting & ((m_max < m_max0) | (m_max0 == 0.0))
+    cov_red = torch.minimum(-m_max / W(m_slope != 0.0, m_slope, -one), one)
+    m_cov = W(depleting & reduce_cov, cov_red, m_oldcov)
+
+    def pick(a, m, u):
+        return W(accum, a, W(melting, m, u))
+
+    return SnowCoverageResult(
+        coverage=pick(one, m_cov, old_coverage),
+        store_snow=pick(a_store_snow, m_store_snow, store_snow),
+        store_swq=pick(a_store_swq, m_ssw, store_swq),
+        swq_slope=pick(a_swq_slope, m_slope, swq_slope),
+        store_coverage=pick(a_store_cov, m_store_cov, store_coverage),
+        max_swq=pick(max_swq, m_max, max_swq))

@@ -1,11 +1,14 @@
-"""Synthetic domain and forcing builders (numpy only, seeded), and the
-rules a lakes run is compared with vic_tpu's by.
+"""Synthetic domain and forcing builders (numpy only, seeded), the spring
+snowpack of the spatial_snow configuration, and the rules a lakes run is
+compared with vic_tpu's by.
 
 The builders are counterparts of `vic_tpu.testing`: the same random streams
 and the same parameter ranges, so both packages build identical inputs
 from a seed.
 """
 from __future__ import annotations
+
+import datetime
 
 import numpy as np
 
@@ -175,6 +178,34 @@ def synthetic_forcing(n_rec: int, n_cell: int, dt_hours: int = 24,
         "shortwave": shortwave, "longwave": longwave,
         "pressure": pressure, "vp": vp, "density": density,
     }
+
+
+# The spatial_snow configuration starts on 1 May (day 121) with a melting
+# spring pack, so its coverage leaves {0, 1} within the first records: a
+# pack under 5 cm (dfsc/2 of the synthetic soil) that melts covers
+# depth/old_depth of its lane (calc_snow_coverage.c:82-141)
+SPRING_START = (1995, 5, 1)
+SPRING_DOY = datetime.date(*SPRING_START).timetuple().tm_yday
+
+
+def spring_pack(mask, seed: int = 7) -> dict:
+    """A ripe spring snowpack on the lanes of `mask` ([n_cell, max_hru]
+    bool, numpy): 5-120 mm of water equivalent at 250-350 kg/m^3 and 0 C,
+    fully covering, aged 5 days at albedo 0.7, melting. Returns the
+    ModelState fields it sets, as numpy arrays that both packages' states
+    take (float32, int32, bool)."""
+    rng = np.random.default_rng(seed)
+    mask = np.asarray(mask, bool)
+    swq = np.where(mask, rng.uniform(0.005, 0.12, mask.shape), 0.0)
+    density = np.where(mask, rng.uniform(250.0, 350.0, mask.shape), 0.0)
+    depth = np.where(mask, 1000.0 * swq / np.maximum(density, 1.0), 0.0)
+    f32 = np.float32
+    return dict(swq=swq.astype(f32), density=density.astype(f32),
+                depth=depth.astype(f32), coverage=mask.astype(f32),
+                albedo=np.where(mask, 0.7, 0.0).astype(f32),
+                last_snow=np.where(mask, 5, 0).astype(np.int32),
+                melting=mask.copy(), snow_flag=mask.copy(),
+                snow_store_coverage=mask.astype(f32))
 
 
 # --------------------------------------------------------------------------
