@@ -36,7 +36,10 @@ line) on failure:
    step, 40 steps. Each row's kernel is re-run on those arguments beside its
    plain PyTorch version on the card, compared, timed with CUDA events and
    given its bound (the least time the card could take for the same
-   work).
+   work). K6 and K7 are also held where a NaN reaches the node profile:
+   frozen_exp's configuration with CONTINUEONERROR and NaN air temperature
+   in NAN_CELLS cells, on the first record with the NaN (equal Brent trips,
+   profile solves and sweeps; the other lanes within their bounds).
 3. reference: each configuration's fixture size (16 cells x 4 records,
    spatial_snow's too;
    heavy_nolakes and heavy 16 x 8 3-hourly) through the port on the card
@@ -84,6 +87,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -292,6 +296,9 @@ RESIDUAL_OPS = {"glacier_brent": 55 + 30, "snowpack_brent": 55 + 30,
 FUSION_OPS = 20                   # the fusion term of K5, K7 and K14
 RUNOFF_OPS_PER_LAYER_HOUR = 30
 SWEEP_OPS_PER_NODE = 20           # t_lin and the bookkeeping
+# floats a sweep streams per lane and node: five node properties and the
+# iterate read and written (sweep_bytes)
+SWEEP_FLOATS_PER_NODE = 7
 NODE_RESIDUAL_OPS = 30            # SoilThermalEqn with its unfrozen water
 # K7: the FD residual (K5's plus the fusion term's) and the propose and
 # accept steps' Brent arithmetic (~30) per lane and evaluation
@@ -545,21 +552,26 @@ def compare_runoff(kern, plain, label):
 
 
 def compare_sweep(kern, plain, label):
-    """K6 vs its plain version: node temperatures within SWEEP_TOL, equal
-    per-node fallback counts and an equal batch-wide sweep count."""
-    diff = float((kern.temp - plain.temp).abs().max())
+    """K6 vs its plain version: node temperatures within SWEEP_TOL where
+    the plain version's are not NaN and NaN where they are, equal per-node
+    fallback counts and an equal batch-wide sweep count."""
+    nan_k, nan_p = torch.isnan(kern.temp), torch.isnan(plain.temp)
+    nan_dis = int((nan_k != nan_p).sum())
+    diff = float(torch.where(nan_p, 0.0, kern.temp - plain.temp).abs().max())
     fb_dis = int((kern.fbcount != plain.fbcount).sum())
     sweeps_k, sweeps_p = int(kern.iterations), int(plain.iterations)
     print(f"  node_sweep ({label}): lanes {kern.temp[..., 0].numel()}, sweeps "
           f"{sweeps_k}/{sweeps_p} (kernel/plain), max |T diff| {diff:.3e} C, "
           f"fallback-count disagreements {fb_dis}, lanes with a fallback "
-          f"{int((plain.fbcount > 0).any(-1).sum())}")
+          f"{int((plain.fbcount > 0).any(-1).sum())}, NaN nodes "
+          f"{int(nan_p.sum())} (disagreements {nan_dis})")
     if sweeps_k != sweeps_p:
         raise AssertionError(f"node_sweep: {sweeps_k} sweeps, plain "
                              f"{sweeps_p}")
-    if fb_dis or not diff <= SWEEP_TOL:
+    if fb_dis or nan_dis or not diff <= SWEEP_TOL:
         raise AssertionError(f"node_sweep: max |T diff| {diff} C, "
-                             f"{fb_dis} fallback-count disagreements")
+                             f"{fb_dis} fallback-count and {nan_dis} NaN "
+                             "disagreements")
     return diff
 
 
@@ -679,7 +691,6 @@ def compare_lake_under_ice(kwargs):
 def compare_lake_depth(args):
     """K13 vs its plain version: depths equal, or within one final
     bisection step (maxdepth / 2^30)."""
-    from types import SimpleNamespace
 
     from vic_tpu_torch import kernels
     from vic_tpu_torch.physics.lake import DEPTH_ITERS, depth_from_volume_plain
@@ -748,20 +759,27 @@ def brent_work(name, args, kwargs, kern):
     return bytes_in + bytes_out, float(evals.sum()) * ops_per_eval
 
 
-def fd_brent_work(kwargs, kern, evaluations):
-    """Bytes in and out of one K7 call (each residual input once, the
-    outputs once; the node profiles are K6's own) and its FP32 operations:
-    `evaluations` residual launches on every lane, as the batch-wide sweep
-    count of the reference makes every lane's profile depend on every
-    candidate."""
+def fd_brent_work(kwargs, kern):
+    """Bytes in and out of one K7 call and its FP32 operations: its profile
+    solves' sweeps, each streaming what sweep_bytes counts, and on every
+    lane the residual of each of its `solves` evaluations (as the
+    batch-wide sweep count of the reference makes every lane's profile
+    depend on every candidate) reading the residual's inputs, the outputs
+    once."""
     from vic_tpu_torch.kernels import FD_SURFACE_INPUTS, surface_inputs
     kw = kwargs["eb_kwargs"]
+    solve = kw["fd_solve"]
     inputs = list(surface_inputs(kw).values()) + [
         kw[k] for k in FD_SURFACE_INPUTS + ("fs_active",) if k in kw]
-    bytes_moved = nbytes(*inputs, kern.root, kern.converged, kern.bracketed)
+    solves, sweeps = int(kern.solves), int(kern.sweeps)
+    bytes_moved = (swept_bytes(solve, sweeps)
+                   + streamed(nbytes(*inputs), solves)
+                   + nbytes(kern.root, kern.converged, kern.bracketed))
     ops = FD_RESIDUAL_OPS + (DRY_ET_OPS if kw.get("dist_dry") is not None
                              else 0)
-    return bytes_moved, evaluations * kern.root.numel() * ops
+    return bytes_moved, (solves * kern.root.numel() * ops
+                         + sweeps * sweep_ops(solve.t0, solve.fs_active,
+                                              solve.nlayer))
 
 
 def blowing_work(kwargs, result):
@@ -785,26 +803,57 @@ def runoff_work(args, result):
             lanes * dt_hours * nl * RUNOFF_OPS_PER_LAYER_HOUR)
 
 
-def sweep_work(args, kwargs, kern):
-    """Bytes in and out of one K6 call, and its FP32 operations: every
-    interior node per sweep, plus the residual evaluations of the nodes that
-    start below 0 C where frozen soil is active (2 for nodes above the
-    soil-layer count, 2 + 16 for deeper nodes; expansions not counted)."""
-    t0, surf, kappa, cs, moist, ice0, geom, fs_active = args
+def sweep_bytes(t0, geom, exp_trans):
+    """Bytes one sweep of the node profile streams, whatever implements it:
+    each lane's five node properties (t0, kappa, cs, moisture, ice) and the
+    iterate, read and written, at every node; the cell geometry the sweep
+    reads (E, the solver's three unfrozen-water parameters and the spacing's
+    terms) once a cell."""
     read = ("e_coef", "solver_max_moist", "solver_bubble", "solver_expt") + (
-        ("zp1", "exp_a", "bexp") if kwargs.get("exp_trans")
-        else ("alpha", "beta", "gamma"))
-    geo = [getattr(geom, k) for k in read]
-    bytes_moved = nbytes(t0, surf, kappa, cs, moist, ice0, fs_active, *geo,
-                         kern.temp, kern.fbcount)
+        ("zp1", "exp_a", "bexp") if exp_trans else ("alpha", "beta", "gamma"))
+    return (t0.numel() * SWEEP_FLOATS_PER_NODE * 4
+            + nbytes(*(getattr(geom, k) for k in read)))
+
+
+def streamed(per_pass, passes):
+    """Bytes that `passes` passes over the same `per_pass` bytes must move
+    from device memory: all of them once, then on each further pass only
+    what the card's L2 cache cannot hold."""
+    l2 = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).L2_cache_size
+    return per_pass + max(0, per_pass - l2) * max(0, passes - 1)
+
+
+def swept_bytes(solve, sweeps):
+    """Bytes `sweeps` sweeps of the profile of `solve` (a NodeSolve, or
+    anything with t0, geom and exp_trans) move from device memory: the
+    streamed bytes of `sweeps` passes of sweep_bytes."""
+    return streamed(sweep_bytes(solve.t0, solve.geom, solve.exp_trans),
+                    sweeps)
+
+
+def sweep_ops(t0, fs_active, nlayer):
+    """FP32 operations of one sweep: every interior node, plus the residual
+    evaluations of the nodes that start below 0 C where frozen soil is
+    active (2 for nodes above the soil-layer count, 2 + 16 for deeper nodes;
+    expansions not counted)."""
     nn = t0.shape[-1]
-    sweeps = int(kern.iterations)
     cold = (t0[..., 1:nn - 1] < 0.0) & fs_active[:, None, None]
-    evals = torch.where(torch.arange(1, nn - 1, device=t0.device)
-                        < kwargs["nlayer"], 2, 18)
-    ops = sweeps * (t0[..., 0].numel() * (nn - 2) * SWEEP_OPS_PER_NODE
-                    + float((cold * evals).sum()) * NODE_RESIDUAL_OPS)
-    return bytes_moved, ops
+    evals = torch.where(torch.arange(1, nn - 1, device=t0.device) < nlayer,
+                        2, 18)
+    return (t0[..., 0].numel() * (nn - 2) * SWEEP_OPS_PER_NODE
+            + float((cold * evals).sum()) * NODE_RESIDUAL_OPS)
+
+
+def sweep_work(args, kwargs, kern):
+    """Bytes in and out of one K6 call (its sweeps' streams, the boundary
+    condition, the outputs) and its FP32 operations."""
+    t0, surf, kappa, cs, moist, ice0, geom, fs_active = args
+    sweeps = int(kern.iterations)
+    solve = SimpleNamespace(t0=t0, geom=geom, exp_trans=kwargs["exp_trans"])
+    bytes_moved = (swept_bytes(solve, sweeps)
+                   + nbytes(surf, fs_active, kern.temp, kern.fbcount))
+    return bytes_moved, sweeps * sweep_ops(t0, fs_active, kwargs["nlayer"])
 
 
 def lake_column_work(kwargs, kern, outputs, setup_ops, iter_ops,
@@ -900,22 +949,53 @@ def compare(name, label, kern, plain, kwargs):
     return compare_brent(f"{name} ({label})", kern, plain)
 
 
+def fd_surface_brent_plain(*args, **kwargs):
+    """K7's plain version all the way down: the plain Brent with the plain
+    node sweep inside at every candidate (the step's NodeSolve would launch
+    K6). The result carries the profile solves and sweeps it ran."""
+    from vic_tpu_torch.physics.frozen_soil import \
+        solve_t_profile_explicit_plain
+    from vic_tpu_torch.physics.surface import surface_brent_plain
+    solve = kwargs["eb_kwargs"]["fd_solve"]
+    sweeps = []
+
+    def plain_solve(ts):
+        profile, opts = solve.at(ts)
+        res = solve_t_profile_explicit_plain(*profile, **opts)
+        sweeps.append(int(res.iterations))
+        return res
+
+    plain = surface_brent_plain(*args, **dict(kwargs, eb_kwargs=dict(
+        kwargs["eb_kwargs"], fd_solve=plain_solve)))
+    return SimpleNamespace(**plain._asdict(), solves=len(sweeps),
+                           sweeps=sum(sweeps))
+
+
+def compare_fd_counts(label, kern, plain):
+    """K7's Brent trips, profile solves and sweeps against its plain
+    version's; raises where any differs."""
+    counts = ((int(kern.iterations), plain.iterations),
+              (int(kern.solves), plain.solves),
+              (int(kern.sweeps), plain.sweeps))
+    print(f"  fd_surface_brent ({label}): Brent trips, profile solves, "
+          f"sweeps {counts} (kernel, plain)")
+    if any(k != p for k, p in counts):
+        raise AssertionError(f"fd_surface_brent ({label}): counts {counts} "
+                             "differ from the plain loop's")
+
+
 def check_kernel(name, label, args, kwargs, kern_fn, plain_fn, captured,
                  also_on=()):
     """K1-K9 and K14 on the arguments the `label` step gave them against
     their plain versions, then on those of the steps in `also_on`; returns
     (largest difference, (bytes, operations) of the first call)."""
-    from vic_tpu_torch import kernels
-    sweeps_before = kernels.launches["node_sweep"]
     kern = kern_fn(*args, **kwargs)
-    evaluations = kernels.launches["node_sweep"] - sweeps_before
     plain = plain_fn(*args, **kwargs)
     torch.cuda.synchronize()
     err = compare(name, label, kern, plain, kwargs)
     if name == "fd_surface_brent":
-        print(f"  fd_surface_brent ({label}): {evaluations} residual "
-              "evaluations (node_sweep calls) in the kernel's solve")
-        work = fd_brent_work(kwargs, kern, evaluations)
+        compare_fd_counts(label, kern, plain)
+        work = fd_brent_work(kwargs, kern)
     elif name == "blowing_snow":
         work = blowing_work(kwargs, kern)
     elif name == "canopy_air_step":
@@ -932,8 +1012,10 @@ def check_kernel(name, label, args, kwargs, kern_fn, plain_fn, captured,
             print(f"  snowpack_brent (blowing_close): "
                   f"{int((kw['blowing_flux'] != 0).sum())} lanes with a "
                   "blowing flux")
-        err = max(err, compare(name, also, kern_fn(*a, **kw),
-                               plain_fn(*a, **kw), kw))
+        kern, plain = kern_fn(*a, **kw), plain_fn(*a, **kw)
+        err = max(err, compare(name, also, kern, plain, kw))
+        if name == "fd_surface_brent":
+            compare_fd_counts(also, kern, plain)
     return err, work
 
 
@@ -976,10 +1058,11 @@ def kernels_phase(device):
         args, kwargs = captured[label][name]
         plain_fn = getattr(importlib.import_module(
             f"vic_tpu_torch.physics.{module}"), plain_name)
+        if name == "fd_surface_brent":
+            plain_fn = fd_surface_brent_plain
         if name == "lake_depth":
             # the plain version takes the lake parameters, the kernel their
             # profiles
-            from types import SimpleNamespace
             z, basin, maxdepth, _ = args
             lp = SimpleNamespace(z=z, basin=basin, maxdepth=maxdepth)
             plain_fn = (lambda fn: lambda *a: fn(lp, a[3]))(plain_fn)
@@ -998,7 +1081,10 @@ def kernels_phase(device):
                 plain_fn, captured, ALSO_ON.get(name, ()) if row == name
                 else ())
         ms = cuda_ms(lambda: kern_fn(*args, **kwargs), reps=20)
-        plain_ms = cuda_ms(lambda: plain_fn(*args, **kwargs), reps=3)
+        # K7's plain version sweeps the profile in plain torch at every
+        # candidate: seconds a call at 10 nodes
+        plain_ms = cuda_ms(lambda: plain_fn(*args, **kwargs),
+                           reps=1 if name == "fd_surface_brent" else 3)
         bound_ms, bound_by = bound(*work)
         print(f"  {row}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms by {bound_by} ({work[0]} bytes, "
@@ -1022,6 +1108,58 @@ def kernels_phase(device):
                   f"bound {bound_ms:.4f} ms by {bound_by} ({work[0]} bytes, "
                   f"{work[1]:.4g} FP32 operations)")
     return results
+
+
+def nan_profile_build(n_cell, n_rec, device):
+    """frozen_exp's configuration with CONTINUEONERROR and NaN air
+    temperature in NAN_CELLS cells from record FROZEN_RECORD."""
+    from vic_tpu_torch import entry
+    gp = entry.frozen_exp_params(n_rec).replace(continue_on_error=True)
+    gp, params, stack, state, extras = entry._build(gp, n_cell, n_rec, device)
+    air = stack["air_temp"].clone()
+    air[FROZEN_RECORD:, torch.arange(0, n_cell, n_cell // NAN_CELLS,
+                                     device=air.device)[:NAN_CELLS]] = \
+        float("nan")
+    return gp, params, dict(stack, air_temp=air), state, extras
+
+
+def nan_profile_checks(device):
+    """K7 and K6 where a NaN reaches the node profile: the frozen_exp step
+    with CONTINUEONERROR and NaN air temperature in NAN_CELLS cells, in the
+    first record with the NaN (FROZEN_RECORD), whose surface Brent solves
+    the profile at NaN candidates on those cells' lanes. A NaN change stops
+    every lane's sweeps, in vic_tpu as in the kernels. K7 against its plain
+    Brent with the plain node sweep inside (equal Brent trips, profile
+    solves and sweeps; the other lanes within the Brent bound), and K6 at
+    the lower bracket ends against its plain version (equal sweep and
+    fallback counts, the other lanes within SWEEP_TOL); returns the
+    largest differences, {kernel: C}."""
+    from vic_tpu_torch import kernels
+    from vic_tpu_torch.physics.frozen_soil import \
+        solve_t_profile_explicit_plain
+    (args, kwargs), = capture_kernel_args(
+        "frozen_exp", ("fd_surface_brent",), device, record=FROZEN_RECORD,
+        build=nan_profile_build).values()
+    lo = args[0]
+    solve = kwargs["eb_kwargs"]["fd_solve"]
+    print(f"  NaN profile (frozen_exp, CONTINUEONERROR, NaN air in "
+          f"{NAN_CELLS} cells from record {FROZEN_RECORD}): "
+          f"{int(torch.isnan(lo).sum())} lanes with a NaN candidate")
+    if not bool(torch.isnan(lo).any()):
+        raise AssertionError("NaN profile: no NaN candidate reached the "
+                             "surface Brent")
+    profile, opts = solve.at(lo)
+    err = compare_sweep(kernels.node_sweep(*profile, **opts),
+                        solve_t_profile_explicit_plain(*profile, **opts),
+                        "frozen_exp, NaN candidates")
+    kern = kernels.fd_surface_brent(*args, **kwargs)
+    plain = fd_surface_brent_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    compare_fd_counts("frozen_exp, NaN candidates", kern, plain)
+    return {"node_sweep": err,
+            "fd_surface_brent": compare_brent(
+                "fd_surface_brent (frozen_exp, NaN candidates)", kern,
+                plain)}
 
 
 # the kernels no step calls (K15-K17)
@@ -1309,6 +1447,16 @@ def slice_phase(device, config, ref_werr=None, nnode=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     restore = guard_plain_solvers()
+    # K7's profile solves and sweeps (K6 inside its one launch), summed
+    # after the run
+    k7_counts, fd_surface_brent = [], kernels.fd_surface_brent
+
+    def counted(*args, **kwargs):
+        res = fd_surface_brent(*args, **kwargs)
+        k7_counts.append((res.solves, res.sweeps))
+        return res
+
+    kernels.fd_surface_brent = counted
     try:
         kernels.reset_launches()
         torch.cuda.synchronize()
@@ -1318,6 +1466,7 @@ def slice_phase(device, config, ref_werr=None, nnode=None):
         wall = time.perf_counter() - t0
         launches = dict(kernels.launches)
     finally:
+        kernels.fd_surface_brent = fd_surface_brent
         restore()
     peak = torch.cuda.max_memory_allocated(device)
 
@@ -1340,6 +1489,11 @@ def slice_phase(device, config, ref_werr=None, nnode=None):
     print(f"  kernel launches in this run: {launches}")
     print("  kernel launches per record: " + json.dumps(
         {k: v / SMOKE_RECS for k, v in launches.items() if v}))
+    if k7_counts:
+        print(f"  fd_surface_brent: "
+              f"{sum(int(c[0]) for c in k7_counts) / SMOKE_RECS} profile "
+              f"solves and {sum(int(c[1]) for c in k7_counts) / SMOKE_RECS} "
+              "sweeps a record inside its launches")
     if config in ("frozen", "frozen_exp", "frozen_quick"):
         ice = float(final.ice.sum())
         print(f"  layer ice at the end {ice:.1f} mm summed over lanes; "
@@ -1689,6 +1843,9 @@ def main():
     device = device_phase()
     build_phase()
     results = kernels_phase(device)
+    for name, err in nan_profile_checks(device).items():
+        row = results[f"{name}/exp_trans_10"]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
     ref_werr = {config: reference_phase(device, config)
                 for config in CONFIG_NAMES}
     launches = {config: slice_phase(device, config, ref_werr[config])

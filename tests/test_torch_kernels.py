@@ -848,3 +848,112 @@ def test_implicit_profile_kernel_matches_plain(cuda, config, noflux):
     assert kernels.launches["implicit_profile"] == before + 1
     assert torch.equal(got.fbcount, ref.fbcount)
     assert float((got.temp - ref.temp).abs().max()) <= 1e-4
+
+
+def _node_solve_build(spacing, nnode):
+    """The frozen configuration (linear nodes) or frozen_exp's (EXP_TRANS
+    nodes, SPATIAL_FROST) with its node count replaced."""
+    params = frozen_params if spacing == "linear" else frozen_exp_params
+
+    def build_nodes(n_cell, n_rec, device):
+        gp = params(n_rec).replace(nnode=nnode)
+        return entry._build(gp, n_cell, n_rec, device)
+    return build_nodes
+
+
+def _nan_lane(x, lane=5):
+    """x with one lane ([..., nn] rows flattened) NaN."""
+    x = x.clone()
+    x.view(-1, x.shape[-1])[lane] = float("nan")
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("nnode", [3, 5, 10, 50])
+@pytest.mark.parametrize("spacing", ["linear", "exp_trans"])
+def test_cooperative_node_sweep_matches_plain(cuda, spacing, nnode, nan):
+    """K6's one launch at 3, 5, 10 and 50 nodes on linear and EXP_TRANS
+    spacing, on its first call of the step's third record, and with one
+    lane's old temperatures NaN (a NaN change stops every lane's sweeps):
+    the same sweep count and fallback counts, node temperatures within
+    1e-4 C where the plain version's are not NaN and NaN where they are."""
+    a, kw = _captured_args(cuda, names=("node_sweep",), record=2,
+                           build=_node_solve_build(spacing, nnode))[
+                               "node_sweep"]
+    assert a[0].shape[-1] == nnode and kw["exp_trans"] == (
+        spacing == "exp_trans")
+    if nan:
+        a = (_nan_lane(a[0]),) + tuple(a[1:])
+    before = kernels.launches["node_sweep"]
+    got = kernels.node_sweep(*a, **kw)
+    ref = solve_t_profile_explicit_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["node_sweep"] == before + 1
+    assert int(got.iterations) == ref.iterations
+    if nan:
+        assert ref.iterations == 1
+    assert torch.equal(got.fbcount, ref.fbcount)
+    assert torch.equal(torch.isnan(got.temp), torch.isnan(ref.temp))
+    ok = ~torch.isnan(ref.temp)
+    assert float((got.temp - ref.temp)[ok].abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nan", [False, True])
+@pytest.mark.parametrize("nnode", [3, 5, 10, 50])
+@pytest.mark.parametrize("spacing", ["linear", "exp_trans"])
+def test_cooperative_fd_surface_brent_matches_plain(cuda, spacing, nnode,
+                                                     nan):
+    """K7's one launch at 3, 5, 10 and 50 nodes on linear and EXP_TRANS
+    spacing, on the step's third record, and with one lane's old node
+    temperatures NaN: against the plain Brent with the plain node sweep
+    inside, the same Brent trips, profile solves and sweeps, the same
+    flags, roots within the final bracket width."""
+    from vic_tpu_torch.physics.frozen_soil import NodeSolve
+    a, kw = _captured_args(cuda, names=("fd_surface_brent",), record=2,
+                           build=_node_solve_build(spacing, nnode))[
+                               "fd_surface_brent"]
+    solve = kw["eb_kwargs"]["fd_solve"]
+    assert isinstance(solve, NodeSolve) and solve.t0.shape[-1] == nnode
+    if nan:
+        solve = solve._replace(t0=_nan_lane(solve.t0))
+        kw = dict(kw, eb_kwargs=dict(kw["eb_kwargs"], fd_solve=solve))
+    sweeps = []
+
+    def plain_solve(ts):
+        args, opts = solve.at(ts)
+        res = solve_t_profile_explicit_plain(*args, **opts)
+        sweeps.append(int(res.iterations))
+        return res
+
+    before = kernels.launches["fd_surface_brent"]
+    got = kernels.fd_surface_brent(*a, **kw)
+    ref = surface_brent_plain(*a, **dict(kw, eb_kwargs=dict(
+        kw["eb_kwargs"], fd_solve=plain_solve)))
+    torch.cuda.synchronize()
+    assert kernels.launches["fd_surface_brent"] == before + 1
+    assert (int(got.iterations), int(got.solves), int(got.sweeps)) == (
+        ref.iterations, len(sweeps), sum(sweeps))
+    if nan:
+        assert set(sweeps) == {1}
+    assert bool(got.bracketed.any())
+    assert torch.equal(got.bracketed, ref.bracketed)
+    assert torch.equal(got.converged, ref.converged)
+    both = got.converged & ref.converged
+    tol = 2.0 * (2.0 * torch.finfo(torch.float32).eps * got.root.abs() + 1e-4)
+    assert bool(((got.root - ref.root).abs() <= tol)[both].all())
+
+
+@pytest.mark.gpu
+def test_cooperative_kernels_refuse_a_grid_not_co_resident(cuda,
+                                                            monkeypatch):
+    """K6 and K7 launch cooperatively: a grid larger than the blocks the
+    device holds at once is refused by name, with no fallback."""
+    captured = _captured_args(cuda, names=("node_sweep", "fd_surface_brent"),
+                              config="frozen", record=2)
+    monkeypatch.setattr(kernels, "_COOP_BLOCKS", 1 << 24)
+    for name, (a, kw) in captured.items():
+        with pytest.raises(RuntimeError, match=f"{name}: a grid of "
+                           f"{1 << 24} blocks is not co-resident"):
+            getattr(kernels, name)(*a, **kw)

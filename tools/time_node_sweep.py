@@ -10,8 +10,9 @@ the script's own tree), so two versions of K6 are compared on one card by
 running it from each checkout's root in turn. For each cell count and
 node count, K6 runs on the arguments of its first call in the third
 record of frozen_exp's configuration (EXP_TRANS, SPATIAL_FROST) with its
-node count replaced (`chip_smoke.capture_kernel_args`), timed with CUDA
-events over `--reps` calls after one warm-up call.
+node count replaced (`chip_smoke.capture_kernel_args`; the profile at the
+surface root, K7 running its own sweeps inside its launch), timed with
+CUDA events over `--reps` calls after one warm-up call.
 
 Prints the card's name and power limit, ptxas' registers and spills of
 every kernel, and as its last line one JSON object

@@ -13,6 +13,7 @@ one or the other by the tensors' device.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -20,9 +21,8 @@ from ..ops.rootfind import MAXTRIES, RootResult
 from . import build
 
 # launches of each kernel since the last reset_launches(): calls of its
-# wrapper that reached the device (K6's one call is 11 device launches at
-# max_sweeps = 10: a sweep launch each and a finishing one; K7's one call is
-# a whole Brent solve, a fixed sequence of launches with K6 calls inside)
+# wrapper that reached the device (K6's and K7's calls are one cooperative
+# launch each, every sweep and, in K7, the whole Brent solve inside it)
 launches = {"glacier_brent": 0, "snowpack_brent": 0, "canopy_brent": 0,
             "runoff_hourly": 0, "surface_brent": 0, "node_sweep": 0,
             "fd_surface_brent": 0, "blowing_snow": 0, "canopy_air_step": 0,
@@ -323,6 +323,18 @@ def surface_inputs(eb_kwargs):
     return named
 
 
+_zeros = {}
+
+
+def _zero(device, dtype):
+    """A 0-d zero of `dtype` on `device`, made once: the stand-in for the
+    inputs a kernel never reads, without a fill launch per call."""
+    key = (device, dtype)
+    if key not in _zeros:
+        _zeros[key] = torch.zeros((), dtype=dtype, device=device)
+    return _zeros[key]
+
+
 def _surface_lanes(name, lo, hi, active, eb_kwargs, extra=()):
     """The inputs of K5, K7 and K14 from the residual's keyword arguments,
     as _lane_inputs passes them, the float inputs `extra` ((name, tensor,
@@ -342,20 +354,19 @@ def _surface_lanes(name, lo, hi, active, eb_kwargs, extra=()):
     f32, flag = torch.float32, torch.bool
     dist = eb_kwargs.get("dist_dry") is not None
     if not dist:
-        named.update(dict.fromkeys(DRY_INPUTS + DRY_LAYER_INPUTS, torch.zeros(
-            (), dtype=f32, device=device)), case1_dry=torch.zeros(
-                (), dtype=flag, device=device))
+        named.update(dict.fromkeys(DRY_INPUTS + DRY_LAYER_INPUTS,
+                                   _zero(device, f32)),
+                     case1_dry=_zero(device, flag))
     floats = ([(k, named[k], f32, 0) for k in SURFACE_INPUTS]
               + [(k, named[k], f32, nl) for k in SURFACE_LAYER_INPUTS]
               + [(k, named[k], f32, 0) for k in DRY_INPUTS]
               + [(k, named[k], f32, nl) for k in DRY_LAYER_INPUTS])
     masks = [(k, named[k], flag, 0) for k in SURFACE_MASKS + DRY_MASKS]
     frozen = bool(eb_kwargs.get("frozen_soil"))
-    zero = torch.zeros((), dtype=f32, device=device)
-    floats += [(k, eb_kwargs[k] if frozen else zero, f32, 0)
+    floats += [(k, eb_kwargs[k] if frozen else _zero(device, f32), f32, 0)
                for k in FD_SURFACE_INPUTS]
     masks.append(("fs_active", eb_kwargs["fs_active"] if frozen
-                  else torch.zeros((), dtype=flag, device=device), flag, 0))
+                  else _zero(device, flag), flag, 0))
     fin, f_ptr, f_stride = _lane_inputs(floats + list(extra), shape, device)
     mviews, m_ptr, m_stride = _lane_inputs(masks, shape, device)
     return (shape, nl, dist, (fin, mviews), f_ptr, f_stride, len(fin), m_ptr,
@@ -399,27 +410,44 @@ def surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
 # K5's others (csrc/surface_brent.cuh FdIn, kFsActive)
 FD_SURFACE_INPUTS = ("moist0_vol", "max_moist0_vol", "ice0_vol", "bubble0",
                      "expt0")
-# K7's launches (csrc/fd_surface_brent.cu Op) and its state's float rows
-(_FD_EVAL_LO, _FD_EVAL_HI, _FD_EVAL_LO_NEED, _FD_EVAL_HI_NEED, _FD_EXPAND,
- _FD_INIT, _FD_PROPOSE, _FD_ACCEPT, _FD_FINISH) = range(9)
-_FD_ROWS, _FD_A, _FD_B, _FD_BNEXT = 11, 0, 1, 10
+# the float rows of K7's Brent state (csrc/fd_surface_brent.cu Row)
+_FD_ROWS = 11
+
+
+class FdRootResult(NamedTuple):
+    """K7's result: RootResult's fields, iterations the Brent loop's trip
+    count, then its profile solves (residual evaluations of every lane)
+    and the sweeps of all of them; the counts int32 0-d device tensors."""
+    root: torch.Tensor
+    converged: torch.Tensor
+    bracketed: torch.Tensor
+    iterations: torch.Tensor
+    solves: torch.Tensor
+    sweeps: torch.Tensor
 
 
 def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     """K7: the batch-wide Brent of physics.surface.surface_brent_plain on
-    the finite-difference residual, its state on the device. Every residual
-    evaluation is one eb_kwargs["fd_solve"] call (K6 on CUDA) at the
-    candidates of all lanes and one residual launch; the host reads one
-    flag per expansion round and per Brent iteration, as the plain loop.
-    Same arguments and result as surface_brent_plain (iterations: the
-    loop's trip count)."""
+    the finite-difference residual as ONE cooperative launch: every
+    residual evaluation solves the node profile of eb_kwargs["fd_solve"]
+    (a physics.frozen_soil.NodeSolve) at the candidates of all lanes with
+    K6's sweeps inside the same launch, and every decision of the loop is
+    taken on the device. Same arguments as surface_brent_plain; returns an
+    FdRootResult."""
+    from ..physics.frozen_soil import NodeSolve
     name = "fd_surface_brent"
-    fd_solve = eb_kwargs.get("fd_solve")
-    if fd_solve is None:
-        raise ValueError(f"{name}: solves the finite-difference residual "
-                         "only (fd_solve)")
     shape, nl, dist, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = \
         _surface_lanes(name, lo, hi, active, eb_kwargs)
+    solve = eb_kwargs.get("fd_solve")
+    if not isinstance(solve, NodeSolve):
+        raise ValueError(f"{name}: solves the finite-difference residual "
+                         "only: eb_kwargs['fd_solve'] must be a "
+                         "physics.frozen_soil.NodeSolve, got "
+                         f"{type(solve).__name__}")
+    if tuple(solve.t0.shape[:-1]) != tuple(shape):
+        raise ValueError(f"{name}: node profile lanes "
+                         f"{tuple(solve.t0.shape[:-1])}, Brent lanes "
+                         f"{tuple(shape)}")
     device, f32 = lo.device, torch.float32
     lo_c = _lanes(lo, shape, device, f32, "lo")
     hi_c = _lanes(hi, shape, device, f32, "hi")
@@ -428,65 +456,28 @@ def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     bracketed = torch.empty(shape, dtype=torch.bool, device=device)
     n = root.numel()
     if not n:
-        return RootResult(root, converged, bracketed, 0)
-    state = torch.empty((_FD_ROWS,) + tuple(shape), dtype=f32, device=device)
-    state[_FD_A].copy_(lo_c)
-    state[_FD_B].copy_(hi_c)
-    lane_flags = torch.zeros((3,) + tuple(shape), dtype=torch.uint8,
-                             device=device)
-    votes = torch.zeros(MAXTRIES + int(max_iter) + 1, dtype=torch.int32,
-                        device=device)
-    lib = build.load()
+        return FdRootResult(root, converged, bracketed,
+                            *torch.zeros(3, dtype=torch.int32, device=device))
+    counts = torch.empty(3, dtype=torch.int32, device=device)
+    _sweep_views, sweep_args = _node_solve_args(name, *solve,
+                                                fallbacks=False)
+    max_iter, max_sweeps = int(max_iter), int(solve.max_sweeps)
+    n_ctl = ((2 + 2 * MAXTRIES + max_iter) * 2 * max_sweeps + MAXTRIES
+             + max_iter + 1)
+    state = torch.empty((_FD_ROWS, n), dtype=f32, device=device)
+    lane_flags = torch.empty((3, n), dtype=torch.uint8, device=device)
+    ctl = torch.empty(n_ctl, dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    args = dict(dt=float(eb_kwargs["delta_t"]),
-                gft=int(eb_kwargs.get("grnd_flux_type", 1)),
-                frozen=int(bool(eb_kwargs.get("frozen_soil"))))
-
-    def launch(op, nodes=None, vote=0):
-        nn = 0
-        if nodes is not None:
-            if nodes.dtype != f32 or not nodes.is_contiguous() \
-                    or tuple(nodes.shape[:-1]) != tuple(shape):
-                raise ValueError(f"{name}: node profile {nodes.dtype} "
-                                 f"{tuple(nodes.shape)}, expected a "
-                                 f"contiguous float32 {tuple(shape)} + (nn,)")
-            nn = nodes.shape[-1]
-        err = lib.fd_surface_brent(
-            op, f_ptr, f_stride, nf, m_ptr, m_stride, nm, shape[-1], nl,
-            int(dist), args["dt"], args["gft"], args["frozen"],
-            state.data_ptr(), lane_flags.data_ptr(),
-            nodes.data_ptr() if nodes is not None else None, nn,
-            votes.data_ptr() + 4 * vote, n, lo_c.data_ptr(),
-            hi_c.data_ptr(), root.data_ptr(), converged.data_ptr(),
-            bracketed.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"{name}: kernel launch failed with CUDA "
-                               f"error {err}")
-
-    def evaluate(op, row):
-        # the node profile at every lane's candidate, then the residual
-        launch(op, nodes=fd_solve(state[row]).temp)
-
-    # bracket expansion (ops/rootfind.expand_brackets)
-    evaluate(_FD_EVAL_LO, _FD_A)
-    evaluate(_FD_EVAL_HI, _FD_B)
-    for t in range(MAXTRIES):
-        launch(_FD_EXPAND, vote=t)
-        if not int(votes[t]):
-            break
-        evaluate(_FD_EVAL_LO_NEED, _FD_A)
-        evaluate(_FD_EVAL_HI_NEED, _FD_B)
-    # Brent (ops/rootfind.batched_brent), one vote per iteration: is any
-    # lane not done
-    launch(_FD_INIT, vote=MAXTRIES)
-    i = 0
-    while i < max_iter and int(votes[MAXTRIES + i]):
-        launch(_FD_PROPOSE, vote=MAXTRIES + 1 + i)
-        evaluate(_FD_ACCEPT, _FD_BNEXT)
-        i += 1
-    launch(_FD_FINISH)
-    _check_launch(name, 0)
-    return RootResult(root, converged, bracketed, i)
+    err = build.load().fd_surface_brent(
+        f_ptr, f_stride, nf, m_ptr, m_stride, nm, shape[-1], nl, int(dist),
+        float(eb_kwargs["delta_t"]), int(eb_kwargs.get("grnd_flux_type", 1)),
+        int(bool(eb_kwargs.get("frozen_soil"))), max_iter, MAXTRIES,
+        *sweep_args, state.data_ptr(), lane_flags.data_ptr(), ctl.data_ptr(),
+        n_ctl, n, lo_c.data_ptr(), hi_c.data_ptr(), root.data_ptr(),
+        converged.data_ptr(), bracketed.data_ptr(), *_out_ptrs(counts),
+        _COOP_BLOCKS, stream)
+    _check_coop(name, err)
+    return FdRootResult(root, converged, bracketed, *counts)
 
 
 # K14's inputs after K7's: the bracket ends of the two probes and the probe
@@ -542,6 +533,8 @@ SWEEP_LANE_INPUTS = ("t0", "kappa", "cs", "moist_node", "ice0_node")
 SWEEP_GEOMETRY = ("alpha", "beta", "gamma", "e_coef", "solver_max_moist",
                   "solver_bubble", "solver_expt", "zp1")
 SWEEP_CELL_GEOMETRY = ("exp_a", "bexp")
+# the node-major coefficient rows of K6's scratch (csrc/node_sweep.cuh Coef)
+_SWEEP_COEFS = 7
 
 
 # K16's [n_cell, nn] geometry, in csrc/implicit_profile.cu's order
@@ -588,16 +581,34 @@ def implicit_profile(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
     return ProfileResult(temp=temp, fbcount=fbcount, iterations=int(max_nr))
 
 
-def node_sweep(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
-               fs_active, *, nlayer, dt_sec, noflux, frozen, max_sweeps,
-               exp_trans=False):
-    """K6: the Gauss-Seidel node sweep of every lane, the batch-wide sweep
-    count decided on the device, at 3 to 50 nodes on linear or (exp_trans)
-    EXP_TRANS spacing. Same arguments and result as
-    physics.frozen_soil.solve_t_profile_explicit_plain (the sweep count as
-    an int32 0-d tensor)."""
-    from ..physics.frozen_soil import ProfileResult
-    name = "node_sweep"
+# the grid of K6's and K7's cooperative launches: 0 for as many blocks as
+# are co-resident on the device (at most one per 128 lanes)
+_COOP_BLOCKS = 0
+# their C interface's refusals (csrc/node_sweep.cuh)
+_NO_COOPERATIVE_LAUNCH, _GRID_NOT_CO_RESIDENT = -1, -2
+
+
+def _check_coop(name, err):
+    """_check_launch, naming the refusals of a cooperative launch."""
+    if err == _NO_COOPERATIVE_LAUNCH:
+        raise RuntimeError(f"{name}: the device has no cooperative launch "
+                           "(cudaDevAttrCooperativeLaunch is 0), which the "
+                           "kernel's grid-wide synchronisation needs")
+    if err == _GRID_NOT_CO_RESIDENT:
+        raise RuntimeError(f"{name}: a grid of {_COOP_BLOCKS} blocks is not "
+                           "co-resident on the device; the cooperative "
+                           "launch was refused")
+    _check_launch(name, err)
+
+
+def _node_solve_args(name, t0, kappa, cs, moist_node, ice0_node, geom,
+                     fs_active, nlayer, dt_sec, noflux, frozen, max_sweeps,
+                     exp_trans, *, fallbacks):
+    """The node solve's C arguments (csrc/node_sweep.cuh fill_sweep_args,
+    kernels.build's _NODE_SOLVE) from solve_t_profile_explicit's arguments
+    but surf_temp, in physics.frozen_soil.NodeSolve's order, and the views
+    and scratch they point to: (views, args). fallbacks: scratch for the
+    fallback counts (K6; K7 does not return them)."""
     device = t0.device
     if device.type != "cuda":
         raise ValueError(f"{name}: CUDA tensors required, got {device}")
@@ -614,28 +625,56 @@ def node_sweep(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
             for k in SWEEP_GEOMETRY]
            + [_lanes(getattr(geom, k), (c,), device, f32, k)
               for k in SWEEP_CELL_GEOMETRY])
-    surf = _lanes(surf_temp, (c, h), device, f32, "surf_temp")
     fs = _lanes(fs_active, (c,), device, torch.bool, "fs_active")
-    temp = torch.empty(t0.shape, dtype=f32, device=device)
-    fbcount = torch.empty(t0.shape, dtype=i32, device=device)
-    sweeps = torch.zeros((), dtype=i32, device=device)
     n = c * h
-    if n:
-        work_t = torch.empty(t0.shape, dtype=f32, device=device)
-        work_fb = torch.empty(t0.shape, dtype=i32, device=device)
-        lastdiff = torch.empty((c, h), dtype=f32, device=device)
-        control = torch.empty((2, max(int(max_sweeps), 1)), dtype=i32,
-                              device=device)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = build.load().node_sweep(
-            _ptrs(lane), _ptrs(geo), surf.data_ptr(), fs.data_ptr(), n, h, nn,
-            int(nlayer), int(frozen), int(noflux), int(bool(exp_trans)),
-            int(max_sweeps), float(dt_sec), float(2.0 * dt_sec),
-            float(4.0 * dt_sec), work_t.data_ptr(),
-            work_fb.data_ptr(), lastdiff.data_ptr(), control[0].data_ptr(),
-            control[1].data_ptr(), temp.data_ptr(), fbcount.data_ptr(),
-            sweeps.data_ptr(), stream)
-        _check_launch(name, err)
+    # csrc/node_sweep.cuh Work: the node-major coefficients (Coef), the
+    # no-flux coefficient, the iterate, the fallback counts, the last change
+    work = [torch.empty((_SWEEP_COEFS, nn, n), dtype=f32, device=device),
+            torch.empty(n, dtype=f32, device=device),
+            torch.empty((nn, n), dtype=f32, device=device),
+            torch.empty((nn, n), dtype=i32, device=device) if fallbacks
+            else None,
+            torch.empty(n, dtype=f32, device=device)]
+    work_ptrs = (ctypes.c_void_p * len(work))(
+        *[w.data_ptr() if w is not None else None for w in work])
+    args = (_ptrs(lane), _ptrs(geo), fs.data_ptr(), nn, int(nlayer),
+            int(frozen), int(noflux), int(bool(exp_trans)), int(max_sweeps),
+            float(dt_sec), float(2.0 * dt_sec), float(4.0 * dt_sec),
+            work_ptrs)
+    return (lane, geo, fs, work), args
+
+
+def node_sweep(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
+               fs_active, *, nlayer, dt_sec, noflux, frozen, max_sweeps,
+               exp_trans=False):
+    """K6: the Gauss-Seidel node sweep of every lane as ONE cooperative
+    launch, the batch-wide sweep count decided on the device, at 3 to 50
+    nodes on linear or (exp_trans) EXP_TRANS spacing. Same arguments and
+    result as physics.frozen_soil.solve_t_profile_explicit_plain (the
+    sweep count as an int32 0-d tensor)."""
+    from ..physics.frozen_soil import ProfileResult
+    name = "node_sweep"
+    _views, args = _node_solve_args(
+        name, t0, kappa, cs, moist_node, ice0_node, geom, fs_active,
+        nlayer=nlayer, dt_sec=dt_sec, noflux=noflux, frozen=frozen,
+        max_sweeps=max_sweeps, exp_trans=exp_trans, fallbacks=True)
+    device, i32 = t0.device, torch.int32
+    c, h, _ = t0.shape
+    surf = _lanes(surf_temp, (c, h), device, torch.float32, "surf_temp")
+    temp = torch.empty(t0.shape, dtype=torch.float32, device=device)
+    fbcount = torch.empty(t0.shape, dtype=i32, device=device)
+    n = c * h
+    if not n:
+        return ProfileResult(temp=temp, fbcount=fbcount,
+                             iterations=torch.zeros((), dtype=i32,
+                                                    device=device))
+    sweeps = torch.empty((), dtype=i32, device=device)
+    ctl = torch.empty(2 * max(int(max_sweeps), 1), dtype=i32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = build.load().node_sweep(
+        *args, surf.data_ptr(), n, h, ctl.data_ptr(), temp.data_ptr(),
+        fbcount.data_ptr(), sweeps.data_ptr(), _COOP_BLOCKS, stream)
+    _check_coop(name, err)
     return ProfileResult(temp=temp, fbcount=fbcount, iterations=sweeps)
 
 

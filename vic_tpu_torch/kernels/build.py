@@ -89,13 +89,17 @@ _AFFINE_SURFACE_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int] * 4
                             + [ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_float]
                             + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5)
-_SWEEP_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 9)
-_FD_SURFACE_ARGTYPES = ([ctypes.c_int] + _INPUTS * 2 + [ctypes.c_int] * 3
-                        + [ctypes.c_float] + [ctypes.c_int] * 2
-                        + [ctypes.c_void_p] * 3 + [ctypes.c_int]
-                        + [ctypes.c_void_p] + [ctypes.c_int]
-                        + [ctypes.c_void_p] * 6)
+# the node solve of K6 and K7: the lane, geometry and frozen-soil pointers,
+# the counts and switches, dt and its multiples, the scratch pointers
+_NODE_SOLVE = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+               + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+_SWEEP_ARGTYPES = (_NODE_SOLVE + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+_FD_SURFACE_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                        + [ctypes.c_int] * 4 + _NODE_SOLVE
+                        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                        + [ctypes.c_void_p] * 8
+                        + [ctypes.c_int, ctypes.c_void_p])
 _BLOWING_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int, ctypes.c_float]
                      + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                      + [ctypes.c_void_p] * 3)

@@ -41,10 +41,9 @@ from .physics.canopy_air import calc_atmos_energy_bal, canopy_air_step
 from .physics.canopy_snow import snow_intercept
 from .physics.dist_prcp import storm_transfer
 from .physics.evap import build_evap_pre, compute_pot_evap, svp
-from .physics.frozen_soil import (distribute_node_moisture,
+from .physics.frozen_soil import (NodeSolve, distribute_node_moisture,
                                   estimate_layer_ice, find_zero_fronts,
-                                  frost_kwargs, layer_ice_params,
-                                  solve_t_profile_explicit)
+                                  frost_kwargs, layer_ice_params)
 from .physics.glacier import glacier_ablation
 from .physics.hydrology_misc import compute_zwt, correct_precip
 from .physics.lake import (LakeState, area_from_depth, depth_from_volume,
@@ -314,14 +313,11 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             # every residual evaluation (func_surf_energy_bal.c:190-228)
             nodep = distribute_node_moisture(moist_avg, state.node_temp,
                                              geom, p, frozen=frozen)
-
-            def fd_solve(ts_candidate):
-                return solve_t_profile_explicit(
-                    state.node_temp, ts_candidate, nodep["kappa"],
-                    nodep["cs"], nodep["moist"], nodep["ice"], geom,
-                    p.fs_active, nlayer=nl, dt_sec=dt_sec, noflux=gp.noflux,
-                    frozen=frozen, max_sweeps=gp.soil_sweep_maxiter,
-                    exp_trans=gp.exp_trans)
+            fd_solve = NodeSolve(
+                state.node_temp, nodep["kappa"], nodep["cs"],
+                nodep["moist"], nodep["ice"], geom, p.fs_active, nlayer=nl,
+                dt_sec=dt_sec, noflux=gp.noflux, frozen=frozen,
+                max_sweeps=gp.soil_sweep_maxiter, exp_trans=gp.exp_trans)
 
         eb_common = dict(
             ts_old=state.node_temp[..., 0], t1_old=state.node_temp[..., 1],

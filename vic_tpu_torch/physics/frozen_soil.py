@@ -13,7 +13,10 @@ soil_conduction.c) on the explicit path the step runs:
 - `solve_t_profile_explicit`: the Gauss-Seidel node sweep
   (frozen_soil.c:305-494) -- on the CPU through
   `solve_t_profile_explicit_plain`, on a CUDA device through the
-  `node_sweep` kernel (`csrc/node_sweep.cu`);
+  `node_sweep` kernel (`csrc/node_sweep.cu`); `NodeSolve` holds its
+  arguments but the boundary condition, which the surface Brent of the
+  finite-difference step varies (the `fd_surface_brent` kernel runs the
+  same sweeps inside its own launch);
 - `solve_t_profile_implicit`: the IMPLICIT Newton-Raphson solve with a
   Thomas solve per step (frozen_soil.c:229-300) -- on the CPU through
   `solve_t_profile_implicit_plain`, on a CUDA device through the
@@ -315,6 +318,39 @@ def solve_t_profile_explicit(t0, surf_temp, kappa, cs, moist_node, ice0_node,
     return solve(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
                  fs_active, nlayer=nlayer, dt_sec=dt_sec, noflux=noflux,
                  frozen=frozen, max_sweeps=max_sweeps, exp_trans=exp_trans)
+
+
+class NodeSolve(NamedTuple):
+    """The node profile's solve at a candidate surface temperature, fixed
+    over a step: solve_t_profile_explicit's arguments but surf_temp.
+    Called with the candidates it returns that function's ProfileResult;
+    the `fd_surface_brent` kernel reads the arguments and runs the solve
+    inside its own launch."""
+    t0: torch.Tensor
+    kappa: torch.Tensor
+    cs: torch.Tensor
+    moist_node: torch.Tensor
+    ice0_node: torch.Tensor
+    geom: NodeGeometry
+    fs_active: torch.Tensor
+    nlayer: int
+    dt_sec: float
+    noflux: bool
+    frozen: bool
+    max_sweeps: int
+    exp_trans: bool = False
+
+    def at(self, surf_temp):
+        """solve_t_profile_explicit's (args, kwargs) at surf_temp."""
+        return ((self.t0, surf_temp, self.kappa, self.cs, self.moist_node,
+                 self.ice0_node, self.geom, self.fs_active),
+                dict(nlayer=self.nlayer, dt_sec=self.dt_sec,
+                     noflux=self.noflux, frozen=self.frozen,
+                     max_sweeps=self.max_sweeps, exp_trans=self.exp_trans))
+
+    def __call__(self, surf_temp) -> ProfileResult:
+        args, kwargs = self.at(surf_temp)
+        return solve_t_profile_explicit(*args, **kwargs)
 
 
 def solve_t_profile_explicit_plain(t0, surf_temp, kappa, cs, moist_node,
