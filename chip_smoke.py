@@ -36,7 +36,8 @@ line) on failure:
    step, 40 steps. Each row's kernel is re-run on those arguments beside its
    plain PyTorch version on the card, compared, timed with CUDA events and
    given its bound (the least time the card could take for the same
-   work). K6 and K7 are also held where a NaN reaches the node profile:
+   work); K3's and K14's rows also print their lanes' warp efficiency and
+   waves (tools/profile_lane_brent.py's definitions). K6 and K7 are also held where a NaN reaches the node profile:
    frozen_exp's configuration with CONTINUEONERROR and NaN air temperature
    in NAN_CELLS cells, on the first record with the NaN (equal Brent trips,
    profile solves and sweeps; the other lanes within their bounds).
@@ -60,7 +61,18 @@ line) on failure:
    lanes with fractional coverage, then runs again with NaN air
    temperature in 64 cells from its fourth record: CONTINUEONERROR must
    freeze them there (OUT_CELL_VALID 0, the state after the third record)
-   and leave every other cell equal to the first run.
+   and leave every other cell equal to the first run. Then heavy (8,192
+   cells) and blowing_close (32,768) with CONTINUEONERROR, with and without
+   NaN air temperature in 64 cells from the fourth record
+   (`nan_slice_phase`): K8 on the HRU lanes (and, on heavy, the lake
+   lanes), K9, K10-K13 and K14 against their plain versions on the first
+   NaN record's arguments, NaN at the same elements and the rest within
+   each row's tolerance; the NaN cells read OUT_CELL_VALID 0, every record
+   before the NaN equals the run without it, the NaN records run
+   CLOSE_ENERGY's 25 passes, and the other cells (whose secant steps past
+   convergence move them away from the run without the NaN, in vic_tpu
+   too) hold a control run with the NaN in other cells at REF_TOL; on
+   heavy their cold cells close their water balance.
 5. driver: a run of the main path in the reference's file formats
    (vic_tpu_torch.testing.write_driver_run: 8,192 cells x 370 daily records
    from 1995-10-01, a glacier tile, 2 snow bands, COMPUTE_TREELINE with the
@@ -81,6 +93,7 @@ kernels with their launches, errors, times and bounds.
 """
 import dataclasses
 import importlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -92,6 +105,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from vic_tpu_torch.constants import CLOSE_ENERGY_MAXITER
 from vic_tpu_torch.entry import CONFIGS
 from vic_tpu_torch.testing import (frozen_run_failures,
                                    heavy_lake_run_failures,
@@ -188,6 +202,8 @@ LAKE_KERNELS = ("lake_open_water", "lake_under_ice", "lake_ice_brent",
 HEAVY_LAKE_TIMED = {"lake_ice_brent": "heavy, with the blowing-snow flux",
                     "blowing_snow": "heavy, lake lanes"}
 SURFACE_KERNELS = ("surface_brent", "fd_surface_brent", "affine_surface_brent")
+# the kernels on csrc/lane_brent.cuh's driver
+LANE_BRENT_KERNELS = ("canopy_brent", "affine_surface_brent")
 # the configurations with DIST_PRCP: their surface residuals carry the dry
 # column
 DIST_PRCP_CONFIGS = ("dist_prcp", "heavy_nolakes", "heavy")
@@ -371,7 +387,18 @@ def device_phase():
     return torch.device("cuda", 0)
 
 
+def lane_tools():
+    """tools/profile_lane_brent.py, whose definitions of a lane batch's
+    warp efficiency and waves the K3 and K14 rows print."""
+    spec = importlib.util.spec_from_file_location(
+        "profile_lane_brent", ROOT / "tools" / "profile_lane_brent.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def build_phase():
+    """Returns ptxas' {kernel: (registers, spill store bytes)}."""
     phase("1 build")
     from vic_tpu_torch.kernels import build
     t0 = time.perf_counter()
@@ -381,6 +408,7 @@ def build_phase():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
     build.load()
+    return lane_tools().ptxas_registers(log)
 
 
 def clone_args(obj):
@@ -498,9 +526,10 @@ def iterations_of(result):
     return int(its.max()) if isinstance(its, torch.Tensor) else int(its)
 
 
-def compare_blowing(kern, plain, snowdepth, label):
+def compare_blowing(kern, plain, snowdepth, label, exercised=True):
     """K8 vs its plain version at rtol BLOWING_RTOL, atol BLOWING_ATOL; the
-    path counts as exercised only if some snow-covered lane blows."""
+    path counts as exercised only if some snow-covered lane blows (unless
+    not `exercised`: the NaN phases' lake lanes need not carry snow)."""
     worst = 0.0
     for part, a, b in zip(("flux", "transport"), kern, plain):
         diff = (a - b).abs()
@@ -515,7 +544,7 @@ def compare_blowing(kern, plain, snowdepth, label):
     blowing = int((snow & (plain[0] != 0.0)).sum())
     print(f"  blowing_snow ({label}): {int(snow.sum())} snow-covered lanes, "
           f"{blowing} with a nonzero flux")
-    if not blowing:
+    if exercised and not blowing:
         raise AssertionError("blowing_snow: no snow-covered lane blows; the "
                              "path was not exercised")
     return worst
@@ -644,13 +673,14 @@ def compare_mixed(name, got, ref):
     return float(diff.max())
 
 
-def compare_lake_open_water(kwargs):
-    """K10 vs its plain version: (the kernel's WaterEBResult, its mixed
-    column, the largest difference)."""
+def compare_lake_open_water(kwargs, results=None):
+    """K10 vs its plain version (or `results`, their outputs on kwargs):
+    (the kernel's WaterEBResult, its mixed column, the largest
+    difference)."""
     from vic_tpu_torch import kernels
     from vic_tpu_torch.physics.lake import lake_open_water_plain
-    kern, t_open = kernels.lake_open_water(**kwargs)
-    plain, t_open_p = lake_open_water_plain(**kwargs)
+    (kern, t_open), (plain, t_open_p) = results or (
+        kernels.lake_open_water(**kwargs), lake_open_water_plain(**kwargs))
     torch.cuda.synchronize()
     compare_lake_flags("lake_open_water (open-water lakes)", kern, plain,
                        kwargs["active"])
@@ -669,13 +699,13 @@ def compare_lake_open_water(kwargs):
         "lake_open_water t_open (mixed)", t_open, t_open_p))
 
 
-def compare_lake_under_ice(kwargs):
-    """K11 vs its plain version: (the kernel's UnderIceResult, the largest
-    difference)."""
+def compare_lake_under_ice(kwargs, results=None):
+    """K11 vs its plain version (or `results`, their outputs on kwargs):
+    (the kernel's UnderIceResult, the largest difference)."""
     from vic_tpu_torch import kernels
     from vic_tpu_torch.physics.lake import water_under_ice_plain
-    kern = kernels.lake_under_ice(**kwargs)
-    plain = water_under_ice_plain(**kwargs)
+    kern, plain = results or (kernels.lake_under_ice(**kwargs),
+                              water_under_ice_plain(**kwargs))
     torch.cuda.synchronize()
     compare_lake_flags("lake_under_ice (ice-covered lakes)", kern, plain,
                        kwargs["active"])
@@ -688,16 +718,22 @@ def compare_lake_under_ice(kwargs):
     return kern, compare_mixed("lake_under_ice temp", kern.temp, plain.temp)
 
 
-def compare_lake_depth(args):
-    """K13 vs its plain version: depths equal, or within one final
-    bisection step (maxdepth / 2^30)."""
-
-    from vic_tpu_torch import kernels
-    from vic_tpu_torch.physics.lake import DEPTH_ITERS, depth_from_volume_plain
-    z, basin, maxdepth, volume = args
-    kern = kernels.lake_depth(*args)
-    plain = depth_from_volume_plain(
+def lake_depth_plain(z, basin, maxdepth, volume):
+    """K13's plain version on the kernel's arguments (it takes the lake
+    parameters, the kernel their profiles)."""
+    from vic_tpu_torch.physics.lake import depth_from_volume_plain
+    return depth_from_volume_plain(
         SimpleNamespace(z=z, basin=basin, maxdepth=maxdepth), volume)
+
+
+def compare_lake_depth(args, results=None):
+    """K13 vs its plain version (or `results`, their outputs on args):
+    depths equal, or within one final bisection step (maxdepth / 2^30)."""
+    from vic_tpu_torch import kernels
+    from vic_tpu_torch.physics.lake import DEPTH_ITERS
+    maxdepth = args[2]
+    kern, plain = results or (kernels.lake_depth(*args),
+                              lake_depth_plain(*args))
     torch.cuda.synchronize()
     diff = (kern - plain).abs()
     step = maxdepth.expand(diff.shape) / 2.0 ** DEPTH_ITERS
@@ -879,30 +915,30 @@ def lake_depth_work(args, kern):
 
 
 def check_lake_kernel(name, args, kwargs, calls, label="lakes",
-                      record=LAKES_RECORD):
+                      record=LAKES_RECORD, results=None):
     """K10-K13 on the arguments of their first call in the `label` step's
     record `record` (`calls` calls in that record) against their plain
-    versions; returns (largest difference, (bytes, operations) of the
-    call). On the heavy step K12 must see the blowing-snow flux over lake
-    ice on some bracketed lake."""
+    versions (or `results`, their outputs there); returns (largest
+    difference, (bytes, operations) of the call). On the heavy step K12
+    must see the blowing-snow flux over lake ice on some bracketed lake."""
     from vic_tpu_torch import kernels
     from vic_tpu_torch.physics.lake import lake_ice_brent_plain
     print(f"  {name}: {calls} calls in the {label} step's record {record}")
     if name == "lake_open_water":
-        kern, t_open, err = compare_lake_open_water(kwargs)
+        kern, t_open, err = compare_lake_open_water(kwargs, results)
         return err, lake_column_work(kwargs, kern, list(kern) + [t_open],
                                      LAKE_OPEN_SETUP_OPS, LAKE_OPEN_ITER_OPS,
                                      mix_each_iteration=False)
     if name == "lake_under_ice":
-        kern, err = compare_lake_under_ice(kwargs)
+        kern, err = compare_lake_under_ice(kwargs, results)
         return err, lake_column_work(kwargs, kern, list(kern),
                                      LAKE_ICE_SETUP_OPS, LAKE_ICE_ITER_OPS,
                                      mix_each_iteration=True)
     if name == "lake_depth":
-        kern, err = compare_lake_depth(args)
+        kern, err = compare_lake_depth(args, results)
         return err, lake_depth_work(args, kern)
-    kern = kernels.lake_ice_brent(*args, **kwargs)
-    plain = lake_ice_brent_plain(*args, **kwargs)
+    kern, plain = results or (kernels.lake_ice_brent(*args, **kwargs),
+                              lake_ice_brent_plain(*args, **kwargs))
     torch.cuda.synchronize()
     err = compare_brent(f"{name} ({label})", kern, plain)
     if not int(kern.bracketed.sum()):
@@ -1023,7 +1059,28 @@ def step_label(config, nnode):
     return f"{config}/nnode={nnode}" if nnode else config
 
 
-def kernels_phase(device):
+def lane_brent_stats(name, args, kwargs, kern_fn, regs):
+    """K3's and K14's lanes on a row's arguments, as
+    tools/profile_lane_brent.py reads them from the kernel's outputs: the
+    warp efficiency of consecutive lanes and the waves at the registers
+    ptxas reports for the instance the call launches."""
+    from vic_tpu_torch.ops.rootfind import MAXTRIES
+    lt = lane_tools()
+    out = kern_fn(*args, **kwargs)
+    evals = lt.evaluations(args[2], out, kwargs.get("max_tries", MAXTRIES))
+    n_reg, spill, _ = lt.instance_registers(regs or {}, name,
+                                            kwargs.get("eb_kwargs"))
+    resident = lt.resident_threads(n_reg, 128) if n_reg else None
+    lanes = out.root.numel()
+    print(f"  {name}: lanes {lanes}, active {int((evals > 0).sum())}, "
+          f"evaluations a lane max {int(evals.max())}, warp efficiency "
+          f"{lt.warp_efficiency(evals):.4f} (consecutive lanes), ptxas "
+          f"{n_reg} registers ({spill} B spill stores), waves "
+          f"{lanes / resident if resident else None}")
+
+
+def kernels_phase(device, regs=None):
+    """regs: ptxas' {kernel: (registers, spill bytes)} (build_phase)."""
     phase(f"2 kernels at {SMOKE_CELLS} cells (heavy_nolakes {HEAVY_CELLS})")
     from vic_tpu_torch import kernels
     # one capture run per step, wrapping the kernels of the rows on it and
@@ -1061,11 +1118,7 @@ def kernels_phase(device):
         if name == "fd_surface_brent":
             plain_fn = fd_surface_brent_plain
         if name == "lake_depth":
-            # the plain version takes the lake parameters, the kernel their
-            # profiles
-            z, basin, maxdepth, _ = args
-            lp = SimpleNamespace(z=z, basin=basin, maxdepth=maxdepth)
-            plain_fn = (lambda fn: lambda *a: fn(lp, a[3]))(plain_fn)
+            plain_fn = lake_depth_plain
         if row != name:
             check_form(row, nnode, args, kwargs)
         if name in LAKE_KERNELS:
@@ -1093,6 +1146,8 @@ def kernels_phase(device):
             name=row, route="cuda", source=CSRC + source, replaces=replaces,
             launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        if row in LANE_BRENT_KERNELS:
+            lane_brent_stats(name, args, kwargs, kern_fn, regs)
         if row in HEAVY_LAKE_TIMED:
             # the heavy path's own form of the kernel: K12 with the
             # blowing-snow flux, K8 on the 8,192 lake lanes
@@ -1608,6 +1663,202 @@ def spatial_snow_checks(state, stack, params, gp, extras, final, outs):
                              f"or not frozen: {bad}")
 
 
+# CONTINUEONERROR on the bases whose CLOSE_ENERGY, blowing-snow and lake
+# kernels K8-K14 step: the slice's cells, and the rows held against their
+# plain versions on the first NaN record's arguments (K8 on heavy's HRU
+# lanes, then on its lake lanes, its second call in a step)
+NAN_SLICES = {"heavy": HEAVY_CELLS, "blowing_close": SMOKE_CELLS}
+NAN_ROWS = {"heavy": ("blowing_snow", "blowing_snow/lake_lanes",
+                      "canopy_air_step", "lake_open_water", "lake_under_ice",
+                      "lake_ice_brent", "lake_depth", "affine_surface_brent"),
+            "blowing_close": ("blowing_snow", "canopy_air_step")}
+
+
+def nan_cells(n_cell, shift=0):
+    """The NAN_CELLS cells given NaN air temperature: spread over the
+    domain, odd and even by turns (heavy_forcing's odd cells are its cold,
+    snowy ones, its even cells warm), `shift` cells on."""
+    return (torch.arange(0, n_cell, n_cell // NAN_CELLS)[:NAN_CELLS]
+            + torch.arange(NAN_CELLS) % 2 + shift)
+
+
+def continue_on_error_build(config, shift=None):
+    """`config`'s builder with CONTINUEONERROR and, unless shift is None,
+    NaN air temperature in nan_cells(n_cell, shift) from record
+    NAN_FROM."""
+    def build(n_cell, n_rec, device):
+        gp, params, stack, state, extras = CONFIGS[config](n_cell, n_rec,
+                                                           device)
+        if shift is not None:
+            air = stack["air_temp"].clone()
+            air[NAN_FROM:, nan_cells(n_cell, shift).to(air.device)] = \
+                float("nan")
+            stack = dict(stack, air_temp=air)
+        return (gp.replace(continue_on_error=True), params, stack, state,
+                extras)
+    return build
+
+
+def nan_lanes_agree(label, kern, plain):
+    """Raise unless every float output of a kernel is NaN exactly where its
+    plain version's is; returns (kern, plain) with those elements set to 0,
+    for the row's own comparison, and the count of NaN elements."""
+    count = 0
+
+    def walk(a, b):
+        nonlocal count
+        if isinstance(a, torch.Tensor):
+            if a.dtype != torch.float32:
+                return a, b
+            na, nb = torch.isnan(a), torch.isnan(b)
+            if not torch.equal(na, nb):
+                raise AssertionError(f"{label}: NaN at {int((na != nb).sum())}"
+                                     " elements where the plain version's "
+                                     "differ")
+            count += int(na.sum())
+            return torch.where(na, 0.0, a), torch.where(nb, 0.0, b)
+        if isinstance(a, tuple):
+            pairs = [walk(x, y) for x, y in zip(a, b)]
+            make = (lambda xs: type(a)(*xs)) if hasattr(a, "_fields") \
+                else tuple
+            return make([x for x, _ in pairs]), make([y for _, y in pairs])
+        return a, b
+
+    kern, plain = walk(kern, plain)
+    print(f"  {label}: {count} NaN elements, the same as the plain "
+          "version's")
+    return kern, plain, count
+
+
+def check_nan_row(row, label, args, kwargs, calls):
+    """A kernel of NAN_ROWS against its plain version on the first NaN
+    record's arguments: NaN at the same elements, the rest within the
+    row's tolerance; returns (kernel, largest difference)."""
+    from vic_tpu_torch import kernels
+    name = row.split("/")[0]
+    source, replaces, module, plain_name, _ = KERNELS[name]
+    plain_fn = (lake_depth_plain if name == "lake_depth" else getattr(
+        importlib.import_module(f"vic_tpu_torch.physics.{module}"),
+        plain_name))
+    kern = getattr(kernels, name)(*args, **kwargs)
+    plain = plain_fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    if name == "canopy_air_step":
+        print(f"  {row} ({label}): batch max change {float(kern[2])} / "
+              f"{float(plain[2])} C (kernel/plain)")
+    kern, plain, _ = nan_lanes_agree(f"{row} ({label})", kern, plain)
+    if name in LAKE_KERNELS:
+        err = check_lake_kernel(name, args, kwargs, calls[name], label,
+                                NAN_FROM, results=(kern, plain))[0]
+    elif name == "blowing_snow":
+        err = compare_blowing(kern, plain, kwargs["snowdepth"],
+                              f"{label}, {row}", exercised=row == name)
+    else:
+        err = compare(name, label, kern, plain, kwargs)
+    return name, err
+
+
+# the control run's NaN cells lie this many cells from the NaN run's
+NAN_SHIFT = 2
+
+
+def nan_slice_phase(device, config):
+    """CONTINUEONERROR with NaN air temperature in NAN_CELLS cells from
+    record NAN_FROM on `config` (NAN_SLICES' cells x SMOKE_RECS records):
+    first NAN_ROWS' kernels against their plain versions on the first NaN
+    record's arguments, then the slice without the NaN, with it, and with
+    it in cells NAN_SHIFT on (the control), the plain solvers guarded. The
+    NaN cells must read OUT_CELL_VALID 0 from NAN_FROM and every cell the
+    run without NaN's outputs before it. A NaN keeps the batch-wide
+    CLOSE_ENERGY pass loop going to its cap (vic_tpu/model.py:841's
+    jnp.max), and past convergence the other cells' secant steps move
+    them: beyond REF_TOL of the run without the NaN, in vic_tpu too
+    (tools/heavy_nan_coupling.py), so those differences are printed, and the
+    cells NaN in neither run are held against the control, whose pass
+    counts and batch-wide stops are the NaN run's, at REF_TOL; on heavy
+    their cold cells must close their water balance within WATER_TOL.
+    Returns the rows' largest differences, {kernel: difference}."""
+    from vic_tpu_torch.model import run
+    n_cell = NAN_SLICES[config]
+    label = f"{config}, NaN air"
+    phase(f"4 NaN slice: {config}, {n_cell} cells x {SMOKE_RECS} records, "
+          f"CONTINUEONERROR, NaN air temperature in {NAN_CELLS} cells from "
+          f"record {NAN_FROM}")
+    build = continue_on_error_build(config, shift=0)
+    errs, calls = {}, {}
+    rows = NAN_ROWS[config]
+    names = sorted({r.split("/")[0] for r in rows})
+    captured = capture_kernel_args(config, names, device, record=NAN_FROM,
+                                   calls=calls, build=build, cells=n_cell)
+    if "blowing_snow/lake_lanes" in rows:
+        captured["blowing_snow/lake_lanes"] = capture_kernel_args(
+            config, ("blowing_snow",), device, record=NAN_FROM,
+            nth={"blowing_snow": 1}, build=build,
+            cells=n_cell)["blowing_snow"]
+    for row in rows:
+        args, kwargs = captured[row]
+        name, err = check_nan_row(row, label, args, kwargs, calls)
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    runs = {}
+    for shift in (None, 0, NAN_SHIFT):
+        gp, params, stack, state, extras = continue_on_error_build(
+            config, shift)(n_cell, SMOKE_RECS, device)
+        restore = guard_plain_solvers()
+        try:
+            runs[shift] = run(state, stack, params, gp, **extras)[1]
+            torch.cuda.synchronize()
+        finally:
+            restore()
+    clean, outs, control = runs[None], runs[0], runs[NAN_SHIFT]
+    cells = nan_cells(n_cell).to(device)
+    others = torch.ones(n_cell, dtype=torch.bool, device=device)
+    others[cells] = False
+    others[nan_cells(n_cell, NAN_SHIFT).to(device)] = False
+    passes = [[int(x) for x in o["OUT_TCANOPY_ITER"][:, others][:, 0]]
+              for o in (clean, outs, control)]
+    print(f"  CLOSE_ENERGY passes per record without the NaN, with it, "
+          f"the control: {passes}")
+    valid = torch.ones_like(outs["OUT_CELL_VALID"])
+    valid[NAN_FROM:, cells] = 0.0
+    bad = [] if torch.equal(outs["OUT_CELL_VALID"], valid) \
+        else ["OUT_CELL_VALID"]
+    bad += [f"{k} (before the NaN)" for k, v in outs.items()
+            if not torch.equal(v[:NAN_FROM], clean[k][:NAN_FROM])]
+    if passes[1][NAN_FROM:] != [CLOSE_ENERGY_MAXITER] * (SMOKE_RECS
+                                                          - NAN_FROM):
+        bad.append("OUT_TCANOPY_ITER (the NaN records' pass count)")
+    worst, worst_control = {}, {}
+    for k, v in outs.items():
+        b = v[:, others]
+        if not bool(torch.isfinite(b).all()):
+            bad.append(f"{k} (other cells not finite)")
+        worst[k] = float((b - clean[k][:, others]).abs().max())
+        a = control[k][:, others]
+        diff = (b - a).abs()
+        worst_control[k] = float(diff.max())
+        if bool((diff > REF_TOL + REF_TOL * a.abs()).any()):
+            bad.append(f"{k} (other cells beyond rtol=atol={REF_TOL} of "
+                       "the control)")
+    for title, w in (("the run without the NaN", worst),
+                     ("the control", worst_control)):
+        top = sorted(w, key=w.get, reverse=True)[:6]
+        print(f"  other cells against {title}, largest differences: "
+              + ", ".join(f"{k} {w[k]:.4g}" for k in top))
+    print(f"  cells valid at the end "
+          f"{int(outs['OUT_CELL_VALID'][-1].sum())} of {n_cell}")
+    if config == "heavy":
+        werr = outs["OUT_WATER_ERROR"].abs().amax(0)[others]
+        cold = (torch.arange(n_cell, device=device) % 2 == 1)[others]
+        print(f"  max |OUT_WATER_ERROR| of the other cold cells "
+              f"{float(werr[cold].max()):.3e} mm")
+        if float(werr[cold].max()) > WATER_TOL:
+            bad.append("OUT_WATER_ERROR (other cold cells)")
+    if bad:
+        raise AssertionError(f"NaN slice {config}: {bad}")
+    return errs
+
+
 def layer_ice_cost(device, final, params, gp, geom):
     """CUDA-event ms and peak extra device bytes of one estimate_layer_ice
     call over SPATIAL_FROST's subareas and over one area, on the slice's
@@ -1841,8 +2092,8 @@ def driver_phase(device):
 
 def main():
     device = device_phase()
-    build_phase()
-    results = kernels_phase(device)
+    regs = build_phase()
+    results = kernels_phase(device, regs)
     for name, err in nan_profile_checks(device).items():
         row = results[f"{name}/exp_trans_10"]
         row["max_abs_err"] = max(row["max_abs_err"], err)
@@ -1853,6 +2104,10 @@ def main():
     for nnode in NODE_COUNTS:
         launches[step_label("frozen_exp", nnode)] = slice_phase(
             device, "frozen_exp", nnode=nnode)
+    for config in NAN_SLICES:
+        for name, err in nan_slice_phase(device, config).items():
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                               err)
     driver_phase(device)
     # each row's count from the slice of the path its arguments came from
     for row, (name, config, nnode) in ROWS.items():

@@ -148,28 +148,98 @@ def test_lane_inputs_are_strided_views_of_the_inputs():
     layered = torch.tensor(rng.normal(size=(c, 1, nl)), dtype=torch.float32)
     sliced = torch.tensor(rng.normal(size=(c, h, 3)),
                           dtype=torch.float32)[..., 1]
-    items = [("lanes", lanes, torch.float32, 0),
-             ("cell", cell, torch.float32, 0),
-             ("scalar", torch.tensor(2.5), torch.float32, 0),
-             ("layered", layered, torch.float32, nl),
-             ("sliced", sliced, torch.float32, 0),
-             ("mask", cell > 0, torch.bool, 0)]
-    views, ptrs, strides = kernels._lane_inputs(items, (c, h),
-                                                torch.device("cpu"))
-    assert list(ptrs) == [v.data_ptr() for v in views]
-    for k, ((name, x, _, n_l), view) in enumerate(zip(items, views)):
-        s0, s1, s2 = strides[3 * k:3 * k + 3]
-        assert view.untyped_storage().data_ptr() == \
-            x.untyped_storage().data_ptr(), name          # not copied
+    floats = [("lanes", lanes, 0), ("cell", cell, 0),
+              ("scalar", torch.tensor(2.5), 0), ("layered", layered, nl),
+              ("sliced", sliced, 0)]
+    masks = [("mask", cell > 0, 0)]
+    table = kernels._lane_inputs(floats, masks, (c, h), torch.device("cpu"))
+    assert table.dtype == np.int64 and table.shape == (4 * 6,)
+    for (name, x, n_l), (ptr, s0, s1, s2) in zip(floats + masks,
+                                                 table.reshape(-1, 4)):
+        assert ptr == x.data_ptr(), name                  # not copied
         full = x.expand((c, h) + ((n_l,) if n_l else ()))
         for ci in range(c):
             for hi in range(h):
                 for li in range(max(n_l, 1)):
-                    off = ci * s0 + hi * s1 + li * s2
-                    got = torch.as_strided(
-                        view, (1,), (1,), view.storage_offset() + off)
+                    off = int(ci * s0 + hi * s1 + li * s2)
+                    got = torch.as_strided(x, (1,), (1,),
+                                           x.storage_offset() + off)
                     want = full[ci, hi, li] if n_l else full[ci, hi]
                     assert torch.equal(got[0], want), (name, ci, hi, li)
+
+
+def _stride_cases(c=3, h=4, nl=5):
+    rng = np.random.default_rng(1)
+
+    def f32(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32)
+    return {"scalar": (f32(), 0), "cell": (f32(c, 1), 0),
+            "lanes": (f32(c, h), 0), "layered": (f32(c, h, nl), nl),
+            "layer0_slice": (f32(c, h, nl)[..., 0], 0),
+            "transposed": (f32(h, c).t(), 0),
+            "transposed_layered": (f32(c, nl, h).transpose(1, 2), nl)}
+
+
+@pytest.mark.parametrize("case", list(_stride_cases()))
+@pytest.mark.parametrize("one_cell", [False, True])
+def test_lane_table_holds_broadcast_strides(case, one_cell):
+    """_lane_inputs writes each input's data pointer and the strides of its
+    broadcast to the lanes, x.expand(lanes).stride() with 0 on the axes it
+    is broadcast over, worked out without a view; lanes [n] are one cell,
+    whose cell stride is 0."""
+    c, h = 3, 4
+    x, nl = _stride_cases(c, h)[case]
+    if one_cell:
+        x = x[0] if x.dim() > 1 else x
+        lanes = (h,)
+    else:
+        lanes = (c, h)
+    target = lanes + ((nl,) if nl else ())
+    table = kernels._lane_inputs([(case, x, nl)], [], lanes,
+                                 torch.device("cpu"))
+    want = list(x.expand(target).stride())
+    if one_cell:
+        want = [0] + want
+    if not nl:
+        want.append(0)
+    assert table.tolist() == [x.data_ptr()] + want
+    assert x.expand(target).data_ptr() == x.data_ptr()
+
+
+def test_lane_table_refuses_what_does_not_broadcast():
+    """A wrong device, a wrong dtype, a shape that does not broadcast to
+    the lanes and a non-tensor raise, as the expand views did."""
+    cpu = torch.device("cpu")
+    x = torch.zeros(3, 4)
+    with pytest.raises(ValueError, match="on meta"):
+        kernels._lane_inputs([("x", torch.zeros(3, 4, device="meta"), 0)],
+                             [], (3, 4), cpu)
+    with pytest.raises(TypeError, match="dtype"):
+        kernels._lane_inputs([("x", x.double(), 0)], [], (3, 4), cpu)
+    with pytest.raises(TypeError, match="dtype"):
+        kernels._lane_inputs([], [("m", x, 0)], (3, 4), cpu)
+    for bad in (torch.zeros(2, 4), torch.zeros(3, 5), torch.zeros(2, 3, 4)):
+        with pytest.raises(RuntimeError, match="does not broadcast"):
+            kernels._lane_inputs([("x", bad, 0)], [], (3, 4), cpu)
+    with pytest.raises(TypeError, match="expected a tensor"):
+        kernels._lane_inputs([("x", 1.0, 0)], [], (3, 4), cpu)
+    with pytest.raises(ValueError, match="lanes must be"):
+        kernels._lane_inputs([("x", x, 0)], [], (1, 3, 4), cpu)
+
+
+def test_root_outputs_are_slices_of_one_allocation():
+    """K3's and K14's four outputs share one allocation, without overlap,
+    each of the lanes' shape and its RootResult dtype."""
+    outs = kernels._root_outputs((5, 3), torch.device("cpu"))
+    assert [t.dtype for t in outs] == [torch.float32, torch.bool, torch.bool,
+                                       torch.int32]
+    assert all(t.shape == (5, 3) and t.is_contiguous() for t in outs)
+    base = outs.root.untyped_storage().data_ptr()
+    spans = sorted((t.data_ptr() - base, t.numel() * t.element_size())
+                   for t in outs)
+    assert all(t.untyped_storage().data_ptr() == base for t in outs)
+    assert spans[0][0] == 0 and all(
+        a + n <= b for (a, n), (b, _) in zip(spans, spans[1:]))
 
 
 def test_make_step_refuses_node_counts_the_sweep_kernel_lacks():
@@ -500,6 +570,61 @@ def test_dry_lane_and_affine_brent_kernels_match_plain(cuda, name, config,
     assert torch.equal(got.root[~got.bracketed], ref.root[~ref.bracketed])
 
 
+def _strained_lanes(a, kw, plain_fn, max_iter):
+    """A captured K3 or K14 call rebuilt to strain csrc/lane_brent.cuh's
+    compaction and refill: the first 128-lane tile with no active lane,
+    the second with one, the rest as captured (a last partial tile where
+    the lanes are not a multiple of 128); every third active lane's
+    bracket narrowed to +/- 1e-4 C around the plain version's root, so it
+    stops after its first two evaluations, and max_iter low enough that the
+    slowest lanes reach it."""
+    lo, hi, active = a
+    shape = torch.broadcast_shapes(lo.shape, hi.shape, active.shape)
+    act = active.expand(shape).clone().reshape(-1)
+    act[:256] = False
+    act[140] = True
+    act = act.reshape(shape)
+    root = plain_fn(lo, hi, act, **kw).root
+    tight = act & (torch.arange(act.numel(), device=act.device)
+                   .reshape(shape) % 3 == 0)
+    lo = torch.where(tight, root - 1e-4, lo.expand(shape))
+    hi = torch.where(tight, root + 1e-4, hi.expand(shape))
+    return (lo, hi, act), dict(kw, max_iter=max_iter)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,config,record,max_iter", [
+    ("canopy_brent", "light", 0, 4),
+    ("affine_surface_brent", "heavy_nolakes", 3, 8)])
+def test_lane_brent_kernels_under_strain(cuda, name, config, record,
+                                         max_iter):
+    """K3 and K14 (csrc/lane_brent.cuh) against their plain versions where
+    whole tiles of lanes are inactive, one tile holds one active lane, the
+    last tile is partial and the lanes' evaluations run from 2 to the
+    max_iter cap: the same flags, roots within the final bracket width,
+    the midpoints of unbracketed lanes, iterations 0 to max_iter."""
+    a, kw = _captured_args(cuda, n_cell=70, names=(name,), config=config,
+                           record=record)[name]
+    a, kw = _strained_lanes(a, kw, PLAIN[name], max_iter)
+    lanes = a[2].numel()
+    assert lanes % 128 and not bool(a[2].reshape(-1)[:128].any())
+    assert int(a[2].reshape(-1)[128:256].sum()) == 1
+    before = kernels.launches[name]
+    got = getattr(kernels, name)(*a, **kw)
+    ref = PLAIN[name](*a, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 1
+    assert torch.equal(got.bracketed, ref.bracketed)
+    assert torch.equal(got.converged, ref.converged)
+    both = got.converged & ref.converged
+    tol = 2.0 * (2.0 * torch.finfo(torch.float32).eps * got.root.abs() + 1e-4)
+    assert bool(((got.root - ref.root).abs() <= tol)[both].all())
+    assert torch.equal(got.root[~got.bracketed], ref.root[~ref.bracketed])
+    its = got.iterations[got.bracketed]
+    assert int(its.min()) == 0 and int(its.max()) == max_iter
+    assert bool((got.iterations[~a[2]] == 0).all())
+
+
 @pytest.mark.gpu
 def test_blowing_snow_kernel_matches_plain(cuda):
     """K8 on the blowing_close step's fourth record: flux and transport at
@@ -637,8 +762,8 @@ def test_ice_residual_fields_are_the_kernels_inputs():
     fields = [w.strip() for w in body.split(",")]
     assert fields == ["dt"] + list(kernels.ICE_EB_INPUTS)
     assert kernels.ICE_EB_INPUTS[-1] == "blowing_flux"
-    launch = re.search(r"launch_brent\(lake_ice_brent_kernel, f, f_stride, "
-                       r"nf, (\d+),", src)
+    launch = re.search(r"launch_brent\(lake_ice_brent_kernel, lanes, nf, "
+                       r"(\d+),", src)
     assert int(launch.group(1)) == len(kernels.ICE_EB_INPUTS)
 
 
@@ -737,12 +862,12 @@ def test_snowpack_residual_fields_are_the_kernels_inputs():
     assert [w.strip() for w in glac.group(1).split(",")] == \
         ["dt"] + list(kernels.GLACIER_INPUTS)
     k2 = (build.CSRC / "vic_kernels.cu").read_text()
-    launch = re.search(r"launch_brent\(snowpack_brent_kernel, f, f_stride, "
-                       r"nf, (\d+), m, m_stride,\s*nm, (\d+),", k2)
+    launch = re.search(r"launch_brent\(snowpack_brent_kernel, lanes, nf, "
+                       r"(\d+), nm, (\d+),", k2)
     assert (int(launch.group(1)), int(launch.group(2))) == \
         (len(kernels.SNOWPACK_INPUTS), 1 + len(kernels.SNOWPACK_FLAGS))
     k17 = (build.CSRC / "bisection.cu").read_text()
-    counts = re.search(r"nf, snow \? (\d+) : (\d+), m, m_stride,\s*nm, "
+    counts = re.search(r"nf, snow \? (\d+) : (\d+),\s*nm, "
                        r"snow \? (\d+) : (\d+)", k17)
     assert tuple(int(g) for g in counts.groups()) == (
         len(kernels.SNOWPACK_INPUTS), len(kernels.GLACIER_INPUTS), 2, 1)

@@ -14,36 +14,45 @@
 //
 // Unlike K7's residual, this one is elementwise: the probes are fixed
 // before the solve, so no lane's residual depends on another's candidate,
-// and a per-lane Brent (brent.cuh) gives the batch loop's result, as K5
-// does. One thread owns one lane and runs expansion and Brent in one
-// launch. The interpolation's weight is a true float32 division, lane by
-// lane, as the plain version's tensor division is.
+// and a per-lane Brent gives the batch loop's result, as K5 does. The
+// interpolation's weight is a true float32 division, lane by lane, as the
+// plain version's tensor division is.
 //
-// A lane reads K5's ~64 inputs (~300 B; the dry column's ~80 B more with
-// DIST_PRCP), the 5 fusion inputs and 4 probe temperatures, and writes 10 B,
-// while it runs ~10-70 residual evaluations of ~170 flops: bound by latency
-// and occupancy, as K5, not by device-memory bytes.
+// What bounds it on this card: a lane reads K5's ~64 inputs (~300 B; the
+// dry column's ~80 B more with DIST_PRCP), the 5 fusion inputs, 4 probe
+// temperatures and its bracket, and writes 10 B, while it runs ~10-70
+// dependent residual evaluations of ~170 flops: latency, not device-memory
+// bytes. One thread a lane left a warp waiting on its slowest lane with
+// its glacier, lake and finished lanes idle, and the wrapper's host work
+// for ~100 inputs set the call's time.
+//
+// What the design does: the lanes run on csrc/lane_brent.cuh's driver
+// (compacted and dealt to persistent threads, a finished lane's thread
+// taking the next), each lane's Ts-independent terms formed once when its
+// thread takes it, and every input, the bracket too, read where it lies
+// through the wrapper's one lane table.
 //
 // C interface for ctypes: K5's float inputs (with the dry column's), the 5
-// fusion inputs, the bracket ends ts_a and ts_b of the probes and the two
-// probe profiles (layered, nn nodes), then K5's masks and fs_active, as host
-// arrays of device pointers with their strides (lanes.cuh); returns
-// cudaGetLastError().
+// fusion inputs, the bracket ends ts_a and ts_b of the probes, the two
+// probe profiles (layered, nn nodes) and lo and hi, then K5's masks and
+// fs_active, as the wrapper's lane table (lanes.cuh); returns
+// cudaGetLastError(), cudaErrorInvalidValue on wrong counts or
+// vicbrent::kNoResidentBlock where no block fits on an SM.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "brent.cuh"
+#include "lane_brent.cuh"
 #include "lanes.cuh"
 #include "surface_brent.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;
-
-// the probes' inputs after the fusion inputs (kernels.AFFINE_INPUTS)
-enum AffIn { kTsA, kTsB, kProbeLo, kProbeHi, kNumAffIn };
+// the probes' inputs and the bracket after the fusion inputs
+// (kernels.AFFINE_INPUTS)
+enum AffIn { kTsA, kTsB, kProbeLo, kProbeHi, kLoIn, kHiIn, kNumAffIn };
 constexpr int kAffIn = vicsurf::kNumSurfaceIn + vicsurf::kNumFdIn;
 
 template <int NL, bool DIST>
@@ -59,32 +68,33 @@ struct AffineResidual {
   }
 };
 
+struct AffineParams {
+  float dt;
+  int grnd_flux_type;
+  bool frozen;
+};
+
+// K14's lane for lane_brent.cuh
 template <int NL, bool DIST>
-__global__ void affine_surface_brent_kernel(
-    const __grid_constant__ LaneInputs in, const float* lo, const float* hi,
-    float dt, int gft, int frozen, int max_iter, int max_tries, int n,
-    float* root, uint8_t* converged, uint8_t* bracketed,
-    int32_t* iterations) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const LaneRow row = lane_row(in, i);
-  AffineResidual<NL, DIST> f;
-  f.r.init(in, row, dt, gft);
-  f.r.init_fd(in, row, frozen != 0);
-  f.ts_a = lane_f(in, kAffIn + kTsA, row);
-  f.ts_b = lane_f(in, kAffIn + kTsB, row);
-  f.lo1 = lane_fl(in, kAffIn + kProbeLo, row, 1);
-  f.lo2 = lane_fl(in, kAffIn + kProbeLo, row, 2);
-  f.hi1 = lane_fl(in, kAffIn + kProbeHi, row, 1);
-  f.hi2 = lane_fl(in, kAffIn + kProbeHi, row, 2);
-  const BrentOut out =
-      brent_solve(f, lo[i], hi[i], lane_m(in, vicsurf::kActive, row),
-                  max_iter, max_tries);
-  root[i] = out.root;
-  converged[i] = out.converged;
-  bracketed[i] = out.bracketed;
-  iterations[i] = out.iterations;
-}
+struct AffineLane : AffineResidual<NL, DIST> {
+  static constexpr int kLo = kAffIn + kLoIn, kHi = kAffIn + kHiIn;
+  static constexpr int kActive = vicsurf::kActive;
+  // four blocks an SM (at most 128 registers a thread): the lanes'
+  // latency needs the warps (timed on the card against two and three)
+  static constexpr int kMinBlocks = 4;
+
+  __device__ __forceinline__ void init(const LaneInputs& in, LaneRow row,
+                                       const AffineParams& p) {
+    this->r.init(in, row, p.dt, p.grnd_flux_type);
+    this->r.init_fd(in, row, p.frozen);
+    this->ts_a = lane_f(in, kAffIn + kTsA, row);
+    this->ts_b = lane_f(in, kAffIn + kTsB, row);
+    this->lo1 = lane_fl(in, kAffIn + kProbeLo, row, 1);
+    this->lo2 = lane_fl(in, kAffIn + kProbeLo, row, 2);
+    this->hi1 = lane_fl(in, kAffIn + kProbeHi, row, 1);
+    this->hi2 = lane_fl(in, kAffIn + kProbeHi, row, 2);
+  }
+};
 
 }  // namespace
 
@@ -93,38 +103,32 @@ extern "C" {
 // nf, nm: the input counts, checked against the residual's; h: lanes per
 // cell; nl: soil layers (2 or 3); dist: the dry column is read (DIST_PRCP);
 // nn: nodes of the probe profiles (at least 3); frozen: the fusion term.
-int affine_surface_brent(const void* const* f, const int32_t* f_stride,
-                         int nf, const void* const* m,
-                         const int32_t* m_stride, int nm, int h, int nl,
-                         int dist, int nn, const float* lo, const float* hi,
-                         float dt, int grnd_flux_type, int frozen,
-                         int max_iter, int max_tries, int n, float* root,
-                         uint8_t* converged, uint8_t* bracketed,
+int affine_surface_brent(const int64_t* lanes, int nf, int nm, int h, int nl,
+                         int dist, int nn, float dt, int grnd_flux_type,
+                         int frozen, int max_iter, int max_tries, int n,
+                         float* root, uint8_t* converged, uint8_t* bracketed,
                          int32_t* iterations, void* stream) {
   LaneInputs in{};
-  if (n <= 0 || nn < 3 ||
-      !fill_lane_inputs(&in, f, f_stride, nf, kAffIn + kNumAffIn, m,
-                        m_stride, nm, vicsurf::kNumSurfaceMask + 1, h))
+  if (n <= 0 || nn < 3 || max_iter < 0 || max_tries < 0 ||
+      !fill_lane_inputs(&in, lanes, nf, kAffIn + kNumAffIn, nm,
+                        vicsurf::kNumSurfaceMask + 1, h))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kBlock - 1) / kBlock);
+  const AffineParams p{dt, grnd_flux_type, frozen != 0};
+  const BrentOutputs out{root, converged, bracketed, iterations};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VIC_AFFINE_LAUNCH(NL_, DIST_)                                       \
-  affine_surface_brent_kernel<NL_, DIST_><<<grid, kBlock, 0, s>>>(          \
-      in, lo, hi, dt, grnd_flux_type, frozen, max_iter, max_tries, n, root, \
-      converged, bracketed, iterations)
-  if (nl == 2 && dist) {
-    VIC_AFFINE_LAUNCH(2, true);
-  } else if (nl == 2) {
-    VIC_AFFINE_LAUNCH(2, false);
-  } else if (nl == 3 && dist) {
-    VIC_AFFINE_LAUNCH(3, true);
-  } else if (nl == 3) {
-    VIC_AFFINE_LAUNCH(3, false);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef VIC_AFFINE_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  if (nl == 2 && dist)
+    return vicbrent::launch_lane_brent<AffineLane<2, true>>(
+        in, p, max_iter, max_tries, n, out, s);
+  if (nl == 2)
+    return vicbrent::launch_lane_brent<AffineLane<2, false>>(
+        in, p, max_iter, max_tries, n, out, s);
+  if (nl == 3 && dist)
+    return vicbrent::launch_lane_brent<AffineLane<3, true>>(
+        in, p, max_iter, max_tries, n, out, s);
+  if (nl == 3)
+    return vicbrent::launch_lane_brent<AffineLane<3, false>>(
+        in, p, max_iter, max_tries, n, out, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

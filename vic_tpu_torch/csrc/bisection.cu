@@ -59,16 +59,14 @@ extern "C" {
 // residual 0: the snowpack (21 float inputs in SnowpackResidual order after
 // dt; masks [active, spatial]); 1: bare glacier ice (15 floats in
 // GlacierResidual order; masks [active]).
-int bisection(int residual, const void* const* f, const int32_t* f_stride,
-              int nf, const void* const* m, const int32_t* m_stride, int nm,
+int bisection(int residual, const int64_t* lanes, int nf, int nm,
               int h, const float* lo, const float* hi, float dt, int n_iter,
               int n, float* root, uint8_t* converged, uint8_t* bracketed,
               int32_t* iterations, void* stream) {
   LaneInputs in{};
   const bool snow = residual == kSnowpack;
   if ((!snow && residual != kGlacier) || n <= 0 || n_iter < 0 ||
-      !fill_lane_inputs(&in, f, f_stride, nf, snow ? 21 : 15, m, m_stride,
-                        nm, snow ? 2 : 1, h))
+      !fill_lane_inputs(&in, lanes, nf, snow ? 21 : 15, nm, snow ? 2 : 1, h))
     return static_cast<int>(cudaErrorInvalidValue);
   const BrentOutputs out{root, converged, bracketed, iterations};
   bisection_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,

@@ -127,12 +127,12 @@ __device__ Flux sub_flux_one(float u10, float es, float eact, float air_dens,
   const bool saltating = ushear > utshear;
 
   float qsalt = div_s(kCsalt * air_dens, kGStd) * (utshear / ushear) *
-                fmaxf(ushear * ushear - utshear * utshear, 0.0f);
+                nan_max(ushear * ushear - utshear * utshear, 0.0f);
   const float e_fe = expf(div_s(-3.0f * fe, 500.0f));
   qsalt = qsalt * (1.0f + rdiv_s(500.0f, 3.0f * fe) * (e_fe - 1.0f));
   const float hsalt = 0.08436f * powf(ushear, 1.27f);
   const float particle = utshear * 2.8f;
-  const float phi_s = qsalt / fmaxf(hsalt * particle, 1e-12f);
+  const float phi_s = qsalt / nan_max(hsalt * particle, 1e-12f);
   const float T = 0.5f * ushear * ushear / (u10 * kSettling);
   const float ztop =
       hsalt * powf(T / (T + 1.0f), div_s(kVonK * ushear, -kSettling));
@@ -141,11 +141,11 @@ __device__ Flux sub_flux_one(float u10, float es, float eact, float air_dens,
                                       hsalt, phi_s, ushear);
   const float sub_salt = phi_s * psi_s * hsalt;
   // suspension layer: 16-point trapezoid in log z
-  const float lo_z = logf(fmaxf(hsalt, 1e-4f));
-  const float hi_z = logf(fmaxf(ztop, fmaxf(hsalt, 1e-4f) * 1.0001f));
+  const float lo_z = logf(nan_max(hsalt, 1e-4f));
+  const float hi_z = logf(nan_max(ztop, nan_max(hsalt, 1e-4f) * 1.0001f));
   const float dt_q = div_s(hi_z - lo_z, static_cast<float>(kQuad - 1));
   const float expo = rdiv_s(-kSettling, kVonK * ushear);
-  const float zo_safe = fmaxf(zo_salt, 1e-10f);
+  const float zo_safe = nan_max(zo_salt, 1e-10f);
   float sub_prev = 0.0f, tr_prev = 0.0f, sub_sum = 0.0f, tr_sum = 0.0f;
   for (int k = 0; k < kQuad; ++k) {
     const float z = expf(lo_z + (hi_z - lo_z) * nodes[k]);
@@ -177,7 +177,7 @@ __device__ Flux sub_flux_one(float u10, float es, float eact, float air_dens,
 // get_prob: probability of blowing snow (Li & Pomeroy 1997)
 __device__ __forceinline__ float get_prob(float tair, float age_h,
                                           float surf_water, float u10) {
-  const float age = fmaxf(age_h, 1e-3f);
+  const float age = nan_max(age_h, 1e-3f);
   const bool dry = surf_water < 0.001f;
   const float mean_u = dry ? 11.2f + 0.365f * tair + 0.00706f * tair * tair +
                                  0.9f * logf(age)
@@ -186,7 +186,7 @@ __device__ __forceinline__ float get_prob(float tair, float age_h,
       dry ? 4.3f + 0.145f * tair + 0.00196f * tair * tair : 7.0f;
   const float prob =
       rdiv_s(1.0f, 1.0f + expf(sqrtf(kPi) * (mean_u - u10) / sigma));
-  return fminf(fmaxf(prob, 0.0f), 1.0f);
+  return nan_min(nan_max(prob, 0.0f), 1.0f);
 }
 
 __global__ void blowing_snow_kernel(const __grid_constant__ LaneInputs in,
@@ -208,7 +208,7 @@ __global__ void blowing_snow_kernel(const __grid_constant__ LaneInputs in,
   for (int k = 0; k < kQuad; ++k) nodes[k] = quad_nodes[k];
   const float tair = f(kTair), surf_water = f(kSurfWater), z0 = f(kZ0);
   const float ls = f(kLs), air_dens = f(kAirDens), eact = f(kEact);
-  const float age_h = fmaxf(div_s(f(kLastSnow) * dt, 3600.0f), 1e-3f);
+  const float age_h = nan_max(div_s(f(kLastSnow) * dt, 3600.0f), 1e-3f);
   const float es = svp(tair);
   const float tk = tair + kKelvin;
   const float ros = 0.622f * es / (287.0f * tk);
@@ -225,12 +225,12 @@ __global__ void blowing_snow_kernel(const __grid_constant__ LaneInputs in,
   const float uo = wind10;
   const float displ = f(kDispl);
   const float hv = 1.5f * displ;
-  const float nd = kFourThirds * f(kRough) / fmaxf(displ, 1e-6f);
+  const float nd = kFourThirds * f(kRough) / nan_max(displ, 1e-6f);
   const float ut10 = surf_water < 0.001f
                          ? 9.43f + 0.18f * tair + 0.0033f * tair * tair
                          : 9.9f;
   const float utshear = kVonK * ut10 / logf(rdiv_s(10.0f, z0));
-  const float sig_safe = fmaxf(sigma_w, 1e-10f);
+  const float sig_safe = nan_max(sigma_w, 1e-10f);
 
   float total = 0.0f, total_transport = 0.0f;
   for (int p = 0; p < kNumIncs; ++p) {
@@ -251,25 +251,25 @@ __global__ void blowing_snow_kernel(const __grid_constant__ LaneInputs in,
       lower = uo - sigma_w * log_terms[p];
       upper = uo + 9999.0f;
     }
-    lower = fminf(lower, upper);
+    lower = nan_min(lower, upper);
     // the conditional mean by lower >= Uo (upper tail) or not; exponent
     // arguments clamped at 0 as the plain version evaluates both
     float u10;
     if (lower >= uo) {
-      const float eu = expf(fminf(-(upper - uo) / sig_safe, 0.0f));
-      const float el = expf(fminf(-(lower - uo) / sig_safe, 0.0f));
+      const float eu = expf(nan_min(-(upper - uo) / sig_safe, 0.0f));
+      const float el = expf(nan_min(-(lower - uo) / sig_safe, 0.0f));
       u10 = div_s(-0.5f * ((upper + sigma_w) * eu - (lower + sigma_w) * el),
                   kArea);
     } else {
-      const float eu = expf(fminf((upper - uo) / sig_safe, 0.0f));
-      const float el = expf(fminf((lower - uo) / sig_safe, 0.0f));
+      const float eu = expf(nan_min((upper - uo) / sig_safe, 0.0f));
+      const float el = expf(nan_min((lower - uo) / sig_safe, 0.0f));
       u10 = div_s(0.5f * ((upper - sigma_w) * eu - (lower - sigma_w) * el),
                   kArea);
     }
-    u10 = fminf(fmaxf(u10, 0.4f), 25.0f);
+    u10 = nan_min(nan_max(u10, 0.4f), 25.0f);
     const float uveg =
         snowdepth < hv
-            ? u10 / sqrtf(1.0f + 170.0f * nd * fmaxf(hv - snowdepth, 0.0f))
+            ? u10 / sqrtf(1.0f + 170.0f * nd * nan_max(hv - snowdepth, 0.0f))
             : u10;
     const float prob = get_prob(tair, age_h, surf_water, uveg);
     const Flux fl =
@@ -277,7 +277,7 @@ __global__ void blowing_snow_kernel(const __grid_constant__ LaneInputs in,
     total = total + kArea * fl.sub * prob;
     total_transport = total_transport + kArea * fl.transport * prob;
   }
-  flux_out[i] = fmaxf(total, -5.0e-5f);
+  flux_out[i] = nan_max(total, -5.0e-5f);
   transport_out[i] = total_transport;
 }
 
@@ -288,14 +288,13 @@ extern "C" {
 // f/m: the 14 float inputs of blowing_snow_kernel's In and the is_bare
 // mask, as lanes.cuh reads them; quad_nodes: [16] float; log_terms: [20]
 // float; flux, transport: [n] float.
-int blowing_snow(const void* const* f, const int32_t* f_stride, int nf,
-                 const void* const* m, const int32_t* m_stride, int nm,
+int blowing_snow(const int64_t* lanes, int nf, int nm,
                  int h, float dt, const float* quad_nodes,
                  const float* log_terms, int n, float* flux,
                  float* transport, void* stream) {
   LaneInputs in{};
   if (n <= 0 ||
-      !fill_lane_inputs(&in, f, f_stride, nf, kNumIn, m, m_stride, nm, 1, h))
+      !fill_lane_inputs(&in, lanes, nf, kNumIn, nm, 1, h))
     return static_cast<int>(cudaErrorInvalidValue);
   blowing_snow_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
                         static_cast<cudaStream_t>(stream)>>>(

@@ -139,16 +139,14 @@ __device__ __forceinline__ void store(const BrentOutputs& out, int i,
 constexpr int kBrentBlock = 128;
 
 template <class Kernel>
-int launch_brent(Kernel kernel, const void* const* f,
-                 const int32_t* f_stride, int nf, int nf_expected,
-                 const void* const* m, const int32_t* m_stride, int nm,
-                 int nm_expected, int h, const float* lo, const float* hi,
-                 float dt, int max_iter, int max_tries, int n, float* root,
-                 uint8_t* converged, uint8_t* bracketed, int32_t* iterations,
-                 void* stream) {
+int launch_brent(Kernel kernel, const int64_t* lanes, int nf,
+                 int nf_expected, int nm, int nm_expected, int h,
+                 const float* lo, const float* hi, float dt, int max_iter,
+                 int max_tries, int n, float* root, uint8_t* converged,
+                 uint8_t* bracketed, int32_t* iterations, void* stream) {
   LaneInputs in{};
-  if (n <= 0 || !fill_lane_inputs(&in, f, f_stride, nf, nf_expected, m,
-                                  m_stride, nm, nm_expected, h))
+  if (n <= 0 ||
+      !fill_lane_inputs(&in, lanes, nf, nf_expected, nm, nm_expected, h))
     return static_cast<int>(cudaErrorInvalidValue);
   const BrentOutputs out{root, converged, bracketed, iterations};
   kernel<<<(n + kBrentBlock - 1) / kBrentBlock, kBrentBlock, 0,

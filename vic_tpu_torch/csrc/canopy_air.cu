@@ -54,9 +54,9 @@ __global__ void __launch_bounds__(kBlock)
     // tc_update: calc_atmos_energy_bal on the pass's sensible heat
     const float under_sens = f(kSoilSens) + f(kPackSens) * f(kCovW);
     const float in_sens = f(kCanopySens) + under_sens;
-    const float ra = fmaxf(f(kRaOver), 1e-6f);
+    const float ra = nan_max(f(kRaOver), 1e-6f);
     const float coef = f(kAirDens) * kCp / ra;
-    const float tc_root = tair - in_sens / fmaxf(coef, 1e-12f);
+    const float tc_root = tair - in_sens / nan_max(coef, 1e-12f);
     const float tcanopy =
         fabsf(tc_root - tair) <= kCanopyDt ? tc_root : tair;  // TFALLBACK
     const float F = lane_m(in, kIterMask, row) ? tcanopy : tair;
@@ -93,13 +93,12 @@ extern "C" {
 // reads them; it: the pass index (0 takes the damped step); tc_next, g:
 // [n] float; live_max: one int32, zeroed by the caller, the bits of the
 // largest masked |tc_next - tc|.
-int canopy_air_step(const void* const* f, const int32_t* f_stride, int nf,
-                    const void* const* m, const int32_t* m_stride, int nm,
+int canopy_air_step(const int64_t* lanes, int nf, int nm,
                     int h, int it, int n, float* tc_next, float* g,
                     int32_t* live_max, void* stream) {
   LaneInputs in{};
-  if (n <= 0 || !fill_lane_inputs(&in, f, f_stride, nf, kNumIn, m, m_stride,
-                                  nm, kNumMask, h))
+  if (n <= 0 ||
+      !fill_lane_inputs(&in, lanes, nf, kNumIn, nm, kNumMask, h))
     return static_cast<int>(cudaErrorInvalidValue);
   canopy_air_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
                       static_cast<cudaStream_t>(stream)>>>(in, it, n, tc_next,

@@ -73,8 +73,7 @@ extern "C" {
 // 2*max_tries + max_iter) * 2 * max_sweeps sweep slots and max_tries +
 // max_iter + 1 votes; lo/hi/root/converged/bracketed: [n]; trips, solves,
 // sweeps: int32 [1] each; blocks: the grid (0: the co-resident count).
-int fd_surface_brent(const void* const* f, const int32_t* f_stride, int nf,
-                     const void* const* m, const int32_t* m_stride, int nm,
+int fd_surface_brent(const int64_t* lanes, int nf, int nm,
                      int h, int nl, int dist, float dt, int grnd_flux_type,
                      int frozen, int max_iter, int max_tries,
                      const void* const* lane, const void* const* geom,
@@ -92,9 +91,9 @@ int fd_surface_brent(const void* const* f, const int32_t* f_stride, int nf,
   if (n <= 0 || max_iter < 0 || max_tries < 0 ||
       n_ctl != (2 + 2 * max_tries + max_iter) * 2 * max_sweeps + max_tries +
                    max_iter + 1 ||
-      !fill_lane_inputs(&in, f, f_stride, nf,
-                        vicsurf::kNumSurfaceIn + vicsurf::kNumFdIn, m,
-                        m_stride, nm, vicsurf::kNumSurfaceMask + 1, h) ||
+      !fill_lane_inputs(&in, lanes, nf,
+                        vicsurf::kNumSurfaceIn + vicsurf::kNumFdIn, nm,
+                        vicsurf::kNumSurfaceMask + 1, h) ||
       !vicnode::fill_sweep_args(&sa, lane, geom, fs_active, n, h, nn, nlayer,
                                 sweep_frozen, noflux, exp_trans, max_sweeps,
                                 sweep_dt, two_dt, four_dt, work))

@@ -127,7 +127,7 @@ struct TempArea {
       const float s_top = c.surface[k];
       const bool lm = c.last[k] && multi;
       s_bot[k] = lm ? s_top : c.surface[k + 1];
-      s_avg[k] = fmaxf(lm ? s_top : (s_top + s_bot[k]) / 2.0f, kSmall);
+      s_avg[k] = nan_max(lm ? s_top : (s_top + s_bot[k]) / 2.0f, kSmall);
       const float kf = static_cast<float>(k);
       const float top = k == 0 ? 0.0f : c.surfdz + (kf - 1.0f) * c.dz;
       const float bot = k == 0 ? c.surfdz : c.surfdz + kf * c.dz;
@@ -140,7 +140,7 @@ struct TempArea {
         // energy out of the bottom of the deepest active node
         e_bot = s_top * (swv * expf(-kLamWSW * bot) +
                          swn * expf(-kLamWLW * bot)) /
-                fmaxf(c.surface[0], kSmall);
+                nan_max(c.surface[0], kSmall);
       }
     }
     for (int k = 0; k < kNN; ++k) {
@@ -193,7 +193,7 @@ struct TempArea {
 __device__ __forceinline__ void tracer_mix(float* t, const Column& c,
                                            const float* cp) {
   float s_node[kNN];
-  for (int k = 0; k < kNN; ++k) s_node[k] = fmaxf(c.surface[k], kSmall);
+  for (int k = 0; k < kNN; ++k) s_node[k] = nan_max(c.surface[k], kSmall);
   for (int sweep = 0; sweep < kMixSweeps; ++sweep) {
     for (int par = 0; par < 2; ++par) {
       for (int k = par; k < kNN - 1; k += 2) {
@@ -204,7 +204,8 @@ __device__ __forceinline__ void tracer_mix(float* t, const Column& c,
         const float h0 = c.z[k] * (1.0e3f + r0) * cp[k] * s_node[k];
         const float h1 =
             c.z[k + 1] * (1.0e3f + r1) * cp[k + 1] * s_node[k + 1];
-        const float tav = (t[k] * h0 + t[k + 1] * h1) / fmaxf(h0 + h1, kSmall);
+        const float tav =
+            (t[k] * h0 + t[k + 1] * h1) / nan_max(h0 + h1, kSmall);
         t[k] = tav;
         t[k + 1] = tav;
       }
@@ -235,7 +236,7 @@ __device__ __forceinline__ Iceform iceform(float* t, float tcutoff,
   }
   const float s0 = c.surface[0];
   float new_iwe = div_s(ssum, kRhoWLf);
-  const float denom = dt * fmaxf(s0 * (1.0f - fracprv), kSmall);
+  const float denom = dt * nan_max(s0 * (1.0f - fracprv), kSmall);
   const bool have_water = lvolume > new_iwe;
   const bool some_water = lvolume > 0.0f;
   new_iwe = have_water ? new_iwe : (some_water ? lvolume : 0.0f);
@@ -246,8 +247,8 @@ __device__ __forceinline__ Iceform iceform(float* t, float tcutoff,
                                    : (some_water ? melt_we / denom : 0.0f);
   float areaadd = div_s(di, kFracMin);
   const float cap = (1.0f - fracprv) * s0;
-  const float new_hi = areaadd > cap ? di / fmaxf(cap, kSmall) : kFracMin;
-  areaadd = fminf(areaadd, cap);
+  const float new_hi = areaadd > cap ? di / nan_max(cap, kSmall) : kFracMin;
+  areaadd = nan_min(areaadd, cap);
   return Iceform{qfusion, areaadd, new_hi, new_iwe};
 }
 

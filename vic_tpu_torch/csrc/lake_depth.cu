@@ -24,8 +24,11 @@
 #include <cstdint>
 
 #include "lanes.cuh"
+#include "physics.cuh"
 
 namespace {
+
+using vicphys::nan_max;
 
 constexpr int kBlock = 128;
 constexpr int kLevels = 21;     // MAX_LAKE_NODES + 1
@@ -40,7 +43,7 @@ struct Basin {
     float a = 0.0f;
     for (int k = 0; k < kLevels - 1; ++k) {
       const bool inlayer = d <= z[k] && d > z[k + 1];
-      const float w = (d - z[k + 1]) / fmaxf(z[k] - z[k + 1], 1e-10f);
+      const float w = (d - z[k + 1]) / nan_max(z[k] - z[k + 1], 1e-10f);
       if (inlayer) a = b[k + 1] + w * (b[k] - b[k + 1]);
     }
     a = d >= z[0] ? b[0] : a;
@@ -54,7 +57,7 @@ struct Basin {
     for (int k = 0; k < kLevels - 1; ++k) {
       const float vf = d >= z[k] ? layer_vol[k] : 0.0f;
       const bool partial = d > z[k + 1] && d < z[k];
-      const float h = fmaxf(d - z[k + 1], 0.0f);
+      const float h = nan_max(d - z[k + 1], 0.0f);
       const float vp = partial ? h * (a_surf + b[k + 1]) / 2.0f : 0.0f;
       full = k == 0 ? vf : full + vf;
       part = k == 0 ? vp : part + vp;
@@ -94,11 +97,10 @@ __global__ void __launch_bounds__(kBlock)
 extern "C" {
 
 // Replaces vic_tpu/physics/lake.py:204 (depth_from_volume's fori_loop).
-int lake_depth(const void* const* f, const int32_t* f_stride, int nf, int h,
+int lake_depth(const int64_t* lanes, int nf, int h,
                int n, float* depth, void* stream) {
   LaneInputs in{};
-  if (n <= 0 || !fill_lane_inputs(&in, f, f_stride, nf, kNumIn, nullptr,
-                                  nullptr, 0, 0, h))
+  if (n <= 0 || !fill_lane_inputs(&in, lanes, nf, kNumIn, 0, 0, h))
     return static_cast<int>(cudaErrorInvalidValue);
   lake_depth_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
                       static_cast<cudaStream_t>(stream)>>>(in, n, depth);

@@ -50,7 +50,7 @@ struct IceResidual {
                                                 pressure, ra, t, vpd,
                                                 blowing_flux);
     const float advection = div_s(kChWater * tair * rain_m, dt);
-    const float qnull = (tcutoff - t + sw_conducted) / fmaxf(avgcond, kSmall);
+    const float qnull = (tcutoff - t + sw_conducted) / nan_max(avgcond, kSmall);
     const float rest = net_rad + sensible + lh.latent + lh.latent_sub +
                        advection + qnull;
     const float refreeze = div_s(surf_water * kLf * kRhoW, dt);
@@ -79,14 +79,13 @@ __global__ void lake_ice_brent_kernel(const __grid_constant__ LaneInputs in,
 extern "C" {
 
 // Replaces vic_tpu/physics/lake.py:960 (lake_ice_melt's batched_brent).
-int lake_ice_brent(const void* const* f, const int32_t* f_stride, int nf,
-                   const void* const* m, const int32_t* m_stride, int nm,
+int lake_ice_brent(const int64_t* lanes, int nf, int nm,
                    int h, const float* lo, const float* hi, float dt,
                    int max_iter, int max_tries, int n, float* root,
                    uint8_t* converged, uint8_t* bracketed,
                    int32_t* iterations, void* stream) {
-  return launch_brent(lake_ice_brent_kernel, f, f_stride, nf, 18, m,
-                      m_stride, nm, 1, h, lo, hi, dt, max_iter, max_tries, n,
+  return launch_brent(lake_ice_brent_kernel, lanes, nf, 18,
+                      nm, 1, h, lo, hi, dt, max_iter, max_tries, n,
                       root, converged, bracketed, iterations, stream);
 }
 

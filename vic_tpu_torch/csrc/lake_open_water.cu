@@ -62,12 +62,12 @@ __device__ __forceinline__ float lkdrag(float tsurf_k, float tair_k,
   const float ribn = z1 * kG * (1.0f - tsurf_k / tair_k);
   const float ribd = tsurf_k / tair_k <= 1.0f ? wind * wind + 0.01f
                                               : wind * wind + 1.0f;
-  const float rib = ribn / fmaxf(ribd, kSmall);
+  const float rib = ribn / nan_max(ribd, kSmall);
   const float cdr =
-      rib < 0.0f ? cdrn * (1.0f + 24.5f * sqrtf(fmaxf(-cdrn * rib, 0.0f)))
+      rib < 0.0f ? cdrn * (1.0f + 24.5f * sqrtf(nan_max(-cdrn * rib, 0.0f)))
                  : cdrn / (1.0f + 11.5f * rib);
-  const float cdrmin = fmaxf(0.25f * cdrn, 6.0e-4f);
-  return fmaxf(cdr, cdrmin);
+  const float cdrmin = nan_max(0.25f * cdrn, 6.0e-4f);
+  return nan_max(cdr, cdrmin);
 }
 
 struct Fluxes {
@@ -85,8 +85,8 @@ struct Met {
     const float eog =
         tskin > tcutk ? 611.0f * expf(17.269f * ts_c / (ts_c + 237.3f))
                       : 611.0f * expf(21.874f * ts_c / (tskin - 7.66f));
-    const float qlake = 0.622f * eog / fmaxf(pressure - 0.378f * eog, 1.0f);
-    const float qair = 0.622f * vp / fmaxf(pressure - 0.378f * vp, 1.0f);
+    const float qlake = 0.622f * eog / nan_max(pressure - 0.378f * eog, 1.0f);
+    const float qair = 0.622f * vp / nan_max(pressure - 0.378f * vp, 1.0f);
     const float delq = qair - qlake;
     const float evap = -1.0f * drag * wind * air_density * delq;
     const float qsen =
@@ -100,7 +100,7 @@ struct Met {
 // eddy_diffusivity with freezeflag true (lakes.eb.c:837-935)
 __device__ __forceinline__ void eddy(const float* rho, float wind_in,
                                      float lat, const Column& c, float* de) {
-  const float wind = fmaxf(wind_in, 1.0f);
+  const float wind = nan_max(wind_in, 1.0f);
   const float ks = 6.6f * sqrtf(sinf(div_s(fabsf(lat) * kPi, 180.0f))) *
                    powf(wind, -1.84f);
   const float ws = 0.0012f * wind;
@@ -108,13 +108,13 @@ __device__ __forceinline__ void eddy(const float* rho, float wind_in,
     const float dpdz = (rho[k + 1] - rho[k]) / c.zhalf[k];
     const float n2 = dpdz / (1.0e3f + rho[k]) * 9.8f;
     const float z = c.surfdz + static_cast<float>(k) * c.dz;
-    const float ksz = fminf(ks * z, 30.0f);
+    const float ksz = nan_min(ks * z, 30.0f);
     const bool deep = z * expf(ksz) / ws > 1.0e8f;
     const float vkz = kVonK * z;
     float rad =
         1.0f + 40.0f * n2 * (vkz * vkz) / (ws * ws * expf(-2.0f * ksz));
     rad = deep ? 4.0e4f : rad;
-    rad = fminf(fmaxf(rad, 1.0f), 4.0e4f);
+    rad = nan_min(nan_max(rad, 1.0f), 4.0e4f);
     const float ri = div_s(-1.0f + sqrtf(rad), 20.0f);
     de[k] = kDM + div_s(kVonK * ws * z, 1.0f) * expf(-ks * z) /
                       (1.0f + 37.0f * ri * ri);
@@ -143,7 +143,7 @@ __global__ void __launch_bounds__(kBlock)
   const Met met{f(kTair), f(kWind), f(kPressure), f(kVp), f(kAirDensity),
                 f(kLongwave), f(kWindH), tcutoff + kKelvin};
   const float jouleold = energycalc(temp, col, cp, rho);
-  const float dh_den = fmaxf(col.surface[0] * dt, kSmall);
+  const float dh_den = nan_max(col.surface[0] * dt, kSmall);
 
   float t_new[kNN];
   for (int k = 0; k < kNN; ++k) t_new[k] = temp[k];
@@ -231,14 +231,13 @@ extern "C" {
 // Replaces vic_tpu/physics/lake.py:584 (water_energy_balance's while_loop)
 // and the tracer_mixer fori_loop (lake.py:472) of solve_lake's open-water
 // mix. h: lanes (lakes) per cell row of the inputs' views; n lakes.
-int lake_open_water(const void* const* f, const int32_t* f_stride, int nf,
-                    const void* const* m, const int32_t* m_stride, int nm,
+int lake_open_water(const int64_t* lanes, int nf, int nm,
                     int h, float dt, int n, float* temp_out, float* t_open,
                     float* sc, uint8_t* converged, int32_t* iterations,
                     void* stream) {
   LaneInputs in{};
-  if (n <= 0 || !fill_lane_inputs(&in, f, f_stride, nf, kNumIn, m, m_stride,
-                                  nm, kNumMask, h))
+  if (n <= 0 ||
+      !fill_lane_inputs(&in, lanes, nf, kNumIn, nm, kNumMask, h))
     return static_cast<int>(cudaErrorInvalidValue);
   lake_open_water_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
                            static_cast<cudaStream_t>(stream)>>>(

@@ -63,7 +63,7 @@ __global__ void __launch_bounds__(kBlock)
   const float jouleold = energycalc(temp, col, cp, rho);
   const float half_dz = col.surfdz / 2.0f;
   const float qw_init = 0.57f * (temp[0] - tcutoff) / half_dz;
-  const float denom = fmaxf(col.surface[0] * dt, kSmall);
+  const float denom = nan_max(col.surface[0] * dt, kSmall);
 
   float t_new[kNN];
   for (int k = 0; k < kNN; ++k) t_new[k] = temp[k];
@@ -124,13 +124,12 @@ extern "C" {
 // Replaces vic_tpu/physics/lake.py:1112 (water_under_ice's while_loop, with
 // temp_area's Thomas solve and tracer_mixer inside every iteration). h:
 // lanes (lakes) per cell row of the inputs' views; n lakes.
-int lake_under_ice(const void* const* f, const int32_t* f_stride, int nf,
-                   const void* const* m, const int32_t* m_stride, int nm,
+int lake_under_ice(const int64_t* lanes, int nf, int nm,
                    int h, float dt, int n, float* temp_out, float* sc,
                    uint8_t* converged, int32_t* iterations, void* stream) {
   LaneInputs in{};
-  if (n <= 0 || !fill_lane_inputs(&in, f, f_stride, nf, kNumIn, m, m_stride,
-                                  nm, kNumMask, h))
+  if (n <= 0 ||
+      !fill_lane_inputs(&in, lanes, nf, kNumIn, nm, kNumMask, h))
     return static_cast<int>(cudaErrorInvalidValue);
   lake_under_ice_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
                           static_cast<cudaStream_t>(stream)>>>(

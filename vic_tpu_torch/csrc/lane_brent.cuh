@@ -1,0 +1,284 @@
+// The lane driver of K3 (canopy_brent) and K14 (affine_surface_brent): an
+// expand-then-Brent per lane, with the lanes compacted and dealt to the
+// threads of persistent blocks.
+//
+// Each lane runs exactly brent.cuh's brent_solve, step for step on the same
+// floats (BrentLane below is that function cut at its residual
+// evaluations), so a lane's root, flags and iterations do not depend on
+// which thread runs it or when.
+//
+// What bounds the one-thread-per-lane launch (brent.cuh launch_brent) on
+// this card: a lane reads a few hundred bytes and then runs 2 to ~70
+// dependent residual evaluations, so the kernel is bound by latency, not by
+// bytes or operations. A warp runs until its slowest lane is done while its
+// inactive and finished lanes hold their slots; K3's and K14's batches are
+// mostly such lanes (the canopy residual runs on overstory lanes only, the
+// surface residual on the lanes that are not glacier or lake).
+//
+// What this driver does about it:
+// - Persistent blocks: the grid is as many blocks as the device keeps
+//   resident (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at most one
+//   per kLaneBlock lanes; each block owns one contiguous chunk of the lanes.
+// - Compaction: a thread that needs work takes the next lane of its block's
+//   chunk from a counter in shared memory; an inactive lane gets its outputs
+//   at once (the midpoint of [lo, hi], not converged, not bracketed, 0
+//   iterations) and the thread takes the next, so only active lanes hold a
+//   thread, and warps stay full while their chunk lasts.
+// - Refill: a thread whose lane is done stores its outputs and takes the
+//   next lane of the chunk, so a warp does not wait on one slow lane. Every
+//   trip of the loop evaluates the residual once on each busy thread (at its
+//   own lane's candidate), so the warp's threads run the residual together
+//   whatever step of the solve each of them is in.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cfloat>
+#include <cstdint>
+
+#include "brent.cuh"
+#include "lanes.cuh"
+
+namespace vicbrent {
+
+constexpr int kLaneBlock = 128;
+// the C interface's refusal where no block of the kernel fits on an SM
+// (kernels._check_lane_brent names it)
+constexpr int kNoResidentBlock = -3;
+
+// brent_solve (brent.cuh) for one lane, cut at each residual evaluation:
+// start() and then, while !done, the caller evaluates the residual at x and
+// hands the value to next(). The floats are formed by the same expressions
+// in the same order as brent_solve forms them.
+struct BrentLane {
+  float x;                          // where the residual is wanted next
+  float lo, hi, a, b, c, fa, fb, fc, d, e, d_new, e_new;
+  int tries, it, max_iter, max_tries;
+  enum Phase { kAtA, kAtB, kBrent, kDone } phase;
+  BrentOut out;
+
+  __device__ __forceinline__ void start(float lo_, float hi_, bool active,
+                                        int max_iter_, int max_tries_) {
+    lo = lo_;
+    hi = hi_;
+    max_iter = max_iter_;
+    max_tries = max_tries_;
+    out = BrentOut{0.5f * (lo + hi), false, false, 0};
+    if (!active) {
+      phase = kDone;
+      return;
+    }
+    // bracket expansion (root_brent.c:183-244)
+    a = lo;
+    b = hi;
+    tries = 0;
+    phase = kAtA;
+    x = a;
+  }
+
+  __device__ __forceinline__ void next(float v) {
+    const float kTstep = 10.0f;
+    if (phase == kAtA) {
+      fa = v;
+      phase = kAtB;
+      x = b;
+      return;
+    }
+    if (phase == kAtB) {
+      fb = v;
+      if (tries < max_tries && fa * fb >= 0.0f) {
+        a = a - kTstep;
+        b = b + kTstep;
+        ++tries;
+        phase = kAtA;
+        x = a;
+        return;
+      }
+      if (!(fa * fb < 0.0f)) {
+        phase = kDone;
+        return;
+      }
+      out.bracketed = true;
+      c = a;
+      fc = fa;
+      d = b - a;
+      e = b - a;
+      it = 0;
+      iterate();
+      return;
+    }
+    // kBrent: the value at the step taken
+    fb = v;
+    d = d_new;
+    e = e_new;
+    ++it;
+    iterate();
+  }
+
+  // the top of brent_solve's loop at iteration `it`: the stop, or the next
+  // step and its candidate
+  __device__ __forceinline__ void iterate() {
+    const float kTol = 1e-4f;
+    const float kEps2 = 2.0f * FLT_EPSILON;
+    if (it < max_iter) {
+      // rearrange so b is the best iterate and [b, c] brackets the root
+      if (fb * fc > 0.0f) {
+        c = a;
+        fc = fa;
+        d = b - a;
+        e = d;
+      }
+      if (fabsf(fc) < fabsf(fb)) {
+        const float ob = b, ofb = fb;
+        a = ob;
+        b = c;
+        c = ob;
+        fa = ofb;
+        fb = fc;
+        fc = ofb;
+      }
+      const float tol_i = kEps2 * fabsf(b) + kTol;
+      const float m = 0.5f * (c - b);
+      if (!(fabsf(m) <= tol_i || fb == 0.0f)) {
+        // secant (a == c) or inverse quadratic interpolation, else bisection
+        const bool use_bisect = fabsf(e) < tol_i || fabsf(fa) <= fabsf(fb);
+        const float s = fb / (fa == 0.0f ? 1.0f : fa);
+        float p, q;
+        if (a == c) {
+          p = 2.0f * m * s;
+          q = 1.0f - s;
+        } else {
+          const float fcs = fc == 0.0f ? 1.0f : fc;
+          const float qq = fa / fcs;
+          const float r = fb / fcs;
+          p = s * (2.0f * m * qq * (qq - r) - (b - a) * (r - 1.0f));
+          q = (qq - 1.0f) * (r - 1.0f) * (s - 1.0f);
+        }
+        if (p > 0.0f) q = -q;
+        p = fabsf(p);
+        const bool interp_ok =
+            (2.0f * p < 3.0f * m * q - fabsf(tol_i * q)) &&
+            (p < fabsf(0.5f * e * q));
+        if (!use_bisect && interp_ok) {
+          e_new = d;
+          d_new = p / (q == 0.0f ? 1.0f : q);
+        } else {
+          e_new = m;
+          d_new = m;
+        }
+        const float step =
+            fabsf(d_new) > tol_i ? d_new : (m > 0.0f ? tol_i : -tol_i);
+        a = b;
+        fa = fb;
+        b = b + step;
+        phase = kBrent;
+        x = b;
+        return;
+      }
+    }
+    out.iterations = it;
+    const float tol_f = kEps2 * fabsf(b) + kTol;
+    out.converged = fabsf(0.5f * (c - b)) <= tol_f || fb == 0.0f;
+    out.root = b;
+    phase = kDone;
+  }
+};
+
+// A warp takes new lanes only when kRefillAt of its threads are idle (or
+// all are): a thread that takes a lane first forms its Ts-independent terms,
+// and the warp's other threads wait through that, so lanes are taken
+// together.
+constexpr int kRefillAt = 8;
+
+// The kernel: Lane is a residual functor with
+//   static constexpr int kLo, kHi, kActive;  // lane inputs: bracket, mask
+//   static constexpr int kMinBlocks;         // __launch_bounds__' minimum
+//   __device__ void init(const LaneInputs&, LaneRow, const Params&);
+//   __device__ float operator()(float) const;
+// and Params its launch-wide arguments (dt, switches). Each block walks its
+// chunk [blockIdx.x * chunk, ...) of the n lanes as the header says; every
+// thread stays in the loop until its warp is done, for the warp votes.
+template <class Lane, class Params>
+__global__ void __launch_bounds__(kLaneBlock, Lane::kMinBlocks)
+    lane_brent_kernel(const __grid_constant__ LaneInputs in,
+                      const Params params, int max_iter, int max_tries,
+                      int n, int chunk, BrentOutputs out) {
+  constexpr unsigned kAll = 0xffffffffu;
+  __shared__ int next_lane;
+  const int first = blockIdx.x * chunk;
+  const int end = min(first + chunk, n);
+  if (threadIdx.x == 0) next_lane = first;
+  __syncthreads();
+  Lane f;
+  BrentLane s;
+  int i = -1;                       // the lane this thread solves
+  bool more = true;                 // the chunk may hold lanes not taken
+  while (true) {
+    const unsigned busy = __ballot_sync(kAll, i >= 0);
+    if (more && __popc(busy) <= 32 - kRefillAt) {
+      // take lanes until one needs the residual or the chunk is done; an
+      // inactive lane gets its outputs here
+      bool drained = false;
+      while (i < 0) {
+        const int k = atomicAdd(&next_lane, 1);
+        if (k >= end) {
+          drained = true;
+          break;
+        }
+        const LaneRow row = lane_row(in, k);
+        s.start(lane_f(in, Lane::kLo, row), lane_f(in, Lane::kHi, row),
+                lane_m(in, Lane::kActive, row), max_iter, max_tries);
+        if (s.phase == BrentLane::kDone) {
+          store(out, k, s.out);
+          continue;
+        }
+        f.init(in, row, params);
+        i = k;
+      }
+      more = !__any_sync(kAll, drained);
+    }
+    if (!more && !__any_sync(kAll, i >= 0)) break;
+    if (i >= 0) {
+      s.next(f(s.x));
+      if (s.phase == BrentLane::kDone) {
+        store(out, i, s.out);
+        i = -1;
+      }
+    }
+  }
+}
+
+// Launches lane_brent_kernel<Lane, Params> on stream: grid of the blocks
+// the device keeps resident, at most one per kLaneBlock lanes (the
+// occupancy query made once a device). Returns kNoResidentBlock where none
+// fits, else the launch's error.
+template <class Lane, class Params>
+int launch_lane_brent(const LaneInputs& in, const Params& params,
+                      int max_iter, int max_tries, int n,
+                      const BrentOutputs& out, cudaStream_t stream) {
+  constexpr int kMaxDevices = 64;
+  static int resident[kMaxDevices];   // blocks resident on a device, 0: unknown
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, lane_brent_kernel<Lane, Params>, kLaneBlock, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return kNoResidentBlock;
+    resident[dev] = per_sm * sms;
+  }
+  const int needed = (n + kLaneBlock - 1) / kLaneBlock;
+  const int blocks = resident[dev] < needed ? resident[dev] : needed;
+  const int chunk = (n + blocks - 1) / blocks;
+  lane_brent_kernel<Lane, Params><<<blocks, kLaneBlock, 0, stream>>>(
+      in, params, max_iter, max_tries, n, chunk, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace vicbrent

@@ -1,12 +1,13 @@
-// Inputs of the one-thread-per-lane kernels (K1-K5, K7-K14).
+// Inputs of the lane kernels (K1-K5, K7-K15, K17).
 //
 // The lanes are [n_cell, h] (h HRUs per cell), flattened: lane i is HRU
-// i % h of cell i / h. Each input comes as the wrapper's view of it
-// broadcast to the lanes (kernels._lane_inputs): its data pointer and its
-// element strides along the cell, HRU and layer axes, 0 along an axis it is
-// broadcast over. A value shared by the HRUs of a cell, a slice of a
-// layered array or a scalar is read where it lies, and no input is copied.
-// Pointers and strides travel in the kernel's parameter block.
+// i % h of cell i / h. Each input comes as its data pointer and the element
+// strides of its broadcast to the lanes along the cell, HRU and layer axes
+// (kernels._lane_inputs), 0 along an axis it is broadcast over. A value
+// shared by the HRUs of a cell, a slice of a layered array or a scalar is
+// read where it lies, and no input is copied.
+// The wrapper writes pointers and strides into one int64 table a call;
+// they travel in the kernel's parameter block.
 #pragma once
 
 #include <cstdint>
@@ -62,22 +63,28 @@ __device__ __forceinline__ bool lane_ml(const LaneInputs& in, int k,
                  static_cast<int64_t>(l) * in.m_stride[k][2]] != 0;
 }
 
-// Fills `in` from the host's arrays of device pointers and of strides
-// (3 per input); false unless the counts are the kernel's and h >= 1.
-inline bool fill_lane_inputs(LaneInputs* in, const void* const* f,
-                             const int32_t* f_stride, int nf, int nf_expected,
-                             const void* const* m, const int32_t* m_stride,
-                             int nm, int nm_expected, int h) {
+// Fills `in` from the wrapper's lane table (kernels._lane_inputs): four
+// int64 per input, its device pointer and its element strides along the
+// cell, HRU and layer axes, for the nf float inputs and then the nm masks;
+// false unless the counts are the kernel's, h >= 1 and every stride fits in
+// 32 bits.
+inline bool fill_lane_inputs(LaneInputs* in, const int64_t* table, int nf,
+                             int nf_expected, int nm, int nm_expected,
+                             int h) {
   if (nf != nf_expected || nm != nm_expected || nf > kMaxFloatInputs ||
       nm > kMaxMaskInputs || h < 1)
     return false;
-  for (int k = 0; k < nf; ++k) {
-    in->f[k] = static_cast<const float*>(f[k]);
-    for (int a = 0; a < 3; ++a) in->f_stride[k][a] = f_stride[3 * k + a];
-  }
-  for (int k = 0; k < nm; ++k) {
-    in->m[k] = static_cast<const uint8_t*>(m[k]);
-    for (int a = 0; a < 3; ++a) in->m_stride[k][a] = m_stride[3 * k + a];
+  for (int k = 0; k < nf + nm; ++k) {
+    const int64_t* row = table + 4 * k;
+    int32_t* stride = k < nf ? in->f_stride[k] : in->m_stride[k - nf];
+    for (int a = 0; a < 3; ++a) {
+      if (row[1 + a] != static_cast<int32_t>(row[1 + a])) return false;
+      stride[a] = static_cast<int32_t>(row[1 + a]);
+    }
+    if (k < nf)
+      in->f[k] = reinterpret_cast<const float*>(row[0]);
+    else
+      in->m[k - nf] = reinterpret_cast<const uint8_t*>(row[0]);
   }
   in->h = h;
   return true;

@@ -61,12 +61,12 @@ __global__ void mass_release_kernel(const __grid_constant__ LaneInputs in,
 extern "C" {
 
 // 2 float inputs: int_snow, temp_int_storage (m), each with its strides.
-int mass_release(const void* const* f, const int32_t* f_stride, int nf, int h,
+int mass_release(const int64_t* lanes, int nf, int h,
                  int n_iter, int n, float* int_snow_out, float* storage_out,
                  float* released_out, float* drip_out, void* stream) {
   LaneInputs in{};
   if (n <= 0 || n_iter < 0 ||
-      !fill_lane_inputs(&in, f, f_stride, nf, 2, nullptr, nullptr, 0, 0, h))
+      !fill_lane_inputs(&in, lanes, nf, 2, 0, 0, h))
     return static_cast<int>(cudaErrorInvalidValue);
   mass_release_kernel<<<(n + kBlock - 1) / kBlock, kBlock, 0,
                         static_cast<cudaStream_t>(stream)>>>(

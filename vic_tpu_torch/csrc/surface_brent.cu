@@ -64,17 +64,16 @@ extern "C" {
 // nf, nm: the input counts, checked against the residual's; h: lanes per
 // cell; nl: soil layers (2 or 3); dist: the dry column is read (DIST_PRCP);
 // frozen: the fusion term is added (FROZEN_SOIL).
-int surface_brent(const void* const* f, const int32_t* f_stride, int nf,
-                  const void* const* m, const int32_t* m_stride, int nm,
+int surface_brent(const int64_t* lanes, int nf, int nm,
                   int h, int nl, int dist, const float* lo, const float* hi,
                   float dt, int grnd_flux_type, int frozen, int max_iter,
                   int max_tries, int n, float* root, uint8_t* converged,
                   uint8_t* bracketed, int32_t* iterations, void* stream) {
   LaneInputs in{};
   if (n <= 0 ||
-      !fill_lane_inputs(&in, f, f_stride, nf,
-                        vicsurf::kNumSurfaceIn + vicsurf::kNumFdIn, m,
-                        m_stride, nm, vicsurf::kNumSurfaceMask + 1, h))
+      !fill_lane_inputs(&in, lanes, nf,
+                        vicsurf::kNumSurfaceIn + vicsurf::kNumFdIn, nm,
+                        vicsurf::kNumSurfaceMask + 1, h))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + kBlock - 1) / kBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

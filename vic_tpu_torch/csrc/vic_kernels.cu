@@ -11,19 +11,20 @@
 // and runs that lane's whole loop in registers inside a single launch, so a
 // lane pays only its own trip count and nothing leaves the chip between
 // iterations. Each lane reads ~20 floats and writes a few, while it runs up
-// to ~70 residual evaluations (K1-K3) or 24 hourly trips (K4) of transcendental
-// arithmetic with divergent trip counts: the kernels are bound by latency and
-// occupancy (registers per thread), not by device-memory bytes. Simple and
-// right first; no shared memory, TMA or tensor cores are involved.
+// to ~70 residual evaluations (K1-K3) or 24 hourly trips (K4) of
+// transcendental arithmetic with divergent trip counts: the kernels are
+// bound by latency and occupancy (registers per thread), not by
+// device-memory bytes. K3's active lanes are few and their trips uneven, so
+// its lanes are compacted and dealt to persistent threads (lane_brent.cuh).
 //
 // Every residual is a line-for-line copy of its PyTorch plain version, with
 // the same operation order, x^4 as (x*x)*(x*x) like lax.integer_pow, and the
 // library is built with -fmad=false, so a kernel and its plain version
 // differ only by libm ulps.
 //
-// C interface for ctypes: float inputs and uint8 masks come as host arrays
-// of device pointers with their strides (lanes.cuh), copied into the
-// kernel's parameter block; each launcher returns cudaGetLastError()
+// C interface for ctypes: float inputs and uint8 masks come as the
+// wrapper's table of device pointers and strides (lanes.cuh), copied into
+// the kernel's parameter block; each launcher returns cudaGetLastError()
 // (0 = launched).
 
 #include <cuda_runtime.h>
@@ -31,6 +32,7 @@
 #include <cstdint>
 
 #include "brent.cuh"
+#include "lane_brent.cuh"
 #include "lanes.cuh"
 #include "pack_residuals.cuh"
 #include "physics.cuh"
@@ -151,21 +153,26 @@ __global__ void snowpack_brent_kernel(const __grid_constant__ LaneInputs in,
                             max_tries));
 }
 
-__global__ void canopy_brent_kernel(const __grid_constant__ LaneInputs in,
-                                    const float* lo, const float* hi,
-                                    float dt, int max_iter, int max_tries,
-                                    int n, BrentOutputs out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const LaneRow row = lane_row(in, i);
-  auto f = [&](int k) { return lane_f(in, k, row); };
-  const CanopyResidual r{dt,    f(0),  f(1),  f(2),  f(3),  f(4),  f(5),
-                         f(6),  f(7),  f(8),  f(9),  f(10), f(11), f(12),
-                         f(13), f(14), f(15), f(16), f(17),
-                         lane_m(in, 1, row)};
-  store(out, i, brent_solve(r, lo[i], hi[i], lane_m(in, 0, row), max_iter,
-                            max_tries));
-}
+// K3's lane for csrc/lane_brent.cuh: the 18 float inputs in
+// CanopyResidual order after dt, then lo and hi; masks [active, has_csnow]
+struct CanopyParams {
+  float dt;
+};
+
+struct CanopyLane : CanopyResidual {
+  static constexpr int kNumIn = 18;
+  static constexpr int kLo = kNumIn, kHi = kNumIn + 1, kActive = 0;
+  static constexpr int kMinBlocks = 1;
+
+  __device__ __forceinline__ void init(const LaneInputs& in, LaneRow row,
+                                       const CanopyParams& p) {
+    auto f = [&](int k) { return lane_f(in, k, row); };
+    *static_cast<CanopyResidual*>(this) = CanopyResidual{
+        p.dt,  f(0),  f(1),  f(2),  f(3),  f(4),  f(5),
+        f(6),  f(7),  f(8),  f(9),  f(10), f(11), f(12),
+        f(13), f(14), f(15), f(16), f(17), lane_m(in, 1, row)};
+  }
+};
 
 // K4: the hourly loop of runoff.runoff_hourly_plain (runoff.c:446-700).
 // Inputs 0-6 are layered (NL values a lane), 7-12 one value a lane.
@@ -266,15 +273,13 @@ extern "C" {
 // batched_brent). Bound by latency and occupancy: one lane per thread,
 // divergent Brent trip counts, ~50 registers, ~70 B read per lane.
 // 15 float inputs in GlacierResidual order after dt; masks: [active].
-int glacier_brent(const void* const* f, const int32_t* f_stride, int nf,
-                  const void* const* m, const int32_t* m_stride, int nm,
-                  int h,
+int glacier_brent(const int64_t* lanes, int nf, int nm, int h,
                   const float* lo, const float* hi, float dt, int max_iter,
                   int max_tries, int n, float* root, uint8_t* converged,
                   uint8_t* bracketed, int32_t* iterations, void* stream) {
-  return launch_brent(glacier_brent_kernel, f, f_stride, nf, 15, m, m_stride,
-                      nm, 1, h, lo, hi, dt, max_iter, max_tries, n, root,
-                      converged, bracketed, iterations, stream);
+  return launch_brent(glacier_brent_kernel, lanes, nf, 15, nm, 1, h, lo, hi,
+                      dt, max_iter, max_tries, n, root, converged,
+                      bracketed, iterations, stream);
 }
 
 // Replaces vic_tpu/physics/snow.py:443 (snow_melt's batched_brent). Bound
@@ -282,31 +287,35 @@ int glacier_brent(const void* const* f, const int32_t* f_stride, int nf,
 // counts, ~100 B read per lane. 21 float inputs in SnowpackResidual order
 // after dt; masks: [active, spatial] (spatial: SPATIAL_SNOW's advected
 // sensible heat in the residual, a flag broadcast to the lanes).
-int snowpack_brent(const void* const* f, const int32_t* f_stride, int nf,
-                   const void* const* m, const int32_t* m_stride, int nm,
-                   int h,
+int snowpack_brent(const int64_t* lanes, int nf, int nm, int h,
                    const float* lo, const float* hi, float dt, int max_iter,
                    int max_tries, int n, float* root, uint8_t* converged,
                    uint8_t* bracketed, int32_t* iterations, void* stream) {
-  return launch_brent(snowpack_brent_kernel, f, f_stride, nf, 21, m, m_stride,
-                      nm, 2, h, lo, hi, dt, max_iter, max_tries, n, root,
-                      converged, bracketed, iterations, stream);
+  return launch_brent(snowpack_brent_kernel, lanes, nf, 21, nm, 2, h, lo, hi,
+                      dt, max_iter, max_tries, n, root, converged,
+                      bracketed, iterations, stream);
 }
 
 // Replaces vic_tpu/physics/canopy_snow.py:270 (snow_intercept's
-// batched_brent). Bound by latency and occupancy: one lane per thread,
-// divergent Brent trip counts and the two branches of has_csnow, ~85 B
-// read per lane. 18 float inputs in CanopyResidual order after dt; masks:
-// [active, has_csnow].
-int canopy_brent(const void* const* f, const int32_t* f_stride, int nf,
-                 const void* const* m, const int32_t* m_stride, int nm,
-                 int h,
-                 const float* lo, const float* hi, float dt, int max_iter,
-                 int max_tries, int n, float* root, uint8_t* converged,
-                 uint8_t* bracketed, int32_t* iterations, void* stream) {
-  return launch_brent(canopy_brent_kernel, f, f_stride, nf, 18, m, m_stride,
-                      nm, 2, h, lo, hi, dt, max_iter, max_tries, n, root,
-                      converged, bracketed, iterations, stream);
+// batched_brent). Bound by latency: 2 to ~70 dependent residual
+// evaluations a lane, most lanes inactive (no overstory) and the two
+// branches of has_csnow; the lanes are compacted and dealt to persistent
+// threads (lane_brent.cuh), ~85 B read per active lane. 18 float inputs in
+// CanopyResidual order after dt, then lo and hi; masks: [active,
+// has_csnow]. Returns cudaErrorInvalidValue on wrong counts,
+// vicbrent::kNoResidentBlock where no block fits on an SM.
+int canopy_brent(const int64_t* lanes, int nf, int nm, int h, float dt,
+                 int max_iter, int max_tries, int n, float* root,
+                 uint8_t* converged, uint8_t* bracketed, int32_t* iterations,
+                 void* stream) {
+  LaneInputs in{};
+  if (n <= 0 || max_iter < 0 || max_tries < 0 ||
+      !fill_lane_inputs(&in, lanes, nf, CanopyLane::kNumIn + 2, nm, 2, h))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return vicbrent::launch_lane_brent<CanopyLane>(
+      in, CanopyParams{dt}, max_iter, max_tries, n,
+      BrentOutputs{root, converged, bracketed, iterations},
+      static_cast<cudaStream_t>(stream));
 }
 
 // Replaces vic_tpu/physics/runoff.py:171 (runoff_step's hourly fori_loop).
@@ -314,12 +323,12 @@ int canopy_brent(const void* const* f, const int32_t* f_stride, int nf,
 // lane, ~110 B read and 20 B written per lane. 13 float inputs: liq0, ice,
 // evap_hr, resid_mm, max_moist, ksat_hr, expt (layered); dt_runoff,
 // dt_inflow, dsmax_hr, ds, ws, c_expt; each with its strides.
-int runoff_hourly(const void* const* f, const int32_t* f_stride, int nf, int h,
+int runoff_hourly(const int64_t* lanes, int nf, int h,
                   int nl, int dt_hours, int n, float* liq_out,
                   float* runoff_out, float* base_out, void* stream) {
   LaneInputs in{};
   if (n <= 0 || dt_hours < 0 ||
-      !fill_lane_inputs(&in, f, f_stride, nf, 13, nullptr, nullptr, 0, 0, h))
+      !fill_lane_inputs(&in, lanes, nf, 13, 0, 0, h))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + kBlock - 1) / kBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

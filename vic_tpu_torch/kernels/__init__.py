@@ -1,9 +1,10 @@
 """Python bindings of the CUDA kernels (csrc/*.cu).
 
 Each wrapper takes CUDA tensors only: it checks device and dtype, passes
-each lane input of K1-K5, K7-K15 and K17 as its view broadcast to the lanes, a
-data pointer and element strides (`_lane_inputs`, csrc/lanes.cuh), so no
-input is copied, allocates the outputs, launches on the current stream,
+each lane input of K1-K5, K7-K15 and K17 as its data pointer and the
+element strides of its broadcast to the lanes, all of a call's in one int64
+table (`_lane_inputs`, csrc/lanes.cuh), so no input is copied and no view
+is made, allocates the outputs, launches on the current stream,
 raises if the launch was refused, and adds one to its entry of `launches`.
 The plain PyTorch versions live beside each call site (physics/glacier.py,
 snow.py, canopy_snow.py, runoff.py, surface.py, frozen_soil.py,
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops.rootfind import MAXTRIES, RootResult
@@ -53,45 +55,75 @@ def reset_launches():
         launches[k] = 0
 
 
-def _expand(x, shape, device, dtype, name):
-    """x expanded to `shape` (a view); raises unless x is a tensor of
-    `dtype` on `device` that broadcasts to `shape`."""
+def _check_input(x, device, dtype, name):
+    """Raises unless x is a tensor of `dtype` on `device`."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(x).__name__}")
     if x.device != device:
         raise ValueError(f"{name}: on {x.device}, expected {device}")
     if x.dtype != dtype:
         raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
-    return x.expand(shape)
 
 
 def _lanes(x, shape, device, dtype, name):
-    """x expanded to `shape`, contiguous (see _expand)."""
-    return _expand(x, shape, device, dtype, name).contiguous()
+    """x expanded to `shape`, contiguous; raises unless x is a tensor of
+    `dtype` on `device` that broadcasts to `shape`."""
+    _check_input(x, device, dtype, name)
+    return x.expand(shape).contiguous()
 
 
 def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _lane_inputs(items, shape, device):
-    """The inputs of a K1-K5 kernel over the lanes `shape` ([n_cell,
-    max_hru], or [n] as one cell) as csrc/lanes.cuh reads them. items:
-    (name, tensor, dtype, nl), nl > 0 for an input with a trailing layer
-    axis. Each input is broadcast to the lanes as a view and passed as its
-    data pointer and its element strides along the cell, HRU and layer axes
-    (0 along an axis it is broadcast over): nothing is copied. Returns (the
-    views, pointer array, int32 stride array of 3 per input)."""
+def _broadcast_strides(x, target, name):
+    """The element strides of x broadcast to `target` (x.expand(target)
+    .stride()), worked out from its shape and strides: 0 along an axis it
+    is broadcast over. Raises as expand does where x does not broadcast."""
+    size = x.shape
+    if size == target:
+        return x.stride()
+    lead = len(target) - len(size)
+    if lead < 0:
+        raise RuntimeError(f"{name}: shape {tuple(size)} does not broadcast "
+                           f"to {tuple(target)}")
+    out = [0] * len(target)
+    stride = x.stride()
+    for a, s in enumerate(size):
+        if s == target[lead + a]:
+            out[lead + a] = stride[a]
+        elif s != 1:
+            raise RuntimeError(f"{name}: shape {tuple(size)} does not "
+                               f"broadcast to {tuple(target)}")
+    return out
+
+
+def _lane_inputs(floats, masks, shape, device):
+    """The lane table of a kernel over the lanes `shape` ([n_cell,
+    max_hru], or [n] as one cell), as csrc/lanes.cuh reads it: for each
+    (name, tensor, nl) of the float inputs, then of the masks (nl > 0 for
+    an input with a trailing layer axis), its data pointer and its element
+    strides along the cell, HRU and layer axes (0 along an axis it is
+    broadcast over), four int64 an input, in one numpy array whose address
+    goes to the C function; nothing is copied and no view is made. Raises
+    unless each input is a float32 (mask: bool) tensor on `device` that
+    broadcasts to the lanes."""
     if len(shape) not in (1, 2):
         raise ValueError(f"lanes must be [n_cell, max_hru], got {shape}")
-    views, strides = [], []
-    for name, x, dtype, nl in items:
-        x = _expand(x, shape + ((nl,) if nl else ()), device, dtype, name)
-        if len(shape) == 1:
-            x = x.unsqueeze(0)
-        views.append(x)
-        strides += [x.stride(0), x.stride(1), x.stride(2) if nl else 0]
-    return views, _ptrs(views), (ctypes.c_int32 * len(strides))(*strides)
+    shape = tuple(shape)
+    # what each input's strides are padded with to (cell, HRU, layer)
+    head = (0,) if len(shape) == 1 else ()
+    table = []
+    for dtype, items in ((torch.float32, floats), (torch.bool, masks)):
+        for name, x, nl in items:
+            _check_input(x, device, dtype, name)
+            if nl:
+                table += (x.data_ptr(), *head,
+                          *_broadcast_strides(x, shape + (nl,), name))
+            else:
+                table += (x.data_ptr(), *head,
+                          *_broadcast_strides(x, shape, name), 0)
+    return np.array(table, np.int64)
 
 
 def _check_launch(name, err):
@@ -101,31 +133,61 @@ def _check_launch(name, err):
     launches[name] += 1
 
 
-def _brent_call(name, float_names, flag_names, lo, hi, active, inputs):
-    """The lanes of a one-thread-per-lane root finder (K1-K3, K12, K17):
-    returns (the views to keep alive; the C arguments from the float and
-    mask inputs' pointers, strides and counts to the lanes per cell, lo and
-    hi; the outputs, a RootResult; the lane count)."""
+def _root_outputs(shape, device):
+    """A RootResult's four outputs over the lanes `shape` as slices of one
+    allocation: root, converged, bracketed, iterations."""
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.empty(10 * n, dtype=torch.uint8, device=device)
+    return RootResult(buf[:4 * n].view(torch.float32).view(shape),
+                      buf[8 * n:9 * n].view(torch.bool).view(shape),
+                      buf[9 * n:].view(torch.bool).view(shape),
+                      buf[4 * n:8 * n].view(torch.int32).view(shape))
+
+
+# csrc/lane_brent.cuh's refusal where no block of K3's or K14's kernel
+# fits on an SM
+_NO_RESIDENT_BLOCK = -3
+
+
+def _check_lane_brent(name, err):
+    """_check_launch, naming the refusal of csrc/lane_brent.cuh's launch."""
+    if err == _NO_RESIDENT_BLOCK:
+        raise RuntimeError(f"{name}: no block of the kernel fits on an SM "
+                           "(cudaOccupancyMaxActiveBlocksPerMultiprocessor "
+                           "gave 0); the launch was refused")
+    _check_launch(name, err)
+
+
+def _brent_call(name, float_names, flag_names, lo, hi, active, inputs,
+                bounds_in_table=False):
+    """The lanes of a root finder (K1-K3, K12, K17): returns (what the
+    call must keep alive; the C arguments: the lane table of the float
+    inputs and the masks (active first), their counts, the lanes per cell
+    and, unless bounds_in_table, lo and hi as contiguous copies; the
+    outputs, a RootResult; the lane count). With bounds_in_table
+    (csrc/lane_brent.cuh's kernels) lo and hi are the table's last two
+    float inputs, read where they lie."""
     device = lo.device
     if device.type != "cuda":
         raise ValueError(f"{name}: CUDA tensors required, got {device}")
     _check_names(name, inputs, tuple(float_names) + tuple(flag_names))
     shape = torch.broadcast_shapes(lo.shape, hi.shape, active.shape)
-    f32, flag = torch.float32, torch.bool
-    lo_c = _lanes(lo, shape, device, f32, "lo")
-    hi_c = _lanes(hi, shape, device, f32, "hi")
-    fin, f_ptr, f_stride = _lane_inputs(
-        [(k, inputs[k], f32, 0) for k in float_names], shape, device)
-    masks, m_ptr, m_stride = _lane_inputs(
-        [("active", active, flag, 0)]
-        + [(k, inputs[k], flag, 0) for k in flag_names], shape, device)
-    outs = RootResult(torch.empty(shape, dtype=f32, device=device),
-                      torch.empty(shape, dtype=flag, device=device),
-                      torch.empty(shape, dtype=flag, device=device),
-                      torch.empty(shape, dtype=torch.int32, device=device))
-    args = (f_ptr, f_stride, len(fin), m_ptr, m_stride, len(masks),
-            shape[-1], lo_c.data_ptr(), hi_c.data_ptr())
-    return (fin, masks, lo_c, hi_c), args, outs, outs.root.numel()
+    floats = [(k, inputs[k], 0) for k in float_names]
+    masks = [("active", active, 0)] + [(k, inputs[k], 0)
+                                       for k in flag_names]
+    if bounds_in_table:
+        floats += [("lo", lo, 0), ("hi", hi, 0)]
+        keep = bounds = ()
+    else:
+        keep = (_lanes(lo, shape, device, torch.float32, "lo"),
+                _lanes(hi, shape, device, torch.float32, "hi"))
+        bounds = tuple(t.data_ptr() for t in keep)
+    table = _lane_inputs(floats, masks, shape, device)
+    outs = _root_outputs(shape, device)
+    args = (table.ctypes.data, len(floats), len(masks), shape[-1], *bounds)
+    return (table, keep), args, outs, outs.root.numel()
 
 
 def _out_ptrs(outs):
@@ -133,15 +195,15 @@ def _out_ptrs(outs):
 
 
 def _brent(name, float_names, flag_names, lo, hi, active, dt, max_iter,
-           max_tries, inputs):
-    _views, args, outs, n = _brent_call(name, float_names, flag_names, lo,
-                                        hi, active, inputs)
+           max_tries, inputs, bounds_in_table=False):
+    _keep, args, outs, n = _brent_call(name, float_names, flag_names, lo,
+                                       hi, active, inputs, bounds_in_table)
     if n:
         stream = torch.cuda.current_stream(lo.device).cuda_stream
         err = getattr(build.load(), name)(
             *args, float(dt), int(max_iter), int(max_tries), n,
             *_out_ptrs(outs), stream)
-        _check_launch(name, err)
+        (_check_lane_brent if bounds_in_table else _check_launch)(name, err)
     return outs
 
 
@@ -173,10 +235,12 @@ def snowpack_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
 
 
 def canopy_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
-    """K3: expand-then-Brent on the canopy foliage residual. Same arguments
-    and result as physics.canopy_snow.canopy_brent_plain."""
+    """K3: expand-then-Brent on the canopy foliage residual, the active
+    lanes compacted and dealt to persistent threads (csrc/lane_brent.cuh).
+    Same arguments and result as physics.canopy_snow.canopy_brent_plain."""
     return _brent("canopy_brent", CANOPY_INPUTS, CANOPY_FLAGS, lo, hi,
-                  active, dt, max_iter, max_tries, inputs)
+                  active, dt, max_iter, max_tries, inputs,
+                  bounds_in_table=True)
 
 
 # K17's residuals: name -> (C code, float inputs, flags)
@@ -198,8 +262,8 @@ def bisection(residual, lo, hi, active, n_iter=40, *, dt, **inputs):
     code, floats, flags = BISECTION_RESIDUALS[residual]
     if residual == "snowpack":
         inputs = _snowpack_inputs(inputs, lo.device)
-    _views, args, outs, n = _brent_call(name, floats, flags, lo, hi, active,
-                                        inputs)
+    _keep, args, outs, n = _brent_call(name, floats, flags, lo, hi, active,
+                                       inputs)
     if n:
         stream = torch.cuda.current_stream(lo.device).cuda_stream
         err = build.load().bisection(code, *args, float(dt), int(n_iter), n,
@@ -219,16 +283,16 @@ def mass_release(int_snow, temp_int_storage, n_iter=8):
         raise ValueError(f"{name}: CUDA tensors required, got {device}")
     shape = torch.broadcast_shapes(int_snow.shape, temp_int_storage.shape)
     f32 = torch.float32
-    fin, f_ptr, f_stride = _lane_inputs(
-        [("int_snow", int_snow, f32, 0),
-         ("temp_int_storage", temp_int_storage, f32, 0)], shape, device)
+    table = _lane_inputs([("int_snow", int_snow, 0),
+                          ("temp_int_storage", temp_int_storage, 0)], [],
+                         shape, device)
     outs = tuple(torch.empty(shape, dtype=f32, device=device)
                  for _ in range(4))
     n = outs[0].numel()
     if n:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = build.load().mass_release(
-            f_ptr, f_stride, len(fin), shape[-1], int(n_iter), n,
+            table.ctypes.data, 2, shape[-1], int(n_iter), n,
             *_out_ptrs(outs), stream)
         _check_launch(name, err)
     return outs
@@ -255,9 +319,9 @@ def runoff_hourly(liq0, ice, evap_hr, resid_mm, max_moist, ksat_hr, expt,
     lshape = shape + lshape[-1:]
     nl = lshape[-1]
     f32 = torch.float32
-    fin, f_ptr, f_stride = _lane_inputs(
-        [(k, t, f32, nl) for k, t in layer.items()]
-        + [(k, t, f32, 0) for k, t in lane.items()], shape, device)
+    floats = ([(k, t, nl) for k, t in layer.items()]
+              + [(k, t, 0) for k, t in lane.items()])
+    table = _lane_inputs(floats, [], shape, device)
     liq = torch.empty(lshape, dtype=f32, device=device)
     runoff_extra = torch.empty(shape, dtype=f32, device=device)
     baseflow = torch.empty(shape, dtype=f32, device=device)
@@ -265,7 +329,7 @@ def runoff_hourly(liq0, ice, evap_hr, resid_mm, max_moist, ksat_hr, expt,
     if n:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = build.load().runoff_hourly(
-            f_ptr, f_stride, len(fin), shape[-1], nl, int(dt_hours), n,
+            table.ctypes.data, len(floats), shape[-1], nl, int(dt_hours), n,
             liq.data_ptr(),
             runoff_extra.data_ptr(), baseflow.data_ptr(), stream)
         _check_launch(name, err)
@@ -338,11 +402,10 @@ def _zero(device, dtype):
 def _surface_lanes(name, lo, hi, active, eb_kwargs, extra=()):
     """The inputs of K5, K7 and K14 from the residual's keyword arguments,
     as _lane_inputs passes them, the float inputs `extra` ((name, tensor,
-    dtype, nl) items) last: (lanes shape, layers, DIST_PRCP's dry column
-    read, the views to keep alive, float pointers, strides, count, mask
-    pointers, strides, count). Without DIST_PRCP the dry column's inputs,
-    and without FROZEN_SOIL the fusion's, are zeros the kernels never
-    read."""
+    nl) items) last: (lanes shape, layers, DIST_PRCP's dry column read,
+    the lane table, float count, mask count). Without DIST_PRCP the dry
+    column's inputs, and without FROZEN_SOIL the fusion's, are zeros the
+    kernels never read."""
     device = lo.device
     if device.type != "cuda":
         raise ValueError(f"{name}: CUDA tensors required, got {device}")
@@ -357,20 +420,19 @@ def _surface_lanes(name, lo, hi, active, eb_kwargs, extra=()):
         named.update(dict.fromkeys(DRY_INPUTS + DRY_LAYER_INPUTS,
                                    _zero(device, f32)),
                      case1_dry=_zero(device, flag))
-    floats = ([(k, named[k], f32, 0) for k in SURFACE_INPUTS]
-              + [(k, named[k], f32, nl) for k in SURFACE_LAYER_INPUTS]
-              + [(k, named[k], f32, 0) for k in DRY_INPUTS]
-              + [(k, named[k], f32, nl) for k in DRY_LAYER_INPUTS])
-    masks = [(k, named[k], flag, 0) for k in SURFACE_MASKS + DRY_MASKS]
+    floats = ([(k, named[k], 0) for k in SURFACE_INPUTS]
+              + [(k, named[k], nl) for k in SURFACE_LAYER_INPUTS]
+              + [(k, named[k], 0) for k in DRY_INPUTS]
+              + [(k, named[k], nl) for k in DRY_LAYER_INPUTS])
+    masks = [(k, named[k], 0) for k in SURFACE_MASKS + DRY_MASKS]
     frozen = bool(eb_kwargs.get("frozen_soil"))
-    floats += [(k, eb_kwargs[k] if frozen else _zero(device, f32), f32, 0)
+    floats += [(k, eb_kwargs[k] if frozen else _zero(device, f32), 0)
                for k in FD_SURFACE_INPUTS]
     masks.append(("fs_active", eb_kwargs["fs_active"] if frozen
-                  else _zero(device, flag), flag, 0))
-    fin, f_ptr, f_stride = _lane_inputs(floats + list(extra), shape, device)
-    mviews, m_ptr, m_stride = _lane_inputs(masks, shape, device)
-    return (shape, nl, dist, (fin, mviews), f_ptr, f_stride, len(fin), m_ptr,
-            m_stride, len(mviews))
+                  else _zero(device, flag), 0))
+    floats += extra
+    table = _lane_inputs(floats, masks, shape, device)
+    return shape, nl, dist, table, len(floats), len(masks)
 
 
 def surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
@@ -382,8 +444,8 @@ def surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     if eb_kwargs.get("fd_solve") is not None \
             or eb_kwargs.get("fd_interp") is not None:
         raise ValueError(f"{name}: solves the QUICK_FLUX residual only")
-    shape, nl, dist, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = \
-        _surface_lanes(name, lo, hi, active, eb_kwargs)
+    shape, nl, dist, table, nf, nm = _surface_lanes(name, lo, hi, active,
+                                                    eb_kwargs)
     device, f32 = lo.device, torch.float32
     lo_c = _lanes(lo, shape, device, f32, "lo")
     hi_c = _lanes(hi, shape, device, f32, "hi")
@@ -395,7 +457,7 @@ def surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     if n:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = build.load().surface_brent(
-            f_ptr, f_stride, nf, m_ptr, m_stride, nm, shape[-1],
+            table.ctypes.data, nf, nm, shape[-1],
             nl, int(dist), lo_c.data_ptr(), hi_c.data_ptr(),
             float(eb_kwargs["delta_t"]),
             int(eb_kwargs.get("grnd_flux_type", 1)),
@@ -436,8 +498,8 @@ def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     FdRootResult."""
     from ..physics.frozen_soil import NodeSolve
     name = "fd_surface_brent"
-    shape, nl, dist, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = \
-        _surface_lanes(name, lo, hi, active, eb_kwargs)
+    shape, nl, dist, table, nf, nm = _surface_lanes(name, lo, hi, active,
+                                                    eb_kwargs)
     solve = eb_kwargs.get("fd_solve")
     if not isinstance(solve, NodeSolve):
         raise ValueError(f"{name}: solves the finite-difference residual "
@@ -469,7 +531,7 @@ def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     ctl = torch.empty(n_ctl, dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = build.load().fd_surface_brent(
-        f_ptr, f_stride, nf, m_ptr, m_stride, nm, shape[-1], nl, int(dist),
+        table.ctypes.data, nf, nm, shape[-1], nl, int(dist),
         float(eb_kwargs["delta_t"]), int(eb_kwargs.get("grnd_flux_type", 1)),
         int(bool(eb_kwargs.get("frozen_soil"))), max_iter, MAXTRIES,
         *sweep_args, state.data_ptr(), lane_flags.data_ptr(), ctl.data_ptr(),
@@ -480,17 +542,18 @@ def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     return FdRootResult(root, converged, bracketed, *counts)
 
 
-# K14's inputs after K7's: the bracket ends of the two probes and the probe
-# profiles (csrc/affine_surface_brent.cu AffIn)
-AFFINE_INPUTS = ("ts_a", "ts_b", "probe_lo", "probe_hi")
+# K14's inputs after K7's: the bracket ends of the two probes, the probe
+# profiles and the Brent's bracket (csrc/affine_surface_brent.cu AffIn)
+AFFINE_INPUTS = ("ts_a", "ts_b", "probe_lo", "probe_hi", "lo", "hi")
 
 
 def affine_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     """K14: expand-then-Brent on the finite-difference residual whose nodes
     1-2 are interpolated affinely between two probe profiles,
-    eb_kwargs["fd_interp"] = (ts_a, t_a, ts_b, t_b), one thread per lane.
-    Same arguments and result as physics.surface.surface_brent_plain on
-    that residual (iterations per lane)."""
+    eb_kwargs["fd_interp"] = (ts_a, t_a, ts_b, t_b), the active lanes
+    compacted and dealt to persistent threads (csrc/lane_brent.cuh). Same
+    arguments and result as physics.surface.surface_brent_plain on that
+    residual (iterations per lane)."""
     name = "affine_surface_brent"
     fd_interp = eb_kwargs.get("fd_interp")
     if fd_interp is None or eb_kwargs.get("fd_solve") is not None:
@@ -498,31 +561,22 @@ def affine_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
                          "only (fd_interp, no fd_solve)")
     ts_a, t_a, ts_b, t_b = fd_interp
     nn = t_a.shape[-1]
-    f32 = torch.float32
-    extra = [("ts_a", ts_a, f32, 0), ("ts_b", ts_b, f32, 0),
-             ("probe_lo", t_a, f32, nn), ("probe_hi", t_b, f32, nn)]
-    shape, nl, dist, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = \
-        _surface_lanes(name, lo, hi, active, eb_kwargs, extra=extra)
-    device = lo.device
-    lo_c = _lanes(lo, shape, device, f32, "lo")
-    hi_c = _lanes(hi, shape, device, f32, "hi")
-    root = torch.empty(shape, dtype=f32, device=device)
-    converged = torch.empty(shape, dtype=torch.bool, device=device)
-    bracketed = torch.empty(shape, dtype=torch.bool, device=device)
-    iterations = torch.empty(shape, dtype=torch.int32, device=device)
-    n = root.numel()
+    extra = [("ts_a", ts_a, 0), ("ts_b", ts_b, 0), ("probe_lo", t_a, nn),
+             ("probe_hi", t_b, nn), ("lo", lo, 0), ("hi", hi, 0)]
+    shape, nl, dist, table, nf, nm = _surface_lanes(
+        name, lo, hi, active, eb_kwargs, extra=extra)
+    outs = _root_outputs(shape, lo.device)
+    n = outs.root.numel()
     if n:
-        stream = torch.cuda.current_stream(device).cuda_stream
+        stream = torch.cuda.current_stream(lo.device).cuda_stream
         err = build.load().affine_surface_brent(
-            f_ptr, f_stride, nf, m_ptr, m_stride, nm, shape[-1], nl,
-            int(dist), nn, lo_c.data_ptr(), hi_c.data_ptr(),
+            table.ctypes.data, nf, nm, shape[-1], nl, int(dist), nn,
             float(eb_kwargs["delta_t"]),
             int(eb_kwargs.get("grnd_flux_type", 1)),
             int(bool(eb_kwargs.get("frozen_soil"))), int(max_iter), MAXTRIES,
-            n, root.data_ptr(), converged.data_ptr(), bracketed.data_ptr(),
-            iterations.data_ptr(), stream)
-        _check_launch(name, err)
-    return RootResult(root, converged, bracketed, iterations)
+            n, *_out_ptrs(outs), stream)
+        _check_lane_brent(name, err)
+    return outs
 
 
 # the node counts K6 runs (csrc/node_sweep.cu): 3 to the reference's
@@ -703,11 +757,9 @@ def blowing_snow(*, dt_sec, quad_nodes, log_terms, **inputs):
     shape = torch.broadcast_shapes(*(inputs[k].shape for k in
                                      BLOWING_INPUTS + BLOWING_MASKS))
     f32 = torch.float32
-    fin, f_ptr, f_stride = _lane_inputs(
-        [(k, inputs[k], f32, 0) for k in BLOWING_INPUTS], shape, device)
-    masks, m_ptr, m_stride = _lane_inputs(
-        [(k, inputs[k], torch.bool, 0) for k in BLOWING_MASKS], shape,
-        device)
+    table = _lane_inputs([(k, inputs[k], 0) for k in BLOWING_INPUTS],
+                         [(k, inputs[k], 0) for k in BLOWING_MASKS], shape,
+                         device)
     nodes = _lanes(quad_nodes, (16,), device, f32, "quad_nodes")
     logs = _lanes(log_terms, (20,), device, f32, "log_terms")
     flux = torch.empty(shape, dtype=f32, device=device)
@@ -716,7 +768,7 @@ def blowing_snow(*, dt_sec, quad_nodes, log_terms, **inputs):
     if n:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = build.load().blowing_snow(
-            f_ptr, f_stride, len(fin), m_ptr, m_stride, len(masks),
+            table.ctypes.data, len(BLOWING_INPUTS), len(BLOWING_MASKS),
             shape[-1], float(dt_sec), nodes.data_ptr(), logs.data_ptr(), n,
             flux.data_ptr(), transport.data_ptr(), stream)
         _check_launch(name, err)
@@ -746,11 +798,9 @@ def canopy_air_step(*, it, **inputs):
                         f"{sorted(set(inputs) - expected)}")
     shape = torch.broadcast_shapes(*(t.shape for t in inputs.values()))
     f32 = torch.float32
-    fin, f_ptr, f_stride = _lane_inputs(
-        [(k, inputs[k], f32, 0) for k in CANOPY_AIR_INPUTS], shape, device)
-    masks, m_ptr, m_stride = _lane_inputs(
-        [(k, inputs[k], torch.bool, 0) for k in CANOPY_AIR_MASKS], shape,
-        device)
+    table = _lane_inputs([(k, inputs[k], 0) for k in CANOPY_AIR_INPUTS],
+                         [(k, inputs[k], 0) for k in CANOPY_AIR_MASKS],
+                         shape, device)
     tc_next = torch.empty(shape, dtype=f32, device=device)
     g = torch.empty(shape, dtype=f32, device=device)
     live_bits = torch.zeros((), dtype=torch.int32, device=device)
@@ -758,7 +808,7 @@ def canopy_air_step(*, it, **inputs):
     if n:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = build.load().canopy_air_step(
-            f_ptr, f_stride, len(fin), m_ptr, m_stride, len(masks),
+            table.ctypes.data, len(CANOPY_AIR_INPUTS), len(CANOPY_AIR_MASKS),
             shape[-1], int(it), n, tc_next.data_ptr(), g.data_ptr(),
             live_bits.data_ptr(), stream)
         _check_launch(name, err)
@@ -796,17 +846,14 @@ def _column_lanes(name, temp, grid, active, named, keys):
         raise ValueError(f"{name}: temp must be [n_cell, {LAKE_NN}], got "
                          f"{tuple(temp.shape)}")
     shape = (temp.shape[0],)
-    f32, flag = torch.float32, torch.bool
-    floats = ([("temp", temp, f32, LAKE_NN), ("z", grid.z, f32, LAKE_NN),
-               ("zhalf", grid.zhalf, f32, LAKE_NN),
-               ("surface", grid.surface, f32, LAKE_NN + 1)]
-              + [(k, named[k], f32, 0) for k in keys])
-    masks = [("active", active, flag, 0), ("mask", grid.mask, flag, LAKE_NN),
-             ("last", grid.last, flag, LAKE_NN)]
-    fin, f_ptr, f_stride = _lane_inputs(floats, shape, device)
-    mviews, m_ptr, m_stride = _lane_inputs(masks, shape, device)
-    return shape, (fin, mviews), f_ptr, f_stride, len(fin), m_ptr, \
-        m_stride, len(mviews)
+    floats = ([("temp", temp, LAKE_NN), ("z", grid.z, LAKE_NN),
+               ("zhalf", grid.zhalf, LAKE_NN),
+               ("surface", grid.surface, LAKE_NN + 1)]
+              + [(k, named[k], 0) for k in keys])
+    masks = [("active", active, 0), ("mask", grid.mask, LAKE_NN),
+             ("last", grid.last, LAKE_NN)]
+    table = _lane_inputs(floats, masks, shape, device)
+    return shape, table, len(floats), len(masks)
 
 
 def _check_names(name, inputs, expected):
@@ -825,8 +872,8 @@ def lake_open_water(*, temp, grid, dt_sec, active, **inputs):
     name = "lake_open_water"
     _check_names(name, inputs, set(OPEN_WATER_INPUTS) - {"surfdz", "dz"})
     named = dict(inputs, surfdz=grid.surfdz, dz=grid.dz)
-    shape, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = _column_lanes(
-        name, temp, grid, active, named, OPEN_WATER_INPUTS)
+    shape, table, nf, nm = _column_lanes(name, temp, grid, active, named,
+                                         OPEN_WATER_INPUTS)
     device, n = temp.device, shape[0]
     t_out = torch.empty((n, LAKE_NN), dtype=torch.float32, device=device)
     t_open = torch.empty_like(t_out)
@@ -836,7 +883,7 @@ def lake_open_water(*, temp, grid, dt_sec, active, **inputs):
     if n:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = build.load().lake_open_water(
-            f_ptr, f_stride, nf, m_ptr, m_stride, nm, n, float(dt_sec), n,
+            table.ctypes.data, nf, nm, n, float(dt_sec), n,
             t_out.data_ptr(), t_open.data_ptr(), sc.data_ptr(),
             converged.data_ptr(), iterations.data_ptr(), stream)
         _check_launch(name, err)
@@ -853,8 +900,8 @@ def lake_under_ice(*, temp, grid, dt_sec, active, **inputs):
     _check_names(name, inputs, (set(UNDER_ICE_INPUTS) - {"surfdz", "dz"})
                  | set(UNDER_ICE_UNUSED))
     named = dict(inputs, surfdz=grid.surfdz, dz=grid.dz)
-    shape, _views, f_ptr, f_stride, nf, m_ptr, m_stride, nm = _column_lanes(
-        name, temp, grid, active, named, UNDER_ICE_INPUTS)
+    shape, table, nf, nm = _column_lanes(name, temp, grid, active, named,
+                                         UNDER_ICE_INPUTS)
     device, n = temp.device, shape[0]
     t_out = torch.empty((n, LAKE_NN), dtype=torch.float32, device=device)
     sc = torch.empty((3, n), dtype=torch.float32, device=device)
@@ -863,7 +910,7 @@ def lake_under_ice(*, temp, grid, dt_sec, active, **inputs):
     if n:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = build.load().lake_under_ice(
-            f_ptr, f_stride, nf, m_ptr, m_stride, nm, n, float(dt_sec), n,
+            table.ctypes.data, nf, nm, n, float(dt_sec), n,
             t_out.data_ptr(), sc.data_ptr(), converged.data_ptr(),
             iterations.data_ptr(), stream)
         _check_launch(name, err)
@@ -893,15 +940,15 @@ def lake_depth(z, basin, maxdepth, volume):
     if len(shape) != 1:
         raise ValueError(f"{name}: volume must be [n_cell], got {shape}")
     f32 = torch.float32
-    fin, f_ptr, f_stride = _lane_inputs(
-        [("z", z, f32, LAKE_NN + 1), ("basin", basin, f32, LAKE_NN + 1),
-         ("maxdepth", maxdepth, f32, 0), ("volume", volume, f32, 0)], shape,
+    table = _lane_inputs(
+        [("z", z, LAKE_NN + 1), ("basin", basin, LAKE_NN + 1),
+         ("maxdepth", maxdepth, 0), ("volume", volume, 0)], [], shape,
         device)
     depth = torch.empty(shape, dtype=f32, device=device)
     n = shape[0]
     if n:
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = build.load().lake_depth(f_ptr, f_stride, len(fin), n, n,
+        err = build.load().lake_depth(table.ctypes.data, 4, n, n,
                                       depth.data_ptr(), stream)
         _check_launch(name, err)
     return depth

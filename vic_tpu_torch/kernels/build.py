@@ -76,18 +76,21 @@ def build(build_dir: Path = BUILD_DIR, extra_flags=()):
     return lib, "".join(logs)
 
 
-# (pointers, per-cell flags, count) of float inputs, then of masks
-_INPUTS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-_BRENT_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int, ctypes.c_void_p,
-                                  ctypes.c_void_p, ctypes.c_float]
+# the lane table (kernels._lane_inputs) and its counts of float inputs and
+# masks; _FLOATS for a kernel without masks
+_LANES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+_FLOATS = [ctypes.c_void_p, ctypes.c_int]
+_BRENT_ARGTYPES = (_LANES + [ctypes.c_int, ctypes.c_void_p,
+                             ctypes.c_void_p, ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
-_RUNOFF_ARGTYPES = (_INPUTS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4)
-_SURFACE_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int] * 3
+# K3 on csrc/lane_brent.cuh: lo and hi are lane inputs
+_LANE_BRENT_ARGTYPES = (_LANES + [ctypes.c_int, ctypes.c_float]
+                        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+_RUNOFF_ARGTYPES = (_FLOATS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4)
+_SURFACE_ARGTYPES = (_LANES + [ctypes.c_int] * 3
                      + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
                      + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5)
-_AFFINE_SURFACE_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int] * 4
-                            + [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_float]
+_AFFINE_SURFACE_ARGTYPES = (_LANES + [ctypes.c_int] * 4 + [ctypes.c_float]
                             + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5)
 # the node solve of K6 and K7: the lane, geometry and frozen-soil pointers,
 # the counts and switches, dt and its multiples, the scratch pointers
@@ -95,27 +98,27 @@ _NODE_SOLVE = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 _SWEEP_ARGTYPES = (_NODE_SOLVE + [ctypes.c_void_p] + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
-_FD_SURFACE_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int] * 3 + [ctypes.c_float]
+_FD_SURFACE_ARGTYPES = (_LANES + [ctypes.c_int] * 3 + [ctypes.c_float]
                         + [ctypes.c_int] * 4 + _NODE_SOLVE
                         + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                         + [ctypes.c_void_p] * 8
                         + [ctypes.c_int, ctypes.c_void_p])
-_BLOWING_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int, ctypes.c_float]
+_BLOWING_ARGTYPES = (_LANES + [ctypes.c_int, ctypes.c_float]
                      + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                      + [ctypes.c_void_p] * 3)
-_CANOPY_AIR_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int] * 3
+_CANOPY_AIR_ARGTYPES = (_LANES + [ctypes.c_int] * 3
                         + [ctypes.c_void_p] * 4)
-_LAKE_OPEN_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int, ctypes.c_float,
-                                      ctypes.c_int] + [ctypes.c_void_p] * 6)
-_LAKE_ICE_ARGTYPES = (_INPUTS * 2 + [ctypes.c_int, ctypes.c_float,
-                                     ctypes.c_int] + [ctypes.c_void_p] * 5)
-_LAKE_DEPTH_ARGTYPES = (_INPUTS + [ctypes.c_int] * 2
+_LAKE_OPEN_ARGTYPES = (_LANES + [ctypes.c_int, ctypes.c_float,
+                                  ctypes.c_int] + [ctypes.c_void_p] * 6)
+_LAKE_ICE_ARGTYPES = (_LANES + [ctypes.c_int, ctypes.c_float,
+                                 ctypes.c_int] + [ctypes.c_void_p] * 5)
+_LAKE_DEPTH_ARGTYPES = (_FLOATS + [ctypes.c_int] * 2
                         + [ctypes.c_void_p] * 2)
-_BISECTION_ARGTYPES = ([ctypes.c_int] + _INPUTS * 2
+_BISECTION_ARGTYPES = ([ctypes.c_int] + _LANES
                        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                           ctypes.c_float, ctypes.c_int, ctypes.c_int]
                        + [ctypes.c_void_p] * 5)
-_MASS_RELEASE_ARGTYPES = (_INPUTS + [ctypes.c_int] * 3
+_MASS_RELEASE_ARGTYPES = (_FLOATS + [ctypes.c_int] * 3
                           + [ctypes.c_void_p] * 5)
 _IMPLICIT_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                       + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3)
@@ -129,12 +132,12 @@ def load():
     if _lib is None:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
-        for name in ("glacier_brent", "snowpack_brent", "canopy_brent",
-                     "lake_ice_brent"):
+        for name in ("glacier_brent", "snowpack_brent", "lake_ice_brent"):
             fn = getattr(lib, name)
             fn.argtypes = _BRENT_ARGTYPES
             fn.restype = ctypes.c_int
-        for name, argtypes in (("runoff_hourly", _RUNOFF_ARGTYPES),
+        for name, argtypes in (("canopy_brent", _LANE_BRENT_ARGTYPES),
+                               ("runoff_hourly", _RUNOFF_ARGTYPES),
                                ("surface_brent", _SURFACE_ARGTYPES),
                                ("node_sweep", _SWEEP_ARGTYPES),
                                ("fd_surface_brent", _FD_SURFACE_ARGTYPES),
