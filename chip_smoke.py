@@ -13,7 +13,8 @@ line) on failure:
    HRU lanes; heavy_nolakes and heavy 8,192 cells) with each kernel binding
    wrapped to capture its real arguments: K1-K5 in the light step's first
    record, K6, K7 (and K4 again) in the frozen step's third, K8, K9 (and
-   K2 again, with a blowing-snow flux) in the blowing_close step's fourth,
+   K2 and K5 again, with a blowing-snow flux) in the blowing_close step's
+   fourth,
    K10-K13 in the lakes step's second (open, partly and fully iced lakes
    side by side), K14 and again K7 (with DIST_PRCP's dry column), K4 (its dry
    column's call) and K6 (the lower probe of a CLOSE_ENERGY pass) in the
@@ -36,11 +37,22 @@ line) on failure:
    step, 40 steps. Each row's kernel is re-run on those arguments beside its
    plain PyTorch version on the card, compared, timed with CUDA events and
    given its bound (the least time the card could take for the same
-   work); K3's and K14's rows also print their lanes' warp efficiency and
-   waves (tools/profile_lane_brent.py's definitions). K6 and K7 are also held where a NaN reaches the node profile:
-   frozen_exp's configuration with CONTINUEONERROR and NaN air temperature
-   in NAN_CELLS cells, on the first record with the NaN (equal Brent trips,
-   profile solves and sweeps; the other lanes within their bounds).
+   work); K2's, K3's, K5's and K14's rows also print their lanes' warp
+   efficiency and waves (tools/profile_lane_brent.py's definitions). K5's
+   terms and K2's terms at its root are held against the plain terms at
+   the kernel's own accepted temperature, K2's melt test and terms at 0 C
+   against its plain version's, on every form and every lane, each field
+   at TERMS_RTOL and its unit's absolute limit
+   (vic_tpu_torch.testing.terms_atol: water depths at TERMS_WATER_ATOL_M
+   m, the residual at the root at TERMS_RESIDUAL_ATOL W/m^2); a lane whose
+   melt test differs is printed and allowed only within MELT_TIE_ULPS of
+   the tie. K6 and K7 are also held
+   where a NaN reaches the node profile: frozen_exp's configuration with
+   CONTINUEONERROR and NaN air temperature in NAN_CELLS cells, on the first
+   record with the NaN (equal Brent trips, profile solves and sweeps; the
+   other lanes within their bounds); K2 and K5 where it reaches their
+   lanes: spatial_snow's step with NaN air in NAN_CELLS cells, record
+   NAN_FROM (NaN at the plain version's elements, terms included).
 3. reference: each configuration's fixture size (16 cells x 4 records,
    spatial_snow's too;
    heavy_nolakes and heavy 16 x 8 3-hourly) through the port on the card
@@ -52,7 +64,10 @@ line) on failure:
    vic_tpu_torch.model.run, every kernel's launch counter set to 0 just
    before each run and read just after it, and every plain solver of the
    port (ops.rootfind.batched_brent and batched_bisection,
-   ops.tridiag.thomas_solve and each *_plain) made to fail if it is handed a CUDA tensor during the run;
+   ops.tridiag.thomas_solve and each *_plain) made to fail if it is
+   handed a CUDA tensor during the run, and no plain evaluation of the
+   snowpack balance (K2 returns its terms) or, on K5's paths, of the
+   surface balance (K5 returns its terms) allowed;
    frozen_exp also times its SPATIAL_FROST layer ice; then frozen_exp's
    configuration at 3, 18 and 50 nodes, 4,096 cells x 8 records, the same
    way. Each row's launches in the kernels line are its kernel's count in
@@ -107,10 +122,12 @@ import torch
 
 from vic_tpu_torch.constants import CLOSE_ENERGY_MAXITER
 from vic_tpu_torch.entry import CONFIGS
-from vic_tpu_torch.testing import (frozen_run_failures,
+from vic_tpu_torch.testing import (TERMS_ATOL, TERMS_RESIDUAL_ATOL,
+                                   TERMS_RTOL, TERMS_WATER_ATOL_M,
+                                   frozen_run_failures,
                                    heavy_lake_run_failures,
                                    heavy_run_failures, lake_run_failures,
-                                   thaw_edge_cells)
+                                   terms_atol, thaw_edge_cells)
 
 ROOT = Path(__file__).resolve().parent
 SMOKE_CELLS = 32768
@@ -158,7 +175,7 @@ KERNELS = {
                    "frozen_soil", "solve_t_profile_explicit_plain", "frozen"),
     "fd_surface_brent": ("fd_surface_brent.cu",
                          "vic_tpu/physics/surface.py:438", "surface",
-                         "surface_brent_plain", "frozen"),
+                         "surface_root_plain", "frozen"),
     "blowing_snow": ("blowing_snow.cu",
                      "vic_tpu/physics/blowing_snow.py:171", "blowing_snow",
                      "calc_blowing_snow_plain", "blowing_close"),
@@ -177,7 +194,7 @@ KERNELS = {
                    "depth_from_volume_plain", "lakes"),
     "affine_surface_brent": ("affine_surface_brent.cu",
                              "vic_tpu/physics/surface.py:438", "surface",
-                             "surface_brent_plain", "heavy_nolakes"),
+                             "surface_root_plain", "heavy_nolakes"),
     # the loops no step calls, on arguments the steps give their neighbours
     "mass_release": ("mass_release.cu",
                      "vic_tpu/physics/canopy_snow.py:126", "canopy_snow",
@@ -203,7 +220,12 @@ HEAVY_LAKE_TIMED = {"lake_ice_brent": "heavy, with the blowing-snow flux",
                     "blowing_snow": "heavy, lake lanes"}
 SURFACE_KERNELS = ("surface_brent", "fd_surface_brent", "affine_surface_brent")
 # the kernels on csrc/lane_brent.cuh's driver
-LANE_BRENT_KERNELS = ("canopy_brent", "affine_surface_brent")
+LANE_BRENT_KERNELS = ("snowpack_brent", "canopy_brent", "surface_brent",
+                      "affine_surface_brent")
+# the kernels that also write their balance's terms (K2 at 0 C and at the
+# root, K5 at the root), held against their plain versions' at
+# testing.terms_atol
+TERMS_KERNELS = ("snowpack_brent", "surface_brent")
 # the configurations with DIST_PRCP: their surface residuals carry the dry
 # column
 DIST_PRCP_CONFIGS = ("dist_prcp", "heavy_nolakes", "heavy")
@@ -266,18 +288,18 @@ ROWS.update({
     "bisection/glacier": ("bisection", "light", None),
 })
 # the steps whose arguments each kernel is also held on, besides its own
-# configuration's: the frozen step's K4, the blowing_close step's K2 (a
-# blowing-snow flux in its residual), the dist_prcp step's K5 (DIST_PRCP's
-# dry column), the heavy_nolakes step's every kernel of its path (K4's
-# dry column, K6's lower probe, K7 with the dry column), and the heavy
-# step's every kernel of its path (K8's call on the lake lanes, K12 with the
-# blowing-snow flux over lake ice; K5 is not on it)
+# configuration's: the frozen step's K4, the blowing_close step's K2 and K5
+# (a blowing-snow flux in their residuals), the dist_prcp step's K5
+# (DIST_PRCP's dry column), the heavy_nolakes step's every kernel of its
+# path (K4's dry column, K6's lower probe, K7 with the dry column), and the
+# heavy step's every kernel of its path (K8's call on the lake lanes, K12
+# with the blowing-snow flux over lake ice; K5 is not on it)
 ALSO_ON = {
     "glacier_brent": ("heavy_nolakes", "heavy"),
     "snowpack_brent": ("blowing_close", "heavy_nolakes", "heavy"),
     "canopy_brent": ("heavy_nolakes", "heavy"),
     "runoff_hourly": ("frozen", "heavy_nolakes", "heavy"),
-    "surface_brent": ("dist_prcp",),
+    "surface_brent": ("blowing_close", "dist_prcp"),
     "node_sweep": ("heavy_nolakes", "heavy"),
     "fd_surface_brent": ("heavy_nolakes", "heavy"),
     "blowing_snow": ("heavy_nolakes", "heavy"),
@@ -295,6 +317,10 @@ ALSO_ON = {
 BRENT_TOL = 1e-4           # C, the solver's tol addend
 FLAG_DISAGREE_FRAC = 1e-4  # of the active lanes
 RUNOFF_TOL = 1e-5          # rtol = atol
+# ulps of the larger of |rest| and refreeze_energy within which K2's melt
+# test at 0 C (rest > -refreeze_energy) may fall the other way in the
+# kernel: the test is formed on the card in CUDA, not in PyTorch
+MELT_TIE_ULPS = 4
 SWEEP_TOL = 1e-4           # C, node temperatures of K6 vs its plain version
 BLOWING_RTOL = 1e-4        # K8 vs its plain version
 BLOWING_ATOL = 1e-9        # kg/m^2/s, far below the -5e-5 floor
@@ -769,6 +795,8 @@ def brent_work(name, args, kwargs, kern):
     from vic_tpu_torch.kernels import FD_SURFACE_INPUTS, surface_inputs
     from vic_tpu_torch.ops.rootfind import MAXTRIES
     lo, hi, active = args[:3]
+    if active is None:
+        active = torch.ones((), dtype=torch.bool, device=lo.device)
     ops_per_eval = RESIDUAL_OPS[name]
     if name in ("surface_brent", "affine_surface_brent"):
         kw = kwargs["eb_kwargs"]
@@ -788,11 +816,27 @@ def brent_work(name, args, kwargs, kern):
         max_tries = kwargs["max_tries"]
     bytes_in = nbytes(lo, hi, active, *inputs)
     bytes_out = nbytes(kern.root, kern.converged, kern.bracketed,
-                       kern.iterations)
-    act = active.expand(kern.root.shape)
+                       kern.iterations, *written_terms(name, kern))
+    act = lane_tools().solved_lanes(name, active, kwargs, kern)
     evals = torch.where(kern.bracketed, 2 + kern.iterations,
                         torch.where(act, 2 + 2 * max_tries, 0))
-    return bytes_in + bytes_out, float(evals.sum()) * ops_per_eval
+    # K5's terms at the root and K2's at 0 C and at the root: one residual
+    # evaluation each on every lane
+    evals_all = float(evals.sum()) + kern.root.numel() * {
+        "surface_brent": 1, "snowpack_brent": 2}.get(name, 0)
+    return bytes_in + bytes_out, evals_all * ops_per_eval
+
+
+def written_terms(name, kern):
+    """The tensors K2 (the terms at 0 C and at the root, the melt test) or
+    K5 (the terms at the root but net_short_bare, its input) write besides
+    the Brent's outputs."""
+    if name == "snowpack_brent":
+        return [*kern.terms0, *kern.terms_b, kern.melt_cond]
+    if name == "surface_brent":
+        return [t for f, t in kern.terms._asdict().items()
+                if t is not None and f != "net_short_bare"]
+    return []
 
 
 def fd_brent_work(kwargs, kern):
@@ -982,7 +1026,103 @@ def compare(name, label, kern, plain, kwargs):
         return compare_sweep(kern, plain, label)
     if label in DIST_PRCP_CONFIGS and name in SURFACE_KERNELS:
         dry_column_lanes(f"{name} ({label})", kwargs["eb_kwargs"])
-    return compare_brent(f"{name} ({label})", kern, plain)
+    err = compare_brent(f"{name} ({label})", kern, plain)
+    if name in TERMS_KERNELS:
+        err = max(err, compare_terms(name, label, kern, plain, kwargs))
+    return err
+
+
+def compare_fields(label, got, ref, where, residual):
+    """Each float field of the named tuples `got` and `ref` within
+    TERMS_RTOL plus its own unit's absolute limit (testing.terms_atol; the
+    `residual` field, the residual at the root, at TERMS_RESIDUAL_ATOL) on
+    the lanes `where` (layered fields on all their layers), NaN at the same
+    elements; returns the largest difference outside the residual."""
+    worst, bad = 0.0, []
+    for field in got._fields:
+        a, b = getattr(got, field), getattr(ref, field)
+        if not isinstance(a, torch.Tensor) or a.dtype != torch.float32 \
+                or a is b:
+            continue
+        b = b.expand(a.shape)
+        w = where if a.dim() == where.dim() else where[..., None]
+        w = w.expand(a.shape)
+        na, nb = torch.isnan(a), torch.isnan(b)
+        nan_dis = int(((na != nb) & w).sum())
+        diff = torch.where(w & ~na & ~nb, (a - b).abs(), 0.0)
+        over = int((diff > terms_atol(field, residual)
+                    + TERMS_RTOL * b.abs()).sum())
+        if field != residual:
+            worst = max(worst, float(diff.max()))
+        if over or nan_dis:
+            bad.append(f"{field}: {over} outside, {nan_dis} NaN apart, max "
+                       f"|diff| {float(diff.max()):.3e}")
+    print(f"  {label}: {int(where.sum())} lanes, every field within "
+          f"rtol={TERMS_RTOL} and its unit's atol ({TERMS_ATOL} W/m^2 or "
+          f"C, {TERMS_WATER_ATOL_M} m of water, {residual} "
+          f"{TERMS_RESIDUAL_ATOL} W/m^2): {'yes' if not bad else bad}")
+    if bad:
+        raise AssertionError(f"{label}: {bad}")
+    return worst
+
+
+def melt_ties(kern, plain, kwargs):
+    """K2's melt test against its plain version's: the lanes where they
+    differ, each printed with its balance at 0 C and refreeze energy;
+    raises unless each lies within MELT_TIE_ULPS ulps of the tie
+    rest == -refreeze_energy."""
+    from vic_tpu_torch import constants as c
+    t0 = plain.terms0
+    refreeze = kwargs["surf_water"] * c.LF * c.RHO_W / kwargs["dt"]
+    refreeze = refreeze.expand(t0.rest.shape)
+    # the balance at 0 C before its two-pass branch
+    rest = torch.where(plain.melt_cond, -t0.refreeze_energy,
+                       t0.rest - refreeze)
+    flips = kern.melt_cond != plain.melt_cond
+    scale = torch.maximum(rest.abs(), refreeze.abs())
+    ulp = torch.nextafter(scale, torch.full_like(scale, float("inf"))) \
+        - scale
+    tie = (rest + refreeze).abs() <= MELT_TIE_ULPS * ulp
+    for i in flips.reshape(-1).nonzero().reshape(-1).tolist():
+        print(f"  snowpack_brent melt test flips at lane {i}: rest at 0 C "
+              f"{float(rest.reshape(-1)[i])!r} W/m^2, refreeze_energy "
+              f"{float(refreeze.reshape(-1)[i])!r} W/m^2, kernel "
+              f"{bool(kern.melt_cond.reshape(-1)[i])}")
+    if bool((flips & ~tie).any()):
+        raise AssertionError(f"snowpack_brent: the melt test differs on "
+                             f"{int((flips & ~tie).sum())} lanes away from "
+                             "the tie")
+    return flips
+
+
+def compare_terms(name, label, kern, plain, kwargs):
+    """K5's terms, or K2's melt test and terms at 0 C and at the root,
+    against the plain terms at the kernel's own accepted temperature on
+    every lane (K2's at 0 C on every lane but the melt test's ties);
+    returns the largest difference."""
+    from vic_tpu_torch.physics.snow import snow_energy_terms
+    from vic_tpu_torch.physics.surface import surf_energy_terms
+    label = f"{name} ({label})"
+    if name == "surface_brent":
+        eb = kwargs["eb_kwargs"]
+        ts = torch.where(kern.converged, kern.root, eb["ts_old"])
+        return compare_fields(f"{label} terms at the kernel's root",
+                              kern.terms, surf_energy_terms(ts, **eb),
+                              torch.ones_like(kern.converged), "error")
+    inputs = {k: v for k, v in kwargs.items()
+              if k not in ("max_iter", "max_tries")}
+    if inputs.get("blowing_flux") is None:
+        inputs["blowing_flux"] = 0.0
+    flips = melt_ties(kern, plain, kwargs)
+    print(f"  {label}: melt test at 0 C on {int(plain.melt_cond.sum())} "
+          f"lanes, {int(flips.sum())} flipped")
+    worst = compare_fields(f"{label} terms at 0 C", kern.terms0,
+                           plain.terms0, ~flips, "rest")
+    ts = torch.where(kern.converged, kern.root,
+                     kwargs["old_tsurf"].expand(kern.root.shape))
+    return max(worst, compare_fields(
+        f"{label} terms at the kernel's root", kern.terms_b,
+        snow_energy_terms(ts, **inputs), torch.ones_like(flips), "rest"))
 
 
 def fd_surface_brent_plain(*args, **kwargs):
@@ -991,7 +1131,7 @@ def fd_surface_brent_plain(*args, **kwargs):
     K6). The result carries the profile solves and sweeps it ran."""
     from vic_tpu_torch.physics.frozen_soil import \
         solve_t_profile_explicit_plain
-    from vic_tpu_torch.physics.surface import surface_brent_plain
+    from vic_tpu_torch.physics.surface import surface_root_plain
     solve = kwargs["eb_kwargs"]["fd_solve"]
     sweeps = []
 
@@ -1001,7 +1141,7 @@ def fd_surface_brent_plain(*args, **kwargs):
         sweeps.append(int(res.iterations))
         return res
 
-    plain = surface_brent_plain(*args, **dict(kwargs, eb_kwargs=dict(
+    plain = surface_root_plain(*args, **dict(kwargs, eb_kwargs=dict(
         kwargs["eb_kwargs"], fd_solve=plain_solve)))
     return SimpleNamespace(**plain._asdict(), solves=len(sweeps),
                            sweeps=sum(sweeps))
@@ -1060,14 +1200,16 @@ def step_label(config, nnode):
 
 
 def lane_brent_stats(name, args, kwargs, kern_fn, regs):
-    """K3's and K14's lanes on a row's arguments, as
-    tools/profile_lane_brent.py reads them from the kernel's outputs: the
-    warp efficiency of consecutive lanes and the waves at the registers
-    ptxas reports for the instance the call launches."""
+    """The lanes of a kernel on lane_brent.cuh's driver (K2, K3, K5, K14) on
+    a row's arguments, as tools/profile_lane_brent.py reads them from the
+    kernel's outputs: the warp efficiency of consecutive lanes and the
+    waves at the registers ptxas reports for the instance the call
+    launches."""
     from vic_tpu_torch.ops.rootfind import MAXTRIES
     lt = lane_tools()
     out = kern_fn(*args, **kwargs)
-    evals = lt.evaluations(args[2], out, kwargs.get("max_tries", MAXTRIES))
+    evals = lt.evaluations(lt.solved_lanes(name, args[2], kwargs, out), out,
+                           kwargs.get("max_tries", MAXTRIES))
     n_reg, spill, _ = lt.instance_registers(regs or {}, name,
                                             kwargs.get("eb_kwargs"))
     resident = lt.resident_threads(n_reg, 128) if n_reg else None
@@ -1215,6 +1357,62 @@ def nan_profile_checks(device):
             "fd_surface_brent": compare_brent(
                 "fd_surface_brent (frozen_exp, NaN candidates)", kern,
                 plain)}
+
+
+def nan_terms_checks(device):
+    """K2 and K5 where NaN reaches their lanes: the spatial_snow step
+    (CONTINUEONERROR) with NaN air temperature in NAN_CELLS cells from
+    record NAN_FROM, on that record's arguments: every output, the terms
+    included, NaN at the plain version's elements, and the rest held as
+    `compare` holds it. Returns {row: largest difference}."""
+    from vic_tpu_torch import kernels
+    label = "spatial_snow, NaN air"
+    names = ("snowpack_brent", "surface_brent")
+    captured = capture_kernel_args(
+        "spatial_snow", names, device, record=NAN_FROM,
+        build=continue_on_error_build("spatial_snow", shift=0))
+    errs = {}
+    for name in names:
+        _, _, module, plain_name, _ = KERNELS[name]
+        plain_fn = getattr(importlib.import_module(
+            f"vic_tpu_torch.physics.{module}"), plain_name)
+        args, kwargs = captured[name]
+        kern = getattr(kernels, name)(*args, **kwargs)
+        plain = plain_fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        _, _, count = nan_lanes_agree(f"{name} ({label})", kern, plain)
+        if not count:
+            raise AssertionError(f"{name} ({label}): no NaN reached the "
+                                 "kernel")
+        errs[f"{name}/spatial_snow"] = compare(name, label, kern, plain,
+                                               kwargs)
+    return errs
+
+
+def count_balance_calls():
+    """Wrap vic_tpu_torch.model.surf_energy_terms and
+    physics.snow.snow_energy_terms to count their calls on CUDA tensors;
+    returns (the counts, the function that puts them back)."""
+    from vic_tpu_torch import model
+    from vic_tpu_torch.physics import snow
+    counts = {"surf_energy_terms": 0, "snow_energy_terms": 0}
+    homes = {"surf_energy_terms": model, "snow_energy_terms": snow}
+    originals = {k: getattr(m, k) for k, m in homes.items()}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            if any(t.is_cuda for t in flat_tensors((args, kwargs))):
+                counts[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for name, mod in homes.items():
+        setattr(mod, name, counted(name, originals[name]))
+
+    def restore():
+        for name, mod in homes.items():
+            setattr(mod, name, originals[name])
+    return counts, restore
 
 
 # the kernels no step calls (K15-K17)
@@ -1512,6 +1710,9 @@ def slice_phase(device, config, ref_werr=None, nnode=None):
         return res
 
     kernels.fd_surface_brent = counted
+    # the balances' terms come from K5 and K2 on their paths: no plain
+    # evaluation of either at the root or at 0 C
+    balance_calls, restore_balances = count_balance_calls()
     try:
         kernels.reset_launches()
         torch.cuda.synchronize()
@@ -1522,6 +1723,7 @@ def slice_phase(device, config, ref_werr=None, nnode=None):
         launches = dict(kernels.launches)
     finally:
         kernels.fd_surface_brent = fd_surface_brent
+        restore_balances()
         restore()
     peak = torch.cuda.max_memory_allocated(device)
 
@@ -1542,6 +1744,14 @@ def slice_phase(device, config, ref_werr=None, nnode=None):
     print(f"  {rate:.1f} cell-steps/s ({wall:.3f} s for {SMOKE_RECS} records, "
           f"warm-up record excluded); peak device memory {peak} bytes")
     print(f"  kernel launches in this run: {launches}")
+    print(f"  plain balance evaluations on the card in this run: "
+          f"{balance_calls} (surf_energy_terms: the finite-difference "
+          "paths' terms at the root)")
+    on_k5 = "surface_brent" in PATH_KERNELS[config]
+    if balance_calls["snow_energy_terms"] or (
+            on_k5 and balance_calls["surf_energy_terms"]):
+        raise AssertionError(f"{config}: the step evaluated a balance in "
+                             f"plain torch on the card: {balance_calls}")
     print("  kernel launches per record: " + json.dumps(
         {k: v / SMOKE_RECS for k, v in launches.items() if v}))
     if k7_counts:
@@ -2097,6 +2307,8 @@ def main():
     for name, err in nan_profile_checks(device).items():
         row = results[f"{name}/exp_trans_10"]
         row["max_abs_err"] = max(row["max_abs_err"], err)
+    for row, err in nan_terms_checks(device).items():
+        results[row]["max_abs_err"] = max(results[row]["max_abs_err"], err)
     ref_werr = {config: reference_phase(device, config)
                 for config in CONFIG_NAMES}
     launches = {config: slice_phase(device, config, ref_werr[config])

@@ -251,7 +251,9 @@ def test_surf_energy_terms_on_the_affine_profile_with_the_dry_column():
 def test_solve_surface_temperature_affine_matches():
     (a, kw), _ = affine_call()
     eb, t0_old, tair = a
-    ts, fb, fdi = tsurface.solve_surface_temperature(eb, t0_old, tair, **kw)
+    ts, fb, fdi, terms = tsurface.solve_surface_temperature(eb, t0_old,
+                                                            tair, **kw)
+    assert terms is None    # the caller evaluates them on the profile
     jts, jfb, jfdi = jsurface.solve_surface_temperature(
         jax_kwargs(eb), J(t0_old), J(tair), True, max_iter=kw["max_iter"],
         active=J(kw["active"]), fd_affine=True)

@@ -35,8 +35,11 @@ from vic_tpu_torch.physics.lake import (depth_from_volume_plain,
                                         lake_open_water_plain,
                                         water_under_ice_plain)
 from vic_tpu_torch.physics.runoff import runoff_hourly_plain
-from vic_tpu_torch.physics.snow import snowpack_brent_plain
-from vic_tpu_torch.physics.surface import surface_brent_plain
+from vic_tpu_torch.physics.snow import (snow_energy_terms,
+                                        snowpack_brent_plain)
+from vic_tpu_torch.physics.surface import (surface_brent_plain,
+                                           surface_root_plain)
+from vic_tpu_torch.testing import TERMS_RTOL, terms_atol
 
 torch.set_num_threads(1)
 
@@ -46,10 +49,10 @@ PLAIN = {"glacier_brent": glacier_brent_plain,
          "runoff_hourly": runoff_hourly_plain,
          "surface_brent": surface_brent_plain,
          "node_sweep": solve_t_profile_explicit_plain,
-         "fd_surface_brent": surface_brent_plain,
+         "fd_surface_brent": surface_root_plain,
          "blowing_snow": calc_blowing_snow_plain,
          "canopy_air_step": canopy_air_step_plain,
-         "affine_surface_brent": surface_brent_plain}
+         "affine_surface_brent": surface_root_plain}
 
 
 @pytest.fixture
@@ -595,12 +598,13 @@ def _strained_lanes(a, kw, plain_fn, max_iter):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,config,record,max_iter", [
     ("canopy_brent", "light", 0, 4),
+    ("surface_brent", "light", 0, 4),
     ("affine_surface_brent", "heavy_nolakes", 3, 8)])
 def test_lane_brent_kernels_under_strain(cuda, name, config, record,
                                          max_iter):
-    """K3 and K14 (csrc/lane_brent.cuh) against their plain versions where
-    whole tiles of lanes are inactive, one tile holds one active lane, the
-    last tile is partial and the lanes' evaluations run from 2 to the
+    """K3, K5 and K14 (csrc/lane_brent.cuh) against their plain versions
+    where whole tiles of lanes are inactive, one tile holds one active lane,
+    the last tile is partial and the lanes' evaluations run from 2 to the
     max_iter cap: the same flags, roots within the final bracket width,
     the midpoints of unbracketed lanes, iterations 0 to max_iter."""
     a, kw = _captured_args(cuda, n_cell=70, names=(name,), config=config,
@@ -862,9 +866,12 @@ def test_snowpack_residual_fields_are_the_kernels_inputs():
     assert [w.strip() for w in glac.group(1).split(",")] == \
         ["dt"] + list(kernels.GLACIER_INPUTS)
     k2 = (build.CSRC / "vic_kernels.cu").read_text()
-    launch = re.search(r"launch_brent\(snowpack_brent_kernel, lanes, nf, "
-                       r"(\d+), nm, (\d+),", k2)
-    assert (int(launch.group(1)), int(launch.group(2))) == \
+    lane = re.search(r"struct SnowpackLane : SnowpackResidual \{\s*static "
+                     r"constexpr int kNumIn = (\d+);", k2)
+    launch = re.search(r"fill_lane_inputs\(&in, lanes, nf, "
+                       r"SnowpackLane::kNumIn \+ 2, nm, (\d+),", k2)
+    # lo and hi follow the residual's inputs in K2's lane table
+    assert (int(lane.group(1)), int(launch.group(1))) == \
         (len(kernels.SNOWPACK_INPUTS), 1 + len(kernels.SNOWPACK_FLAGS))
     k17 = (build.CSRC / "bisection.cu").read_text()
     counts = re.search(r"nf, snow \? (\d+) : (\d+),\s*nm, "
@@ -1054,7 +1061,7 @@ def test_cooperative_fd_surface_brent_matches_plain(cuda, spacing, nnode,
 
     before = kernels.launches["fd_surface_brent"]
     got = kernels.fd_surface_brent(*a, **kw)
-    ref = surface_brent_plain(*a, **dict(kw, eb_kwargs=dict(
+    ref = surface_root_plain(*a, **dict(kw, eb_kwargs=dict(
         kw["eb_kwargs"], fd_solve=plain_solve)))
     torch.cuda.synchronize()
     assert kernels.launches["fd_surface_brent"] == before + 1
@@ -1082,3 +1089,75 @@ def test_cooperative_kernels_refuse_a_grid_not_co_resident(cuda,
         with pytest.raises(RuntimeError, match=f"{name}: a grid of "
                            f"{1 << 24} blocks is not co-resident"):
             getattr(kernels, name)(*a, **kw)
+
+
+def _card_close(got, ref, residual, label):
+    """K5's terms at its root or K2's at 0 C and at its root against the
+    plain terms: NaN at the same elements, each field within TERMS_RTOL
+    plus its unit's absolute limit (testing.terms_atol)."""
+    for field in got._fields:
+        g, r = getattr(got, field), getattr(ref, field)
+        if not isinstance(g, torch.Tensor) or g is r:
+            continue
+        r = r.expand(g.shape)
+        assert torch.equal(torch.isnan(g), torch.isnan(r)), (label, field)
+        ok = ~torch.isnan(r)
+        atol = terms_atol(field, residual)
+        assert bool(((g - r).abs() <= atol + TERMS_RTOL * r.abs())[ok]
+                    .all()), \
+            (label, field)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config,record", [
+    ("light", 0), ("blowing_close", 3), ("frozen_quick", 1),
+    ("dist_prcp", 1), ("spatial_snow", 1)])
+def test_surface_brent_kernel_terms_match_plain(cuda, config, record):
+    """K5's root, flags and terms against its plain version on the
+    arguments a step gave it: equal flags, roots within the final bracket
+    width, the terms within _card_close's limits of the plain terms at the
+    kernel's own root."""
+    a, kw = _captured_args(cuda, names=("surface_brent",), config=config,
+                           record=record)["surface_brent"]
+    before = kernels.launches["surface_brent"]
+    got = kernels.surface_brent(*a, **kw)
+    ref = surface.surface_brent_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["surface_brent"] == before + 1
+    assert torch.equal(got.converged, ref.converged)
+    assert torch.equal(got.bracketed, ref.bracketed)
+    tol = 2.0 * (2.0 * torch.finfo(torch.float32).eps * got.root.abs() + 1e-4)
+    both = got.converged & ref.converged
+    assert bool(((got.root - ref.root).abs() <= tol)[both].all())
+    eb = kw["eb_kwargs"]
+    ts = torch.where(got.converged, got.root, eb["ts_old"])
+    _card_close(got.terms, surface.surf_energy_terms(ts, **eb), "error",
+                config)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config,record", [
+    ("light", 0), ("blowing_close", 3), ("spatial_snow", 1)])
+def test_snowpack_brent_kernel_terms_match_plain(cuda, config, record):
+    """K2's melt test, root, flags and terms against its plain version:
+    the melt test equal (the kernel forms it in CUDA: a tie within an ulp
+    of -refreeze_energy could flip, none does on these lanes), roots within
+    the final bracket width, the terms at 0 C and at the kernel's root
+    within _card_close's limits."""
+    a, kw = _captured_args(cuda, names=("snowpack_brent",),
+                           config=config, record=record)["snowpack_brent"]
+    got = kernels.snowpack_brent(*a, **kw)
+    ref = snowpack_brent_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.melt_cond, ref.melt_cond)
+    assert torch.equal(got.converged, ref.converged)
+    assert torch.equal(got.bracketed, ref.bracketed)
+    tol = 2.0 * (2.0 * torch.finfo(torch.float32).eps * got.root.abs() + 1e-4)
+    both = got.converged & ref.converged
+    assert bool(((got.root - ref.root).abs() <= tol)[both].all())
+    _card_close(got.terms0, ref.terms0, "rest", f"{config} at 0 C")
+    inputs = {k: v for k, v in kw.items() if k not in ("max_iter",
+                                                       "max_tries")}
+    ts = torch.where(got.converged, got.root, kw["old_tsurf"])
+    _card_close(got.terms_b, snow_energy_terms(ts, **inputs), "rest",
+                f"{config} at the root")

@@ -151,9 +151,11 @@ def captured_calls():
     state = initial_state(domain, gp, "cpu")
     step = t_model.make_step(params, gp)
 
+    # surf_energy_terms' keyword arguments from the QUICK_FLUX Brent's
+    # residual, whose solve also evaluates the root's terms
     modules = {"calc_aerodynamic": t_model, "snow_intercept": t_model,
                "snow_melt": t_model, "glacier_ablation": t_model,
-               "surf_energy_terms": t_model,
+               "surf_energy_terms": t_surface,
                "solve_surface_temperature": t_model,
                "runoff_step": t_model, "snow_energy_terms": t_snow,
                "glacier_energy_terms": t_glacier,
@@ -636,7 +638,9 @@ def case_solve_surface_temperature():
         _surface_jax_kwargs(eb), to_j(t0_old), to_j(tair), True,
         max_iter=k["max_iter"], active=to_j(k["active"]))
     got = t_surface.solve_surface_temperature(eb, t0_old, tair, **k)
-    return ref[:2], got, BRENT_TOL
+    # (the terms at the root, got[3], against vic_tpu's in
+    # test_torch_lane_terms.py)
+    return ref[:2], got[:2], BRENT_TOL
 
 
 def case_compute_runoff_and_asat():

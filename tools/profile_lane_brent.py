@@ -1,7 +1,8 @@
-"""K14 (the CLOSE_ENERGY surface Brent) and K3 (the canopy foliage Brent)
-on one NVIDIA GPU: each call split into the wrapper's host time and the
-device's time, and the lanes' residual evaluations read from the kernel's
-own outputs.
+"""The Brent kernels on csrc/lane_brent.cuh's driver on one NVIDIA GPU: K14
+(the CLOSE_ENERGY surface Brent), K3 (the canopy foliage Brent), K5 (the
+QUICK_FLUX surface Brent) and K2 (the snowpack Brent), each call split into
+the wrapper's host time and the device's time, and the lanes' residual
+evaluations read from the kernel's own outputs.
 
     cd <checkout> && python3 <path>/tools/profile_lane_brent.py
         [--cells 32768] [--heavy-cells 8192] [--reps 20]
@@ -15,7 +16,11 @@ Cases, each on the arguments of the kernel's first call in that step
 
 - K14 in heavy_nolakes' fourth record (its first CLOSE_ENERGY pass),
   `--heavy-cells` cells;
-- K3 in the same record, and in light's first record, `--cells` cells.
+- K3 in the same record, and in light's first record, `--cells` cells;
+- K5 in light's first record and blowing_close's fourth (its first
+  CLOSE_ENERGY pass), `--cells` cells;
+- K2 in light's first record (`--cells` cells) and heavy_nolakes' fourth
+  (`--heavy-cells`).
 
 For each: the wrapper's host time (call to return, no synchronize) and
 the call's (call to synchronize), medians of `--reps` calls after a
@@ -28,12 +33,19 @@ never brackets; a bracketed lane's expansion rounds are not in the outputs
 and not counted), their mean, p99 and max, the warp efficiency of
 consecutive lanes in warps of 32 (sum of evaluations / sum over warps of 32
 x the warp's most), and the waves: lanes / the threads the card keeps
-resident at the registers ptxas reports for the kernel's instance.
+resident at the registers ptxas reports for the kernel's instance. K2's
+solved lanes are its `active` argument where the caller forms the 0 C melt
+test (the kernel's caller before the kernel took the test over), else
+`active` less the lanes whose pack melts at 0 C (the kernel's `melt_cond`)
+or is thin (surface_swq <= MIN_SWQ_EB_THRES).
 
---dump writes each case's outputs and a digest of its arguments;
---against reads such a file (another checkout's) and counts the lanes whose
-root, converged, bracketed or iterations differ bit for bit, after checking
-that both runs captured the same arguments.
+--dump writes each case's root, converged, bracketed and iterations, its
+solved lanes and a digest of the arguments both kernel forms take (K2's
+`active` left out); --against reads such a
+file (another checkout's) and counts the lanes whose solved flag differs
+and, of the lanes both solve or neither, those whose root, converged,
+bracketed or iterations differ bit for bit, after checking that both runs
+captured the same arguments.
 
 Prints the card's name and power limit and, as its last line, one JSON
 object with every number (also written to --out).
@@ -85,18 +97,25 @@ def ptxas_registers(log):
     return out
 
 
+# the names a kernel's instances carry: one thread a lane, or its lane type
+# on lane_brent.cuh's driver
+KERNEL_NAMES = {"canopy_brent": ("canopy_brent", "CanopyLane"),
+                "snowpack_brent": ("snowpack_brent", "SnowpackLane"),
+                "affine_surface_brent": ("affine_surface_brent",
+                                         "AffineLane"),
+                "surface_brent": ("surface_brent_kernel", "SurfaceLane")}
+
+
 def instance_registers(regs, name, eb_kwargs):
     """(registers, spill bytes, mangled name) of the instance of `name`'s
     kernel that a call with these arguments launches."""
-    if name == "canopy_brent":
-        keys = [k for k in regs
-                if "canopy_brent" in k or "CanopyLane" in k]
-    else:
+    names = KERNEL_NAMES[name]
+    keys = [k for k in regs if any(n in k for n in names)]
+    if eb_kwargs is not None:
         nl = eb_kwargs["root"].shape[-1]
         dist = eb_kwargs.get("dist_dry") is not None
         tag = f"ILi{nl}ELb{int(dist)}E"
-        keys = [k for k in regs if tag in k and (
-            "affine_surface_brent" in k or "AffineLane" in k)]
+        keys = [k for k in keys if tag in k]
     if not keys:
         return None, None, None
     key = sorted(keys)[0]
@@ -108,6 +127,30 @@ def evaluations(active, out, max_tries):
     act = active.expand(out.root.shape)
     return torch.where(out.bracketed, 2 + out.iterations.long(),
                        torch.where(act, 2 + 2 * max_tries, 0)).reshape(-1)
+
+
+def solved_lanes(name, active, kw, out):
+    """The lanes a call solves: `active`, less K2's lanes that melt at 0 C
+    or are thin where the kernel forms the melt test (its result carries
+    melt_cond)."""
+    import torch
+    if active is None:
+        active = torch.ones((), dtype=torch.bool, device=out.root.device)
+    act = active.expand(out.root.shape)
+    if name == "snowpack_brent" and hasattr(out, "melt_cond"):
+        from vic_tpu_torch.constants import MIN_SWQ_EB_THRES
+        thin = kw["surface_swq"] <= MIN_SWQ_EB_THRES
+        act = act & ~out.melt_cond & ~thin
+    return act
+
+
+def common_args(name, a, kw):
+    """The arguments both forms of a kernel take: K2's without `active`
+    (the solved lanes where the caller forms the melt test, the mask where
+    the kernel does)."""
+    if name == "snowpack_brent":
+        return a[:2], kw
+    return a, kw
 
 
 def warp_efficiency(evals):
@@ -166,14 +209,23 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]}
     heavy = chip_smoke.capture_kernel_args(
-        "heavy_nolakes", ("affine_surface_brent", "canopy_brent"), device,
+        "heavy_nolakes", ("affine_surface_brent", "canopy_brent",
+                          "snowpack_brent"), device,
         record=chip_smoke.HEAVY_RECORD, cells=args.heavy_cells)
-    light = chip_smoke.capture_kernel_args("light", ("canopy_brent",),
-                                           device, cells=args.cells)
+    light = chip_smoke.capture_kernel_args(
+        "light", ("canopy_brent", "surface_brent", "snowpack_brent"), device,
+        cells=args.cells)
+    blowing = chip_smoke.capture_kernel_args(
+        "blowing_close", ("surface_brent",), device,
+        record=chip_smoke.BLOWING_RECORD, cells=args.cells)
     cases = {"affine_surface_brent/heavy_nolakes":
              heavy["affine_surface_brent"],
              "canopy_brent/heavy_nolakes": heavy["canopy_brent"],
-             "canopy_brent/light": light["canopy_brent"]}
+             "canopy_brent/light": light["canopy_brent"],
+             "surface_brent/light": light["surface_brent"],
+             "surface_brent/blowing_close": blowing["surface_brent"],
+             "snowpack_brent/light": light["snowpack_brent"],
+             "snowpack_brent/heavy_nolakes": heavy["snowpack_brent"]}
     calls, dumped = {}, {}
     for label, (a, kw) in cases.items():
         name = label.split("/")[0]
@@ -187,8 +239,8 @@ def main(argv=None):
         wrapper_ms, call_ms = _host_ms(call, args.reps)
         calls[label] = call
         lanes = out.root.numel()
-        evals = evaluations(a[2], out, kw.get("max_tries", MAXTRIES))
-        act = a[2].expand(out.root.shape)
+        act = solved_lanes(name, a[2], kw, out)
+        evals = evaluations(act, out, kw.get("max_tries", MAXTRIES))
         n_reg, spill, kname = instance_registers(regs, name,
                                                  kw.get("eb_kwargs"))
         resident = resident_threads(n_reg, 128) if n_reg else None
@@ -206,12 +258,12 @@ def main(argv=None):
             "ptxas_spill_store_bytes": spill,
             "resident_threads_at_128": resident,
             "waves": lanes / resident if resident else None,
-            "args_digest": digest((a, kw)),
+            "args_digest": digest(common_args(name, a, kw)),
             "wrapper_host_ms": wrapper_ms, "call_ms": call_ms,
             "cuda_event_ms": _event_ms(call, args.reps)}
         dumped[label] = {"digest": result[label]["args_digest"],
-                         "out": [t.cpu() for t in out],
-                         "evals": evals.cpu()}
+                         "out": [t.cpu() for t in tuple(out)[:4]],
+                         "solved": act.cpu(), "evals": evals.cpu()}
     _, prof = _profiled(calls)
     for label in cases:
         case = result[label]
@@ -246,11 +298,16 @@ def main(argv=None):
                 if x.dtype == torch.float32:
                     x, y = x.view(torch.int32), y.view(torch.int32)
                 differ |= x != y
-            result[label]["against"] = {"same_arguments": same_args,
-                                        "differing_lanes": int(differ.sum())}
+            flips = mine["solved"] != theirs.get("solved", mine["solved"])
+            result[label]["against"] = {
+                "same_arguments": same_args,
+                "solved_flag_differs": int(flips.sum()),
+                "differing_lanes": int((differ & ~flips).sum())}
             print(f"  {label} against {args.against}: same arguments "
-                  f"{same_args}, lanes whose root, converged, bracketed or "
-                  f"iterations differ: {int(differ.sum())}", flush=True)
+                  f"{same_args}, lanes solved in one run only: "
+                  f"{int(flips.sum())}, lanes solved in both or neither "
+                  f"whose root, converged, bracketed or iterations differ: "
+                  f"{int((differ & ~flips).sum())}", flush=True)
     text = json.dumps(result)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -7,14 +7,18 @@
                                                   frozen_quick|
                                                   spatial_snow]
                                         [--cells 32768] [--records 8]
-                                        [--repeats 5] [--out FILE.json]
+                                        [--repeats 5] [--rate-only]
+                                        [--out FILE.json]
 
 1. throughput: `--repeats` runs of `--records` records through
    vic_tpu_torch.model.run after a warm-up record, timed on the host clock
-   around torch.cuda.synchronize(); cell-steps/s median and quartiles.
+   around torch.cuda.synchronize(); cell-steps/s median, quartiles and
+   each run's rate.
 2. breakdown: one run with each physics call of the step wrapped in
    synchronize() + host clock, so every call's wall time (launch overhead
-   included) is attributed to it; the rest of the step is "other". With
+   included) is attributed to it, and its calls counted; the rest of the
+   step is "other". The snowpack balance's terms (`snow_energy_terms`)
+   are timed and counted inside `snow_melt` as a nested breakdown. With
    LAKES, lake_step's calls inside it (solve_lake and, inside that, the
    K10-K12 call sites; the K13 depth bisections) are timed as a nested
    "lake" breakdown whose "other" is lake_step's own glue (with BLOWING,
@@ -22,8 +26,13 @@
 3. profile: torch.profiler over two records: device time by kernel name,
    the hand-written kernels' own device time, and the device's busy share.
 
+With --rate-only only 1. runs, so two checkouts compare in one chip call
+by running it from each root in turn, alternating.
+
 Prints one JSON object with every number (also written to --out) and the
-card's name and power limit. Needs a CUDA device.
+card's name and power limit. Needs a CUDA device. Imports the
+`vic_tpu_torch` of the directory it is run from, so two checkouts compare
+on one card when it is run from each root in turn.
 """
 from __future__ import annotations
 
@@ -37,11 +46,11 @@ import time
 
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.getcwd())
 
 from vic_tpu_torch import model  # noqa: E402
 from vic_tpu_torch.entry import CONFIGS  # noqa: E402
-from vic_tpu_torch.physics import lake  # noqa: E402
+from vic_tpu_torch.physics import lake, snow  # noqa: E402
 
 STEP_CALLS = ("calc_aerodynamic", "snow_intercept", "snow_albedo",
               "snow_melt", "glacier_ablation", "snow_density_update",
@@ -76,6 +85,8 @@ CONFIG_CALLS["spatial_snow"] = ("calc_snow_coverage", "correct_precip")
 # balance
 LAKE_CALLS = ("solve_lake", "lake_open_water", "lake_ice_melt",
               "water_under_ice", "depth_from_volume")
+# inside snow_melt (physics/snow.py): the snowpack balance's terms
+SNOW_CALLS = ("snow_energy_terms",)
 HAND_WRITTEN = ("brent_kernel", "runoff_hourly_kernel", "node_sweep_kernel",
                 "node_finish_kernel", "fd_eval_kernel", "fd_expand_kernel",
                 "fd_init_kernel", "fd_propose_kernel", "fd_accept_kernel",
@@ -107,7 +118,7 @@ def throughput(config, n_cell, n_rec, repeats, device):
         model.run(state, stack, params, gp, **kw)
         torch.cuda.synchronize()
         rates.append(n_cell * n_rec / (time.perf_counter() - t0))
-    return quartiles(rates)
+    return dict(quartiles(rates), runs=rates)
 
 
 def breakdown(config, n_cell, n_rec, device):
@@ -116,7 +127,9 @@ def breakdown(config, n_cell, n_rec, device):
     lake_calls = LAKE_CALLS + (("calc_blowing_snow",) if gp.blowing else ())
     if gp.lakes:
         wrapped += [(lake, name) for name in lake_calls]
+    wrapped += [(snow, name) for name in SNOW_CALLS]
     spent = {(mod, name): 0.0 for mod, name in wrapped}
+    count = {(mod, name): 0 for mod, name in wrapped}
     originals = {(mod, name): getattr(mod, name) for mod, name in wrapped}
 
     def timed(key, fn):
@@ -126,6 +139,7 @@ def breakdown(config, n_cell, n_rec, device):
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             spent[key] += time.perf_counter() - t0
+            count[key] += 1
             return out
         return wrapper
 
@@ -148,7 +162,12 @@ def breakdown(config, n_cell, n_rec, device):
                if mod is model}
     per_rec["other"] = total / n_rec * 1e3 - sum(per_rec.values())
     result = {"ms_per_record": per_rec,
-              "total_ms_per_record": total / n_rec * 1e3}
+              "total_ms_per_record": total / n_rec * 1e3,
+              "calls_per_record": {
+                  (name if mod is model else f"{mod.__name__}.{name}"):
+                  count[(mod, name)] / n_rec for mod, name in wrapped},
+              "snow_melt_ms_per_record": {name: ms((snow, name))
+                                          for name in SNOW_CALLS}}
     if gp.lakes:
         # nested: solve_lake's calls inside it, the rest of lake_step
         inner = {name: ms((lake, name)) for name in lake_calls}
@@ -206,6 +225,8 @@ def main():
     ap.add_argument("--cells", type=int, default=32768)
     ap.add_argument("--records", type=int, default=8)
     ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--rate-only", action="store_true",
+                    help="throughput alone, with each run's rate")
     ap.add_argument("--out", default=None)
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -222,10 +243,11 @@ def main():
         "records": a.records,
         "lanes": a.cells * 8, "cell_steps_per_s": rate,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
-        "breakdown": breakdown(a.config, a.cells, a.records, device),
-        "profile": profile(a.config, a.cells, device,
-                           step_ms=a.cells / rate["median"] * 1e3),
     }
+    if not a.rate_only:
+        result["breakdown"] = breakdown(a.config, a.cells, a.records, device)
+        result["profile"] = profile(a.config, a.cells, device,
+                                    step_ms=a.cells / rate["median"] * 1e3)
     text = json.dumps(result, indent=1)
     print(text)
     if a.out:

@@ -1,6 +1,7 @@
-// The lane driver of K3 (canopy_brent) and K14 (affine_surface_brent): an
-// expand-then-Brent per lane, with the lanes compacted and dealt to the
-// threads of persistent blocks.
+// The lane driver of K2 (snowpack_brent), K3 (canopy_brent), K5
+// (surface_brent) and K14 (affine_surface_brent): an expand-then-Brent per
+// lane, with the lanes compacted and dealt to the threads of persistent
+// blocks.
 //
 // Each lane runs exactly brent.cuh's brent_solve, step for step on the same
 // floats (BrentLane below is that function cut at its residual
@@ -11,9 +12,10 @@
 // this card: a lane reads a few hundred bytes and then runs 2 to ~70
 // dependent residual evaluations, so the kernel is bound by latency, not by
 // bytes or operations. A warp runs until its slowest lane is done while its
-// inactive and finished lanes hold their slots; K3's and K14's batches are
-// mostly such lanes (the canopy residual runs on overstory lanes only, the
-// surface residual on the lanes that are not glacier or lake).
+// inactive and finished lanes hold their slots; these batches are mostly
+// such lanes (the canopy residual runs on overstory lanes only, the surface
+// residual on the lanes that are not glacier or lake, the snowpack residual
+// on the packs that neither melt at 0 C nor are thin).
 //
 // What this driver does about it:
 // - Persistent blocks: the grid is as many blocks as the device keeps
@@ -29,12 +31,24 @@
 //   trip of the loop evaluates the residual once on each busy thread (at its
 //   own lane's candidate), so the warp's threads run the residual together
 //   whatever step of the solve each of them is in.
+// - Hooks (K2, K5): a lane type may also declare a prologue, run on every
+//   lane when it is taken, which writes what the caller needs before the
+//   solve and may take the lane out of it (K2's balance at 0 C and its melt
+//   test), and an epilogue, run on every lane, inactive ones too, once its
+//   root is known, which writes the balance's terms at the accepted
+//   temperature. Their callers then evaluate no residual of their own. A
+//   solved lane's epilogue waits until its warp refills, so the warp's
+//   finished lanes run theirs together rather than each beside the others'
+//   residuals (K5 on light's first record, H100: 0.27 ms of device time
+//   this way, 0.34 with each epilogue run as its lane finished; PERF.md).
+//   A lane type without hooks (K3, K14) compiles to the loop without them.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 #include "brent.cuh"
 #include "lanes.cuh"
@@ -190,13 +204,36 @@ struct BrentLane {
 // together.
 constexpr int kRefillAt = 8;
 
+// A lane type's hooks, found by their names:
+//   __device__ bool prologue(const LaneInputs&, LaneRow, int lane,
+//                            bool active, const Params&);
+//     after init(), on every lane: writes what it must and returns whether
+//     the lane is solved (at most `active`);
+//   __device__ void epilogue(const LaneInputs&, LaneRow, int lane,
+//                            const BrentOut&, const Params&) const;
+//     on every lane once its root, flags and iterations are known.
+// Both may read the lane's inputs again where they lie.
+// A lane type with either hook is init()ed on every lane, inactive ones
+// too; one without them only on the lanes it solves.
+template <class Lane, class = void>
+struct HasPrologue : std::false_type {};
+template <class Lane>
+struct HasPrologue<Lane, std::void_t<decltype(&Lane::prologue)>>
+    : std::true_type {};
+template <class Lane, class = void>
+struct HasEpilogue : std::false_type {};
+template <class Lane>
+struct HasEpilogue<Lane, std::void_t<decltype(&Lane::epilogue)>>
+    : std::true_type {};
+
 // The kernel: Lane is a residual functor with
 //   static constexpr int kLo, kHi, kActive;  // lane inputs: bracket, mask
 //   static constexpr int kMinBlocks;         // __launch_bounds__' minimum
 //   __device__ void init(const LaneInputs&, LaneRow, const Params&);
 //   __device__ float operator()(float) const;
-// and Params its launch-wide arguments (dt, switches). Each block walks its
-// chunk [blockIdx.x * chunk, ...) of the n lanes as the header says; every
+// and, optionally, the hooks above; Params are its launch-wide arguments
+// (dt, switches, the hooks' outputs). Each block walks its chunk
+// [blockIdx.x * chunk, ...) of the n lanes as the header says; every
 // thread stays in the loop until its warp is done, for the warp votes.
 template <class Lane, class Params>
 __global__ void __launch_bounds__(kLaneBlock, Lane::kMinBlocks)
@@ -204,6 +241,8 @@ __global__ void __launch_bounds__(kLaneBlock, Lane::kMinBlocks)
                       const Params params, int max_iter, int max_tries,
                       int n, int chunk, BrentOutputs out) {
   constexpr unsigned kAll = 0xffffffffu;
+  constexpr bool kPrologue = HasPrologue<Lane>::value;
+  constexpr bool kEpilogue = HasEpilogue<Lane>::value;
   __shared__ int next_lane;
   const int first = blockIdx.x * chunk;
   const int end = min(first + chunk, n);
@@ -212,10 +251,20 @@ __global__ void __launch_bounds__(kLaneBlock, Lane::kMinBlocks)
   Lane f;
   BrentLane s;
   int i = -1;                       // the lane this thread solves
+  int done = -1;                    // a solved lane whose epilogue waits
   bool more = true;                 // the chunk may hold lanes not taken
   while (true) {
     const unsigned busy = __ballot_sync(kAll, i >= 0);
     if (more && __popc(busy) <= 32 - kRefillAt) {
+      // the warp's solved lanes run their epilogues together, before
+      // their threads take new lanes
+      if constexpr (kEpilogue) {
+        if (done >= 0) {
+          f.epilogue(in, lane_row(in, done), done, s.out, params);
+          store(out, done, s.out);
+          done = -1;
+        }
+      }
       // take lanes until one needs the residual or the chunk is done; an
       // inactive lane gets its outputs here
       bool drained = false;
@@ -226,22 +275,39 @@ __global__ void __launch_bounds__(kLaneBlock, Lane::kMinBlocks)
           break;
         }
         const LaneRow row = lane_row(in, k);
+        bool active = lane_m(in, Lane::kActive, row);
+        if constexpr (kPrologue || kEpilogue) f.init(in, row, params);
+        if constexpr (kPrologue)
+          active = f.prologue(in, row, k, active, params);
         s.start(lane_f(in, Lane::kLo, row), lane_f(in, Lane::kHi, row),
-                lane_m(in, Lane::kActive, row), max_iter, max_tries);
+                active, max_iter, max_tries);
         if (s.phase == BrentLane::kDone) {
+          if constexpr (kEpilogue) f.epilogue(in, row, k, s.out, params);
           store(out, k, s.out);
           continue;
         }
-        f.init(in, row, params);
+        if constexpr (!(kPrologue || kEpilogue)) f.init(in, row, params);
         i = k;
       }
       more = !__any_sync(kAll, drained);
     }
-    if (!more && !__any_sync(kAll, i >= 0)) break;
+    if (!more && !__any_sync(kAll, i >= 0)) {
+      if constexpr (kEpilogue) {
+        if (done >= 0) {
+          f.epilogue(in, lane_row(in, done), done, s.out, params);
+          store(out, done, s.out);
+        }
+      }
+      break;
+    }
     if (i >= 0) {
       s.next(f(s.x));
       if (s.phase == BrentLane::kDone) {
-        store(out, i, s.out);
+        if constexpr (kEpilogue) {
+          done = i;
+        } else {
+          store(out, i, s.out);
+        }
         i = -1;
       }
     }

@@ -1,7 +1,8 @@
 // The residuals of the snowpack (K2) and bare-glacier (K1) surface energy
 // balances, shared by their Brent kernels (vic_kernels.cu) and the
 // fixed-count bisection (K17, bisection.cu). Line-for-line copies of
-// physics/snow.snow_energy_terms and physics/glacier.glacier_energy_terms.
+// physics/snow.snow_energy_terms (all of its terms, K2 writes them) and
+// physics/glacier.glacier_energy_terms.
 #pragma once
 
 #include "physics.cuh"
@@ -62,10 +63,17 @@ struct GlacierResidual {
   }
 };
 
+// snow.SnowEBTerms at one surface temperature
+struct SnowTerms {
+  float rest, refreeze, vapor_flux, latent, latent_sub, sensible, advection,
+      delta_cc, grnd_flux, net_long, advected_sensible;
+};
+
 // K2 residual: snow.snow_energy_terms(t).rest, with the blowing-snow mass
 // flux (kg/m^2/s) added to the surface vapor flux and, under SPATIAL_SNOW
 // (spatial), the sensible heat advected from the snow-free patches of a
-// lane whose pack covers snow_cover_fract of it
+// lane whose pack covers snow_cover_fract of it; terms() is every term of
+// snow_energy_terms, the residual its rest
 struct SnowpackResidual {
   float dt, ra, z_ref, roughness, air_dens, vp_air, longwave_in, lv,
       pressure, rain_m, net_short, vpd, wind, old_tsurf, snow_depth,
@@ -73,34 +81,48 @@ struct SnowpackResidual {
       snow_cover_fract;
   bool spatial;
 
-  __device__ float operator()(float ts) const {
+  __device__ SnowTerms terms(float ts) const {
+    SnowTerms o;
     const float ra_corr =
         wind > 0.0f
             ? ra / stability_correction(z_ref, 0.0f, ts, tair, wind, roughness)
             : kHugeResist;
-    const float net_long = longwave_in - kStefanB * pow4(ts + kKelvin);
-    const float net_rad = net_short + net_long;
-    const float sensible = air_dens * kCp * (tair - ts) / ra_corr;
+    o.net_long = longwave_in - kStefanB * pow4(ts + kKelvin);
+    const float net_rad = net_short + o.net_long;
+    o.sensible = air_dens * kCp * (tair - ts) / ra_corr;
     const SnowLatent lh = latent_heat_from_snow(
         air_dens, vp_air, lv, pressure, ra_corr, ts, vpd, blowing_flux);
-    const float latent = lh.latent;
-    const float latent_sub = lh.latent_sub;
-    const float advection = ts == 0.0f ? kChWater * tair * rain_m / dt : 0.0f;
-    const float delta_cc = kChIce * surface_swq * (ts - old_tsurf) / dt;
-    const float grnd_flux =
+    o.latent = lh.latent;
+    o.latent_sub = lh.latent_sub;
+    // m of water a step (snow.py: vapor_mass_flux * dt / RHO_W)
+    o.vapor_flux = div_s(lh.vapor_flux * dt, kRhoW);
+    o.advection = ts == 0.0f ? kChWater * tair * rain_m / dt : 0.0f;
+    o.delta_cc = kChIce * surface_swq * (ts - old_tsurf) / dt;
+    o.grnd_flux =
         snow_depth > 0.0f ? kKSnow * snow_density * snow_density *
                                 (tgrnd - ts) / nan_max(snow_depth, 1e-10f) / dt
                           : 0.0f;
     const float refreeze = surf_water * kLf * kRhoW / dt;
-    float rest = net_rad + sensible + latent + latent_sub + advection;
-    if (spatial)
-      rest = rest + advected_sensible_heat(snow_cover_fract, air_dens, tair,
-                                           tgrnd, ra_corr);
-    rest = rest - delta_cc + grnd_flux;
+    float rest = net_rad + o.sensible + o.latent + o.latent_sub + o.advection;
+    o.advected_sensible = 0.0f;
+    if (spatial) {
+      o.advected_sensible = advected_sensible_heat(snow_cover_fract, air_dens,
+                                                   tair, tgrnd, ra_corr);
+      rest = rest + o.advected_sensible;
+    }
+    rest = rest - o.delta_cc + o.grnd_flux;
     // two-pass 0 C pattern (SnowPackEnergyBalance.c:186-195)
-    if (ts == 0.0f && rest > -refreeze) return 0.0f;
-    return rest + refreeze;
+    if (ts == 0.0f && rest > -refreeze) {
+      o.rest = 0.0f;
+      o.refreeze = -rest;
+    } else {
+      o.rest = rest + refreeze;
+      o.refreeze = refreeze;
+    }
+    return o;
   }
+
+  __device__ float operator()(float ts) const { return terms(ts).rest; }
 };
 
 }  // namespace vicres

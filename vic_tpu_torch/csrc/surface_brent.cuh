@@ -26,6 +26,8 @@ namespace vicsurf {
 
 using namespace vicphys;
 
+constexpr float kIceDensity = 917.0f;
+
 // float inputs, in the order of the wrapper's kernels.SURFACE_INPUTS; the
 // layered ones follow them (LaneInputs f[kNumIn + LayerIn])
 enum In {
@@ -59,6 +61,25 @@ constexpr int kNumSurfaceMask = kNumMask + 1;
 enum FdIn { kMoist0Vol, kMaxMoist0Vol, kIce0Vol, kBubble0, kExpt0,
             kNumFdIn };
 constexpr int kFsActive = kNumSurfaceMask;
+
+// One column's ET at a net radiation: the total (mm/step), the
+// interception evaporation and the per-layer split (evap.canopy_evap on a
+// vegetated lane; evap.arno_evap from the top layer on a bare one)
+template <int NL>
+struct EtTerms {
+  float evap, cevap;
+  float layer[NL];
+};
+
+// The terms of the balance at one Ts (physics.surface.SurfEBResult's,
+// the evap of each column included)
+template <int NL>
+struct SurfaceTerms {
+  float error, t1, grnd_flux, delta_h, fusion, latent, latent_sub,
+      sensible, snow_flux, net_long_bare, evap, refreeze, delta_cc,
+      vapor_flux;
+  EtTerms<NL> wet, dry;
+};
 
 // evap.penman with the hoisted coefficients (penman.c:96-143)
 __device__ __forceinline__ float penman(float slope, float lv, float gamma,
@@ -241,8 +262,10 @@ struct SurfaceResidual {
     init_fusion(inputs, row, frz);
   }
 
-  // evap.canopy_evap's total on column `col`, mm/step (canopy_evap.c:46-445)
-  __device__ float canopy_evap(float rad, const EtColumn<NL>& col) const {
+  // evap.canopy_evap on column `col`, mm/step (canopy_evap.c:46-445)
+  __device__ EtTerms<NL> canopy_evap(float rad,
+                                     const EtColumn<NL>& col) const {
+    EtTerms<NL> et;
     const float cev_pow = col.cev_pow, storage = col.storage;
     const float wdew_frac_pow = col.wdew_frac_pow, rc1 = col.rc1;
     const bool case1 = col.case1;
@@ -281,32 +304,44 @@ struct SurfaceResidual {
                    : 0.0f;
       }
       le_l = nan_min(nan_max(le_l, 0.0f), cap[l]);
+      et.layer[l] = le_l;
       layer_sum = l == 0 ? le_l : layer_sum + le_l;
     }
-    return cevap + layer_sum;
+    et.cevap = cevap;
+    et.evap = cevap + layer_sum;
+    return et;
   }
 
   // evap.arno_evap from the top layer of column `col`, mm/step
-  // (arno_evap.c:61-228)
-  __device__ float arno_evap(float rad, float ra_used,
-                             const EtColumn<NL>& col) const {
+  // (arno_evap.c:61-228), all of it in the top layer's split
+  __device__ EtTerms<NL> arno_evap(float rad, float ra_used,
+                                   const EtColumn<NL>& col) const {
+    EtTerms<NL> et;
     const float epot = div_s(
         penman(slope, lv, gamma, r_air, rad, vpd, ra_used, 0.0f, 0.0f) * dt,
         kSecPerDay);
     const float evap = epot * col.beta;
-    return evap > 0.0f ? nan_min(evap, col.arno_cap) : evap;
+    et.evap = evap > 0.0f ? nan_min(evap, col.arno_cap) : evap;
+    et.cevap = 0.0f;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) et.layer[l] = l == 0 ? et.evap : 0.0f;
+    return et;
   }
 
   // QUICK_FLUX: estimate_T1 ground heat (func_surf_energy_bal.c:171-181)
-  __device__ float operator()(float ts) const {
+  __device__ SurfaceTerms<NL> quick_terms(float ts) const {
     const float t1 = (p1 * ts + q1 + q2) / den;
-    return balance(ts, t1, gb * (t2 - t1));
+    return terms(ts, t1, gb * (t2 - t1));
+  }
+
+  __device__ float operator()(float ts) const {
+    return quick_terms(ts).error;
   }
 
   // finite differences: t1, t2n are nodes 1 and 2 of the profile solved at
   // ts; no exp(-D1/dp) damping (:185-240)
   __device__ float fd(float ts, float t1, float t2n) const {
-    return balance(ts, t1, k2d2 * (t2n - t1));
+    return terms(ts, t1, k2d2 * (t2n - t1)).error;
   }
 
   // fusion of the top node pair's ice (:260-275)
@@ -321,73 +356,98 @@ struct SurfaceResidual {
     return fs_active ? fus : 0.0f;
   }
 
-  __device__ float balance(float ts, float t1, float lower_flux) const {
+  // every term of the balance at ts with node 1 at t1 and the lower flux
+  // lower_flux (:148-397); error is the residual
+  __device__ SurfaceTerms<NL> terms(float ts, float t1,
+                                    float lower_flux) const {
+    SurfaceTerms<NL> o;
     const float tmean = ts;
     const float tkelv = tmean + kKelvin;
     const float tk2 = tkelv * tkelv;
     const float tk4 = tk2 * tk2;
+    o.t1 = t1;
     // pack -> soil conduction; none on INCLUDE_SNOW lanes (:148-161)
-    const float snow_flux = inc ? 0.0f : kappa_snow * (tsnow_surf - tmean);
-    const float grnd_flux =
+    o.snow_flux = inc ? 0.0f : kappa_snow * (tsnow_surf - tmean);
+    o.grnd_flux =
         grnd_flux_type == 0
             ? cover_atten * (ga * (t1 - tmean))
             : cover_atten * (ga * (t1 - tmean) + lower_flux) / 2.0f;
     // heat storage between nodes 0 and 1 (:249-254)
     float delta_h = div_s(cs1 * (tsum_old - (tmean + t1)) * d1, dt) / 2.0f;
     if (grnd_flux_type == 2) delta_h = cover_atten * delta_h;
+    o.delta_h = delta_h;
     // INCLUDE_SNOW pack cold content (:279-286)
     const float dcc_i = tmean > 0.0f
                             ? div_s(kChIce * i_dry * (0.0f - old_tsurf), dt)
                             : div_s(kChIce * i_dry * (tmean - old_tsurf), dt);
-    const float delta_cc = inc ? dcc_i * cov_i : 0.0f;
+    o.delta_cc = inc ? dcc_i * cov_i : 0.0f;
     // net radiation on the snow-free area (:291-295)
-    const float net_long_bare =
-        lw_bare_in - (1.0f - snow_cov) * (kStefanB * tk4);
-    float net_bare_rad = sw_net_bare + net_long_bare + grnd_flux + delta_h;
-    if (frozen) net_bare_rad = net_bare_rad + fusion(tmean, t1);
+    o.net_long_bare = lw_bare_in - (1.0f - snow_cov) * (kStefanB * tk4);
+    float net_bare_rad = sw_net_bare + o.net_long_bare + o.grnd_flux + delta_h;
+    o.fusion = 0.0f;
+    if (frozen) {
+      o.fusion = fusion(tmean, t1);
+      net_bare_rad = net_bare_rad + o.fusion;
+    }
     // stability-corrected resistance (:298-310)
     const float ra_used =
         wind > 0.0f ? ra_under / stability_correction(z_ref, d_eff, tmean,
                                                       tair, wind, rough)
                     : kHugeResist;
     // evapotranspiration inside the residual (:320-336)
-    float evap = veg ? canopy_evap(net_bare_rad, wet)
-                     : arno_evap(net_bare_rad, ra_used, wet);
+    o.wet = veg ? canopy_evap(net_bare_rad, wet)
+                : arno_evap(net_bare_rad, ra_used, wet);
+    float evap = o.wet.evap;
     if constexpr (DIST) {
-      const float evap_d = veg ? canopy_evap(net_bare_rad, dry)
-                               : arno_evap(net_bare_rad, ra_used, dry);
-      evap = mu * evap + (1.0f - mu) * evap_d;
+      o.dry = veg ? canopy_evap(net_bare_rad, dry)
+                  : arno_evap(net_bare_rad, ra_used, dry);
+      evap = mu * evap + (1.0f - mu) * o.dry.evap;
     }
+    o.evap = evap;
     // latent heat (:339-363)
     float latent =
         -kRhoW * le * div_s(div_s(evap, 1000.0f), dt) * (1.0f - snow_cov);
     float latent_sub = 0.0f;
+    o.vapor_flux = 0.0f;
     if (inc) {
       // snow.latent_heat_from_snow at the surface resistance, plus the
-      // blowing-snow flux
+      // blowing-snow flux; the vapor flux in m of water equivalent a step
+      // through the reference's ice density (:363)
       float vf = air_dens * rdiv_s(kEpsRatio, pressure) *
                  (vp_air - svp(tmean)) / ra_used;
       if (vpd == 0.0f && vf < 0.0f) vf = 0.0f;
       vf = vf + blowing;
       latent = (tmean >= 0.0f ? le * vf : 0.0f) * cov_i;
       latent_sub = (tmean >= 0.0f ? 0.0f : ls_of(tmean) * vf) * cov_i;
+      o.vapor_flux = div_s(vf * dt, kIceDensity);
     }
+    o.latent = latent;
+    o.latent_sub = latent_sub;
     // sensible heat (:366-372); unscaled on INCLUDE_SNOW lanes
     const float sensible_raw = air_dens * kCp * (tair - tmean) / ra_used;
     float sensible =
         snow_cov >= 1.0f ? 0.0f : sensible_raw * (1.0f - snow_cov);
     if (inc) sensible = sensible_raw;
+    o.sensible = sensible;
 
     float error = net_bare_rad + sensible + latent + latent_sub +
-                  snow_flux * snow_cov - delta_cc;
+                  o.snow_flux * snow_cov - o.delta_cc;
     error = error + melt_energy;
-    if (!inc) return error;
-    // pack terms of the joint balance (:378-387), refreeze two-pass at
-    // TMean == 0 (:388-397)
-    const float nls_i = lw_snow_in - cov_i * kStefanB * tk4;
-    error = error + (advection0 + nssc + nls_i - melt_energy);
-    if (tmean == 0.0f && error > -refreeze) return 0.0f;
-    return error + refreeze;
+    o.refreeze = refreeze;
+    if (inc) {
+      // pack terms of the joint balance (:378-387), refreeze two-pass at
+      // TMean == 0 (:388-397)
+      const float nls_i = lw_snow_in - cov_i * kStefanB * tk4;
+      error = error + (advection0 + nssc + nls_i - melt_energy);
+      if (tmean == 0.0f && error > -refreeze) {
+        o.refreeze = -error;
+        error = 0.0f;
+      } else {
+        error = error + refreeze;
+      }
+    }
+    o.error = error;
+    return o;
   }
 };
 

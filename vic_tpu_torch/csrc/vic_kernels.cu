@@ -7,15 +7,18 @@
 //
 // On the TPU each of these was a lax while_loop/fori_loop over the whole
 // [n_cell, max_hru] batch: every trip re-launched the residual's fusions on
-// every lane until the slowest lane converged. Here one thread owns one lane
-// and runs that lane's whole loop in registers inside a single launch, so a
-// lane pays only its own trip count and nothing leaves the chip between
-// iterations. Each lane reads ~20 floats and writes a few, while it runs up
-// to ~70 residual evaluations (K1-K3) or 24 hourly trips (K4) of
-// transcendental arithmetic with divergent trip counts: the kernels are
-// bound by latency and occupancy (registers per thread), not by
-// device-memory bytes. K3's active lanes are few and their trips uneven, so
-// its lanes are compacted and dealt to persistent threads (lane_brent.cuh).
+// every lane until the slowest lane converged. Here each lane's whole loop
+// runs in registers inside a single launch, so a lane pays only its own
+// trip count and nothing leaves the chip between iterations. Each lane
+// reads ~20 floats and writes a few, while it runs up to ~70 residual
+// evaluations (K1-K3) or 24 hourly trips (K4) of transcendental arithmetic
+// with divergent trip counts: the kernels are bound by latency and
+// occupancy (registers per thread), not by device-memory bytes. K1 and K4
+// run one lane a thread. K2's and K3's active lanes are few and scattered
+// and their trips uneven, so their lanes are compacted and dealt to
+// persistent threads (lane_brent.cuh); K2 also writes the snowpack
+// balance's terms at 0 C and at its accepted temperature, which its caller
+// evaluated in PyTorch before.
 //
 // Every residual is a line-for-line copy of its PyTorch plain version, with
 // the same operation order, x^4 as (x*x)*(x*x) like lax.integer_pow, and the
@@ -137,22 +140,6 @@ __global__ void glacier_brent_kernel(const __grid_constant__ LaneInputs in,
                             max_tries));
 }
 
-__global__ void snowpack_brent_kernel(const __grid_constant__ LaneInputs in,
-                                      const float* lo, const float* hi,
-                                      float dt, int max_iter, int max_tries,
-                                      int n, BrentOutputs out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const LaneRow row = lane_row(in, i);
-  auto f = [&](int k) { return lane_f(in, k, row); };
-  const SnowpackResidual r{dt,    f(0),  f(1),  f(2),  f(3),  f(4),  f(5),
-                           f(6),  f(7),  f(8),  f(9),  f(10), f(11), f(12),
-                           f(13), f(14), f(15), f(16), f(17), f(18),
-                           f(19), f(20), lane_m(in, 1, row)};
-  store(out, i, brent_solve(r, lo[i], hi[i], lane_m(in, 0, row), max_iter,
-                            max_tries));
-}
-
 // K3's lane for csrc/lane_brent.cuh: the 18 float inputs in
 // CanopyResidual order after dt, then lo and hi; masks [active, has_csnow]
 struct CanopyParams {
@@ -171,6 +158,81 @@ struct CanopyLane : CanopyResidual {
         p.dt,  f(0),  f(1),  f(2),  f(3),  f(4),  f(5),
         f(6),  f(7),  f(8),  f(9),  f(10), f(11), f(12),
         f(13), f(14), f(15), f(16), f(17), lane_m(in, 1, row)};
+  }
+};
+
+// K2's lane for csrc/lane_brent.cuh: the 21 float inputs in
+// SnowpackResidual order after dt, then lo and hi; masks [active, spatial]
+// (spatial: SPATIAL_SNOW's advected sensible heat, a flag broadcast to the
+// lanes). Its prologue writes the balance's terms at 0 C and the melt test
+// on every lane and solves only the lanes that neither melt at 0 C nor are
+// thin (snow.snow_melt's brent_active, snow.py:357-394); its epilogue
+// writes the terms at the accepted temperature, the root or TFALLBACK's
+// old_tsurf.
+constexpr float kMinSwqEbThres = 0.0010f;   // MIN_SWQ_EB_THRES, m
+
+// the terms written a lane, n floats each: snow.SnowEBTerms' fields
+enum SnowTerm {
+  kRest, kRefreezeEnergy, kVaporFlux, kLatent, kLatentSub, kSensible,
+  kAdvection, kDeltaCc, kGrndFlux, kNetLong, kAdvectedSensible,
+  kNumSnowTerms
+};
+
+struct SnowpackParams {
+  float dt;
+  int n;
+  float* terms0;       // [kNumSnowTerms, n] at 0 C
+  float* terms_b;      // [kNumSnowTerms, n] at the accepted temperature
+  uint8_t* melt_cond;  // [n] the pack melts at 0 C
+};
+
+__device__ __forceinline__ void store_terms(float* col, int n,
+                                            const SnowTerms& t) {
+  col[kRest * n] = t.rest;
+  col[kRefreezeEnergy * n] = t.refreeze;
+  col[kVaporFlux * n] = t.vapor_flux;
+  col[kLatent * n] = t.latent;
+  col[kLatentSub * n] = t.latent_sub;
+  col[kSensible * n] = t.sensible;
+  col[kAdvection * n] = t.advection;
+  col[kDeltaCc * n] = t.delta_cc;
+  col[kGrndFlux * n] = t.grnd_flux;
+  col[kNetLong * n] = t.net_long;
+  col[kAdvectedSensible * n] = t.advected_sensible;
+}
+
+struct SnowpackLane : SnowpackResidual {
+  static constexpr int kNumIn = 21;
+  static constexpr int kLo = kNumIn, kHi = kNumIn + 1, kActive = 0;
+  static constexpr int kMinBlocks = 1;
+
+  __device__ __forceinline__ void init(const LaneInputs& in, LaneRow row,
+                                       const SnowpackParams& p) {
+    auto f = [&](int k) { return lane_f(in, k, row); };
+    *static_cast<SnowpackResidual*>(this) = SnowpackResidual{
+        p.dt,  f(0),  f(1),  f(2),  f(3),  f(4),  f(5),  f(6),
+        f(7),  f(8),  f(9),  f(10), f(11), f(12), f(13), f(14),
+        f(15), f(16), f(17), f(18), f(19), f(20), lane_m(in, 1, row)};
+  }
+
+  // the balance at 0 C and the melt test (snow.py:356-360)
+  __device__ bool prologue(const LaneInputs&, LaneRow, int lane,
+                           bool active, const SnowpackParams& p) {
+    const SnowTerms t0 = terms(0.0f);
+    store_terms(p.terms0 + lane, p.n, t0);
+    const bool melt = t0.rest == 0.0f;
+    p.melt_cond[lane] = melt;
+    const bool thin = !melt && surface_swq <= kMinSwqEbThres;
+    return active && !melt && !thin;
+  }
+
+  // the balance at the root, or at old_tsurf where the lane did not
+  // converge (TFALLBACK, snow.py:396-398)
+  __device__ void epilogue(const LaneInputs&, LaneRow, int lane,
+                           const BrentOut& out,
+                           const SnowpackParams& p) const {
+    store_terms(p.terms_b + lane, p.n,
+                terms(out.converged ? out.root : old_tsurf));
   }
 };
 
@@ -282,18 +344,33 @@ int glacier_brent(const int64_t* lanes, int nf, int nm, int h,
                       bracketed, iterations, stream);
 }
 
-// Replaces vic_tpu/physics/snow.py:443 (snow_melt's batched_brent). Bound
-// by latency and occupancy: one lane per thread, divergent Brent trip
-// counts, ~100 B read per lane. 21 float inputs in SnowpackResidual order
-// after dt; masks: [active, spatial] (spatial: SPATIAL_SNOW's advected
-// sensible heat in the residual, a flag broadcast to the lanes).
-int snowpack_brent(const int64_t* lanes, int nf, int nm, int h,
-                   const float* lo, const float* hi, float dt, int max_iter,
-                   int max_tries, int n, float* root, uint8_t* converged,
-                   uint8_t* bracketed, int32_t* iterations, void* stream) {
-  return launch_brent(snowpack_brent_kernel, lanes, nf, 21, nm, 2, h, lo, hi,
-                      dt, max_iter, max_tries, n, root, converged,
-                      bracketed, iterations, stream);
+// Replaces vic_tpu/physics/snow.py:443 (snow_melt's batched_brent) and the
+// two evaluations of snow_energy_terms around it (:387, the melt test at
+// 0 C, and :448, the terms at the accepted temperature). Bound by latency:
+// the solved lanes (a quarter of the lanes on light) run 2 to ~70 dependent
+// residual evaluations and lie scattered among the lanes the melt test,
+// thin packs or the mask leave out; every lane reads ~100 B and writes 22
+// terms, its melt test and the Brent's outputs. The lanes are compacted and
+// dealt to persistent threads (lane_brent.cuh), each lane's balance at 0 C
+// formed when its thread takes it. 21 float inputs in SnowpackResidual
+// order after dt, then lo and hi; masks: [active, spatial]; outputs: the
+// Brent's four, the terms at 0 C and at the accepted temperature
+// ([11, n] each, snow.SnowEBTerms' order) and melt_cond. Returns
+// cudaErrorInvalidValue on wrong counts, vicbrent::kNoResidentBlock where
+// no block fits on an SM.
+int snowpack_brent(const int64_t* lanes, int nf, int nm, int h, float dt,
+                   int max_iter, int max_tries, int n, float* root,
+                   uint8_t* converged, uint8_t* bracketed,
+                   int32_t* iterations, float* terms0, float* terms_b,
+                   uint8_t* melt_cond, void* stream) {
+  LaneInputs in{};
+  if (n <= 0 || max_iter < 0 || max_tries < 0 ||
+      !fill_lane_inputs(&in, lanes, nf, SnowpackLane::kNumIn + 2, nm, 2, h))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return vicbrent::launch_lane_brent<SnowpackLane>(
+      in, SnowpackParams{dt, n, terms0, terms_b, melt_cond}, max_iter,
+      max_tries, n, BrentOutputs{root, converged, bracketed, iterations},
+      static_cast<cudaStream_t>(stream));
 }
 
 // Replaces vic_tpu/physics/canopy_snow.py:270 (snow_intercept's

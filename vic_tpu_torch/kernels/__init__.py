@@ -133,21 +133,34 @@ def _check_launch(name, err):
     launches[name] += 1
 
 
-def _root_outputs(shape, device):
-    """A RootResult's four outputs over the lanes `shape` as slices of one
-    allocation: root, converged, bracketed, iterations."""
+def _lane_outputs(shape, device, floats=0, flags=0):
+    """A RootResult's four outputs over the lanes `shape`, `floats` more
+    float32 and `flags` more bool values a lane, all slices of one
+    allocation: (RootResult, the floats as one flat [floats * lanes]
+    tensor, the flags as [flags, *shape])."""
     n = 1
     for d in shape:
         n *= d
-    buf = torch.empty(10 * n, dtype=torch.uint8, device=device)
-    return RootResult(buf[:4 * n].view(torch.float32).view(shape),
-                      buf[8 * n:9 * n].view(torch.bool).view(shape),
-                      buf[9 * n:].view(torch.bool).view(shape),
-                      buf[4 * n:8 * n].view(torch.int32).view(shape))
+    f = 4 + 4 * floats     # root, then the floats
+    buf = torch.empty((f + 6 + flags) * n, dtype=torch.uint8, device=device)
+    root = RootResult(buf[:4 * n].view(torch.float32).view(shape),
+                      buf[f * n + 4 * n:f * n + 5 * n].view(torch.bool)
+                      .view(shape),
+                      buf[f * n + 5 * n:f * n + 6 * n].view(torch.bool)
+                      .view(shape),
+                      buf[f * n:f * n + 4 * n].view(torch.int32).view(shape))
+    return (root, buf[4 * n:f * n].view(torch.float32),
+            buf[f * n + 6 * n:].view(torch.bool).view((flags,) + shape))
 
 
-# csrc/lane_brent.cuh's refusal where no block of K3's or K14's kernel
-# fits on an SM
+def _root_outputs(shape, device):
+    """A RootResult's four outputs over the lanes `shape` as slices of one
+    allocation: root, converged, bracketed, iterations."""
+    return _lane_outputs(shape, device)[0]
+
+
+# csrc/lane_brent.cuh's refusal where no block of a lane kernel (K2, K3,
+# K5, K14) fits on an SM
 _NO_RESIDENT_BLOCK = -3
 
 
@@ -165,10 +178,9 @@ def _brent_call(name, float_names, flag_names, lo, hi, active, inputs,
     """The lanes of a root finder (K1-K3, K12, K17): returns (what the
     call must keep alive; the C arguments: the lane table of the float
     inputs and the masks (active first), their counts, the lanes per cell
-    and, unless bounds_in_table, lo and hi as contiguous copies; the
-    outputs, a RootResult; the lane count). With bounds_in_table
-    (csrc/lane_brent.cuh's kernels) lo and hi are the table's last two
-    float inputs, read where they lie."""
+    and, unless bounds_in_table, lo and hi as contiguous copies; the lanes'
+    shape). With bounds_in_table (csrc/lane_brent.cuh's kernels) lo and hi
+    are the table's last two float inputs, read where they lie."""
     device = lo.device
     if device.type != "cuda":
         raise ValueError(f"{name}: CUDA tensors required, got {device}")
@@ -185,9 +197,8 @@ def _brent_call(name, float_names, flag_names, lo, hi, active, inputs,
                 _lanes(hi, shape, device, torch.float32, "hi"))
         bounds = tuple(t.data_ptr() for t in keep)
     table = _lane_inputs(floats, masks, shape, device)
-    outs = _root_outputs(shape, device)
     args = (table.ctypes.data, len(floats), len(masks), shape[-1], *bounds)
-    return (table, keep), args, outs, outs.root.numel()
+    return (table, keep), args, shape
 
 
 def _out_ptrs(outs):
@@ -196,8 +207,10 @@ def _out_ptrs(outs):
 
 def _brent(name, float_names, flag_names, lo, hi, active, dt, max_iter,
            max_tries, inputs, bounds_in_table=False):
-    _keep, args, outs, n = _brent_call(name, float_names, flag_names, lo,
-                                       hi, active, inputs, bounds_in_table)
+    _keep, args, shape = _brent_call(name, float_names, flag_names, lo, hi,
+                                     active, inputs, bounds_in_table)
+    outs = _root_outputs(shape, lo.device)
+    n = outs.root.numel()
     if n:
         stream = torch.cuda.current_stream(lo.device).cuda_stream
         err = getattr(build.load(), name)(
@@ -216,22 +229,54 @@ def glacier_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
 
 
 def _snowpack_inputs(inputs, device):
-    """K2's inputs with SPATIAL_SNOW's coverage and flag: a zero and False
-    on `device` where snow_cover_fract is None or not given."""
+    """K2's and K17's inputs with SPATIAL_SNOW's coverage and flag: a zero
+    and False on `device` where snow_cover_fract is None or not given, and
+    a zero blowing-snow flux where blowing_flux is None (the constants made
+    once, _const)."""
     scf = inputs.get("snow_cover_fract")
+    spatial = scf is not None
+    blowing = inputs.get("blowing_flux")
     return dict(inputs, snow_cover_fract=(
-        torch.zeros((), dtype=torch.float32, device=device) if scf is None
-        else scf), spatial=(torch.zeros if scf is None else torch.ones)(
-            (), dtype=torch.bool, device=device))
+        scf if spatial else _const(device, torch.float32, 0.0)),
+        blowing_flux=(_const(device, torch.float32, 0.0) if blowing is None
+                      else blowing),
+        spatial=_const(device, torch.bool, spatial))
 
 
 def snowpack_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
-    """K2: expand-then-Brent on the snowpack surface residual, with
-    SPATIAL_SNOW's advected sensible heat where snow_cover_fract is given.
-    Same arguments and result as physics.snow.snowpack_brent_plain."""
-    return _brent("snowpack_brent", SNOWPACK_INPUTS, SNOWPACK_FLAGS, lo, hi,
-                  active, dt, max_iter, max_tries,
-                  _snowpack_inputs(inputs, lo.device))
+    """K2: snow.snow_melt's solve of the snowpack surface balance in one
+    launch, with SPATIAL_SNOW's advected sensible heat where
+    snow_cover_fract is given: on every lane the balance's terms at 0 C
+    and the melt test (their rest is 0); then expand-then-Brent on the
+    residual on the lanes of `active` (None: every lane) that neither melt
+    at 0 C nor are thin (surface_swq <= MIN_SWQ_EB_THRES), compacted and
+    dealt to persistent threads (csrc/lane_brent.cuh); then on every lane
+    the terms at the accepted temperature (the root, else old_tsurf). Same
+    arguments and result as physics.snow.snowpack_brent_plain, a
+    physics.snow.SnowpackSolve."""
+    from ..physics.snow import SnowEBTerms, SnowpackSolve
+    name = "snowpack_brent"
+    device = lo.device
+    if active is None:
+        active = _const(device, torch.bool, True)
+    _keep, args, shape = _brent_call(
+        name, SNOWPACK_INPUTS, SNOWPACK_FLAGS, lo, hi, active,
+        _snowpack_inputs(inputs, device), bounds_in_table=True)
+    nt = len(SnowEBTerms._fields)
+    outs, terms, flags = _lane_outputs(shape, device, floats=2 * nt,
+                                       flags=1)
+    terms = terms.view((2 * nt,) + tuple(shape))
+    n = outs.root.numel()
+    if n:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = build.load().snowpack_brent(
+            *args, float(dt), int(max_iter), int(max_tries), n,
+            *_out_ptrs(outs), terms[0].data_ptr(), terms[nt].data_ptr(),
+            flags[0].data_ptr(), stream)
+        _check_lane_brent(name, err)
+    return SnowpackSolve(*outs, melt_cond=flags[0],
+                         terms0=SnowEBTerms(*terms[:nt]),
+                         terms_b=SnowEBTerms(*terms[nt:]))
 
 
 def canopy_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
@@ -262,8 +307,10 @@ def bisection(residual, lo, hi, active, n_iter=40, *, dt, **inputs):
     code, floats, flags = BISECTION_RESIDUALS[residual]
     if residual == "snowpack":
         inputs = _snowpack_inputs(inputs, lo.device)
-    _keep, args, outs, n = _brent_call(name, floats, flags, lo, hi, active,
-                                       inputs)
+    _keep, args, shape = _brent_call(name, floats, flags, lo, hi, active,
+                                     inputs)
+    outs = _root_outputs(shape, lo.device)
+    n = outs.root.numel()
     if n:
         stream = torch.cuda.current_stream(lo.device).cuda_stream
         err = build.load().bisection(code, *args, float(dt), int(n_iter), n,
@@ -387,16 +434,17 @@ def surface_inputs(eb_kwargs):
     return named
 
 
-_zeros = {}
+_consts = {}
 
 
-def _zero(device, dtype):
-    """A 0-d zero of `dtype` on `device`, made once: the stand-in for the
-    inputs a kernel never reads, without a fill launch per call."""
-    key = (device, dtype)
-    if key not in _zeros:
-        _zeros[key] = torch.zeros((), dtype=dtype, device=device)
-    return _zeros[key]
+def _const(device, dtype, value):
+    """A 0-d `value` of `dtype` on `device`, made once: the stand-in for an
+    input a kernel never reads or a flag broadcast to its lanes, without a
+    fill launch per call."""
+    key = (device, dtype, value)
+    if key not in _consts:
+        _consts[key] = torch.full((), value, dtype=dtype, device=device)
+    return _consts[key]
 
 
 def _surface_lanes(name, lo, hi, active, eb_kwargs, extra=()):
@@ -418,54 +466,76 @@ def _surface_lanes(name, lo, hi, active, eb_kwargs, extra=()):
     dist = eb_kwargs.get("dist_dry") is not None
     if not dist:
         named.update(dict.fromkeys(DRY_INPUTS + DRY_LAYER_INPUTS,
-                                   _zero(device, f32)),
-                     case1_dry=_zero(device, flag))
+                                   _const(device, f32, 0.0)),
+                     case1_dry=_const(device, flag, False))
     floats = ([(k, named[k], 0) for k in SURFACE_INPUTS]
               + [(k, named[k], nl) for k in SURFACE_LAYER_INPUTS]
               + [(k, named[k], 0) for k in DRY_INPUTS]
               + [(k, named[k], nl) for k in DRY_LAYER_INPUTS])
     masks = [(k, named[k], 0) for k in SURFACE_MASKS + DRY_MASKS]
     frozen = bool(eb_kwargs.get("frozen_soil"))
-    floats += [(k, eb_kwargs[k] if frozen else _zero(device, f32), 0)
+    floats += [(k, eb_kwargs[k] if frozen else _const(device, f32, 0.0), 0)
                for k in FD_SURFACE_INPUTS]
     masks.append(("fs_active", eb_kwargs["fs_active"] if frozen
-                  else _zero(device, flag), 0))
+                  else _const(device, flag, False), 0))
     floats += extra
     table = _lane_inputs(floats, masks, shape, device)
     return shape, nl, dist, table, len(floats), len(masks)
 
 
+# K5's bracket, its last float inputs (csrc/surface_brent.cu BoundIn)
+SURFACE_BOUNDS = ("lo", "hi")
+# the terms K5 writes at the accepted temperature, n floats each, in the
+# order of csrc/surface_brent.cu's Term and, with DIST_PRCP, DryTerm: fields
+# of physics.surface.SurfEBResult (layer_evap and, with DIST_PRCP,
+# layer_evap_dry follow them as [lanes, nl] each)
+SURFACE_TERMS = ("error", "t1", "grnd_flux", "delta_h", "fusion",
+                 "latent_heat", "latent_heat_sub", "sensible_heat",
+                 "snow_flux", "net_long_bare", "evap", "canopy_evap_mm",
+                 "throughfall", "wdew_new", "refreeze_energy", "delta_cc",
+                 "inc_vapor_flux")
+SURFACE_DRY_TERMS = ("canopy_evap_mm_dry", "throughfall_dry", "wdew_new_dry",
+                     "evap_dry")
+
+
 def surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     """K5: expand-then-Brent on the QUICK_FLUX soil-surface residual, with
-    FROZEN_SOIL's fusion term where eb_kwargs["frozen_soil"], one thread
-    per lane. Same arguments and result as
-    physics.surface.surface_brent_plain (iterations per lane)."""
+    FROZEN_SOIL's fusion term where eb_kwargs["frozen_soil"], the active
+    lanes compacted and dealt to persistent threads (csrc/lane_brent.cuh),
+    and on every lane the balance's terms at the accepted temperature (the
+    root, else TFALLBACK's eb_kwargs["ts_old"]). Same arguments and result
+    as physics.surface.surface_brent_plain, a physics.surface.SurfaceSolve
+    (iterations per lane; net_short_bare is the input itself, as there)."""
+    from ..physics.surface import SurfaceSolve, SurfEBResult
     name = "surface_brent"
     if eb_kwargs.get("fd_solve") is not None \
             or eb_kwargs.get("fd_interp") is not None:
         raise ValueError(f"{name}: solves the QUICK_FLUX residual only")
-    shape, nl, dist, table, nf, nm = _surface_lanes(name, lo, hi, active,
-                                                    eb_kwargs)
-    device, f32 = lo.device, torch.float32
-    lo_c = _lanes(lo, shape, device, f32, "lo")
-    hi_c = _lanes(hi, shape, device, f32, "hi")
-    root = torch.empty(shape, dtype=f32, device=device)
-    converged = torch.empty(shape, dtype=torch.bool, device=device)
-    bracketed = torch.empty(shape, dtype=torch.bool, device=device)
-    iterations = torch.empty(shape, dtype=torch.int32, device=device)
-    n = root.numel()
+    shape, nl, dist, table, nf, nm = _surface_lanes(
+        name, lo, hi, active, eb_kwargs,
+        extra=[(k, t, 0) for k, t in zip(SURFACE_BOUNDS, (lo, hi))])
+    device = lo.device
+    nt = len(SURFACE_TERMS) + (len(SURFACE_DRY_TERMS) if dist else 0)
+    nlt = nl * (2 if dist else 1)
+    outs, flat, _ = _lane_outputs(shape, device, floats=nt + nlt)
+    n = outs.root.numel()
+    terms = flat[:nt * n].view((nt,) + tuple(shape))
+    layer = flat[nt * n:].view((nlt // nl,) + tuple(shape) + (nl,))
     if n:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = build.load().surface_brent(
-            table.ctypes.data, nf, nm, shape[-1],
-            nl, int(dist), lo_c.data_ptr(), hi_c.data_ptr(),
+            table.ctypes.data, nf, nm, shape[-1], nl, int(dist),
             float(eb_kwargs["delta_t"]),
             int(eb_kwargs.get("grnd_flux_type", 1)),
             int(bool(eb_kwargs.get("frozen_soil"))), int(max_iter), MAXTRIES,
-            n, root.data_ptr(), converged.data_ptr(), bracketed.data_ptr(),
-            iterations.data_ptr(), stream)
-        _check_launch(name, err)
-    return RootResult(root, converged, bracketed, iterations)
+            n, *_out_ptrs(outs), flat.data_ptr(), layer.data_ptr(), stream)
+        _check_lane_brent(name, err)
+    named = dict(zip(SURFACE_TERMS + SURFACE_DRY_TERMS, terms))
+    if dist:
+        named["layer_evap_dry"] = layer[1]
+    return SurfaceSolve(*outs, terms=SurfEBResult(
+        net_short_bare=eb_kwargs["shortwave_net_bare"],
+        layer_evap=layer[0], **named))
 
 
 # FROZEN_SOIL's fusion inputs and frozen-soil mask of K5, K7 and K14, after
@@ -489,12 +559,12 @@ class FdRootResult(NamedTuple):
 
 
 def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
-    """K7: the batch-wide Brent of physics.surface.surface_brent_plain on
+    """K7: the batch-wide Brent of physics.surface.surface_root_plain on
     the finite-difference residual as ONE cooperative launch: every
     residual evaluation solves the node profile of eb_kwargs["fd_solve"]
     (a physics.frozen_soil.NodeSolve) at the candidates of all lanes with
     K6's sweeps inside the same launch, and every decision of the loop is
-    taken on the device. Same arguments as surface_brent_plain; returns an
+    taken on the device. Same arguments as surface_root_plain; returns an
     FdRootResult."""
     from ..physics.frozen_soil import NodeSolve
     name = "fd_surface_brent"
@@ -552,7 +622,7 @@ def affine_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     1-2 are interpolated affinely between two probe profiles,
     eb_kwargs["fd_interp"] = (ts_a, t_a, ts_b, t_b), the active lanes
     compacted and dealt to persistent threads (csrc/lane_brent.cuh). Same
-    arguments and result as physics.surface.surface_brent_plain on that
+    arguments and result as physics.surface.surface_root_plain on that
     residual (iterations per lane)."""
     name = "affine_surface_brent"
     fd_interp = eb_kwargs.get("fd_interp")

@@ -86,10 +86,13 @@ _BRENT_ARGTYPES = (_LANES + [ctypes.c_int, ctypes.c_void_p,
 # K3 on csrc/lane_brent.cuh: lo and hi are lane inputs
 _LANE_BRENT_ARGTYPES = (_LANES + [ctypes.c_int, ctypes.c_float]
                         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+# K2 on it: K3's, then the terms at 0 C and at the root and the melt test
+_SNOWPACK_ARGTYPES = _LANE_BRENT_ARGTYPES + [ctypes.c_void_p] * 3
 _RUNOFF_ARGTYPES = (_FLOATS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4)
-_SURFACE_ARGTYPES = (_LANES + [ctypes.c_int] * 3
-                     + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float]
-                     + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5)
+# K5: lanes per cell, layers, dist; dt; the ground-flux type, frozen and
+# the Brent's counts; its four outputs, the terms, the layer terms, stream
+_SURFACE_ARGTYPES = (_LANES + [ctypes.c_int] * 3 + [ctypes.c_float]
+                     + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7)
 _AFFINE_SURFACE_ARGTYPES = (_LANES + [ctypes.c_int] * 4 + [ctypes.c_float]
                             + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5)
 # the node solve of K6 and K7: the lane, geometry and frozen-soil pointers,
@@ -132,11 +135,12 @@ def load():
     if _lib is None:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
-        for name in ("glacier_brent", "snowpack_brent", "lake_ice_brent"):
+        for name in ("glacier_brent", "lake_ice_brent"):
             fn = getattr(lib, name)
             fn.argtypes = _BRENT_ARGTYPES
             fn.restype = ctypes.c_int
         for name, argtypes in (("canopy_brent", _LANE_BRENT_ARGTYPES),
+                               ("snowpack_brent", _SNOWPACK_ARGTYPES),
                                ("runoff_hourly", _RUNOFF_ARGTYPES),
                                ("surface_brent", _SURFACE_ARGTYPES),
                                ("node_sweep", _SWEEP_ARGTYPES),

@@ -570,14 +570,16 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                                   rainfall=torch.zeros_like(rainfall)),
                     evap_pre_dry=build_evap_pre(moist_d, ice_d, **pre_args),
                     mu_wet=mu)
-            ts, fb, fd_interp = solve_surface_temperature(
+            ts, fb, fd_interp, eb = solve_surface_temperature(
                 eb_kwargs, state.node_temp[..., 0], tca,
                 max_iter=gp.brent_maxiter, active=p.mask,
                 fd_affine=fd_cheap and gp.fd_affine_residual)
-            # the accepted root's terms on the profile the Brent used
-            eb = surf_energy_terms(ts, **(
-                eb_kwargs if fd_interp is None
-                else dict(eb_kwargs, fd_solve=None, fd_interp=fd_interp)))
+            if eb is None:
+                # finite differences: the accepted root's terms on the
+                # profile the Brent used (the QUICK_FLUX solve returns them)
+                eb = surf_energy_terms(ts, **(
+                    eb_kwargs if fd_interp is None
+                    else dict(eb_kwargs, fd_solve=None, fd_interp=fd_interp)))
 
             # thin-pack update from the joint solution
             # (calc_surf_energy_bal.c:589-660)

@@ -5,10 +5,12 @@ Counterpart of `vic_tpu/physics/snow.py`; the BLOWING option's mass flux
 enters the surface vapor flux, and under SPATIAL_SNOW the pack covers a
 fraction of the lane (`calc_snow_coverage`, the depletion curve) and takes
 the sensible heat advected from its snow-free patches
-(`advected_sensible_heat`). The subfreezing surface temperature is a Brent
-root of `snow_energy_terms`: on the CPU through `snowpack_brent_plain`, on a
-CUDA device through the `snowpack_brent` kernel (`csrc/vic_kernels.cu`,
-its residual in `csrc/pack_residuals.cuh`).
+(`advected_sensible_heat`). The balance's terms at 0 C (the melt test),
+the subfreezing surface temperature, a Brent root of `snow_energy_terms`,
+and the terms at that temperature come from one call: on the CPU
+`snowpack_brent_plain`, on a CUDA device the `snowpack_brent` kernel
+(`csrc/vic_kernels.cu` on `csrc/lane_brent.cuh`, its residual in
+`csrc/pack_residuals.cuh`).
 """
 from __future__ import annotations
 
@@ -251,13 +253,44 @@ def snow_energy_terms(tsurf, *, dt, ra, z_ref, roughness, air_dens, vp_air,
         grnd_flux=grnd_flux, net_long=net_long, advected_sensible=adv_sens)
 
 
+class SnowpackSolve(NamedTuple):
+    """snow_melt's solve of the pack's surface balance: the Brent's result
+    (ops.rootfind.RootResult's fields), the melt test (the balance at 0 C
+    is 0), and the balance's terms at 0 C and at the accepted temperature
+    (the root, or old_tsurf where the lane did not converge)."""
+    root: torch.Tensor
+    converged: torch.Tensor
+    bracketed: torch.Tensor
+    iterations: torch.Tensor
+    melt_cond: torch.Tensor
+    terms0: SnowEBTerms
+    terms_b: SnowEBTerms
+
+
 def snowpack_brent_plain(lo, hi, active, *, dt, max_iter, max_tries,
                          **inputs):
-    """Plain version of the `snowpack_brent` kernel: expand-then-Brent on
-    `snow_energy_terms(t).rest` (snow.py:443 of the JAX package)."""
-    return batched_brent(
+    """Plain version of the `snowpack_brent` kernel: snow_energy_terms at
+    0 C and its melt test (snow.py:387 of the JAX package), expand-then-
+    Brent on `snow_energy_terms(t).rest` on the lanes of `active` (None:
+    every lane) that neither melt at 0 C nor are thin (:443), and the terms
+    at the accepted temperature (:448). A SnowpackSolve."""
+    if inputs.get("blowing_flux") is None:
+        inputs = dict(inputs, blowing_flux=0.0)
+    terms0 = snow_energy_terms(torch.zeros_like(lo), dt=dt, **inputs)
+    melt_cond = terms0.rest == 0.0
+    # INCLUDE_SNOW candidacy (snow_melt.c:324)
+    thin = ~melt_cond & (inputs["surface_swq"] <= c.MIN_SWQ_EB_THRES)
+    solved = ~melt_cond & ~thin
+    if active is not None:
+        solved = solved & active
+    res = batched_brent(
         lambda t: snow_energy_terms(t, dt=dt, **inputs).rest, lo, hi,
-        max_iter=max_iter, max_tries=max_tries, active=active)
+        max_iter=max_iter, max_tries=max_tries, active=solved)
+    b_surf_temp = torch.where(res.converged, res.root,
+                              inputs["old_tsurf"])   # TFALLBACK
+    return SnowpackSolve(*res, melt_cond=melt_cond, terms0=terms0,
+                         terms_b=snow_energy_terms(b_surf_temp, dt=dt,
+                                                   **inputs))
 
 
 class SnowMeltResult(NamedTuple):
@@ -287,7 +320,9 @@ def snow_melt(*, swq, surf_temp, pack_temp, surf_water, pack_water,
     """Two-layer snowpack mass/energy update (snow_melt.c:119-560); snow
     states in m of water, precip in mm/step. See vic_tpu/physics/snow.py.
     blowing_flux: the BLOWING option's mass flux (kg/m2/s), a tensor that
-    broadcasts to the lanes; none (zero) by default. snow_cover_fract:
+    broadcasts to the lanes; none (zero) by default. The balance at 0 C,
+    the Brent solve and the balance at its root are one call (K2 on the
+    card, snowpack_brent_plain on the CPU). snow_cover_fract:
     SPATIAL_SNOW's coverage, which puts the advected sensible heat in the
     pack's balance; none by default."""
     W = torch.where
@@ -343,18 +378,21 @@ def snow_melt(*, swq, surf_temp, pack_temp, surf_water, pack_water,
     surf_water = surf_water + rainfall
 
     term_kwargs = dict(
-        dt=dt_sec, ra=ra, z_ref=z_ref, roughness=roughness,
+        ra=ra, z_ref=z_ref, roughness=roughness,
         air_dens=air_dens, vp_air=vp_air, longwave_in=longwave_in, lv=lv,
         pressure=pressure, rain_m=rainfall, net_short=net_short, vpd=vpd,
         wind=wind, old_tsurf=old_tsurf, snow_depth=snow_depth,
         snow_density=snow_density, surf_water=surf_water,
         surface_swq=surface_swq, tair=tcanopy, tgrnd=tgrnd,
-        blowing_flux=(swq.new_zeros(()) if blowing_flux is None
-                      else blowing_flux),
-        snow_cover_fract=snow_cover_fract)
+        blowing_flux=blowing_flux, snow_cover_fract=snow_cover_fract)
 
-    terms0 = snow_energy_terms(torch.zeros_like(swq), **term_kwargs)
-    melt_cond = terms0.rest == 0.0
+    # the balance at 0 C and its melt test, the Brent solve of branch B
+    # (subfreezing surface) and the balance at its root, in one call
+    solve = (snowpack_brent_plain if swq.device.type == "cpu"
+             else kernels.snowpack_brent)
+    res = solve(old_tsurf - c.SNOW_DT, old_tsurf + c.SNOW_DT, active_mask,
+                dt=dt_sec, max_iter=max_iter, max_tries=5, **term_kwargs)
+    terms0, melt_cond = res.terms0, res.melt_cond
     # INCLUDE_SNOW candidacy (snow_melt.c:324)
     thin = ~melt_cond & (surface_swq <= c.MIN_SWQ_EB_THRES)
 
@@ -388,17 +426,10 @@ def snow_melt(*, swq, surf_temp, pack_temp, surf_water, pack_water,
         pack_temp=W(partial, pack_temp, 0.0),
         vapor_flux=vflux_a)
 
-    # ---- branch B: subfreezing surface, Brent solve ----
-    brent_active = ~melt_cond & ~thin
-    if active_mask is not None:
-        brent_active = brent_active & active_mask
-    solve = (snowpack_brent_plain if swq.device.type == "cpu"
-             else kernels.snowpack_brent)
-    res = solve(old_tsurf - c.SNOW_DT, old_tsurf + c.SNOW_DT, brent_active,
-                max_iter=max_iter, max_tries=5, **term_kwargs)
+    # ---- branch B: subfreezing surface, at the Brent's root ----
     b_surf_temp = W(res.converged, res.root, old_tsurf)   # TFALLBACK
     fbflag = ~res.converged & ~melt_cond
-    terms_b = snow_energy_terms(b_surf_temp, **term_kwargs)
+    terms_b = res.terms_b
 
     b_surface_swq = surface_swq + surf_water
     b_ice = ice + surf_water

@@ -12,13 +12,15 @@ dry column and the latent term sees their mu-weighted sum
 (canopy_evap.c:124-206).
 
 The Brent solve of a CUDA tensor: on the QUICK_FLUX path the
-`surface_brent` kernel (one thread per lane, `csrc/surface_brent.cu`); on
-the finite-difference path, whose residual runs the batch-wide node sweep,
-the `fd_surface_brent` kernel sequence (`csrc/fd_surface_brent.cu`); on the
-affine two-probe form of that residual (fd_affine) the
-`affine_surface_brent` kernel (one thread per lane,
-`csrc/affine_surface_brent.cu`). On the CPU the plain batch loop
-`surface_brent_plain`.
+`surface_brent` kernel (`csrc/surface_brent.cu` on `csrc/lane_brent.cuh`),
+which also writes the balance's terms at the accepted temperature; on the
+finite-difference path, whose residual runs the batch-wide node sweep, the
+`fd_surface_brent` kernel (`csrc/fd_surface_brent.cu`, one cooperative
+launch); on the affine two-probe form of that residual (fd_affine) the
+`affine_surface_brent` kernel (`csrc/affine_surface_brent.cu` on
+`csrc/lane_brent.cuh`). On the CPU the plain batch loop: on the QUICK_FLUX
+path `surface_brent_plain` (the terms at the root too), elsewhere
+`surface_root_plain`.
 """
 from __future__ import annotations
 
@@ -248,11 +250,34 @@ def surf_energy_terms(
         node_fbcount=node_fbcount, **dry)
 
 
-def surface_brent_plain(lo, hi, active, *, max_iter: int, eb_kwargs):
-    """Plain version of the `surface_brent` kernel: the batch-wide Brent
-    (ops/rootfind.py) on surf_energy_terms(t, **eb_kwargs).error."""
+class SurfaceSolve(NamedTuple):
+    """The QUICK_FLUX surface solve: the Brent's result
+    (ops.rootfind.RootResult's fields) and the balance's terms at the
+    accepted temperature, the root or, where the lane did not converge,
+    TFALLBACK's carried surface temperature eb_kwargs["ts_old"]."""
+    root: torch.Tensor
+    converged: torch.Tensor
+    bracketed: torch.Tensor
+    iterations: torch.Tensor
+    terms: SurfEBResult
+
+
+def surface_root_plain(lo, hi, active, *, max_iter: int, eb_kwargs):
+    """Plain version of the `fd_surface_brent` and `affine_surface_brent`
+    kernels: the batch-wide Brent (ops/rootfind.py) on
+    surf_energy_terms(t, **eb_kwargs).error."""
     return batched_brent(lambda t: surf_energy_terms(t, **eb_kwargs).error,
                          lo, hi, max_iter=max_iter, active=active)
+
+
+def surface_brent_plain(lo, hi, active, *, max_iter: int, eb_kwargs):
+    """Plain version of the `surface_brent` kernel: surface_root_plain, then
+    surf_energy_terms at the accepted temperature (TFALLBACK to
+    eb_kwargs["ts_old"]). A SurfaceSolve."""
+    res = surface_root_plain(lo, hi, active, max_iter=max_iter,
+                             eb_kwargs=eb_kwargs)
+    ts = torch.where(res.converged, res.root, eb_kwargs["ts_old"])
+    return SurfaceSolve(*res, terms=surf_energy_terms(ts, **eb_kwargs))
 
 
 def solve_surface_temperature(kwargs, t0_old, tair, max_iter: int = 30,
@@ -270,7 +295,10 @@ def solve_surface_temperature(kwargs, t0_old, tair, max_iter: int = 30,
     CUDA tensors take the `surface_brent` kernel on the QUICK_FLUX
     residual, `fd_surface_brent` on the finite-difference one and
     `affine_surface_brent` on its affine form; the CPU takes
-    `surface_brent_plain`. Returns (Ts, fbflag, fd_interp or None)."""
+    `surface_brent_plain` on the QUICK_FLUX residual, `surface_root_plain`
+    on the others. t0_old is the balance's own carried temperature,
+    kwargs["ts_old"]. Returns (Ts, fbflag, fd_interp or None, the terms at
+    Ts on the QUICK_FLUX path or None)."""
     mid = 0.5 * (t0_old + tair)
     inc = kwargs["inc_mask"]
     t_lower = torch.where(inc, t0_old - c.SURF_DT, mid - c.SURF_DT)
@@ -283,15 +311,16 @@ def solve_surface_temperature(kwargs, t0_old, tair, max_iter: int = 30,
         fd_interp = (t_lower, fd_solve(t_lower).temp, t_upper,
                      fd_solve(t_upper).temp)
         kwargs = dict(kwargs, fd_solve=None, fd_interp=fd_interp)
+    quick = fd_interp is None and kwargs.get("fd_solve") is None
     if t0_old.device.type == "cpu":
-        solve = surface_brent_plain
+        solve = surface_brent_plain if quick else surface_root_plain
+    elif quick:
+        solve = kernels.surface_brent
     elif fd_interp is not None:
         solve = kernels.affine_surface_brent
-    elif kwargs.get("fd_solve") is None:
-        solve = kernels.surface_brent
     else:
         solve = kernels.fd_surface_brent
     res = solve(t_lower, t_upper, active, max_iter=max_iter,
                 eb_kwargs=kwargs)
     ts = torch.where(res.converged, res.root, t0_old)  # TFALLBACK
-    return ts, ~res.converged, fd_interp
+    return ts, ~res.converged, fd_interp, res.terms if quick else None
