@@ -37,21 +37,26 @@ line) on failure:
    step, 40 steps. Each row's kernel is re-run on those arguments beside its
    plain PyTorch version on the card, compared, timed with CUDA events and
    given its bound (the least time the card could take for the same
-   work); K2's, K3's, K5's and K14's rows also print their lanes' warp
-   efficiency and waves (tools/profile_lane_brent.py's definitions). K5's
-   terms and K2's terms at its root are held against the plain terms at
-   the kernel's own accepted temperature, K2's melt test and terms at 0 C
-   against its plain version's, on every form and every lane, each field
-   at TERMS_RTOL and its unit's absolute limit
-   (vic_tpu_torch.testing.terms_atol: water depths at TERMS_WATER_ATOL_M
-   m, the residual at the root at TERMS_RESIDUAL_ATOL W/m^2); a lane whose
-   melt test differs is printed and allowed only within MELT_TIE_ULPS of
-   the tie. K6 and K7 are also held
+   work); K1's, K2's, K3's, K5's and K14's rows also print their lanes'
+   warp efficiency and waves (tools/profile_lane_brent.py's definitions).
+   K5's terms, K2's terms at its root and K1's terms, cold content and
+   vapour loss at its accepted temperature are held against the plain
+   ones at the kernel's own accepted temperature, K2's melt test and terms
+   at 0 C and K1's melt test and melt against their plain versions', on
+   every form and every lane (K1 on light's first record and again on
+   blowing_close's, heavy_nolakes' and heavy's), each field at TERMS_RTOL
+   and its unit's absolute limit (vic_tpu_torch.testing.terms_atol: water
+   depths at TERMS_WATER_ATOL_M m, the residual at the root at
+   TERMS_RESIDUAL_ATOL W/m^2); a lane whose melt test differs is printed
+   and allowed only within MELT_TIE_ULPS of the tie. K4 is held against
+   the plain runoff_step, every field of RunoffResult at RUNOFF_TOL, on
+   light's, frozen's, heavy_nolakes' (both columns) and heavy's
+   arguments. K6 and K7 are also held
    where a NaN reaches the node profile: frozen_exp's configuration with
    CONTINUEONERROR and NaN air temperature in NAN_CELLS cells, on the first
    record with the NaN (equal Brent trips, profile solves and sweeps; the
-   other lanes within their bounds); K2 and K5 where it reaches their
-   lanes: spatial_snow's step with NaN air in NAN_CELLS cells, record
+   other lanes within their bounds); K2, K5, K1 and K4 where it reaches
+   their lanes: spatial_snow's step with NaN air in NAN_CELLS cells, record
    NAN_FROM (NaN at the plain version's elements, terms included).
 3. reference: each configuration's fixture size (16 cells x 4 records,
    spatial_snow's too;
@@ -66,8 +71,10 @@ line) on failure:
    port (ops.rootfind.batched_brent and batched_bisection,
    ops.tridiag.thomas_solve and each *_plain) made to fail if it is
    handed a CUDA tensor during the run, and no plain evaluation of the
-   snowpack balance (K2 returns its terms) or, on K5's paths, of the
-   surface balance (K5 returns its terms) allowed;
+   snowpack balance (K2 returns its terms), the glacier balance (K1
+   returns its terms), the infiltration curve (K4 computes runoff_step)
+   or, on K5's paths, of the surface balance (K5 returns its terms)
+   allowed;
    frozen_exp also times its SPATIAL_FROST layer ice; then frozen_exp's
    configuration at 3, 18 and 50 nodes, 4,096 cells x 8 records, the same
    way. Each row's launches in the kernels line are its kernel's count in
@@ -106,6 +113,7 @@ line) on failure:
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches, errors, times and bounds.
 """
+import collections
 import dataclasses
 import importlib
 import importlib.util
@@ -168,7 +176,7 @@ KERNELS = {
     "canopy_brent": ("vic_kernels.cu", "vic_tpu/physics/canopy_snow.py:270",
                      "canopy_snow", "canopy_brent_plain", "light"),
     "runoff_hourly": ("vic_kernels.cu", "vic_tpu/physics/runoff.py:171",
-                      "runoff", "runoff_hourly_plain", "light"),
+                      "runoff", "runoff_step_plain", "light"),
     "surface_brent": ("surface_brent.cu", "vic_tpu/physics/surface.py:438",
                       "surface", "surface_brent_plain", "light"),
     "node_sweep": ("node_sweep.cu", "vic_tpu/physics/frozen_soil.py:311",
@@ -220,12 +228,12 @@ HEAVY_LAKE_TIMED = {"lake_ice_brent": "heavy, with the blowing-snow flux",
                     "blowing_snow": "heavy, lake lanes"}
 SURFACE_KERNELS = ("surface_brent", "fd_surface_brent", "affine_surface_brent")
 # the kernels on csrc/lane_brent.cuh's driver
-LANE_BRENT_KERNELS = ("snowpack_brent", "canopy_brent", "surface_brent",
-                      "affine_surface_brent")
+LANE_BRENT_KERNELS = ("glacier_brent", "snowpack_brent", "canopy_brent",
+                      "surface_brent", "affine_surface_brent")
 # the kernels that also write their balance's terms (K2 at 0 C and at the
-# root, K5 at the root), held against their plain versions' at
-# testing.terms_atol
-TERMS_KERNELS = ("snowpack_brent", "surface_brent")
+# root, K5 at the root, K1 its melt at 0 C and its terms at the accepted
+# temperature), held against their plain versions' at testing.terms_atol
+TERMS_KERNELS = ("glacier_brent", "snowpack_brent", "surface_brent")
 # the configurations with DIST_PRCP: their surface residuals carry the dry
 # column
 DIST_PRCP_CONFIGS = ("dist_prcp", "heavy_nolakes", "heavy")
@@ -262,6 +270,9 @@ RECORD = {"frozen": FROZEN_RECORD, "blowing_close": BLOWING_RECORD,
           "spatial_snow": SPATIAL_SNOW_RECORD}
 NTH = {"heavy_nolakes": {"runoff_hourly": 1},
        "heavy": {"runoff_hourly": 1, "blowing_snow": 1}}
+# the calls also captured, and held like the one of NTH: the heavy_nolakes
+# step's first K4 call, the wet column's
+ALSO_CALLS = {"heavy_nolakes": {"runoff_hourly": (0,)}}
 # the node counts that replace frozen_exp's 10 in K6's rows and slices at
 # NODE_COUNT_CELLS cells
 NODE_COUNTS = (3, 18, 50)
@@ -288,14 +299,15 @@ ROWS.update({
     "bisection/glacier": ("bisection", "light", None),
 })
 # the steps whose arguments each kernel is also held on, besides its own
-# configuration's: the frozen step's K4, the blowing_close step's K2 and K5
-# (a blowing-snow flux in their residuals), the dist_prcp step's K5
+# configuration's: the frozen step's K4, the blowing_close step's K1, K2
+# and K5 (CLOSE_ENERGY's first pass; a blowing-snow flux in K2's and K5's
+# residuals), the dist_prcp step's K5
 # (DIST_PRCP's dry column), the heavy_nolakes step's every kernel of its
 # path (K4's dry column, K6's lower probe, K7 with the dry column), and the
 # heavy step's every kernel of its path (K8's call on the lake lanes, K12
 # with the blowing-snow flux over lake ice; K5 is not on it)
 ALSO_ON = {
-    "glacier_brent": ("heavy_nolakes", "heavy"),
+    "glacier_brent": ("blowing_close", "heavy_nolakes", "heavy"),
     "snowpack_brent": ("blowing_close", "heavy_nolakes", "heavy"),
     "canopy_brent": ("heavy_nolakes", "heavy"),
     "runoff_hourly": ("frozen", "heavy_nolakes", "heavy"),
@@ -337,6 +349,7 @@ RESIDUAL_OPS = {"glacier_brent": 55 + 30, "snowpack_brent": 55 + 30,
                 "canopy_brent": 70 + 30, "surface_brent": 150 + 30}
 FUSION_OPS = 20                   # the fusion term of K5, K7 and K14
 RUNOFF_OPS_PER_LAYER_HOUR = 30
+RUNOFF_ARNO_OPS = 30              # the infiltration curve, 3 powf
 SWEEP_OPS_PER_NODE = 20           # t_lin and the bookkeeping
 # floats a sweep streams per lane and node: five node properties and the
 # iterate read and written (sweep_bytes)
@@ -450,31 +463,36 @@ def clone_args(obj):
 
 
 def capture_kernel_args(config, names, device, record=0, calls=None,
-                        nth=None, build=None, cells=None):
+                        nth=None, build=None, cells=None, also=None):
     """Run `config` at its slice's size (or `cells`; build(n_cell, n_rec,
     device) in place of its builder, if given) up to its record `record`
     with each binding in `names` wrapped in that record's step; returns
     {kernel: (args, kwargs)} of its first call there, or of its call number
-    nth[kernel] (from 0), and counts each kernel's calls in that step into
-    the dict `calls`, if given. Names in MODEL_RESULTS are functions of
-    vic_tpu_torch.model whose result is taken in place of their
-    arguments."""
+    nth[kernel] (from 0), and of its calls number k in also[kernel] under
+    "kernel@k", and counts each kernel's calls in that step into the dict
+    `calls`, if given. A name that is not a kernel binding is a function of
+    vic_tpu_torch.model; of those in MODEL_RESULTS the result is taken in
+    place of the arguments."""
     from vic_tpu_torch import kernels, model
     from vic_tpu_torch.model import make_step
 
     captured = {}
-    home = {name: model if name in MODEL_RESULTS else kernels
+    home = {name: kernels if hasattr(kernels, name) else model
             for name in names}
     originals = {name: getattr(home[name], name) for name in names}
     calls = {} if calls is None else calls
-    nth = nth or {}
+    nth, also = nth or {}, also or {}
 
     def wrap(name, fn):
         def wrapper(*args, **kwargs):
-            first = calls.get(name, 0) == nth.get(name, 0)
-            calls[name] = calls.get(name, 0) + 1
+            k = calls.get(name, 0)
+            first = k == nth.get(name, 0)
+            calls[name] = k + 1
             if first and name not in MODEL_RESULTS:
                 captured[name] = (clone_args(args), clone_args(kwargs))
+            elif k in also.get(name, ()):
+                captured[f"{name}@{k}"] = (clone_args(args),
+                                           clone_args(kwargs))
             out = fn(*args, **kwargs)
             if first and name in MODEL_RESULTS:
                 captured[name] = clone_args(out)
@@ -592,15 +610,20 @@ def compare_canopy_air(kern, plain, label):
 
 
 def compare_runoff(kern, plain, label):
+    """K4's RunoffResult against the plain runoff_step's, every field at
+    rtol = atol = RUNOFF_TOL, NaN at the same elements; returns the
+    largest difference."""
     worst = 0.0
-    for part, a, b in zip(("liq", "runoff_extra", "baseflow"), kern, plain):
-        diff = (a - b).abs()
+    for part, a, b in zip(kern._fields, kern, plain):
+        na, nb = torch.isnan(a), torch.isnan(b)
+        diff = torch.where(na | nb, 0.0, (a - b).abs())
         worst = max(worst, float(diff.max()))
-        bad = diff > RUNOFF_TOL + RUNOFF_TOL * b.abs()
+        bad = int((diff > RUNOFF_TOL + RUNOFF_TOL * b.abs()).sum())
+        nan_dis = int((na != nb).sum())
         print(f"  runoff_hourly ({label}) {part}: max |diff| "
               f"{float(diff.max()):.3e}, outside rtol=atol={RUNOFF_TOL}: "
-              f"{int(bad.sum())}")
-        if bool(bad.any()):
+              f"{bad}, NaN elements {int(nb.sum())} ({nan_dis} apart)")
+        if bad or nan_dis:
             raise AssertionError(f"runoff_hourly ({label}) {part} outside "
                                  "tolerance")
     return worst
@@ -820,19 +843,23 @@ def brent_work(name, args, kwargs, kern):
     act = lane_tools().solved_lanes(name, active, kwargs, kern)
     evals = torch.where(kern.bracketed, 2 + kern.iterations,
                         torch.where(act, 2 + 2 * max_tries, 0))
-    # K5's terms at the root and K2's at 0 C and at the root: one residual
-    # evaluation each on every lane
+    # K5's terms at the root and K1's and K2's at 0 C and at the accepted
+    # temperature: one residual evaluation each on every lane
     evals_all = float(evals.sum()) + kern.root.numel() * {
-        "surface_brent": 1, "snowpack_brent": 2}.get(name, 0)
+        "surface_brent": 1, "snowpack_brent": 2,
+        "glacier_brent": 2}.get(name, 0)
     return bytes_in + bytes_out, evals_all * ops_per_eval
 
 
 def written_terms(name, kern):
-    """The tensors K2 (the terms at 0 C and at the root, the melt test) or
-    K5 (the terms at the root but net_short_bare, its input) write besides
-    the Brent's outputs."""
+    """The tensors K2 (the terms at 0 C and at the root, the melt test), K1
+    (the terms at the accepted temperature, what glacier_ablation forms
+    from them, the melt test) or K5 (the terms at the root but
+    net_short_bare, its input) write besides the Brent's outputs."""
     if name == "snowpack_brent":
         return [*kern.terms0, *kern.terms_b, kern.melt_cond]
+    if name == "glacier_brent":
+        return list(kern[4:-1]) + list(kern.terms)
     if name == "surface_brent":
         return [t for f, t in kern.terms._asdict().items()
                 if t is not None and f != "net_short_bare"]
@@ -876,11 +903,15 @@ def canopy_air_work(kwargs, result):
 
 
 def runoff_work(args, result):
-    liq = result[0]
+    """Bytes in and out of one K4 call (its inputs read once, RunoffResult
+    written once) and its FP32 operations: the hourly trips and the two
+    evaluations of the infiltration curve."""
+    moist = result.moist
     dt_hours = args[-1]
-    lanes, nl = liq[..., 0].numel(), liq.shape[-1]
+    lanes, nl = moist[..., 0].numel(), moist.shape[-1]
     return (nbytes(*args[:-1], *result),
-            lanes * dt_hours * nl * RUNOFF_OPS_PER_LAYER_HOUR)
+            lanes * (dt_hours * nl * RUNOFF_OPS_PER_LAYER_HOUR
+                     + 2 * RUNOFF_ARNO_OPS))
 
 
 def sweep_bytes(t0, geom, exp_trans):
@@ -1095,14 +1126,96 @@ def melt_ties(kern, plain, kwargs):
     return flips
 
 
+# K1's outputs besides its Brent's and its terms, as compare_fields holds
+# them: its melt at 0 C, and what glacier_ablation forms at the accepted
+# temperature
+GlacierMelt = collections.namedtuple("GlacierMelt", "melt_mm")
+GlacierAccepted = collections.namedtuple("GlacierAccepted",
+                                         "cold_content vapor_flux")
+
+
+def glacier_melt_ties(kern, plain, inputs):
+    """K1's melt test against its plain version's: the lanes where they
+    differ, each printed with its balance at 0 C; raises unless each lies
+    within MELT_TIE_ULPS ulps of the tie melt_energy == 0, ulps of the
+    largest of the balance's summands (the sum's rounding)."""
+    from vic_tpu_torch.physics.glacier import glacier_energy_terms
+    t0 = glacier_energy_terms(torch.zeros_like(kern.root), **inputs)
+    scale = torch.stack([x.expand(t0.rest.shape).abs() for x in (
+        inputs["net_short"], t0.net_long, t0.sensible, t0.latent,
+        t0.latent_sub, t0.advection, t0.delta_cc, t0.grnd_flux)]).amax(0)
+    ulp = torch.nextafter(scale, torch.full_like(scale, float("inf"))) \
+        - scale
+    tie = t0.melt_energy.abs() <= MELT_TIE_ULPS * ulp
+    flips = kern.melt_cond != plain.melt_cond
+    for i in flips.reshape(-1).nonzero().reshape(-1).tolist():
+        print(f"  glacier_brent melt test flips at lane {i}: balance at 0 C "
+              f"{float(t0.melt_energy.reshape(-1)[i])!r} W/m^2, its largest "
+              f"summand {float(scale.reshape(-1)[i])!r}, kernel "
+              f"{bool(kern.melt_cond.reshape(-1)[i])}")
+    if bool((flips & ~tie).any()):
+        raise AssertionError(f"glacier_brent: the melt test differs on "
+                             f"{int((flips & ~tie).sum())} lanes away from "
+                             "the tie")
+    return flips
+
+
+def compare_glacier(label, kern, plain, kwargs):
+    """K1's melt test, melt at 0 C, fallback flag and accepted temperature
+    against its plain version's and the plain terms and what
+    glacier_ablation forms from them at the kernel's own accepted
+    temperature, on every lane (the melt on every lane but the melt test's
+    ties); returns the largest difference."""
+    from vic_tpu_torch import constants as c
+    from vic_tpu_torch.physics.glacier import glacier_energy_terms
+    inputs = {k: v for k, v in kwargs.items()
+              if k not in ("max_iter", "max_tries")}
+    flips = glacier_melt_ties(kern, plain, inputs)
+    print(f"  {label}: melt test at 0 C on {int(plain.melt_cond.sum())} "
+          f"lanes, {int(flips.sum())} flipped")
+    ts = torch.where(kern.melt_cond, 0.0, torch.where(
+        kern.converged, kern.root,
+        inputs["old_tsurf"].expand(kern.root.shape)))
+    same_ts = (kern.surf_temp == ts) | (torch.isnan(kern.surf_temp)
+                                        & torch.isnan(ts))
+    fb = ~kern.melt_cond & ~kern.converged
+    fb_apart = int((kern.fbflag != plain.fbflag).sum())
+    print(f"  {label}: accepted temperature is 0 C, the root or old_tsurf "
+          f"on {int(same_ts.sum())} of {ts.numel()} lanes; fallback flags "
+          f"{int(kern.fbflag.sum())}, {fb_apart} apart from the plain "
+          "version's")
+    if not bool(same_ts.all()) or not torch.equal(kern.fbflag, fb) \
+            or not torch.equal(kern.fbflag[~flips], plain.fbflag[~flips]):
+        raise AssertionError(f"{label}: accepted temperature or fallback "
+                             "flag not as the plain version forms them")
+    worst = compare_fields(f"{label} melt at 0 C",
+                           GlacierMelt(kern.melt_mm),
+                           GlacierMelt(plain.melt_mm), ~flips, None)
+    terms = glacier_energy_terms(ts, **inputs)
+    ones = torch.ones_like(flips)
+    # held, but not the row's error: the cold content is ~1e6 J/m^2
+    compare_fields(
+        f"{label} cold content and vapour loss at the kernel's accepted "
+        "temperature", GlacierAccepted(kern.cold_content, kern.vapor_flux),
+        GlacierAccepted(torch.where(
+            kern.melt_cond, 0.0,
+            c.CH_ICE * ts * inputs["ice_depth_mm"] / 1000.0),
+            -terms.vapor_flux), ones, None)
+    return max(worst, compare_fields(
+        f"{label} terms at the kernel's accepted temperature", kern.terms,
+        terms, ones, "rest"))
+
+
 def compare_terms(name, label, kern, plain, kwargs):
-    """K5's terms, or K2's melt test and terms at 0 C and at the root,
-    against the plain terms at the kernel's own accepted temperature on
-    every lane (K2's at 0 C on every lane but the melt test's ties);
-    returns the largest difference."""
+    """K5's terms, K2's melt test and terms at 0 C and at the root, or
+    K1's (compare_glacier), against the plain terms at the kernel's own
+    accepted temperature on every lane (K2's at 0 C on every lane but the
+    melt test's ties); returns the largest difference."""
     from vic_tpu_torch.physics.snow import snow_energy_terms
     from vic_tpu_torch.physics.surface import surf_energy_terms
     label = f"{name} ({label})"
+    if name == "glacier_brent":
+        return compare_glacier(label, kern, plain, kwargs)
     if name == "surface_brent":
         eb = kwargs["eb_kwargs"]
         ts = torch.where(kern.converged, kern.root, eb["ts_old"])
@@ -1192,6 +1305,11 @@ def check_kernel(name, label, args, kwargs, kern_fn, plain_fn, captured,
         err = max(err, compare(name, also, kern, plain, kw))
         if name == "fd_surface_brent":
             compare_fd_counts(also, kern, plain)
+        for k in ALSO_CALLS.get(also, {}).get(name, ()):
+            a, kw = captured[also][f"{name}@{k}"]
+            err = max(err, compare(name, f"{also}, call {k}",
+                                   kern_fn(*a, **kw), plain_fn(*a, **kw),
+                                   kw))
     return err, work
 
 
@@ -1242,7 +1360,8 @@ def kernels_phase(device, regs=None):
             config, sorted(names), device, record=RECORD.get(config, 0),
             calls=calls[label], nth=NTH.get(config),
             build=node_count_build(nnode) if nnode else None,
-            cells=NODE_COUNT_CELLS if nnode else None)
+            cells=NODE_COUNT_CELLS if nnode else None,
+            also=ALSO_CALLS.get(config))
         print(f"  {label} step record {RECORD.get(config, 0)}: kernel calls "
               f"{calls[label]}")
     results = {}
@@ -1359,15 +1478,21 @@ def nan_profile_checks(device):
                 plain)}
 
 
+# the kernels nan_terms_checks holds where NaN reaches their lanes
+NAN_TERMS_KERNELS = ("snowpack_brent", "surface_brent", "glacier_brent",
+                     "runoff_hourly")
+
+
 def nan_terms_checks(device):
-    """K2 and K5 where NaN reaches their lanes: the spatial_snow step
-    (CONTINUEONERROR) with NaN air temperature in NAN_CELLS cells from
+    """K2, K5, K1 and K4 where NaN reaches their lanes: the spatial_snow
+    step (CONTINUEONERROR) with NaN air temperature in NAN_CELLS cells from
     record NAN_FROM, on that record's arguments: every output, the terms
     included, NaN at the plain version's elements, and the rest held as
-    `compare` holds it. Returns {row: largest difference}."""
+    `compare` holds it. Returns {row: largest difference} (K2's and K5's
+    SPATIAL_SNOW rows, K1's and K4's own)."""
     from vic_tpu_torch import kernels
     label = "spatial_snow, NaN air"
-    names = ("snowpack_brent", "surface_brent")
+    names = NAN_TERMS_KERNELS
     captured = capture_kernel_args(
         "spatial_snow", names, device, record=NAN_FROM,
         build=continue_on_error_build("spatial_snow", shift=0))
@@ -1384,19 +1509,23 @@ def nan_terms_checks(device):
         if not count:
             raise AssertionError(f"{name} ({label}): no NaN reached the "
                                  "kernel")
-        errs[f"{name}/spatial_snow"] = compare(name, label, kern, plain,
-                                               kwargs)
+        row = f"{name}/spatial_snow"
+        errs[row if row in ROWS else name] = compare(name, label, kern,
+                                                     plain, kwargs)
     return errs
 
 
 def count_balance_calls():
-    """Wrap vic_tpu_torch.model.surf_energy_terms and
-    physics.snow.snow_energy_terms to count their calls on CUDA tensors;
-    returns (the counts, the function that puts them back)."""
+    """Wrap vic_tpu_torch.model.surf_energy_terms,
+    physics.snow.snow_energy_terms, physics.glacier.glacier_energy_terms and
+    physics.runoff.compute_runoff_and_asat to count their calls on CUDA
+    tensors; returns (the counts, the function that puts them back)."""
     from vic_tpu_torch import model
-    from vic_tpu_torch.physics import snow
-    counts = {"surf_energy_terms": 0, "snow_energy_terms": 0}
-    homes = {"surf_energy_terms": model, "snow_energy_terms": snow}
+    from vic_tpu_torch.physics import glacier, runoff, snow
+    homes = {"surf_energy_terms": model, "snow_energy_terms": snow,
+             "glacier_energy_terms": glacier,
+             "compute_runoff_and_asat": runoff}
+    counts = dict.fromkeys(homes, 0)
     originals = {k: getattr(m, k) for k, m in homes.items()}
 
     def counted(name, fn):
@@ -1710,8 +1839,8 @@ def slice_phase(device, config, ref_werr=None, nnode=None):
         return res
 
     kernels.fd_surface_brent = counted
-    # the balances' terms come from K5 and K2 on their paths: no plain
-    # evaluation of either at the root or at 0 C
+    # the balances' terms come from K5, K2 and K1 on their paths, the
+    # infiltration curve from K4: no plain evaluation of any of them
     balance_calls, restore_balances = count_balance_calls()
     try:
         kernels.reset_launches()
@@ -1748,7 +1877,8 @@ def slice_phase(device, config, ref_werr=None, nnode=None):
           f"{balance_calls} (surf_energy_terms: the finite-difference "
           "paths' terms at the root)")
     on_k5 = "surface_brent" in PATH_KERNELS[config]
-    if balance_calls["snow_energy_terms"] or (
+    if any(v for k, v in balance_calls.items()
+           if k != "surf_energy_terms") or (
             on_k5 and balance_calls["surf_energy_terms"]):
         raise AssertionError(f"{config}: the step evaluated a balance in "
                              f"plain torch on the card: {balance_calls}")

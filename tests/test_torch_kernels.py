@@ -34,7 +34,7 @@ from vic_tpu_torch.physics.lake import (depth_from_volume_plain,
                                         lake_ice_brent_plain,
                                         lake_open_water_plain,
                                         water_under_ice_plain)
-from vic_tpu_torch.physics.runoff import runoff_hourly_plain
+from vic_tpu_torch.physics.runoff import runoff_step_plain
 from vic_tpu_torch.physics.snow import (snow_energy_terms,
                                         snowpack_brent_plain)
 from vic_tpu_torch.physics.surface import (surface_brent_plain,
@@ -46,7 +46,7 @@ torch.set_num_threads(1)
 PLAIN = {"glacier_brent": glacier_brent_plain,
          "snowpack_brent": snowpack_brent_plain,
          "canopy_brent": canopy_brent_plain,
-         "runoff_hourly": runoff_hourly_plain,
+         "runoff_hourly": runoff_step_plain,
          "surface_brent": surface_brent_plain,
          "node_sweep": solve_t_profile_explicit_plain,
          "fd_surface_brent": surface_root_plain,
@@ -82,8 +82,8 @@ def test_brent_wrappers_refuse_cpu_tensors(name):
 def test_runoff_wrapper_refuses_cpu_tensors():
     lay, lane = torch.zeros(4, 3), torch.zeros(4)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.runoff_hourly(lay, lay, lay, lay, lay, lay, lay, lane, lane,
-                              lane, lane, lane, lane, 24)
+        kernels.runoff_hourly(lay, lay, lay, lane, lay, lay, lay, lay, lay,
+                              lane, lane, lane, lane, lane, 24)
 
 
 def test_cpu_step_takes_the_plain_versions():
@@ -345,16 +345,18 @@ def test_fusion_inputs_are_the_kernels_rows():
 
 
 def _captured_args(device, n_cell=64, names=tuple(PLAIN)[:5],
-                   config="light", record=0, build=None):
-    """The first call of each kernel in `names` in the step of record
-    `record` of `config` (or of build(n_cell, n_rec, device)'s
-    configuration) on `device`."""
-    captured = {}
+                   config="light", record=0, build=None, nth=0):
+    """The first call (or call number `nth`, from 0) of each kernel in
+    `names` in the step of record `record` of `config` (or of
+    build(n_cell, n_rec, device)'s configuration) on `device`."""
+    captured, seen = {}, {}
     originals = {name: getattr(kernels, name) for name in names}
 
     def wrap(name, fn):
         def wrapper(*args, **kwargs):
-            captured.setdefault(name, (args, kwargs))
+            if seen.get(name, 0) == nth:
+                captured[name] = (args, kwargs)
+            seen[name] = seen.get(name, 0) + 1
             return fn(*args, **kwargs)
         return wrapper
 
@@ -394,11 +396,15 @@ def test_brent_kernel_matches_plain(cuda, name):
 
 @pytest.mark.gpu
 def test_runoff_kernel_matches_plain(cuda):
+    """K4 against the plain runoff_step on the light step's arguments,
+    every field of RunoffResult at 1e-5."""
     a, kw = _captured_args(cuda)["runoff_hourly"]
+    ref = runoff_step_plain(*a, **kw)
     got = kernels.runoff_hourly(*a, **kw)
-    ref = runoff_hourly_plain(*a, **kw)
     torch.cuda.synchronize()
+    assert got._fields == ref._fields
     for g, r in zip(got, ref):
+        assert g.shape == r.shape
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
                                    rtol=1e-5, atol=1e-5)
 
@@ -488,8 +494,16 @@ def test_cell_inputs_match_their_lane_copies(cuda, name):
     ref = fn(a[0], *[cells(x, True) for x in a[1:]],
              **{k: cells(v, True) for k, v in kw.items()})
     torch.cuda.synchronize()
-    for g, r in zip(got, ref):
+    for g, r in zip(_flat(got), _flat(ref)):
         assert torch.equal(g, r)
+
+
+def _flat(result):
+    """The tensors of a result whose fields may be named tuples, in
+    order."""
+    if isinstance(result, torch.Tensor):
+        return [result]
+    return [t for x in result for t in _flat(x)]
 
 
 @pytest.mark.gpu
@@ -1161,3 +1175,98 @@ def test_snowpack_brent_kernel_terms_match_plain(cuda, config, record):
     ts = torch.where(got.converged, got.root, kw["old_tsurf"])
     _card_close(got.terms_b, snow_energy_terms(ts, **inputs), "rest",
                 f"{config} at the root")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config,record", [
+    ("light", 0), ("blowing_close", 3), ("spatial_snow", 1),
+    ("heavy_nolakes", 3)])
+def test_glacier_brent_kernel_terms_match_plain(cuda, config, record):
+    """K1's melt test, its melt, root, flags and what glacier_ablation
+    forms at the accepted temperature against its plain version: the melt
+    test equal (formed in CUDA: a tie within an ulp of 0 could flip, none
+    does on these lanes), roots within the final bracket width, the
+    accepted temperature 0 C, the root or old_tsurf, and the melt and the
+    terms, cold content and vapour loss at the kernel's own accepted
+    temperature within _card_close's limits."""
+    from vic_tpu_torch import constants as c
+    from vic_tpu_torch.physics.glacier import glacier_energy_terms
+    a, kw = _captured_args(cuda, names=("glacier_brent",), config=config,
+                           record=record)["glacier_brent"]
+    before = kernels.launches["glacier_brent"]
+    got = kernels.glacier_brent(*a, **kw)
+    ref = glacier_brent_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["glacier_brent"] == before + 1
+    for field in ("melt_cond", "converged", "bracketed", "fbflag"):
+        assert torch.equal(getattr(got, field), getattr(ref, field)), field
+    tol = 2.0 * (2.0 * torch.finfo(torch.float32).eps * got.root.abs() + 1e-4)
+    both = got.converged & ref.converged
+    assert bool(((got.root - ref.root).abs() <= tol)[both].all())
+    inputs = {k: v for k, v in kw.items() if k not in ("max_iter",
+                                                       "max_tries")}
+    ts = torch.where(got.melt_cond, 0.0,
+                     torch.where(got.converged, got.root, kw["old_tsurf"]))
+    assert torch.equal(got.surf_temp, ts)
+    terms = glacier_energy_terms(ts, **inputs)
+    cold = torch.where(got.melt_cond, 0.0,
+                       c.CH_ICE * ts * kw["ice_depth_mm"] / 1000.0)
+    for field, r in (("melt_mm", ref.melt_mm), ("cold_content", cold),
+                     ("vapor_flux", -terms.vapor_flux)):
+        g = getattr(got, field)
+        assert torch.equal(torch.isnan(g), torch.isnan(r)), field
+        ok = ~torch.isnan(r)
+        assert bool(((g - r).abs() <= terms_atol(field, None)
+                     + TERMS_RTOL * r.abs())[ok].all()), (config, field)
+    _card_close(got.terms, terms, "rest", f"{config} terms")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("call", [0, 1])
+def test_runoff_kernel_matches_plain_on_both_columns(cuda, call):
+    """K4 on the heavy_nolakes step's fourth record (3-hourly, frozen
+    soil), the wet column's call and the dry column's (DIST_PRCP): every
+    field of RunoffResult within 1e-5 of the plain runoff_step."""
+    a, kw = _captured_args(cuda, 16, ("runoff_hourly",), "heavy_nolakes",
+                           3, nth=call)["runoff_hourly"]
+    assert a[-1] == 3
+    got = kernels.runoff_hourly(*a, **kw)
+    ref = runoff_step_plain(*a, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_card_step_evaluates_no_glacier_terms_or_infiltration_curve(cuda):
+    """On the card glacier_ablation takes everything from K1 and
+    runoff_step from K4: the light step evaluates no glacier_energy_terms
+    and no compute_runoff_and_asat, and launches each kernel once."""
+    from vic_tpu_torch.physics import glacier, runoff
+    counts = {"glacier_energy_terms": 0, "compute_runoff_and_asat": 0}
+    originals = {"glacier_energy_terms": (glacier,
+                                          glacier.glacier_energy_terms),
+                 "compute_runoff_and_asat": (
+                     runoff, runoff.compute_runoff_and_asat)}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            counts[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    gp, params, stack, state, _ = build_light(64, 1, cuda)
+    step = make_step(params, gp)
+    kernels.reset_launches()
+    for name, (mod, fn) in originals.items():
+        setattr(mod, name, counted(name, fn))
+    try:
+        step(state, {k: v[0] for k, v in stack.items()})
+        torch.cuda.synchronize()
+    finally:
+        for name, (mod, fn) in originals.items():
+            setattr(mod, name, fn)
+    assert counts == dict.fromkeys(counts, 0)
+    assert kernels.launches["glacier_brent"] == 1
+    assert kernels.launches["runoff_hourly"] == 1

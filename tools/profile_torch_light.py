@@ -17,8 +17,13 @@
 2. breakdown: one run with each physics call of the step wrapped in
    synchronize() + host clock, so every call's wall time (launch overhead
    included) is attributed to it, and its calls counted; the rest of the
-   step is "other". The snowpack balance's terms (`snow_energy_terms`)
-   are timed and counted inside `snow_melt` as a nested breakdown. With
+   step is "other". Inside three calls the pieces that their kernels took
+   over are timed and counted as nested breakdowns: the snowpack
+   balance's terms (`snow_energy_terms`) inside `snow_melt`, the glacier
+   balance's terms (`glacier_energy_terms`) and K1 (`glacier_brent`)
+   inside `glacier_ablation`, the infiltration curve
+   (`compute_runoff_and_asat`) and K4 (`runoff_hourly`) inside
+   `runoff_step`; whatever of each call is not in them is its glue. With
    LAKES, lake_step's calls inside it (solve_lake and, inside that, the
    K10-K12 call sites; the K13 depth bisections) are timed as a nested
    "lake" breakdown whose "other" is lake_step's own glue (with BLOWING,
@@ -48,9 +53,9 @@ import torch
 
 sys.path.insert(0, os.getcwd())
 
-from vic_tpu_torch import model  # noqa: E402
+from vic_tpu_torch import kernels, model  # noqa: E402
 from vic_tpu_torch.entry import CONFIGS  # noqa: E402
-from vic_tpu_torch.physics import lake, snow  # noqa: E402
+from vic_tpu_torch.physics import glacier, lake, runoff, snow  # noqa: E402
 
 STEP_CALLS = ("calc_aerodynamic", "snow_intercept", "snow_albedo",
               "snow_melt", "glacier_ablation", "snow_density_update",
@@ -85,8 +90,14 @@ CONFIG_CALLS["spatial_snow"] = ("calc_snow_coverage", "correct_precip")
 # balance
 LAKE_CALLS = ("solve_lake", "lake_open_water", "lake_ice_melt",
               "water_under_ice", "depth_from_volume")
-# inside snow_melt (physics/snow.py): the snowpack balance's terms
-SNOW_CALLS = ("snow_energy_terms",)
+# nested breakdowns: inside snow_melt (physics/snow.py) the snowpack
+# balance's terms; inside glacier_ablation the glacier balance's terms and
+# K1; inside runoff_step the infiltration curve and K4
+NESTED = {"snow_melt": ((snow, "snow_energy_terms"),),
+          "glacier_ablation": ((glacier, "glacier_energy_terms"),
+                               (kernels, "glacier_brent")),
+          "runoff_step": ((runoff, "compute_runoff_and_asat"),
+                          (kernels, "runoff_hourly"))}
 HAND_WRITTEN = ("brent_kernel", "runoff_hourly_kernel", "node_sweep_kernel",
                 "node_finish_kernel", "fd_eval_kernel", "fd_expand_kernel",
                 "fd_init_kernel", "fd_propose_kernel", "fd_accept_kernel",
@@ -127,7 +138,7 @@ def breakdown(config, n_cell, n_rec, device):
     lake_calls = LAKE_CALLS + (("calc_blowing_snow",) if gp.blowing else ())
     if gp.lakes:
         wrapped += [(lake, name) for name in lake_calls]
-    wrapped += [(snow, name) for name in SNOW_CALLS]
+    wrapped += [pair for inner in NESTED.values() for pair in inner]
     spent = {(mod, name): 0.0 for mod, name in wrapped}
     count = {(mod, name): 0 for mod, name in wrapped}
     originals = {(mod, name): getattr(mod, name) for mod, name in wrapped}
@@ -165,9 +176,10 @@ def breakdown(config, n_cell, n_rec, device):
               "total_ms_per_record": total / n_rec * 1e3,
               "calls_per_record": {
                   (name if mod is model else f"{mod.__name__}.{name}"):
-                  count[(mod, name)] / n_rec for mod, name in wrapped},
-              "snow_melt_ms_per_record": {name: ms((snow, name))
-                                          for name in SNOW_CALLS}}
+                  count[(mod, name)] / n_rec for mod, name in wrapped}}
+    for outer, inner in NESTED.items():
+        result[f"{outer}_ms_per_record"] = {name: ms((mod, name))
+                                            for mod, name in inner}
     if gp.lakes:
         # nested: solve_lake's calls inside it, the rest of lake_step
         inner = {name: ms((lake, name)) for name in lake_calls}

@@ -13,6 +13,13 @@
 //
 // Unbracketed or inactive lanes return the midpoint of the ORIGINAL
 // [lo, hi] with converged = bracketed = false (rootfind.py:205).
+//
+// K12 (lake_ice_brent.cu, one thread a lake) is brent_solve's last user:
+// K1-K3, K5 and K14 run lane_brent.cuh's BrentLane, which repeats this
+// function step for step, so a change here goes there too. brent_solve
+// suits a batch whose lanes are mostly active, one lake a thread; where
+// few lanes are active a warp waits on them, which is what the lane driver
+// was built for.
 #pragma once
 
 #include <cuda_runtime.h>

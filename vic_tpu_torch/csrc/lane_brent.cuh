@@ -1,7 +1,7 @@
-// The lane driver of K2 (snowpack_brent), K3 (canopy_brent), K5
-// (surface_brent) and K14 (affine_surface_brent): an expand-then-Brent per
-// lane, with the lanes compacted and dealt to the threads of persistent
-// blocks.
+// The lane driver of K1 (glacier_brent), K2 (snowpack_brent), K3
+// (canopy_brent), K5 (surface_brent) and K14 (affine_surface_brent): an
+// expand-then-Brent per lane, with the lanes compacted and dealt to the
+// threads of persistent blocks.
 //
 // Each lane runs exactly brent.cuh's brent_solve, step for step on the same
 // floats (BrentLane below is that function cut at its residual
@@ -15,7 +15,8 @@
 // inactive and finished lanes hold their slots; these batches are mostly
 // such lanes (the canopy residual runs on overstory lanes only, the surface
 // residual on the lanes that are not glacier or lake, the snowpack residual
-// on the packs that neither melt at 0 C nor are thin).
+// on the packs that neither melt at 0 C nor are thin, the glacier residual
+// on the bare-ice HRUs that do not melt at 0 C, at most 2 of a cell's 8).
 //
 // What this driver does about it:
 // - Persistent blocks: the grid is as many blocks as the device keeps
@@ -31,17 +32,22 @@
 //   trip of the loop evaluates the residual once on each busy thread (at its
 //   own lane's candidate), so the warp's threads run the residual together
 //   whatever step of the solve each of them is in.
-// - Hooks (K2, K5): a lane type may also declare a prologue, run on every
-//   lane when it is taken, which writes what the caller needs before the
-//   solve and may take the lane out of it (K2's balance at 0 C and its melt
-//   test), and an epilogue, run on every lane, inactive ones too, once its
-//   root is known, which writes the balance's terms at the accepted
-//   temperature. Their callers then evaluate no residual of their own. A
+// - Hooks (K1, K2, K5): a lane type may also declare a prologue, run on
+//   every lane when it is taken, which writes what the caller needs before
+//   the solve and may take the lane out of it (K1's and K2's balance at
+//   0 C and its melt test), and an epilogue, run on every lane, inactive
+//   ones too, once its root is known, which writes the balance's terms at
+//   the accepted temperature (K1: 0 C on a lane that melts, which its lane
+//   object remembers from its prologue). Their callers then evaluate no
+//   residual of their own. A
 //   solved lane's epilogue waits until its warp refills, so the warp's
 //   finished lanes run theirs together rather than each beside the others'
 //   residuals (K5 on light's first record, H100: 0.27 ms of device time
 //   this way, 0.34 with each epilogue run as its lane finished; PERF.md).
 //   A lane type without hooks (K3, K14) compiles to the loop without them.
+//   The lane object a thread holds is init()ed anew only when the thread
+//   takes its next lane, after the epilogue of the one it finished, so an
+//   epilogue may read what the lane's own prologue stored in it.
 #pragma once
 
 #include <cuda_runtime.h>

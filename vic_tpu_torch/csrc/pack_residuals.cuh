@@ -1,8 +1,9 @@
 // The residuals of the snowpack (K2) and bare-glacier (K1) surface energy
 // balances, shared by their Brent kernels (vic_kernels.cu) and the
 // fixed-count bisection (K17, bisection.cu). Line-for-line copies of
-// physics/snow.snow_energy_terms (all of its terms, K2 writes them) and
-// physics/glacier.glacier_energy_terms.
+// physics/snow.snow_energy_terms and physics/glacier.glacier_energy_terms,
+// all of their terms (K2 and K1 write them); each residual is its terms'
+// rest, the same operations in the same order.
 #pragma once
 
 #include "physics.cuh"
@@ -31,12 +32,20 @@ __device__ __forceinline__ float advected_sensible_heat(float scf,
   return scf > 0.0f ? qadv : 0.0f;
 }
 
-// K1 residual: glacier.glacier_energy_terms(t).rest
+// glacier.GlacierEBTerms at one surface temperature
+struct GlacierTerms {
+  float rest, melt_energy, vapor_flux, latent, latent_sub, sensible,
+      advection, delta_cc, grnd_flux, net_long;
+};
+
+// K1 residual: glacier.glacier_energy_terms(t).rest; terms() is every term
+// of glacier_energy_terms, the residual its rest
 struct GlacierResidual {
   float dt, ra, z_ref, roughness, air_dens, vp_air, longwave_in, lv,
       pressure, rain_m, net_short, vpd, wind, old_tsurf, ice_depth_mm, tair;
 
-  __device__ float operator()(float ts) const {
+  __device__ GlacierTerms terms(float ts) const {
+    GlacierTerms o;
     const float tgrnd = 0.0f;  // GLAC_TEMP
     const float tmean = (ts + tgrnd) / 2.0f;
     const float old_tmean = (old_tsurf + tgrnd) / 2.0f;
@@ -45,22 +54,27 @@ struct GlacierResidual {
         wind > 0.0f
             ? ra / stability_correction(z_ref, 0.0f, ts, tair, wind, roughness)
             : kHugeResist;
-    const float net_long = longwave_in - kStefanB * pow4(ts + kKelvin);
-    const float net_rad = net_short + net_long;
-    const float sensible = air_dens * kCp * (tair - ts) / ra_corr;
+    o.net_long = longwave_in - kStefanB * pow4(ts + kKelvin);
+    const float net_rad = net_short + o.net_long;
+    o.sensible = air_dens * kCp * (tair - ts) / ra_corr;
     float vmf = air_dens * (kEpsRatio / pressure) * (vp_air - svp(ts)) / ra_corr;
     if (vpd == 0.0f && vmf < 0.0f) vmf = 0.0f;
-    const float latent = ts >= 0.0f ? lv * vmf : 0.0f;
-    const float latent_sub = ts >= 0.0f ? 0.0f : ls_of(ts) * vmf;
-    const float advection = ts == 0.0f ? kChWater * tair * rain_m / dt : 0.0f;
-    const float delta_cc = kChIce * ice_depth * (tmean - old_tmean) / dt;
-    const float grnd_flux = (kGlacKIce + ts * (-0.0142f)) * (tgrnd - ts) /
-                            nan_max(ice_depth, 1e-6f);
-    float rest = net_rad + sensible + latent + latent_sub + advection -
-                 delta_cc + grnd_flux;
-    if (ts == 0.0f && rest >= 0.0f) rest = 0.0f;
-    return rest;
+    // m of water a step (glacier.py: vmf * dt / RHO_W)
+    o.vapor_flux = div_s(vmf * dt, kRhoW);
+    o.latent = ts >= 0.0f ? lv * vmf : 0.0f;
+    o.latent_sub = ts >= 0.0f ? 0.0f : ls_of(ts) * vmf;
+    o.advection = ts == 0.0f ? kChWater * tair * rain_m / dt : 0.0f;
+    o.delta_cc = kChIce * ice_depth * (tmean - old_tmean) / dt;
+    o.grnd_flux = (kGlacKIce + ts * (-0.0142f)) * (tgrnd - ts) /
+                  nan_max(ice_depth, 1e-6f);
+    const float rest = net_rad + o.sensible + o.latent + o.latent_sub +
+                       o.advection - o.delta_cc + o.grnd_flux;
+    o.melt_energy = rest;
+    o.rest = ts == 0.0f && rest >= 0.0f ? 0.0f : rest;
+    return o;
   }
+
+  __device__ float operator()(float ts) const { return terms(ts).rest; }
 };
 
 // snow.SnowEBTerms at one surface temperature

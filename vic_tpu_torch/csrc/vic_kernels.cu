@@ -13,12 +13,15 @@
 // reads ~20 floats and writes a few, while it runs up to ~70 residual
 // evaluations (K1-K3) or 24 hourly trips (K4) of transcendental arithmetic
 // with divergent trip counts: the kernels are bound by latency and
-// occupancy (registers per thread), not by device-memory bytes. K1 and K4
-// run one lane a thread. K2's and K3's active lanes are few and scattered
-// and their trips uneven, so their lanes are compacted and dealt to
-// persistent threads (lane_brent.cuh); K2 also writes the snowpack
-// balance's terms at 0 C and at its accepted temperature, which its caller
-// evaluated in PyTorch before.
+// occupancy (registers per thread), not by device-memory bytes. The Brent
+// lanes (K1-K3) that are active are few and scattered (K1: glacier HRUs
+// that do not melt, at most 2 of a cell's 8) and their trips uneven, so
+// they are compacted and dealt to persistent threads (lane_brent.cuh). K1
+// and K2 also take their balance at 0 C for the melt test and write its
+// terms at the accepted temperature, and K4 computes the whole of
+// runoff_step around its hourly loop, all of which their callers
+// evaluated in PyTorch before. K4's lanes are all active with one trip
+// count, so it runs one lane a thread.
 //
 // Every residual is a line-for-line copy of its PyTorch plain version, with
 // the same operation order, x^4 as (x*x)*(x*x) like lax.integer_pow, and the
@@ -125,21 +128,6 @@ struct CanopyResidual {
   }
 };
 
-__global__ void glacier_brent_kernel(const __grid_constant__ LaneInputs in,
-                                     const float* lo, const float* hi,
-                                     float dt, int max_iter, int max_tries,
-                                     int n, BrentOutputs out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const LaneRow row = lane_row(in, i);
-  auto f = [&](int k) { return lane_f(in, k, row); };
-  const GlacierResidual r{dt,    f(0),  f(1),  f(2),  f(3),  f(4),
-                          f(5),  f(6),  f(7),  f(8),  f(9),  f(10),
-                          f(11), f(12), f(13), f(14)};
-  store(out, i, brent_solve(r, lo[i], hi[i], lane_m(in, 0, row), max_iter,
-                            max_tries));
-}
-
 // K3's lane for csrc/lane_brent.cuh: the 18 float inputs in
 // CanopyResidual order after dt, then lo and hi; masks [active, has_csnow]
 struct CanopyParams {
@@ -236,29 +224,190 @@ struct SnowpackLane : SnowpackResidual {
   }
 };
 
-// K4: the hourly loop of runoff.runoff_hourly_plain (runoff.c:446-700).
-// Inputs 0-6 are layered (NL values a lane), 7-12 one value a lane.
+// K1's lane for csrc/lane_brent.cuh: the 15 float inputs in
+// GlacierResidual order after dt, then lo and hi; masks [active]. Its
+// prologue takes the balance at 0 C on every lane, writes the melt test
+// and the melt it gives (physics/glacier.py glacier_brent_plain) and
+// solves only the lanes of `active` that do not melt; its epilogue writes
+// the balance's terms at the accepted temperature (0 C where the ice
+// melts, else the root, else TFALLBACK's old_tsurf) and what
+// glacier_ablation forms from it, so the caller evaluates no balance.
+namespace glacier_rows {
+// the terms written a lane, n floats each: glacier.GlacierEBTerms' fields
+enum GlacierTerm {
+  kRest, kMeltEnergy, kVaporFlux, kLatent, kLatentSub, kSensible,
+  kAdvection, kDeltaCc, kGrndFlux, kNetLong,
+  kNumGlacierTerms
+};
+// the other floats written a lane, after the terms: GlacierSolve's
+// melt_mm, surf_temp, cold_content and vapor_flux (the loss, -kVaporFlux)
+enum GlacierOut {
+  kMeltMm, kSurfTemp, kColdContent, kVaporLoss, kNumGlacierOut
+};
+// the flags written a lane
+enum GlacierFlag { kMeltCond, kFbflag, kNumGlacierFlags };
+}  // namespace glacier_rows
+namespace gr = glacier_rows;
+
+// python-constant products evaluate in double before the float32 op
+constexpr float kLfRhoW = static_cast<float>(3.337e5 * 999.842594);
+
+struct GlacierParams {
+  float dt;
+  int n;
+  float* out;      // [gr::kNumGlacierTerms + gr::kNumGlacierOut, n]
+  uint8_t* flags;  // [gr::kNumGlacierFlags, n]
+};
+
+struct GlacierLane : GlacierResidual {
+  static constexpr int kNumIn = 15;
+  static constexpr int kLo = kNumIn, kHi = kNumIn + 1, kActive = 0;
+  static constexpr int kMinBlocks = 1;
+  bool melt;   // the lane melts at 0 C (its epilogue runs at 0 C)
+
+  __device__ __forceinline__ void init(const LaneInputs& in, LaneRow row,
+                                       const GlacierParams& p) {
+    auto f = [&](int k) { return lane_f(in, k, row); };
+    *static_cast<GlacierResidual*>(this) = GlacierResidual{
+        p.dt,  f(0),  f(1),  f(2),  f(3),  f(4),  f(5),  f(6),
+        f(7),  f(8),  f(9),  f(10), f(11), f(12), f(13), f(14)};
+  }
+
+  // the balance at 0 C, the melt test and its melt in mm a step:
+  // clamp(melt_energy, 0) / (LF * RHO_W) * dt * 1000 where it melts
+  __device__ bool prologue(const LaneInputs&, LaneRow, int lane,
+                           bool active, const GlacierParams& p) {
+    const GlacierTerms t0 = terms(0.0f);
+    melt = t0.rest == 0.0f;
+    p.flags[gr::kMeltCond * p.n + lane] = melt;
+    p.out[(gr::kNumGlacierTerms + gr::kMeltMm) * p.n + lane] =
+        melt ? div_s(nan_max(t0.melt_energy, 0.0f), kLfRhoW) * dt * 1000.0f
+             : 0.0f;
+    return active && !melt;
+  }
+
+  // the terms at the accepted temperature, the temperature itself, the
+  // fallback flag (set on lanes that neither melt nor converge, masked-out
+  // ones too), the cold content and the vapour loss
+  __device__ void epilogue(const LaneInputs&, LaneRow, int lane,
+                           const BrentOut& out,
+                           const GlacierParams& p) const {
+    const float ts = melt ? 0.0f : (out.converged ? out.root : old_tsurf);
+    const GlacierTerms t = terms(ts);
+    float* col = p.out + lane;
+    const int n = p.n;
+    col[gr::kRest * n] = t.rest;
+    col[gr::kMeltEnergy * n] = t.melt_energy;
+    col[gr::kVaporFlux * n] = t.vapor_flux;
+    col[gr::kLatent * n] = t.latent;
+    col[gr::kLatentSub * n] = t.latent_sub;
+    col[gr::kSensible * n] = t.sensible;
+    col[gr::kAdvection * n] = t.advection;
+    col[gr::kDeltaCc * n] = t.delta_cc;
+    col[gr::kGrndFlux * n] = t.grnd_flux;
+    col[gr::kNetLong * n] = t.net_long;
+    col += gr::kNumGlacierTerms * n;
+    col[gr::kSurfTemp * n] = ts;
+    col[gr::kColdContent * n] =
+        melt ? 0.0f : div_s(kChIce * ts * ice_depth_mm, 1000.0f);
+    col[gr::kVaporLoss * n] = -t.vapor_flux;
+    p.flags[gr::kFbflag * n + lane] = !melt && !out.converged;
+  }
+};
+
+// K4: runoff.runoff_step_plain in one launch, one thread a lane: the
+// residual moisture and ARNO's surface runoff from the top NL-1 layers
+// (compute_runoff_and_asat), the hourly loop of runoff_hourly_plain
+// (runoff.c:446-700) on the hourly rates, then the final moisture, its
+// saturated area, the runoff and baseflow and the bottom layer's evap
+// less a negative baseflow. Inputs 0-7 are layered (NL values a lane),
+// 8-13 one value a lane (RunoffIn). Outputs (RunoffOut) in one allocation:
+// the layered ones [n, NL] (a lane's layers side by side, as a contiguous
+// [..., NL] tensor holds them).
+enum RunoffIn {
+  kMoist, kSoilIce, kLayerEvap, kMaxMoistL, kResidFract, kDepth, kKsat,
+  kExpt, kPpt, kBInfilt, kDs, kDsmax, kWs, kCExpt, kNumRunoffIn
+};
+// runoff.RunoffResult's fields: moist and layer_evap NL rows each
+enum RunoffOut { kMoistOut, kRunoffOut, kBaseflowOut, kAsatOut,
+                 kLayerEvapOut, kNumRunoffOut };
+
+// the first of output k's rows of n floats
+template <int NL>
+__host__ __device__ constexpr int runoff_row(int k) {
+  return k == kMoistOut ? 0 : NL + k - 1;
+}
+
+// runoff.compute_runoff_and_asat (runoff.c:773-814): the saturated area
+// and the surface runoff of `inflow` on the infiltration curve over the
+// top NL-1 layers, their sums in layer order
+struct Arno {
+  float asat, runoff;
+};
+
+template <int NL>
+__device__ __forceinline__ Arno arno_runoff(const float* moist,
+                                            const float* mm, float b,
+                                            float inflow) {
+  float top_max = mm[0], top_moist = moist[0];
+#pragma unroll
+  for (int l = 1; l < NL - 1; ++l) {
+    top_max = top_max + mm[l];
+    top_moist = top_moist + moist[l];
+  }
+  top_moist = nan_min(top_moist, top_max);
+  const float ex = b / (1.0f + b);
+  const float rel = nan_min(
+      nan_max(1.0f - top_moist / nan_max(top_max, 1e-10f), 0.0f), 1.0f);
+  const float asat = 1.0f - powf(rel, ex);
+  const float max_infil = (1.0f + b) * top_max;
+  const float i0 =
+      max_infil * (1.0f - powf(nan_min(nan_max(1.0f - asat, 0.0f), 1.0f),
+                               rdiv_s(1.0f, b)));
+  const float basis = nan_min(
+      nan_max(1.0f - (i0 + inflow) / nan_max(max_infil, 1e-10f), 0.0f),
+      1.0f);
+  const float runoff_3a = inflow - top_max + top_moist;
+  const float runoff_3b = runoff_3a + top_max * powf(basis, 1.0f + b);
+  float runoff = (i0 + inflow) > max_infil ? runoff_3a : runoff_3b;
+  runoff = max_infil == 0.0f ? inflow : runoff;
+  runoff = inflow == 0.0f ? 0.0f : runoff;
+  return Arno{asat, nan_max(runoff, 0.0f)};
+}
+
 template <int NL>
 __global__ void runoff_hourly_kernel(const __grid_constant__ LaneInputs in,
-                                     int dt_hours, int n, float* liq_out,
-                                     float* runoff_out, float* base_out) {
+                                     int dt_hours, int n, float* out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const LaneRow row = lane_row(in, i);
-  float liq[NL], ice[NL], evap[NL], resid[NL], mm[NL], ksat[NL], expt[NL];
+  float moist[NL], liq[NL], ice[NL], evap[NL], evap_hr[NL], resid[NL],
+      mm[NL], ksat[NL], expt[NL];
 #pragma unroll
   for (int l = 0; l < NL; ++l) {
-    liq[l] = lane_fl(in, 0, row, l);
-    ice[l] = lane_fl(in, 1, row, l);
-    evap[l] = lane_fl(in, 2, row, l);
-    resid[l] = lane_fl(in, 3, row, l);
-    mm[l] = lane_fl(in, 4, row, l);
-    ksat[l] = lane_fl(in, 5, row, l);
-    expt[l] = lane_fl(in, 6, row, l);
+    moist[l] = lane_fl(in, kMoist, row, l);
+    ice[l] = lane_fl(in, kSoilIce, row, l);
+    evap[l] = lane_fl(in, kLayerEvap, row, l);
+    mm[l] = lane_fl(in, kMaxMoistL, row, l);
+    resid[l] = lane_fl(in, kResidFract, row, l) *
+               lane_fl(in, kDepth, row, l) * 1000.0f;
+    ksat[l] = lane_fl(in, kKsat, row, l);
+    expt[l] = lane_fl(in, kExpt, row, l);
   }
-  const float dt_runoff = lane_f(in, 7, row), dt_inflow = lane_f(in, 8, row);
-  const float dsmax_hr = lane_f(in, 9, row), ds = lane_f(in, 10, row);
-  const float ws = lane_f(in, 11, row), c_expt = lane_f(in, 12, row);
+  const float ppt = lane_f(in, kPpt, row), b = lane_f(in, kBInfilt, row);
+  const float ds = lane_f(in, kDs, row), ws = lane_f(in, kWs, row);
+  const float c_expt = lane_f(in, kCExpt, row);
+  const float runoff0 = arno_runoff<NL>(moist, mm, b, ppt).runoff;
+  // the hourly rates, as PyTorch divides by a host scalar on the card
+  const float hours = static_cast<float>(dt_hours);
+  const float dt_runoff = div_s(runoff0, hours), dt_inflow = div_s(ppt, hours);
+  const float dsmax_hr = div_s(lane_f(in, kDsmax, row), 24.0f);
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    liq[l] = moist[l] - ice[l];
+    evap_hr[l] = div_s(evap[l], hours);
+    ksat[l] = div_s(ksat[l], 24.0f);
+  }
   constexpr int lb = NL - 1;
 
   // excess moves up through layers top..0; what leaves layer 0 is runoff
@@ -277,7 +426,7 @@ __global__ void runoff_hourly_kernel(const __grid_constant__ LaneInputs in,
     float q12[NL - 1];
 #pragma unroll
     for (int l = 0; l < NL - 1; ++l) {
-      const float tmp_liq = nan_max(liq[l] - evap[l], resid[l]);
+      const float tmp_liq = nan_max(liq[l] - evap_hr[l], resid[l]);
       const float frac = nan_min(
           nan_max((tmp_liq - resid[l]) / nan_max(mm[l] - resid[l], 1e-10f), 0.0f),
           1.0f);
@@ -288,7 +437,7 @@ __global__ void runoff_hourly_kernel(const __grid_constant__ LaneInputs in,
 #pragma unroll
     for (int l = 0; l < NL - 1; ++l) {
       const float dro = l == 0 ? dt_runoff : 0.0f;
-      liq[l] = liq[l] + (inflow - dro) - (q12[l] + evap[l]);
+      liq[l] = liq[l] + (inflow - dro) - (q12[l] + evap_hr[l]);
       const float excess = nan_max(liq[l] + ice[l] - mm[l], 0.0f);
       liq[l] = nan_min(liq[l], mm[l] - ice[l]);
       if (l == 0) {
@@ -311,7 +460,7 @@ __global__ void runoff_hourly_kernel(const __grid_constant__ LaneInputs in,
                                         powf(over_ws, c_expt)
                                   : 0.0f);
     base = nan_max(base, 0.0f);
-    liq[lb] = liq[lb] + q12[lb - 1] - (evap[lb] + base);
+    liq[lb] = liq[lb] + q12[lb - 1] - (evap_hr[lb] + base);
     const float deficit = nan_min(liq[lb] + ice[lb] - resid[lb], 0.0f);
     base = base + deficit;
     liq[lb] = nan_max(liq[lb], resid[lb] - ice[lb]);
@@ -321,10 +470,25 @@ __global__ void runoff_hourly_kernel(const __grid_constant__ LaneInputs in,
     runoff_acc = runoff_acc + runoff_h;
     base_acc = base_acc + base;
   }
+
+  // the final moisture and its saturated area with no inflow; a negative
+  // total baseflow comes off the bottom layer's evap (runoff.c:704-707)
 #pragma unroll
-  for (int l = 0; l < NL; ++l) liq_out[i * NL + l] = liq[l];
-  runoff_out[i] = runoff_acc;
-  base_out[i] = base_acc;
+  for (int l = 0; l < NL; ++l) moist[l] = liq[l] + ice[l];
+  evap[lb] = evap[lb] + nan_min(base_acc, 0.0f);
+  const int64_t n64 = n;
+  auto first = [&](int k) { return out + runoff_row<NL>(k) * n64; };
+  auto layered = [&](int k, int l) -> float& {
+    return first(k)[static_cast<int64_t>(i) * NL + l];
+  };
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    layered(kMoistOut, l) = moist[l];
+    layered(kLayerEvapOut, l) = evap[l];
+  }
+  first(kRunoffOut)[i] = runoff0 + runoff_acc;
+  first(kBaseflowOut)[i] = nan_max(base_acc, 0.0f);
+  first(kAsatOut)[i] = arno_runoff<NL>(moist, mm, b, 0.0f).asat;
 }
 
 }  // namespace
@@ -332,16 +496,38 @@ __global__ void runoff_hourly_kernel(const __grid_constant__ LaneInputs in,
 extern "C" {
 
 // Replaces vic_tpu/physics/glacier.py:130 (glacier_ablation's
-// batched_brent). Bound by latency and occupancy: one lane per thread,
-// divergent Brent trip counts, ~50 registers, ~70 B read per lane.
-// 15 float inputs in GlacierResidual order after dt; masks: [active].
-int glacier_brent(const int64_t* lanes, int nf, int nm, int h,
-                  const float* lo, const float* hi, float dt, int max_iter,
-                  int max_tries, int n, float* root, uint8_t* converged,
-                  uint8_t* bracketed, int32_t* iterations, void* stream) {
-  return launch_brent(glacier_brent_kernel, lanes, nf, 15, nm, 1, h, lo, hi,
-                      dt, max_iter, max_tries, n, root, converged,
-                      bracketed, iterations, stream);
+// batched_brent) and the two evaluations of glacier_energy_terms around it
+// (the melt test at 0 C and the terms at the accepted temperature). Bound
+// by latency: the solved lanes (the glacier HRUs that do not melt at 0 C,
+// at most 2 of each cell's 8 lanes: 16% of light's lanes, 9% of
+// heavy_nolakes') run 2 to max_iter + 2 dependent residual evaluations (6.3
+// on average, 8 at most, on light); every lane reads ~70 B and writes 14
+// floats, its flags and the Brent's outputs. One thread a lane left a
+// warp's slots 14% used; here the lanes are compacted and dealt to
+// persistent threads (lane_brent.cuh), each lane's balance at 0 C formed
+// when its thread takes it and its terms when its warp refills, so the
+// solved lanes' evaluations run in full warps beside the two every lane
+// needs (H100: 0.050 ms of device time on light, the two evaluations and
+// 18 MB of outputs included, against 0.033 for the Brent alone one thread
+// a lane; PERF.md). 15 float inputs in GlacierResidual
+// order after dt, then lo and hi;
+// masks: [active]; outputs: the Brent's four, the terms at the accepted
+// temperature and melt_mm, surf_temp, cold_content and the vapour loss
+// ([14, n], glacier.GlacierEBTerms' order, then GlacierOut's) and
+// melt_cond, fbflag ([2, n]). Returns cudaErrorInvalidValue on wrong
+// counts, vicbrent::kNoResidentBlock where no block fits on an SM.
+int glacier_brent(const int64_t* lanes, int nf, int nm, int h, float dt,
+                  int max_iter, int max_tries, int n, float* root,
+                  uint8_t* converged, uint8_t* bracketed, int32_t* iterations,
+                  float* out, uint8_t* flags, void* stream) {
+  LaneInputs in{};
+  if (n <= 0 || max_iter < 0 || max_tries < 0 ||
+      !fill_lane_inputs(&in, lanes, nf, GlacierLane::kNumIn + 2, nm, 1, h))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return vicbrent::launch_lane_brent<GlacierLane>(
+      in, GlacierParams{dt, n, out, flags}, max_iter, max_tries, n,
+      BrentOutputs{root, converged, bracketed, iterations},
+      static_cast<cudaStream_t>(stream));
 }
 
 // Replaces vic_tpu/physics/snow.py:443 (snow_melt's batched_brent) and the
@@ -395,26 +581,30 @@ int canopy_brent(const int64_t* lanes, int nf, int nm, int h, float dt,
       static_cast<cudaStream_t>(stream));
 }
 
-// Replaces vic_tpu/physics/runoff.py:171 (runoff_step's hourly fori_loop).
-// Bound by latency: dt_hours dependent trips of ~20 flops and 3 powf per
-// lane, ~110 B read and 20 B written per lane. 13 float inputs: liq0, ice,
-// evap_hr, resid_mm, max_moist, ksat_hr, expt (layered); dt_runoff,
-// dt_inflow, dsmax_hr, ds, ws, c_expt; each with its strides.
-int runoff_hourly(const int64_t* lanes, int nf, int h,
-                  int nl, int dt_hours, int n, float* liq_out,
-                  float* runoff_out, float* base_out, void* stream) {
+// Replaces vic_tpu/physics/runoff.py:171 (runoff_step's hourly fori_loop)
+// and the PyTorch around it in runoff_step: the residual moisture, the two
+// evaluations of the infiltration curve, the hourly scalings, the final
+// moisture, the clamps and the bottom layer's evap (96 launches a call
+// before, 1 now). Bound by latency: dt_hours dependent trips of ~20 flops
+// and NL-1 + 1 powf a lane, every lane active with the same trip count, so
+// one thread a lane and no compaction; ~120 B read and (2 NL + 3) floats
+// written a lane. The layered outputs' strided writes do not bound it:
+// written layer-major they took the same device time (H100, PERF.md). 14
+// float inputs in RunoffIn order, each with its strides; `out` holds
+// RunoffResult's fields (RunoffOut), the layered ones [n, NL]. Returns
+// cudaErrorInvalidValue on wrong counts or a layer count other than 2 or 3.
+int runoff_hourly(const int64_t* lanes, int nf, int h, int nl, int dt_hours,
+                  int n, float* out, void* stream) {
   LaneInputs in{};
   if (n <= 0 || dt_hours < 0 ||
-      !fill_lane_inputs(&in, lanes, nf, 13, 0, 0, h))
+      !fill_lane_inputs(&in, lanes, nf, kNumRunoffIn, 0, 0, h))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + kBlock - 1) / kBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nl == 2) {
-    runoff_hourly_kernel<2><<<grid, kBlock, 0, s>>>(in, dt_hours, n, liq_out,
-                                                    runoff_out, base_out);
+    runoff_hourly_kernel<2><<<grid, kBlock, 0, s>>>(in, dt_hours, n, out);
   } else if (nl == 3) {
-    runoff_hourly_kernel<3><<<grid, kBlock, 0, s>>>(in, dt_hours, n, liq_out,
-                                                    runoff_out, base_out);
+    runoff_hourly_kernel<3><<<grid, kBlock, 0, s>>>(in, dt_hours, n, out);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

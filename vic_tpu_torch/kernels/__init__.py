@@ -14,6 +14,7 @@ one or the other by the tensors' device.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -159,8 +160,8 @@ def _root_outputs(shape, device):
     return _lane_outputs(shape, device)[0]
 
 
-# csrc/lane_brent.cuh's refusal where no block of a lane kernel (K2, K3,
-# K5, K14) fits on an SM
+# csrc/lane_brent.cuh's refusal where no block of a lane kernel (K1, K2,
+# K3, K5, K14) fits on an SM
 _NO_RESIDENT_BLOCK = -3
 
 
@@ -220,12 +221,45 @@ def _brent(name, float_names, flag_names, lo, hi, active, dt, max_iter,
     return outs
 
 
+# K1's outputs after the terms (csrc/vic_kernels.cu GlacierOut, GlacierFlag)
+GLACIER_OUTPUTS = ("melt_mm", "surf_temp", "cold_content", "vapor_flux")
+GLACIER_FLAGS = ("melt_cond", "fbflag")
+
+
 def glacier_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
-    """K1: expand-then-Brent on the glacier surface residual, one thread per
-    lane. Same arguments and result as physics.glacier.glacier_brent_plain
-    (iterations per lane)."""
-    return _brent("glacier_brent", GLACIER_INPUTS, (), lo, hi, active, dt,
-                  max_iter, max_tries, inputs)
+    """K1: glacier.glacier_ablation's solve of the bare-ice balance in one
+    launch: on every lane the balance at 0 C, its melt test and the melt
+    it gives; then expand-then-Brent on the residual on the lanes of
+    `active` (None: every lane) that do not melt at 0 C, compacted and
+    dealt to persistent threads (csrc/lane_brent.cuh); then on every lane
+    the terms at the accepted temperature (0 C where the ice melts, else
+    the root, else old_tsurf) and the surface temperature, cold content,
+    vapour loss and fallback flag formed from it. Same arguments and
+    result as physics.glacier.glacier_brent_plain, a
+    physics.glacier.GlacierSolve."""
+    from ..physics.glacier import GlacierEBTerms, GlacierSolve
+    name = "glacier_brent"
+    device = lo.device
+    if active is None:
+        active = _const(device, torch.bool, True)
+    _keep, args, shape = _brent_call(name, GLACIER_INPUTS, (), lo, hi,
+                                     active, inputs, bounds_in_table=True)
+    nt = len(GlacierEBTerms._fields)
+    outs, floats, flags = _lane_outputs(
+        shape, device, floats=nt + len(GLACIER_OUTPUTS),
+        flags=len(GLACIER_FLAGS))
+    floats = floats.view((-1,) + tuple(shape))
+    n = outs.root.numel()
+    if n:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = build.load().glacier_brent(
+            *args, float(dt), int(max_iter), int(max_tries), n,
+            *_out_ptrs(outs), floats.data_ptr(), flags.data_ptr(), stream)
+        _check_lane_brent(name, err)
+    return GlacierSolve(
+        *outs, **dict(zip(GLACIER_FLAGS, flags)),
+        **dict(zip(GLACIER_OUTPUTS, floats[nt:])),
+        terms=GlacierEBTerms(*floats[:nt]))
 
 
 def _snowpack_inputs(inputs, device):
@@ -345,42 +379,58 @@ def mass_release(int_snow, temp_int_storage, n_iter=8):
     return outs
 
 
-def runoff_hourly(liq0, ice, evap_hr, resid_mm, max_moist, ksat_hr, expt,
-                  dt_runoff, dt_inflow, dsmax_hr, ds, ws, c_expt,
-                  dt_hours: int):
-    """K4: the hourly drainage/baseflow loop, one thread per lane. Same
-    arguments and result as physics.runoff.runoff_hourly_plain: layer
-    arrays broadcast to [..., nl], the rest to [...]; returns
-    (liq [..., nl], runoff_extra, baseflow)."""
+# K4's inputs, in csrc/vic_kernels.cu's RunoffIn order: layered, then one
+# value a lane
+RUNOFF_LAYER_INPUTS = ("moist", "soil_ice", "layer_evap", "max_moist_l",
+                       "resid_fract", "depth", "ksat", "expt")
+RUNOFF_LANE_INPUTS = ("ppt", "b_infilt", "ds", "dsmax", "ws", "c_expt")
+
+
+def runoff_hourly(moist, soil_ice, layer_evap, ppt, max_moist_l,
+                  resid_fract, depth, ksat, expt, b_infilt, ds, dsmax, ws,
+                  c_expt, dt_hours: int):
+    """K4: the whole of runoff.runoff_step in one launch, one thread a
+    lane: the residual moisture and ARNO's surface runoff, the hourly
+    drainage/baseflow loop, the final moisture's saturated area, the
+    clamps and the bottom layer's evap. Same arguments and result as
+    physics.runoff.runoff_step_plain, a physics.runoff.RunoffResult whose
+    fields are slices of one allocation: layer arrays broadcast to
+    [..., nl], the rest to [...]."""
+    from ..physics.runoff import RunoffResult
     name = "runoff_hourly"
-    device = liq0.device
+    device = moist.device
     if device.type != "cuda":
         raise ValueError(f"{name}: CUDA tensors required, got {device}")
-    layer = dict(liq0=liq0, ice=ice, evap_hr=evap_hr, resid_mm=resid_mm,
-                 max_moist=max_moist, ksat_hr=ksat_hr, expt=expt)
-    lane = dict(dt_runoff=dt_runoff, dt_inflow=dt_inflow, dsmax_hr=dsmax_hr,
-                ds=ds, ws=ws, c_expt=c_expt)
+    layer = dict(zip(RUNOFF_LAYER_INPUTS, (moist, soil_ice, layer_evap,
+                                          max_moist_l, resid_fract, depth,
+                                          ksat, expt)))
+    lane = dict(zip(RUNOFF_LANE_INPUTS, (ppt, b_infilt, ds, dsmax, ws,
+                                        c_expt)))
     lshape = torch.broadcast_shapes(*(t.shape for t in layer.values()))
     shape = torch.broadcast_shapes(lshape[:-1],
                                    *(t.shape for t in lane.values()))
-    lshape = shape + lshape[-1:]
     nl = lshape[-1]
-    f32 = torch.float32
     floats = ([(k, t, nl) for k, t in layer.items()]
               + [(k, t, 0) for k, t in lane.items()])
     table = _lane_inputs(floats, [], shape, device)
-    liq = torch.empty(lshape, dtype=f32, device=device)
-    runoff_extra = torch.empty(shape, dtype=f32, device=device)
-    baseflow = torch.empty(shape, dtype=f32, device=device)
-    n = runoff_extra.numel()
+    n = math.prod(shape)
+    buf = torch.empty((2 * nl + 3) * n, dtype=torch.float32, device=device)
+    lanes = tuple(shape)
+
+    def layered(first):
+        return buf[first * n:(first + nl) * n].view(lanes + (nl,))
+
+    def row(k):
+        return buf[(nl + k) * n:(nl + k + 1) * n].view(lanes)
+
     if n:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = build.load().runoff_hourly(
             table.ctypes.data, len(floats), shape[-1], nl, int(dt_hours), n,
-            liq.data_ptr(),
-            runoff_extra.data_ptr(), baseflow.data_ptr(), stream)
+            buf.data_ptr(), stream)
         _check_launch(name, err)
-    return liq, runoff_extra, baseflow
+    return RunoffResult(moist=layered(0), runoff=row(0), baseflow=row(1),
+                        asat=row(2), layer_evap=layered(nl + 3))
 
 
 # K5's inputs, in the order of csrc/surface_brent.cuh's enums

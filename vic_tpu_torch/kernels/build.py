@@ -88,7 +88,10 @@ _LANE_BRENT_ARGTYPES = (_LANES + [ctypes.c_int, ctypes.c_float]
                         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
 # K2 on it: K3's, then the terms at 0 C and at the root and the melt test
 _SNOWPACK_ARGTYPES = _LANE_BRENT_ARGTYPES + [ctypes.c_void_p] * 3
-_RUNOFF_ARGTYPES = (_FLOATS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4)
+# K1 on it: K3's, then its floats (the terms and the rest) and its flags
+_GLACIER_ARGTYPES = _LANE_BRENT_ARGTYPES + [ctypes.c_void_p] * 2
+# K4: lanes per cell, layers, hours, lanes; the outputs, stream
+_RUNOFF_ARGTYPES = (_FLOATS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
 # K5: lanes per cell, layers, dist; dt; the ground-flux type, frozen and
 # the Brent's counts; its four outputs, the terms, the layer terms, stream
 _SURFACE_ARGTYPES = (_LANES + [ctypes.c_int] * 3 + [ctypes.c_float]
@@ -135,11 +138,9 @@ def load():
     if _lib is None:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
-        for name in ("glacier_brent", "lake_ice_brent"):
-            fn = getattr(lib, name)
-            fn.argtypes = _BRENT_ARGTYPES
-            fn.restype = ctypes.c_int
-        for name, argtypes in (("canopy_brent", _LANE_BRENT_ARGTYPES),
+        for name, argtypes in (("lake_ice_brent", _BRENT_ARGTYPES),
+                               ("glacier_brent", _GLACIER_ARGTYPES),
+                               ("canopy_brent", _LANE_BRENT_ARGTYPES),
                                ("snowpack_brent", _SNOWPACK_ARGTYPES),
                                ("runoff_hourly", _RUNOFF_ARGTYPES),
                                ("surface_brent", _SURFACE_ARGTYPES),

@@ -2,9 +2,11 @@
 
 Counterpart of `vic_tpu/physics/runoff.py` (runoff.c): the VIC infiltration
 curve, then `dt_hours` hourly trips of Brooks-Corey drainage, the
-saturation-overflow cascade, evap withdrawal and ARNO baseflow. The hourly
-loop runs through `runoff_hourly_plain` on the CPU and through the
-`runoff_hourly` kernel (`csrc/vic_kernels.cu`) on a CUDA device.
+saturation-overflow cascade, evap withdrawal and ARNO baseflow. A step of
+it runs through `runoff_step_plain` (the hourly loop in
+`runoff_hourly_plain`) on the CPU and, the whole of it in one launch,
+through the `runoff_hourly` kernel (`csrc/vic_kernels.cu`) on a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -132,17 +134,14 @@ def runoff_hourly_plain(liq0, ice, evap_hr, resid_mm, max_moist, ksat_hr,
     return liq, runoff_acc, baseflow_acc
 
 
-def runoff_step(moist, soil_ice, layer_evap, ppt, max_moist_l, resid_fract,
-                depth, ksat, expt, b_infilt, ds, dsmax, ws, c_expt,
-                dt_hours: int) -> RunoffResult:
-    """One model step of runoff/drainage/baseflow on every HRU lane
-    (runoff.c). moist/soil_ice/layer_evap [..., nl] in mm, ppt mm/step,
-    ksat and dsmax in mm/day."""
+def runoff_step_plain(moist, soil_ice, layer_evap, ppt, max_moist_l,
+                      resid_fract, depth, ksat, expt, b_infilt, ds, dsmax,
+                      ws, c_expt, dt_hours: int) -> RunoffResult:
+    """Plain version of the `runoff_hourly` kernel: one model step of
+    runoff/drainage/baseflow (runoff.py:55-184 of the JAX package)."""
     resid_mm = resid_fract * depth * 1000.0
     _, runoff0 = compute_runoff_and_asat(moist, max_moist_l, b_infilt, ppt)
-    hourly = (runoff_hourly_plain if moist.device.type == "cpu"
-              else kernels.runoff_hourly)
-    liq_f, runoff_extra, baseflow = hourly(
+    liq_f, runoff_extra, baseflow = runoff_hourly_plain(
         moist - soil_ice, soil_ice, layer_evap / dt_hours, resid_mm,
         max_moist_l, ksat / 24.0, expt, runoff0 / dt_hours, ppt / dt_hours,
         dsmax / 24.0, ds, ws, c_expt, dt_hours)
@@ -157,3 +156,16 @@ def runoff_step(moist, soil_ice, layer_evap, ppt, max_moist_l, resid_fract,
     return RunoffResult(moist=moist_f, runoff=runoff0 + runoff_extra,
                         baseflow=torch.clamp(baseflow, min=0.0), asat=asat,
                         layer_evap=evap_out)
+
+
+def runoff_step(moist, soil_ice, layer_evap, ppt, max_moist_l, resid_fract,
+                depth, ksat, expt, b_infilt, ds, dsmax, ws, c_expt,
+                dt_hours: int) -> RunoffResult:
+    """One model step of runoff/drainage/baseflow on every HRU lane
+    (runoff.c). moist/soil_ice/layer_evap [..., nl] in mm, ppt mm/step,
+    ksat and dsmax in mm/day. runoff_step_plain on the CPU, the
+    `runoff_hourly` kernel on a CUDA device."""
+    step = (runoff_step_plain if moist.device.type == "cpu"
+            else kernels.runoff_hourly)
+    return step(moist, soil_ice, layer_evap, ppt, max_moist_l, resid_fract,
+                depth, ksat, expt, b_infilt, ds, dsmax, ws, c_expt, dt_hours)

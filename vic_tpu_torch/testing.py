@@ -734,17 +734,20 @@ def water_closure(outputs: dict, tol: float = 1e-2):
             float(err[~melt].max(initial=0.0)))
 
 
-# The energy terms K2 (snowpack_brent) and K5 (surface_brent) hand back
-# (physics.snow.SnowEBTerms, physics.surface.SurfEBResult), against their
-# plain versions' or vic_tpu's: each field within TERMS_RTOL*|ref| plus an
-# absolute limit in its own unit. Energies (W/m^2) and temperatures (C) at
-# TERMS_ATOL; the water depths at TERMS_WATER_ATOL_M of water, in metres
-# for the vapour fluxes (m a step, ~1e-4-1e-3 m on the daily
-# configurations, so an atol of 1e-4 would pass a flux 10% off) and in
-# millimetres for the evaporation and canopy water (mm a step). The
-# residual at the root (K5's error, K2's rest) is held at
-# TERMS_RESIDUAL_ATOL: ~0 by construction, it moves by the residual's
-# slope (20-200 W/m^2/C) times a few ulps of the root.
+# The energy terms K2 (snowpack_brent), K5 (surface_brent) and K1
+# (glacier_brent) hand back (physics.snow.SnowEBTerms,
+# physics.surface.SurfEBResult, physics.glacier.GlacierEBTerms and the
+# GlacierSolve fields formed from them), against their plain versions' or
+# vic_tpu's: each field within TERMS_RTOL*|ref| plus an absolute limit in
+# its own unit. Energies (W/m^2, K1's melt_energy and cold content in J/m^2
+# too) and temperatures (C) at TERMS_ATOL; the water depths at
+# TERMS_WATER_ATOL_M of water, in metres for the vapour fluxes (m a step,
+# ~1e-4-1e-3 m on the daily configurations, so an atol of 1e-4 would pass
+# a flux 10% off; K1's vapor_flux, its loss too) and in millimetres for the
+# evaporation, canopy water and K1's melt (mm a step). The residual at the
+# root (K5's error, K2's and K1's rest) is held at TERMS_RESIDUAL_ATOL: ~0
+# by construction, it moves by the residual's slope (20-200 W/m^2/C) times
+# a few ulps of the root.
 TERMS_RTOL = 1e-4
 TERMS_ATOL = 1e-4            # W/m^2, C
 TERMS_WATER_ATOL_M = 1e-8    # m of water
@@ -752,7 +755,8 @@ TERMS_RESIDUAL_ATOL = 1e-3   # W/m^2
 TERMS_IN_M = ("vapor_flux", "inc_vapor_flux")
 TERMS_IN_MM = ("evap", "layer_evap", "canopy_evap_mm", "throughfall",
                "wdew_new", "evap_dry", "layer_evap_dry",
-               "canopy_evap_mm_dry", "throughfall_dry", "wdew_new_dry")
+               "canopy_evap_mm_dry", "throughfall_dry", "wdew_new_dry",
+               "melt_mm")
 
 
 def terms_atol(field: str, residual: str) -> float:
