@@ -12,11 +12,12 @@ line) on failure:
 2. kernels: each configuration at its slice's size (32,768 cells, 262,144
    HRU lanes; heavy_nolakes and heavy 8,192 cells) with each kernel binding
    wrapped to capture its real arguments: K1-K5 in the light step's first
-   record, K6, K7 (and K4 again) in the frozen step's third, K8, K9 (and
-   K2 and K5 again, with a blowing-snow flux) in the blowing_close step's
-   fourth,
-   K10-K13 in the lakes step's second (open, partly and fully iced lakes
-   side by side), K14 and again K7 (with DIST_PRCP's dry column), K4 (its dry
+   record, K6, K7 (and K4 again) in the frozen step's third, K8, K9's pass
+   and its final update (and K2 and K5 again, with a blowing-snow flux) in
+   the blowing_close step's fourth,
+   K10-K13 and the lakes' water balance in the lakes step's second (open,
+   partly and fully iced lakes side by side; the water balance also in the
+   heavy step's fourth), K14 and again K7 (with DIST_PRCP's dry column), K4 (its dry
    column's call) and K6 (the lower probe of a CLOSE_ENERGY pass) in the
    heavy_nolakes step's fourth, K5 again with the dry column in the
    dist_prcp step's second, and every kernel of the heavy path (K12 with
@@ -39,6 +40,11 @@ line) on failure:
    given its bound (the least time the card could take for the same
    work); K1's, K2's, K3's, K5's and K14's rows also print their lanes'
    warp efficiency and waves (tools/profile_lane_brent.py's definitions).
+   K9's pass and final update, K13 and the water balance (every output,
+   lake by lake and lane by lane) must equal their plain versions' (NaN
+   where theirs are NaN), K9's largest change also as the host reads it
+   from its pinned word, and each of their calls must be one device event
+   (no fill, no copy: ONE_LAUNCH).
    K5's terms, K2's terms at its root and K1's terms, cold content and
    vapour loss at its accepted temperature are held against the plain
    ones at the kernel's own accepted temperature, K2's melt test and terms
@@ -74,7 +80,9 @@ line) on failure:
    snowpack balance (K2 returns its terms), the glacier balance (K1
    returns its terms), the infiltration curve (K4 computes runoff_step)
    or, on K5's paths, of the surface balance (K5 returns its terms)
-   allowed;
+   allowed; the lakes and heavy slices must launch K13 twice a record and
+   the water balance once, the CLOSE_ENERGY slices K9 once a pass and its
+   final update once a record;
    frozen_exp also times its SPATIAL_FROST layer ice; then frozen_exp's
    configuration at 3, 18 and 50 nodes, 4,096 cells x 8 records, the same
    way. Each row's launches in the kernels line are its kernel's count in
@@ -87,7 +95,8 @@ line) on failure:
    cells) and blowing_close (32,768) with CONTINUEONERROR, with and without
    NaN air temperature in 64 cells from the fourth record
    (`nan_slice_phase`): K8 on the HRU lanes (and, on heavy, the lake
-   lanes), K9, K10-K13 and K14 against their plain versions on the first
+   lanes), K9 (pass and final update), K10-K13, the water balance and K14
+   against their plain versions on the first
    NaN record's arguments, NaN at the same elements and the rest within
    each row's tolerance; the NaN cells read OUT_CELL_VALID 0, every record
    before the NaN equals the run without it, the NaN records run
@@ -190,6 +199,10 @@ KERNELS = {
     "canopy_air_step": ("canopy_air.cu", "vic_tpu/model.py:841",
                         "canopy_air", "canopy_air_step_plain",
                         "blowing_close"),
+    # K9's final update at the settled temperature
+    "canopy_air_final": ("canopy_air.cu", "vic_tpu/model.py:844",
+                         "canopy_air", "canopy_air_final_plain",
+                         "blowing_close"),
     # K10 and K11 hold ops/tridiag.py:16's Thomas solve and lake.py:443's
     # tracer_mixer inside
     "lake_open_water": ("lake_open_water.cu", "vic_tpu/physics/lake.py:584",
@@ -200,6 +213,11 @@ KERNELS = {
                        "lake", "lake_ice_brent_plain", "lakes"),
     "lake_depth": ("lake_depth.cu", "vic_tpu/physics/lake.py:204", "lake",
                    "depth_from_volume_plain", "lakes"),
+    # the per-HRU water balance after solve_lake, its depths on K13's
+    # basin code (csrc/lake_basin.cuh)
+    "lake_water_balance": ("lake_water_balance.cu",
+                           "vic_tpu/physics/lake.py:1636", "lake",
+                           "lake_water_balance_plain", "lakes"),
     "affine_surface_brent": ("affine_surface_brent.cu",
                              "vic_tpu/physics/surface.py:438", "surface",
                              "surface_root_plain", "heavy_nolakes"),
@@ -222,7 +240,11 @@ CAPTURED_FROM = {"mass_release": "snow_intercept",
 # functions of vic_tpu_torch.model whose result capture_kernel_args takes
 MODEL_RESULTS = ("snow_intercept",)
 LAKE_KERNELS = ("lake_open_water", "lake_under_ice", "lake_ice_brent",
-                "lake_depth")
+                "lake_depth", "lake_water_balance")
+# the steps and records each lake kernel is also held on, besides its own
+# configuration's and ALSO_ON's: the water balance on heavy's fourth
+# record, where the lakes are open
+LAKE_RECORDS = {"lake_water_balance": (("heavy", HEAVY_RECORD),)}
 # the kernels also timed on the heavy step's arguments, and what they are
 HEAVY_LAKE_TIMED = {"lake_ice_brent": "heavy, with the blowing-snow flux",
                     "blowing_snow": "heavy, lake lanes"}
@@ -245,12 +267,12 @@ PATH_KERNELS = {
                "runoff_hourly", "node_sweep", "fd_surface_brent"),
     "blowing_close": ("glacier_brent", "snowpack_brent", "canopy_brent",
                       "runoff_hourly", "surface_brent", "blowing_snow",
-                      "canopy_air_step"),
+                      "canopy_air_step", "canopy_air_final"),
     "lakes": ("glacier_brent", "snowpack_brent", "canopy_brent",
               "runoff_hourly", "surface_brent") + LAKE_KERNELS,
     "heavy_nolakes": ("glacier_brent", "snowpack_brent", "canopy_brent",
                       "runoff_hourly", "node_sweep", "fd_surface_brent",
-                      "blowing_snow", "canopy_air_step",
+                      "blowing_snow", "canopy_air_step", "canopy_air_final",
                       "affine_surface_brent"),
 }
 PATH_KERNELS["heavy"] = PATH_KERNELS["heavy_nolakes"] + LAKE_KERNELS
@@ -316,11 +338,13 @@ ALSO_ON = {
     "fd_surface_brent": ("heavy_nolakes", "heavy"),
     "blowing_snow": ("heavy_nolakes", "heavy"),
     "canopy_air_step": ("heavy_nolakes", "heavy"),
+    "canopy_air_final": ("heavy_nolakes", "heavy"),
     "affine_surface_brent": ("heavy",),
     "lake_open_water": ("heavy",),
     "lake_under_ice": ("heavy",),
     "lake_ice_brent": ("heavy",),
     "lake_depth": ("heavy",),
+    "lake_water_balance": ("heavy",),
 }
 # Brent stops a lane anywhere inside its final bracket, |c - b| <= 2*tol_i
 # with tol_i = 2*FLT_EPSILON*|b| + 1e-4 C, so two runs whose residuals differ
@@ -336,7 +360,9 @@ MELT_TIE_ULPS = 4
 SWEEP_TOL = 1e-4           # C, node temperatures of K6 vs its plain version
 BLOWING_RTOL = 1e-4        # K8 vs its plain version
 BLOWING_ATOL = 1e-9        # kg/m^2/s, far below the -5e-5 floor
-CANOPY_AIR_TOL = 1e-5      # C, K9's tc_next vs its plain version
+# K9 (both modes), K13 and the water balance repeat their plain versions'
+# operations: their outputs must equal the plain versions' (NaN where they
+# are NaN)
 REF_TOL = 1e-3             # rtol = atol, card libm vs XLA-CPU
 WATER_TOL = 1e-2           # mm, max |OUT_WATER_ERROR|
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, FP32 op/s
@@ -371,6 +397,7 @@ DRY_ET_OPS = 20 + 10 * 3
 # bounds and probability; ~60 once per lane
 BLOWING_OPS_PER_LANE = 10 * (26 * 9 + 24 * 4 + 55 + 16 * 75 + 170) + 60
 CANOPY_AIR_OPS_PER_LANE = 40      # the closed form and the secant guards
+CANOPY_AIR_FINAL_OPS_PER_LANE = 15   # the closed form and its sensible heat
 # The lake fixed points stop a lake at |change| <= 1e-4 (C for K10's skin
 # temperature, W/m^2 for K11's qw): two runs that stop one iteration apart
 # differ by about that much, so columns and qw agree within twice it, the
@@ -391,11 +418,22 @@ LAKE_ICE_SETUP_OPS = 1900
 LAKE_ICE_ITER_OPS = 260
 LAKE_MIX_OPS_PER_PAIR = 25
 LAKE_MIX_SWEEPS = 20
-# K12: the ice residual and a Brent iteration; K13: 30 bisection steps of
-# an area (~8 operations a trapezoid) and a volume (~12) over 20 trapezoids
+# K12: the ice residual and a Brent iteration; a depth solve (K13, and the
+# water balance's solves of a volume that changed): the basin's 20 layer
+# volumes (~4 operations each) and their 20 left-to-right suffix sums (210
+# additions) once a lake, then 30 bisection steps of one trapezoid's area
+# (~8) and partial volume (~6) and the step (~4), and the two searches of
+# the levels while the bracket narrows to one trapezoid (5, 4, 3, 2 and 2
+# comparisons each, then none)
 RESIDUAL_OPS["lake_ice_brent"] = 60 + 30
 RESIDUAL_OPS["affine_surface_brent"] = AFFINE_RESIDUAL_OPS
-LAKE_DEPTH_OPS = 30 * 20 * (8 + 12)
+LAKE_BASIN_OPS = 20 * 4 + 210
+LAKE_DEPTH_OPS = 2 * (5 + 4 + 3 + 2 + 2) + 30 * (8 + 6 + 4)
+# the water balance per lake (~30) and per HRU lane (~80 on a lane of the
+# mask, two powf and a sqrtf among them; ~10 on another), besides the depth
+# solves its data needs (lake_balance_solves)
+LAKE_BALANCE_OPS = 30
+LAKE_BALANCE_LANE_OPS = (80, 10)
 # K15: ~15 operations a round, 8 rounds a lane; K16 a node per Newton step:
 # the residual and the Jacobian row (~25) and the row scaling and Thomas
 # solve (~15), and ~30 more for the three unfrozen-water evaluations of a
@@ -594,19 +632,61 @@ def compare_blowing(kern, plain, snowdepth, label, exercised=True):
     return worst
 
 
+def unequal(a, b):
+    """The elements where a and b differ (NaN equal to NaN)."""
+    if a.dtype == torch.bool:
+        return a != b
+    return (a != b) & ~(torch.isnan(a) & torch.isnan(b))
+
+
+def largest_difference(a, b):
+    if a.dtype == torch.bool:
+        return float((a != b).sum())
+    d = (a - b).abs()
+    d = torch.where(torch.isnan(d), 0.0, d)
+    return float(d.max()) if d.numel() else 0.0
+
+
 def compare_canopy_air(kern, plain, label):
-    """K9 vs its plain version: tc_next and g within CANOPY_AIR_TOL, the
-    batch maxima too, and the same stop decision."""
+    """K9 vs its plain version: tc_next, g and the batch's largest change
+    equal, so the same stop decision; the change as the host reads it after
+    the launch (kernels.canopy_air_largest_change) equal too."""
+    from vic_tpu_torch import kernels
     from vic_tpu_torch.model import OVER_TOL_F32
-    diffs = [float((a - b).abs().max()) for a, b in zip(kern, plain)]
-    stop_k = float(kern[2]) <= OVER_TOL_F32
+    diffs = [largest_difference(a, b) for a, b in zip(kern, plain)]
+    differ = [int(unequal(a, b).sum()) for a, b in zip(kern, plain)]
+    host = kernels.canopy_air_largest_change(kern[2])
+    stop_k = host <= OVER_TOL_F32
     stop_p = float(plain[2]) <= OVER_TOL_F32
-    print(f"  canopy_air_step ({label}): max |diff| tc_next {diffs[0]:.3e} "
-          f"C, g {diffs[1]:.3e} C, batch max change {float(kern[2]):.6g} / "
-          f"{float(plain[2]):.6g} C (kernel/plain), stop {stop_k}/{stop_p}")
-    if max(diffs) > CANOPY_AIR_TOL or stop_k != stop_p:
-        raise AssertionError("canopy_air_step outside tolerance")
+    print(f"  canopy_air_step ({label}): lanes differing tc_next "
+          f"{differ[0]}, g {differ[1]}; max |diff| tc_next {diffs[0]:.3e} "
+          f"C, g {diffs[1]:.3e} C, batch max change {float(kern[2]):.6g} "
+          f"(host word {host:.6g}) / {float(plain[2]):.6g} C (kernel/plain),"
+          f" stop {stop_k}/{stop_p}")
+    same_max = bool(not unequal(kern[2], plain[2])) and (
+        np.float32(host) == np.float32(float(plain[2]))
+        or (np.isnan(host) and np.isnan(float(plain[2]))))
+    if sum(differ) or not same_max or stop_k != stop_p:
+        raise AssertionError("canopy_air_step differs from its plain "
+                             "version")
     return max(diffs)
+
+
+def compare_canopy_final(kern, plain, label):
+    """K9's final update vs its plain version: Tcanopy, the fallback flag
+    and the atmospheric sensible heat equal."""
+    names = ("tcanopy", "fbflag", "sensible")
+    differ = [int(unequal(a, b).sum()) for a, b in zip(kern, plain)]
+    diffs = [largest_difference(a, b) for a, b in zip(kern, plain)]
+    print(f"  canopy_air_final ({label}): lanes {kern[0].numel()}, fallbacks "
+          f"{int(kern[1].sum())}; lanes differing "
+          + ", ".join(f"{n} {d}" for n, d in zip(names, differ))
+          + f"; max |diff| Tcanopy {diffs[0]:.3e} C, sensible "
+          f"{diffs[2]:.3e} W/m^2")
+    if sum(differ):
+        raise AssertionError("canopy_air_final differs from its plain "
+                             "version")
+    return max(diffs[0], diffs[2])
 
 
 def compare_runoff(kern, plain, label):
@@ -777,22 +857,63 @@ def lake_depth_plain(z, basin, maxdepth, volume):
 
 def compare_lake_depth(args, results=None):
     """K13 vs its plain version (or `results`, their outputs on args):
-    depths equal, or within one final bisection step (maxdepth / 2^30)."""
+    the depths equal on every lake (csrc/lake_basin.cuh makes the plain
+    version's decisions)."""
     from vic_tpu_torch import kernels
-    from vic_tpu_torch.physics.lake import DEPTH_ITERS
-    maxdepth = args[2]
     kern, plain = results or (kernels.lake_depth(*args),
                               lake_depth_plain(*args))
     torch.cuda.synchronize()
-    diff = (kern - plain).abs()
-    step = maxdepth.expand(diff.shape) / 2.0 ** DEPTH_ITERS
-    exact = int((diff == 0).sum())
-    print(f"  lake_depth: lakes {diff.numel()}, equal depths {exact}, max "
-          f"|diff| {float(diff.max()):.3e} m")
-    if bool((diff > step).any()):
-        raise AssertionError("lake_depth: depths differ by more than one "
-                             "bisection step")
-    return kern, float(diff.max())
+    differ = int(unequal(kern, plain).sum())
+    print(f"  lake_depth: lakes {kern.numel()}, equal depths "
+          f"{kern.numel() - differ}, max |diff| "
+          f"{largest_difference(kern, plain):.3e} m")
+    if differ:
+        raise AssertionError(f"lake_depth: {differ} depths differ from the "
+                             "plain version's")
+    return kern, largest_difference(kern, plain)
+
+
+def compare_lake_balance(args, kwargs, label, results=None):
+    """The water balance kernel vs lake_water_balance_plain (or `results`,
+    their outputs on these arguments): every output equal on every lake
+    and lane (NaN where the plain version's is NaN); prints the lakes and
+    lanes that differ and each output's largest difference. Returns (the
+    kernel's WaterBalance, the largest difference)."""
+    from vic_tpu_torch import kernels
+    from vic_tpu_torch.physics.lake import lake_water_balance_plain
+    kern, plain = results or (kernels.lake_water_balance(*args, **kwargs),
+                              lake_water_balance_plain(*args, **kwargs))
+    torch.cuda.synchronize()
+    lane_mask = kwargs["lane_mask"]
+    live = args[0].has_lake & kwargs["active"]
+    valid = live[:, None] & lane_mask
+    lakes = torch.zeros_like(live)
+    lanes = torch.zeros_like(lane_mask)
+    worst, line = 0.0, []
+    for field in kern._fields:
+        a, b = getattr(kern, field), getattr(plain, field)
+        if a is None and b is None:
+            continue
+        bad = unequal(a, b)
+        d = largest_difference(a, b)
+        worst = max(worst, d)
+        line.append(f"{field} {d:.3e}")
+        if bad.dim() == 1:
+            lakes |= bad
+        else:
+            lanes |= bad if bad.dim() == 2 else bad.any(-1)
+    lakes |= lanes.any(-1)
+    nan = int(torch.isnan(plain.volume).sum())
+    print(f"  lake_water_balance ({label}): lakes {live.numel()}, live "
+          f"{int(live.sum())}, lanes of the mask {int(valid.sum())} of "
+          f"{valid.numel()}, NaN volumes {nan}; lakes differing "
+          f"{int(lakes.sum())}, lanes differing {int(lanes.sum())}; largest "
+          "difference " + ", ".join(line))
+    if bool(lakes.any()):
+        where = torch.nonzero(lakes)[:5, 0].tolist()
+        raise AssertionError(f"lake_water_balance ({label}): differs from "
+                             f"its plain version at lakes {where}")
+    return kern, worst
 
 
 def nbytes(*tensors):
@@ -897,9 +1018,9 @@ def blowing_work(kwargs, result):
             float(snow.sum()) * BLOWING_OPS_PER_LANE)
 
 
-def canopy_air_work(kwargs, result):
+def canopy_air_work(kwargs, result, per_lane=CANOPY_AIR_OPS_PER_LANE):
     return (nbytes(*kwargs.values(), *result),
-            result[0].numel() * CANOPY_AIR_OPS_PER_LANE)
+            result[0].numel() * per_lane)
 
 
 def runoff_work(args, result):
@@ -986,7 +1107,78 @@ def lake_column_work(kwargs, kern, outputs, setup_ops, iter_ops,
 
 
 def lake_depth_work(args, kern):
-    return nbytes(*args, kern), kern.numel() * LAKE_DEPTH_OPS
+    return nbytes(*args, kern), kern.numel() * (LAKE_BASIN_OPS
+                                                + LAKE_DEPTH_OPS)
+
+
+def lake_balance_solves(args, kwargs):
+    """The depth solves the water balance needs on these arguments: per
+    lake, the liquid volumes it asks the depth of, in its order (on every
+    lane the new extent's; on a lane of the mask also the baseflow's area,
+    the weir's head, the dry test and the final fraction; then the final
+    depth), counted where a volume above 0 (or NaN) differs from the one
+    asked before it. The volumes are the plain version's on the same
+    arguments (its depths by K13 on the card, equal to the plain
+    bisection's, as in compare_lake_balance)."""
+    from vic_tpu_torch.physics import lake as tl
+    asked = []
+    dispatch = tl.depth_from_volume
+
+    def record(lp, volume):
+        asked.append(volume)
+        return dispatch(lp, volume)
+
+    tl.depth_from_volume = record
+    try:
+        tl.lake_water_balance_plain(*args, **kwargs)
+    finally:
+        tl.depth_from_volume = dispatch
+    lp = args[0]
+    valid = (lp.has_lake & kwargs["active"])[:, None] & kwargs["lane_mask"]
+    n_lane = valid.shape[1]
+    if len(asked) != 5 * n_lane + 1:
+        raise AssertionError(f"lake_water_balance_plain asked {len(asked)} "
+                             f"depths, not 5 a lane and 1 ({n_lane} lanes)")
+    every = torch.ones_like(valid[:, 0])
+    order = [(asked[5 * h + k], every if k == 0 else valid[:, h])
+             for h in range(n_lane) for k in range(5)] + [(asked[-1], every)]
+    prev = torch.full_like(asked[0], -1.0)
+    solves = torch.zeros_like(asked[0], dtype=torch.int64)
+    for v, take in order:
+        solves += (take & ~(v == prev) & ~(v <= 0.0)).long()
+        prev = torch.where(take, v, prev)
+    return int(solves.sum())
+
+
+def lake_balance_work(args, kwargs, kern):
+    """Bytes of the water balance (each input a lake reads, its lanes' and
+    layers' included, and its outputs) and its FP32 operations: per lake
+    the basin's tables and the balance, per lane its own, and the depth
+    solves this run's data needs (lake_balance_solves)."""
+    from vic_tpu_torch.kernels import LAKE_BALANCE_INPUTS
+    lp, st, res = args
+    sources = {"lp": lp, "st": st, "s1": res.state, "res": res,
+               "kw": kwargs}
+    n, n_lane = kwargs["lane_mask"].shape
+    read = 0
+    for key, where, axes in LAKE_BALANCE_INPUTS:
+        x = (sources[where][key] if where == "kw"
+             else getattr(sources[where], key))
+        if x is not None:
+            shape = {"c": (n,), "b": (n, 21), "l": (n, n_lane),
+                     "ll": (n, n_lane, x.shape[-1] if x.dim() else 1)}[axes]
+            read += 4 * int(np.prod(shape))
+    read += n * 2 + kwargs["lane_mask"].numel()
+    valid = int(((lp.has_lake & kwargs["active"])[:, None]
+                 & kwargs["lane_mask"]).sum())
+    other = n * n_lane - valid
+    solves = lake_balance_solves(args, kwargs)
+    print(f"  lake_water_balance: {solves} depth solves of a changed volume "
+          f"({solves / n:.2f} a lake; {n + 5 * valid + other} asked)")
+    ops = (n * (LAKE_BASIN_OPS + LAKE_BALANCE_OPS)
+           + valid * LAKE_BALANCE_LANE_OPS[0]
+           + other * LAKE_BALANCE_LANE_OPS[1] + solves * LAKE_DEPTH_OPS)
+    return read + nbytes(*(x for x in kern if x is not None)), ops
 
 
 def check_lake_kernel(name, args, kwargs, calls, label="lakes",
@@ -1012,6 +1204,10 @@ def check_lake_kernel(name, args, kwargs, calls, label="lakes",
     if name == "lake_depth":
         kern, err = compare_lake_depth(args, results)
         return err, lake_depth_work(args, kern)
+    if name == "lake_water_balance":
+        kern, err = compare_lake_balance(args, kwargs, f"{label}, record "
+                                         f"{record}", results)
+        return err, lake_balance_work(args, kwargs, kern)
     kern, plain = results or (kernels.lake_ice_brent(*args, **kwargs),
                               lake_ice_brent_plain(*args, **kwargs))
     torch.cuda.synchronize()
@@ -1051,6 +1247,8 @@ def compare(name, label, kern, plain, kwargs):
         return compare_blowing(kern, plain, kwargs["snowdepth"], label)
     if name == "canopy_air_step":
         return compare_canopy_air(kern, plain, label)
+    if name == "canopy_air_final":
+        return compare_canopy_final(kern, plain, label)
     if name == "runoff_hourly":
         return compare_runoff(kern, plain, label)
     if name == "node_sweep":
@@ -1289,6 +1487,8 @@ def check_kernel(name, label, args, kwargs, kern_fn, plain_fn, captured,
         work = blowing_work(kwargs, kern)
     elif name == "canopy_air_step":
         work = canopy_air_work(kwargs, kern)
+    elif name == "canopy_air_final":
+        work = canopy_air_work(kwargs, kern, CANOPY_AIR_FINAL_OPS_PER_LANE)
     elif name == "runoff_hourly":
         work = runoff_work(args, kern)
     elif name == "node_sweep":
@@ -1337,6 +1537,17 @@ def lane_brent_stats(name, args, kwargs, kern_fn, regs):
           f"{lt.warp_efficiency(evals):.4f} (consecutive lanes), ptxas "
           f"{n_reg} registers ({spill} B spill stores), waves "
           f"{lanes / resident if resident else None}")
+
+
+# the kernels whose call is one device event: no fill, no copy
+ONE_LAUNCH = ("canopy_air_step", "canopy_air_final", "lake_depth",
+              "lake_water_balance")
+
+
+def device_events(fn):
+    """The device events (kernels, memsets, copies) of one call of fn
+    (tools/profile_fd_surface.py's `_profiled`)."""
+    return lane_tools()._profiled({"call": fn})[1]["call"]["device_events"]
 
 
 def kernels_phase(device, regs=None):
@@ -1389,6 +1600,12 @@ def kernels_phase(device, regs=None):
                 a, kw = captured[also][name]
                 err = max(err, check_lake_kernel(
                     name, a, kw, calls[also][name], also, RECORD[also])[0])
+            for config, record in LAKE_RECORDS.get(name, ()):
+                n_calls = {}
+                a, kw = capture_kernel_args(config, (name,), device,
+                                            record=record, calls=n_calls)[name]
+                err = max(err, check_lake_kernel(
+                    name, a, kw, n_calls[name], config, record)[0])
         else:
             err, work = check_kernel(
                 name, label if row == name else row, args, kwargs, kern_fn,
@@ -1400,6 +1617,12 @@ def kernels_phase(device, regs=None):
         plain_ms = cuda_ms(lambda: plain_fn(*args, **kwargs),
                            reps=1 if name == "fd_surface_brent" else 3)
         bound_ms, bound_by = bound(*work)
+        if row in ONE_LAUNCH:
+            events = device_events(lambda: kern_fn(*args, **kwargs))
+            print(f"  {row}: {events} device events a call")
+            if events != 1:
+                raise AssertionError(f"{row}: {events} device events a call "
+                                     "(a fill or a copy beside the kernel)")
         print(f"  {row}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms by {bound_by} ({work[0]} bytes, "
               f"{work[1]:.4g} FP32 operations)")
@@ -1905,7 +2128,14 @@ def slice_phase(device, config, ref_werr=None, nnode=None):
         print(f"  CLOSE_ENERGY passes per record: {passes}; max "
               f"|OUT_SUB_BLOWING| "
               f"{float(outs['OUT_SUB_BLOWING'].abs().max()):.4g} mm")
+        # one K9 launch a pass and one for the final update
+        expect_launches(config, launches, canopy_air_step=sum(passes),
+                        canopy_air_final=SMOKE_RECS)
     if config in ("lakes", "heavy"):
+        # the depth before the step and solve_lake's; the water balance's
+        # 41 inside its one launch
+        expect_launches(config, launches, lake_depth=2 * SMOKE_RECS,
+                        lake_water_balance=SMOKE_RECS)
         ice = outs["OUT_LAKE_ICE_FRACT"]
         print(f"  lakes: ice fraction per record min/max "
               f"{[round(float(x), 4) for x in ice.amin(1)]} / "
@@ -1936,6 +2166,16 @@ def slice_phase(device, config, ref_werr=None, nnode=None):
         raise AssertionError(f"kernels never launched by the {config} "
                              f"slice: {idle}")
     return launches
+
+
+def expect_launches(config, launches, **expected):
+    """Raise unless each named kernel launched as often as expected."""
+    wrong = {k: (launches[k], v) for k, v in expected.items()
+             if launches[k] != v}
+    print(f"  launches {expected}: "
+          + ("as expected" if not wrong else f"(got, expected) {wrong}"))
+    if wrong:
+        raise AssertionError(f"{config}: launches {wrong}")
 
 
 def spatial_snow_checks(state, stack, params, gp, extras, final, outs):
@@ -2009,9 +2249,12 @@ def spatial_snow_checks(state, stack, params, gp, extras, final, outs):
 # lanes, then on its lake lanes, its second call in a step)
 NAN_SLICES = {"heavy": HEAVY_CELLS, "blowing_close": SMOKE_CELLS}
 NAN_ROWS = {"heavy": ("blowing_snow", "blowing_snow/lake_lanes",
-                      "canopy_air_step", "lake_open_water", "lake_under_ice",
-                      "lake_ice_brent", "lake_depth", "affine_surface_brent"),
-            "blowing_close": ("blowing_snow", "canopy_air_step")}
+                      "canopy_air_step", "canopy_air_final",
+                      "lake_open_water", "lake_under_ice", "lake_ice_brent",
+                      "lake_depth", "lake_water_balance",
+                      "affine_surface_brent"),
+            "blowing_close": ("blowing_snow", "canopy_air_step",
+                              "canopy_air_final")}
 
 
 def nan_cells(n_cell, shift=0):

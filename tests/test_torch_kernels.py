@@ -26,13 +26,15 @@ from vic_tpu_torch.model import make_step
 from vic_tpu_torch.model import OVER_TOL_F32
 from vic_tpu_torch.physics import surface
 from vic_tpu_torch.physics.blowing_snow import calc_blowing_snow_plain
-from vic_tpu_torch.physics.canopy_air import canopy_air_step_plain
+from vic_tpu_torch.physics.canopy_air import (canopy_air_final_plain,
+                                              canopy_air_step_plain)
 from vic_tpu_torch.physics.canopy_snow import canopy_brent_plain
 from vic_tpu_torch.physics.frozen_soil import solve_t_profile_explicit_plain
 from vic_tpu_torch.physics.glacier import glacier_brent_plain
 from vic_tpu_torch.physics.lake import (depth_from_volume_plain,
                                         lake_ice_brent_plain,
                                         lake_open_water_plain,
+                                        lake_water_balance_plain,
                                         water_under_ice_plain)
 from vic_tpu_torch.physics.runoff import runoff_step_plain
 from vic_tpu_torch.physics.snow import (snow_energy_terms,
@@ -126,6 +128,8 @@ def test_slice_three_wrappers_refuse_cpu_tensors():
                              tair=t)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.canopy_air_step(it=0, tc=t)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.canopy_air_final(tair=t)
 
 
 def test_affine_surface_brent_refuses_cpu_tensors():
@@ -675,7 +679,7 @@ def test_canopy_air_step_kernel_matches_plain(cuda):
 
 
 LAKE_KERNELS = ("lake_open_water", "lake_under_ice", "lake_ice_brent",
-                "lake_depth")
+                "lake_depth", "lake_water_balance")
 # the lake fixed points stop a lake at |change| <= 1e-4 (C, W/m^2): two runs
 # stopping one iteration apart may differ by about that much
 LAKE_FIXED_POINT_TOL = 2e-4
@@ -690,6 +694,8 @@ def test_lake_wrappers_refuse_cpu_tensors():
     grid = make_grid(lp, torch.full_like(c, 5.0))
     with pytest.raises(ValueError, match="CUDA"):
         kernels.lake_depth(lp.z, lp.basin, lp.maxdepth, c)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.lake_water_balance(lp, SimpleNamespace(volume=c), None)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.lake_ice_brent(c, c, c > 0, dt=86400.0, max_iter=30,
                                max_tries=5,
@@ -769,6 +775,133 @@ def test_lake_depth_kernel_matches_plain(cuda):
         SimpleNamespace(z=z, basin=basin, maxdepth=maxdepth), volume)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+def _equal_nan(got, ref):
+    """Bit for bit, NaN where the other is NaN."""
+    if got is None or ref is None:
+        return got is None and ref is None
+    return got.shape == ref.shape and bool(
+        ((got == ref) | (torch.isnan(got) & torch.isnan(ref))).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config,record", [("lakes", 1), ("heavy", 3)])
+def test_lake_water_balance_kernel_matches_plain(cuda, config, record):
+    """The water balance after solve_lake: every output of the lakes
+    step's second record and the heavy step's fourth equal to
+    lake_water_balance_plain's, lake by lake and lane by lane, in one
+    launch."""
+    a, kw = _captured_args(cuda, names=("lake_water_balance",),
+                           config=config,
+                           record=record)["lake_water_balance"]
+    before = kernels.launches["lake_water_balance"]
+    got = kernels.lake_water_balance(*a, **kw)
+    ref = lake_water_balance_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["lake_water_balance"] == before + 1
+    assert bool(kw["lane_mask"].any()) and bool((got.recharge_m3 > 0).any())
+    for field in ref._fields:
+        assert _equal_nan(getattr(got, field), getattr(ref, field)), field
+
+
+@pytest.mark.gpu
+def test_lake_depth_kernel_matches_plain_on_every_volume(cuda):
+    """K13 on lake_basin.cuh against the plain bisection on volumes from
+    empty to over full, the basin's own levels' volumes (the layer edges)
+    and NaN: equal depths."""
+    a, kw = _lake_args(cuda)["lake_depth"]
+    z, basin, maxdepth, _ = a
+    lp = SimpleNamespace(z=z, basin=basin, maxdepth=maxdepth)
+    n = z.shape[0]
+    edges = tl_volume(lp, z[:, 5])
+    for volume in (torch.linspace(-1.0, 1.2, n, device=cuda)
+                   * tl_volume(lp, maxdepth), edges,
+                   torch.full((n,), float("nan"), device=cuda)):
+        got = kernels.lake_depth(z, basin, maxdepth, volume)
+        assert _equal_nan(got, depth_from_volume_plain(lp, volume))
+
+
+@pytest.mark.gpu
+def test_lake_depth_kernel_matches_plain_on_seeded_basins(cuda):
+    """K13 against the plain bisection on seeded falling basins of 1-20
+    nodes (uneven, even and tied levels, the flat zero tail io.lakeparam
+    pads a short profile with), volumes at the levels and across the
+    basin, 0, negative and NaN, and NaN or negative maxdepth: equal
+    depths."""
+    rng = np.random.default_rng(13)
+    n = 4096
+    z, b = np.zeros((n, 21)), np.zeros((n, 21))
+    for i in range(n):
+        nn, md = int(rng.integers(1, 21)), rng.uniform(0.5, 30.0)
+        kind = i % 3
+        if kind == 0:
+            zz = np.concatenate([[md], np.sort(rng.uniform(0, md, nn - 1))
+                                 [::-1], [0.0]])
+        elif kind == 1:
+            zz = md * (1.0 - np.arange(nn + 1) / nn)
+        else:
+            zz = np.round(np.sort(rng.uniform(0, md, nn + 1))[::-1])
+            zz[-1] = 0.0
+        bb = np.sort(rng.uniform(0, 1e6, nn + 1))[::-1]
+        bb[-1] = 0.0
+        z[i, :nn + 1], b[i, :nn + 1] = zz, bb
+    t = lambda x: torch.tensor(np.asarray(x, np.float32), device=cuda)
+    z, basin = t(z), t(b)
+    maxdepth = z[:, 0].clone()
+    maxdepth[3::101] = float("nan")
+    maxdepth[4::101] = -1.0
+    lp = SimpleNamespace(z=z, basin=basin, maxdepth=maxdepth)
+    at_levels = tl_volume(lp, z[torch.arange(n), t(rng.integers(0, 21, n))
+                                .long()])
+    across = tl_volume(lp, z[:, 0]) * t(rng.uniform(-0.1, 1.2, n))
+    for volume in (at_levels, across):
+        volume[::97] = 0.0
+        volume[1::97] = float("nan")
+        got = kernels.lake_depth(z, basin, maxdepth, volume)
+        assert _equal_nan(got, depth_from_volume_plain(lp, volume))
+
+
+def tl_volume(lp, depth):
+    from vic_tpu_torch.physics.lake import volume_from_depth
+    return volume_from_depth(lp, depth)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["blowing_close", "heavy_nolakes"])
+def test_canopy_air_final_kernel_matches_plain(cuda, config):
+    """K9's final update on the settled pass of the blowing_close and
+    heavy_nolakes steps' fourth record: Tcanopy, the fallback flag and the
+    sensible heat equal to the plain version's, in one launch."""
+    a, kw = _captured_args(cuda, names=("canopy_air_final",), config=config,
+                           record=3)["canopy_air_final"]
+    before = kernels.launches["canopy_air_final"]
+    got = kernels.canopy_air_final(*a, **kw)
+    ref = canopy_air_final_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launches["canopy_air_final"] == before + 1
+    assert torch.equal(got[1], ref[1])
+    assert _equal_nan(got[0], ref[0]) and _equal_nan(got[2], ref[2])
+
+
+@pytest.mark.gpu
+def test_canopy_air_step_publishes_and_resets_its_maximum(cuda):
+    """K9's step: bit-equal to its plain version pass after pass, the
+    batch's largest change read from the pinned host word equal to the
+    device word's, and the accumulator and ticket back at 0 after every
+    launch (no fill between passes)."""
+    a, kw = _captured_args(cuda, names=("canopy_air_step",),
+                           config="heavy_nolakes",
+                           record=3)["canopy_air_step"]
+    for it in range(3):
+        got = kernels.canopy_air_step(*a, **dict(kw, it=it))
+        ref = canopy_air_step_plain(*a, **dict(kw, it=it))
+        host = kernels.canopy_air_largest_change(got[2])
+        scratch = kernels._canopy_air[cuda]
+        assert scratch.acc.tolist() == [0, 0]
+        assert all(_equal_nan(g, r) for g, r in zip(got, ref))
+        assert np.float32(host) == got[2].item() == ref[2].item()
+        kw = dict(kw, tc=got[0], tc_prev=kw["tc"], g_prev=got[1])
 
 
 def test_ice_residual_fields_are_the_kernels_inputs():

@@ -1,0 +1,252 @@
+"""The lakes' step and the CLOSE_ENERGY canopy-air update on one NVIDIA
+GPU: `lake_step` with its water balance, K13 (`lake_depth`) alone, K9
+(`canopy_air_step`) alone and as a pass of the loop uses it, and the
+loop's final update, each call split into the wrapper's host time and the
+device's time.
+
+    cd <checkout> && python3 <path>/tools/profile_lake_close.py
+        [--cells 32768] [--heavy-cells 8192] [--reps 20]
+        [--dump FILE.pt] [--against FILE.pt] [--out FILE.json]
+
+Like tools/profile_lane_brent.py it builds and imports the kernels,
+`vic_tpu_torch` and `chip_smoke` of the checkout it is run from, so two
+trees are compared on one card by running it from each root in turn.
+Cases, each on the arguments of the call's first use in that step
+(`chip_smoke.capture_kernel_args`):
+
+- `lake_step` in lakes' second record (`--cells` cells) and heavy's fourth
+  (`--heavy-cells`), and `solve_lake` on the same arguments;
+- `lake_water_balance` (the kernel) on the arguments its step gives it,
+  where the checkout has it;
+- K13 on its first call in lakes' second record (the depth before the
+  step);
+- K9 in heavy_nolakes' fourth record (its first CLOSE_ENERGY pass),
+  `--heavy-cells` cells: the kernel alone, and a pass as the loop makes it
+  (the kernel and the host's read of the batch's largest change);
+- the loop's final update at the settled temperature on the same lanes
+  (`canopy_air_final` where the checkout has it, else the plain torch
+  lines of `model.make_step` it replaced).
+
+For each: the wrapper's host time (call to return, no synchronize) and
+the call's (call to synchronize), medians of `--reps` calls after a
+warm-up; CUDA-event milliseconds a call over `--reps` calls back to back;
+one call under torch.profiler: the device's busy and idle milliseconds
+and its events (kernels, memsets and copies).
+
+--dump writes each case's arguments and outputs; --against reads such a
+file (another checkout's) and runs this checkout's functions again on its
+arguments, giving each output's largest difference and the elements where
+only one of the two is NaN.
+
+Prints the card's name and power limit and, as its last line, one JSON
+object with every number (also written to --out).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+sys.path.insert(0, os.getcwd())
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from profile_fd_surface import _event_ms, _host_ms, _profiled  # noqa: E402
+from profile_lane_brent import flat_outputs  # noqa: E402
+
+# lake_step's arguments that solve_lake takes, by solve_lake's names
+SOLVE_LAKE_ARGS = {"snowfall_mm": "snowfall_mm", "rainfall_mm": "rainfall_mm",
+                   "tair": "tair", "wind": "wind", "vp": "vp_air",
+                   "sw_in": "sw_in", "lw_in": "lw_in", "vpd": "vpd",
+                   "pressure": "pressure", "air_density": "air_density",
+                   "dt_sec": "dt_sec", "wind_h": "wind_h",
+                   "snow_rough": "snow_rough", "lat": "lat",
+                   "day_in_year": "day_in_year",
+                   "new_snow_alb": "new_snow_alb",
+                   "alb_accum_a": "alb_accum_a", "alb_accum_b": "alb_accum_b",
+                   "alb_thaw_a": "alb_thaw_a", "alb_thaw_b": "alb_thaw_b",
+                   "blowing": "blowing"}
+# K9's arguments that the final update reads
+FINAL_ARGS = ("canopy_sensible", "soil_sensible", "pack_sensible", "cov_w",
+              "tair", "air_dens", "ra_over", "iter_mask")
+DEVICE_KEYS = ("device_events", "device_busy_ms", "device_span_ms",
+               "device_idle_ms")
+
+
+def solve_lake_call(lake, a, kw):
+    import torch
+    active = kw.get("active")
+    if active is None:
+        active = torch.ones_like(a[1].volume, dtype=torch.bool)
+    args = {k: kw[v] for k, v in SOLVE_LAKE_ARGS.items() if v in kw}
+    return lambda: lake.solve_lake(a[0], a[1], active=active, **args)
+
+
+def final_plain(canopy_sensible, soil_sensible, pack_sensible, cov_w, tair,
+                air_dens, ra_over, iter_mask):
+    """model.make_step's final canopy-air update before it became
+    physics.canopy_air.canopy_air_final."""
+    import torch
+    from vic_tpu_torch.physics.canopy_air import calc_atmos_energy_bal
+    under_sens = soil_sensible + pack_sensible * cov_w
+    ca = calc_atmos_energy_bal(canopy_sensible + under_sens, tair, air_dens,
+                               ra_over)
+    return (torch.where(iter_mask, ca.tcanopy, tair),
+            torch.where(iter_mask, ca.fbflag, False),
+            torch.where(iter_mask, ca.sensible, under_sens))
+
+
+def move(x, device):
+    import dataclasses
+
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if dataclasses.is_dataclass(x):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: move(v, device) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(move(v, device) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(move(v, device) for v in x)
+    return x
+
+
+def differences(mine, theirs):
+    """Each float output's largest difference where neither is NaN, the
+    elements NaN in one only, and the differing elements of the others."""
+    import torch
+    out = {"largest_difference": {}, "nan_apart": 0}
+    for k, y in theirs.items():
+        x = mine.get(k)
+        if x is None or x.shape != y.shape:
+            continue
+        if x.dtype == torch.float32:
+            both = ~torch.isnan(x) & ~torch.isnan(y)
+            d = torch.where(both, (x - y).abs(), 0.0)
+            out["largest_difference"][k] = float(d.max()) if d.numel() \
+                else 0.0
+            out["nan_apart"] += int((torch.isnan(x) != torch.isnan(y)).sum())
+        else:
+            out["largest_difference"][k] = int((x != y).sum())
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cells", type=int, default=32768)
+    ap.add_argument("--heavy-cells", type=int, default=8192)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--dump", default=None)
+    ap.add_argument("--against", default=None)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    import chip_smoke
+    from vic_tpu_torch import kernels
+    from vic_tpu_torch.kernels import build
+    from vic_tpu_torch.physics import canopy_air, lake
+
+    device = chip_smoke.device_phase()
+    build.build()
+    build.load()
+    result = {"root": os.getcwd(), "card": chip_smoke.subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]}
+    balance = ("lake_water_balance",) if hasattr(kernels,
+                                                  "lake_water_balance") else ()
+    lakes = chip_smoke.capture_kernel_args(
+        "lakes", ("lake_step", "lake_depth") + balance, device,
+        record=chip_smoke.LAKES_RECORD, cells=args.cells)
+    heavy = chip_smoke.capture_kernel_args(
+        "heavy", ("lake_step",) + balance, device,
+        record=chip_smoke.HEAVY_RECORD, cells=args.heavy_cells)
+    close = chip_smoke.capture_kernel_args(
+        "heavy_nolakes", ("canopy_air_step",), device,
+        record=chip_smoke.HEAVY_RECORD, cells=args.heavy_cells)
+    largest = getattr(canopy_air, "largest_change", float)
+    final = getattr(canopy_air, "canopy_air_final", None)
+    k9a, k9kw = close["canopy_air_step"]
+    fkw = {k: k9kw[k] for k in FINAL_ARGS}
+
+    def pass_call():
+        return largest(kernels.canopy_air_step(*k9a, **k9kw)[2])
+
+    cases = {}
+    for config, cap in (("lakes", lakes), ("heavy", heavy)):
+        a, kw = cap["lake_step"]
+        cases[f"lake_step/{config}"] = (lambda a=a, kw=kw:
+                                        lake.lake_step(*a, **kw), (a, kw))
+        cases[f"solve_lake/{config}"] = (solve_lake_call(lake, a, kw), None)
+        if balance:
+            a, kw = cap["lake_water_balance"]
+            cases[f"lake_water_balance/{config}"] = (
+                lambda a=a, kw=kw: kernels.lake_water_balance(*a, **kw),
+                None)
+    a, kw = lakes["lake_depth"]
+    cases["lake_depth/lakes"] = (lambda: kernels.lake_depth(*a, **kw), None)
+    cases["canopy_air_step/heavy_nolakes"] = (
+        lambda: kernels.canopy_air_step(*k9a, **k9kw), (k9a, k9kw))
+    cases["canopy_air_pass/heavy_nolakes"] = (pass_call, None)
+    cases["close_energy_tail/heavy_nolakes"] = (
+        (lambda: final(**fkw)) if final else (lambda: final_plain(**fkw)),
+        ((), fkw))
+
+    calls, dumped = {}, {}
+    for label, (fn, captured) in cases.items():
+        out = fn()
+        torch.cuda.synchronize()
+        wrapper_ms, call_ms = _host_ms(fn, args.reps)
+        calls[label] = fn
+        result[label] = {"wrapper_host_ms": wrapper_ms, "call_ms": call_ms,
+                         "cuda_event_ms": _event_ms(fn, args.reps)}
+        if captured is not None:
+            dumped[label] = {
+                "args": move(chip_smoke.clone_args(captured), "cpu"),
+                "flat": {k: v.cpu() for k, v in flat_outputs(out).items()}}
+    _, prof = _profiled(calls)
+    for label in cases:
+        case = result[label]
+        case.update({k: prof[label][k] for k in DEVICE_KEYS + ("by_kernel",)})
+    for label, case in result.items():
+        if isinstance(case, dict):
+            print(f"  {label}: wrapper {case['wrapper_host_ms']:.4f} ms on "
+                  f"the host, call {case['call_ms']:.4f} ms, CUDA events "
+                  f"{case['cuda_event_ms']:.4f} ms, device busy "
+                  f"{case['device_busy_ms']:.4f} ms in "
+                  f"{case['device_events']} events, idle "
+                  f"{case['device_idle_ms']:.4f} ms", flush=True)
+    if args.dump:
+        os.makedirs(os.path.dirname(os.path.abspath(args.dump)),
+                    exist_ok=True)
+        torch.save(dumped, args.dump)
+    if args.against:
+        other = torch.load(args.against, weights_only=False)
+        fns = {"lake_step": lake.lake_step,
+               "canopy_air_step": kernels.canopy_air_step,
+               "close_energy_tail": final or final_plain}
+        for label, theirs in other.items():
+            a, kw = move(theirs["args"], device)
+            out = fns[label.split("/")[0]](*a, **kw)
+            torch.cuda.synchronize()
+            diff = differences(
+                {k: v.cpu() for k, v in flat_outputs(out).items()},
+                theirs["flat"])
+            print(f"  {label} on {args.against}'s arguments: "
+                  + json.dumps(diff), flush=True)
+            result[label]["against"] = diff
+    text = json.dumps(result)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    print(text)
+
+
+if __name__ == "__main__":
+    main()

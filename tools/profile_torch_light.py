@@ -25,9 +25,12 @@
    (`compute_runoff_and_asat`) and K4 (`runoff_hourly`) inside
    `runoff_step`; whatever of each call is not in them is its glue. With
    LAKES, lake_step's calls inside it (solve_lake and, inside that, the
-   K10-K12 call sites; the K13 depth bisections) are timed as a nested
-   "lake" breakdown whose "other" is lake_step's own glue (with BLOWING,
-   the blowing-snow call over lake ice, K8, inside solve_lake too).
+   K10-K12 call sites; physics.lake's K13 depth bisections; the water
+   balance's launch) are timed as a nested "lake" breakdown with
+   solve_lake's own glue and lake_step less solve_lake (the water balance
+   and the state masks; with BLOWING, the blowing-snow call over lake ice,
+   K8, inside solve_lake too). A call the checkout lacks is left out, so an
+   older checkout is profiled by the same script.
 3. profile: torch.profiler over two records: device time by kernel name,
    the hand-written kernels' own device time, and the device's busy share.
 
@@ -69,7 +72,8 @@ CONFIG_CALLS = {
     "light": (),
     "frozen": ("distribute_node_moisture", "estimate_layer_ice",
                "find_zero_fronts"),
-    "blowing_close": ("calc_blowing_snow", "canopy_air_step"),
+    "blowing_close": ("calc_blowing_snow", "canopy_air_step",
+                      "canopy_air_final"),
     # the lake coupling's pre-step depth (K13) and the lake step
     "lakes": ("depth_from_volume", "lake_step"),
     "dist_prcp": ("storm_transfer",),
@@ -77,7 +81,8 @@ CONFIG_CALLS = {
     # inside solve_surface_temperature, and are timed with it
     "heavy_nolakes": ("distribute_node_moisture", "estimate_layer_ice",
                       "find_zero_fronts", "calc_blowing_snow",
-                      "canopy_air_step", "storm_transfer", "compute_zwt"),
+                      "canopy_air_step", "canopy_air_final",
+                      "storm_transfer", "compute_zwt"),
 }
 CONFIG_CALLS["heavy"] = CONFIG_CALLS["heavy_nolakes"] + CONFIG_CALLS["lakes"]
 CONFIG_CALLS["frozen_exp"] = CONFIG_CALLS["frozen"]
@@ -86,10 +91,11 @@ CONFIG_CALLS["frozen_quick"] = ("estimate_layer_ice", "find_zero_fronts")
 CONFIG_CALLS["spatial_snow"] = ("calc_snow_coverage", "correct_precip")
 # inside lake_step (physics/lake.py): solve_lake, within it the open-water
 # column (K10), the snow-on-ice update (K12 inside) and the under-ice
-# column (K11); every depth bisection (K13) of solve_lake and the water
-# balance
+# column (K11); physics.lake's depth bisections (K13: solve_lake's and,
+# before the water balance was one launch, the water balance's); the water
+# balance's launch where the checkout has it
 LAKE_CALLS = ("solve_lake", "lake_open_water", "lake_ice_melt",
-              "water_under_ice", "depth_from_volume")
+              "water_under_ice", "depth_from_volume", "lake_water_balance")
 # nested breakdowns: inside snow_melt (physics/snow.py) the snowpack
 # balance's terms; inside glacier_ablation the glacier balance's terms and
 # K1; inside runoff_step the infiltration curve and K4
@@ -102,8 +108,9 @@ HAND_WRITTEN = ("brent_kernel", "runoff_hourly_kernel", "node_sweep_kernel",
                 "node_finish_kernel", "fd_eval_kernel", "fd_expand_kernel",
                 "fd_init_kernel", "fd_propose_kernel", "fd_accept_kernel",
                 "fd_finish_kernel", "blowing_snow_kernel",
-                "canopy_air_kernel", "lake_open_water_kernel",
-                "lake_under_ice_kernel", "lake_depth_kernel")
+                "canopy_air_kernel", "canopy_air_final_kernel",
+                "lake_open_water_kernel", "lake_under_ice_kernel",
+                "lake_depth_kernel", "lake_water_balance_kernel")
 
 
 def quartiles(xs):
@@ -134,8 +141,11 @@ def throughput(config, n_cell, n_rec, repeats, device):
 
 def breakdown(config, n_cell, n_rec, device):
     gp, params, stack, state, kw = build(config, n_cell, n_rec, device)
-    wrapped = [(model, name) for name in STEP_CALLS + CONFIG_CALLS[config]]
-    lake_calls = LAKE_CALLS + (("calc_blowing_snow",) if gp.blowing else ())
+    # a call the checkout lacks (an older one) is left out
+    wrapped = [(model, name) for name in STEP_CALLS + CONFIG_CALLS[config]
+               if hasattr(model, name)]
+    lake_calls = tuple(n for n in LAKE_CALLS if hasattr(lake, n)) + (
+        ("calc_blowing_snow",) if gp.blowing else ())
     if gp.lakes:
         wrapped += [(lake, name) for name in lake_calls]
     wrapped += [pair for inner in NESTED.values() for pair in inner]
@@ -184,14 +194,14 @@ def breakdown(config, n_cell, n_rec, device):
         # nested: solve_lake's calls inside it, the rest of lake_step
         inner = {name: ms((lake, name)) for name in lake_calls}
         nested = ("lake_open_water", "lake_ice_melt", "water_under_ice") \
-            + lake_calls[len(LAKE_CALLS):]
+            + (("calc_blowing_snow",) if gp.blowing else ())
         inner["solve_lake own glue"] = inner["solve_lake"] - sum(
             inner[n] for n in nested)
-        # depth_from_volume: all of physics.lake's calls, the one inside
-        # solve_lake included, so it is counted in solve_lake's too
-        inner["lake_step own glue"] = (per_rec["lake_step"]
-                                       - inner["solve_lake"]
-                                       - inner["depth_from_volume"])
+        # the water balance and the state masks: all of lake_step but
+        # solve_lake (depth_from_volume counts physics.lake's calls,
+        # solve_lake's one included)
+        inner["lake_step less solve_lake"] = (per_rec["lake_step"]
+                                              - inner["solve_lake"])
         result["lake_ms_per_record"] = inner
     return result
 

@@ -29,9 +29,10 @@ from . import build
 launches = {"glacier_brent": 0, "snowpack_brent": 0, "canopy_brent": 0,
             "runoff_hourly": 0, "surface_brent": 0, "node_sweep": 0,
             "fd_surface_brent": 0, "blowing_snow": 0, "canopy_air_step": 0,
-            "lake_open_water": 0, "lake_under_ice": 0, "lake_ice_brent": 0,
-            "lake_depth": 0, "affine_surface_brent": 0, "mass_release": 0,
-            "implicit_profile": 0, "bisection": 0}
+            "canopy_air_final": 0, "lake_open_water": 0,
+            "lake_under_ice": 0, "lake_ice_brent": 0, "lake_depth": 0,
+            "lake_water_balance": 0, "affine_surface_brent": 0,
+            "mass_release": 0, "implicit_profile": 0, "bisection": 0}
 
 # per-lane float inputs of each Brent residual, in the C functors' order
 GLACIER_INPUTS = ("ra", "z_ref", "roughness", "air_dens", "vp_air",
@@ -895,44 +896,143 @@ def blowing_snow(*, dt_sec, quad_nodes, log_terms, **inputs):
     return flux, transport
 
 
-# K9's inputs, in the order of csrc/canopy_air.cu's In and Mask
+# K9's inputs, in the order of csrc/canopy_air.cu's In and Mask; the
+# final update reads the first seven and the first mask
 CANOPY_AIR_INPUTS = ("canopy_sensible", "soil_sensible", "pack_sensible",
                      "cov_w", "tair", "air_dens", "ra_over", "tc", "tc_prev",
                      "g_prev")
 CANOPY_AIR_MASKS = ("iter_mask", "lane_mask")
+CANOPY_AIR_FINAL_INPUTS = CANOPY_AIR_INPUTS[:7]
+# the inputs that stay the same over a record's passes
+CANOPY_AIR_RECORD = ("tair", "air_dens", "ra_over", "iter_mask", "lane_mask")
+
+
+class _CanopyAirScratch:
+    """What K9 keeps on a device between calls: its accumulator and ticket
+    (two int32, zeroed once; every launch leaves them 0), the pinned host
+    word the last block writes the batch's largest change to, with its
+    device address, the event recorded after the last launch, and the lane
+    table of the last call's record inputs (rows written once a record,
+    the per-pass rows patched)."""
+
+    def __init__(self, device):
+        self.acc = torch.zeros(2, dtype=torch.int32, device=device)
+        self.host = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+        self.host_bits = self.host.numpy()
+        dev = ctypes.c_void_p()
+        err = build.load().canopy_air_host_word(
+            ctypes.c_void_p(self.host.data_ptr()), ctypes.byref(dev))
+        if err != 0:
+            raise RuntimeError("canopy_air_step: the pinned host word has no "
+                               f"device address (CUDA error {err})")
+        self.host_dev = dev.value
+        self.event = torch.cuda.Event()
+        self.last = None        # the live_max tensor of the last launch
+        self.record = None      # (record tensors, shape, lane table)
+
+
+_canopy_air = {}
+
+
+def _canopy_air_table(inputs, shape, device, scratch):
+    """K9's lane table: the record inputs' rows from the last call when its
+    tensors are these very tensors at this lane shape (identical rows),
+    else written anew; the per-pass rows written into it."""
+    record = tuple(inputs[k] for k in CANOPY_AIR_RECORD)
+    cached = scratch.record
+    if cached is None or cached[1] != shape or any(
+            a is not b for a, b in zip(cached[0], record)):
+        table = _lane_inputs([(k, inputs[k], 0) for k in CANOPY_AIR_INPUTS],
+                             [(k, inputs[k], 0) for k in CANOPY_AIR_MASKS],
+                             shape, device)
+        scratch.record = (record, shape, table)
+        return table
+    table = cached[2]
+    per_pass = [(k, inputs[k], 0) for k in CANOPY_AIR_INPUTS
+                if k not in CANOPY_AIR_RECORD]
+    rows = _lane_inputs(per_pass, [], shape, device).reshape(-1, 4)
+    table.reshape(-1, 4)[[CANOPY_AIR_INPUTS.index(k)
+                          for k, _, _ in per_pass]] = rows
+    return table
 
 
 def canopy_air_step(*, it, **inputs):
     """K9: one CLOSE_ENERGY pass's canopy-air update on every lane and the
     batch's largest masked change, reduced on the device. Same arguments and
     result as physics.canopy_air.canopy_air_step_plain: (tc_next, g,
-    live_max as a 0-d float32 tensor, NaN if any change is NaN)."""
+    live_max as a 0-d float32 tensor, NaN if any change is NaN). One launch:
+    no fill (the kernel leaves its accumulator at 0) and no copy; the
+    largest change also goes to a pinned host word, which
+    `canopy_air_largest_change(live_max)` reads after an event."""
     name = "canopy_air_step"
     device = inputs["tc"].device
     if device.type != "cuda":
         raise ValueError(f"{name}: CUDA tensors required, got {device}")
-    expected = set(CANOPY_AIR_INPUTS + CANOPY_AIR_MASKS)
-    if set(inputs) != expected:
-        raise TypeError(f"{name}: missing inputs "
-                        f"{sorted(expected - set(inputs))}, unexpected "
-                        f"{sorted(set(inputs) - expected)}")
+    _check_names(name, inputs, CANOPY_AIR_INPUTS + CANOPY_AIR_MASKS)
     shape = torch.broadcast_shapes(*(t.shape for t in inputs.values()))
+    scratch = _canopy_air.get(device)
+    if scratch is None:
+        scratch = _canopy_air[device] = _CanopyAirScratch(device)
+    table = _canopy_air_table(inputs, shape, device, scratch)
     f32 = torch.float32
-    table = _lane_inputs([(k, inputs[k], 0) for k in CANOPY_AIR_INPUTS],
-                         [(k, inputs[k], 0) for k in CANOPY_AIR_MASKS],
-                         shape, device)
-    tc_next = torch.empty(shape, dtype=f32, device=device)
-    g = torch.empty(shape, dtype=f32, device=device)
-    live_bits = torch.zeros((), dtype=torch.int32, device=device)
-    n = tc_next.numel()
+    out = torch.empty((2,) + tuple(shape), dtype=f32, device=device)
+    live_bits = torch.empty((), dtype=torch.int32, device=device)
+    n = out[0].numel()
     if n:
-        stream = torch.cuda.current_stream(device).cuda_stream
+        stream = torch.cuda.current_stream(device)
         err = build.load().canopy_air_step(
             table.ctypes.data, len(CANOPY_AIR_INPUTS), len(CANOPY_AIR_MASKS),
-            shape[-1], int(it), n, tc_next.data_ptr(), g.data_ptr(),
-            live_bits.data_ptr(), stream)
+            shape[-1], int(it), n, out[0].data_ptr(), out[1].data_ptr(),
+            scratch.acc.data_ptr(), live_bits.data_ptr(), scratch.host_dev,
+            stream.cuda_stream)
         _check_launch(name, err)
-    return tc_next, g, live_bits.view(f32)
+        scratch.event.record(stream)
+    live_max = live_bits.view(f32)
+    scratch.last = live_max
+    return out[0], out[1], live_max
+
+
+def canopy_air_largest_change(live_max):
+    """The batch's largest change of a K9 launch as a Python float: for the
+    last launch on its device, its pinned host word after its event (no
+    copy launched); else the tensor's value."""
+    scratch = _canopy_air.get(live_max.device)
+    if scratch is None or scratch.last is not live_max:
+        return float(live_max)
+    scratch.event.synchronize()
+    return float(scratch.host_bits.view(np.float32)[0])
+
+
+def canopy_air_final(**inputs):
+    """K9's final update: on the settled pass, calc_atmos_energy_bal's
+    Tcanopy on the iterated lanes (Tair elsewhere), its fallback flag
+    there, and the atmospheric sensible heat (the understory's elsewhere),
+    in one launch. Same arguments and result as
+    physics.canopy_air.canopy_air_final_plain: (tcanopy, fbflag,
+    sensible)."""
+    name = "canopy_air_final"
+    device = inputs["tair"].device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors required, got {device}")
+    _check_names(name, inputs, CANOPY_AIR_FINAL_INPUTS + ("iter_mask",))
+    shape = torch.broadcast_shapes(*(t.shape for t in inputs.values()))
+    table = _lane_inputs(
+        [(k, inputs[k], 0) for k in CANOPY_AIR_FINAL_INPUTS],
+        [("iter_mask", inputs["iter_mask"], 0)], shape, device)
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.empty(9 * n, dtype=torch.uint8, device=device)
+    floats = buf[:8 * n].view(torch.float32).view((2,) + tuple(shape))
+    fbflag = buf[8 * n:].view(torch.bool).view(shape)
+    if n:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = build.load().canopy_air_final(
+            table.ctypes.data, len(CANOPY_AIR_FINAL_INPUTS), 1, shape[-1], n,
+            floats[0].data_ptr(), fbflag.data_ptr(), floats[1].data_ptr(),
+            stream)
+        _check_launch(name, err)
+    return floats[0], fbflag, floats[1]
 
 
 # the lake kernels K10-K13 (one thread per lake; lanes [n_cell])
@@ -1072,3 +1172,103 @@ def lake_depth(z, basin, maxdepth, volume):
                                       depth.data_ptr(), stream)
         _check_launch(name, err)
     return depth
+
+
+# lake_water_balance's float inputs, in the order of
+# csrc/lake_water_balance.cu's In: (name, where it is read from, axes:
+# "c" per lake, "b" the basin's levels, "l" per lane, "ll" per lane and
+# soil layer)
+LAKE_BALANCE_INPUTS = (
+    ("z", "lp", "b"), ("basin", "lp", "b"), ("maxdepth", "lp", "c"),
+    ("mindepth", "lp", "c"), ("minvolume", "lp", "c"),
+    ("maxvolume", "lp", "c"), ("wfrac", "lp", "c"),
+    ("volume", "st", "c"), ("ice_area", "st", "c"), ("swe", "st", "c"),
+    ("volume", "s1", "c"), ("ice_water_eq", "s1", "c"), ("swe", "s1", "c"),
+    ("evap_m3", "res", "c"), ("ice_throughfall_m3", "res", "c"),
+    ("store_dump_m3", "res", "c"), ("snowmelt_m3", "res", "c"),
+    ("new_ice_area", "res", "c"), ("sarea", "res", "c"),
+    ("precip_in_m3", "res", "c"), ("vapor_flux_m3", "res", "c"),
+    ("runoff_in_m3", "kw", "c"), ("baseflow_in_m3", "kw", "c"),
+    ("ds", "kw", "c"), ("dsmax", "kw", "c"), ("ws_arno", "kw", "c"),
+    ("c_expt", "kw", "c"), ("wetland_rel_moist", "kw", "l"),
+    ("wetland_moist", "kw", "ll"), ("wetland_max_moist", "kw", "ll"))
+LAKE_BALANCE_KWARGS = ("runoff_in_m3", "baseflow_in_m3", "ds", "dsmax",
+                       "ws_arno", "dt_sec", "c_expt", "wetland_moist",
+                       "wetland_max_moist", "wetland_rel_moist", "active",
+                       "lane_mask")
+# its per-lake outputs (csrc/lake_water_balance.cu Out)
+LAKE_BALANCE_OUTPUTS = ("volume", "evap_m3", "runoff_out_m3",
+                        "baseflow_out_m3", "recharge_m3", "max_newfraction",
+                        "depth", "sarea", "water_error_mm")
+
+
+def lake_water_balance(lp, st, res, **inputs):
+    """The lakes' water balance after solve_lake, one thread per lake: the
+    HRU lanes' passes in order (gains and evaporation cap, new extent,
+    flooding recharge of the lane's wetland soil, lake-bed baseflow, weir
+    and growth caps, dry test), each lane's final and largest new fraction,
+    the final depth and area and the closure telemetry, in one launch. Same
+    arguments and result as physics.lake.lake_water_balance_plain (a
+    physics.lake.WaterBalance)."""
+    from ..physics.lake import WaterBalance
+    name = "lake_water_balance"
+    device = st.volume.device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors required, got {device}")
+    _check_names(name, inputs, LAKE_BALANCE_KWARGS)
+    lane_mask = inputs["lane_mask"]
+    if lane_mask.dim() != 2 or lane_mask.shape[0] != st.volume.shape[0]:
+        raise ValueError(f"{name}: lane_mask must be [n_cell, lanes], got "
+                         f"{tuple(lane_mask.shape)}")
+    n, n_lane = lane_mask.shape
+    f32 = torch.float32
+    wetland = inputs["wetland_moist"] is not None
+    nl = inputs["wetland_moist"].shape[-1] if wetland else 0
+    zero, one = _const(device, f32, 0.0), _const(device, f32, 1.0)
+    named = dict(inputs)
+    if inputs["c_expt"] is None:
+        named["c_expt"] = _const(device, f32, 2.0)
+    if not wetland:
+        named.update(wetland_moist=zero, wetland_max_moist=zero)
+    if not wetland or inputs["wetland_rel_moist"] is None:
+        named["wetland_rel_moist"] = one
+    sources = {"lp": lp, "st": st, "s1": res.state, "res": res}
+    table = []
+    for key, where, axes in LAKE_BALANCE_INPUTS:
+        x = (named[key] if where == "kw"
+             else getattr(sources[where], key))
+        _check_input(x, device, f32, key)
+        if axes == "c":
+            table += (x.data_ptr(), *_broadcast_strides(x, (n,), key), 0, 0)
+        elif axes == "b":
+            s = _broadcast_strides(x, (n, LAKE_NN + 1), key)
+            table += (x.data_ptr(), s[0], 0, s[1])
+        elif axes == "l":
+            table += (x.data_ptr(), *_broadcast_strides(x, (n, n_lane), key),
+                      0)
+        else:
+            table += (x.data_ptr(),
+                      *_broadcast_strides(x, (n, n_lane, max(nl, 1)), key))
+    for key, x, shape in (("has_lake", lp.has_lake, (n,)),
+                          ("active", inputs["active"], (n,)),
+                          ("lane_mask", lane_mask, (n, n_lane))):
+        _check_input(x, device, torch.bool, key)
+        s = _broadcast_strides(x, shape, key)
+        table += (x.data_ptr(), *s, *(0,) * (3 - len(s)))
+    table = np.array(table, np.int64)
+    k = len(LAKE_BALANCE_OUTPUTS)
+    buf = torch.empty(k * n + n * n_lane * (2 + nl), dtype=f32,
+                      device=device)
+    out = buf[:k * n].view(k, n)
+    lanes = buf[k * n:k * n + 2 * n * n_lane].view(2, n, n_lane)
+    dmoist = buf[k * n + 2 * n * n_lane:].view(n, n_lane, nl)
+    if n:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = build.load().lake_water_balance(
+            table.ctypes.data, len(LAKE_BALANCE_INPUTS), 3, n_lane, nl,
+            float(inputs["dt_sec"]), n, out.data_ptr(), lanes[0].data_ptr(),
+            lanes[1].data_ptr(), dmoist.data_ptr(), stream)
+        _check_launch(name, err)
+    return WaterBalance(*out.unbind(0), lane_nf=lanes[0],
+                        lane_maxnf=lanes[1],
+                        wetland_dmoist_mm=dmoist if wetland else None)

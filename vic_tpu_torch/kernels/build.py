@@ -112,8 +112,17 @@ _FD_SURFACE_ARGTYPES = (_LANES + [ctypes.c_int] * 3 + [ctypes.c_float]
 _BLOWING_ARGTYPES = (_LANES + [ctypes.c_int, ctypes.c_float]
                      + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                      + [ctypes.c_void_p] * 3)
+# K9: lanes per cell, pass, lanes; tc_next, g, the accumulator and ticket,
+# the device and host words of the largest change, stream
 _CANOPY_AIR_ARGTYPES = (_LANES + [ctypes.c_int] * 3
-                        + [ctypes.c_void_p] * 4)
+                        + [ctypes.c_void_p] * 6)
+_CANOPY_AIR_FINAL_ARGTYPES = (_LANES + [ctypes.c_int] * 2
+                              + [ctypes.c_void_p] * 4)
+_HOST_WORD_ARGTYPES = [ctypes.c_void_p] * 2
+# lanes per lake, soil layers, dt_sec, lakes; the outputs, stream
+_LAKE_BALANCE_ARGTYPES = (_LANES + [ctypes.c_int] * 2
+                          + [ctypes.c_float, ctypes.c_int]
+                          + [ctypes.c_void_p] * 5)
 _LAKE_OPEN_ARGTYPES = (_LANES + [ctypes.c_int, ctypes.c_float,
                                   ctypes.c_int] + [ctypes.c_void_p] * 6)
 _LAKE_ICE_ARGTYPES = (_LANES + [ctypes.c_int, ctypes.c_float,
@@ -150,9 +159,14 @@ def load():
                                 _AFFINE_SURFACE_ARGTYPES),
                                ("blowing_snow", _BLOWING_ARGTYPES),
                                ("canopy_air_step", _CANOPY_AIR_ARGTYPES),
+                               ("canopy_air_final",
+                                _CANOPY_AIR_FINAL_ARGTYPES),
+                               ("canopy_air_host_word", _HOST_WORD_ARGTYPES),
                                ("lake_open_water", _LAKE_OPEN_ARGTYPES),
                                ("lake_under_ice", _LAKE_ICE_ARGTYPES),
                                ("lake_depth", _LAKE_DEPTH_ARGTYPES),
+                               ("lake_water_balance",
+                                _LAKE_BALANCE_ARGTYPES),
                                ("bisection", _BISECTION_ARGTYPES),
                                ("mass_release", _MASS_RELEASE_ARGTYPES),
                                ("implicit_profile", _IMPLICIT_ARGTYPES)):

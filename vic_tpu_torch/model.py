@@ -37,7 +37,8 @@ from . import constants as c
 from . import kernels
 from .physics.aero import calc_aerodynamic
 from .physics.blowing_snow import calc_blowing_snow
-from .physics.canopy_air import calc_atmos_energy_bal, canopy_air_step
+from .physics.canopy_air import (canopy_air_final, canopy_air_step,
+                                 largest_change)
 from .physics.canopy_snow import snow_intercept
 from .physics.dist_prcp import storm_transfer
 from .physics.evap import build_evap_pre, compute_pot_evap, svp
@@ -46,8 +47,8 @@ from .physics.frozen_soil import (NodeSolve, distribute_node_moisture,
                                   frost_kwargs, layer_ice_params)
 from .physics.glacier import glacier_ablation
 from .physics.hydrology_misc import compute_zwt, correct_precip
-from .physics.lake import (LakeState, area_from_depth, depth_from_volume,
-                           lake_step)
+from .physics.lake import (LakeState, area_from_depth, check_basin,
+                           depth_from_volume, lake_step)
 from .physics.runoff import runoff_step
 from .physics.snow import (calc_rainonly, calc_snow_coverage,
                            new_snow_density, snow_albedo,
@@ -119,13 +120,16 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
     geom: the NodeGeometry of finite-difference nodes on the parameters' device
     (physics.frozen_soil.build_node_geometry(...).to), required with
     quick_flux=False or frozen_soil. lake_params: the lakes' LakeParams on the
-    parameters' device (prepare.lake_params_from_numpy), required with LAKES.
+    parameters' device (prepare.lake_params_from_numpy), required with LAKES;
+    a basin whose levels do not fall raises ValueError (check_basin).
     zwt_curves: the water-table curves on the parameters' device
     (physics.hydrology_misc.build_zwt_curves, then zwt_curves_to), for the
     OUT_ZWT* outputs. outvars: optional OUT_* names to return (plus
     OUT_WATER_ERROR, always kept, and OUT_CELL_VALID under
     CONTINUEONERROR)."""
     _refuse(gp, geom, zwt_curves, lake_params)
+    if lake_params is not None:
+        check_basin(lake_params.z)
     dt_hours = gp.dt
     dt_sec = float(dt_hours) * 3600.0
     n_band = max(1, gp.snow_band)
@@ -662,17 +666,16 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                     g_prev=g_prev, iter_mask=iter_mask, lane_mask=p.mask)
                 tc_prev, tc, luo = tc, tc_next, ri["luo_out"]
                 close_iters += 1
-                if float(live_max) <= OVER_TOL_F32:
+                if largest_change(live_max) <= OVER_TOL_F32:
                     break
             r = column(tc, luo)
             # the final update at the settled temperature
-            under_sens = r["eb"].sensible_heat \
-                + r["sm"].terms.sensible * r["cov_w"]
-            ca = calc_atmos_energy_bal(r["ci"].sensible + under_sens, tair,
-                                       air_dens, aero.resist.canopy)
-            tcanopy = W(iter_mask, ca.tcanopy, tair)
-            tcanopy_fb = W(iter_mask, ca.fbflag, False)
-            atmos_sensible = W(iter_mask, ca.sensible, under_sens)
+            tcanopy, tcanopy_fb, atmos_sensible = canopy_air_final(
+                canopy_sensible=r["ci"].sensible,
+                soil_sensible=r["eb"].sensible_heat,
+                pack_sensible=r["sm"].terms.sensible, cov_w=r["cov_w"],
+                tair=tair, air_dens=air_dens, ra_over=aero.resist.canopy,
+                iter_mask=iter_mask)
         else:
             close_iters = 0
             tcanopy = tair

@@ -12,9 +12,11 @@ in closed form (the residual is linear in Tcanopy); a root outside
 
 `canopy_air_step` is one pass of the CLOSE_ENERGY fixed point of
 `vic_tpu/model.py:796-851` but for its column() evaluation: the update of
-the canopy-air temperature and the batch's largest change. It runs the
-`canopy_air_step` kernel on CUDA tensors (`csrc/canopy_air.cu`) and
-`canopy_air_step_plain` on the CPU.
+the canopy-air temperature and the batch's largest change
+(`largest_change` reads it on the host), and `canopy_air_final` the
+loop's final update at the settled temperature (`vic_tpu/model.py:844`).
+Each runs its K9 kernel on CUDA tensors (`csrc/canopy_air.cu`) and its
+plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -79,4 +81,36 @@ def canopy_air_step(**inputs):
     tensors, `canopy_air_step_plain` on the CPU (same arguments)."""
     solve = (canopy_air_step_plain if inputs["tc"].device.type == "cpu"
              else kernels.canopy_air_step)
+    return solve(**inputs)
+
+
+def largest_change(live_max) -> float:
+    """The batch's largest change of a pass as a Python float: the K9
+    launch's pinned host word on the card (no copy launched), the tensor's
+    value on the CPU."""
+    if live_max.device.type == "cpu":
+        return float(live_max)
+    return kernels.canopy_air_largest_change(live_max)
+
+
+def canopy_air_final_plain(*, canopy_sensible, soil_sensible, pack_sensible,
+                           cov_w, tair, air_dens, ra_over, iter_mask):
+    """Plain version of K9's final update: calc_atmos_energy_bal on the
+    settled pass's sensible heat, on iter_mask lanes (vic_tpu/model.py:
+    844-845's tc_update): (tcanopy, its fallback flag, the atmospheric
+    sensible heat), Tair, False and the understory's sensible heat
+    elsewhere."""
+    under_sens = soil_sensible + pack_sensible * cov_w
+    ca = calc_atmos_energy_bal(canopy_sensible + under_sens, tair, air_dens,
+                               ra_over)
+    return (torch.where(iter_mask, ca.tcanopy, tair),
+            torch.where(iter_mask, ca.fbflag, False),
+            torch.where(iter_mask, ca.sensible, under_sens))
+
+
+def canopy_air_final(**inputs):
+    """The CLOSE_ENERGY loop's final update: the kernel on CUDA tensors,
+    `canopy_air_final_plain` on the CPU (same arguments)."""
+    solve = (canopy_air_final_plain if inputs["tair"].device.type == "cpu"
+             else kernels.canopy_air_final)
     return solve(**inputs)

@@ -8,11 +8,13 @@ vic_tpu's arithmetic in its order: integer powers as the products
 lax.integer_pow forms, and every sum over the layer axis in index order
 (`_isum`), as XLA's CPU reduction runs it.
 
-Four of the lake's loops run on the card as CUDA kernels; each call site
+The lake's loops run on the card as CUDA kernels; each call site
 takes the plain version beside it on CPU tensors and the kernel on CUDA
 tensors:
 
 - `depth_from_volume` -> `depth_from_volume_plain` / K13 `lake_depth`;
+- the water balance after solve_lake -> `lake_water_balance_plain` /
+  `lake_water_balance` (its depths on K13's basin code);
 - the open-water fixed point and the mix `solve_lake` applies to it ->
   `lake_open_water_plain` (`water_energy_balance` + `tracer_mixer`) / K10
   `lake_open_water`;
@@ -153,6 +155,21 @@ def make_lake_params(soil, gp, depth_in=None, frac=0.1) -> dict:
 # --------------------------------------------------------------------------
 # Basin geometry (initialize_lake.c:335-470)
 # --------------------------------------------------------------------------
+
+def check_basin(z):
+    """Raise ValueError unless every lake's levels z ([..., NN+1], numpy or
+    torch) fall with k (z[k] >= z[k+1]) and hold no NaN: the basin
+    geometry below assumes it, and the kernels' level searches
+    (csrc/lake_basin.cuh) rely on it."""
+    if not isinstance(z, torch.Tensor):
+        z = torch.from_numpy(np.array(z))
+    bad = torch.isnan(z).any(-1) | (z[..., 1:] > z[..., :-1]).any(-1)
+    if bool(bad.any()):
+        cells = torch.nonzero(bad.reshape(-1)).reshape(-1)[:5].tolist()
+        raise ValueError(
+            "lake basin levels must fall with depth index and hold no NaN; "
+            f"{int(bad.sum())} lake(s) do not, first at cells {cells}")
+
 
 def _area(z, b, depth):
     """Piecewise-linear area at `depth` on profiles z, b ([..., NN+1]
@@ -1437,65 +1454,38 @@ def solve_lake(lp: LakeParams, st: LakeState, *, snowfall_mm, rainfall_mm,
 # Water balance + the step (water_balance, lakes.eb.c:1870-2200)
 # --------------------------------------------------------------------------
 
-class LakeStepResult(NamedTuple):
-    state: LakeState
+class WaterBalance(NamedTuple):
+    """The lakes' water balance after solve_lake (lake_water_balance)."""
+    volume: torch.Tensor
     evap_m3: torch.Tensor
     runoff_out_m3: torch.Tensor
     baseflow_out_m3: torch.Tensor
+    recharge_m3: torch.Tensor
+    max_newfraction: torch.Tensor
     depth: torch.Tensor
     sarea: torch.Tensor
-    ice_fract: torch.Tensor
-    surf_temp: torch.Tensor
-    recharge_m3: torch.Tensor
-    wetland_dmoist_mm: torch.Tensor
-    max_newfraction: torch.Tensor
-    lane_nf: torch.Tensor
-    lane_maxnf: torch.Tensor
-    snowmelt_m3: torch.Tensor
-    vapor_flux_m3: torch.Tensor
-    precip_in_m3: torch.Tensor
     water_error_mm: torch.Tensor
-    energy_error: torch.Tensor
-    albedo_lake: torch.Tensor
-    net_short: torch.Tensor
-    net_long: torch.Tensor
-    sensible: torch.Tensor
-    latent: torch.Tensor
-    delta_h: torch.Tensor
-    grnd_flux: torch.Tensor
-    refreeze_energy: torch.Tensor
-    advection: torch.Tensor
-    ice_fbflag: torch.Tensor
+    lane_nf: torch.Tensor            # [c, lane]
+    lane_maxnf: torch.Tensor         # [c, lane]
+    wetland_dmoist_mm: torch.Tensor  # [c, lane, nl], None without wetland
 
 
-def lake_step(lp: LakeParams, st: LakeState, *, tair, wind, sw_in, lw_in,
-              vp_air, vpd, pressure, air_density, rainfall_mm, snowfall_mm,
-              runoff_in_m3, baseflow_in_m3, lat, day_in_year, wind_h,
-              snow_rough, new_snow_alb, alb_accum_a, alb_accum_b,
-              alb_thaw_a, alb_thaw_b, ds, dsmax, ws_arno, dt_sec,
-              c_expt=None, wetland_moist=None, wetland_max_moist=None,
-              wetland_rel_moist=None, active=None, lane_mask=None,
-              blowing: bool = False) -> LakeStepResult:
-    """One model step: solve_lake then the water balance once PER HRU lane,
-    as full_energy.c:793-800 calls it (vic_tpu/physics/lake.py:1553; the
-    quirk is kept: inflow and evaporation are re-booked on every pass and
-    the last lane's fluxes are the ones reported). wetland_moist etc.:
-    [cell, lane, nl] with lane_mask [cell, lane]. blowing: the blowing-snow
-    flux over lake ice (BLOWING)."""
-    if active is None:
-        active = torch.ones_like(st.volume, dtype=torch.bool)
+def lake_water_balance_plain(lp: LakeParams, st: LakeState,
+                             res: SolveLakeResult, *, runoff_in_m3,
+                             baseflow_in_m3, ds, dsmax, ws_arno, dt_sec,
+                             c_expt, wetland_moist, wetland_max_moist,
+                             wetland_rel_moist, active,
+                             lane_mask) -> WaterBalance:
+    """Plain version of the `lake_water_balance` kernel: the water balance
+    once PER HRU lane after solve_lake's energy budget (`res`), from the
+    step's starting state `st` (lakes.eb.c:1965-2247; vic_tpu/physics/
+    lake.py:1553): each lane's gains and evaporation cap, new extent,
+    flooding recharge of its wetland soil, lake-bed baseflow, weir outflow
+    with the growth caps and the dry test, then the final depth, area and
+    closure telemetry. wetland_moist: [cell, lane, nl] or None,
+    wetland_max_moist broadcasting to it, wetland_rel_moist [cell, lane] or
+    None, lane_mask [cell, lane]."""
     basin0 = lp.basin[..., 0]
-
-    res = solve_lake(
-        lp, st, snowfall_mm=snowfall_mm, rainfall_mm=rainfall_mm, tair=tair,
-        wind=wind, vp=vp_air, sw_in=sw_in, lw_in=lw_in, vpd=vpd,
-        pressure=pressure, air_density=air_density, dt_sec=dt_sec,
-        wind_h=wind_h, snow_rough=snow_rough, lat=lat,
-        day_in_year=day_in_year, new_snow_alb=new_snow_alb,
-        alb_accum_a=alb_accum_a, alb_accum_b=alb_accum_b,
-        alb_thaw_a=alb_thaw_a, alb_thaw_b=alb_thaw_b, active=active,
-        blowing=blowing)
-
     s1 = res.state
     sarea = res.sarea
     lakefrac = torch.clamp(torch.maximum(sarea, st.ice_area)
@@ -1506,20 +1496,6 @@ def lake_step(lp: LakeParams, st: LakeState, *, tair, wind, sw_in, lw_in,
     inflow = runoff_in_m3 + baseflow_in_m3
     gains = res.ice_throughfall_m3 + res.store_dump_m3 + inflow \
         + res.snowmelt_m3
-
-    if wetland_moist is not None and wetland_moist.dim() == 2:
-        wetland_moist = wetland_moist[:, None, :]
-        if wetland_max_moist.dim() == 2:
-            wetland_max_moist = wetland_max_moist[:, None, :]
-        if wetland_rel_moist is not None:
-            wetland_rel_moist = wetland_rel_moist[:, None]
-    n_lane = 1 if wetland_moist is None else wetland_moist.shape[1]
-    if lane_mask is None:
-        lane_mask = torch.ones(st.volume.shape + (n_lane,), dtype=torch.bool,
-                               device=st.volume.device)
-    if wetland_max_moist is not None and wetland_max_moist.dim() == 2:
-        wetland_max_moist = wetland_max_moist[:, None, :].expand(
-            wetland_moist.shape)
 
     dsmax_step = dsmax / 24.0
     cexp = torch.ones_like(st.volume) * 2.0 if c_expt is None else c_expt
@@ -1533,7 +1509,7 @@ def lake_step(lp: LakeParams, st: LakeState, *, tair, wind, sw_in, lw_in,
     max_newfraction = zero
     dmoist_lanes, nf_lanes, maxnf_lanes = [], [], []
 
-    for h in range(n_lane):
+    for h in range(lane_mask.shape[1]):
         valid = live & lane_mask[:, h]
         # gains + evaporation cap, re-booked every call (lakes.eb.c:1965-1976)
         liquid0 = torch.clamp(volume - iwe, min=0.0)
@@ -1665,13 +1641,111 @@ def lake_step(lp: LakeParams, st: LakeState, *, tair, wind, sw_in, lw_in,
     water_error_mm = W(live, water_error_m3 / torch.clamp(sarea, min=1.0)
                        * 1000.0, 0.0)
 
+    return WaterBalance(
+        volume=volume, evap_m3=evap_call, runoff_out_m3=runoff_out,
+        baseflow_out_m3=baseflow_out, recharge_m3=recharge_m3,
+        max_newfraction=max_newfraction, depth=ldepth5, sarea=sarea_end,
+        water_error_mm=water_error_mm, lane_nf=lane_nf,
+        lane_maxnf=lane_maxnf, wetland_dmoist_mm=dmoist)
+
+
+def lake_water_balance(lp: LakeParams, st: LakeState, res: SolveLakeResult,
+                       **inputs) -> WaterBalance:
+    """The water balance after solve_lake: `lake_water_balance_plain` on
+    CPU tensors, the `lake_water_balance` kernel on CUDA tensors (same
+    arguments)."""
+    if st.volume.device.type == "cpu":
+        return lake_water_balance_plain(lp, st, res, **inputs)
+    return kernels.lake_water_balance(lp, st, res, **inputs)
+
+
+class LakeStepResult(NamedTuple):
+    state: LakeState
+    evap_m3: torch.Tensor
+    runoff_out_m3: torch.Tensor
+    baseflow_out_m3: torch.Tensor
+    depth: torch.Tensor
+    sarea: torch.Tensor
+    ice_fract: torch.Tensor
+    surf_temp: torch.Tensor
+    recharge_m3: torch.Tensor
+    wetland_dmoist_mm: torch.Tensor
+    max_newfraction: torch.Tensor
+    lane_nf: torch.Tensor
+    lane_maxnf: torch.Tensor
+    snowmelt_m3: torch.Tensor
+    vapor_flux_m3: torch.Tensor
+    precip_in_m3: torch.Tensor
+    water_error_mm: torch.Tensor
+    energy_error: torch.Tensor
+    albedo_lake: torch.Tensor
+    net_short: torch.Tensor
+    net_long: torch.Tensor
+    sensible: torch.Tensor
+    latent: torch.Tensor
+    delta_h: torch.Tensor
+    grnd_flux: torch.Tensor
+    refreeze_energy: torch.Tensor
+    advection: torch.Tensor
+    ice_fbflag: torch.Tensor
+
+
+def lake_step(lp: LakeParams, st: LakeState, *, tair, wind, sw_in, lw_in,
+              vp_air, vpd, pressure, air_density, rainfall_mm, snowfall_mm,
+              runoff_in_m3, baseflow_in_m3, lat, day_in_year, wind_h,
+              snow_rough, new_snow_alb, alb_accum_a, alb_accum_b,
+              alb_thaw_a, alb_thaw_b, ds, dsmax, ws_arno, dt_sec,
+              c_expt=None, wetland_moist=None, wetland_max_moist=None,
+              wetland_rel_moist=None, active=None, lane_mask=None,
+              blowing: bool = False) -> LakeStepResult:
+    """One model step: solve_lake then the water balance once PER HRU lane,
+    as full_energy.c:793-800 calls it (vic_tpu/physics/lake.py:1553; the
+    quirk is kept: inflow and evaporation are re-booked on every pass and
+    the last lane's fluxes are the ones reported). wetland_moist etc.:
+    [cell, lane, nl] with lane_mask [cell, lane]. blowing: the blowing-snow
+    flux over lake ice (BLOWING)."""
+    if active is None:
+        active = torch.ones_like(st.volume, dtype=torch.bool)
+    res = solve_lake(
+        lp, st, snowfall_mm=snowfall_mm, rainfall_mm=rainfall_mm, tair=tair,
+        wind=wind, vp=vp_air, sw_in=sw_in, lw_in=lw_in, vpd=vpd,
+        pressure=pressure, air_density=air_density, dt_sec=dt_sec,
+        wind_h=wind_h, snow_rough=snow_rough, lat=lat,
+        day_in_year=day_in_year, new_snow_alb=new_snow_alb,
+        alb_accum_a=alb_accum_a, alb_accum_b=alb_accum_b,
+        alb_thaw_a=alb_thaw_a, alb_thaw_b=alb_thaw_b, active=active,
+        blowing=blowing)
+
+    if wetland_moist is not None and wetland_moist.dim() == 2:
+        wetland_moist = wetland_moist[:, None, :]
+        if wetland_max_moist.dim() == 2:
+            wetland_max_moist = wetland_max_moist[:, None, :]
+        if wetland_rel_moist is not None:
+            wetland_rel_moist = wetland_rel_moist[:, None]
+    n_lane = 1 if wetland_moist is None else wetland_moist.shape[1]
+    if lane_mask is None:
+        lane_mask = torch.ones(st.volume.shape + (n_lane,), dtype=torch.bool,
+                               device=st.volume.device)
+    if wetland_max_moist is not None and wetland_max_moist.dim() == 2:
+        wetland_max_moist = wetland_max_moist[:, None, :].expand(
+            wetland_moist.shape)
+
+    wb = lake_water_balance(
+        lp, st, res, runoff_in_m3=runoff_in_m3,
+        baseflow_in_m3=baseflow_in_m3, ds=ds, dsmax=dsmax, ws_arno=ws_arno,
+        dt_sec=dt_sec, c_expt=c_expt, wetland_moist=wetland_moist,
+        wetland_max_moist=wetland_max_moist,
+        wetland_rel_moist=wetland_rel_moist, active=active,
+        lane_mask=lane_mask)
+    s1 = res.state
+    live = lp.has_lake & active
     keep = ~live
 
     def K(new, old):
         return W(keep, old, new)
 
     new_state = LakeState(
-        volume=K(volume, st.volume),
+        volume=K(wb.volume, st.volume),
         temp=W(keep[..., None], st.temp, s1.temp),
         ice_water_eq=K(s1.ice_water_eq, st.ice_water_eq),
         ice_area=K(res.new_ice_area, st.ice_area),   # full_energy.c:229
@@ -1689,20 +1763,22 @@ def lake_step(lp: LakeParams, st: LakeState, *, tair, wind, sw_in, lw_in,
         return W(keep, 0.0, x)
 
     return LakeStepResult(
-        state=new_state, evap_m3=Zm(evap_call), runoff_out_m3=Zm(runoff_out),
-        baseflow_out_m3=Zm(baseflow_out), depth=Zm(ldepth5),
-        sarea=Zm(sarea_end),
+        state=new_state, evap_m3=Zm(wb.evap_m3),
+        runoff_out_m3=Zm(wb.runoff_out_m3),
+        baseflow_out_m3=Zm(wb.baseflow_out_m3), depth=Zm(wb.depth),
+        sarea=Zm(wb.sarea),
         ice_fract=Zm(torch.clamp(res.new_ice_area
-                                 / torch.clamp(sarea_end, min=1.0),
+                                 / torch.clamp(wb.sarea, min=1.0),
                                  0.0, 1.0)),
-        surf_temp=Zm(res.tsurf), recharge_m3=Zm(recharge_m3),
-        wetland_dmoist_mm=(None if dmoist is None
-                           else W(keep[:, None, None], 0.0, dmoist)),
-        max_newfraction=W(live, max_newfraction, 0.0),
-        lane_nf=W(keep[:, None], 0.0, lane_nf),
-        lane_maxnf=W(keep[:, None], 0.0, lane_maxnf),
+        surf_temp=Zm(res.tsurf), recharge_m3=Zm(wb.recharge_m3),
+        wetland_dmoist_mm=(None if wb.wetland_dmoist_mm is None
+                           else W(keep[:, None, None], 0.0,
+                                  wb.wetland_dmoist_mm)),
+        max_newfraction=W(live, wb.max_newfraction, 0.0),
+        lane_nf=W(keep[:, None], 0.0, wb.lane_nf),
+        lane_maxnf=W(keep[:, None], 0.0, wb.lane_maxnf),
         snowmelt_m3=Zm(res.snowmelt_m3), vapor_flux_m3=Zm(res.vapor_flux_m3),
-        precip_in_m3=Zm(res.precip_in_m3), water_error_mm=water_error_mm,
+        precip_in_m3=Zm(res.precip_in_m3), water_error_mm=wb.water_error_mm,
         energy_error=Zm(res.energy_error), albedo_lake=Zm(res.albedo_lake),
         net_short=Zm(res.net_short), net_long=Zm(res.net_long),
         sensible=Zm(res.sensible), latent=Zm(res.latent),

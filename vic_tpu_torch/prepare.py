@@ -184,9 +184,12 @@ def lake_params_from_numpy(lp, device):
     """The port's LakeParams on `device` from per-cell lake parameters held
     as numpy arrays: a {field: array} dict (physics.lake.make_lake_params)
     or any object with those fields as attributes, such as vic_tpu's
-    LakeParams. Floats become float32, as vic_tpu's callers cast them."""
-    from .physics.lake import LakeParams
+    LakeParams. Floats become float32, as vic_tpu's callers cast them.
+    Raises ValueError for a basin whose levels do not fall
+    (physics.lake.check_basin)."""
+    from .physics.lake import LakeParams, check_basin
     get = lp.get if isinstance(lp, dict) else (lambda k: getattr(lp, k))
+    check_basin(np.asarray(get("z"), np.float32))
     return LakeParams.from_numpy(
         {f.name: get(f.name) for f in dataclasses.fields(LakeParams)},
         device)
