@@ -23,7 +23,12 @@ line) on failure:
    dist_prcp step's second, and every kernel of the heavy path (K12 with
    the blowing-snow flux over lake ice, K8 on the lake lanes) in the heavy
    step's seventh, where lakes carry snow on ice that blows (K12 and K8
-   timed on those arguments too); then the forms frozen soil adds as its
+   timed on those arguments too); K12 is the whole of lake_ice_melt (its
+   Brent's flags equal the plain version's and its roots within the final
+   bracket, every other field within testing.ice_melt_failures' rule of
+   the plain version at the kernel's roots), also on the seeded lakes of
+   testing.ice_melt_inputs, which reach every branch of it; then the forms
+   frozen soil adds as its
    users set it up (the last rows of ROWS): K6 and K7 on 10 EXP_TRANS nodes
    in the frozen_exp step's third record, K5 with the fusion term in the
    frozen_quick step's second, and K6 at 3, 18 and 50 EXP_TRANS nodes in
@@ -43,8 +48,8 @@ line) on failure:
    K9's pass and final update, K13 and the water balance (every output,
    lake by lake and lane by lane) must equal their plain versions' (NaN
    where theirs are NaN), K9's largest change also as the host reads it
-   from its pinned word, and each of their calls must be one device event
-   (no fill, no copy: ONE_LAUNCH).
+   from its pinned word, and each of their calls, and K12's, must be one
+   device event (no fill, no copy: ONE_LAUNCH).
    K5's terms, K2's terms at its root and K1's terms, cold content and
    vapour loss at its accepted temperature are held against the plain
    ones at the kernel's own accepted temperature, K2's melt test and terms
@@ -78,10 +83,11 @@ line) on failure:
    ops.tridiag.thomas_solve and each *_plain) made to fail if it is
    handed a CUDA tensor during the run, and no plain evaluation of the
    snowpack balance (K2 returns its terms), the glacier balance (K1
-   returns its terms), the infiltration curve (K4 computes runoff_step)
-   or, on K5's paths, of the surface balance (K5 returns its terms)
-   allowed; the lakes and heavy slices must launch K13 twice a record and
-   the water balance once, the CLOSE_ENERGY slices K9 once a pass and its
+   returns its terms), the lake ice balance (K12 computes lake_ice_melt),
+   the infiltration curve (K4 computes runoff_step) or, on K5's paths, of
+   the surface balance (K5 returns its terms) allowed; the lakes and heavy
+   slices must launch K13 twice a record and the water balance and K12
+   once, the CLOSE_ENERGY slices K9 once a pass and its
    final update once a record;
    frozen_exp also times its SPATIAL_FROST layer ice; then frozen_exp's
    configuration at 3, 18 and 50 nodes, 4,096 cells x 8 records, the same
@@ -139,7 +145,7 @@ import torch
 
 from vic_tpu_torch.constants import CLOSE_ENERGY_MAXITER
 from vic_tpu_torch.entry import CONFIGS
-from vic_tpu_torch.testing import (TERMS_ATOL, TERMS_RESIDUAL_ATOL,
+from vic_tpu_torch.testing import (BRENT_TOL, TERMS_ATOL, TERMS_RESIDUAL_ATOL,
                                    TERMS_RTOL, TERMS_WATER_ATOL_M,
                                    frozen_run_failures,
                                    heavy_lake_run_failures,
@@ -209,8 +215,9 @@ KERNELS = {
                         "lake", "lake_open_water_plain", "lakes"),
     "lake_under_ice": ("lake_under_ice.cu", "vic_tpu/physics/lake.py:1112",
                        "lake", "water_under_ice_plain", "lakes"),
-    "lake_ice_brent": ("lake_ice_brent.cu", "vic_tpu/physics/lake.py:960",
-                       "lake", "lake_ice_brent_plain", "lakes"),
+    # the whole of lake_ice_melt, its Brent (:960) on csrc/lane_brent.cuh
+    "lake_ice_melt": ("lake_ice_melt.cu", "vic_tpu/physics/lake.py:805",
+                      "lake", "lake_ice_melt_plain", "lakes"),
     "lake_depth": ("lake_depth.cu", "vic_tpu/physics/lake.py:204", "lake",
                    "depth_from_volume_plain", "lakes"),
     # the per-HRU water balance after solve_lake, its depths on K13's
@@ -239,14 +246,14 @@ CAPTURED_FROM = {"mass_release": "snow_intercept",
                  "bisection/glacier": "glacier_brent"}
 # functions of vic_tpu_torch.model whose result capture_kernel_args takes
 MODEL_RESULTS = ("snow_intercept",)
-LAKE_KERNELS = ("lake_open_water", "lake_under_ice", "lake_ice_brent",
+LAKE_KERNELS = ("lake_open_water", "lake_under_ice", "lake_ice_melt",
                 "lake_depth", "lake_water_balance")
 # the steps and records each lake kernel is also held on, besides its own
 # configuration's and ALSO_ON's: the water balance on heavy's fourth
 # record, where the lakes are open
 LAKE_RECORDS = {"lake_water_balance": (("heavy", HEAVY_RECORD),)}
 # the kernels also timed on the heavy step's arguments, and what they are
-HEAVY_LAKE_TIMED = {"lake_ice_brent": "heavy, with the blowing-snow flux",
+HEAVY_LAKE_TIMED = {"lake_ice_melt": "heavy, with the blowing-snow flux",
                     "blowing_snow": "heavy, lake lanes"}
 SURFACE_KERNELS = ("surface_brent", "fd_surface_brent", "affine_surface_brent")
 # the kernels on csrc/lane_brent.cuh's driver
@@ -342,15 +349,15 @@ ALSO_ON = {
     "affine_surface_brent": ("heavy",),
     "lake_open_water": ("heavy",),
     "lake_under_ice": ("heavy",),
-    "lake_ice_brent": ("heavy",),
+    "lake_ice_melt": ("heavy",),
     "lake_depth": ("heavy",),
     "lake_water_balance": ("heavy",),
 }
 # Brent stops a lane anywhere inside its final bracket, |c - b| <= 2*tol_i
 # with tol_i = 2*FLT_EPSILON*|b| + 1e-4 C, so two runs whose residuals differ
 # by ulps may stop up to one bracket width apart: roots must agree within
-# 2*tol_i of the kernel's root.
-BRENT_TOL = 1e-4           # C, the solver's tol addend
+# 2*tol_i of the kernel's root (BRENT_TOL, from vic_tpu_torch.testing, is
+# the 1e-4 C).
 FLAG_DISAGREE_FRAC = 1e-4  # of the active lanes
 RUNOFF_TOL = 1e-5          # rtol = atol
 # ulps of the larger of |rest| and refreeze_energy within which K2's melt
@@ -392,10 +399,13 @@ AFFINE_RESIDUAL_OPS = FD_RESIDUAL_OPS + 8
 DRY_ET_OPS = 20 + 10 * 3
 # K8 per snow-covered lane (csrc/blowing_snow.cu): 10 wind increments, each
 # 26 shear residuals of ~9 and 24 bisection updates of ~4, one
-# sub_with_height of ~55 at hsalt/2 and 16 quadrature nodes of ~75 (an exp,
-# a sub_with_height, the transport integrand), ~170 of saltation terms,
-# bounds and probability; ~60 once per lane
-BLOWING_OPS_PER_LANE = 10 * (26 * 9 + 24 * 4 + 55 + 16 * 75 + 170) + 60
+# sub_with_height of ~55 at hsalt/2 and 16 quadrature nodes of ~73 (an exp,
+# a sub_with_height without its fluct_v, the transport integrand sharing
+# its powf), ~170 of saltation terms, bounds and probability; ~60 once per
+# lane. A libm call counts as one operation here: an accurate powf is ~94
+# SASS instructions, a logf 24 (tools/profile_blowing_snow.py), so the
+# bound understates a lane's instructions several times (PERF.md).
+BLOWING_OPS_PER_LANE = 10 * (26 * 9 + 24 * 4 + 55 + 16 * 73 + 170) + 60
 CANOPY_AIR_OPS_PER_LANE = 40      # the closed form and the secant guards
 CANOPY_AIR_FINAL_OPS_PER_LANE = 15   # the closed form and its sensible heat
 # The lake fixed points stop a lake at |change| <= 1e-4 (C for K10's skin
@@ -418,14 +428,18 @@ LAKE_ICE_SETUP_OPS = 1900
 LAKE_ICE_ITER_OPS = 260
 LAKE_MIX_OPS_PER_PAIR = 25
 LAKE_MIX_SWEEPS = 20
-# K12: the ice residual and a Brent iteration; a depth solve (K13, and the
+# K12: the ice residual and a Brent iteration, and per lake the rest of
+# lake_ice_melt: the prologue (the fresh snow's distribution, icerad with
+# its six exp, ~90), the balance at 0 C and at the accepted temperature
+# (~60 each) and the state update (~80); a depth solve (K13, and the
 # water balance's solves of a volume that changed): the basin's 20 layer
 # volumes (~4 operations each) and their 20 left-to-right suffix sums (210
 # additions) once a lake, then 30 bisection steps of one trapezoid's area
 # (~8) and partial volume (~6) and the step (~4), and the two searches of
 # the levels while the bracket narrows to one trapezoid (5, 4, 3, 2 and 2
 # comparisons each, then none)
-RESIDUAL_OPS["lake_ice_brent"] = 60 + 30
+RESIDUAL_OPS["lake_ice_melt"] = 60 + 30
+ICE_MELT_LAKE_OPS = 90 + 2 * 60 + 80
 RESIDUAL_OPS["affine_surface_brent"] = AFFINE_RESIDUAL_OPS
 LAKE_BASIN_OPS = 20 * 4 + 210
 LAKE_DEPTH_OPS = 2 * (5 + 4 + 3 + 2 + 2) + 30 * (8 + 6 + 4)
@@ -1183,13 +1197,14 @@ def lake_balance_work(args, kwargs, kern):
 
 def check_lake_kernel(name, args, kwargs, calls, label="lakes",
                       record=LAKES_RECORD, results=None):
-    """K10-K13 on the arguments of their first call in the `label` step's
-    record `record` (`calls` calls in that record) against their plain
-    versions (or `results`, their outputs there); returns (largest
-    difference, (bytes, operations) of the call). On the heavy step K12
-    must see the blowing-snow flux over lake ice on some bracketed lake."""
+    """K10-K13 and the water balance on the arguments of their first call
+    in the `label` step's record `record` (`calls` calls in that record)
+    against their plain versions (or `results`, their outputs there);
+    returns (largest difference, (bytes, operations) of the call). On the
+    heavy step K12 must see the blowing-snow flux over lake ice on some
+    bracketed lake."""
     from vic_tpu_torch import kernels
-    from vic_tpu_torch.physics.lake import lake_ice_brent_plain
+    from vic_tpu_torch.physics.lake import lake_ice_melt_plain
     print(f"  {name}: {calls} calls in the {label} step's record {record}")
     if name == "lake_open_water":
         kern, t_open, err = compare_lake_open_water(kwargs, results)
@@ -1208,23 +1223,107 @@ def check_lake_kernel(name, args, kwargs, calls, label="lakes",
         kern, err = compare_lake_balance(args, kwargs, f"{label}, record "
                                          f"{record}", results)
         return err, lake_balance_work(args, kwargs, kern)
-    kern, plain = results or (kernels.lake_ice_brent(*args, **kwargs),
-                              lake_ice_brent_plain(*args, **kwargs))
-    torch.cuda.synchronize()
-    err = compare_brent(f"{name} ({label})", kern, plain)
-    if not int(kern.bracketed.sum()):
-        raise AssertionError("lake_ice_brent: no lake bracketed; the path "
+    kern, plain = results or (kernels.lake_ice_melt(*args, **kwargs),
+                              lake_ice_melt_plain(*args, **kwargs))
+    err = compare_ice_melt(f"{name} ({label})", kwargs, kern, plain)
+    if not int(kern.solve.bracketed.sum()):
+        raise AssertionError("lake_ice_melt: no lake bracketed; the path "
                              "was not exercised")
     if label == "heavy":
-        blown = kwargs["blowing_flux"].expand(kern.root.shape) != 0.0
-        print(f"  lake_ice_brent (heavy): {int(blown.sum())} lakes with a "
-              f"blowing-snow flux, {int((blown & kern.bracketed).sum())} of "
-              "them bracketed")
-        if not bool((blown & kern.bracketed).any()):
-            raise AssertionError("lake_ice_brent: no bracketed lake with a "
+        blown = kwargs["blowing_flux"].expand(kern.swq.shape) != 0.0
+        brackets = kern.solve.bracketed
+        print(f"  lake_ice_melt (heavy): {int(blown.sum())} lakes with a "
+              f"blowing-snow flux, {int((blown & brackets).sum())} of them "
+              "bracketed")
+        if not bool((blown & brackets).any()):
+            raise AssertionError("lake_ice_melt: no bracketed lake with a "
                                  "blowing-snow flux; the path was not "
                                  "exercised")
-    return err, brent_work(name, args, kwargs, kern)
+    return err, ice_melt_work(kwargs, kern)
+
+
+def seeded_ice_melt(device, n_lake=SMOKE_CELLS):
+    """K12 against lake_ice_melt_plain on testing.ice_melt_inputs' seeded
+    lakes (n_lake of them), whose groups reach every branch of
+    lake_ice_melt: the surface melting into the pack, the surface layer,
+    the ice and through all of it, a thin pack, the Brent, the fallback,
+    NaN air; returns the largest root difference."""
+    from vic_tpu_torch import kernels
+    from vic_tpu_torch.physics.lake import lake_ice_melt_plain
+    from vic_tpu_torch.testing import ice_melt_inputs
+    kw, kinds = ice_melt_inputs(n_lake)
+    kw = {k: torch.from_numpy(v).to(device) if isinstance(v, np.ndarray)
+          else v for k, v in kw.items()}
+    kern = kernels.lake_ice_melt(**kw)
+    err = compare_ice_melt("lake_ice_melt (seeded lakes, every branch)", kw,
+                           kern, lake_ice_melt_plain(**kw))
+    brent = torch.from_numpy(kinds == "brent").to(device)
+    if not bool(kern.solve.converged[brent].all()):
+        raise AssertionError("lake_ice_melt: a seeded Brent lake did not "
+                             "converge")
+    return err
+
+
+def compare_ice_melt(label, kwargs, kern, plain):
+    """K12 against lake_ice_melt_plain (testing.ice_melt_failures: the
+    Brent's flags equal, its roots within the final bracket, every other
+    field within its rule of the plain version at the kernel's roots, NaN
+    at the same elements); raises outside it, returns the largest root
+    difference where both converged."""
+    from vic_tpu_torch.testing import ice_melt_at_roots, ice_melt_failures
+    at_roots = ice_melt_at_roots(kwargs, kern.solve)
+    torch.cuda.synchronize()
+    err = compare_brent(f"{label} Brent", kern.solve, plain.solve)
+    bad = ice_melt_failures(kern, plain, at_roots)
+    nan = int(torch.isnan(kern.qnet).sum())
+    print(f"  {label}: {kern.swq.numel()} lakes, {nan} with a NaN balance, "
+          f"fallback on {int(kern.surf_temp_fbflag.sum())}; every field "
+          f"within testing.ice_melt_failures' rule of the plain version at "
+          f"the kernel's roots: {'yes' if not bad else bad}")
+    if bad:
+        raise AssertionError(f"{label}: {bad}")
+    return err
+
+
+def ice_melt_work(kwargs, kern):
+    """Bytes in and out of one K12 call and its FP32 operations: its 22
+    inputs and mask, the Brent's four outputs, 20 floats and the fallback
+    flag a lake; per lake ICE_MELT_LAKE_OPS, and per residual evaluation
+    that these inputs need (2 endpoints and one an iteration on bracketed
+    lakes, 2 + 2*MAXTRIES on solved lakes that do not bracket)
+    RESIDUAL_OPS["lake_ice_melt"]."""
+    from vic_tpu_torch.kernels import ICE_MELT_INPUTS
+    from vic_tpu_torch.ops.rootfind import MAXTRIES
+    s = kern.solve
+    inputs = [kwargs[k] for k in ICE_MELT_INPUTS
+              if isinstance(kwargs.get(k), torch.Tensor)]
+    if isinstance(kwargs.get("active"), torch.Tensor):
+        inputs.append(kwargs["active"])
+    outputs = [s.root, s.converged, s.bracketed, s.iterations,
+               kern.surf_temp_fbflag, kern.sw_under_ice, kern.qnet,
+               *kern.terms[1:]] + [getattr(kern, k) for k in (
+                   "swq", "surf_temp", "pack_temp", "surf_water",
+                   "pack_water", "melt_m", "ice_melt_m", "lake_ice_m",
+                   "vapor_flux", "cold_content")]
+    # a solved lake that does not bracket tried every expansion; one taken
+    # out of the solve (melting, thin, masked) ran none. Not melting and
+    # not converged: the fallback flag; thin: lake_ice_melt's surface layer
+    # after the fresh snow
+    from vic_tpu_torch import constants as c
+    msw = c.MAX_SURFACE_SWE
+    snow_ice = kwargs["swq"] - kwargs["pack_water"] - kwargs["surf_water"]
+    surface = torch.clamp(snow_ice + kwargs["lake_ice_m"], max=msw)
+    snowfall = kwargs["snowfall_mm"] / 1000.0
+    surface = torch.where(snowfall > msw - surface, msw, surface + snowfall)
+    active = kwargs.get("active")
+    solved = (kern.surf_temp_fbflag & ~s.bracketed
+              & ~(surface <= c.MIN_SWQ_EB_THRES)
+              & (True if active is None else active))
+    evals = torch.where(s.bracketed, 2 + s.iterations, 0)
+    evals = evals + torch.where(solved, 2 + 2 * MAXTRIES, 0)
+    return (nbytes(*inputs) + nbytes(*outputs),
+            float(evals.sum()) * RESIDUAL_OPS["lake_ice_melt"]
+            + s.root.numel() * ICE_MELT_LAKE_OPS)
 
 
 def dry_column_lanes(name, eb_kwargs):
@@ -1541,7 +1640,7 @@ def lane_brent_stats(name, args, kwargs, kern_fn, regs):
 
 # the kernels whose call is one device event: no fill, no copy
 ONE_LAUNCH = ("canopy_air_step", "canopy_air_final", "lake_depth",
-              "lake_water_balance")
+              "lake_water_balance", "lake_ice_melt")
 
 
 def device_events(fn):
@@ -1606,6 +1705,8 @@ def kernels_phase(device, regs=None):
                                             record=record, calls=n_calls)[name]
                 err = max(err, check_lake_kernel(
                     name, a, kw, n_calls[name], config, record)[0])
+            if name == "lake_ice_melt":
+                err = max(err, seeded_ice_melt(device))
         else:
             err, work = check_kernel(
                 name, label if row == name else row, args, kwargs, kern_fn,
@@ -1637,7 +1738,7 @@ def kernels_phase(device, regs=None):
             # blowing-snow flux, K8 on the 8,192 lake lanes
             a, kw = captured["heavy"][name]
             kern = kern_fn(*a, **kw)
-            work = (brent_work(name, a, kw, kern) if name == "lake_ice_brent"
+            work = (ice_melt_work(kw, kern) if name == "lake_ice_melt"
                     else blowing_work(kw, kern))
             bound_ms, bound_by = bound(*work)
             print(f"  {name} ({HEAVY_LAKE_TIMED[name]}): kernel "
@@ -1740,13 +1841,14 @@ def nan_terms_checks(device):
 
 def count_balance_calls():
     """Wrap vic_tpu_torch.model.surf_energy_terms,
-    physics.snow.snow_energy_terms, physics.glacier.glacier_energy_terms and
+    physics.snow.snow_energy_terms, physics.glacier.glacier_energy_terms,
+    physics.lake.ice_energy_terms and
     physics.runoff.compute_runoff_and_asat to count their calls on CUDA
     tensors; returns (the counts, the function that puts them back)."""
     from vic_tpu_torch import model
-    from vic_tpu_torch.physics import glacier, runoff, snow
+    from vic_tpu_torch.physics import glacier, lake, runoff, snow
     homes = {"surf_energy_terms": model, "snow_energy_terms": snow,
-             "glacier_energy_terms": glacier,
+             "glacier_energy_terms": glacier, "ice_energy_terms": lake,
              "compute_runoff_and_asat": runoff}
     counts = dict.fromkeys(homes, 0)
     originals = {k: getattr(m, k) for k, m in homes.items()}
@@ -2062,7 +2164,7 @@ def slice_phase(device, config, ref_werr=None, nnode=None):
         return res
 
     kernels.fd_surface_brent = counted
-    # the balances' terms come from K5, K2 and K1 on their paths, the
+    # the balances' terms come from K5, K2, K1 and K12 on their paths, the
     # infiltration curve from K4: no plain evaluation of any of them
     balance_calls, restore_balances = count_balance_calls()
     try:
@@ -2135,7 +2237,8 @@ def slice_phase(device, config, ref_werr=None, nnode=None):
         # the depth before the step and solve_lake's; the water balance's
         # 41 inside its one launch
         expect_launches(config, launches, lake_depth=2 * SMOKE_RECS,
-                        lake_water_balance=SMOKE_RECS)
+                        lake_water_balance=SMOKE_RECS,
+                        lake_ice_melt=SMOKE_RECS)
         ice = outs["OUT_LAKE_ICE_FRACT"]
         print(f"  lakes: ice fraction per record min/max "
               f"{[round(float(x), 4) for x in ice.amin(1)]} / "
@@ -2250,7 +2353,7 @@ def spatial_snow_checks(state, stack, params, gp, extras, final, outs):
 NAN_SLICES = {"heavy": HEAVY_CELLS, "blowing_close": SMOKE_CELLS}
 NAN_ROWS = {"heavy": ("blowing_snow", "blowing_snow/lake_lanes",
                       "canopy_air_step", "canopy_air_final",
-                      "lake_open_water", "lake_under_ice", "lake_ice_brent",
+                      "lake_open_water", "lake_under_ice", "lake_ice_melt",
                       "lake_depth", "lake_water_balance",
                       "affine_surface_brent"),
             "blowing_close": ("blowing_snow", "canopy_air_step",
@@ -2330,7 +2433,11 @@ def check_nan_row(row, label, args, kwargs, calls):
         print(f"  {row} ({label}): batch max change {float(kern[2])} / "
               f"{float(plain[2])} C (kernel/plain)")
     kern, plain, _ = nan_lanes_agree(f"{row} ({label})", kern, plain)
-    if name in LAKE_KERNELS:
+    if name == "lake_ice_melt":
+        # held against the plain version at its own roots, NaN and all
+        err = check_lake_kernel(name, args, kwargs, calls[name], label,
+                                NAN_FROM)[0]
+    elif name in LAKE_KERNELS:
         err = check_lake_kernel(name, args, kwargs, calls[name], label,
                                 NAN_FROM, results=(kern, plain))[0]
     elif name == "blowing_snow":

@@ -32,7 +32,7 @@ from vic_tpu_torch.physics.canopy_snow import canopy_brent_plain
 from vic_tpu_torch.physics.frozen_soil import solve_t_profile_explicit_plain
 from vic_tpu_torch.physics.glacier import glacier_brent_plain
 from vic_tpu_torch.physics.lake import (depth_from_volume_plain,
-                                        lake_ice_brent_plain,
+                                        lake_ice_melt_plain,
                                         lake_open_water_plain,
                                         lake_water_balance_plain,
                                         water_under_ice_plain)
@@ -41,7 +41,9 @@ from vic_tpu_torch.physics.snow import (snow_energy_terms,
                                         snowpack_brent_plain)
 from vic_tpu_torch.physics.surface import (surface_brent_plain,
                                            surface_root_plain)
-from vic_tpu_torch.testing import TERMS_RTOL, terms_atol
+from vic_tpu_torch.testing import (TERMS_RTOL, ice_melt_at_roots,
+                                   ice_melt_failures, ice_melt_inputs,
+                                   terms_atol)
 
 torch.set_num_threads(1)
 
@@ -647,17 +649,39 @@ def test_lane_brent_kernels_under_strain(cuda, name, config, record,
     assert bool((got.iterations[~a[2]] == 0).all())
 
 
+def _nan_build(config, cell=1, start=1):
+    """`config`'s build function with CONTINUEONERROR and NaN air in
+    one cell from record `start`."""
+    def build_fn(n_cell, n_rec, device):
+        gp, params, stack, state, extras = CONFIGS[config](n_cell, n_rec,
+                                                           device)
+        air = stack["air_temp"].clone()
+        air[start:, cell] = float("nan")
+        return (gp.replace(continue_on_error=True), params,
+                dict(stack, air_temp=air), state, extras)
+    return build_fn
+
+
 @pytest.mark.gpu
-def test_blowing_snow_kernel_matches_plain(cuda):
-    """K8 on the blowing_close step's fourth record: flux and transport at
-    rtol 1e-4, atol 1e-9, with snow blowing on some lanes."""
+@pytest.mark.parametrize("nan", [False, True])
+def test_blowing_snow_kernel_matches_plain(cuda, nan):
+    """K8 (compacted snow lanes, one thread a (lane, increment) item) on
+    the blowing_close step's fourth record: flux and transport at rtol
+    1e-4, atol 1e-9, with snow blowing on some lanes; with NaN air in one
+    cell from that record, NaN on the same lanes as the plain version."""
     a, kw = _captured_args(cuda, names=("blowing_snow",),
-                           config="blowing_close", record=3)["blowing_snow"]
+                           config="blowing_close", record=3,
+                           build=_nan_build("blowing_close", start=3)
+                           if nan else None)["blowing_snow"]
+    before = kernels.launches["blowing_snow"]
     got = kernels.blowing_snow(*a, **kw)
     ref = calc_blowing_snow_plain(*a, **kw)
     torch.cuda.synchronize()
+    assert kernels.launches["blowing_snow"] == before + 1
     assert int((ref[0] != 0).sum()) > 0
     for g, r in zip(got, ref):
+        assert torch.equal(torch.isnan(g), torch.isnan(r))
+        assert bool(torch.isnan(r).any()) == nan
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
                                    rtol=1e-4, atol=1e-9)
 
@@ -678,7 +702,7 @@ def test_canopy_air_step_kernel_matches_plain(cuda):
     assert (float(got[2]) <= OVER_TOL_F32) == (float(ref[2]) <= OVER_TOL_F32)
 
 
-LAKE_KERNELS = ("lake_open_water", "lake_under_ice", "lake_ice_brent",
+LAKE_KERNELS = ("lake_open_water", "lake_under_ice", "lake_ice_melt",
                 "lake_depth", "lake_water_balance")
 # the lake fixed points stop a lake at |change| <= 1e-4 (C, W/m^2): two runs
 # stopping one iteration apart may differ by about that much
@@ -697,9 +721,9 @@ def test_lake_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.lake_water_balance(lp, SimpleNamespace(volume=c), None)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.lake_ice_brent(c, c, c > 0, dt=86400.0, max_iter=30,
-                               max_tries=5,
-                               **dict.fromkeys(kernels.ICE_EB_INPUTS, c))
+        kernels.lake_ice_melt(dt_sec=86400.0, active=c > 0,
+                              **dict.fromkeys(kernels.ICE_MELT_INPUTS[:-1],
+                                              c))
     for name, keys in (("lake_open_water", kernels.OPEN_WATER_INPUTS[2:]),
                        ("lake_under_ice", kernels.UNDER_ICE_INPUTS[2:]
                         + kernels.UNDER_ICE_UNUSED)):
@@ -750,19 +774,40 @@ def test_lake_under_ice_kernel_matches_plain(cuda):
     assert float((got.qw - ref.qw).abs().max()) <= LAKE_FIXED_POINT_TOL
 
 
-@pytest.mark.gpu
-def test_lake_ice_brent_kernel_matches_plain(cuda):
-    """K12: the same flags, roots within the final bracket width."""
-    a, kw = _lake_args(cuda)["lake_ice_brent"]
-    got = kernels.lake_ice_brent(*a, **kw)
-    ref = lake_ice_brent_plain(*a, **kw)
+def _check_ice_melt(kw):
+    """K12 against lake_ice_melt_plain on kw (testing.ice_melt_failures),
+    one launch; returns the kernel's result."""
+    before = kernels.launches["lake_ice_melt"]
+    got = kernels.lake_ice_melt(**kw)
+    ref = lake_ice_melt_plain(**kw)
+    at_roots = ice_melt_at_roots(kw, got.solve)
     torch.cuda.synchronize()
-    assert bool(ref.bracketed.any())
-    assert torch.equal(got.bracketed, ref.bracketed)
-    assert torch.equal(got.converged, ref.converged)
-    both = got.converged & ref.converged
-    tol = 2.0 * (2.0 * torch.finfo(torch.float32).eps * got.root.abs() + 1e-4)
-    assert bool(((got.root - ref.root).abs() <= tol)[both].all())
+    assert kernels.launches["lake_ice_melt"] == before + 1
+    assert ice_melt_failures(got, ref, at_roots) == []
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["lakes", "seed", "nan_lakes"])
+def test_lake_ice_brent_kernel_matches_plain(cuda, case):
+    """K12, the whole of lake_ice_melt in one launch: the Brent's flags
+    equal the plain version's and its roots within the final bracket, the
+    other fields within testing.ice_melt_failures' rule of the plain
+    version at the kernel's roots, NaN on the same lakes; on the lakes
+    step's second record (with NaN air in one cell), and on the seed whose
+    lakes reach every branch (tests/test_torch_ice_melt.py)."""
+    if case == "seed":
+        kw, _ = ice_melt_inputs(64, 15)
+        kw = {k: torch.from_numpy(v).to(cuda) if isinstance(v, np.ndarray)
+              else v for k, v in kw.items()}
+    else:
+        kw = _captured_args(cuda, names=("lake_ice_melt",), config="lakes",
+                            record=1, build=_nan_build("lakes")
+                            if case == "nan_lakes" else None)[
+                                "lake_ice_melt"][1]
+    got = _check_ice_melt(kw)
+    assert bool(got.solve.bracketed.any())
+    assert bool(torch.isnan(got.qnet).any()) == (case != "lakes")
 
 
 @pytest.mark.gpu
@@ -905,23 +950,27 @@ def test_canopy_air_step_publishes_and_resets_its_maximum(cuda):
 
 
 def test_ice_residual_fields_are_the_kernels_inputs():
-    """csrc/lake_ice_brent.cu's IceResidual reads dt, then
-    kernels.ICE_EB_INPUTS in that order (the blowing-snow flux last), and
-    its launcher expects as many float inputs."""
-    src = (build.CSRC / "lake_ice_brent.cu").read_text()
+    """csrc/lake_ice_melt.cu's IceResidual holds dt, then
+    kernels.ICE_EB_INPUTS in that order (the blowing-snow flux last), which
+    its lane's prologue forms; its C function expects as many float inputs
+    as kernels.ICE_MELT_INPUTS names and the one mask, and runs the lane on
+    csrc/lane_brent.cuh's driver."""
+    src = (build.CSRC / "lake_ice_melt.cu").read_text()
     body = re.search(r"struct IceResidual \{\s*float([^;]*);", src).group(1)
     fields = [w.strip() for w in body.split(",")]
     assert fields == ["dt"] + list(kernels.ICE_EB_INPUTS)
     assert kernels.ICE_EB_INPUTS[-1] == "blowing_flux"
-    launch = re.search(r"launch_brent\(lake_ice_brent_kernel, lanes, nf, "
-                       r"(\d+),", src)
-    assert int(launch.group(1)) == len(kernels.ICE_EB_INPUTS)
+    enum = re.search(r"enum In \{([^}]*)\}", src).group(1)
+    assert len([w for w in enum.split(",") if w.strip()]) \
+        == len(kernels.ICE_MELT_INPUTS) + 1
+    assert "fill_lane_inputs(&in, lanes, nf, kNumIn, nm, 1, h)" in src
+    assert "launch_lane_brent<IceLane>" in src
 
 
 def _heavy_lake_args(device, n_cell=64, record=6):
     """K12's call and K8's call on the lake lanes (its second in a step) in
     the heavy step's seventh record, where lakes carry snow that blows."""
-    calls = {"lake_ice_brent": [], "blowing_snow": []}
+    calls = {"lake_ice_melt": [], "blowing_snow": []}
     originals = {name: getattr(kernels, name) for name in calls}
 
     def wrap(name, fn):
@@ -942,25 +991,17 @@ def _heavy_lake_args(device, n_cell=64, record=6):
     finally:
         for name, fn in originals.items():
             setattr(kernels, name, fn)
-    return calls["lake_ice_brent"][0], calls["blowing_snow"][1]
+    return calls["lake_ice_melt"][0], calls["blowing_snow"][1]
 
 
 @pytest.mark.gpu
 def test_lake_ice_brent_kernel_matches_plain_with_blowing_flux(cuda):
     """K12 on the heavy step's lakes, some of them bracketed under a
-    blowing-snow flux: the same flags, roots within the final bracket
-    width."""
-    (a, kw), _ = _heavy_lake_args(cuda)
-    got = kernels.lake_ice_brent(*a, **kw)
-    ref = lake_ice_brent_plain(*a, **kw)
-    torch.cuda.synchronize()
-    blown = kw["blowing_flux"].expand(ref.root.shape) != 0.0
-    assert bool((blown & ref.bracketed).any())
-    assert torch.equal(got.bracketed, ref.bracketed)
-    assert torch.equal(got.converged, ref.converged)
-    both = got.converged & ref.converged
-    tol = 2.0 * (2.0 * torch.finfo(torch.float32).eps * got.root.abs() + 1e-4)
-    assert bool(((got.root - ref.root).abs() <= tol)[both].all())
+    blowing-snow flux: testing.ice_melt_failures' rule, as above."""
+    (_, kw), _ = _heavy_lake_args(cuda)
+    got = _check_ice_melt(kw)
+    blown = kw["blowing_flux"].expand(got.swq.shape) != 0.0
+    assert bool((blown & got.solve.bracketed).any())
 
 
 @pytest.mark.gpu

@@ -103,14 +103,22 @@ def _profiled(calls):
     dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in
            ("kernel", "gpu_memset", "gpu_memcpy")]
     # a device event belongs to the range of the host call that launched
-    # it (same correlation id): the device's and the host's clocks are not
-    # aligned closely enough to place it by its own start
+    # it (same correlation id, from a runtime or a driver API call): the
+    # device's and the host's clocks are not aligned closely enough to
+    # place it by its own start. With one range, every device event of the
+    # session is its (the session runs that call alone, between
+    # synchronizations), whatever its launch was recorded as.
     launched = {e["args"]["correlation"]: e["ts"] for e in events
-                if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+                if e.get("ph") == "X"
+                and e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
+    only = next(iter(ranges.values()))[0] if len(ranges) == 1 else None
 
     def host_ts(e):
-        return launched.get(e.get("args", {}).get("correlation"), e["ts"])
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        if ts is None:
+            ts = e["ts"] if only is None else only
+        return ts
 
     numbers = {}
     for label in calls:

@@ -1,5 +1,7 @@
 """The lakes' step and the CLOSE_ENERGY canopy-air update on one NVIDIA
-GPU: `lake_step` with its water balance, K13 (`lake_depth`) alone, K9
+GPU: `lake_step` with its water balance, `lake_ice_melt` (K12 and the
+torch around it, or the one launch that took them in), K13 (`lake_depth`)
+alone, K9
 (`canopy_air_step`) alone and as a pass of the loop uses it, and the
 loop's final update, each call split into the wrapper's host time and the
 device's time.
@@ -18,6 +20,13 @@ Cases, each on the arguments of the call's first use in that step
   (`--heavy-cells`), and `solve_lake` on the same arguments;
 - `lake_water_balance` (the kernel) on the arguments its step gives it,
   where the checkout has it;
+- `physics.lake.lake_ice_melt` on the arguments `solve_lake` gives it in
+  lakes' second record and heavy's fourth, and (for --dump and --against)
+  in heavy's seventh (a blowing-snow flux over the ice) and in heavy's
+  first NaN record of the smoke (CONTINUEONERROR, NaN air in 64 cells from
+  the fourth record); its outputs include the Brent's root, flags and
+  iterations: `IceMeltResult.solve` where the checkout has it, else what
+  its `kernels.lake_ice_brent` call returned;
 - K13 on its first call in lakes' second record (the depth before the
   step);
 - K9 in heavy_nolakes' fourth record (its first CLOSE_ENERGY pass),
@@ -82,6 +91,45 @@ def solve_lake_call(lake, a, kw):
     return lambda: lake.solve_lake(a[0], a[1], active=active, **args)
 
 
+def captured_ice_melt(lake, a, kw):
+    """The keyword arguments solve_lake gives lake_ice_melt in a lake_step
+    call on (a, kw)."""
+    got = []
+    original = lake.lake_ice_melt
+
+    def wrapper(**k):
+        got.append(k)
+        return original(**k)
+
+    lake.lake_ice_melt = wrapper
+    try:
+        solve_lake_call(lake, a, kw)()
+    finally:
+        lake.lake_ice_melt = original
+    return got[0]
+
+
+def ice_melt_outputs(lake, kernels, kw):
+    """lake_ice_melt on kw and the Brent's outputs: (IceMeltResult,
+    RootResult)."""
+    if not hasattr(kernels, "lake_ice_brent"):
+        out = lake.lake_ice_melt(**kw)
+        return out, out.solve
+    roots = []
+    original = kernels.lake_ice_brent
+
+    def wrapper(*a, **k):
+        roots.append(original(*a, **k))
+        return roots[-1]
+
+    kernels.lake_ice_brent = wrapper
+    try:
+        out = lake.lake_ice_melt(**kw)
+    finally:
+        kernels.lake_ice_brent = original
+    return out, roots[0]
+
+
 def final_plain(canopy_sensible, soil_sensible, pack_sensible, cov_w, tair,
                 air_dens, ra_over, iter_mask):
     """model.make_step's final canopy-air update before it became
@@ -114,10 +162,11 @@ def move(x, device):
 
 
 def differences(mine, theirs):
-    """Each float output's largest difference where neither is NaN, the
-    elements NaN in one only, and the differing elements of the others."""
+    """Each float output's largest difference where neither is NaN and its
+    elements that differ bit for bit (NaN equal to NaN), the elements NaN
+    in one only, and the differing elements of the others."""
     import torch
-    out = {"largest_difference": {}, "nan_apart": 0}
+    out = {"largest_difference": {}, "nan_apart": 0, "differing": {}}
     for k, y in theirs.items():
         x = mine.get(k)
         if x is None or x.shape != y.shape:
@@ -128,6 +177,10 @@ def differences(mine, theirs):
             out["largest_difference"][k] = float(d.max()) if d.numel() \
                 else 0.0
             out["nan_apart"] += int((torch.isnan(x) != torch.isnan(y)).sum())
+            out["differing"][k] = int(((x.view(torch.int32)
+                                        != y.view(torch.int32))
+                                       & ~(torch.isnan(x)
+                                           & torch.isnan(y))).sum())
         else:
             out["largest_difference"][k] = int((x != y).sum())
     return out
@@ -165,6 +218,16 @@ def main(argv=None):
     heavy = chip_smoke.capture_kernel_args(
         "heavy", ("lake_step",) + balance, device,
         record=chip_smoke.HEAVY_RECORD, cells=args.heavy_cells)
+    ice_melt = {"lakes": captured_ice_melt(lake, *lakes["lake_step"]),
+                "heavy": captured_ice_melt(lake, *heavy["lake_step"])}
+    for label, record, build in (
+            ("heavy_blowing", chip_smoke.HEAVY_LAKE_RECORD, None),
+            ("heavy_nan", chip_smoke.NAN_FROM,
+             chip_smoke.continue_on_error_build("heavy", shift=0))):
+        cap = chip_smoke.capture_kernel_args(
+            "heavy", ("lake_step",), device, record=record, build=build,
+            cells=args.heavy_cells)
+        ice_melt[label] = captured_ice_melt(lake, *cap["lake_step"])
     close = chip_smoke.capture_kernel_args(
         "heavy_nolakes", ("canopy_air_step",), device,
         record=chip_smoke.HEAVY_RECORD, cells=args.heavy_cells)
@@ -187,6 +250,9 @@ def main(argv=None):
             cases[f"lake_water_balance/{config}"] = (
                 lambda a=a, kw=kw: kernels.lake_water_balance(*a, **kw),
                 None)
+    for config, kw in ice_melt.items():
+        cases[f"lake_ice_melt/{config}"] = (
+            lambda kw=kw: lake.lake_ice_melt(**kw), ((), kw))
     a, kw = lakes["lake_depth"]
     cases["lake_depth/lakes"] = (lambda: kernels.lake_depth(*a, **kw), None)
     cases["canopy_air_step/heavy_nolakes"] = (
@@ -199,6 +265,8 @@ def main(argv=None):
     calls, dumped = {}, {}
     for label, (fn, captured) in cases.items():
         out = fn()
+        if label.startswith("lake_ice_melt/"):
+            out = ice_melt_outputs(lake, kernels, captured[1])
         torch.cuda.synchronize()
         wrapper_ms, call_ms = _host_ms(fn, args.reps)
         calls[label] = fn
@@ -227,6 +295,8 @@ def main(argv=None):
     if args.against:
         other = torch.load(args.against, weights_only=False)
         fns = {"lake_step": lake.lake_step,
+               "lake_ice_melt": lambda **kw: ice_melt_outputs(lake, kernels,
+                                                              kw),
                "canopy_air_step": kernels.canopy_air_step,
                "close_energy_tail": final or final_plain}
         for label, theirs in other.items():

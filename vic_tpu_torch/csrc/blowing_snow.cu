@@ -5,14 +5,37 @@
 // shear bisection fori_loop solve_shear :65-87 and the suspension
 // quadrature of _sub_flux_one :112-168). On the TPU the ten Laplace wind
 // increments were unrolled over the batch, each a 24-trip bisection loop
-// and two 16-point quadratures of batch-wide fusions. Here one thread runs
-// one lane's whole calc_blowing_snow in registers: the ten increments, each
-// with its 24 bisection steps, the saltation terms and the 16-point
-// log-trapezoid suspension and transport integrals, then the probability
-// weighting and the -5e-5 floor. A lane reads ~15 floats and writes 2
-// while it runs ~10 x (24 + 17 + 16) evaluations of pow/exp/log-heavy
-// arithmetic: bound by operations, not by bytes. Lanes without snow write
-// zeros at once (the plain version's where(snowdepth > 0, ...)).
+// and two 16-point quadratures of batch-wide fusions.
+//
+// What bounds it on this card: operations. A snow lane reads ~15 floats and
+// writes 2, and runs ten wind increments of ~200 libm calls each (26
+// shear residuals' logf, 24 bisection updates, 17 sub_with_height of four
+// powf, a logf and a sqrtf, 16 quadrature nodes' expf, logf and powf), a
+// chain of accurate (not fast-math) powf, expf and logf. One thread a lane
+// ran all ten in series: the lanes without snow left their warp
+// slots idle beside the snow lanes of their warp, and a lane's ten
+// increments were one long serial chain.
+//
+// What this design does about it:
+// - Compaction: each block takes a chunk of kBlock lanes; its threads
+//   write the zeros of the chunk's lanes without snow (!(snowdepth > 0),
+//   so a NaN depth gives zeros, as the plain version's where does) and
+//   list the snow lanes in shared memory (a warp ballot and the warps'
+//   counts), each snow lane's thread forming the lane's prelude (svp, F,
+//   the 10 m wind, the threshold shear, ...) once into its slot. One
+//   launch, no global scan.
+// - Work items: one (snow lane, increment) a thread, so the ten increments
+//   of a lane run side by side and every thread of a warp runs a snow
+//   lane's increment (the same trip counts: 24 bisection steps, 16 nodes).
+//   An item stores kArea * sub * prob and kArea * transport * prob by slot
+//   and increment; then one thread a snow lane adds the ten from 0.0f in
+//   increment order and applies the -5e-5 floor: the float sequence of the
+//   one-thread loop, so the outputs are bit for bit that loop's.
+// - Each repeated transcendental once where the float expression is the
+//   same: fluct_v = 0.005 * u10^1.36 once an increment (not at each of the
+//   17 heights), one powf(z / hsalt, -SETTLING / (k u*)) a node for the
+//   sublimation's phi_t and the transport's phi_tz, and the settling
+//   ratio T once (sub_with_height's `temp` is the same expression).
 //
 // A line-for-line copy of vic_tpu_torch/physics/blowing_snow.py's plain
 // version, divisions by a host scalar as PyTorch does them on the card
@@ -69,11 +92,16 @@ __device__ __forceinline__ float shear_residual(float x, float u_r) {
   return logf(kLogShear) + logf(rdiv_s(1.0f, x * x)) - kVonK * u_r / x;
 }
 
-// sub_with_height (sub_with_height:508-551), kg/m^3/s at height z
-__device__ __forceinline__ float sub_with_height(float z, float es, float u10,
-                                                 float eact, float F,
-                                                 float hsalt, float phi_s,
-                                                 float ushear) {
+// sub_with_height (sub_with_height:508-551), kg/m^3/s at height z, with
+// what its callers evaluate once: fluct_v = 0.005 * u10^1.36 (the same for
+// every height of a wind speed), sig_e = eact / es - 1, t_set = 0.5 *
+// u*^2 / (u10 * SETTLING) (the plain version's `temp` and `T`) and pz =
+// (z / hsalt)^(-SETTLING / (k * u*)), which the transport integrand reads
+// too: each the same float expression as before, so the same value.
+__device__ __forceinline__ float sub_with_height(float z, float sig_e,
+                                                 float F, float phi_s,
+                                                 float fluct_v, float t_set,
+                                                 float pz) {
   const float rrz = 4.6e-5f * powf(z, -0.258f);
   const float alphaz = 4.08f + 12.6f * z;
   const float mz = kMzCoef * (rrz * rrz * rrz) *
@@ -81,18 +109,13 @@ __device__ __forceinline__ float sub_with_height(float z, float es, float u10,
                     rdiv_s(2.0f, alphaz * alphaz));
   const float rmean = powf(div_s(3.0f * mz, kRmeanDen), kOneThird);
   const float terminal_v = 1.1e7f * powf(rmean, 1.8f);
-  const float fluct_v = 0.005f * powf(u10, 1.36f);
   const float vtz = terminal_v + 3.0f * fluct_v * kCosPi4;
   const float re = div_s(2.0f * rmean * vtz, kKinVis);
   const float nu = 1.79f + 0.606f * sqrtf(re);
-  const float sigz = (eact / es - 1.0f) * (1.019f + 0.027f * logf(z));
+  const float sigz = sig_e * (1.019f + 0.027f * logf(z));
   const float dmdt = kTwoPi * rmean * sigz * nu / F;
   const float psi_t = dmdt / mz;
-  const float temp = (0.5f * ushear * ushear) / (u10 * kSettling);
-  const float phi_t =
-      phi_s * ((temp + 1.0f) *
-                   powf(z / hsalt, rdiv_s(-kSettling, kVonK * ushear)) -
-               temp);
+  const float phi_t = phi_s * ((t_set + 1.0f) * pz - t_set);
   return psi_t * phi_t;
 }
 
@@ -136,23 +159,26 @@ __device__ Flux sub_flux_one(float u10, float es, float eact, float air_dens,
   const float T = 0.5f * ushear * ushear / (u10 * kSettling);
   const float ztop =
       hsalt * powf(T / (T + 1.0f), div_s(kVonK * ushear, -kSettling));
+  const float fluct_v = 0.005f * powf(u10, 1.36f);
+  const float sig_e = eact / es - 1.0f;
+  const float expo = rdiv_s(-kSettling, kVonK * ushear);
   // saltation layer: phi_s * psi_s * hsalt, psi_s at hsalt / 2
-  const float psi_s = sub_with_height(div_s(hsalt, 2.0f), es, u10, eact, F,
-                                      hsalt, phi_s, ushear);
+  const float z_s = div_s(hsalt, 2.0f);
+  const float psi_s = sub_with_height(z_s, sig_e, F, phi_s, fluct_v, T,
+                                      powf(z_s / hsalt, expo));
   const float sub_salt = phi_s * psi_s * hsalt;
-  // suspension layer: 16-point trapezoid in log z
+  // suspension layer: 16-point trapezoid in log z, summed in node order
   const float lo_z = logf(nan_max(hsalt, 1e-4f));
   const float hi_z = logf(nan_max(ztop, nan_max(hsalt, 1e-4f) * 1.0001f));
   const float dt_q = div_s(hi_z - lo_z, static_cast<float>(kQuad - 1));
-  const float expo = rdiv_s(-kSettling, kVonK * ushear);
   const float zo_safe = nan_max(zo_salt, 1e-10f);
   float sub_prev = 0.0f, tr_prev = 0.0f, sub_sum = 0.0f, tr_sum = 0.0f;
   for (int k = 0; k < kQuad; ++k) {
     const float z = expf(lo_z + (hi_z - lo_z) * nodes[k]);
-    const float fz =
-        sub_with_height(z, es, u10, eact, F, hsalt, phi_s, ushear) * z;
+    const float pz = powf(z / hsalt, expo);
+    const float fz = sub_with_height(z, sig_e, F, phi_s, fluct_v, T, pz) * z;
     const float uz = div_s(ushear * logf(z / zo_safe), kVonK);
-    const float phi_tz = phi_s * ((T + 1.0f) * powf(z / hsalt, expo) - T);
+    const float phi_tz = phi_s * ((T + 1.0f) * pz - T);
     const float tz = uz * phi_tz * z;
     if (k == 1) {
       sub_sum = sub_prev + fz;
@@ -189,25 +215,19 @@ __device__ __forceinline__ float get_prob(float tair, float age_h,
   return nan_min(nan_max(prob, 0.0f), 1.0f);
 }
 
-__global__ void blowing_snow_kernel(const __grid_constant__ LaneInputs in,
-                                    float dt, const float* quad_nodes,
-                                    const float* log_terms, int n,
-                                    float* flux_out, float* transport_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const LaneRow row = lane_row(in, i);
+// What every wind increment of a snow lane reads, formed once a lane by
+// the thread that found the lane under snow (calc_blowing_snow's prelude)
+enum Pre {
+  kPTair, kPSurfWater, kPZ0, kPAirDens, kPEact, kPAge, kPEs, kPF,
+  kPUtshear, kPFe, kPSigmaW, kPSigSafe, kPUo, kPHv, kPNd, kPDepth, kNumPre
+};
+
+__device__ __forceinline__ void prelude(const LaneInputs& in, LaneRow row,
+                                        float dt, float snowdepth,
+                                        float (*pre)[kBlock], int slot) {
   auto f = [&](int k) { return lane_f(in, k, row); };
-  const float snowdepth = f(kDepth);
-  if (!(snowdepth > 0.0f)) {
-    flux_out[i] = 0.0f;
-    transport_out[i] = 0.0f;
-    return;
-  }
-  float nodes[kQuad];
-#pragma unroll
-  for (int k = 0; k < kQuad; ++k) nodes[k] = quad_nodes[k];
   const float tair = f(kTair), surf_water = f(kSurfWater), z0 = f(kZ0);
-  const float ls = f(kLs), air_dens = f(kAirDens), eact = f(kEact);
+  const float ls = f(kLs);
   const float age_h = nan_max(div_s(f(kLastSnow) * dt, 3600.0f), 1e-3f);
   const float es = svp(tair);
   const float tk = tair + kKelvin;
@@ -222,63 +242,153 @@ __global__ void blowing_snow_kernel(const __grid_constant__ LaneInputs in,
   const float sslope = bare ? 2.0e-4f : f(kSigmaSlope);
   const float ratio = (2.44f - 0.43f * f(kLagOne)) * sslope;
   const float sigma_w = wind10 * ratio;
-  const float uo = wind10;
   const float displ = f(kDispl);
-  const float hv = 1.5f * displ;
-  const float nd = kFourThirds * f(kRough) / nan_max(displ, 1e-6f);
   const float ut10 = surf_water < 0.001f
                          ? 9.43f + 0.18f * tair + 0.0033f * tair * tair
                          : 9.9f;
-  const float utshear = kVonK * ut10 / logf(rdiv_s(10.0f, z0));
-  const float sig_safe = nan_max(sigma_w, 1e-10f);
+  pre[kPTair][slot] = tair;
+  pre[kPSurfWater][slot] = surf_water;
+  pre[kPZ0][slot] = z0;
+  pre[kPAirDens][slot] = f(kAirDens);
+  pre[kPEact][slot] = f(kEact);
+  pre[kPAge][slot] = age_h;
+  pre[kPEs][slot] = es;
+  pre[kPF][slot] = F;
+  pre[kPUtshear][slot] = kVonK * ut10 / logf(rdiv_s(10.0f, z0));
+  pre[kPFe][slot] = fe;
+  pre[kPSigmaW][slot] = sigma_w;
+  pre[kPSigSafe][slot] = nan_max(sigma_w, 1e-10f);
+  pre[kPUo][slot] = wind10;
+  pre[kPHv][slot] = 1.5f * displ;
+  pre[kPNd][slot] = kFourThirds * f(kRough) / nan_max(displ, 1e-6f);
+  pre[kPDepth][slot] = snowdepth;
+}
 
-  float total = 0.0f, total_transport = 0.0f;
-  for (int p = 0; p < kNumIncs; ++p) {
-    // Laplace interval bounds (CalcBlowingSnow.c:203-223); log_terms[p]
-    // holds the float32 log of the lower bound's probability argument,
-    // log_terms[kNumIncs + p] the upper one's
-    float lower, upper;
-    if (p == 0) {
-      lower = uo - 9999.0f;
-      upper = uo + sigma_w * log_terms[kNumIncs + p];
-    } else if (p < kNumIncs / 2) {
-      lower = uo + sigma_w * log_terms[p];
-      upper = uo + sigma_w * log_terms[kNumIncs + p];
-    } else if (p < kNumIncs - 1) {
-      lower = uo - sigma_w * log_terms[p];
-      upper = uo - sigma_w * log_terms[kNumIncs + p];
-    } else {
-      lower = uo - sigma_w * log_terms[p];
-      upper = uo + 9999.0f;
-    }
-    lower = nan_min(lower, upper);
-    // the conditional mean by lower >= Uo (upper tail) or not; exponent
-    // arguments clamped at 0 as the plain version evaluates both
-    float u10;
-    if (lower >= uo) {
-      const float eu = expf(nan_min(-(upper - uo) / sig_safe, 0.0f));
-      const float el = expf(nan_min(-(lower - uo) / sig_safe, 0.0f));
-      u10 = div_s(-0.5f * ((upper + sigma_w) * eu - (lower + sigma_w) * el),
-                  kArea);
-    } else {
-      const float eu = expf(nan_min((upper - uo) / sig_safe, 0.0f));
-      const float el = expf(nan_min((lower - uo) / sig_safe, 0.0f));
-      u10 = div_s(0.5f * ((upper - sigma_w) * eu - (lower - sigma_w) * el),
-                  kArea);
-    }
-    u10 = nan_min(nan_max(u10, 0.4f), 25.0f);
-    const float uveg =
-        snowdepth < hv
-            ? u10 / sqrtf(1.0f + 170.0f * nd * nan_max(hv - snowdepth, 0.0f))
-            : u10;
-    const float prob = get_prob(tair, age_h, surf_water, uveg);
-    const Flux fl =
-        sub_flux_one(u10, es, eact, air_dens, z0, fe, F, utshear, nodes);
-    total = total + kArea * fl.sub * prob;
-    total_transport = total_transport + kArea * fl.transport * prob;
+// One work item: wind increment p of the snow lane in `slot`: its share of
+// the lane's flux and transport, kArea * sub * prob and kArea * transport
+// * prob, as the one-thread-a-lane loop formed them before adding
+__device__ __forceinline__ Flux increment(float (*pre)[kBlock],
+                                          int slot, int p,
+                                          const float* nodes,
+                                          const float* log_terms) {
+  auto g = [&](int k) { return pre[k][slot]; };
+  const float uo = g(kPUo), sigma_w = g(kPSigmaW), sig_safe = g(kPSigSafe);
+  // Laplace interval bounds (CalcBlowingSnow.c:203-223); log_terms[p]
+  // holds the float32 log of the lower bound's probability argument,
+  // log_terms[kNumIncs + p] the upper one's
+  float lower, upper;
+  if (p == 0) {
+    lower = uo - 9999.0f;
+    upper = uo + sigma_w * log_terms[kNumIncs + p];
+  } else if (p < kNumIncs / 2) {
+    lower = uo + sigma_w * log_terms[p];
+    upper = uo + sigma_w * log_terms[kNumIncs + p];
+  } else if (p < kNumIncs - 1) {
+    lower = uo - sigma_w * log_terms[p];
+    upper = uo - sigma_w * log_terms[kNumIncs + p];
+  } else {
+    lower = uo - sigma_w * log_terms[p];
+    upper = uo + 9999.0f;
   }
-  flux_out[i] = nan_max(total, -5.0e-5f);
-  transport_out[i] = total_transport;
+  lower = nan_min(lower, upper);
+  // the conditional mean by lower >= Uo (upper tail) or not; exponent
+  // arguments clamped at 0 as the plain version evaluates both
+  float u10;
+  if (lower >= uo) {
+    const float eu = expf(nan_min(-(upper - uo) / sig_safe, 0.0f));
+    const float el = expf(nan_min(-(lower - uo) / sig_safe, 0.0f));
+    u10 = div_s(-0.5f * ((upper + sigma_w) * eu - (lower + sigma_w) * el),
+                kArea);
+  } else {
+    const float eu = expf(nan_min((upper - uo) / sig_safe, 0.0f));
+    const float el = expf(nan_min((lower - uo) / sig_safe, 0.0f));
+    u10 = div_s(0.5f * ((upper - sigma_w) * eu - (lower - sigma_w) * el),
+                kArea);
+  }
+  u10 = nan_min(nan_max(u10, 0.4f), 25.0f);
+  const float snowdepth = g(kPDepth), hv = g(kPHv);
+  const float uveg =
+      snowdepth < hv
+          ? u10 / sqrtf(1.0f + 170.0f * g(kPNd) *
+                                   nan_max(hv - snowdepth, 0.0f))
+          : u10;
+  const float prob = get_prob(g(kPTair), g(kPAge), g(kPSurfWater), uveg);
+  const Flux fl = sub_flux_one(u10, g(kPEs), g(kPEact), g(kPAirDens),
+                               g(kPZ0), g(kPFe), g(kPF), g(kPUtshear), nodes);
+  return Flux{kArea * fl.sub * prob, kArea * fl.transport * prob};
+}
+
+// Each block takes the chunk of kBlock lanes [blockIdx.x * kBlock, ...):
+// its threads test one lane each, write the zeros of the lanes without
+// snow and list the snow lanes in shared memory (a warp ballot, then the
+// warps' counts summed in order), each snow lane's thread forming its
+// prelude into its slot. Then the chunk's (snow lane, increment) items are
+// dealt to the threads in turn, each item's shares stored by slot and
+// increment; then one thread a snow lane sums its ten shares from 0 in
+// increment order, applies the -5e-5 floor and writes the lane.
+__global__ void __launch_bounds__(kBlock)
+    blowing_snow_kernel(const __grid_constant__ LaneInputs in, float dt,
+                        const float* quad_nodes, const float* log_terms,
+                        int n, float* flux_out, float* transport_out) {
+  constexpr int kWarps = kBlock / 32;
+  __shared__ float nodes[kQuad];
+  __shared__ float logs[2 * kNumIncs];
+  __shared__ int lane_of[kBlock];
+  __shared__ int warp_count[kWarps];
+  __shared__ float pre[kNumPre][kBlock];
+  __shared__ float sub_share[kBlock * kNumIncs];
+  __shared__ float tr_share[kBlock * kNumIncs];
+  const int t = threadIdx.x;
+  if (t < kQuad) nodes[t] = quad_nodes[t];
+  if (t < 2 * kNumIncs) logs[t] = log_terms[t];
+  const int i = blockIdx.x * kBlock + t;
+  LaneRow row{0, 0};
+  float snowdepth = 0.0f;
+  bool snow = false;
+  if (i < n) {
+    row = lane_row(in, i);
+    snowdepth = lane_f(in, kDepth, row);
+    snow = snowdepth > 0.0f;
+    if (!snow) {   // also a NaN depth: the plain version's where(> 0)
+      flux_out[i] = 0.0f;
+      transport_out[i] = 0.0f;
+    }
+  }
+  const unsigned ballot = __ballot_sync(0xffffffffu, snow);
+  const int warp = t / 32, bit = t % 32;
+  if (bit == 0) warp_count[warp] = __popc(ballot);
+  __syncthreads();
+  int before = 0, count = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    before += w < warp ? warp_count[w] : 0;
+    count += warp_count[w];
+  }
+  if (count == 0) return;   // the same for every thread of the block
+  if (snow) {
+    const int slot = before + __popc(ballot & ((1u << bit) - 1u));
+    lane_of[slot] = i;
+    prelude(in, row, dt, snowdepth, pre, slot);
+  }
+  __syncthreads();
+  for (int item = t; item < count * kNumIncs; item += kBlock) {
+    const int slot = item / kNumIncs;
+    const Flux share =
+        increment(pre, slot, item - slot * kNumIncs, nodes, logs);
+    sub_share[item] = share.sub;
+    tr_share[item] = share.transport;
+  }
+  __syncthreads();
+  if (t < count) {
+    float total = 0.0f, total_transport = 0.0f;
+#pragma unroll
+    for (int p = 0; p < kNumIncs; ++p) {
+      total = total + sub_share[t * kNumIncs + p];
+      total_transport = total_transport + tr_share[t * kNumIncs + p];
+    }
+    flux_out[lane_of[t]] = nan_max(total, -5.0e-5f);
+    transport_out[lane_of[t]] = total_transport;
+  }
 }
 
 }  // namespace

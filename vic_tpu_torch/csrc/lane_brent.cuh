@@ -1,22 +1,32 @@
 // The lane driver of K1 (glacier_brent), K2 (snowpack_brent), K3
-// (canopy_brent), K5 (surface_brent) and K14 (affine_surface_brent): an
-// expand-then-Brent per lane, with the lanes compacted and dealt to the
-// threads of persistent blocks.
+// (canopy_brent), K5 (surface_brent), K12 (lake_ice_melt) and K14
+// (affine_surface_brent): an expand-then-Brent per lane, with the lanes
+// compacted and dealt to the threads of persistent blocks. BrentLane below
+// is the port's only Brent (K7 keeps its own inside its cooperative
+// launch); the one-thread-a-lane Brent it was cut from is gone,
+// K12 having been its last user.
 //
-// Each lane runs exactly brent.cuh's brent_solve, step for step on the same
-// floats (BrentLane below is that function cut at its residual
-// evaluations), so a lane's root, flags and iterations do not depend on
-// which thread runs it or when.
+// Each lane runs the expand-then-Brent of vic_tpu/ops/rootfind.py:43-207
+// (expand_brackets + batched_brent) step for step on the same floats, so a
+// lane's root, flags and iterations do not depend on which thread runs it
+// or when. Where the batched versions keep iterating a converged lane until
+// every lane is done, a lane stops at once: the batch loop's rearrangement
+// (same-side reset, then best-iterate swap) runs on frozen lanes too, and
+// it is idempotent after one pass, so rearranging first and then testing
+// for convergence leaves (b, c) exactly where the batch loop leaves them.
+// Unbracketed or inactive lanes return the midpoint of the ORIGINAL [lo,
+// hi] with converged = bracketed = false (rootfind.py:205).
 //
-// What bounds the one-thread-per-lane launch (brent.cuh launch_brent) on
-// this card: a lane reads a few hundred bytes and then runs 2 to ~70
-// dependent residual evaluations, so the kernel is bound by latency, not by
-// bytes or operations. A warp runs until its slowest lane is done while its
-// inactive and finished lanes hold their slots; these batches are mostly
-// such lanes (the canopy residual runs on overstory lanes only, the surface
-// residual on the lanes that are not glacier or lake, the snowpack residual
-// on the packs that neither melt at 0 C nor are thin, the glacier residual
-// on the bare-ice HRUs that do not melt at 0 C, at most 2 of a cell's 8).
+// What bounds one thread a lane on this card: a lane reads a few hundred
+// bytes and then runs 2 to ~70 dependent residual evaluations, so the
+// kernel is bound by latency, not by bytes or operations. A warp runs until
+// its slowest lane is done while its inactive and finished lanes hold their
+// slots; these batches are mostly such lanes (the canopy residual runs on
+// overstory lanes only, the surface residual on the lanes that are not
+// glacier or lake, the snowpack residual on the packs that neither melt at
+// 0 C nor are thin, the glacier residual on the bare-ice HRUs that do not
+// melt at 0 C, at most 2 of a cell's 8, the lake ice residual on the iced
+// lakes whose snow neither melts nor is thin).
 //
 // What this driver does about it:
 // - Persistent blocks: the grid is as many blocks as the device keeps
@@ -32,14 +42,17 @@
 //   trip of the loop evaluates the residual once on each busy thread (at its
 //   own lane's candidate), so the warp's threads run the residual together
 //   whatever step of the solve each of them is in.
-// - Hooks (K1, K2, K5): a lane type may also declare a prologue, run on
-//   every lane when it is taken, which writes what the caller needs before
-//   the solve and may take the lane out of it (K1's and K2's balance at
-//   0 C and its melt test), and an epilogue, run on every lane, inactive
-//   ones too, once its root is known, which writes the balance's terms at
-//   the accepted temperature (K1: 0 C on a lane that melts, which its lane
-//   object remembers from its prologue). Their callers then evaluate no
-//   residual of their own. A
+// - Hooks (K1, K2, K5, K12): a lane type may also declare a prologue, run
+//   on every lane when it is taken, which writes what the caller needs
+//   before the solve and may take the lane out of it (K1's, K2's and K12's
+//   balance at 0 C and melt test), a bracket, which forms the lane's
+//   starting bracket after its prologue (K12: old_tsurf -/+ SNOW_DT), and an
+//   epilogue, run on every lane, inactive ones too, once its root is
+//   known, which writes the balance's terms at the accepted temperature
+//   (K1, K12: 0 C on a lane that melts, which its lane object remembers
+//   from its prologue) and what its caller forms from them (K12: the whole
+//   state update of lake_ice_melt). Their callers then evaluate no residual
+//   of their own. A
 //   solved lane's epilogue waits until its warp refills, so the warp's
 //   finished lanes run theirs together rather than each beside the others'
 //   residuals (K5 on light's first record, H100: 0.27 ms of device time
@@ -66,10 +79,11 @@ constexpr int kLaneBlock = 128;
 // (kernels._check_lane_brent names it)
 constexpr int kNoResidentBlock = -3;
 
-// brent_solve (brent.cuh) for one lane, cut at each residual evaluation:
-// start() and then, while !done, the caller evaluates the residual at x and
-// hands the value to next(). The floats are formed by the same expressions
-// in the same order as brent_solve forms them.
+// The Brent of one lane, cut at each residual evaluation: start() and
+// then, while !done, the caller evaluates the residual at x and hands the
+// value to next(). The floats are formed by the same expressions in the
+// same order as the retired one-thread Brent formed them (its K12 roots,
+// flags and iterations are this driver's, bit for bit).
 struct BrentLane {
   float x;                          // where the residual is wanted next
   float lo, hi, a, b, c, fa, fb, fc, d, e, d_new, e_new;
@@ -135,7 +149,7 @@ struct BrentLane {
     iterate();
   }
 
-  // the top of brent_solve's loop at iteration `it`: the stop, or the next
+  // the top of the Brent loop at iteration `it`: the stop, or the next
   // step and its candidate
   __device__ __forceinline__ void iterate() {
     const float kTol = 1e-4f;
@@ -231,9 +245,19 @@ struct HasEpilogue : std::false_type {};
 template <class Lane>
 struct HasEpilogue<Lane, std::void_t<decltype(&Lane::epilogue)>>
     : std::true_type {};
+//   __device__ void bracket(float* lo, float* hi) const;
+//     after the prologue: the lane's starting bracket, where the lane
+//     forms it (K12: old_tsurf -/+ SNOW_DT) rather than reading lo and hi
+//     from its inputs kLo and kHi.
+template <class Lane, class = void>
+struct HasBracket : std::false_type {};
+template <class Lane>
+struct HasBracket<Lane, std::void_t<decltype(&Lane::bracket)>>
+    : std::true_type {};
 
 // The kernel: Lane is a residual functor with
 //   static constexpr int kLo, kHi, kActive;  // lane inputs: bracket, mask
+//                                            // (no kLo, kHi with bracket())
 //   static constexpr int kMinBlocks;         // __launch_bounds__' minimum
 //   __device__ void init(const LaneInputs&, LaneRow, const Params&);
 //   __device__ float operator()(float) const;
@@ -285,8 +309,14 @@ __global__ void __launch_bounds__(kLaneBlock, Lane::kMinBlocks)
         if constexpr (kPrologue || kEpilogue) f.init(in, row, params);
         if constexpr (kPrologue)
           active = f.prologue(in, row, k, active, params);
-        s.start(lane_f(in, Lane::kLo, row), lane_f(in, Lane::kHi, row),
-                active, max_iter, max_tries);
+        float lo, hi;
+        if constexpr (HasBracket<Lane>::value) {
+          f.bracket(&lo, &hi);
+        } else {
+          lo = lane_f(in, Lane::kLo, row);
+          hi = lane_f(in, Lane::kHi, row);
+        }
+        s.start(lo, hi, active, max_iter, max_tries);
         if (s.phase == BrentLane::kDone) {
           if constexpr (kEpilogue) f.epilogue(in, row, k, s.out, params);
           store(out, k, s.out);

@@ -17,7 +17,7 @@
 // bracket, runs up to ~70 dependent residual
 // evaluations of ~150 flops and a few log/sqrt/exp each, and writes 17 + nl
 // terms (with DIST_PRCP 4 + nl more): latency, not device-memory bytes. One
-// thread a lane (brent.cuh's brent_solve) left a warp waiting on its
+// thread a lane (a one-thread Brent) left a warp waiting on its
 // slowest lane with its glacier, lake and finished lanes idle, and the
 // caller then evaluated the whole residual once more in ~100 PyTorch
 // launches to read its terms.

@@ -30,7 +30,7 @@ launches = {"glacier_brent": 0, "snowpack_brent": 0, "canopy_brent": 0,
             "runoff_hourly": 0, "surface_brent": 0, "node_sweep": 0,
             "fd_surface_brent": 0, "blowing_snow": 0, "canopy_air_step": 0,
             "canopy_air_final": 0, "lake_open_water": 0,
-            "lake_under_ice": 0, "lake_ice_brent": 0, "lake_depth": 0,
+            "lake_under_ice": 0, "lake_ice_melt": 0, "lake_depth": 0,
             "lake_water_balance": 0, "affine_surface_brent": 0,
             "mass_release": 0, "implicit_profile": 0, "bisection": 0}
 
@@ -162,7 +162,7 @@ def _root_outputs(shape, device):
 
 
 # csrc/lane_brent.cuh's refusal where no block of a lane kernel (K1, K2,
-# K3, K5, K14) fits on an SM
+# K3, K5, K12, K14) fits on an SM
 _NO_RESIDENT_BLOCK = -3
 
 
@@ -177,7 +177,7 @@ def _check_lane_brent(name, err):
 
 def _brent_call(name, float_names, flag_names, lo, hi, active, inputs,
                 bounds_in_table=False):
-    """The lanes of a root finder (K1-K3, K12, K17): returns (what the
+    """The lanes of a root finder (K1-K3, K17): returns (what the
     call must keep alive; the C arguments: the lane table of the float
     inputs and the masks (active first), their counts, the lanes per cell
     and, unless bounds_in_table, lo and hi as contiguous copies; the lanes'
@@ -205,21 +205,6 @@ def _brent_call(name, float_names, flag_names, lo, hi, active, inputs,
 
 def _out_ptrs(outs):
     return tuple(t.data_ptr() for t in outs)
-
-
-def _brent(name, float_names, flag_names, lo, hi, active, dt, max_iter,
-           max_tries, inputs, bounds_in_table=False):
-    _keep, args, shape = _brent_call(name, float_names, flag_names, lo, hi,
-                                     active, inputs, bounds_in_table)
-    outs = _root_outputs(shape, lo.device)
-    n = outs.root.numel()
-    if n:
-        stream = torch.cuda.current_stream(lo.device).cuda_stream
-        err = getattr(build.load(), name)(
-            *args, float(dt), int(max_iter), int(max_tries), n,
-            *_out_ptrs(outs), stream)
-        (_check_lane_brent if bounds_in_table else _check_launch)(name, err)
-    return outs
 
 
 # K1's outputs after the terms (csrc/vic_kernels.cu GlacierOut, GlacierFlag)
@@ -318,9 +303,18 @@ def canopy_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
     """K3: expand-then-Brent on the canopy foliage residual, the active
     lanes compacted and dealt to persistent threads (csrc/lane_brent.cuh).
     Same arguments and result as physics.canopy_snow.canopy_brent_plain."""
-    return _brent("canopy_brent", CANOPY_INPUTS, CANOPY_FLAGS, lo, hi,
-                  active, dt, max_iter, max_tries, inputs,
-                  bounds_in_table=True)
+    name = "canopy_brent"
+    _keep, args, shape = _brent_call(name, CANOPY_INPUTS, CANOPY_FLAGS, lo,
+                                     hi, active, inputs, bounds_in_table=True)
+    outs = _root_outputs(shape, lo.device)
+    n = outs.root.numel()
+    if n:
+        stream = torch.cuda.current_stream(lo.device).cuda_stream
+        err = build.load().canopy_brent(*args, float(dt), int(max_iter),
+                                        int(max_tries), n, *_out_ptrs(outs),
+                                        stream)
+        _check_lane_brent(name, err)
+    return outs
 
 
 # K17's residuals: name -> (C code, float inputs, flags)
@@ -863,9 +857,11 @@ BLOWING_UNUSED = ("pressure", "zrh", "tsnow")
 
 
 def blowing_snow(*, dt_sec, quad_nodes, log_terms, **inputs):
-    """K8: calc_blowing_snow of every lane, one thread per lane. Same
-    arguments and result as physics.blowing_snow.calc_blowing_snow_plain:
-    (flux, transport), each of the lanes' broadcast shape."""
+    """K8: calc_blowing_snow of every lane in one launch, the snow lanes
+    of each block's chunk compacted and their (lane, wind increment) items
+    dealt to its threads. Same arguments and result as
+    physics.blowing_snow.calc_blowing_snow_plain: (flux, transport), each
+    of the lanes' broadcast shape."""
     name = "blowing_snow"
     device = inputs["tair"].device
     if device.type != "cuda":
@@ -1047,12 +1043,23 @@ UNDER_ICE_INPUTS = ("surfdz", "dz", "tcutoff", "sw_ice", "hice", "sdepth")
 # water_under_ice's arguments that only enter its molecular-only
 # diffusivity, which discards them
 UNDER_ICE_UNUSED = ("lat", "wind")
-# K12's residual inputs (csrc/lake_ice_brent.cu IceResidual); blowing_flux
-# is a zero broadcast to the lakes without BLOWING
+# the fields of K12's residual after dt (csrc/lake_ice_melt.cu IceResidual,
+# physics.lake.ice_energy_terms' keyword arguments), which its prologue forms
 ICE_EB_INPUTS = ("ra", "z_ref", "roughness", "wind", "net_short",
                  "longwave_in", "air_dens", "lv", "tair", "pressure", "vpd",
                  "vp_air", "rain_m", "surf_water", "tcutoff", "avgcond",
                  "sw_conducted", "blowing_flux")
+# K12's float inputs, lake_ice_melt's arguments in the order of
+# csrc/lake_ice_melt.cu's In (blowing_flux a zero broadcast to the lakes
+# without BLOWING), and its outputs after the terms (IceOut)
+ICE_MELT_INPUTS = ("swq", "surf_temp", "pack_temp", "surf_water",
+                   "pack_water", "lake_ice_m", "hice", "rainfall_mm",
+                   "snowfall_mm", "tair", "wind", "vp_air", "vpd", "pressure",
+                   "air_dens", "longwave_in", "net_short", "tcutoff", "ra",
+                   "z_ref", "roughness", "blowing_flux")
+ICE_MELT_OUTPUTS = ("swq", "surf_temp", "pack_temp", "surf_water",
+                    "pack_water", "melt_m", "ice_melt_m", "lake_ice_m",
+                    "vapor_flux", "cold_content", "sw_under_ice")
 
 
 def _column_lanes(name, temp, grid, active, named, keys):
@@ -1140,12 +1147,51 @@ def lake_under_ice(*, temp, grid, dt_sec, active, **inputs):
                           iterations=iterations)
 
 
-def lake_ice_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
-    """K12: expand-then-Brent on the lake snow/ice surface residual, one
-    thread per lake. Same arguments and result as
-    physics.lake.lake_ice_brent_plain (iterations per lake)."""
-    return _brent("lake_ice_brent", ICE_EB_INPUTS, (), lo, hi, active, dt,
-                  max_iter, max_tries, inputs)
+def lake_ice_melt(*, dt_sec, max_iter=30, blowing_flux=0.0, active=None,
+                  **inputs):
+    """K12: the whole of lake_ice_melt in one launch on
+    csrc/lane_brent.cuh: on every lake the fresh snow's distribution,
+    icerad, the balance at 0 C and the melt and thin tests; then
+    expand-then-Brent on the ice balance from old_tsurf -/+ SNOW_DT on the
+    lakes of `active` (None: every lake) whose snow neither melts nor is
+    thin, compacted and dealt to persistent threads; then on every lake the
+    balance at the accepted temperature and the state update. Same
+    arguments and result as physics.lake.lake_ice_melt_plain (an
+    IceMeltResult whose `solve` holds the Brent's outputs, iterations per
+    lake)."""
+    from ..physics.lake import IceEBTerms, IceMeltResult
+    name = "lake_ice_melt"
+    device = inputs["swq"].device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors required, got {device}")
+    _check_names(name, inputs, ICE_MELT_INPUTS[:-1])
+    named = dict(inputs)
+    named["blowing_flux"] = (blowing_flux if isinstance(blowing_flux,
+                                                        torch.Tensor)
+                             else _const(device, torch.float32,
+                                         float(blowing_flux)))
+    if active is None:
+        active = _const(device, torch.bool, True)
+    shape = torch.broadcast_shapes(active.shape,
+                                   *(named[k].shape for k in ICE_MELT_INPUTS))
+    table = _lane_inputs([(k, named[k], 0) for k in ICE_MELT_INPUTS],
+                         [("active", active, 0)], shape, device)
+    nt = len(IceEBTerms._fields)
+    outs, floats, flags = _lane_outputs(
+        shape, device, floats=nt + len(ICE_MELT_OUTPUTS), flags=1)
+    floats = floats.view((-1,) + tuple(shape))
+    n = outs.root.numel()
+    if n:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = build.load().lake_ice_melt(
+            table.ctypes.data, len(ICE_MELT_INPUTS), 1, shape[-1],
+            float(dt_sec), int(max_iter), MAXTRIES, n, *_out_ptrs(outs),
+            floats.data_ptr(), flags.data_ptr(), stream)
+        _check_lane_brent(name, err)
+    terms = IceEBTerms(*floats[:nt])
+    return IceMeltResult(**dict(zip(ICE_MELT_OUTPUTS, floats[nt:])),
+                         qnet=terms.rest, surf_temp_fbflag=flags[0],
+                         terms=terms, solve=outs)
 
 
 def lake_depth(z, basin, maxdepth, volume):

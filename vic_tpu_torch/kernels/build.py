@@ -80,15 +80,13 @@ def build(build_dir: Path = BUILD_DIR, extra_flags=()):
 # masks; _FLOATS for a kernel without masks
 _LANES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
 _FLOATS = [ctypes.c_void_p, ctypes.c_int]
-_BRENT_ARGTYPES = (_LANES + [ctypes.c_int, ctypes.c_void_p,
-                             ctypes.c_void_p, ctypes.c_float]
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
 # K3 on csrc/lane_brent.cuh: lo and hi are lane inputs
 _LANE_BRENT_ARGTYPES = (_LANES + [ctypes.c_int, ctypes.c_float]
                         + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
 # K2 on it: K3's, then the terms at 0 C and at the root and the melt test
 _SNOWPACK_ARGTYPES = _LANE_BRENT_ARGTYPES + [ctypes.c_void_p] * 3
-# K1 on it: K3's, then its floats (the terms and the rest) and its flags
+# K1 and K12 on it: K3's, then their floats (the terms and the rest) and
+# their flags
 _GLACIER_ARGTYPES = _LANE_BRENT_ARGTYPES + [ctypes.c_void_p] * 2
 # K4: lanes per cell, layers, hours, lanes; the outputs, stream
 _RUNOFF_ARGTYPES = (_FLOATS + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
@@ -147,7 +145,7 @@ def load():
     if _lib is None:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
-        for name, argtypes in (("lake_ice_brent", _BRENT_ARGTYPES),
+        for name, argtypes in (("lake_ice_melt", _GLACIER_ARGTYPES),
                                ("glacier_brent", _GLACIER_ARGTYPES),
                                ("canopy_brent", _LANE_BRENT_ARGTYPES),
                                ("snowpack_brent", _SNOWPACK_ARGTYPES),

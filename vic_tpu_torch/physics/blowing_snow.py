@@ -9,8 +9,9 @@ dependence and the -5e-5 kg/m^2/s floor. Returns the blowing mass flux
 (kg/m^2/s, negative = loss) that feeds `snow.latent_heat_from_snow`.
 
 `calc_blowing_snow` runs the `blowing_snow` kernel on CUDA tensors
-(`csrc/blowing_snow.cu`, one thread per lane) and `calc_blowing_snow_plain`
-on the CPU. The quadrature nodes and the Laplace bounds' logarithms are
+(`csrc/blowing_snow.cu`: the snow lanes compacted, one thread a (snow
+lane, wind increment) item) and `calc_blowing_snow_plain` on the CPU.
+The quadrature nodes and the Laplace bounds' logarithms are
 float32 tables given to both, so the kernel and its plain version read the
 same constants.
 """
@@ -59,13 +60,21 @@ def laplace_log_arguments():
     return lower + upper
 
 
+# tables() of each device, made at its first call there
+_tables = {}
+
+
 def tables(device):
     """(quadrature nodes [16], the bounds' float32 logarithms [20]) on
-    `device`; the logarithms taken there, as the kernel's libm would."""
-    nodes = torch.as_tensor(QUAD_NODES, device=device)
-    logs = torch.log(torch.tensor(laplace_log_arguments(),
-                                  dtype=torch.float32, device=device))
-    return nodes, logs
+    `device`; the logarithms taken there, as the kernel's libm would. Made
+    once a device, so a call uploads nothing."""
+    device = torch.device(device)
+    if device not in _tables:
+        nodes = torch.as_tensor(QUAD_NODES, device=device)
+        logs = torch.log(torch.tensor(laplace_log_arguments(),
+                                      dtype=torch.float32, device=device))
+        _tables[device] = (nodes, logs)
+    return _tables[device]
 
 
 def _const(value, like):

@@ -19,8 +19,9 @@ tensors:
   `lake_open_water_plain` (`water_energy_balance` + `tracer_mixer`) / K10
   `lake_open_water`;
 - `water_under_ice` -> `water_under_ice_plain` / K11 `lake_under_ice`;
-- the Brent solve of `lake_ice_melt` -> `lake_ice_brent_plain` / K12
-  `lake_ice_brent`;
+- `lake_ice_melt` (the snow over the ice and its Brent solve) ->
+  `lake_ice_melt_plain` (its Brent `lake_ice_brent_plain`) / K12
+  `lake_ice_melt`, the whole function in one launch;
 - under BLOWING, the blowing-snow flux over lake ice ->
   `blowing_snow.calc_blowing_snow_plain` / K8 `blowing_snow` on the
   [n_cell] lake lanes.
@@ -746,8 +747,8 @@ def ice_energy_terms(tsurf, *, dt_sec, ra, z_ref, roughness, wind, net_short,
     sublimation flux over the ice (kg/m^2/s, BLOWING), enters the vapor
     flux through latent_heat_from_snow. The latent term keeps the
     UNcorrected resistance (IceEnergyBalance.c:132). `IceResidual` in
-    csrc/lake_ice_brent.cu is a line-for-line copy of `rest`, its inputs in
-    the order of kernels.ICE_EB_INPUTS."""
+    csrc/lake_ice_melt.cu is a line-for-line copy (its `terms`), its fields
+    in the order of kernels.ICE_EB_INPUTS."""
     ra_corr = W(wind > 0.0,
                 ra / stability_correction(z_ref, 0.0, tsurf, tair, wind,
                                           roughness),
@@ -775,7 +776,7 @@ def ice_energy_terms(tsurf, *, dt_sec, ra, z_ref, roughness, wind, net_short,
 
 def lake_ice_brent_plain(lo, hi, active, *, dt, max_iter, max_tries,
                          **inputs):
-    """Plain version of the `lake_ice_brent` kernel: expand-then-Brent on
+    """The Brent of `lake_ice_melt_plain`: expand-then-Brent on
     `ice_energy_terms(t).rest` (vic_tpu/physics/lake.py:960)."""
     return batched_brent(
         lambda t: ice_energy_terms(t, dt_sec=dt, **inputs).rest, lo, hi,
@@ -801,17 +802,20 @@ class IceMeltResult(NamedTuple):
     cold_content: torch.Tensor
     terms: IceEBTerms
     sw_under_ice: torch.Tensor
+    # the Brent's root, converged, bracketed and iterations (a RootResult)
+    solve: object = None
 
 
-def lake_ice_melt(*, swq, surf_temp, pack_temp, surf_water, pack_water,
-                  lake_ice_m, hice, rainfall_mm, snowfall_mm, tair, wind,
-                  vp_air, vpd, pressure, air_dens, longwave_in, net_short,
-                  tcutoff, ra, z_ref, roughness, dt_sec, max_iter: int = 30,
-                  blowing_flux=0.0, active=None) -> IceMeltResult:
-    """Two-layer snow over lake ice (vic_tpu/physics/lake.py:805), masses in
-    m of water over the ICE area; the subfreezing surface temperature is a
-    Brent root of ice_energy_terms: `lake_ice_brent_plain` on CPU tensors,
-    the `lake_ice_brent` kernel (K12) on CUDA tensors. blowing_flux: the
+def lake_ice_melt_plain(*, swq, surf_temp, pack_temp, surf_water,
+                        pack_water, lake_ice_m, hice, rainfall_mm,
+                        snowfall_mm, tair, wind, vp_air, vpd, pressure,
+                        air_dens, longwave_in, net_short, tcutoff, ra, z_ref,
+                        roughness, dt_sec, max_iter: int = 30,
+                        blowing_flux=0.0, active=None) -> IceMeltResult:
+    """Plain version of the `lake_ice_melt` kernel (K12): two-layer snow
+    over lake ice (vic_tpu/physics/lake.py:805), masses in m of water over
+    the ICE area; the subfreezing surface temperature is a Brent root of
+    ice_energy_terms (`lake_ice_brent_plain`). blowing_flux: the
     blowing-snow flux over the ice (kg/m^2/s), a number or a tensor that
     broadcasts to the lakes."""
     MSW = c.MAX_SURFACE_SWE
@@ -929,11 +933,9 @@ def lake_ice_melt(*, swq, surf_temp, pack_temp, surf_water, pack_water,
     brent_active = ~melt_cond & ~thin
     if active is not None:
         brent_active = brent_active & active
-    solve = (lake_ice_brent_plain if swq.device.type == "cpu"
-             else kernels.lake_ice_brent)
-    res = solve(old_tsurf - c.SNOW_DT, old_tsurf + c.SNOW_DT, brent_active,
-                dt=dt_sec, max_iter=max_iter, max_tries=MAXTRIES,
-                **term_kwargs)
+    res = lake_ice_brent_plain(old_tsurf - c.SNOW_DT, old_tsurf + c.SNOW_DT,
+                               brent_active, dt=dt_sec, max_iter=max_iter,
+                               max_tries=MAXTRIES, **term_kwargs)
     ok = res.converged & ~thin
     b_surf_temp = W(ok, res.root, old_tsurf)     # TFALLBACK (+ thin)
     fbflag = ~ok & ~melt_cond
@@ -1056,7 +1058,17 @@ def lake_ice_melt(*, swq, surf_temp, pack_temp, surf_water, pack_water,
         melt_m=melt_out, ice_melt_m=ice_melt_m,
         lake_ice_m=torch.clamp(lake_ice, min=0.0),
         vapor_flux=-vapor_flux, qnet=terms.rest, surf_temp_fbflag=fbflag,
-        cold_content=cold_content, terms=terms, sw_under_ice=sw_under_ice)
+        cold_content=cold_content, terms=terms, sw_under_ice=sw_under_ice,
+        solve=res)
+
+
+def lake_ice_melt(**kwargs) -> IceMeltResult:
+    """Two-layer snow over lake ice: `lake_ice_melt_plain` on CPU tensors,
+    the `lake_ice_melt` kernel (K12, the whole function in one launch) on
+    CUDA tensors."""
+    if kwargs["swq"].device.type == "cpu":
+        return lake_ice_melt_plain(**kwargs)
+    return kernels.lake_ice_melt(**kwargs)
 
 
 # --------------------------------------------------------------------------

@@ -212,6 +212,71 @@ def spring_pack(mask, seed: int = 7) -> dict:
 # Comparing a lakes run with vic_tpu's (the tests and chip_smoke.py)
 # --------------------------------------------------------------------------
 
+# the seeded lakes of ice_melt_inputs, by what each group is made to do:
+# melt at 0 C into the pack (case 1), into the surface layer (case 2),
+# into the lake ice (case 3) or through all of it (the complete melt); a
+# thin pack; a subfreezing surface solved by the Brent; the same masked
+# out of the solve (the fallback to old_tsurf); NaN air temperature
+ICE_MELT_KINDS = ("melt_pack", "melt_surface", "melt_into_ice", "melt_all",
+                  "thin", "brent", "masked", "nan")
+
+
+def ice_melt_inputs(n_lake: int = 64, seed: int = 15):
+    """Keyword arguments of lake_ice_melt over n_lake lakes (a multiple of
+    len(ICE_MELT_KINDS)) as float32 numpy arrays, one group of lakes a kind
+    of ICE_MELT_KINDS in turn (`kinds`, the kind of each lake), drawn from
+    `seed`: masses in m over the ice, vapour pressures and pressure in Pa,
+    daily steps. Returns (kwargs, kinds); kwargs holds dt_sec and the
+    `active` mask (False on the "masked" lakes)."""
+    rng = np.random.default_rng(seed)
+    kinds = np.repeat(np.arange(len(ICE_MELT_KINDS)),
+                      n_lake // len(ICE_MELT_KINDS))
+    name = np.array(ICE_MELT_KINDS)[kinds]
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, n_lake)
+
+    melting = kinds <= 3
+    # snow, lake ice and liquid water of each kind (m over the ice)
+    swq = np.select([name == "melt_pack", name == "melt_surface",
+                     name == "melt_into_ice", name == "melt_all",
+                     name == "thin"],
+                    [u(0.25, 0.32), u(0.07, 0.10), u(0.015, 0.025),
+                     u(0.002, 0.004), u(0.0002, 0.0006)], u(0.08, 0.2))
+    lake_ice_m = np.select([name == "melt_all", name == "thin"],
+                           [u(0.005, 0.012), np.zeros(n_lake)],
+                           u(0.25, 0.45))
+    surf_water = np.where(melting, u(0.0, 0.002), u(0.0, 0.0005))
+    pack_water = np.where(name == "melt_pack", u(0.0, 0.003), 0.0)
+    tair = np.where(melting, u(3.0, 8.0), u(-22.0, -4.0))
+    tair = np.where(name == "melt_all", u(10.0, 14.0), tair)
+    surf_temp = np.where(melting, u(-0.8, 0.0), u(-16.0, -3.0))
+    pack_temp = np.where(melting, u(-0.6, 0.0), u(-12.0, -2.0))
+    net_short = np.where(melting, u(180.0, 320.0), u(20.0, 110.0))
+    net_short = np.where(name == "melt_all", u(380.0, 450.0), net_short)
+    longwave_in = np.where(melting, u(300.0, 335.0), u(170.0, 250.0))
+    # svp (evap.svp) in Pa at tair, 70-90% humid air
+    svp = 610.78 * np.exp(17.269 * tair / (237.3 + tair))
+    svp = np.where(tair < 0.0, svp * (1.0 + 0.00972 * tair
+                                      + 0.000042 * tair * tair), svp)
+    vp_air = svp * u(0.7, 0.9)
+    blowing = np.where(name == "brent", u(-3e-6, 0.0), 0.0)
+    kw = dict(
+        swq=swq, surf_temp=surf_temp, pack_temp=pack_temp,
+        surf_water=surf_water, pack_water=pack_water, lake_ice_m=lake_ice_m,
+        hice=u(0.25, 0.6), rainfall_mm=np.where(melting, u(0.0, 4.0), 0.0),
+        snowfall_mm=np.where(name == "brent", u(0.0, 25.0), 0.0),
+        tair=np.where(name == "nan", np.nan, tair), wind=u(1.5, 7.0),
+        vp_air=vp_air, vpd=svp - vp_air, pressure=u(90000.0, 101000.0),
+        air_dens=u(1.15, 1.35), longwave_in=longwave_in,
+        net_short=net_short, tcutoff=np.zeros(n_lake), ra=u(80.0, 300.0),
+        z_ref=np.full(n_lake, 2.005), roughness=np.full(n_lake, 0.005),
+        blowing_flux=blowing)
+    kw = {k: np.asarray(v, np.float32) for k, v in kw.items()}
+    kw.update(dt_sec=86400.0, active=name != "masked")
+    return kw, name
+
+
 # Two kinds of lake leaf cannot agree at a fixed tolerance between two
 # float32 programs that round differently (ROADMAP.md queue 3):
 # - the storage residuals OUT_LAKE_ENERGY_ERROR and OUT_LAKE_WATER_ERROR
@@ -769,3 +834,70 @@ def terms_atol(field: str, residual: str) -> float:
     if field in TERMS_IN_MM:
         return TERMS_WATER_ATOL_M * 1e3
     return TERMS_ATOL
+
+
+# K12 (kernels.lake_ice_melt) against lake_ice_melt_plain: the Brent's
+# flags equal and its roots within the final bracket of each other (two
+# runs whose residuals differ by ulps may stop anywhere inside it); every
+# other field against the plain version run at the kernel's own roots
+# (ice_melt_at_roots), NaN at the same elements, within TERMS_RTOL and its
+# unit's absolute limit: the snow, ice, water and vapour depths at
+# TERMS_WATER_ATOL_M m, qnet and the terms' rest (the residual at the root)
+# at TERMS_RESIDUAL_ATOL, the rest at TERMS_ATOL (W/m^2, C; cold content in
+# J/m^2).
+ICE_MELT_IN_M = ("swq", "surf_water", "pack_water", "melt_m", "ice_melt_m",
+                 "lake_ice_m", "vapor_flux")
+BRENT_TOL = 1e-4           # C, the solver's tol addend
+
+
+def ice_melt_at_roots(kwargs, solve):
+    """lake_ice_melt_plain(**kwargs) with its Brent's outputs replaced by
+    `solve` (a kernel's RootResult): the plain state update at the kernel's
+    accepted temperatures."""
+    from .physics import lake
+    plain_brent = lake.lake_ice_brent_plain
+    lake.lake_ice_brent_plain = lambda *a, **k: solve
+    try:
+        return lake.lake_ice_melt_plain(**kwargs)
+    finally:
+        lake.lake_ice_brent_plain = plain_brent
+
+
+def ice_melt_failures(got, plain, at_roots) -> list:
+    """What of K12's IceMeltResult `got` breaks the rule above against
+    lake_ice_melt_plain's result `plain` (its Brent) and `at_roots`
+    (ice_melt_at_roots at got's roots); [] where none."""
+    import torch
+    bad = []
+    g, p = got.solve, plain.solve
+    for k in ("converged", "bracketed"):
+        n = int((getattr(g, k) != getattr(p, k)).sum())
+        if n:
+            bad.append(f"solve.{k}: {n} lakes differ")
+    both = g.converged & p.converged
+    bracket = 2.0 * (2.0 * torch.finfo(torch.float32).eps * g.root.abs()
+                     + BRENT_TOL)
+    n = int((both & ((g.root - p.root).abs() > bracket)).sum())
+    if n:
+        bad.append(f"solve.root: {n} lakes beyond the final bracket")
+    if not torch.equal(got.surf_temp_fbflag, at_roots.surf_temp_fbflag):
+        bad.append("surf_temp_fbflag differs")
+    fields = [(f, getattr(got, f), getattr(at_roots, f))
+              for f in got._fields if f not in ("terms", "solve",
+                                                "surf_temp_fbflag")]
+    fields += [(f"terms.{f}", getattr(got.terms, f),
+                getattr(at_roots.terms, f)) for f in got.terms._fields]
+    for name, a, b in fields:
+        field = name.split(".")[-1]
+        atol = (TERMS_RESIDUAL_ATOL if field in ("rest", "qnet")
+                else TERMS_WATER_ATOL_M if field in ICE_MELT_IN_M
+                else TERMS_ATOL)
+        b = b.expand(a.shape)
+        na, nb = torch.isnan(a), torch.isnan(b)
+        diff = torch.where(~na & ~nb, (a - b).abs(), 0.0)
+        over = int((diff > atol + TERMS_RTOL * b.abs()).sum())
+        apart = int((na != nb).sum())
+        if over or apart:
+            bad.append(f"{name}: {over} outside, {apart} NaN apart, max "
+                       f"|diff| {float(diff.max()):.3e}")
+    return bad
