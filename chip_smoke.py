@@ -44,7 +44,11 @@ line) on failure:
    plain PyTorch version on the card, compared, timed with CUDA events and
    given its bound (the least time the card could take for the same
    work); K1's, K2's, K3's, K5's and K14's rows also print their lanes'
-   warp efficiency and waves (tools/profile_lane_brent.py's definitions).
+   warp efficiency and waves (tools/profile_lane_brent.py's definitions),
+   K10's and K11's their lakes, active lakes and the sweeps each of their
+   mixes ran (counted on the plain version's columns, which also set the
+   mix's share of the bound) and ptxas' registers and spill, which must be
+   none.
    K9's pass and final update, K13 and the water balance (every output,
    lake by lake and lane by lane) must equal their plain versions' (NaN
    where theirs are NaN), K9's largest change also as the host reads it
@@ -427,7 +431,6 @@ LAKE_OPEN_ITER_OPS = 300
 LAKE_ICE_SETUP_OPS = 1900
 LAKE_ICE_ITER_OPS = 260
 LAKE_MIX_OPS_PER_PAIR = 25
-LAKE_MIX_SWEEPS = 20
 # K12: the ice residual and a Brent iteration, and per lake the rest of
 # lake_ice_melt: the prologue (the fresh snow's distribution, icerad with
 # its six exp, ~90), the balance at 0 C and at the accepted temperature
@@ -478,14 +481,25 @@ def device_phase():
     return torch.device("cuda", 0)
 
 
-def lane_tools():
-    """tools/profile_lane_brent.py, whose definitions of a lane batch's
-    warp efficiency and waves the K3 and K14 rows print."""
+def tool(name):
+    """The module tools/<name>.py."""
     spec = importlib.util.spec_from_file_location(
-        "profile_lane_brent", ROOT / "tools" / "profile_lane_brent.py")
+        name, ROOT / "tools" / f"{name}.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def lane_tools():
+    """tools/profile_lane_brent.py, whose definitions of a lane batch's
+    warp efficiency and waves the K3 and K14 rows print."""
+    return tool("profile_lane_brent")
+
+
+def lake_tools():
+    """tools/profile_lake_close.py, whose count of K10's and K11's mixes
+    (column_mixes) the lake rows print and charge."""
+    return tool("profile_lake_close")
 
 
 def build_phase():
@@ -1102,22 +1116,31 @@ def sweep_work(args, kwargs, kern):
     return bytes_moved, sweeps * sweep_ops(t0, fs_active, kwargs["nlayer"])
 
 
-def lake_column_work(kwargs, kern, outputs, setup_ops, iter_ops,
-                     mix_each_iteration):
+def lake_column_work(name, kwargs, kern, outputs, setup_ops, iter_ops):
     """Bytes in and out of one K10/K11 call and its FP32 operations: each
-    active lake's set-up and the iterations it ran, and the red-black mix
-    passes over its active layer pairs (once on every lake for K10, in
-    each iteration for K11)."""
+    active lake's set-up and the iterations it ran, and each of its mixes'
+    passes over the lake's active layer pairs for the sweeps the mix runs
+    on this call's data, stopped after its first sweep that mixes no pair
+    (tools/profile_lake_close.py column_mixes, counted on the plain
+    version's columns: K10 mixes every lake once, K11 in each iteration a
+    lake ran). Prints the lakes, the active ones and the sweeps each mix
+    ran."""
+    from vic_tpu_torch.physics import lake
     grid, active = kwargs["grid"], kwargs["active"]
     inputs = [v for v in kwargs.values() if isinstance(v, torch.Tensor)]
     bytes_moved = nbytes(*inputs, *grid, *outputs)
+    lakes, _, run = lake_tools().column_mixes(lake, name, kwargs,
+                                              kern.iterations)
     its = kern.iterations.double()
     pairs = (grid.numnod - 1).clamp(min=0).double()
-    mix = LAKE_MIX_SWEEPS * pairs * LAKE_MIX_OPS_PER_PAIR
-    act = active.double()
-    ops = act * (setup_ops + its * iter_ops)
-    ops = ops + (its * mix if mix_each_iteration else mix)
-    return bytes_moved, float(ops.sum())
+    ops = float((active.double() * (setup_ops + its * iter_ops)).sum()) \
+        + float((run.double() * pairs[lakes]).sum()) * LAKE_MIX_OPS_PER_PAIR
+    counts = torch.bincount(run, minlength=lake.MIX_SWEEPS + 1).tolist()
+    mean = float(run.double().mean()) if run.numel() else 0.0
+    print(f"  {name}: lakes {active.numel()}, active {int(active.sum())}, "
+          f"mixes {run.numel()}, sweeps a mix ran: mean {mean:.4f}, mixes "
+          f"by sweeps 0..{lake.MIX_SWEEPS} {counts}")
+    return bytes_moved, ops
 
 
 def lake_depth_work(args, kern):
@@ -1208,14 +1231,13 @@ def check_lake_kernel(name, args, kwargs, calls, label="lakes",
     print(f"  {name}: {calls} calls in the {label} step's record {record}")
     if name == "lake_open_water":
         kern, t_open, err = compare_lake_open_water(kwargs, results)
-        return err, lake_column_work(kwargs, kern, list(kern) + [t_open],
-                                     LAKE_OPEN_SETUP_OPS, LAKE_OPEN_ITER_OPS,
-                                     mix_each_iteration=False)
+        return err, lake_column_work(name, kwargs, kern,
+                                     list(kern) + [t_open],
+                                     LAKE_OPEN_SETUP_OPS, LAKE_OPEN_ITER_OPS)
     if name == "lake_under_ice":
         kern, err = compare_lake_under_ice(kwargs, results)
-        return err, lake_column_work(kwargs, kern, list(kern),
-                                     LAKE_ICE_SETUP_OPS, LAKE_ICE_ITER_OPS,
-                                     mix_each_iteration=True)
+        return err, lake_column_work(name, kwargs, kern, list(kern),
+                                     LAKE_ICE_SETUP_OPS, LAKE_ICE_ITER_OPS)
     if name == "lake_depth":
         kern, err = compare_lake_depth(args, results)
         return err, lake_depth_work(args, kern)
@@ -1638,15 +1660,35 @@ def lane_brent_stats(name, args, kwargs, kern_fn, regs):
           f"{lanes / resident if resident else None}")
 
 
+# K10 and K11: one warp a lake, its layers in registers
+LAKE_COLUMN_KERNELS = ("lake_open_water", "lake_under_ice")
+
+
+def lake_column_registers(name, regs):
+    """Prints ptxas' registers and spill stores of K10's or K11's kernel
+    (build_phase's `regs`) and fails on a spill."""
+    found = [v for k, v in (regs or {}).items() if f"{name}_kernel" in k]
+    for n_reg, spill in found:
+        print(f"  {name}: ptxas {n_reg} registers, {spill} B spill stores")
+        if spill:
+            raise AssertionError(f"{name}: {spill} B of spill stores")
+
+
 # the kernels whose call is one device event: no fill, no copy
 ONE_LAUNCH = ("canopy_air_step", "canopy_air_final", "lake_depth",
               "lake_water_balance", "lake_ice_melt")
 
 
-def device_events(fn):
-    """The device events (kernels, memsets, copies) of one call of fn
-    (tools/profile_fd_surface.py's `_profiled`)."""
-    return lane_tools()._profiled({"call": fn})[1]["call"]["device_events"]
+def device_events(fn, calls=3):
+    """The device events (kernels, memsets, copies) one call of fn makes:
+    the most that any of `calls` calls traced in one profiler session made
+    (tools/profile_fd_surface.py's `_profiled`, each device event tied to
+    its call by its launch). Late in a long process the profiler on the
+    card has dropped the records of a session's first kernels, while a
+    fill or a copy beside the kernel would be in every call (PERF.md)."""
+    numbers = lane_tools()._profiled(
+        {f"call {i}": fn for i in range(calls)})[1]
+    return max(n["device_events"] for n in numbers.values())
 
 
 def kernels_phase(device, regs=None):
@@ -1733,6 +1775,8 @@ def kernels_phase(device, regs=None):
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         if row in LANE_BRENT_KERNELS:
             lane_brent_stats(name, args, kwargs, kern_fn, regs)
+        if row in LAKE_COLUMN_KERNELS:
+            lake_column_registers(name, regs)
         if row in HEAVY_LAKE_TIMED:
             # the heavy path's own form of the kernel: K12 with the
             # blowing-snow flux, K8 on the 8,192 lake lanes

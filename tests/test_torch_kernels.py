@@ -758,6 +758,11 @@ def test_lake_open_water_kernel_matches_plain(cuda):
     for k in ("qh", "qle", "lwnet"):
         assert float((getattr(got, k) - getattr(ref, k)).abs().max()) \
             <= 1e-2, k
+    # on the card the kernel is the plain version bit for bit
+    got, ref = got._asdict(), ref._asdict()
+    got["t_open"], ref["t_open"] = t_open, t_open_ref
+    del got["iterations"], ref["iterations"]
+    assert _column_mismatch(got, ref) == []
 
 
 @pytest.mark.gpu
@@ -772,6 +777,122 @@ def test_lake_under_ice_kernel_matches_plain(cuda):
     assert torch.equal(got.converged, ref.converged)
     assert float((got.temp - ref.temp).abs().max()) <= LAKE_FIXED_POINT_TOL
     assert float((got.qw - ref.qw).abs().max()) <= LAKE_FIXED_POINT_TOL
+    # on the card the kernel is the plain version bit for bit
+    got, ref = got._asdict(), ref._asdict()
+    del got["iterations"], ref["iterations"]
+    assert _column_mismatch(got, ref) == []
+
+
+def _strained_lake_cases(kw, lp, name, seed=16):
+    """K10's or K11's captured keyword arguments `kw` (lake parameters
+    `lp`) rebuilt to strain the one-warp-a-lake kernels: every lake
+    inactive; one lake active; depths giving 1, 2, 19 and 20 active layers
+    in turn on every lake; columns about 4 C, the density maximum, so
+    pairs are unstable on both sides of it (on the captured lakes, and on
+    none active: K10 still mixes, K11 still writes qw); NaN in the
+    shortwave (K11) or the air temperature (K10) of every seventh lake and
+    in one layer of every eleventh."""
+    from vic_tpu_torch.physics.lake import make_grid
+    active, temp = kw["active"], kw["temp"]
+    n, device = active.shape[0], active.device
+    rng = np.random.default_rng(seed)
+    none = torch.zeros_like(active)
+    one = none.clone()
+    one[5] = True
+    depth = torch.tensor([0.5, 0.9, 11.7, 15.0],
+                         device=device).repeat(n // 4 + 1)[:n]
+    near_4c = torch.tensor(4.0 + rng.normal(0.0, 0.6, temp.shape),
+                           dtype=torch.float32, device=device)
+    nan = float("nan")
+    air = "tair" if name == "lake_open_water" else "sw_ice"
+    x = kw[air].expand(active.shape).clone()
+    x[3::7] = nan
+    t_nan = temp.clone()
+    t_nan[4::11, 2] = nan
+    return {"all_inactive": dict(kw, active=none),
+            "one_active": dict(kw, active=one),
+            "layers_1_2_19_20": dict(kw, grid=make_grid(lp, depth),
+                                     active=torch.ones_like(active)),
+            "near_4c": dict(kw, temp=near_4c),
+            "near_4c_inactive": dict(kw, temp=near_4c, active=none),
+            "nan": dict(kw, temp=t_nan, **{air: x})}
+
+
+# K10's iceform divides the supercooled layers' heat by RHO_W * LF as a
+# product with the float's reciprocal (csrc/physics.cuh div_s), where
+# PyTorch multiplies by the double's reciprocal rounded to float: the new
+# ice's water equivalent may differ by an ulp or two (PERF.md section
+# 6); every other output is bit for bit
+NEW_ICE_WE_ULPS = 2
+
+
+def _column_mismatch(got, ref):
+    """The fields of K10's or K11's outputs (by field, _lake_column_outputs)
+    that differ from the plain version's: not bit for bit, NaN where it is
+    NaN, but new_ice_water_eq within NEW_ICE_WE_ULPS ulps."""
+    bad = []
+    for k, r in ref.items():
+        g = got[k]
+        if k == "new_ice_water_eq":
+            ulp = np.spacing(np.abs(r.cpu().numpy())).astype(np.float64)
+            diff = np.abs(g.cpu().numpy().astype(np.float64)
+                          - r.cpu().numpy())
+            ok = (diff <= NEW_ICE_WE_ULPS * ulp) | (
+                np.isnan(g.cpu().numpy()) & np.isnan(r.cpu().numpy()))
+            if not ok.all():
+                bad.append(k)
+        elif not _equal_nan(g, r):
+            bad.append(k)
+    return bad
+
+
+def _lake_column_outputs(name, kw):
+    """The kernel's and the plain version's outputs of K10 (with t_open)
+    or K11 on kw, by field."""
+    if name == "lake_open_water":
+        got, t_open = kernels.lake_open_water(**kw)
+        ref, t_open_ref = lake_open_water_plain(**kw)
+        got, ref = (got._asdict(), ref._asdict())
+        got["t_open"], ref["t_open"] = t_open, t_open_ref
+    else:
+        got = kernels.lake_under_ice(**kw)._asdict()
+        ref = water_under_ice_plain(**kw)._asdict()
+    torch.cuda.synchronize()
+    return got, ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["all_inactive", "one_active",
+                                  "layers_1_2_19_20", "near_4c",
+                                  "near_4c_inactive", "nan"])
+@pytest.mark.parametrize("name", ["lake_open_water", "lake_under_ice"])
+def test_lake_column_kernels_under_strain(cuda, name, case):
+    """K10 and K11 (one warp a lake on persistent blocks) against their
+    plain versions on the lakes step's second record at 70 lakes (not a
+    multiple of a block's 4 warps), rebuilt by _strained_lake_cases: every
+    float output bit for bit (NaN where the plain version is NaN; K10's
+    new_ice_water_eq within NEW_ICE_WE_ULPS, _column_mismatch), t_open
+    on every lake (the mixed column where the lake is inactive), K11's qw
+    on an inactive lake 0.57 (T0 - tcutoff) / (surfdz / 2), the converged
+    flags, and the batch's trips the largest of the kernel's iterations, in
+    one launch."""
+    kw = _captured_args(cuda, 70, names=(name,), config="lakes",
+                        record=1)[name][1]
+    lp = CONFIGS["lakes"](70, 1, cuda)[4]["lake_params"]
+    kw = _strained_lake_cases(kw, lp, name)[case]
+    before = kernels.launches[name]
+    got, ref = _lake_column_outputs(name, kw)
+    assert kernels.launches[name] == before + 1
+    assert torch.equal(got["converged"], ref["converged"])
+    active = kw["active"]
+    its = got.pop("iterations")
+    assert bool((its[~active] == 0).all())
+    assert ref.pop("iterations") == (int(its.max()) if bool(active.any())
+                                     else 0)
+    assert _column_mismatch(got, ref) == []
+    if case == "nan":
+        assert bool(torch.isnan(got["temp"]).any())
+        assert not bool(got["converged"][active].all())
 
 
 def _check_ice_melt(kw):
@@ -965,6 +1086,27 @@ def test_ice_residual_fields_are_the_kernels_inputs():
         == len(kernels.ICE_MELT_INPUTS) + 1
     assert "fill_lane_inputs(&in, lanes, nf, kNumIn, nm, 1, h)" in src
     assert "launch_lane_brent<IceLane>" in src
+
+
+@pytest.mark.parametrize("name,source,inputs", [
+    ("lake_open_water", "lake_open_water.cu", kernels.OPEN_WATER_INPUTS),
+    ("lake_under_ice", "lake_under_ice.cu", kernels.UNDER_ICE_INPUTS)])
+def test_lake_column_inputs_are_the_kernels_inputs(name, source, inputs):
+    """K10's and K11's lane tables name their sources' In enums in order:
+    the layered temp, z, zhalf and surface (kernels._column_lanes), then
+    kernels.OPEN_WATER_INPUTS or UNDER_ICE_INPUTS, as many as kNumIn; and
+    the masks active, mask and last, as lake.cuh's load_layer reads them
+    (mask and last from index 1), as many as kNumMask."""
+    src = (build.CSRC / source).read_text()
+    enum = re.search(r"enum In \{([^}]*)\}", src).group(1)
+    names = [re.sub(r"(?<!^)([A-Z])", r"_\1", w.strip()[1:]).lower()
+             for w in enum.split(",") if w.strip()]
+    assert names == ["temp", "z", "zhalf", "surface"] + list(inputs)
+    assert f"constexpr int kNumIn = {len(names)};" in src
+    assert "constexpr int kNumMask = 3;" in src
+    assert "lane_m(in, 0, row)" in src
+    assert "load_layer(in, row, kZ, 1, k)" in src
+    assert f"int {name}(const int64_t* lanes" in src
 
 
 def _heavy_lake_args(device, n_cell=64, record=6):

@@ -1,10 +1,10 @@
 """The lakes' step and the CLOSE_ENERGY canopy-air update on one NVIDIA
 GPU: `lake_step` with its water balance, `lake_ice_melt` (K12 and the
-torch around it, or the one launch that took them in), K13 (`lake_depth`)
-alone, K9
-(`canopy_air_step`) alone and as a pass of the loop uses it, and the
-loop's final update, each call split into the wrapper's host time and the
-device's time.
+torch around it, or the one launch that took them in), the column fixed
+points K10 (`lake_open_water`) and K11 (`lake_under_ice`), K13
+(`lake_depth`) alone, K9 (`canopy_air_step`) alone and as a pass of the
+loop uses it, and the loop's final update, each call split into the
+wrapper's host time and the device's time.
 
     cd <checkout> && python3 <path>/tools/profile_lake_close.py
         [--cells 32768] [--heavy-cells 8192] [--reps 20]
@@ -27,6 +27,13 @@ Cases, each on the arguments of the call's first use in that step
   the fourth record); its outputs include the Brent's root, flags and
   iterations: `IceMeltResult.solve` where the checkout has it, else what
   its `kernels.lake_ice_brent` call returned;
+- K10 and K11 on the arguments `solve_lake` gives them in lakes' second
+  record, heavy's fourth and heavy's first NaN record, each with its
+  active lakes, the distribution of the iterations its lakes ran (the
+  kernel's `iterations` on the active lakes), and the red-black sweeps of
+  each of its mixes that mix some pair, counted on the plain version's
+  columns (K10: its one mix of the converged column on every lake; K11:
+  the mix in each iteration a lake ran);
 - K13 on its first call in lakes' second record (the depth before the
   step);
 - K9 in heavy_nolakes' fourth record (its first CLOSE_ENERGY pass),
@@ -91,22 +98,103 @@ def solve_lake_call(lake, a, kw):
     return lambda: lake.solve_lake(a[0], a[1], active=active, **args)
 
 
-def captured_ice_melt(lake, a, kw):
-    """The keyword arguments solve_lake gives lake_ice_melt in a lake_step
-    call on (a, kw)."""
+# K10's and K11's kernels, by the physics.lake function solve_lake calls
+COLUMN_KERNELS = {"lake_open_water": "lake_open_water",
+                  "lake_under_ice": "water_under_ice"}
+
+
+def captured_call(lake, name, a, kw):
+    """The keyword arguments solve_lake gives physics.lake's `name` in a
+    lake_step call on (a, kw)."""
     got = []
-    original = lake.lake_ice_melt
+    original = getattr(lake, name)
 
     def wrapper(**k):
         got.append(k)
         return original(**k)
 
-    lake.lake_ice_melt = wrapper
+    setattr(lake, name, wrapper)
     try:
         solve_lake_call(lake, a, kw)()
     finally:
-        lake.lake_ice_melt = original
+        setattr(lake, name, original)
     return got[0]
+
+
+def mixing_sweeps(lake, temp, grid, cp):
+    """Per column, the sweeps of tracer_mixer's fixed MIX_SWEEPS that mix
+    some pair. A sweep mixes a pair exactly when its column starts it with
+    a density-unstable active pair (a pass that mixes nothing leaves the
+    column to the next), and after the first sweep that mixes nothing no
+    later one does."""
+    import torch
+    count = torch.zeros(temp.shape[:-1], dtype=torch.int64,
+                        device=temp.device)
+    t = temp
+    for _ in range(lake.MIX_SWEEPS):
+        rho = lake.water_density(t)
+        unstable = ((rho[..., :-1] > rho[..., 1:])
+                    & grid.mask[..., 1:]).any(-1)
+        if not bool(unstable.any()):
+            break
+        count += unstable
+        t = lake.tracer_mixer(t, grid, cp, sweeps=1)
+    return count
+
+
+def column_mixes(lake, name, kw, iterations):
+    """The mixes K10 (`name` lake_open_water: one of the converged column
+    on every lake) or K11 (one in each iteration a lake ran, `iterations`
+    the kernel's) runs on kw, counted on the plain version's columns: (the
+    lake of each mix, the sweeps of it that mix some pair, the sweeps the
+    kernel's mix runs: one more, at most MIX_SWEEPS)."""
+    import torch
+    grid, cp = kw["grid"], lake.specheat(kw["temp"])
+    every = torch.arange(iterations.shape[0], device=iterations.device)
+    if name == "lake_open_water":
+        lakes = every
+        mixing = mixing_sweeps(lake, lake.water_energy_balance(**kw).temp,
+                               grid, cp)
+    else:
+        columns = []
+        original = lake.tracer_mixer
+
+        def spy(t, *a, **k):
+            columns.append(t)
+            return original(t, *a, **k)
+
+        lake.tracer_mixer = spy
+        try:
+            lake.water_under_ice_plain(**kw)
+        finally:
+            lake.tracer_mixer = original
+        ran = [kw["active"] & (iterations > i) for i in range(len(columns))]
+        lakes = torch.cat([every[:0]] + [every[r] for r in ran])
+        mixing = torch.cat([every[:0]] + [
+            mixing_sweeps(lake, t, grid, cp)[r]
+            for t, r in zip(columns, ran)])
+    return lakes, mixing, (mixing + 1).clamp(max=lake.MIX_SWEEPS)
+
+
+def column_stats(lake, name, kw, out):
+    """K10's or K11's lakes, active lakes, converged active lakes, the
+    iterations its lakes ran (counts of 0..EB_MAX_ITER over the active
+    lakes), its mixes (column_mixes) and the counts of their mixing sweeps
+    (0..MIX_SWEEPS), and the mean of the sweeps its mixes run."""
+    import torch
+    res = out[0] if name == "lake_open_water" else out
+    active = kw["active"]
+    _, mixing, run = column_mixes(lake, name, kw, res.iterations)
+    return {"lakes": int(active.numel()), "active": int(active.sum()),
+            "converged": int(res.converged[active].sum()),
+            "iterations": torch.bincount(
+                res.iterations[active].long(),
+                minlength=lake.EB_MAX_ITER + 1).tolist(),
+            "mixes": int(mixing.numel()),
+            "mixing_sweeps": torch.bincount(
+                mixing, minlength=lake.MIX_SWEEPS + 1).tolist(),
+            "stopped_mix_sweeps_mean": float(run.double().mean())
+            if mixing.numel() else 0.0}
 
 
 def ice_melt_outputs(lake, kernels, kw):
@@ -218,16 +306,19 @@ def main(argv=None):
     heavy = chip_smoke.capture_kernel_args(
         "heavy", ("lake_step",) + balance, device,
         record=chip_smoke.HEAVY_RECORD, cells=args.heavy_cells)
-    ice_melt = {"lakes": captured_ice_melt(lake, *lakes["lake_step"]),
-                "heavy": captured_ice_melt(lake, *heavy["lake_step"])}
+    steps = {"lakes": lakes["lake_step"], "heavy": heavy["lake_step"]}
     for label, record, build in (
             ("heavy_blowing", chip_smoke.HEAVY_LAKE_RECORD, None),
             ("heavy_nan", chip_smoke.NAN_FROM,
              chip_smoke.continue_on_error_build("heavy", shift=0))):
-        cap = chip_smoke.capture_kernel_args(
+        steps[label] = chip_smoke.capture_kernel_args(
             "heavy", ("lake_step",), device, record=record, build=build,
-            cells=args.heavy_cells)
-        ice_melt[label] = captured_ice_melt(lake, *cap["lake_step"])
+            cells=args.heavy_cells)["lake_step"]
+    ice_melt = {label: captured_call(lake, "lake_ice_melt", *step)
+                for label, step in steps.items()}
+    columns = {(name, label): captured_call(lake, fn, *steps[label])
+               for name, fn in COLUMN_KERNELS.items()
+               for label in ("lakes", "heavy", "heavy_nan")}
     close = chip_smoke.capture_kernel_args(
         "heavy_nolakes", ("canopy_air_step",), device,
         record=chip_smoke.HEAVY_RECORD, cells=args.heavy_cells)
@@ -253,6 +344,9 @@ def main(argv=None):
     for config, kw in ice_melt.items():
         cases[f"lake_ice_melt/{config}"] = (
             lambda kw=kw: lake.lake_ice_melt(**kw), ((), kw))
+    for (name, label), kw in columns.items():
+        cases[f"{name}/{label}"] = (
+            lambda name=name, kw=kw: getattr(kernels, name)(**kw), ((), kw))
     a, kw = lakes["lake_depth"]
     cases["lake_depth/lakes"] = (lambda: kernels.lake_depth(*a, **kw), None)
     cases["canopy_air_step/heavy_nolakes"] = (
@@ -272,6 +366,9 @@ def main(argv=None):
         calls[label] = fn
         result[label] = {"wrapper_host_ms": wrapper_ms, "call_ms": call_ms,
                          "cuda_event_ms": _event_ms(fn, args.reps)}
+        name = label.split("/")[0]
+        if name in COLUMN_KERNELS:
+            result[label].update(column_stats(lake, name, captured[1], out))
         if captured is not None:
             dumped[label] = {
                 "args": move(chip_smoke.clone_args(captured), "cpu"),
@@ -288,6 +385,13 @@ def main(argv=None):
                   f"{case['device_busy_ms']:.4f} ms in "
                   f"{case['device_events']} events, idle "
                   f"{case['device_idle_ms']:.4f} ms", flush=True)
+            if "active" in case:
+                print(f"    lakes {case['lakes']}, active {case['active']}, "
+                      f"converged {case['converged']}, iterations "
+                      f"{case['iterations']}, mixes {case['mixes']}, "
+                      f"mixing sweeps {case['mixing_sweeps']}, a stopped "
+                      f"mix's sweeps mean "
+                      f"{case['stopped_mix_sweeps_mean']:.4f}", flush=True)
     if args.dump:
         os.makedirs(os.path.dirname(os.path.abspath(args.dump)),
                     exist_ok=True)
@@ -298,6 +402,8 @@ def main(argv=None):
                "lake_ice_melt": lambda **kw: ice_melt_outputs(lake, kernels,
                                                               kw),
                "canopy_air_step": kernels.canopy_air_step,
+               "lake_open_water": kernels.lake_open_water,
+               "lake_under_ice": kernels.lake_under_ice,
                "close_energy_tail": final or final_plain}
         for label, theirs in other.items():
             a, kw = move(theirs["args"], device)

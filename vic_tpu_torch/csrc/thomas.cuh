@@ -1,7 +1,8 @@
 // Per-thread tridiagonal (Thomas) solve over N nodes.
 //
 // Replaces vic_tpu/ops/tridiag.py:16 (thomas_solve, two lax.scans over the
-// node axis of the whole batch) inside the lake column kernels: one thread
+// node axis of the whole batch) inside K16 (implicit_profile.cu; the lake
+// column kernels run the same recurrences on a warp, lake.cuh): one thread
 // runs its column's forward elimination and back substitution in its own
 // arrays, in the order of operations of the scans and of the plain version
 // vic_tpu_torch/ops/tridiag.py. The elimination's coefficients (m, c') do

@@ -1031,7 +1031,8 @@ def canopy_air_final(**inputs):
     return floats[0], fbflag, floats[1]
 
 
-# the lake kernels K10-K13 (one thread per lake; lanes [n_cell])
+# the lake kernels K10-K13 (K10, K11 one warp per lake, K12 on the lane
+# driver, K13 one thread per lake; lanes [n_cell])
 LAKE_NN = 20
 # K10's and K11's per-lake inputs after the layered temp, z, zhalf and
 # surface, in the order of csrc/lake_open_water.cu's and
@@ -1092,7 +1093,7 @@ def _check_names(name, inputs, expected):
 
 def lake_open_water(*, temp, grid, dt_sec, active, **inputs):
     """K10: the open-water skin-temperature fixed point and the mix of its
-    column, one thread per lake. Same arguments and result as
+    column, one warp per lake. Same arguments and result as
     physics.lake.lake_open_water_plain: (WaterEBResult, t_open), with the
     iterations each lake ran."""
     from ..physics.lake import WaterEBResult
@@ -1119,7 +1120,7 @@ def lake_open_water(*, temp, grid, dt_sec, active, **inputs):
 
 def lake_under_ice(*, temp, grid, dt_sec, active, **inputs):
     """K11: the ice/water interface flux fixed point of the column under
-    lake ice, its column solved and mixed every iteration, one thread per
+    lake ice, its column solved and mixed every iteration, one warp per
     lake. Same arguments and result as physics.lake.water_under_ice_plain
     (UnderIceResult, with the iterations each lake ran)."""
     from ..physics.lake import UnderIceResult
