@@ -126,8 +126,22 @@ line) on failure:
    its ASCII state, read back field for field, and a warm start from it
    for the last 3 records against the continuous run (held on the lanes
    without snow at the restart: the legacy format re-derives LongUnderOut
-   and the snow coverage); and the committed 16-cell driver fixture
-   against vic_tpu's run of it (tests/fixtures/torch_port/driver_16x12.npz).
+   and the snow coverage); the same half again in one block with
+   STATE_FORMAT NETCDF (the reference's NetCDF schema, or without libnetcdf
+   the npz at the state path + ".npz"), its file read back and its warm
+   start held the same way; where libnetcdf is found, the run's outputs
+   written in SHARDS NetCDF shards and merged, equal to the single
+   writer's file (else one line says why not); and the committed 16-cell
+   driver fixture against vic_tpu's run of it
+   (tests/fixtures/torch_port/driver_16x12.npz).
+6. split: light and lakes, 32,768 cells x 8 records, through
+   driver.run_simulation on one device and split over every CUDA device
+   (on a one-card host the card twice), the plain solvers guarded and each
+   path kernel's counter (every device together) read around each run;
+   the split run's outputs and state held against the one-device run at
+   tests/test_sharding_driver.py's gate (rtol = atol = 1e-5, 1e-3 on
+   OUT_*_ERROR); cell-steps/s of each run; heavy_nolakes on two devices
+   must be refused by name.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels with their launches, errors, times and bounds.
@@ -2634,6 +2648,83 @@ STATE_FILE_FIELDS = (
     "snow_temp_fbcount")
 
 
+def hold_warm_start(label, res, res_c, at_restart, mask, n_first):
+    """A warm start from a state file against the continuous run `res`:
+    lanes without snow at the restart hold test_state_io's legacy resume
+    tolerances; lanes under snow diverge where the file does not carry
+    LongUnderOut or the snow coverage (the legacy formats and the
+    reference's NetCDF schema), which a warm start re-derives
+    (initialize_model_state.c:291-293, :327), as vic_tpu's does on CPU
+    (ROADMAP.md queue 3): printed, not held."""
+    cont, warm = res.final_state, res_c.final_state
+    snow = ((at_restart.swq + at_restart.snow_canopy).numpy() > 0.0) & mask
+    for name, (rtol, atol) in (("moist", WARM_MOIST_TOL),
+                               ("swq", WARM_SWQ_TOL)):
+        a, b = getattr(cont, name).numpy(), getattr(warm, name).numpy()
+        d = np.abs(b - a).reshape(snow.shape + (-1,))
+        bound = (atol + rtol * np.abs(a)).reshape(d.shape)
+        excess = float((d - bound)[~snow].max())
+        print(f"  {label} warm start, {WARM_RECS} records: {name} max |diff| "
+              f"{float(d[~snow].max()):.4g} on the lanes without snow "
+              f"at the restart (rtol {rtol}, atol {atol}: excess "
+              f"{excess:.4g}); {float(d[snow].max()):.4g} on the "
+              f"{int(snow.sum())} lanes under snow")
+        if excess > 0:
+            raise AssertionError(f"{label} warm start {name} outside "
+                                 f"rtol={rtol}, atol={atol}")
+    out_diff = max(float(np.abs(v - res.outputs[k][n_first:]).max())
+                   for k, v in res_c.outputs.items())
+    print(f"  {label} warm start: largest |difference| of its outputs from "
+          f"the continuous run {out_diff:.4g}")
+
+
+SHARDS = 4                   # OUTPUT_SHARDS of the shard check
+
+
+def shards_check(driver, gp, domain, res, tmp):
+    """The driver run's outputs written as NETCDF in SHARDS shards, merged
+    (parallel/io_shards.merge_shards) and held against the one file a
+    single writer makes of them; only where libnetcdf is found."""
+    from vic_tpu_torch.io import native
+    if not native.netcdf_found():
+        print(f"  OUTPUT_SHARDS {SHARDS}: not run: libnetcdf was not found "
+              "on this host (io.native.netcdf_found() is False), and "
+              "shards are NetCDF files")
+        return
+    from vic_tpu_torch.io.native import NetCDFFile
+    from vic_tpu_torch.parallel.io_shards import find_shards, merge_shards
+    out_dir = os.path.join(tmp, "shards")
+    os.makedirs(out_dir)
+    gp_s = gp.replace(output_format="NETCDF", output_shards=SHARDS,
+                      result_dir=out_dir)
+    steps = max(1, gp.out_step // gp.dt)
+    t0 = time.perf_counter()
+    driver.write_outputs(gp_s, domain, res.timeaxis, res.outputs, steps)
+    base = os.path.join(out_dir, gp_s.netcdf_output_filename)
+    n_files = len(find_shards(base))
+    merged = merge_shards(base, os.path.join(out_dir, "merged.nc"))
+    t_shards = time.perf_counter() - t0
+    driver.write_outputs(gp_s.replace(output_shards=1,
+                                      netcdf_output_filename="single.nc"),
+                         domain, res.timeaxis, res.outputs, steps)
+    worst = 0.0
+    with NetCDFFile(merged) as fm, NetCDFFile(os.path.join(
+            out_dir, "single.nc")) as fs:
+        if fm.var_names() != fs.var_names():
+            raise AssertionError("merged shards hold other variables")
+        for v in fs.var_names():
+            shape = [fs.dim_len(d) for d in fs.var_info(v)[1]]
+            a = fs.get(v, [0] * len(shape), shape)
+            b = fm.get(v, [0] * len(shape), shape)
+            worst = max(worst, float(np.abs(b - a).max()) if a.size else 0.0)
+    print(f"  OUTPUT_SHARDS {SHARDS}: {n_files} shard files written and "
+          f"merged in {t_shards:.3f} s; largest |difference| of the merge "
+          f"from the single writer's file {worst}")
+    if n_files != SHARDS or worst != 0.0:
+        raise AssertionError("the merged shards differ from the single "
+                             "writer's file")
+
+
 def driver_phase(device):
     """Returns the seconds the phase took."""
     from vic_tpu_torch import driver, kernels
@@ -2772,33 +2863,55 @@ def driver_phase(device):
               f"run's state over {len(STATE_FILE_FIELDS)} fields {file_diff}")
         if file_diff != 0.0:
             raise AssertionError("the state file does not hold the state")
-        # a warm start from it against the continuous run: lanes without
-        # snow at the restart hold test_state_io's legacy resume tolerances;
-        # lanes under snow diverge because the legacy formats do not carry
-        # LongUnderOut or the snow coverage, which a warm start re-derives
-        # (initialize_model_state.c:291-293, :327), as vic_tpu's does on CPU
-        # (ROADMAP.md queue 3): printed, not held
-        cont, warm = res.final_state, res_c.final_state
-        snow = ((at_restart.swq + at_restart.snow_canopy).numpy() > 0.0) \
-            & mask
-        for name, (rtol, atol) in (("moist", WARM_MOIST_TOL),
-                                   ("swq", WARM_SWQ_TOL)):
-            a, b = getattr(cont, name).numpy(), getattr(warm, name).numpy()
-            d = np.abs(b - a).reshape(snow.shape + (-1,))
-            bound = (atol + rtol * np.abs(a)).reshape(d.shape)
-            excess = float((d - bound)[~snow].max())
-            print(f"  warm start, {WARM_RECS} records: {name} max |diff| "
-                  f"{float(d[~snow].max()):.4g} on the lanes without snow "
-                  f"at the restart (rtol {rtol}, atol {atol}: excess "
-                  f"{excess:.4g}); {float(d[snow].max()):.4g} on the "
-                  f"{int(snow.sum())} lanes under snow")
-            if excess > 0:
-                raise AssertionError(f"warm start {name} outside rtol={rtol}"
-                                     f", atol={atol}")
-        out_diff = max(float(np.abs(v - res.outputs[k][n_first:]).max())
-                       for k, v in res_c.outputs.items())
-        print(f"  warm start: largest |difference| of its outputs from the "
-              f"continuous run {out_diff:.4g}")
+        hold_warm_start("ASCII", res, res_c, at_restart, mask, n_first)
+
+        # the same half again with STATE_FORMAT NETCDF (one block): the
+        # reference's NetCDF schema where libnetcdf is found, else the npz
+        # at the state path + ".npz" (vic_tpu's rule)
+        from vic_tpu_torch.io.state_io import npz_path
+        gp_n = gp_b.replace(state_format="NETCDF",
+                            state_name=os.path.join(tmp, "state_n"))
+        t0 = time.perf_counter()
+        res_n = driver.run_simulation(gp_n, domain=domain, forcing=first,
+                                      chunk_recs=DRIVER_CHUNK,
+                                      write_output=False, progress=False)
+        st_n = res_n.stage_s
+        nc_path = driver._state_path(gp_n, (int(ax.year[last]),
+                                            int(ax.month[last]),
+                                            int(ax.day[last])))
+        written = nc_path if os.path.exists(nc_path) else npz_path(nc_path)
+        if not os.path.exists(written):
+            raise AssertionError(f"no NETCDF state at {nc_path}(.npz)")
+        diff_n = max(float(np.abs(v - res_b.outputs[k]).max())
+                     for k, v in res_n.outputs.items())
+        print(f"  STATE_FORMAT NETCDF, {n_first} records: "
+              f"{time.perf_counter() - t0:.3f} s (model run "
+              f"{st_n['run']:.3f}, outputs and state {st_n['write']:.3f}); "
+              f"wrote {os.path.basename(written)} ({os.path.getsize(written)}"
+              f" bytes; libnetcdf found: {native.netcdf_found()}); largest "
+              f"|difference| of its outputs from the blocks' {diff_n}")
+        if diff_n != 0.0:
+            raise AssertionError("the NETCDF-state run differs from the "
+                                 "blocks' run")
+        loaded_n = load_state(nc_path, gp, initial_state(domain, gp, "cpu"),
+                              domain)
+        file_diff = max(float(np.abs(
+            getattr(loaded_n, k).numpy()[mask].astype(np.float64)
+            - getattr(res_n.final_state, k).numpy()[mask]).max())
+            for k in STATE_FILE_FIELDS)
+        print(f"  NETCDF state file read back: largest |difference| from the "
+              f"run's state over {len(STATE_FILE_FIELDS)} fields {file_diff}")
+        if file_diff != 0.0:
+            raise AssertionError("the NETCDF state file does not hold the "
+                                 "state")
+        res_cn = driver.run_simulation(
+            gp_c, domain=warm_domain,
+            forcing={k: v[n_first:] for k, v in res.forcing.items()},
+            init_state_path=nc_path, write_output=False, progress=False)
+        hold_warm_start("NETCDF", res, res_cn, res_n.final_state, mask,
+                        n_first)
+
+        shards_check(driver, gp, domain, res, tmp)
 
         # the committed 16-cell driver fixture against vic_tpu's run of it
         ref = dict(np.load(FIXTURES / "driver_16x12.npz"))
@@ -2824,6 +2937,103 @@ def driver_phase(device):
     return wall
 
 
+SPLIT_CONFIGS = ("light", "lakes")
+# tests/test_sharding_driver.py's gate: rtol = atol, and the closure
+# residuals' atol
+SPLIT_TOL = 1e-5
+SPLIT_ERROR_ATOL = 1e-3
+
+
+def split_devices():
+    """Every CUDA device; on a one-card host the card twice, so the split
+    (two shares, two steps, interleaved records) runs all the same."""
+    n = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(n)] if n > 1 else ["cuda:0"] * 2
+
+
+def split_outside(one, split):
+    """(largest |difference| of the split run from the one-device run over
+    every output and state field, the leaves outside the gate)."""
+    worst, failed = 0.0, []
+    pairs = [(k, v, split.outputs[k], SPLIT_ERROR_ATOL if k.endswith(
+        "_ERROR") else SPLIT_TOL) for k, v in one.outputs.items()]
+    pairs += [(f.name, getattr(one.final_state, f.name).numpy(),
+               getattr(split.final_state, f.name).numpy(), SPLIT_TOL)
+              for f in dataclasses.fields(one.final_state)]
+    for name, a, b, atol in pairs:
+        if a.dtype.kind not in "fc":
+            if not np.array_equal(a, b):
+                failed.append(name)
+            continue
+        worst = max(worst, float(np.abs(b - a).max()) if a.size else 0.0)
+        if not np.allclose(b, a, rtol=SPLIT_TOL, atol=atol, equal_nan=True):
+            failed.append(name)
+    return worst, failed
+
+
+def split_phase():
+    """Light and lakes through driver.run_simulation split over
+    split_devices() against their one-device runs, and the refusal of
+    heavy_nolakes (CLOSE_ENERGY, QUICK_FLUX off) on two devices."""
+    from vic_tpu_torch import driver, entry, kernels
+    from vic_tpu_torch.testing import synthetic_domain, synthetic_forcing
+    devs = split_devices()
+    phase(f"6 split: {' and '.join(SPLIT_CONFIGS)}, {SMOKE_CELLS} cells x "
+          f"{SMOKE_RECS} records through driver.run_simulation over {devs}")
+    for config in SPLIT_CONFIGS:
+        gp = getattr(entry, f"{config}_params")(SMOKE_RECS).replace(
+            snow_step=24)
+        domain = synthetic_domain(n_cell=SMOKE_CELLS, n_band=2,
+                                  with_glacier=True)
+        forcing = synthetic_forcing(SMOKE_RECS, SMOKE_CELLS)
+        runs = {}
+        for label, kw in (("one device", dict(device="cuda:0")),
+                          ("split", dict(devices=devs))):
+            restore = guard_plain_solvers()
+            try:
+                kernels.reset_launches()
+                res = driver.run_simulation(gp, domain=domain,
+                                            forcing=dict(forcing),
+                                            write_output=False,
+                                            progress=False, **kw)
+                launches = {k: kernels.launches[k]
+                            for k in PATH_KERNELS[config]}
+            finally:
+                restore()
+            print(f"  {config}, {label} {kw.get('devices', ['cuda:0'])}: "
+                  f"{res.cell_steps_per_s:.1f} cell-steps/s (run "
+                  f"{res.elapsed_s:.3f} s), peak device memory "
+                  f"{res.peak_device_bytes} bytes (the largest device's); "
+                  f"kernel launches, every device together: {launches}")
+            idle = [k for k, v in launches.items() if v == 0]
+            if idle:
+                raise AssertionError(f"{config} {label}: kernels never "
+                                     f"launched: {idle}")
+            werr = float(np.abs(res.outputs["OUT_WATER_ERROR"]).max())
+            if not werr <= WATER_TOL:
+                raise AssertionError(f"{config} {label}: water balance "
+                                     f"error {werr} mm")
+            runs[label] = res
+        if runs["split"].final_state.swq.shape[0] != SMOKE_CELLS:
+            raise AssertionError("the split run's state lacks cells")
+        worst, failed = split_outside(runs["one device"], runs["split"])
+        print(f"  {config}: largest |difference| of the split run from the "
+              f"one-device run {worst:.4g} over every output and state "
+              f"field; outside rtol=atol={SPLIT_TOL} ({SPLIT_ERROR_ATOL} on "
+              f"OUT_*_ERROR): {failed}")
+        if failed:
+            raise AssertionError(f"{config}: the split run differs from the "
+                                 f"one-device run: {failed}")
+    try:
+        driver.run_simulation(entry.heavy_nolakes_params(2), devices=devs)
+    except NotImplementedError as e:
+        if "CLOSE_ENERGY" not in str(e) or "node sweep" not in str(e):
+            raise AssertionError(f"the refusal names other stops: {e}")
+        print(f"  heavy_nolakes on {devs}: refused: {e}")
+    else:
+        raise AssertionError("heavy_nolakes ran split over devices")
+
+
 def main():
     device = device_phase()
     regs = build_phase()
@@ -2845,6 +3055,7 @@ def main():
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
                                                err)
     driver_phase(device)
+    split_phase()
     # each row's count from the slice of the path its arguments came from
     for row, (name, config, nnode) in ROWS.items():
         results[row]["launches"] = launches[step_label(config, nnode)][name]

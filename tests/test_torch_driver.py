@@ -168,19 +168,29 @@ def test_state_files_match(runs, tmp_path, fmt):
 
 
 def test_refusals_name_what_is_not_ported(tmp_path):
-    from vic_tpu_torch.driver import run_simulation
-    from vic_tpu_torch.io.state_io import load_state
+    """The one refusal left is by name: more than one device where the
+    step stops a loop on a test over the whole batch (CLOSE_ENERGY,
+    QUICK_FLUX off). NETCDF state, output in shards and a split run of the
+    main path run."""
+    from vic_tpu_torch.driver import BATCH_WIDE_STOPS, run_simulation
+    from vic_tpu_torch.io.state_io import is_netcdf
     gp = tconfig.parse_global_param_file(write_driver_run(tmp_path, **RUN))
     assert inspect.signature(run_simulation).parameters["device"].default \
         == "cuda"
-    with pytest.raises(NotImplementedError, match="STATE_FORMAT NETCDF"):
-        run_simulation(gp.replace(state_format="NETCDF"), device="cpu")
-    with pytest.raises(NotImplementedError, match="more than one device"):
-        run_simulation(gp, device="cpu", devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="OUTPUT_SHARDS"):
-        run_simulation(gp.replace(output_format="NETCDF", output_shards=2),
-                       device="cpu")
-    nc = tmp_path / "state.nc"
-    nc.write_bytes(b"\x89HDF\r\n\x1a\n" + bytes(64))
-    with pytest.raises(NotImplementedError, match="STATE_FORMAT NETCDF"):
-        load_state(str(nc), gp, None, None)
+    assert "CLOSE_ENERGY" in BATCH_WIDE_STOPS \
+        and "node sweep" in BATCH_WIDE_STOPS
+    for flags in (dict(close_energy=True), dict(quick_flux=False)):
+        with pytest.raises(NotImplementedError, match="on 2 devices: "
+                           "CLOSE_ENERGY's pass loop"):
+            run_simulation(gp.replace(**flags), device="cpu",
+                           devices=["cpu", "cpu"])
+    res = run_simulation(gp.replace(state_format="NETCDF",
+                                    output_format="NETCDF", output_shards=2),
+                         devices=["cpu", "cpu"], progress=False)
+    made = sorted(os.listdir(gp.result_dir))
+    assert [f for f in made if ".shard" in f] == [
+        "results.shard0of2.nc", "results.shard1of2.nc"]
+    state = [f for f in made if f.startswith("state_")]
+    assert state == ["state_19951006.nc"]
+    assert is_netcdf(os.path.join(gp.result_dir, state[0]))
+    assert res.final_state.moist.shape[0] == N_CELL

@@ -459,9 +459,10 @@ def test_cell_blocks_match_vic_tpu():
     from vic_tpu.parallel.sharding import (pad_cell_tree as jpad,
                                            slice_cell_tree as jslice,
                                            unpad_cell_tree as junpad)
-    from vic_tpu_torch.cells import (pad_cell_tree, pad_cells,
-                                     slice_cell_tree, tree_map,
-                                     unpad_cell_tree)
+    from vic_tpu.parallel.sharding import pad_cells as jpad_cells
+    from vic_tpu_torch.cells import (pad_cell_tree, slice_cell_tree,
+                                     tree_map, unpad_cell_tree)
+    from vic_tpu_torch.parallel.sharding import pad_cells
     rng = np.random.default_rng(6)
     tree = {"a": rng.normal(size=(7, 3)), "b": rng.normal(size=(7,)),
             "c": rng.normal(size=(2, 7)), "d": np.arange(4.0)}
@@ -480,6 +481,8 @@ def test_cell_blocks_match_vic_tpu():
         for k in tree:
             np.testing.assert_array_equal(back[k].numpy(), jback[k])
     assert pad_cells(10, 4) == 12 and pad_cells(8, 4) == 8
+    for n, d in ((10, 4), (8, 4), (7, 3), (1, 8)):
+        assert pad_cells(n, d) == jpad_cells(n, d)
 
 
 def test_native_readers_match(tmp_path):

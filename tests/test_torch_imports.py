@@ -77,3 +77,60 @@ def test_driver_cli_runs_without_jax(tmp_path):
     assert proc.stdout.strip().endswith("ok"), proc.stdout
     assert len([f for f in os.listdir(tmp_path)
                 if f.startswith("fluxes_")]) == 2
+
+
+IO_SPLIT_SCRIPT = """
+import os
+import sys
+import torch
+torch.set_num_threads(1)
+from vic_tpu_torch import config, driver
+from vic_tpu_torch.io import native, state_io
+from vic_tpu_torch.parallel.io_shards import find_shards, merge_shards
+from vic_tpu_torch.state import initial_state
+from vic_tpu_torch.testing import write_driver_run
+root = sys.argv[1]
+g = write_driver_run(os.path.join(root, "run"), 5, start=(1995, 9, 25),
+                     n_day=4, accum_start=(1994, 10, 1),
+                     july_tavg=(6.0, 16.0), output_format="NETCDF")
+text = open(g).read().replace("STATE_FORMAT ASCII", "STATE_FORMAT NETCDF")
+text += "NETCDF_OUTPUT_SHARDS 3\\n"
+open(g, "w").write(text)
+res = driver.run_main(["-g", g, "--device", "cpu,cpu"])
+gp = config.parse_global_param_file(g)
+assert gp.state_format == "NETCDF" and int(gp.output_shards) == 3
+base = os.path.join(gp.result_dir, gp.netcdf_output_filename)
+assert len(find_shards(base)) == 3
+merge_shards(base)
+domain = driver.load_domain(gp)
+template = initial_state(domain, gp, "cpu")
+state = [f for f in os.listdir(gp.result_dir) if f.startswith("state")]
+assert len(state) == 1, state
+path = os.path.join(gp.result_dir, state[0])
+assert state_io.is_netcdf(path)
+ref = state_io.load_state(path, gp, template, domain)
+assert torch.equal(ref.moist, res.final_state.moist)
+for fmt, dom in (("NETCDF", None), ("npz", None)):
+    p = os.path.join(root, "own_" + fmt)
+    state_io.save_state(p, res.final_state, gp, dom, fmt=fmt)
+    back = state_io.load_state(p, gp, template)
+    assert torch.equal(back.swq, res.final_state.swq), fmt
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+loaded = sorted(m for m in sys.modules
+                if m == "vic_tpu" or m.startswith("vic_tpu."))
+assert not loaded, loaded
+assert "vic_tpu_torch.parallel.sharding" in sys.modules
+print("ok", native.netcdf_found())
+"""
+
+
+def test_state_shards_and_split_run_without_jax(tmp_path):
+    """NETCDF state in both schemas and npz, OUTPUT_SHARDS with the merge,
+    and a run split over two devices (`--device cpu,cpu`) load neither jax
+    nor vic_tpu."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", IO_SPLIT_SCRIPT,
+                           str(tmp_path)], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok True"), proc.stdout

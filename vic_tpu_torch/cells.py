@@ -1,11 +1,10 @@
-"""Cell-axis blocks on one device: slice, pad and unpad every per-cell
-array of a parameter, state or forcing tree.
+"""Cell-axis blocks: slice, pad and unpad every per-cell array of a
+parameter, state or forcing tree.
 
 A copy of `vic_tpu/parallel/sharding.py:55-105` for the driver's cell
-chunks. A tree is a tensor or numpy array, a dataclass or dict of them, or
-None; a leaf is touched when its `axis` dimension has the cell count. The
-mesh functions of that module wait for the multi-GPU slice (ROADMAP.md
-queue 1, item 9).
+blocks and their device shares (`parallel/sharding.py`). A tree is a
+tensor or numpy array, a dataclass or dict of them, or None; a leaf is
+touched when its `axis` dimension has the cell count.
 """
 from __future__ import annotations
 
@@ -32,11 +31,6 @@ def tree_map(fn, tree):
 
 def _on_cells(x, n_cell, axis):
     return x.ndim > axis and x.shape[axis] == n_cell
-
-
-def pad_cells(n_cell: int, n_dev: int) -> int:
-    """Cell count rounded up to a multiple of the device count."""
-    return -(-n_cell // n_dev) * n_dev
 
 
 def pad_cell_tree(tree, n_cell: int, n_pad: int, axis: int = 0):

@@ -13,11 +13,16 @@ there record by record, each record chunk's outputs moving back to the
 host as it ends. Chunks start at the glacier mass-balance interval
 boundaries, where the fit is taken and the accumulator reset.
 
-Refused by name until their slice of the port: more than one device,
-NETCDF output in shards (OUTPUT_SHARDS > 1), and NETCDF state files.
+With several devices (`devices=[...]`, `--device cuda:0,cuda:1`) each cell
+block is split into equal shares, one a device (`parallel/sharding.py`),
+each with its own step; one host thread runs the records device by device
+and the shares' outputs and state are joined on the host. Configurations
+whose step stops a loop on a test over the whole batch (CLOSE_ENERGY, or
+QUICK_FLUX off) are refused on more than one device (BATCH_WIDE_STOPS).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -32,10 +37,12 @@ from .config import GlobalParams, parse_global_param_file
 from .params import Domain
 from .timeaxis import TimeAxis, time_axis_from_params
 
-MULTI_DEVICE = ("more than one device (parallel/sharding's cell mesh; "
-                "ROADMAP.md queue 1, item 9)")
-OUTPUT_SHARDS = ("OUTPUT_SHARDS > 1 (parallel/io_shards; ROADMAP.md queue "
-                 "1, item 9)")
+BATCH_WIDE_STOPS = (
+    "CLOSE_ENERGY's pass loop (model.py) and the finite-difference node "
+    "sweep run with QUICK_FLUX off (physics/frozen_soil.py; K6's and K7's "
+    "grid votes) stop on tests over the whole batch; split over devices "
+    "each would stop on one device's share, and the run would differ from "
+    "the one-device run by up to the sweep tolerance (1e-2 C)")
 
 
 @dataclass
@@ -51,6 +58,16 @@ class RunResult:
     stage_s: dict = None
     peak_device_bytes: int = 0
     forcing: dict = None   # the [n_rec, n_cell] host forcing the run used
+
+
+@dataclass
+class _Share:
+    """One device's share of a cell block: its step, carried state and
+    host forcing."""
+    device: torch.device
+    step: object
+    state: object
+    forcing: dict
 
 
 def load_domain(gp: GlobalParams) -> Domain:
@@ -82,24 +99,27 @@ def load_forcing(gp: GlobalParams, domain: Domain, timeaxis: TimeAxis,
 
 
 def load_state_any(path: str, gp, domain, template):
-    """Warm-start state from a reference ASCII or BINARY state file, the
-    format sniffed from the file's first bytes (io.state_io.load_state)."""
+    """Warm-start state from a state file of any format (the reference's
+    ASCII or BINARY, NetCDF in the reference's or vic_tpu's schema, npz),
+    the format sniffed from the file's first bytes
+    (io.state_io.load_state)."""
     from .io.state_io import load_state
     return load_state(path, gp, template, domain)
 
 
 def _refuse(gp, devices):
-    if devices is not None and len(devices) > 1:
-        raise NotImplementedError(f"run_simulation: {MULTI_DEVICE} is not "
-                                  "ported")
-    if gp.output_format.upper() == "NETCDF" and gp.output_shards > 1:
-        raise NotImplementedError(f"run_simulation: {OUTPUT_SHARDS} is not "
-                                  "ported")
-    if gp.save_state and gp.state_name \
-            and gp.state_format.upper() == "NETCDF":
-        from .io.state_io import NETCDF_STATE
-        raise NotImplementedError(f"run_simulation: {NETCDF_STATE} is not "
-                                  "ported; use ASCII or BINARY")
+    if len(devices) > 1 and (gp.close_energy or not gp.quick_flux):
+        raise NotImplementedError(
+            f"run_simulation on {len(devices)} devices: {BATCH_WIDE_STOPS}; "
+            "run this configuration on one device")
+
+
+def _on(device):
+    """A context that makes `device` the current CUDA device (the kernels'
+    occupancy queries and launches follow it); nothing for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def run_simulation(gp: GlobalParams, domain: Optional[Domain] = None,
@@ -121,17 +141,26 @@ def run_simulation(gp: GlobalParams, domain: Optional[Domain] = None,
     its last cell so every block has one shape. The batch-wide stops (the
     node sweep's count, the CLOSE_ENERGY passes) run over each block, so a
     run matches vic_tpu's only with equal chunk_cells.
-    devices: a list of devices; more than one is refused."""
+    devices: a list of devices, in place of `device`. With more than one,
+    each block is padded with clones of its last cell to a multiple of
+    their count and split into equal shares, device d taking the d-th
+    (vic_tpu's cell mesh); the glacier mass-balance fit runs over the
+    whole block. kernels.launches counts the launches of every device;
+    peak_device_bytes is the largest device's peak."""
     from .cells import pad_cell_tree, slice_cell_tree, unpad_cell_tree
     from .model import make_forcing_stack, make_step
     from .output import aggregate_outputs
     from .physics.hydrology_misc import build_zwt_curves, zwt_curves_to
+    from .parallel.sharding import (gather_cell_axis, pad_cells,
+                                    shard_cell_axis)
     from .prepare import lake_params_from_numpy, prepare_domain
     from .state import initial_state
 
-    _refuse(gp, devices)
-    device = torch.device(device)
+    devs = [torch.device(d) for d in (devices or [device])]
+    _refuse(gp, devs)
+    device = devs[0]
     on_cuda = device.type == "cuda"
+    used = list(dict.fromkeys(devs))     # each device once
     stage_s = {}
 
     # NF sub-stepping: when SNOW_STEP < TIME_STEP the reference runs
@@ -236,12 +265,19 @@ def run_simulation(gp: GlobalParams, domain: Optional[Domain] = None,
     starts = sorted(set(range(0, n_rec, chunk)) | gmb_boundaries)
 
     # cell blocks (vicNl.c:514-517): cells run in blocks of <= cc, the last
-    # padded to cc with clone cells so every block has one shape
+    # padded to cc with clone cells so every block has one shape; with n
+    # devices a block is padded on to a multiple of n (n_run) and split
     n_cell_real = domain.n_cell
     cc = chunk_cells if chunk_cells > 0 else gp.cell_chunk
     cc = n_cell_real if cc <= 0 else min(cc, n_cell_real)
-    check_memory_budget(gp, domain, chunk, n_cell=cc, progress=progress,
-                        device=device)
+    n_dev = len(devs)
+    n_run = pad_cells(cc, n_dev)
+    n_share = n_run // n_dev
+    check_memory_budget(gp, domain, chunk, n_cell=n_share,
+                        progress=progress, device=device)
+    if progress and n_dev > 1:
+        print(f"  cells split over {n_dev} devices: {n_share} a device "
+              f"({cc} a block, +{n_run - cc} pad)", file=sys.stderr)
     if progress and cc < n_cell_real:
         print(f"  cell chunking: {n_cell_real} cells in blocks of {cc}",
               file=sys.stderr)
@@ -250,7 +286,7 @@ def run_simulation(gp: GlobalParams, domain: Optional[Domain] = None,
         """All records for cells [b0:b1): returns (final state on the CPU,
         outs np dict [n_rec, b1-b0, ...], gmb results)."""
         nb = b1 - b0
-        n_pad = cc - nb
+        n_pad = n_run - nb
         trees = [slice_cell_tree(t, b0, b1, n_cell_real)
                  for t in (params, geom, zwt_curves, lake_params)]
         frc = slice_cell_tree(forcing, b0, b1, n_cell_real, axis=1)
@@ -259,13 +295,19 @@ def run_simulation(gp: GlobalParams, domain: Optional[Domain] = None,
             trees = [pad_cell_tree(t, nb, n_pad) for t in trees]
             st = pad_cell_tree(st, nb, n_pad)
             frc = pad_cell_tree(frc, nb, n_pad, axis=1)
-        prm, gm, zw, lkp = trees
-        prm = prm.to(device)
-        gm = gm.to(device) if gm is not None else None
-        zw = zwt_curves_to(zw, device)
-        lkp = lkp.to(device) if lkp is not None else None
-        st = st.to(device)
-        step = make_step(prm, gp, gm, zw, lkp, outvars=outvars)
+        block_prm = trees[0]
+        shares = []
+        for dev, prm, gm, zw, lkp, s, f in zip(
+                devs, *(shard_cell_axis(t, n_run, n_dev) for t in trees),
+                shard_cell_axis(st, n_run, n_dev),
+                shard_cell_axis(frc, n_run, n_dev, axis=1)):
+            with _on(dev):
+                prm = prm.to(dev)
+                gm = gm.to(dev) if gm is not None else None
+                zw = zwt_curves_to(zw, dev)
+                lkp = lkp.to(dev) if lkp is not None else None
+                step = make_step(prm, gp, gm, zw, lkp, outvars=outvars)
+                shares.append(_Share(dev, step, s.to(dev), f))
 
         gmb = None
         if use_gmb:
@@ -277,42 +319,57 @@ def run_simulation(gp: GlobalParams, domain: Optional[Domain] = None,
             sub_ax = TimeAxis(*[a[start:end] for a in
                                 (timeaxis.year, timeaxis.month, timeaxis.day,
                                  timeaxis.hour, timeaxis.day_in_year)])
-            stack = make_forcing_stack(
-                {k: v[start:end] for k, v in frc.items()}, sub_ax, device)
-            recs = []
+            stacks = [make_forcing_stack(
+                {k: v[start:end] for k, v in sh.forcing.items()}, sub_ax,
+                sh.device) for sh in shares]
+            recs = [[] for _ in shares]
+            # record by record, device by device, with no synchronization:
+            # a device runs its record while the host launches the next's
             for i in range(end - start):
-                st, outs = step(st, {k: v[i] for k, v in stack.items()})
-                recs.append(outs)
+                for sh, stack, rec in zip(shares, stacks, recs):
+                    with _on(sh.device):
+                        sh.state, outs = sh.step(
+                            sh.state, {k: v[i] for k, v in stack.items()})
+                    rec.append(outs)
             # keys sorted, as vic_tpu's scan returns its output dict (a
             # pytree): the writers' variable order follows them
-            outs = {k: torch.stack([o[k] for o in recs]).cpu().numpy()
-                    for k in sorted(recs[0])}
-            all_outs.append({k: a[:, :nb] if a.ndim >= 2 and a.shape[1] == cc
-                             else a for k, a in outs.items()})
+            outs = gather_cell_axis(
+                [{k: torch.stack([o[k] for o in rec]).cpu().numpy()
+                  for k in sorted(rec[0])} for rec in recs], n_share, axis=1)
+            all_outs.append({k: a[:, :nb] if a.ndim >= 2
+                             and a.shape[1] == n_run else a
+                             for k, a in outs.items()})
             if gmb is not None and end in gmb_boundaries | {n_rec}:
+                # the fit over the whole block, every device's cells
+                cum = gather_cell_axis(
+                    [sh.state.glac_cum_mass_balance for sh in shares],
+                    n_share)
                 res = gmb.maybe_emit(
-                    timeaxis, end - 1,
-                    st.glac_cum_mass_balance[:nb].cpu().numpy(),
-                    prm.band_elev[:nb].cpu().numpy(),
-                    prm.is_glacier[:nb].cpu().numpy())
+                    timeaxis, end - 1, cum[:nb].numpy(),
+                    block_prm.band_elev[:nb].numpy(),
+                    block_prm.is_glacier[:nb].numpy())
                 if res is not None:
-                    st = dataclasses.replace(
-                        st, glac_cum_mass_balance=torch.zeros_like(
-                            st.glac_cum_mass_balance))
+                    for sh in shares:
+                        sh.state = dataclasses.replace(
+                            sh.state, glac_cum_mass_balance=torch.zeros_like(
+                                sh.state.glac_cum_mass_balance))
                     if progress:
                         print(f"  GMB fit at {res.date}: b0={res.b0}, "
                               f"b1={res.b1}, b2={res.b2}", file=sys.stderr)
             if progress:
                 print(f"  cells {b0}..{b1} records {start}..{end} done",
                       file=sys.stderr)
-        st = unpad_cell_tree(st.to("cpu"), cc, nb)
+        st = unpad_cell_tree(
+            gather_cell_axis([sh.state for sh in shares], n_share), n_run,
+            nb)
         outs = {k: np.concatenate([o[k] for o in all_outs], axis=0)
                 for k in all_outs[0]}
         return st, outs, gmb.results if gmb is not None else []
 
     if on_cuda:
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
+        for d in used:
+            torch.cuda.synchronize(d)
+            torch.cuda.reset_peak_memory_stats(d)
     t0 = time.perf_counter()
     block_states, block_outs, gmb_results = [], [], []
     for b0 in range(0, n_cell_real, cc):
@@ -321,10 +378,12 @@ def run_simulation(gp: GlobalParams, domain: Optional[Domain] = None,
         block_outs.append(bouts)
         gmb_results.extend(bres)
     if on_cuda:
-        torch.cuda.synchronize(device)
+        for d in used:
+            torch.cuda.synchronize(d)
     elapsed = time.perf_counter() - t0
     stage_s["run"] = elapsed
-    peak = torch.cuda.max_memory_allocated(device) if on_cuda else 0
+    peak = max(torch.cuda.max_memory_allocated(d) for d in used) \
+        if on_cuda else 0
 
     if len(block_states) == 1:
         state = block_states[0]
@@ -464,21 +523,29 @@ def write_outputs(gp, domain, timeaxis, agg, steps_per_out):
 
     if gp.output_format.upper() == "NETCDF":
         from .io import native
-        if gp.output_shards > 1:
-            raise NotImplementedError(f"write_outputs: {OUTPUT_SHARDS} is "
-                                      "not ported")
         if not native.netcdf_found():
             raise RuntimeError("NETCDF output requested but libnetcdf "
                                "missing")
-        from .output import NetCDFOutputWriter
+        path = os.path.join(gp.result_dir, gp.netcdf_output_filename)
         # output-interval timestamps (days since simulation start)
         tvals = np.arange(n_out, dtype=float) * (gp.out_step / 24.0)
-        w = NetCDFOutputWriter(
-            os.path.join(gp.result_dir, gp.netcdf_output_filename),
-            lats, lons, var_names, nlayer=gp.nlayer,
-            nnode=max(gp.nnode, 3), nband=max(gp.snow_band, 1),
-            global_attrs=dict(gp.netcdf_attributes),
-            compress=5 if gp.compress else 0)
+        kw = dict(nlayer=gp.nlayer, nnode=max(gp.nnode, 3),
+                  nband=max(gp.snow_band, 1),
+                  global_attrs=dict(gp.netcdf_attributes),
+                  compress=5 if gp.compress else 0)
+        # the parser keeps NETCDF_OUTPUT_SHARDS as text (vic_tpu's keyword
+        # table lists it with the paths)
+        n_shards = int(gp.output_shards)
+        if n_shards > 1:
+            # one file a block of cells (parallel/io_shards.py); merge with
+            # tools/merge_output_shards_torch.py
+            from .parallel.io_shards import write_sharded_netcdf
+            write_sharded_netcdf(path, lats, lons,
+                                 {v: agg[v] for v in var_names}, tvals,
+                                 n_shards, **kw)
+            return
+        from .output import NetCDFOutputWriter
+        w = NetCDFOutputWriter(path, lats, lons, var_names, **kw)
         w.write_all(agg, tvals)
     elif gp.output_format.upper() == "BINARY":
         from .output import BinaryOutputWriter
@@ -519,7 +586,9 @@ def run_main(argv=None) -> Optional[RunResult]:
                     help="max cells per block; larger domains run block "
                          "by block")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the step (default cuda)")
+                    help="torch device of the step (default cuda), or a "
+                         "comma-separated list (cuda:0,cuda:1) to split "
+                         "the cells over")
     args = ap.parse_args(argv)
 
     if args.version:
@@ -534,7 +603,8 @@ def run_main(argv=None) -> Optional[RunResult]:
             print(f"{k:32s} {v}")
         return None
     res = run_simulation(gp, chunk_recs=args.chunk,
-                         chunk_cells=args.cell_chunk, device=args.device)
+                         chunk_cells=args.cell_chunk,
+                         devices=args.device.split(","))
     print(f"Model execution time: {res.elapsed_s:.3f} s "
           f"({res.cell_steps_per_s:.0f} cell-steps/s)", file=sys.stderr)
     return res

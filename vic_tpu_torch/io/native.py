@@ -24,9 +24,10 @@ import numpy as np
 _lib = None
 _tried = False
 
-NC_INT, NC_FLOAT, NC_DOUBLE = 4, 5, 6
+NC_CHAR, NC_INT, NC_FLOAT, NC_DOUBLE = 2, 4, 5, 6
 _DTYPE_TO_NC = {np.dtype(np.int32): NC_INT, np.dtype(np.float32): NC_FLOAT,
                 np.dtype(np.float64): NC_DOUBLE}
+_NC_TO_DTYPE = {v: k for k, v in _DTYPE_TO_NC.items()}
 
 
 def _load():
@@ -173,6 +174,52 @@ class NetCDFFile:
             buf = ct.create_string_buffer(256)
             _check(self._lib.vicio_nc_inq_varname(self.ncid, vid, buf))
             out.append(buf.value.decode())
+        return out
+
+    def var_info(self, name: str):
+        """(numpy dtype, dimension names) of variable `name`."""
+        varid = self.varid(name)
+        xtype, nd = ct.c_int(), ct.c_int()
+        _check(self._lib.vicio_nc_inq_vartype(self.ncid, varid,
+                                              ct.byref(xtype)))
+        _check(self._lib.vicio_nc_inq_varndims(self.ncid, varid,
+                                               ct.byref(nd)))
+        dimids = (ct.c_int * max(nd.value, 1))()
+        _check(self._lib.vicio_nc_inq_vardimid(self.ncid, varid, dimids))
+        dims = []
+        for k in range(nd.value):
+            buf = ct.create_string_buffer(256)
+            _check(self._lib.vicio_nc_inq_dimname(self.ncid, dimids[k], buf))
+            dims.append(buf.value.decode())
+        return _NC_TO_DTYPE[xtype.value], tuple(dims)
+
+    def attributes(self, var: Optional[str] = None) -> dict:
+        """Every attribute of `var` (None: the global ones) by name, in
+        the file's order: text as str, numbers as (netCDF type code,
+        float64 array of the values)."""
+        varid = self.varid(var) if var is not None else -1   # NC_GLOBAL
+        n = ct.c_int()
+        _check(self._lib.vicio_nc_inq_varnatts(self.ncid, varid,
+                                               ct.byref(n)))
+        out = {}
+        for k in range(n.value):
+            buf = ct.create_string_buffer(256)
+            _check(self._lib.vicio_nc_inq_attname(self.ncid, varid, k, buf))
+            name = buf.value
+            xtype, ln = ct.c_int(), ct.c_longlong()
+            _check(self._lib.vicio_nc_inq_att(self.ncid, varid, name,
+                                              ct.byref(xtype), ct.byref(ln)))
+            if xtype.value == NC_CHAR:
+                text = ct.create_string_buffer(ln.value + 1)
+                _check(self._lib.vicio_nc_get_att_text(self.ncid, varid,
+                                                       name, text))
+                out[name.decode()] = text.raw[:ln.value].decode()
+            else:
+                vals = np.empty(max(ln.value, 1), np.float64)
+                _check(self._lib.vicio_nc_get_att_double(
+                    self.ncid, varid, name,
+                    vals.ctypes.data_as(ct.POINTER(ct.c_double))))
+                out[name.decode()] = (xtype.value, vals[:ln.value])
         return out
 
     # ---- data ----

@@ -58,6 +58,10 @@ NC_WEAK int nc_inq_varname(int ncid, int varid, char *name);
 NC_WEAK int nc_get_att_double(int ncid, int varid, const char *name, double *ip);
 NC_WEAK int nc_get_att_text(int ncid, int varid, const char *name, char *ip);
 NC_WEAK int nc_inq_attlen(int ncid, int varid, const char *name, size_t *lenp);
+NC_WEAK int nc_inq_varnatts(int ncid, int varid, int *nattsp);
+NC_WEAK int nc_inq_attname(int ncid, int varid, int attnum, char *name);
+NC_WEAK int nc_inq_atttype(int ncid, int varid, const char *name, int *xtypep);
+NC_WEAK int nc_inq_dimname(int ncid, int dimid, char *name);
 NC_WEAK int nc_put_vara_float(int ncid, int varid, const size_t *startp,
                       const size_t *countp, const float *op);
 NC_WEAK int nc_put_vara_double(int ncid, int varid, const size_t *startp,
@@ -151,6 +155,30 @@ int vicio_nc_inq_vardimid(int ncid, int varid, int *dimids) {
 int vicio_nc_get_att_double(int ncid, int varid, const char *name,
                             double *val) {
   return nc_get_att_double(ncid, varid, name, val);
+}
+// attribute and variable inquiry (varid -1: the global attributes)
+int vicio_nc_inq_varnatts(int ncid, int varid, int *natts) {
+  return nc_inq_varnatts(ncid, varid, natts);
+}
+int vicio_nc_inq_attname(int ncid, int varid, int attnum, char *name256) {
+  return nc_inq_attname(ncid, varid, attnum, name256);
+}
+int vicio_nc_inq_att(int ncid, int varid, const char *name, int *xtype,
+                     long long *len) {
+  size_t l = 0;
+  int r = nc_inq_atttype(ncid, varid, name, xtype);
+  if (r == 0) r = nc_inq_attlen(ncid, varid, name, &l);
+  *len = (long long)l;
+  return r;
+}
+int vicio_nc_get_att_text(int ncid, int varid, const char *name, char *buf) {
+  return nc_get_att_text(ncid, varid, name, buf);
+}
+int vicio_nc_inq_vartype(int ncid, int varid, int *xtype) {
+  return nc_inq_vartype(ncid, varid, xtype);
+}
+int vicio_nc_inq_dimname(int ncid, int dimid, char *name256) {
+  return nc_inq_dimname(ncid, dimid, name256);
 }
 
 int vicio_nc_put_vara_float(int ncid, int varid, const long long *start,
