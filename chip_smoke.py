@@ -38,17 +38,20 @@ line) on failure:
    advected sensible heat in K2), and the three loops no step calls: K15
    mass_release on the light step's canopy snow and melt storage (and on
    seeded storage that releases), K16 implicit_profile on K6's arguments of
-   the frozen (5 nodes) and frozen_exp (10 EXP_TRANS nodes) steps, NOFLUX
-   both ways, and K17 bisection on K2's and K1's arguments of the light
-   step, 40 steps. Each row's kernel is re-run on those arguments beside its
+   the frozen (5 nodes) and frozen_exp (10 EXP_TRANS nodes) steps and of
+   frozen_exp's configuration at 3, 18 and 50 nodes, NOFLUX both ways, and
+   K17 bisection on K2's and K1's arguments of the light step, 40 steps.
+   Each row's kernel is re-run on those arguments beside its
    plain PyTorch version on the card, compared, timed with CUDA events and
    given its bound (the least time the card could take for the same
    work); K1's, K2's, K3's, K5's and K14's rows also print their lanes'
    warp efficiency and waves (tools/profile_lane_brent.py's definitions),
    K10's and K11's their lakes, active lakes and the sweeps each of their
    mixes ran (counted on the plain version's columns, which also set the
-   mix's share of the bound) and ptxas' registers and spill, which must be
-   none.
+   mix's share of the bound); K10, K11, the water balance and K16 print
+   ptxas' registers, stack frame and spill stores of each instance, and
+   fail on a spill, or on a stack frame in K16's instances that hold their
+   nodes in registers (3, 5 and 10).
    K9's pass and final update, K13 and the water balance (every output,
    lake by lake and lane by lane) must equal their plain versions' (NaN
    where theirs are NaN), K9's largest change also as the host reads it
@@ -337,6 +340,9 @@ ROWS.update({
 })
 ROWS.update({f"node_sweep/exp_trans_{n}": ("node_sweep", "frozen_exp", n)
              for n in NODE_COUNTS})
+ROWS.update({f"implicit_profile/exp_trans_{n}": ("implicit_profile",
+                                                 "frozen_exp", n)
+             for n in NODE_COUNTS})
 # SPATIAL_SNOW's forms of K2 and K5, and the rest of K16's and K17's rows
 ROWS.update({
     "snowpack_brent/spatial_snow": ("snowpack_brent", "spatial_snow", None),
@@ -478,8 +484,13 @@ LOOP_TOL = 1e-5            # K15 and K17 vs their plain versions
 IMPLICIT_TOL = 1e-4        # C, K16 vs its plain version
 
 
+_STARTED = time.perf_counter()
+
+
 def phase(title):
-    print(f"== {title}", flush=True)
+    """Prints a phase's title and the seconds since the script started."""
+    print(f"== {title} (at {time.perf_counter() - _STARTED:.1f} s)",
+          flush=True)
 
 
 def device_phase():
@@ -517,7 +528,8 @@ def lake_tools():
 
 
 def build_phase():
-    """Returns ptxas' {kernel: (registers, spill store bytes)}."""
+    """Returns ptxas' {kernel: (registers, spill store bytes, stack frame
+    bytes)}."""
     phase("1 build")
     from vic_tpu_torch.kernels import build
     t0 = time.perf_counter()
@@ -1674,18 +1686,34 @@ def lane_brent_stats(name, args, kwargs, kern_fn, regs):
           f"{lanes / resident if resident else None}")
 
 
-# K10 and K11: one warp a lake, its layers in registers
-LAKE_COLUMN_KERNELS = ("lake_open_water", "lake_under_ice")
+# the kernels whose every instance must compile without spills: K10 and
+# K11 (one warp a lake, its layers in registers), the water balance (its
+# solves' spans in registers) and K16; of K16 the instances that hold their
+# nodes in registers (csrc/implicit_profile.cu RegisterLane, their mangled
+# names' node counts) must also have no stack frame
+SPILL_FREE_KERNELS = ("lake_open_water", "lake_under_ice",
+                      "lake_water_balance", "implicit_profile")
+FRAME_FREE_INSTANCES = {"implicit_profile": tuple(
+    f"ILi{n}E" for n in (3, 5, 10))}
 
 
-def lake_column_registers(name, regs):
-    """Prints ptxas' registers and spill stores of K10's or K11's kernel
-    (build_phase's `regs`) and fails on a spill."""
-    found = [v for k, v in (regs or {}).items() if f"{name}_kernel" in k]
-    for n_reg, spill in found:
-        print(f"  {name}: ptxas {n_reg} registers, {spill} B spill stores")
+def kernel_registers(name, regs):
+    """Prints ptxas' registers, stack frame and spill stores of each
+    instance of `name`'s kernel (build_phase's `regs`); fails on a spill,
+    or on a stack frame where FRAME_FREE_INSTANCES names the instance."""
+    found = {k: v for k, v in (regs or {}).items() if f"{name}_kernel" in k}
+    if not found:
+        raise AssertionError(f"{name}: no kernel in ptxas' report")
+    for key, (n_reg, spill, frame) in sorted(found.items()):
+        print(f"  {name}: {key}: ptxas {n_reg} registers, {frame} B stack "
+              f"frame, {spill} B spill stores")
         if spill:
-            raise AssertionError(f"{name}: {spill} B of spill stores")
+            raise AssertionError(f"{name}: {key}: {spill} B of spill stores")
+        if frame and any(t in key for t in FRAME_FREE_INSTANCES.get(name,
+                                                                    ())):
+            raise AssertionError(f"{name}: {key}: a {frame} B stack frame "
+                                 "in an instance that holds its nodes in "
+                                 "registers")
 
 
 # the kernels whose call is one device event: no fill, no copy
@@ -1706,7 +1734,8 @@ def device_events(fn, calls=3):
 
 
 def kernels_phase(device, regs=None):
-    """regs: ptxas' {kernel: (registers, spill bytes)} (build_phase)."""
+    """regs: ptxas' {kernel: (registers, spill bytes, stack frame bytes)}
+    (build_phase)."""
     phase(f"2 kernels at {SMOKE_CELLS} cells (heavy_nolakes {HEAVY_CELLS})")
     from vic_tpu_torch import kernels
     # one capture run per step, wrapping the kernels of the rows on it and
@@ -1738,6 +1767,8 @@ def kernels_phase(device, regs=None):
         if name in LOOP_KERNELS:
             results[row] = check_loop_kernel(row, name, captured[label],
                                              label)
+            if row in SPILL_FREE_KERNELS:
+                kernel_registers(name, regs)
             continue
         args, kwargs = captured[label][name]
         plain_fn = getattr(importlib.import_module(
@@ -1789,8 +1820,8 @@ def kernels_phase(device, regs=None):
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         if row in LANE_BRENT_KERNELS:
             lane_brent_stats(name, args, kwargs, kern_fn, regs)
-        if row in LAKE_COLUMN_KERNELS:
-            lake_column_registers(name, regs)
+        if row in SPILL_FREE_KERNELS:
+            kernel_registers(name, regs)
         if row in HEAVY_LAKE_TIMED:
             # the heavy path's own form of the kernel: K12 with the
             # blowing-snow flux, K8 on the 8,192 lake lanes
@@ -2018,7 +2049,8 @@ def check_loop_kernel(row, name, captured, label):
     plain_fn = getattr(importlib.import_module(
         f"vic_tpu_torch.physics.{module}"), plain_name)
     args, kwargs = loop_args(row, name, captured)
-    print(f"  {row}: on the {label} step's record {RECORD.get(label, 0)}")
+    print(f"  {row}: on the {label} step's record "
+          f"{RECORD.get(label.split('/')[0], 0)}")
     kern = kern_fn(*args, **kwargs)
     err = compare_loop(row, name, kern, plain_fn(*args, **kwargs))
     if name == "implicit_profile":

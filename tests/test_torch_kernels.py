@@ -10,6 +10,7 @@ run on a host without it (tests/conftest.py imports jax, hence
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 """
+import dataclasses
 import re
 from types import SimpleNamespace
 
@@ -951,22 +952,84 @@ def _equal_nan(got, ref):
         ((got == ref) | (torch.isnan(got) & torch.isnan(ref))).all())
 
 
+def _lake_rows(obj, n, rows):
+    """obj (a tensor, NamedTuple, dataclass or dict of them) with every
+    tensor whose first axis has the n lakes cut to `rows`."""
+    if isinstance(obj, torch.Tensor):
+        return obj[rows] if obj.dim() and obj.shape[0] == n else obj
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _lake_rows(getattr(obj, f.name), n, rows)
+            for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*[_lake_rows(x, n, rows) for x in obj])
+    if isinstance(obj, tuple):
+        return tuple(_lake_rows(x, n, rows) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _lake_rows(v, n, rows) for k, v in obj.items()}
+    return obj
+
+
+# the water balance under strain: one lake, a lake count that does not
+# fill its last block, every lake inactive, NaN volumes, empty and
+# brim-full lakes (beside open ones), HRU lanes outside the mask
+BALANCE_STRAINS = ("as_captured", "one_lake", "ragged", "inactive",
+                   "nan_volume", "empty_and_brim_full", "lanes_outside")
+
+
+def _strained_balance(a, kw, strain):
+    lp, st, res = a
+    n = st.volume.shape[0]
+    s1 = res.state
+    if strain == "one_lake":
+        return _lake_rows((a, kw), n, slice(0, 1))
+    if strain == "ragged":
+        return _lake_rows((a, kw), n, slice(0, 37))
+    if strain == "inactive":
+        return a, dict(kw, active=torch.zeros_like(kw["active"]))
+    if strain == "lanes_outside":
+        gen = torch.Generator(device=st.volume.device).manual_seed(18)
+        keep = torch.rand(kw["lane_mask"].shape, generator=gen,
+                          device=st.volume.device) < 0.6
+        return a, dict(kw, lane_mask=kw["lane_mask"] & keep)
+    volume = s1.volume.clone()
+    if strain == "nan_volume":
+        volume[::3] = float("nan")
+        return (lp, st, res._replace(state=dataclasses.replace(
+            s1, volume=volume))), kw
+    # every second lake empty, with no ice every fourth; every fifth over
+    # full, the rest of the odd ones full to the brim
+    iwe = s1.ice_water_eq.clone()
+    volume[::2] = 0.0
+    iwe[::4] = 0.0
+    full = lp.maxvolume.expand_as(volume)
+    volume[1::2] = full[1::2] * 1.0
+    volume[::5] = full[::5] * 1.3
+    return (lp, st, res._replace(state=dataclasses.replace(
+        s1, volume=volume, ice_water_eq=iwe))), kw
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("strain", BALANCE_STRAINS)
 @pytest.mark.parametrize("config,record", [("lakes", 1), ("heavy", 3)])
-def test_lake_water_balance_kernel_matches_plain(cuda, config, record):
+def test_lake_water_balance_kernel_matches_plain(cuda, config, record,
+                                                 strain):
     """The water balance after solve_lake: every output of the lakes
-    step's second record and the heavy step's fourth equal to
-    lake_water_balance_plain's, lake by lake and lane by lane, in one
-    launch."""
+    step's second record and the heavy step's fourth, as captured and
+    under each of BALANCE_STRAINS, equal to lake_water_balance_plain's,
+    lake by lake and lane by lane, in one launch."""
     a, kw = _captured_args(cuda, names=("lake_water_balance",),
                            config=config,
                            record=record)["lake_water_balance"]
+    a, kw = _strained_balance(a, kw, strain)
+    ref = lake_water_balance_plain(*a, **kw)
+    if strain == "as_captured":
+        assert bool(kw["lane_mask"].any()) and bool(
+            (ref.recharge_m3 > 0).any())
     before = kernels.launches["lake_water_balance"]
     got = kernels.lake_water_balance(*a, **kw)
-    ref = lake_water_balance_plain(*a, **kw)
     torch.cuda.synchronize()
     assert kernels.launches["lake_water_balance"] == before + 1
-    assert bool(kw["lane_mask"].any()) and bool((got.recharge_m3 > 0).any())
     for field in ref._fields:
         assert _equal_nan(getattr(got, field), getattr(ref, field)), field
 
@@ -1291,17 +1354,21 @@ def test_snowpack_brent_kernel_with_coverage_matches_plain(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("config", ["frozen", "frozen_exp"])
+@pytest.mark.parametrize("nnode", [3, 5, 10, 18, 50])
 @pytest.mark.parametrize("noflux", [False, True])
-def test_implicit_profile_kernel_matches_plain(cuda, config, noflux):
-    """K16 on K6's arguments in the third record of the frozen (5 nodes,
-    the exact lane) and frozen_exp (10 EXP_TRANS nodes, the rolled lane)
-    steps, NOFLUX both ways: temperatures within 1e-4 C, equal fallback
-    counts."""
+def test_implicit_profile_kernel_matches_plain(cuda, nnode, noflux):
+    """K16 on K6's arguments in the third record of the frozen step (5
+    linear nodes) and of frozen_exp's configuration at 3, 10 (its own), 18
+    and 50 EXP_TRANS nodes, NOFLUX both ways: the instances that hold 3, 5
+    and 10 nodes in registers and the rolled lane on node-major scratch;
+    temperatures within 1e-4 C, equal fallback counts."""
     from vic_tpu_torch.physics.frozen_soil import \
         solve_t_profile_implicit_plain
-    a, kw = _captured_args(cuda, names=("node_sweep",), config=config,
-                           record=2)["node_sweep"]
+    build_nodes = (None if nnode == 5 else
+                   _node_solve_build("exp_trans", nnode))
+    a, kw = _captured_args(cuda, names=("node_sweep",), config="frozen",
+                           record=2, build=build_nodes)["node_sweep"]
+    assert a[0].shape[-1] == nnode
     args = dict(dt_sec=kw["dt_sec"], noflux=noflux, frozen=kw["frozen"])
     before = kernels.launches["implicit_profile"]
     got = kernels.implicit_profile(*a, **args)

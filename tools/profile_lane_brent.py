@@ -92,20 +92,25 @@ def resident_threads(registers, block):
 
 
 def ptxas_registers(log):
-    """{mangled kernel name: (registers, spill store bytes)} from nvcc's
-    -Xptxas -v output."""
+    """{mangled kernel name: (registers, spill store bytes, stack frame
+    bytes)} from nvcc's -Xptxas -v output."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
             continue
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name:
-            out[name] = (out.get(name, (0, 0))[0], int(m.group(1)))
+        if not name:
+            continue
+        regs, spill, frame = out.get(name, (0, 0, 0))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m:
+            frame, spill = int(m.group(1)), int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out[name] = (int(m.group(1)), out.get(name, (0, 0))[1])
+        if m:
+            regs = int(m.group(1))
+        out[name] = (regs, spill, frame)
     return out
 
 

@@ -13,9 +13,10 @@
 //   taken by shuffle (the same bits as forming them again);
 // - sums over the layers add in index order from the first term, each
 //   lane's term broadcast in turn (no tree);
-// - the Thomas elimination and substitution keep csrc/thomas.cuh's
-//   recurrences and true divisions: each lane writes its layer's row to the
-//   warp's shared memory and lane 0 runs the recurrences over the rows;
+// - the Thomas elimination and substitution keep the plain version's
+//   recurrences (ops/tridiag.py) and true divisions: each lane writes its
+//   layer's row to the warp's shared memory and lane 0 runs the recurrences
+//   over the rows;
 // - integer powers are products, a tensor divided by a host scalar is the
 //   product with its float reciprocal (div_s) and a host scalar divided by
 //   a tensor the tensor's reciprocal times the scalar (rdiv_s), as PyTorch
@@ -155,7 +156,8 @@ struct Rows {
 // included, solve() the column for one surface force, of which only the
 // first row's right-hand side depends. The same values as temp_area's, in
 // its order: each lane forms its layer's row, and the Thomas recurrences
-// (thomas.cuh's, with true divisions) run on lane 0 over the warp's Rows.
+// (ops/tridiag.py's, with true divisions) run on lane 0 over the warp's
+// Rows.
 struct TempArea {
   Rows* rows;
   float temp;              // the lane's layer at the start
@@ -224,7 +226,8 @@ struct TempArea {
           l.mask ? t + t1 * dt / heat_cap + cn * dt : t, b_sup);
     __syncwarp();
     if (l.k == 0) {
-      // the elimination (thomas_factor), each row read a step ahead
+      // the elimination (each row's pivot and c'), each row read a step
+      // ahead
       float cp_prev = 0.0f;
       float4 cur = r->row[0];
 #pragma unroll
@@ -247,7 +250,7 @@ struct TempArea {
       const float t1 = t1_0 + sf * s_top0 / s_avg0;
       const float b0 =
           mask0 ? temp0 + t1 * dt / heat_cap0 + cn0 * dt : temp0;
-      // forward and back substitution (thomas_apply), each row read a
+      // forward and back substitution (d', then x), each row read a
       // step ahead
       float dp_prev = 0.0f;
       float4 cur = r->row[0];

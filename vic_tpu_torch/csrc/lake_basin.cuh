@@ -33,7 +33,10 @@
 // The per-lake tables (21 depths, 21 areas, 20 full-layer sums: 248 B a
 // lake) live in shared memory, element k of the block's thread t at
 // [k][t], so the searches' indexed loads hit consecutive banks; registers
-// cannot be indexed by a run-time index.
+// cannot be indexed by a run-time index. K13 solves with depth(); the
+// water balance, which solves a lake's depth up to 41 times, with solve(),
+// whose steps, once the bracket's ends are at most one level apart, take
+// the levels from one comparison and the trapezoid from registers (Span).
 #pragma once
 
 #include "physics.cuh"
@@ -171,6 +174,132 @@ struct Basin {
       (high ? at_hi : at_lo) = lv;
     }
     return 0.5f * (lo + hi);
+  }
+
+  // What area(d, lv) and volume(d, lv) read where the bracket's ends'
+  // levels differ by at most one in each index, held in registers. A
+  // midpoint's levels then follow from one comparison each, as the
+  // searches between the ends' levels find them (first_below over a range
+  // of one level), and its volume is the same operations on these values,
+  // without a search or a load. The bracket only narrows, so the span
+  // holds for the rest of the solve.
+  struct Span {
+    // the area's trapezoid j - 1 at each end's j: z(j-1), z(j), b(j), its
+    // width and b(j-1) - b(j)
+    struct Area {
+      int j;
+      float za, zb, ba, den, dba;
+    };
+    // the full layers' sum and the partial trapezoid k0 - 1 at each end's
+    // k0: full(k0), z(k0), z(k0-1), b(k0)
+    struct Layers {
+      int k0;
+      float fullv, zk, zp, bk;
+    };
+    Area a_lo, a_hi;
+    Layers l_lo, l_hi;
+    float z_j, z_k;   // z(j) and z(k0) of the deeper end: the tests
+    float z0, b0;     // the top level
+
+    __device__ Levels levels(float d) const {
+      return Levels{a_hi.j < a_lo.j && z_j >= d ? a_lo.j : a_hi.j,
+                    l_hi.k0 < l_lo.k0 && z_k > d ? l_lo.k0 : l_hi.k0};
+    }
+    // volume(d, lv) at the levels of d, each end's value picked by value
+    // (a reference to either would put both in local memory)
+    __device__ float volume(float d) const {
+      const Levels lv = levels(d);
+      const bool j_lo = lv.j == a_lo.j, k_lo = lv.k0 == l_lo.k0;
+      const float za = j_lo ? a_lo.za : a_hi.za;
+      const float zb = j_lo ? a_lo.zb : a_hi.zb;
+      const float ba = j_lo ? a_lo.ba : a_hi.ba;
+      const float den = j_lo ? a_lo.den : a_hi.den;
+      const float dba = j_lo ? a_lo.dba : a_hi.dba;
+      float a = 0.0f;
+      if (lv.j < kLevels && d <= za && d > zb) a = ba + (d - zb) / den * dba;
+      a = d >= z0 ? b0 : a;
+      const float a_surf = d <= 0.0f ? 0.0f : a;
+      const float fullv = k_lo ? l_lo.fullv : l_hi.fullv;
+      const float zk = k_lo ? l_lo.zk : l_hi.zk;
+      const float zp = k_lo ? l_lo.zp : l_hi.zp;
+      const float bk = k_lo ? l_lo.bk : l_hi.bk;
+      const float full_v = lv.k0 < kLayers && d >= zk ? fullv : 0.0f;
+      float part = 0.0f;
+      if (lv.k0 > 0 && d > zk && d < zp)
+        part = nan_max(d - zk, 0.0f) * (a_surf + bk) / 2.0f;
+      return full_v + part;
+    }
+  };
+  __device__ typename Span::Area span_area(int j) const {
+    typename Span::Area t{j};
+    if (j < kLevels) {
+      t.za = z(j - 1);
+      t.zb = z(j);
+      t.ba = b(j);
+      t.den = nan_max(t.za - t.zb, 1e-10f);
+      t.dba = b(j - 1) - t.ba;
+    }
+    return t;
+  }
+  __device__ typename Span::Layers span_layers(int k0) const {
+    typename Span::Layers l{k0};
+    if (k0 < kLayers) l.fullv = full(k0);
+    l.zk = z(k0);
+    if (k0 > 0) {
+      l.zp = z(k0 - 1);
+      l.bk = b(k0);
+    }
+    return l;
+  }
+  // the Span of a bracket whose ends have the levels lo and hi (hi the
+  // deeper end's)
+  __device__ Span span(Levels lo, Levels hi) const {
+    return Span{span_area(lo.j), span_area(hi.j), span_layers(lo.k0),
+                span_layers(hi.k0), z(hi.j < kLevels ? hi.j : 0), z(hi.k0),
+                z(0), b(0)};
+  }
+
+  // a solved depth and its levels
+  struct Solved {
+    float d;
+    Levels lv;
+  };
+
+  // depth()'s bits, with the levels of the depth (for area(d, lv)); once
+  // the bracket's ends' levels differ by at most one, each step's test is
+  // the Span's
+  __device__ Solved solve(float vol, float maxdepth) const {
+    if (vol <= 0.0f) return Solved{0.0f, Levels{kLevels, kLayers}};
+    float lo = 0.0f, hi = maxdepth * 1.0f;
+    const bool track = hi >= lo;
+    Levels at_lo{}, at_hi{};
+    if (track) {
+      at_lo = levels(lo);
+      at_hi = levels(hi);
+    }
+    Span sp{};
+    bool in_span = false;
+    for (int it = 0; it < kDepthIters; ++it) {
+      if (!in_span && track && at_lo.j - at_hi.j <= 1 &&
+          at_lo.k0 - at_hi.k0 <= 1) {
+        sp = span(at_lo, at_hi);
+        in_span = true;
+      }
+      const float mid = 0.5f * (lo + hi);
+      bool high;
+      if (in_span) {
+        high = sp.volume(mid) > vol;
+      } else {
+        const Levels lv = track ? levels(mid, at_lo, at_hi) : levels(mid);
+        high = volume(mid, lv) > vol;
+        (high ? at_hi : at_lo) = lv;
+      }
+      lo = high ? lo : mid;
+      hi = high ? mid : hi;
+    }
+    const float d = 0.5f * (lo + hi);
+    return Solved{d, in_span ? sp.levels(d)
+                             : (track ? levels(d, at_lo, at_hi) : levels(d))};
   }
 };
 

@@ -24,8 +24,16 @@
 // `2.0 * math.pi`, `dt_sec` and `1.6` multiply as the floats PyTorch
 // rounds them to; torch.pow on a tensor exponent and on 1.5 is powf.
 //
-// Bound by latency: up to 41 depth solves of 30 dependent bisection steps
-// per lake; ~0.7 KB read and written per lake.
+// Bound by latency, not by work: up to 41 depth solves of 30 dependent
+// bisection steps per lake (~24 of a changed volume on the lakes
+// configuration), one after another as the volume carries from lane to
+// lane; ~0.7 KB read and written per lake. So the time is the longest
+// lake's chain, whatever the lake count, and a solve's steps, once its
+// bracket's ends are at most one level apart (after a few steps; the whole
+// solve for a lake near a level), take the levels from one comparison each
+// and the trapezoid from registers (lake_basin.cuh's Basin::solve), with
+// no search and no shared load. A solve also returns its depth's levels,
+// so the area at that depth needs no search either.
 //
 // C interface for ctypes (lanes.cuh): the lane table of the float inputs
 // (kernels.LAKE_BALANCE_INPUTS: per lake, the basin's 21 levels, per
@@ -90,18 +98,23 @@ __global__ void __launch_bounds__(kBlock, 2)
       table, threadIdx.x, [&](int k) { return lane_fl(in, kZ, row, k); },
       [&](int k) { return lane_fl(in, kBasin, row, k); });
   const float maxdepth = f(kMaxDepth);
-  // the last depth solved and its volume (a liquid volume is >= 0 or NaN,
-  // and a NaN is solved anew): the balance often asks again for the depth
-  // of a volume no flux has changed
-  float memo_v = -1.0f, memo_d = 0.0f;
-  auto depth = [&](float v) {
+  // the last depth solved, with its levels, and its volume (a liquid
+  // volume is >= 0 or NaN, and a NaN is solved anew): the balance often
+  // asks again for the depth of a volume no flux has changed
+  float memo_v = -1.0f;
+  lakebasin::Basin<kBlock>::Solved memo{};
+  auto solve = [&](float v) {
     if (!(v == memo_v)) {
       memo_v = v;
-      memo_d = bs.depth(v, maxdepth);
+      memo = bs.solve(v, maxdepth);
     }
-    return memo_d;
+    return memo;
   };
-  auto area_of = [&](float v) { return bs.area(depth(v)); };
+  auto depth = [&](float v) { return solve(v).d; };
+  auto area_of = [&](float v) {
+    const auto s = solve(v);
+    return bs.area(s.d, s.lv);
+  };
 
   const float basin0 = bs.b(0);
   const float basin0_1 = nan_max(basin0, 1.0f);
@@ -245,9 +258,10 @@ __global__ void __launch_bounds__(kBlock, 2)
   }
 
   const float liquid5 = nan_max(volume - iwe, 0.0f);
-  float ldepth5 = depth(liquid5);
-  ldepth5 = ldepth5 <= kSmall ? 0.0f : ldepth5;
-  const float sarea_end = nan_max(bs.area(ldepth5), new_ice_area);
+  const auto solved5 = solve(liquid5);
+  const float ldepth5 = solved5.d <= kSmall ? 0.0f : solved5.d;
+  const float sarea_end =
+      nan_max(bs.area(ldepth5, solved5.lv), new_ice_area);
 
   // closure telemetry: every pass after the first re-adds the same gains
   const float extra_gains = nan_max(gains_total - gains, 0.0f);

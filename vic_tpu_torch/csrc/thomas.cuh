@@ -1,54 +1,33 @@
-// Per-thread tridiagonal (Thomas) solve over N nodes.
+// Per-thread tridiagonal (Thomas) solve, one row at a time.
 //
 // Replaces vic_tpu/ops/tridiag.py:16 (thomas_solve, two lax.scans over the
-// node axis of the whole batch) inside K16 (implicit_profile.cu; the lake
-// column kernels run the same recurrences on a warp, lake.cuh): one thread
-// runs its column's forward elimination and back substitution in its own
-// arrays, in the order of operations of the scans and of the plain version
-// vic_tpu_torch/ops/tridiag.py. The elimination's coefficients (m, c') do
-// not depend on the right-hand side, so a column whose matrix is fixed
-// across a fixed-point iteration eliminates once (thomas_factor) and solves
-// each right-hand side with thomas_apply. The node count is N, or n <= N
-// nodes of an N-node array where a caller's count is known only at run time
-// (the implicit soil-heat solve's rolled lane).
+// node axis of the whole batch) inside K16 (implicit_profile.cu): one
+// thread runs its column's forward elimination and back substitution, in
+// the order of operations of the scans and of the plain version
+// vic_tpu_torch/ops/tridiag.py. K16's matrix changes with every right-hand
+// side, so each row's elimination and forward substitution run together as
+// the row is formed (thomas_eliminate), then the back substitution from the
+// last row up (thomas_substitute), two values kept a row. The lake column
+// kernels (lake.cuh) run the same recurrences on a warp's lane 0.
 #pragma once
 
-template <int N>
-struct ThomasFactor {
-  float m[N];    // pivot d_i - dl_i * c'_{i-1}
-  float cp[N];   // c'_i = du_i / m_i
-  float dl[N];
+// row i's step of the forward elimination and forward substitution
+// together (the pivot m_i = d_i - dl_i c'_{i-1}, c'_i = du_i / m_i and
+// d'_i = (b_i - dl_i d'_{i-1}) / m_i), from row i - 1's {c', d'} ({0, 0}
+// before row 0)
+struct ThomasRow {
+  float cp, dp;
 };
 
-template <int N>
-__device__ __forceinline__ void thomas_factor(const float* dl, const float* d,
-                                              const float* du,
-                                              ThomasFactor<N>* f,
-                                              int n = N) {
-  float cp_prev = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    const float m = d[i] - dl[i] * cp_prev;
-    cp_prev = du[i] / m;
-    f->m[i] = m;
-    f->cp[i] = cp_prev;
-    f->dl[i] = dl[i];
-  }
+__device__ __forceinline__ ThomasRow thomas_eliminate(float dl, float d,
+                                                      float du, float b,
+                                                      ThomasRow prev) {
+  const float m = d - dl * prev.cp;
+  return ThomasRow{du / m, (b - dl * prev.dp) / m};
 }
 
-// x = the solution for right-hand side b (x may alias b)
-template <int N>
-__device__ __forceinline__ void thomas_apply(const ThomasFactor<N>& f,
-                                             const float* b, float* x,
-                                             int n = N) {
-  float dp[N];
-  float dp_prev = 0.0f;
-  for (int i = 0; i < n; ++i) {
-    dp_prev = (b[i] - f.dl[i] * dp_prev) / f.m[i];
-    dp[i] = dp_prev;
-  }
-  float x_next = 0.0f;
-  for (int i = n - 1; i >= 0; --i) {
-    x_next = dp[i] - f.cp[i] * x_next;
-    x[i] = x_next;
-  }
+// x_i from row i's {c', d'} and x_{i+1} (0 below the last row)
+__device__ __forceinline__ float thomas_substitute(ThomasRow r,
+                                                   float x_next) {
+  return r.dp - r.cp * x_next;
 }

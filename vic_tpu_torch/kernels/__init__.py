@@ -709,13 +709,31 @@ _SWEEP_COEFS = 7
 # K16's [n_cell, nn] geometry, in csrc/implicit_profile.cu's order
 IMPLICIT_GEOMETRY = ("alpha", "beta", "gamma", "e_lin", "max_moist_node",
                      "bubble_term_node", "power_node")
+# K16's node-major scratch, one buffer a (device, stream), grown to the
+# largest call's and reused: the calls on one stream run one after another
+_IMPLICIT_SCRATCH = {}
+
+
+def _implicit_scratch(nn, n, device, stream):
+    """K16's scratch for n lanes of nn nodes: the rows the library asks
+    for (csrc/implicit_profile.cu implicit_profile_scratch_rows; none where
+    the node count runs in registers) times nn times n floats, or None."""
+    floats = build.load().implicit_profile_scratch_rows(nn) * nn * n
+    if not floats:
+        return None
+    buf = _IMPLICIT_SCRATCH.get((device, stream))
+    if buf is None or buf.numel() < floats:
+        buf = torch.empty(floats, dtype=torch.float32, device=device)
+        _IMPLICIT_SCRATCH[(device, stream)] = buf
+    return buf
 
 
 def implicit_profile(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
                      fs_active, *, dt_sec, noflux, frozen, max_nr=12,
                      relax=None):
     """K16: the IMPLICIT soil-heat solve of every lane (Newton-Raphson with
-    a Thomas solve per step), one thread per lane, at 3 to 50 nodes. Same
+    a Thomas solve per step), one thread per lane, at 3 to 50 nodes (3, 5
+    and 10 in registers, any other on node-major scratch). Same
     arguments and result as
     physics.frozen_soil.solve_t_profile_implicit_plain."""
     from ..physics.frozen_soil import ProfileResult
@@ -741,11 +759,13 @@ def implicit_profile(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
     n = c * h
     if n:
         stream = torch.cuda.current_stream(device).cuda_stream
+        work = _implicit_scratch(nn, n, device, stream)
         err = build.load().implicit_profile(
             _ptrs(lane), _ptrs(geo), surf.data_ptr(), fs.data_ptr(), n, h,
             nn, int(bool(frozen)), int(bool(noflux)), int(max_nr),
             int(relax is not None), float(relax or 0.0), float(dt_sec),
-            float(2.0 * dt_sec), temp.data_ptr(), fbcount.data_ptr(), stream)
+            float(2.0 * dt_sec), temp.data_ptr(), fbcount.data_ptr(), stream,
+            None if work is None else work.data_ptr())
         _check_launch(name, err)
     return ProfileResult(temp=temp, fbcount=fbcount, iterations=int(max_nr))
 

@@ -133,8 +133,10 @@ _BISECTION_ARGTYPES = ([ctypes.c_int] + _LANES
                        + [ctypes.c_void_p] * 5)
 _MASS_RELEASE_ARGTYPES = (_FLOATS + [ctypes.c_int] * 3
                           + [ctypes.c_void_p] * 5)
+# K16: the lane, geometry, surface and frozen-soil pointers, the counts
+# and switches, relax and dt's, the outputs, stream, the rolled scratch
 _IMPLICIT_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                      + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3)
+                      + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4)
 
 _lib = None
 
@@ -167,7 +169,9 @@ def load():
                                 _LAKE_BALANCE_ARGTYPES),
                                ("bisection", _BISECTION_ARGTYPES),
                                ("mass_release", _MASS_RELEASE_ARGTYPES),
-                               ("implicit_profile", _IMPLICIT_ARGTYPES)):
+                               ("implicit_profile", _IMPLICIT_ARGTYPES),
+                               ("implicit_profile_scratch_rows",
+                                [ctypes.c_int])):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
