@@ -37,10 +37,16 @@ line) on failure:
    second record, where packs cover part of their lanes (SPATIAL_SNOW's
    advected sensible heat in K2), and the three loops no step calls: K15
    mass_release on the light step's canopy snow and melt storage (and on
-   seeded storage that releases), K16 implicit_profile on K6's arguments of
+   seeded storage that releases), which must take its vector path, and
+   again on its table path (the canopy snow a view offset by one float,
+   the storage broadcast from [n_cell, 1]), K16 implicit_profile on K6's
+   arguments of
    the frozen (5 nodes) and frozen_exp (10 EXP_TRANS nodes) steps and of
    frozen_exp's configuration at 3, 18 and 50 nodes, NOFLUX both ways, and
-   K17 bisection on K2's and K1's arguments of the light step, 40 steps.
+   K17 bisection on K2's and K1's arguments of the light step, 40 steps;
+   K15's, K16's and K17's rows also print their kernel's device ms
+   (device_ms: CUDA events behind a spin of the device, the median of
+   five calls) beside the wrapper's ms.
    Each row's kernel is re-run on those arguments beside its
    plain PyTorch version on the card, compared, timed with CUDA events and
    given its bound (the least time the card could take for the same
@@ -155,6 +161,7 @@ import importlib
 import importlib.util
 import json
 import os
+import statistics
 import subprocess
 import tempfile
 import time
@@ -1733,6 +1740,33 @@ def device_events(fn, calls=3):
     return max(n["device_events"] for n in numbers.values())
 
 
+# device cycles spun before each call device_ms times (~2 ms on an H100),
+# far longer than a wrapper's host time
+DEVICE_SPIN_CYCLES = 4_000_000
+
+
+def device_ms(fn, calls=5):
+    """The device's milliseconds in one call of fn, the wrapper's host time
+    left out: CUDA events around the call, recorded behind a spin of the
+    device (torch.cuda._sleep) long enough that the host has enqueued the
+    call before the device reaches it; the median of `calls` calls. (Late
+    in this process torch.profiler, which device_events reads, has recorded
+    no device event at all: PERF.md.)"""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(DEVICE_SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def kernels_phase(device, regs=None):
     """regs: ptxas' {kernel: (registers, spill bytes, stack frame bytes)}
     (build_phase)."""
@@ -2066,17 +2100,50 @@ def check_loop_kernel(row, name, captured, label):
         err = max(err, compare_loop(f"{row} (seeded storage)", name,
                                     kern_fn(args[0], storage),
                                     plain_fn(args[0], storage)))
+        err = max(err, check_mass_release_table(row, args, storage))
     ms = cuda_ms(lambda: kern_fn(*args, **kwargs), reps=20)
     plain_ms = cuda_ms(lambda: plain_fn(*args, **kwargs), reps=3)
     work = loop_work(name, args, kwargs, kern)
     bound_ms, bound_by = bound(*work)
-    print(f"  {row}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms, "
+    dev_ms = device_ms(lambda: kern_fn(*args, **kwargs))
+    print(f"  {row}: kernel {ms:.4f} ms (wrapper included), device "
+          f"{dev_ms:.4f} ms, plain torch {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms by {bound_by} ({work[0]} bytes, "
           f"{work[1]:.4g} FP32 operations)")
     return dict(name=row, route="cuda", source=CSRC + source,
                 replaces=replaces, launches=None, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None)
+
+
+def check_mass_release_table(row, args, storage):
+    """K15's two paths on the card: the light step's canopy snow and melt
+    storage must take the vector path (both lane-contiguous and 16-byte
+    aligned), and the same canopy snow as a view offset by one float with
+    the seeded storage of the cell's first HRU broadcast over its HRUs
+    ([n_cell, 1]) the table path, held against the plain version and timed;
+    returns the largest difference."""
+    from vic_tpu_torch import kernels
+    from vic_tpu_torch.physics.canopy_snow import mass_release_plain
+    int_snow, tstore = args
+    if kernels.mass_release_route(int_snow, tstore) != "vector":
+        raise AssertionError(f"{row}: the step's canopy lanes did not take "
+                             "K15's vector path")
+    buf = torch.empty(int_snow.numel() + 1, device=int_snow.device)
+    buf[1:] = int_snow.reshape(-1)
+    offset = buf[1:].view(int_snow.shape)
+    cell = storage[:, :1]
+    label = f"{row} (table path: offset canopy snow, [n_cell, 1] storage)"
+    if kernels.mass_release_route(offset, cell) != "table":
+        raise AssertionError(f"{label}: did not take K15's table path")
+    err = compare_loop(label, "mass_release",
+                       kernels.mass_release(offset, cell),
+                       mass_release_plain(offset, cell))
+    ms = cuda_ms(lambda: kernels.mass_release(offset, cell), reps=20)
+    dev_ms = device_ms(lambda: kernels.mass_release(offset, cell))
+    print(f"  {label}: kernel {ms:.4f} ms (wrapper included), device "
+          f"{dev_ms:.4f} ms")
+    return err
 
 
 def node_count_build(nnode):

@@ -1248,7 +1248,8 @@ def test_snowpack_residual_fields_are_the_kernels_inputs():
     """csrc/pack_residuals.cuh's SnowpackResidual reads dt, then
     kernels.SNOWPACK_INPUTS in that order (SPATIAL_SNOW's coverage last)
     and its flag, and the launchers of K2 and K17 expect as many float
-    inputs and masks; GlacierResidual reads GLACIER_INPUTS."""
+    inputs and masks, lo and hi after the residual's inputs; GlacierResidual
+    reads GLACIER_INPUTS, and K17's glacier lane as many."""
     src = (build.CSRC / "pack_residuals.cuh").read_text()
     body = re.search(r"struct SnowpackResidual \{\s*float([^;]*);\s*bool "
                      r"(\w+);", src)
@@ -1266,11 +1267,21 @@ def test_snowpack_residual_fields_are_the_kernels_inputs():
     # lo and hi follow the residual's inputs in K2's lane table
     assert (int(lane.group(1)), int(launch.group(1))) == \
         (len(kernels.SNOWPACK_INPUTS), 1 + len(kernels.SNOWPACK_FLAGS))
+    # K17: one lane type a residual on csrc/lane_brent.cuh's driver, its
+    # table the residual's inputs, then lo and hi, and its masks
     k17 = (build.CSRC / "bisection.cu").read_text()
-    counts = re.search(r"nf, snow \? (\d+) : (\d+),\s*nm, "
-                       r"snow \? (\d+) : (\d+)", k17)
-    assert tuple(int(g) for g in counts.groups()) == (
-        len(kernels.SNOWPACK_INPUTS), len(kernels.GLACIER_INPUTS), 2, 1)
+    lanes = {m.group(1): (int(m.group(2)), int(m.group(3))) for m in
+             re.finditer(r"struct (\w+) : (?:SnowpackResidual|"
+                         r"GlacierResidual) \{\s*static constexpr int "
+                         r"kNumIn = (\d+), kNumMasks = (\d+);", k17)}
+    assert lanes == {
+        "SnowBisectLane": (len(kernels.SNOWPACK_INPUTS),
+                           1 + len(kernels.SNOWPACK_FLAGS)),
+        "GlacierBisectLane": (len(kernels.GLACIER_INPUTS), 1)}
+    assert re.search(r"fill_lane_inputs\(&in, lanes, nf, Lane::kNumIn \+ 2, "
+                     r"nm,\s*Lane::kNumMasks, h\)", k17)
+    assert re.search(r"static constexpr int kLo = kNumIn, kHi = kNumIn \+ 1, "
+                     r"kActive = 0;", k17)
 
 
 def test_implicit_geometry_is_the_kernels_rows():
@@ -1333,6 +1344,128 @@ def test_bisection_kernel_matches_plain(cuda, residual, config, record):
     assert torch.equal(got.bracketed, ref.bracketed)
     assert bool(got.bracketed.any())
     assert float((got.root - ref.root).abs().max()) <= 1e-5
+
+
+def _bisection_strain(a, kw, case):
+    """A captured K1 or K2 call rebuilt for K17 under strain: every 37th
+    lane active ("sparse"), none ("none_active"), every lane with NaN air
+    on every fifth and a NaN lo on one ("nan"), or the first 37 cells, a
+    lane count that is not a multiple of 128 ("partial_tile"). Returns
+    (lo, hi, active, dt, the residual's inputs)."""
+    lo, hi, active = a
+    shape = torch.broadcast_shapes(lo.shape, hi.shape, active.shape)
+    inputs = {k: v for k, v in kw.items()
+              if k not in ("dt", "max_iter", "max_tries")}
+    if case == "partial_tile":
+        n = shape[0]
+
+        def cut(x):
+            return x[:37] if torch.is_tensor(x) and x.dim() and \
+                x.shape[0] == n else x
+        lo, hi, active = cut(lo), cut(hi), cut(active)
+        inputs = {k: cut(v) for k, v in inputs.items()}
+    elif case == "nan":
+        active = torch.ones(shape, dtype=torch.bool, device=lo.device)
+        tair = inputs["tair"].expand(shape).clone()
+        tair.view(-1)[::5] = float("nan")
+        inputs["tair"] = tair
+        lo = lo.expand(shape).clone()
+        lo.view(-1)[3] = float("nan")
+    else:
+        active = torch.zeros(shape, dtype=torch.bool, device=lo.device)
+        if case == "sparse":
+            active.view(-1)[::37] = True
+    return lo, hi, active, kw["dt"], inputs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["sparse", "none_active", "nan",
+                                  "partial_tile"])
+@pytest.mark.parametrize("residual", ["snowpack", "glacier"])
+def test_bisection_kernel_under_strain(cuda, residual, case):
+    """K17 on csrc/lane_brent.cuh's compacted lanes against the plain
+    version on K2's and K1's arguments of the light step, 40 steps, where
+    the active lanes are sparse or absent, residuals are NaN or the last
+    128-lane tile is partial: equal flags, iterations n_iter on the active
+    lanes and 0 elsewhere, NaN roots where the plain version's are, the
+    other roots within 1e-5."""
+    from vic_tpu_torch.physics.bisection import bisection_plain
+    name = {"snowpack": "snowpack_brent", "glacier": "glacier_brent"}[
+        residual]
+    a, kw = _captured_args(cuda, names=(name,))[name]
+    lo, hi, active, dt, inputs = _bisection_strain(a, kw, case)
+    if case == "partial_tile":
+        assert active.expand(lo.shape).numel() % 128
+    before = kernels.launches["bisection"]
+    got = kernels.bisection(residual, lo, hi, active, 40, dt=dt, **inputs)
+    ref = bisection_plain(residual, lo, hi, active, 40, dt=dt, **inputs)
+    torch.cuda.synchronize()
+    assert kernels.launches["bisection"] == before + 1
+    assert torch.equal(got.bracketed, ref.bracketed)
+    assert torch.equal(got.converged, ref.converged)
+    act = active.expand(got.root.shape)
+    assert torch.equal(got.iterations, torch.where(act, 40, 0).int())
+    nan = ref.root.isnan()
+    assert torch.equal(got.root.isnan(), nan)
+    assert bool(((got.root - ref.root).abs() <= 1e-5)[~nan].all())
+    if case == "nan":
+        assert bool(nan.any())
+    if case == "none_active":
+        assert not bool(got.bracketed.any())
+        assert torch.equal(got.root, ref.root)
+
+
+def _mass_release_case(case, device, n_cell=64, h=8):
+    """K15's inputs for `case`, seeded: both lane-contiguous and aligned
+    ("contiguous"); canopy snow a view offset by one float ("offset");
+    canopy snow broadcast from [n_cell, 1] ("broadcast"); 13 x 7 lanes, not
+    a multiple of 4 ("odd_count"); NaN and +/-inf in both ("nan_inf")."""
+    rng = np.random.default_rng(5)
+    if case == "odd_count":
+        n_cell, h = 13, 7
+    snow = rng.uniform(0.0, 0.03, (n_cell, h)).astype(np.float32)
+    storage = (snow * rng.uniform(0.0, 0.3, (n_cell, h))).astype(np.float32)
+    if case == "nan_inf":
+        snow.reshape(-1)[::7] = np.nan
+        snow.reshape(-1)[3::11] = np.inf
+        snow.reshape(-1)[5::13] = -np.inf
+        storage.reshape(-1)[2::9] = np.nan
+        storage.reshape(-1)[4::17] = np.inf
+    snow_t = torch.tensor(snow, device=device)
+    storage_t = torch.tensor(storage, device=device)
+    if case == "offset":
+        buf = torch.empty(snow.size + 1, device=device)
+        buf[1:] = snow_t.reshape(-1)
+        snow_t = buf[1:].view(n_cell, h)
+    if case == "broadcast":
+        snow_t = snow_t[:, :1]
+    return snow_t, storage_t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,route", [
+    ("contiguous", "vector"), ("offset", "table"), ("broadcast", "table"),
+    ("odd_count", "vector"), ("nan_inf", "vector")])
+def test_mass_release_kernel_paths(cuda, case, route):
+    """K15's vector path (lane-contiguous, 16-byte aligned inputs, four
+    lanes a thread, a scalar tail) and table path (a view offset by one
+    float, a broadcast input) against the plain version at 1e-5, NaN and
+    inf where its are; the four outputs are rows of one allocation."""
+    from vic_tpu_torch.physics.canopy_snow import mass_release_plain
+    snow, storage = _mass_release_case(case, cuda)
+    assert kernels.mass_release_route(snow, storage) == route
+    before = kernels.launches["mass_release"]
+    got = kernels.mass_release(snow, storage)
+    ref = mass_release_plain(snow, storage)
+    torch.cuda.synchronize()
+    assert kernels.launches["mass_release"] == before + 1
+    assert len({g.untyped_storage().data_ptr() for g in got}) == 1
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    if case == "nan_inf":
+        assert bool(ref[0].isnan().any()) and bool(ref[0].isinf().any())
 
 
 @pytest.mark.gpu

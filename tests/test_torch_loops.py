@@ -3,10 +3,12 @@ vic_tpu on CPU.
 
 - `canopy_snow.mass_release` (vic_tpu canopy_snow.py:126, 8 rounds) at
   rtol = atol = 1e-5;
+  (NaN and inf lanes too);
 - `ops.rootfind.batched_bisection` (vic_tpu ops/rootfind.py:210) on the
-  x - k residual of tests/test_ops.py and on the snowpack residual (with
-  and without SPATIAL_SNOW's advected sensible heat) through
-  `physics.bisection.bisection_plain`, roots at 1e-5, flags equal;
+  x - k residual of tests/test_ops.py and on the snowpack (with and
+  without SPATIAL_SNOW's advected sensible heat) and bare-glacier
+  residuals through `physics.bisection.bisection_plain`, roots at 1e-5,
+  flags equal;
 - `frozen_soil.solve_t_profile_implicit` (vic_tpu frozen_soil.py:601) at
   5 and 8 nodes, linear and EXP_TRANS spacing, NOFLUX on and off, frozen
   soil on and off, at 1e-4 C with equal fallback counts; the wrapped
@@ -32,6 +34,8 @@ from vic_tpu.physics.frozen_soil import \
     distribute_node_moisture as j_distribute_node_moisture
 from vic_tpu.physics.frozen_soil import \
     solve_t_profile_implicit as j_implicit
+from vic_tpu.physics.glacier import \
+    glacier_energy_terms as j_glacier_energy_terms
 from vic_tpu.physics.snow import snow_energy_terms as j_snow_energy_terms
 from vic_tpu.prepare import prepare_domain as j_prepare_domain
 from vic_tpu.testing import synthetic_domain as j_synthetic_domain
@@ -73,6 +77,34 @@ def test_mass_release_matches_vic_tpu():
                                    atol=ELEMENTWISE_TOL, err_msg=name)
     released, drip = got[2].numpy(), got[3].numpy()
     assert (released > 0).any() and (drip > 0).any()
+
+
+@pytest.mark.parametrize("case", ["nan_snow", "nan_storage", "inf_snow",
+                                  "inf_storage"])
+def test_mass_release_matches_vic_tpu_on_nan_and_inf_lanes(case):
+    """NaN or +/-inf canopy snow or melt storage on some lanes: NaN and inf
+    where vic_tpu's are (jnp.minimum/maximum propagate NaN, as the port's
+    clamps do), the other lanes at 1e-5."""
+    rng = np.random.default_rng(12)
+    shape = (6, 5)
+    int_snow = rng.uniform(0.0, 0.03, shape).astype(np.float32)
+    storage = (int_snow * rng.uniform(0.0, 0.3, shape)).astype(np.float32)
+    what, which = case.split("_")
+    x = int_snow if which == "snow" else storage
+    if what == "nan":
+        x.reshape(-1)[::4] = np.nan
+    else:
+        x.reshape(-1)[::4] = np.inf
+        x.reshape(-1)[2::7] = -np.inf
+    ref = j_mass_release(jnp.asarray(int_snow), jnp.asarray(storage))
+    got = mass_release(t(int_snow), t(storage))
+    for name, a, b in zip(("int_snow", "temp_int_storage", "released",
+                           "drip"), ref, got):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a),
+                                   rtol=ELEMENTWISE_TOL,
+                                   atol=ELEMENTWISE_TOL, err_msg=name)
+    bad = ~np.isfinite(np.stack([b.numpy() for b in got]))
+    assert bad.any() and np.isfinite(got[0].numpy()).any()
 
 
 def test_bisection_matches_vic_tpu_on_a_callable():
@@ -141,6 +173,52 @@ def test_bisection_matches_vic_tpu_on_the_snowpack_residual(spatial):
     assert torch.equal(masked.root[1:], got.root[1:])
     assert float(masked.root[0]) == 0.5 * (lo[0] + hi[0])
     assert not bool(masked.bracketed[0])
+
+
+def _glacier_inputs(n, seed=6):
+    """Plausible bare-glacier residual inputs on n lanes (numpy float32):
+    cold to mild air over ice 0.5-30 m thick."""
+    rng = np.random.default_rng(seed)
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, n).astype(np.float32)
+    tair = u(-25.0, 4.0)
+    return dict(
+        ra=u(40.0, 200.0), z_ref=u(2.0, 10.0), roughness=u(1e-4, 1e-2),
+        air_dens=u(1.1, 1.35), vp_air=u(100.0, 600.0),
+        longwave_in=u(150.0, 320.0), lv=(2.501e6 - 2361.0 * tair),
+        pressure=u(70000.0, 95000.0), rain_m=u(0.0, 0.002),
+        net_short=u(0.0, 250.0), vpd=u(0.0, 400.0), wind=u(0.0, 8.0),
+        old_tsurf=u(-15.0, 0.0), ice_depth_mm=u(500.0, 30000.0), tair=tair)
+
+
+def test_bisection_matches_vic_tpu_on_the_glacier_residual():
+    """bisection_plain("glacier") against vic_tpu's batched_bisection on
+    glacier_energy_terms(...).rest, 40 steps: equal flags, roots at 1e-5;
+    an inactive lane returns the midpoint unbracketed."""
+    n = 12
+    kw = _glacier_inputs(n)
+    dt = 86400.0
+    lo, hi = np.full(n, -60.0, np.float32), np.full(n, 5.0, np.float32)
+    jkw = {k: jnp.asarray(v) for k, v in kw.items()}
+    ref = j_bisection(
+        lambda x: j_glacier_energy_terms(x, dt=dt, **jkw).rest,
+        jnp.asarray(lo), jnp.asarray(hi), n_iter=40)
+    tkw = {k: t(v) for k, v in kw.items()}
+    got = bisection_plain("glacier", t(lo), t(hi), None, 40, dt=dt, **tkw)
+    np.testing.assert_array_equal(got.converged.numpy(),
+                                  np.asarray(ref.converged))
+    np.testing.assert_array_equal(got.bracketed.numpy(),
+                                  np.asarray(ref.bracketed))
+    assert bool(got.bracketed.any())
+    np.testing.assert_allclose(got.root.numpy(), np.asarray(ref.root),
+                               rtol=ELEMENTWISE_TOL, atol=ELEMENTWISE_TOL)
+    active = torch.ones(n, dtype=torch.bool)
+    active[1] = False
+    masked = bisection("glacier", t(lo), t(hi), active, 40, dt=dt, **tkw)
+    assert torch.equal(masked.root[2:], got.root[2:])
+    assert float(masked.root[1]) == 0.5 * (lo[1] + hi[1])
+    assert not bool(masked.bracketed[1])
 
 
 def _implicit_inputs(nnode, exp_trans, frozen, seed=3, n_cell=3, n_hru=2):

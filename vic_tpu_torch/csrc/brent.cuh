@@ -6,8 +6,8 @@
 // batched_brent) and of its plain PyTorch copy in
 // vic_tpu_torch/ops/rootfind.py, for ONE lane, cut at each residual
 // evaluation (K1, K2, K3, K5, K12, K14; K7 keeps its own copy inside its
-// cooperative launch). K17's bisection (bisection.cuh) writes the same
-// outputs.
+// cooperative launch). K17's bisection (BisectionLane, on the same lane
+// driver) writes the same outputs.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -4,7 +4,10 @@
 // compacted and dealt to the threads of persistent blocks. BrentLane below
 // is the port's only Brent (K7 keeps its own inside its cooperative
 // launch); the one-thread-a-lane Brent it was cut from is gone,
-// K12 having been its last user.
+// K12 having been its last user. The solve a lane runs is the driver's
+// Stepper, BrentLane unless named: K17 (bisection) runs BisectionLane, the
+// fixed-count bisection, whose lanes lane_queue_kernel deals from one
+// queue for the whole grid (below).
 //
 // Each lane runs the expand-then-Brent of vic_tpu/ops/rootfind.py:43-207
 // (expand_brackets + batched_brent) step for step on the same floats, so a
@@ -218,6 +221,79 @@ struct BrentLane {
   }
 };
 
+// The fixed-count bisection of one lane (K17), cut at each residual
+// evaluation like BrentLane, with its interface (start, x, next, phase ==
+// kDone, out): vic_tpu/ops/rootfind.py:210-234 (batched_bisection) and its
+// plain copy in vic_tpu_torch/ops/rootfind.py for ONE lane. f(lo), then
+// f(hi), bracketed = f(lo) * f(hi) < 0; then max_iter halvings that keep
+// the left half where f(lo) * f(mid) <= 0 (f(mid) == 0 shrinks hi onto the
+// root); the root is the midpoint of the final bracket, converged =
+// bracketed, iterations = max_iter, and a lane runs every halving whether
+// it brackets or not. An inactive lane gets the midpoint of [lo, hi], not
+// converged, not bracketed, 0 iterations. The floats are formed by the same
+// expressions in the same order as the retired one-thread loop formed
+// them. max_tries is not read. Every active lane takes max_iter + 2
+// evaluations, so it runs on lane_queue_kernel below.
+struct BisectionLane {
+  static constexpr bool kFixedCount = true;   // lane_queue_kernel's stepper
+  float x;                          // where the residual is wanted next
+  float lo, hi, f_lo;
+  int it, n_iter;
+  enum Phase { kAtLo, kAtHi, kHalve, kDone } phase;
+  BrentOut out;
+
+  __device__ __forceinline__ void start(float lo_, float hi_, bool active,
+                                        int max_iter, int) {
+    lo = lo_;
+    hi = hi_;
+    n_iter = max_iter;
+    out = BrentOut{0.5f * (lo + hi), false, false, 0};
+    if (!active) {
+      phase = kDone;
+      return;
+    }
+    phase = kAtLo;
+    x = lo;
+  }
+
+  __device__ __forceinline__ void next(float v) {
+    if (phase == kAtLo) {
+      f_lo = v;
+      phase = kAtHi;
+      x = hi;
+      return;
+    }
+    if (phase == kAtHi) {
+      out.bracketed = f_lo * v < 0.0f;
+      it = 0;
+      halve();
+      return;
+    }
+    // kHalve: v is the residual at the midpoint x
+    if (f_lo * v <= 0.0f) {
+      hi = x;
+    } else {
+      lo = x;
+      f_lo = v;
+    }
+    ++it;
+    halve();
+  }
+
+  // the next midpoint, or the root once the n_iter halvings are done
+  __device__ __forceinline__ void halve() {
+    if (it < n_iter) {
+      x = 0.5f * (lo + hi);
+      phase = kHalve;
+      return;
+    }
+    out.root = 0.5f * (lo + hi);
+    out.converged = out.bracketed;
+    out.iterations = n_iter;
+    phase = kDone;
+  }
+};
+
 // A warp takes new lanes only when kRefillAt of its threads are idle (or
 // all are): a thread that takes a lane first forms its Ts-independent terms,
 // and the warp's other threads wait through that, so lanes are taken
@@ -262,10 +338,12 @@ struct HasBracket<Lane, std::void_t<decltype(&Lane::bracket)>>
 //   __device__ void init(const LaneInputs&, LaneRow, const Params&);
 //   __device__ float operator()(float) const;
 // and, optionally, the hooks above; Params are its launch-wide arguments
-// (dt, switches, the hooks' outputs). Each block walks its chunk
-// [blockIdx.x * chunk, ...) of the n lanes as the header says; every
-// thread stays in the loop until its warp is done, for the warp votes.
-template <class Lane, class Params>
+// (dt, switches, the hooks' outputs); Stepper is the solve (BrentLane or
+// BisectionLane; max_iter and max_tries go to its start()). Each block
+// walks its chunk [blockIdx.x * chunk, ...) of the n lanes as the header
+// says; every thread stays in the loop until its warp is done, for the
+// warp votes.
+template <class Lane, class Params, class Stepper = BrentLane>
 __global__ void __launch_bounds__(kLaneBlock, Lane::kMinBlocks)
     lane_brent_kernel(const __grid_constant__ LaneInputs in,
                       const Params params, int max_iter, int max_tries,
@@ -279,7 +357,7 @@ __global__ void __launch_bounds__(kLaneBlock, Lane::kMinBlocks)
   if (threadIdx.x == 0) next_lane = first;
   __syncthreads();
   Lane f;
-  BrentLane s;
+  Stepper s;
   int i = -1;                       // the lane this thread solves
   int done = -1;                    // a solved lane whose epilogue waits
   bool more = true;                 // the chunk may hold lanes not taken
@@ -317,7 +395,7 @@ __global__ void __launch_bounds__(kLaneBlock, Lane::kMinBlocks)
           hi = lane_f(in, Lane::kHi, row);
         }
         s.start(lo, hi, active, max_iter, max_tries);
-        if (s.phase == BrentLane::kDone) {
+        if (s.phase == Stepper::kDone) {
           if constexpr (kEpilogue) f.epilogue(in, row, k, s.out, params);
           store(out, k, s.out);
           continue;
@@ -338,7 +416,7 @@ __global__ void __launch_bounds__(kLaneBlock, Lane::kMinBlocks)
     }
     if (i >= 0) {
       s.next(f(s.x));
-      if (s.phase == BrentLane::kDone) {
+      if (s.phase == Stepper::kDone) {
         if constexpr (kEpilogue) {
           done = i;
         } else {
@@ -350,14 +428,161 @@ __global__ void __launch_bounds__(kLaneBlock, Lane::kMinBlocks)
   }
 }
 
-// Launches lane_brent_kernel<Lane, Params> on stream: grid of the blocks
-// the device keeps resident, at most one per kLaneBlock lanes (the
-// occupancy query made once a device). Returns kNoResidentBlock where none
-// fits, else the launch's error.
-template <class Lane, class Params>
-int launch_lane_brent(const LaneInputs& in, const Params& params,
+// A stepper whose every active lane takes the same evaluations, at least
+// two, declares kFixedCount (BisectionLane); launch_lane_brent runs it on
+// lane_queue_kernel.
+template <class Stepper, class = void>
+struct FixedCount : std::false_type {};
+template <class Stepper>
+struct FixedCount<Stepper, std::enable_if_t<Stepper::kFixedCount>>
+    : std::true_type {};
+
+// The i-th (from 0) set bit of mask, which holds more than i.
+__device__ __forceinline__ int nth_set_bit(unsigned mask, int i) {
+  for (; i > 0; --i) mask &= mask - 1u;
+  return __ffs(mask) - 1;
+}
+
+// The driver of a fixed-count stepper. Its lanes all take the same
+// evaluations, so nothing is gained by refilling a warp lane by lane, and
+// what costs is a block whose chunk holds more active lanes than its
+// threads: lane_brent_kernel's contiguous chunks put 216 of K17's 91,928
+// snowpack lanes in the densest of light's 660 chunks, and its block ran
+// a second round (PERF.md). Here every warp takes 32-lane tiles
+// from one queue for the whole grid (queue[0], the first lane of the next
+// tile, one atomicAdd a tile), writes the outputs of the tile's inactive
+// lanes at once, deals its active lanes to the warp's idle threads in
+// order, and takes the next tile while threads are idle and tiles are
+// left; then its threads solve their lanes together, from start to kDone
+// with no vote between evaluations, and the warp deals again. So active
+// lanes fill whole warps and the grid runs ceil(active lanes / resident
+// threads) rounds. What bounds a round is each lane's chain of dependent
+// evaluations: spreading the lanes thinner over more warps, or claiming
+// four tiles at a time, was slower (PERF.md). The last block to
+// finish sets queue[0] and its ticket queue[1] back to 0 for the next
+// launch. A lane type here has no hooks.
+template <class Lane, class Params, class Stepper>
+__global__ void __launch_bounds__(kLaneBlock, Lane::kMinBlocks)
+    lane_queue_kernel(const __grid_constant__ LaneInputs in,
+                      const Params params, int max_iter, int max_tries,
+                      int n, int* queue, BrentOutputs out) {
+  static_assert(!HasPrologue<Lane>::value && !HasEpilogue<Lane>::value &&
+                    !HasBracket<Lane>::value,
+                "lane_queue_kernel runs lane types without hooks");
+  constexpr unsigned kAll = 0xffffffffu;
+  const unsigned me = threadIdx.x % 32u;
+  const unsigned below = (1u << me) - 1u;   // the warp's lanes below mine
+  int base = 0;          // the warp's tile [base, base + 32)
+  unsigned pending = 0;  // its active lanes not dealt yet
+  bool more = true;      // tiles may be left
+  while (true) {
+    int k = -1;                     // the lane this thread solves
+    unsigned idle = kAll;
+    while (idle && more) {
+      if (!pending) {
+        int first = 0;
+        if (me == 0) first = atomicAdd(queue, 32);
+        base = __shfl_sync(kAll, first, 0);
+        if (base >= n) {
+          more = false;
+          break;
+        }
+        const int j = base + static_cast<int>(me);
+        bool active = false;
+        if (j < n) {
+          const LaneRow row = lane_row(in, j);
+          active = lane_m(in, Lane::kActive, row);
+          if (!active) {
+            Stepper s;
+            s.start(lane_f(in, Lane::kLo, row), lane_f(in, Lane::kHi, row),
+                    false, max_iter, max_tries);
+            store(out, j, s.out);
+          }
+        }
+        pending = __ballot_sync(kAll, active);
+      }
+      // the r-th idle thread takes the r-th pending lane
+      const int rank = __popc(idle & below);
+      const bool takes = (idle >> me & 1u) && rank < __popc(pending);
+      if (takes) k = base + nth_set_bit(pending, rank);
+      const unsigned took = __ballot_sync(kAll, takes);
+      for (int d = __popc(took); d > 0; --d) pending &= pending - 1u;
+      idle &= ~took;
+    }
+    if (!__any_sync(kAll, k >= 0)) break;
+    if (k >= 0) {
+      const LaneRow row = lane_row(in, k);
+      Lane f;
+      f.init(in, row, params);
+      Stepper s;
+      s.start(lane_f(in, Lane::kLo, row), lane_f(in, Lane::kHi, row), true,
+              max_iter, max_tries);
+      // an active lane's first two evaluations (f(lo), f(hi)) peeled, so
+      // the loop is the halving step alone (faster: PERF.md)
+      s.next(f(s.x));
+      s.next(f(s.x));
+      while (s.phase != Stepper::kDone) s.next(f(s.x));
+      store(out, k, s.out);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(queue + 1, 1) == static_cast<int>(gridDim.x) - 1) {
+      queue[0] = 0;
+      queue[1] = 0;
+    }
+  }
+}
+
+// Launches lane_queue_kernel<Lane, Params, Stepper> on stream: grid of the
+// blocks the device keeps resident, at most one per kLaneBlock lanes, and
+// the queue's two counters, both made once a device (zeroed on the stream
+// then, and by each launch's last block after), so two launches of one
+// instance on a device must not overlap (one stream). Returns
+// kNoResidentBlock where no block fits, else the first CUDA error.
+template <class Lane, class Params, class Stepper>
+int launch_lane_queue(const LaneInputs& in, const Params& params,
                       int max_iter, int max_tries, int n,
                       const BrentOutputs& out, cudaStream_t stream) {
+  constexpr int kMaxDevices = 64;
+  static int resident[kMaxDevices];   // blocks resident a device, 0: unknown
+  static int* queue[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, lane_queue_kernel<Lane, Params, Stepper>, kLaneBlock, 0);
+    if (err == cudaSuccess && per_sm >= 1 && queue[dev] == nullptr) {
+      err = cudaMalloc(&queue[dev], 2 * sizeof(int));
+      if (err == cudaSuccess)
+        err = cudaMemsetAsync(queue[dev], 0, 2 * sizeof(int), stream);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return kNoResidentBlock;
+    resident[dev] = per_sm * sms;
+  }
+  const int needed = (n + kLaneBlock - 1) / kLaneBlock;
+  const int blocks = resident[dev] < needed ? resident[dev] : needed;
+  lane_queue_kernel<Lane, Params, Stepper><<<blocks, kLaneBlock, 0, stream>>>(
+      in, params, max_iter, max_tries, n, queue[dev], out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches lane_brent_kernel<Lane, Params, Stepper> on stream: grid of the
+// blocks the device keeps resident, at most one per kLaneBlock lanes (the
+// occupancy query made once a device). Returns kNoResidentBlock where none
+// fits, else the launch's error.
+template <class Lane, class Params, class Stepper>
+int launch_lane_chunks(const LaneInputs& in, const Params& params,
+                       int max_iter, int max_tries, int n,
+                       const BrentOutputs& out, cudaStream_t stream) {
   constexpr int kMaxDevices = 64;
   static int resident[kMaxDevices];   // blocks resident on a device, 0: unknown
   int dev = 0;
@@ -370,7 +595,7 @@ int launch_lane_brent(const LaneInputs& in, const Params& params,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, lane_brent_kernel<Lane, Params>, kLaneBlock, 0);
+          &per_sm, lane_brent_kernel<Lane, Params, Stepper>, kLaneBlock, 0);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (per_sm < 1) return kNoResidentBlock;
     resident[dev] = per_sm * sms;
@@ -378,9 +603,23 @@ int launch_lane_brent(const LaneInputs& in, const Params& params,
   const int needed = (n + kLaneBlock - 1) / kLaneBlock;
   const int blocks = resident[dev] < needed ? resident[dev] : needed;
   const int chunk = (n + blocks - 1) / blocks;
-  lane_brent_kernel<Lane, Params><<<blocks, kLaneBlock, 0, stream>>>(
+  lane_brent_kernel<Lane, Params, Stepper><<<blocks, kLaneBlock, 0, stream>>>(
       in, params, max_iter, max_tries, n, chunk, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the lanes of Lane on stream with Stepper's solve: on
+// lane_queue_kernel for a fixed-count Stepper, else on lane_brent_kernel.
+template <class Lane, class Params, class Stepper = BrentLane>
+int launch_lane_brent(const LaneInputs& in, const Params& params,
+                      int max_iter, int max_tries, int n,
+                      const BrentOutputs& out, cudaStream_t stream) {
+  if constexpr (FixedCount<Stepper>::value)
+    return launch_lane_queue<Lane, Params, Stepper>(
+        in, params, max_iter, max_tries, n, out, stream);
+  else
+    return launch_lane_chunks<Lane, Params, Stepper>(
+        in, params, max_iter, max_tries, n, out, stream);
 }
 
 }  // namespace vicbrent

@@ -162,7 +162,7 @@ def _root_outputs(shape, device):
 
 
 # csrc/lane_brent.cuh's refusal where no block of a lane kernel (K1, K2,
-# K3, K5, K12, K14) fits on an SM
+# K3, K5, K12, K14, K17) fits on an SM
 _NO_RESIDENT_BLOCK = -3
 
 
@@ -175,32 +175,24 @@ def _check_lane_brent(name, err):
     _check_launch(name, err)
 
 
-def _brent_call(name, float_names, flag_names, lo, hi, active, inputs,
-                bounds_in_table=False):
-    """The lanes of a root finder (K1-K3, K17): returns (what the
-    call must keep alive; the C arguments: the lane table of the float
-    inputs and the masks (active first), their counts, the lanes per cell
-    and, unless bounds_in_table, lo and hi as contiguous copies; the lanes'
-    shape). With bounds_in_table (csrc/lane_brent.cuh's kernels) lo and hi
-    are the table's last two float inputs, read where they lie."""
+def _brent_call(name, float_names, flag_names, lo, hi, active, inputs):
+    """The lanes of a root finder on csrc/lane_brent.cuh's driver (K1-K3,
+    K17): returns (the lane table, which the call must keep alive; the C
+    arguments: the table of the float inputs, lo and hi last, and the masks
+    (active first), their counts, the lanes per cell; the lanes' shape).
+    Every input is read where it lies."""
     device = lo.device
     if device.type != "cuda":
         raise ValueError(f"{name}: CUDA tensors required, got {device}")
     _check_names(name, inputs, tuple(float_names) + tuple(flag_names))
     shape = torch.broadcast_shapes(lo.shape, hi.shape, active.shape)
     floats = [(k, inputs[k], 0) for k in float_names]
+    floats += [("lo", lo, 0), ("hi", hi, 0)]
     masks = [("active", active, 0)] + [(k, inputs[k], 0)
                                        for k in flag_names]
-    if bounds_in_table:
-        floats += [("lo", lo, 0), ("hi", hi, 0)]
-        keep = bounds = ()
-    else:
-        keep = (_lanes(lo, shape, device, torch.float32, "lo"),
-                _lanes(hi, shape, device, torch.float32, "hi"))
-        bounds = tuple(t.data_ptr() for t in keep)
     table = _lane_inputs(floats, masks, shape, device)
-    args = (table.ctypes.data, len(floats), len(masks), shape[-1], *bounds)
-    return (table, keep), args, shape
+    args = (table.ctypes.data, len(floats), len(masks), shape[-1])
+    return table, args, shape
 
 
 def _out_ptrs(outs):
@@ -229,7 +221,7 @@ def glacier_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
     if active is None:
         active = _const(device, torch.bool, True)
     _keep, args, shape = _brent_call(name, GLACIER_INPUTS, (), lo, hi,
-                                     active, inputs, bounds_in_table=True)
+                                     active, inputs)
     nt = len(GlacierEBTerms._fields)
     outs, floats, flags = _lane_outputs(
         shape, device, floats=nt + len(GLACIER_OUTPUTS),
@@ -281,7 +273,7 @@ def snowpack_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
         active = _const(device, torch.bool, True)
     _keep, args, shape = _brent_call(
         name, SNOWPACK_INPUTS, SNOWPACK_FLAGS, lo, hi, active,
-        _snowpack_inputs(inputs, device), bounds_in_table=True)
+        _snowpack_inputs(inputs, device))
     nt = len(SnowEBTerms._fields)
     outs, terms, flags = _lane_outputs(shape, device, floats=2 * nt,
                                        flags=1)
@@ -305,7 +297,7 @@ def canopy_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
     Same arguments and result as physics.canopy_snow.canopy_brent_plain."""
     name = "canopy_brent"
     _keep, args, shape = _brent_call(name, CANOPY_INPUTS, CANOPY_FLAGS, lo,
-                                     hi, active, inputs, bounds_in_table=True)
+                                     hi, active, inputs)
     outs = _root_outputs(shape, lo.device)
     n = outs.root.numel()
     if n:
@@ -325,8 +317,10 @@ BISECTION_RESIDUALS = {"snowpack": (0, SNOWPACK_INPUTS, SNOWPACK_FLAGS),
 def bisection(residual, lo, hi, active, n_iter=40, *, dt, **inputs):
     """K17: vic_tpu's fixed-count bisection (ops/rootfind.py:210) on one of
     the residuals the library compiles, "snowpack" (K2's, SPATIAL_SNOW's
-    term where snow_cover_fract is given) or "glacier" (K1's), one thread
-    per lane. Same arguments and result as
+    term where snow_cover_fract is given) or "glacier" (K1's), the active
+    lanes packed into whole warps of persistent blocks from one queue for
+    the grid (csrc/lane_brent.cuh's lane_queue_kernel with the
+    BisectionLane stepper). Same arguments and result as
     physics.bisection.bisection_plain (iterations per lane: n_iter, 0 on
     inactive lanes)."""
     name = "bisection"
@@ -344,34 +338,56 @@ def bisection(residual, lo, hi, active, n_iter=40, *, dt, **inputs):
         stream = torch.cuda.current_stream(lo.device).cuda_stream
         err = build.load().bisection(code, *args, float(dt), int(n_iter), n,
                                      *_out_ptrs(outs), stream)
-        _check_launch(name, err)
+        _check_lane_brent(name, err)
     return outs
 
 
-def mass_release(int_snow, temp_int_storage, n_iter=8):
-    """K15: vic_tpu's 8-round canopy snow release (canopy_snow.py:126), one
-    thread per lane. Same arguments and result as
-    physics.canopy_snow.mass_release_plain: (int_snow, temp_int_storage,
-    released, drip), each of the inputs' broadcast shape."""
+def _mass_release_lanes(int_snow, temp_int_storage):
+    """K15's lanes: (their shape, the lane table of its two inputs)."""
     name = "mass_release"
     device = int_snow.device
     if device.type != "cuda":
         raise ValueError(f"{name}: CUDA tensors required, got {device}")
     shape = torch.broadcast_shapes(int_snow.shape, temp_int_storage.shape)
-    f32 = torch.float32
     table = _lane_inputs([("int_snow", int_snow, 0),
                           ("temp_int_storage", temp_int_storage, 0)], [],
                          shape, device)
-    outs = tuple(torch.empty(shape, dtype=f32, device=device)
-                 for _ in range(4))
-    n = outs[0].numel()
+    return shape, table
+
+
+def mass_release(int_snow, temp_int_storage, n_iter=8):
+    """K15: vic_tpu's 8-round canopy snow release (canopy_snow.py:126):
+    four lanes a thread with float4 loads and stores where both inputs are
+    lane-contiguous and 16-byte aligned, else one lane a thread through the
+    lane table (`mass_release_route`). Same arguments and result as
+    physics.canopy_snow.mass_release_plain: (int_snow, temp_int_storage,
+    released, drip), each of the inputs' broadcast shape, the four rows of
+    one allocation."""
+    name = "mass_release"
+    shape, table = _mass_release_lanes(int_snow, temp_int_storage)
+    n = math.prod(shape)
+    ld = -(-n // 4) * 4          # rows of whole float4s
+    buf = torch.empty((4, ld), dtype=torch.float32, device=int_snow.device)
+    outs = buf[:, :n].view((4,) + tuple(shape)).unbind(0)
     if n:
-        stream = torch.cuda.current_stream(device).cuda_stream
+        stream = torch.cuda.current_stream(int_snow.device).cuda_stream
         err = build.load().mass_release(
-            table.ctypes.data, 2, shape[-1], int(n_iter), n,
-            *_out_ptrs(outs), stream)
+            table.ctypes.data, 2, shape[-1], int(n_iter), n, buf.data_ptr(),
+            ld, stream)
         _check_launch(name, err)
     return outs
+
+
+def mass_release_route(int_snow, temp_int_storage):
+    """The path K15 takes on these inputs: "vector" (both lane-contiguous
+    and 16-byte aligned) or "table"; the kernel library decides, as the
+    launch does."""
+    shape, table = _mass_release_lanes(int_snow, temp_int_storage)
+    path = build.load().mass_release_route(table.ctypes.data, 2, shape[-1],
+                                           math.prod(shape))
+    if path < 0:
+        raise ValueError(f"mass_release: the kernel refuses lanes {shape}")
+    return "vector" if path else "table"
 
 
 # K4's inputs, in csrc/vic_kernels.cu's RunoffIn order: layered, then one

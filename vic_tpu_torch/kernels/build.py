@@ -127,12 +127,16 @@ _LAKE_ICE_ARGTYPES = (_LANES + [ctypes.c_int, ctypes.c_float,
                                  ctypes.c_int] + [ctypes.c_void_p] * 5)
 _LAKE_DEPTH_ARGTYPES = (_FLOATS + [ctypes.c_int] * 2
                         + [ctypes.c_void_p] * 2)
+# K17 on csrc/lane_brent.cuh: the residual, its lane table (lo and hi the
+# last float inputs), lanes per cell, dt, n_iter, lanes; outputs, stream
 _BISECTION_ARGTYPES = ([ctypes.c_int] + _LANES
-                       + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                          ctypes.c_float, ctypes.c_int, ctypes.c_int]
-                       + [ctypes.c_void_p] * 5)
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_int] + [ctypes.c_void_p] * 5)
+# K15: lanes per cell, rounds, lanes; the outputs' rows and row stride,
+# stream
 _MASS_RELEASE_ARGTYPES = (_FLOATS + [ctypes.c_int] * 3
-                          + [ctypes.c_void_p] * 5)
+                          + [ctypes.c_void_p, ctypes.c_int64,
+                             ctypes.c_void_p])
 # K16: the lane, geometry, surface and frozen-soil pointers, the counts
 # and switches, relax and dt's, the outputs, stream, the rolled scratch
 _IMPLICIT_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
@@ -169,6 +173,8 @@ def load():
                                 _LAKE_BALANCE_ARGTYPES),
                                ("bisection", _BISECTION_ARGTYPES),
                                ("mass_release", _MASS_RELEASE_ARGTYPES),
+                               ("mass_release_route",
+                                _FLOATS + [ctypes.c_int] * 2),
                                ("implicit_profile", _IMPLICIT_ARGTYPES),
                                ("implicit_profile_scratch_rows",
                                 [ctypes.c_int])):
