@@ -168,22 +168,28 @@ def test_state_files_match(runs, tmp_path, fmt):
 
 
 def test_refusals_name_what_is_not_ported(tmp_path):
-    """The one refusal left is by name: more than one device where the
-    step stops a loop on a test over the whole batch (CLOSE_ENERGY,
-    QUICK_FLUX off). NETCDF state, output in shards and a split run of the
-    main path run."""
-    from vic_tpu_torch.driver import BATCH_WIDE_STOPS, run_simulation
+    """No refusal of a split run is left: where the step stops a loop on a
+    test over the whole batch (CLOSE_ENERGY, QUICK_FLUX off:
+    driver.batch_wide_stops) the shares vote each such test, and the run
+    split over two devices equals the one-device run (2 records). NETCDF
+    state, output in shards and a split run of the main path run."""
+    from vic_tpu_torch.driver import batch_wide_stops, run_simulation
     from vic_tpu_torch.io.state_io import is_netcdf
     gp = tconfig.parse_global_param_file(write_driver_run(tmp_path, **RUN))
     assert inspect.signature(run_simulation).parameters["device"].default \
         == "cuda"
-    assert "CLOSE_ENERGY" in BATCH_WIDE_STOPS \
-        and "node sweep" in BATCH_WIDE_STOPS
+    assert not batch_wide_stops(gp)
     for flags in (dict(close_energy=True), dict(quick_flux=False)):
-        with pytest.raises(NotImplementedError, match="on 2 devices: "
-                           "CLOSE_ENERGY's pass loop"):
-            run_simulation(gp.replace(**flags), device="cpu",
-                           devices=["cpu", "cpu"])
+        stops = gp.replace(nrecs=2, save_state=False, **flags)
+        assert batch_wide_stops(stops)
+        one, split = (run_simulation(stops, write_output=False,
+                                     progress=False, **kw)
+                      for kw in (dict(device="cpu"),
+                                 dict(devices=["cpu", "cpu"])))
+        for k, v in one.outputs.items():
+            np.testing.assert_allclose(
+                split.outputs[k], v, rtol=1e-5,
+                atol=1e-3 if k.endswith("_ERROR") else 1e-5, err_msg=k)
     res = run_simulation(gp.replace(state_format="NETCDF",
                                     output_format="NETCDF", output_shards=2),
                          devices=["cpu", "cpu"], progress=False)

@@ -134,3 +134,48 @@ def test_state_shards_and_split_run_without_jax(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok True"), proc.stdout
+
+
+SPLIT_STOPS_SCRIPT = """
+import os
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from vic_tpu_torch import driver, entry
+from vic_tpu_torch.testing import synthetic_domain, write_driver_run
+gp = entry.heavy_nolakes_params(1)
+res = driver.run_simulation(
+    gp, domain=synthetic_domain(n_cell=3, n_band=2, with_glacier=True),
+    forcing=entry.heavy_forcing(1, 3), write_output=False, progress=False,
+    devices=["cpu", "cpu"])
+assert all(np.isfinite(v).all() for v in res.outputs.values())
+g = write_driver_run(os.path.join(sys.argv[1], "run"), 3,
+                     start=(1995, 9, 25), n_day=2,
+                     accum_start=(1994, 10, 1))
+open(g, "a").write("CLOSE_ENERGY TRUE\\n")
+split = driver.run_main(["-g", g, "--device", "cpu,cpu"])
+one = driver.run_main(["-g", g, "--device", "cpu"])
+assert split.timeaxis.nrecs == 2
+for k, v in one.outputs.items():
+    assert np.allclose(split.outputs[k], v, rtol=1e-5, atol=1e-3), k
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+loaded = sorted(m for m in sys.modules
+                if m == "vic_tpu" or m.startswith("vic_tpu."))
+assert not loaded, loaded
+assert "vic_tpu_torch.parallel.votes" in sys.modules
+print("ok", len(res.outputs))
+"""
+
+
+def test_split_batch_wide_stops_run_without_jax(tmp_path):
+    """A heavy_nolakes run split over two devices (its node sweeps, Brents
+    and CLOSE_ENERGY passes voted over the shares) and a CLOSE_ENERGY run
+    from reference-format files through `--device cpu,cpu`, equal to its
+    one-device run, load neither jax nor vic_tpu."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", SPLIT_STOPS_SCRIPT,
+                           str(tmp_path)], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok 155"), proc.stdout

@@ -1786,3 +1786,89 @@ def test_card_step_evaluates_no_glacier_terms_or_infiltration_curve(cuda):
     assert counts == dict.fromkeys(counts, 0)
     assert kernels.launches["glacier_brent"] == 1
     assert kernels.launches["runoff_hourly"] == 1
+
+
+def _split_matches_one_launch(name, whole, shares):
+    """K6's or K7's shares (testing.split_kernel_call) against its one
+    launch over the whole batch: every share's sweep (K7: trip, profile
+    solve and sweep) counts the launch's, every lane's outputs its own bit
+    for bit."""
+    if name == "node_sweep":
+        counts = [int(r.iterations) for r in shares]
+        assert counts == [int(whole.iterations)] * len(shares)
+        fields = ("temp", "fbcount")
+    else:
+        counts = [(int(r.iterations), int(r.solves), int(r.sweeps))
+                  for r in shares]
+        assert counts == [(int(whole.iterations), int(whole.solves),
+                           int(whole.sweeps))] * len(shares)
+        fields = ("root", "converged", "bracketed")
+    for f in fields:
+        got, ref = torch.cat([getattr(r, f) for r in shares]), getattr(
+            whole, f)
+        if ref.is_floating_point():
+            assert torch.allclose(got, ref, rtol=0.0, atol=0.0,
+                                  equal_nan=True), f
+        else:
+            assert torch.equal(got, ref), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["node_sweep", "fd_surface_brent"])
+def test_cooperative_kernels_split_into_shares_match_one_launch(cuda, name):
+    """K6 and K7 as two shares of one batch on the one card, each share a
+    cooperative launch on its own stream from its own thread, voting every
+    batch-wide decision with the other (a parallel.votes.ShareGroup):
+    equal to the one launch over the whole batch, counts and lanes, on the
+    frozen step's third record (1,024 cells, so several tiles a grid) and
+    with one lane's old temperatures NaN in the second share."""
+    from vic_tpu_torch.testing import split_kernel_call
+    a, kw = _captured_args(cuda, n_cell=1024, names=(name,),
+                           config="frozen", record=2)[name]
+    for nan in (False, True):
+        t0 = a[0] if name == "node_sweep" else kw["eb_kwargs"]["fd_solve"].t0
+        # a lane three quarters of the way through: the second share's
+        lane = t0.numel() // t0.shape[-1] * 3 // 4
+        if nan and name == "node_sweep":
+            a = (_nan_lane(a[0], lane),) + tuple(a[1:])
+        elif nan:
+            solve = kw["eb_kwargs"]["fd_solve"]
+            kw = dict(kw, eb_kwargs=dict(kw["eb_kwargs"], fd_solve=solve
+                                         ._replace(t0=_nan_lane(t0, lane))))
+        whole = getattr(kernels, name)(*a, **kw)
+        torch.cuda.synchronize()
+        before = kernels.launches[name]
+        shares = split_kernel_call(name, a, kw, [cuda, cuda])
+        assert kernels.launches[name] == before + 2
+        _split_matches_one_launch(name, whole, shares)
+
+
+@pytest.mark.gpu
+def test_share_group_raises_when_a_share_never_launches(cuda):
+    """A group of two whose second share never launches: the first
+    share's K6 gives up at the group's time limit and its call raises,
+    naming the share, the vote and the share it waited for; the group is
+    aborted, and the card runs on. (A group without devices: its shares
+    do not meet before a launch, Member.launch_table, which a lone share
+    on a shared card would wait at.)"""
+    import time
+
+    from vic_tpu_torch.parallel.votes import ShareGroup
+    from vic_tpu_torch.testing import cell_share
+    a, kw = _captured_args(cuda, names=("node_sweep",), config="frozen",
+                           record=2)["node_sweep"]
+    a0, kw0 = cell_share((a, kw), 0, 32, 64)
+    group = ShareGroup(2, timeout_s=2.0)
+    try:
+        t0 = time.perf_counter()
+        with pytest.raises(RuntimeError, match="node_sweep: share 0 of 2, "
+                           "device vote 1: timed out after 2.0 s waiting "
+                           "for share 1"):
+            kernels.node_sweep(*a0, **dict(kw0, votes=group.member(0)))
+        assert time.perf_counter() - t0 < 30.0
+        assert group.error is not None
+    finally:
+        group.close()
+    got = kernels.node_sweep(*a, **kw)
+    ref = solve_t_profile_explicit_plain(*a, **kw)
+    assert int(got.iterations) == ref.iterations

@@ -3,8 +3,10 @@
 here three CPU devices: light (a glacier tile, 2 bands, a glacier
 mass-balance fit inside the run) against vic_tpu's run over a 3-device
 mesh of conftest's virtual CPU devices, lakes against the port's own
-one-device run, and the refusal of the configurations whose step stops a
-loop on a test over the whole batch.
+one-device run, and the configurations whose step stops a loop on a test
+over the whole batch (frozen, blowing_close, heavy_nolakes: the shares
+vote each such test, vic_tpu_torch/parallel/votes.py) against the port's
+one-device run, heavy_nolakes also against vic_tpu's mesh run.
 
 The gate is tests/test_sharding_driver.py's: every output at rtol = atol =
 1e-5 (1e-3 on the OUT_*_ERROR residuals), |OUT_WATER_ERROR| <= 1e-2, every
@@ -16,7 +18,10 @@ run already differs from vic_tpu's one-device run by up to 2.1 times the
 1e-5 gate (9.7e-5 W/m^2 in one element of OUT_NET_LONG_BAND, a surface
 temperature root that differs within the Brent tolerance), as much as the
 split run differs from the mesh run, while the split itself moves no
-leaf by more than a hundredth of the gate.
+leaf by more than a hundredth of the gate. Against vic_tpu's heavy_nolakes
+mesh run the split run is held as tests/test_torch_heavy_model.py holds
+the step: at 1e-4 but for the heavy leaves of ROADMAP.md queue 3
+(vic_tpu_torch.testing.heavy_run_failures).
 """
 import dataclasses
 
@@ -60,17 +65,21 @@ GATE = 1e-5
 VS_VIC_TPU = 1e-4       # tests/test_torch_driver.py's TOL
 
 
-def assert_gate(ref_outputs, ref_state, res, tol=GATE):
+def assert_gate(ref_outputs, ref_state, res, tol=GATE, closure=True):
     """`res` (the port's RunResult) against outputs and state fields given
     as numpy arrays, at test_sharding_driver's gate (`tol` in place of its
-    1e-5)."""
+    1e-5). closure=False: with DIST_PRCP the reference's own closure
+    residual on raining glacier lanes exceeds 1e-2 mm (ROADMAP.md queue 3),
+    and OUT_WATER_ERROR is held against the reference cell for cell
+    only."""
     assert sorted(res.outputs) == sorted(ref_outputs)
     for k, a in ref_outputs.items():
         b = res.outputs[k]
         assert b.shape == a.shape, k
         atol = 1e-3 if k.endswith("_ERROR") else tol
         np.testing.assert_allclose(b, a, rtol=tol, atol=atol, err_msg=k)
-    assert np.abs(res.outputs["OUT_WATER_ERROR"]).max() <= 1e-2
+    if closure:
+        assert np.abs(res.outputs["OUT_WATER_ERROR"]).max() <= 1e-2
     for f in dataclasses.fields(res.final_state):
         a = ref_state[f.name]
         b = getattr(res.final_state, f.name)
@@ -157,18 +166,118 @@ def test_split_lakes_matches_one_device():
     assert float(split.final_state.lake_volume.min()) > 0.0
 
 
+# the batch-wide stops' configurations: (records, the forcing's maker)
+STOPS = {"frozen": (2, "synthetic_forcing"),
+         "blowing_close": (3, "blowing_close_forcing"),
+         "heavy_nolakes": (4, "heavy_forcing")}
+
+
+def stops_run(config, n_rec=None, **kw):
+    """`config` (entry.<config>_params, every record one SNOW_STEP) through
+    the port's driver on N_CELL cells of the synthetic domain and the
+    configuration's forcing."""
+    from vic_tpu_torch import entry, testing
+    from vic_tpu_torch.driver import run_simulation
+    n, forcing = STOPS[config]
+    n_rec = n_rec or n
+    gp = getattr(entry, f"{config}_params")(n_rec)
+    gp = gp.replace(snow_step=gp.dt)
+    make = getattr(entry, forcing, None) or getattr(testing, forcing)
+    return run_simulation(
+        gp, domain=testing.synthetic_domain(n_cell=N_CELL, n_band=2,
+                                            with_glacier=True),
+        forcing=make(n_rec, N_CELL, dt_hours=gp.dt), write_output=False,
+        progress=False, **kw)
+
+
+def largest_difference(res, ref_outputs, ref_state):
+    """The largest |difference| of `res` from reference arrays, over every
+    output and float state field."""
+    worst = max(float(np.abs(res.outputs[k] - a).max())
+                for k, a in ref_outputs.items() if a.size)
+    return max([worst] + [
+        float(np.abs(getattr(res.final_state, f).numpy() - a).max())
+        for f, a in ref_state.items() if a.dtype.kind == "f" and a.size])
+
+
+@pytest.fixture(scope="module")
+def heavy_nolakes_runs():
+    """heavy_nolakes (FROZEN_SOIL on 5 nodes, CLOSE_ENERGY, DIST_PRCP,
+    BLOWING) at 7 cells x 4 3-hourly records: the port's one-device run and
+    its split over three devices (the record chunks of one record, so each
+    chunk restarts the share group's votes)."""
+    one = stops_run("heavy_nolakes", device="cpu")
+    split = stops_run("heavy_nolakes", devices=SPLIT, chunk_recs=1)
+    return run_result_arrays(one), split
+
+
 @pytest.mark.parametrize("config", ["heavy_nolakes", "blowing_close",
                                     "frozen"])
-def test_batch_wide_stops_refused_on_several_devices(config):
+def test_batch_wide_stops_split_matches_one_device(config,
+                                                   request):
     """CLOSE_ENERGY (blowing_close, heavy_nolakes) and QUICK_FLUX off
-    (frozen, heavy_nolakes) stop loops on tests over the whole batch:
-    refused by name on two devices, before any work."""
-    from vic_tpu_torch import entry
-    from vic_tpu_torch.driver import run_simulation
-    gp = getattr(entry, f"{config}_params")(2)
-    with pytest.raises(NotImplementedError,
-                       match="CLOSE_ENERGY's pass loop.*node sweep"):
-        run_simulation(gp, devices=["cpu", "cpu"])
+    (frozen, heavy_nolakes) stop loops on tests over the whole batch; split
+    over three devices, each share voting every such test with the others,
+    the run equals the one-device run at the gate (the largest difference
+    printed: CPU ulps, the vector and scalar paths of PyTorch's CPU kernels
+    at the shares' sizes)."""
+    if config == "heavy_nolakes":
+        one, split = request.getfixturevalue("heavy_nolakes_runs")
+    else:
+        one = run_result_arrays(stops_run(config, device="cpu"))
+        split = stops_run(config, devices=SPLIT)
+    print(f"{config}: largest |difference| of the split run from the "
+          f"one-device run {largest_difference(split, *one)}")
+    assert_gate(*one, split, closure=config != "heavy_nolakes")
+
+
+def heavy_nolakes_gp(cfg, n_rec):
+    """entry.heavy_nolakes_params' flags on either package's
+    GlobalParams."""
+    return cfg.GlobalParams(
+        dt=3, snow_step=3, nlayer=3, startyear=1995, startmonth=1,
+        startday=1, nrecs=n_rec, full_energy=True, glacier_id=99,
+        snow_band=2, frozen_soil=True, implicit=True, quick_flux=False,
+        nnode=5, close_energy=True, dist_prcp=True, blowing=True)
+
+
+def test_split_heavy_nolakes_matches_vic_tpu_mesh(heavy_nolakes_runs):
+    """The split heavy_nolakes run against vic_tpu's run of it over a
+    3-device mesh, from the same forcing: every output and state field at
+    1e-4 but the heavy leaves (testing.heavy_run_failures), wherever the
+    port's one-device run holds there. Where that run does not (its own
+    bound against vic_tpu), the split run equals it at the gate
+    (test_batch_wide_stops_split_matches_one_device). Measured at this
+    size: one element each of OUT_SENSIBLE (2.48e-3 W/m^2 on -21.04),
+    OUT_SENSIBLE_BAND (4.96e-3 on -7.70) and OUT_ENERGY_ERROR (3.06e-3 on
+    1.16) in the last record of a cold cell off the thaw edge, in the
+    one-device run and the split alike, the surface temperature 2.5e-5 C
+    apart, inside the Brent's tolerance (ROADMAP.md queue 3)."""
+    from vic_tpu.driver import run_simulation
+    from vic_tpu.testing import synthetic_domain
+    from vic_tpu_torch.entry import heavy_forcing
+    from vic_tpu_torch.testing import heavy_run_failures
+    n_rec = STOPS["heavy_nolakes"][0]
+    ref = run_simulation(
+        heavy_nolakes_gp(jconfig, n_rec), domain=synthetic_domain(
+            n_cell=N_CELL, n_band=2, with_glacier=True),
+        forcing=heavy_forcing(n_rec, N_CELL), write_output=False,
+        progress=False, devices=jax.devices()[:3])
+    outs, state = run_result_arrays(ref)
+    (one_outs, one_state), split = heavy_nolakes_runs
+    got_outs, got_state = run_result_arrays(split)
+    assert sorted(got_outs) == sorted(outs)
+
+    def leaves(o, st):
+        return {**{f"out/{k}": v for k, v in o.items()},
+                **{f"state/{k}": v for k, v in st.items()}}
+    ref = leaves(outs, state)
+    own = heavy_run_failures(ref, leaves(one_outs, one_state), VS_VIC_TPU)
+    failed = heavy_run_failures(ref, leaves(got_outs, got_state),
+                                VS_VIC_TPU)
+    print(f"outside 1e-4 and the heavy leaves: the split run {failed}, the "
+          f"one-device run {own}")
+    assert set(failed) <= set(own), sorted(set(failed) - set(own))
 
 
 def test_shares_split_and_gather():

@@ -25,6 +25,14 @@
 // stages. Lane state lives in global scratch between syncs: the Brent rows
 // [row][lane], the sweep's coefficients and iterate [..][node][lane].
 //
+// With a share group (the lanes one share of a block split across
+// launches, parallel/votes.py) the group instances (G) run: every one of
+// those decisions is also taken over the other shares' lanes (node_sweep.cuh
+// share_any, share_max), so each share's Brent trips, profile solves and
+// sweeps are the whole block's; the grid is the co-resident blocks divided
+// by the shares on this device. The instances without a group compile as
+// they did before share groups.
+//
 // Bound: each sweep streams the lanes' node coefficients and iterate; each
 // residual evaluation reads a lane's ~64 inputs (~300 B; with DIST_PRCP the
 // dry column's ~80 B more) and does one ~150-flop residual (two ET
@@ -40,18 +48,18 @@
 #include "fd_surface_brent.cuh"
 
 // the other instances, each built from its own source
-extern template int vicfd::launch<2, false>(const LaneInputs&,
-                                            const vicfd::SweepArgs&,
-                                            const vicfd::BrentArgs&, int,
-                                            cudaStream_t);
-extern template int vicfd::launch<2, true>(const LaneInputs&,
-                                           const vicfd::SweepArgs&,
-                                           const vicfd::BrentArgs&, int,
-                                           cudaStream_t);
-extern template int vicfd::launch<3, true>(const LaneInputs&,
-                                           const vicfd::SweepArgs&,
-                                           const vicfd::BrentArgs&, int,
-                                           cudaStream_t);
+#define VICFD_EXTERN(NL, DIST, G)                                    \
+  extern template int vicfd::launch<NL, DIST, G>(                    \
+      const LaneInputs&, const vicfd::SweepArgs&, const vicfd::BrentArgs&, \
+      int, cudaStream_t);
+VICFD_EXTERN(2, false, false)
+VICFD_EXTERN(2, true, false)
+VICFD_EXTERN(3, true, false)
+VICFD_EXTERN(3, false, true)
+VICFD_EXTERN(2, false, true)
+VICFD_EXTERN(2, true, true)
+VICFD_EXTERN(3, true, true)
+#undef VICFD_EXTERN
 
 namespace {
 
@@ -72,7 +80,9 @@ extern "C" {
 // float [11][n]; lane_flags: uint8 [3][n]; ctl: int32 [n_ctl] = (2 +
 // 2*max_tries + max_iter) * 2 * max_sweeps sweep slots and max_tries +
 // max_iter + 1 votes; lo/hi/root/converged/bracketed: [n]; trips, solves,
-// sweeps: int32 [1] each; blocks: the grid (0: the co-resident count).
+// sweeps: int32 [1] each; blocks: the grid (0: the co-resident count);
+// group: the share group's table (share_votes.cuh fill_share_votes; null:
+// the lanes are the whole batch).
 int fd_surface_brent(const int64_t* lanes, int nf, int nm,
                      int h, int nl, int dist, float dt, int grnd_flux_type,
                      int frozen, int max_iter, int max_tries,
@@ -85,7 +95,7 @@ int fd_surface_brent(const int64_t* lanes, int nf, int nm,
                      const float* lo, const float* hi, float* root,
                      uint8_t* converged, uint8_t* bracketed, int32_t* trips,
                      int32_t* solves, int32_t* sweeps, int blocks,
-                     void* stream) {
+                     const int64_t* group, void* stream) {
   LaneInputs in{};
   SweepArgs sa{};
   if (n <= 0 || max_iter < 0 || max_tries < 0 ||
@@ -96,7 +106,7 @@ int fd_surface_brent(const int64_t* lanes, int nf, int nm,
                         vicsurf::kNumSurfaceMask + 1, h) ||
       !vicnode::fill_sweep_args(&sa, lane, geom, fs_active, n, h, nn, nlayer,
                                 sweep_frozen, noflux, exp_trans, max_sweeps,
-                                sweep_dt, two_dt, four_dt, work))
+                                sweep_dt, two_dt, four_dt, work, group))
     return static_cast<int>(cudaErrorInvalidValue);
   sa.fb = nullptr;
   BrentArgs b{};
@@ -117,10 +127,19 @@ int fd_surface_brent(const int64_t* lanes, int nf, int nm,
   b.max_iter = max_iter;
   b.max_tries = max_tries;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nl == 2 && dist) return launch<2, true>(in, sa, b, blocks, s);
-  if (nl == 2) return launch<2, false>(in, sa, b, blocks, s);
-  if (nl == 3 && dist) return launch<3, true>(in, sa, b, blocks, s);
-  if (nl == 3) return launch<3, false>(in, sa, b, blocks, s);
+  const bool g = sa.votes.words != nullptr;
+  if (nl == 2 && dist)
+    return g ? launch<2, true, true>(in, sa, b, blocks, s)
+             : launch<2, true, false>(in, sa, b, blocks, s);
+  if (nl == 2)
+    return g ? launch<2, false, true>(in, sa, b, blocks, s)
+             : launch<2, false, false>(in, sa, b, blocks, s);
+  if (nl == 3 && dist)
+    return g ? launch<3, true, true>(in, sa, b, blocks, s)
+             : launch<3, true, false>(in, sa, b, blocks, s);
+  if (nl == 3)
+    return g ? launch<3, false, true>(in, sa, b, blocks, s)
+             : launch<3, false, false>(in, sa, b, blocks, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,7 +1,8 @@
 // K7's kernel, shared by the sources that instantiate it: the entry
-// (fd_surface_brent.cu, with the <3, false> instances) and one source per
-// other (layers, DIST_PRCP) pair, so nvcc builds the eight instances four
-// at a time. See fd_surface_brent.cu for what the kernel does.
+// (fd_surface_brent.cu, with the <3, false, false> instances) and one source
+// per other (layers, DIST_PRCP, share group) triple, so nvcc builds the
+// sixteen instances eight at a time. See fd_surface_brent.cu for what the
+// kernel does.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -175,7 +176,7 @@ __device__ __forceinline__ void finish_brent(const BrentArgs& b, int i) {
   b.root[i] = br ? x : 0.5f * (b.lo[i] + b.hi[i]);
 }
 
-template <int NL, bool DIST, int NN>
+template <int NL, bool DIST, int NN, bool G>
 __global__ void __launch_bounds__(kBlock, vicnode::kMinBlocks)
     fd_brent_kernel(const __grid_constant__ LaneInputs in,
                     const __grid_constant__ SweepArgs sa,
@@ -200,7 +201,7 @@ __global__ void __launch_bounds__(kBlock, vicnode::kMinBlocks)
   // the profile of every lane at its candidate in row x_row, then for each
   // lane that `use` accepts the residual there, handed to `take`
   auto evaluate = [&](int x_row, auto use, auto take) {
-    const int k = vicnode::solve_profile<NN, false>(
+    const int k = vicnode::solve_profile<NN, false, G>(
         sa, [&](int i) { return st(x_row, i); },
         b.ctl + 2 * solves * sa.max_sweeps, grid);
     ++solves;
@@ -227,6 +228,7 @@ __global__ void __launch_bounds__(kBlock, vicnode::kMinBlocks)
                           [&](int i) { need |= expand_lane(in, st, i); });
     vicnode::vote(need, &votes[t]);
     grid.sync();
+    if constexpr (G) vicnode::share_any(sa.votes, &votes[t], grid);
     if (!__ldcg(&votes[t])) break;
     evaluate(kA, needing, to_fa);
     evaluate(kB, needing, to_fb);
@@ -237,6 +239,7 @@ __global__ void __launch_bounds__(kBlock, vicnode::kMinBlocks)
   for_each_lane<kLanes>(st.n, [&](int i) { live |= init_lane(in, st, i); });
   vicnode::vote(live, &votes[b.max_tries]);
   grid.sync();
+  if constexpr (G) vicnode::share_any(sa.votes, &votes[b.max_tries], grid);
   int it = 0;
   while (it < b.max_iter && __ldcg(&votes[b.max_tries + it])) {
     live = false;
@@ -260,6 +263,9 @@ __global__ void __launch_bounds__(kBlock, vicnode::kMinBlocks)
         });
     ++it;
     grid.sync();
+    if constexpr (G)
+      if (it < b.max_iter)
+        vicnode::share_any(sa.votes, &votes[b.max_tries + it], grid);
   }
   for_each_lane<kLanes>(st.n, [&](int i) { finish_brent(b, i); });
   if (vicnode::thread_rank() == 0) {
@@ -269,16 +275,17 @@ __global__ void __launch_bounds__(kBlock, vicnode::kMinBlocks)
   }
 }
 
-template <int NL, bool DIST>
+// the <NL, DIST, G> instances' launch: G with a share group
+template <int NL, bool DIST, bool G>
 int launch(const LaneInputs& in, const SweepArgs& sa, const BrentArgs& b,
            int blocks, cudaStream_t s) {
   if (sa.nn == 5)
-    return vicnode::launch_cooperative(fd_brent_kernel<NL, DIST, 5>, b.st.n,
-                                       vicnode::lanes_of(5), blocks, s, in,
-                                       sa, b);
-  return vicnode::launch_cooperative(fd_brent_kernel<NL, DIST, 0>, b.st.n,
-                                     vicnode::lanes_of(0), blocks, s, in, sa,
-                                     b);
+    return vicnode::launch_cooperative(fd_brent_kernel<NL, DIST, 5, G>,
+                                       b.st.n, vicnode::lanes_of(5), blocks,
+                                       sa.votes.divisor, s, in, sa, b);
+  return vicnode::launch_cooperative(fd_brent_kernel<NL, DIST, 0, G>, b.st.n,
+                                     vicnode::lanes_of(0), blocks,
+                                     sa.votes.divisor, s, in, sa, b);
 }
 
 }  // namespace vicfd

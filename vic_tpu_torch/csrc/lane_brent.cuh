@@ -70,6 +70,7 @@
 
 #include <cfloat>
 #include <cstdint>
+#include <mutex>
 #include <type_traits>
 
 #include "brent.cuh"
@@ -537,17 +538,26 @@ __global__ void __launch_bounds__(kLaneBlock, Lane::kMinBlocks)
 
 // Launches lane_queue_kernel<Lane, Params, Stepper> on stream: grid of the
 // blocks the device keeps resident, at most one per kLaneBlock lanes, and
-// the queue's two counters, both made once a device (zeroed on the stream
-// then, and by each launch's last block after), so two launches of one
-// instance on a device must not overlap (one stream). Returns
-// kNoResidentBlock where no block fits, else the first CUDA error.
+// the queue's two counters, made once a (device, stream) (zeroed on the
+// stream then, and by each launch's last block after): launches on one
+// stream run one after another, and the shares of a split block, each on a
+// stream of its own, never share a queue. Returns kNoResidentBlock where
+// no block fits, else the first CUDA error.
 template <class Lane, class Params, class Stepper>
 int launch_lane_queue(const LaneInputs& in, const Params& params,
                       int max_iter, int max_tries, int n,
                       const BrentOutputs& out, cudaStream_t stream) {
-  constexpr int kMaxDevices = 64;
+  constexpr int kMaxDevices = 64, kMaxQueues = 256;
+  struct Queue {
+    int dev;
+    cudaStream_t stream;
+    int* counters;
+  };
   static int resident[kMaxDevices];   // blocks resident a device, 0: unknown
-  static int* queue[kMaxDevices];
+  static Queue queues[kMaxQueues];
+  static int n_queues = 0;
+  static std::mutex lock;   // the shares launch from threads of their own
+  const std::lock_guard<std::mutex> held(lock);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -559,19 +569,26 @@ int launch_lane_queue(const LaneInputs& in, const Params& params,
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per_sm, lane_queue_kernel<Lane, Params, Stepper>, kLaneBlock, 0);
-    if (err == cudaSuccess && per_sm >= 1 && queue[dev] == nullptr) {
-      err = cudaMalloc(&queue[dev], 2 * sizeof(int));
-      if (err == cudaSuccess)
-        err = cudaMemsetAsync(queue[dev], 0, 2 * sizeof(int), stream);
-    }
     if (err != cudaSuccess) return static_cast<int>(err);
     if (per_sm < 1) return kNoResidentBlock;
     resident[dev] = per_sm * sms;
   }
+  int* counters = nullptr;
+  for (int q = 0; q < n_queues; ++q)
+    if (queues[q].dev == dev && queues[q].stream == stream)
+      counters = queues[q].counters;
+  if (counters == nullptr) {
+    if (n_queues == kMaxQueues) return static_cast<int>(cudaErrorNotSupported);
+    err = cudaMalloc(&counters, 2 * sizeof(int));
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(counters, 0, 2 * sizeof(int), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    queues[n_queues++] = Queue{dev, stream, counters};
+  }
   const int needed = (n + kLaneBlock - 1) / kLaneBlock;
   const int blocks = resident[dev] < needed ? resident[dev] : needed;
   lane_queue_kernel<Lane, Params, Stepper><<<blocks, kLaneBlock, 0, stream>>>(
-      in, params, max_iter, max_tries, n, queue[dev], out);
+      in, params, max_iter, max_tries, n, counters, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -585,6 +602,8 @@ int launch_lane_chunks(const LaneInputs& in, const Params& params,
                        const BrentOutputs& out, cudaStream_t stream) {
   constexpr int kMaxDevices = 64;
   static int resident[kMaxDevices];   // blocks resident on a device, 0: unknown
+  static std::mutex lock;   // the shares launch from threads of their own
+  const std::lock_guard<std::mutex> held(lock);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -15,6 +15,13 @@
 // co-resident block count (at most one block per tile of lanes), each
 // block walking its tiles (node_sweep.cuh for_each_lane).
 //
+// With a share group (the lanes one share of a block split across
+// launches, parallel/votes.py) the group instance (G) runs: each sweep's
+// decision is also taken over the other shares' lanes (node_sweep.cuh
+// share_max), and the grid is the co-resident blocks divided by the shares
+// on this device. The instances without a group compile as they did
+// before share groups.
+//
 // Bound: each sweep streams the lane's 7 node-major coefficient rows and
 // the iterate (read and write) per node, and up to ~28 residual evaluations
 // with a powf and a division each on a frozen node below the soil layers;
@@ -34,7 +41,7 @@ namespace {
 using vicnode::kBlock;
 using vicnode::SweepArgs;
 
-template <int NN>
+template <int NN, bool G>
 __global__ void __launch_bounds__(kBlock, vicnode::kMinBlocks)
     node_sweep_kernel(const __grid_constant__ SweepArgs a,
                       const float* surf_temp, int32_t* ctl,
@@ -47,7 +54,7 @@ __global__ void __launch_bounds__(kBlock, vicnode::kMinBlocks)
        s += vicnode::thread_count())
     ctl[s] = 0;
   grid.sync();
-  const int sweeps = vicnode::solve_profile<NN, true>(
+  const int sweeps = vicnode::solve_profile<NN, true, G>(
       a, [&](int i) { return surf_temp[i]; }, ctl, grid);
   vicnode::for_each_lane<kLanes>(a.n, [&](int i) {
     vicnode::finish_lane<NN, true>(a, i, surf_temp[i], sweeps);
@@ -65,30 +72,33 @@ extern "C" {
 // work: the scratch of enum vicnode::Work (fallback counts included);
 // surf_temp: [n]; ctl: int32 [2 * max_sweeps], zeroed by the kernel;
 // t_out, fb_out: [n, nn]; sweeps: int32 [1]; blocks: the grid (0: the
-// co-resident count).
+// co-resident count); group: the share group's table (share_votes.cuh
+// fill_share_votes; null: the lanes are the whole batch).
 int node_sweep(const void* const* lane, const void* const* geom,
                const uint8_t* fs_active, int nn, int nlayer, int frozen,
                int noflux, int exp_trans, int max_sweeps, float dt,
                float two_dt, float four_dt, const void* const* work,
                const float* surf_temp, int n, int h, int32_t* ctl,
                float* t_out, int32_t* fb_out, int32_t* sweeps, int blocks,
-               void* stream) {
+               const int64_t* group, void* stream) {
   SweepArgs a{};
   if (!vicnode::fill_sweep_args(&a, lane, geom, fs_active, n, h, nn, nlayer,
                                 frozen, noflux, exp_trans, max_sweeps, dt,
-                                two_dt, four_dt, work) ||
+                                two_dt, four_dt, work, group) ||
       a.fb == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   a.t_out = t_out;
   a.fb_out = fb_out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int d = a.votes.divisor;
+  const bool g = a.votes.words != nullptr;
   if (nn == 5)
-    return vicnode::launch_cooperative(node_sweep_kernel<5>, n,
-                                       vicnode::lanes_of(5), blocks, s, a,
-                                       surf_temp, ctl, sweeps);
-  return vicnode::launch_cooperative(node_sweep_kernel<0>, n,
-                                     vicnode::lanes_of(0), blocks, s, a,
-                                     surf_temp, ctl, sweeps);
+    return vicnode::launch_cooperative(
+        g ? node_sweep_kernel<5, true> : node_sweep_kernel<5, false>, n,
+        vicnode::lanes_of(5), blocks, d, s, a, surf_temp, ctl, sweeps);
+  return vicnode::launch_cooperative(
+      g ? node_sweep_kernel<0, true> : node_sweep_kernel<0, false>, n,
+      vicnode::lanes_of(0), blocks, d, s, a, surf_temp, ctl, sweeps);
 }
 
 }  // extern "C"

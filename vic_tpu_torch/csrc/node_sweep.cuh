@@ -20,7 +20,12 @@
 // sweep's slot with an atomicMax on the float's bits (changes are >= 0, so
 // the int order is the float order; NaN goes to a flag of its own),
 // synchronises the grid and reads the slot: every thread takes the same
-// decision, and nothing returns to the host between sweeps.
+// decision, and nothing returns to the host between sweeps. Where the batch
+// is one share of a block split across launches (a share group,
+// share_votes.cuh), the slot's decision is first combined with the other
+// shares' (share_max), so every share sweeps as often as the whole block
+// would on one device: in the kernels' group instances (G), so those
+// without a group compile as they did before share groups.
 //
 // Layout: the lane's coefficients A-D, its old temperatures, ice and
 // moisture are formed once per call (lane_coefficients) into scratch laid
@@ -46,8 +51,10 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 #include "physics.cuh"
+#include "share_votes.cuh"
 
 namespace vicnode {
 
@@ -118,20 +125,24 @@ struct SweepArgs {
   // K6's outputs, [n, nn] (null inside K7)
   float* t_out;
   int32_t* fb_out;
+  // the share group this batch is a share of (words null: none)
+  vicvote::ShareVotes votes;
 };
 
 // Fills `a` from the wrapper's arrays (kernels._sweep_inputs): lane
 // inputs t0, kappa, cs, moist, ice0; geometry alpha, beta, gamma, e_coef,
 // solver_max_moist, solver_bubble, solver_expt, zp1, exp_a, bexp; the
-// scratch of enum Work. False on arguments out of range.
+// scratch of enum Work; the share group's table (null: none). False on
+// arguments out of range.
 inline bool fill_sweep_args(SweepArgs* a, const void* const* lane,
                             const void* const* geom,
                             const uint8_t* fs_active, int n, int h, int nn,
                             int nlayer, int frozen, int noflux,
                             int exp_trans, int max_sweeps, float dt,
                             float two_dt, float four_dt,
-                            const void* const* work) {
+                            const void* const* work, const int64_t* group) {
   if (n <= 0 || h <= 0 || max_sweeps < 0 || nn < 3 || nn > 50) return false;
+  if (!vicvote::fill_share_votes(&a->votes, group)) return false;
   const float* const* l = reinterpret_cast<const float* const*>(lane);
   const float* const* g = reinterpret_cast<const float* const*>(geom);
   a->t0 = l[0];
@@ -549,6 +560,40 @@ __device__ __forceinline__ void fold_block(float v, bool nan,
   }
 }
 
+// The decision of a vote folded into *slot_max / *slot_nan (fold_block)
+// taken over every share of the group: thread 0 of block 0 exchanges it
+// with the other shares' and writes back the largest change (NaN if any
+// share's is), then the grid syncs. Call after the vote's grid sync, on
+// every thread, in a group instance.
+__device__ __forceinline__ void share_max(const vicvote::ShareVotes& v,
+                                          int32_t* slot_max,
+                                          int32_t* slot_nan,
+                                          cg::grid_group& grid) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const uint32_t mine = __ldcg(slot_nan)
+                              ? vicvote::kNanPayload
+                              : static_cast<uint32_t>(__ldcg(slot_max));
+    const uint32_t all = vicvote::exchange(
+        v, mine, vicvote::max_nan, vicvote::kNanPayload);
+    if (all == vicvote::kNanPayload)
+      *slot_nan = 1;
+    else
+      *slot_max = static_cast<int32_t>(all);
+  }
+  grid.sync();
+}
+
+// The vote *flag (vote) taken over every share of the group: true where
+// any share's is; as share_max.
+__device__ __forceinline__ void share_any(const vicvote::ShareVotes& v,
+                                          int32_t* flag,
+                                          cg::grid_group& grid) {
+  if (blockIdx.x == 0 && threadIdx.x == 0)
+    *flag = static_cast<int32_t>(vicvote::exchange(
+        v, __ldcg(flag) != 0 ? 1u : 0u, vicvote::any_of, 0u));
+  grid.sync();
+}
+
 // Every stage of an instance walks the lanes in one order: block b takes
 // the tiles of L * blockDim.x lanes (L = lanes_of(NN)) from the b-th in
 // steps of the grid's, and thread t of a block lanes t, t + blockDim.x, ...
@@ -579,9 +624,10 @@ __device__ __forceinline__ int thread_count() {
 
 // The profile of every lane at the node-0 boundary x_of(lane): sweeps of
 // the whole batch, each followed by a grid sync and the batch-wide decision
-// read from its zeroed slot pair of ctl ([max_sweeps][2]: max bits, NaN).
-// Returns the sweep count, the same on every thread.
-template <int NN, bool FB, class X>
+// read from its zeroed slot pair of ctl ([max_sweeps][2]: max bits, NaN),
+// taken over the share group's batch in a group instance (G). Returns the
+// sweep count, the same on every thread (and every share).
+template <int NN, bool FB, bool G, class X>
 __device__ int solve_profile(const SweepArgs& a, X x_of, int32_t* ctl,
                              cg::grid_group& grid) {
   int k = 0;
@@ -600,6 +646,7 @@ __device__ int solve_profile(const SweepArgs& a, X x_of, int32_t* ctl,
     });
     fold_block(vmax, vnan, &ctl[2 * k], &ctl[2 * k + 1]);
     grid.sync();
+    if constexpr (G) share_max(a.votes, &ctl[2 * k], &ctl[2 * k + 1], grid);
     const bool more = __ldcg(&ctl[2 * k + 1]) == 0 &&
                       __int_as_float(__ldcg(&ctl[2 * k])) > kSweepTol;
     ++k;
@@ -610,7 +657,8 @@ __device__ int solve_profile(const SweepArgs& a, X x_of, int32_t* ctl,
 
 // The blocks of `kernel` co-resident on the current device (0 where it has
 // no cooperative launch), or a negative CUDA error; remembered per kernel
-// and device, as the queries cost host time on every call.
+// and device, as the queries cost host time on every call. The shares of a
+// split block launch from host threads of their own, hence the lock.
 inline int co_resident_blocks(const void* kernel) {
   struct Entry {
     const void* kernel;
@@ -618,6 +666,8 @@ inline int co_resident_blocks(const void* kernel) {
   };
   static Entry cache[32];
   static int used = 0;
+  static std::mutex lock;
+  const std::lock_guard<std::mutex> held(lock);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -static_cast<int>(err);
@@ -643,20 +693,23 @@ struct Same {
 };
 
 // Launches `kernel` cooperatively on kBlock-thread blocks: `blocks` of them,
-// or (blocks <= 0) as many as are co-resident on the device, at most one
-// per tile of kBlock * lanes of the n lanes. Returns kNoCooperativeLaunch or
-// kGridNotCoResident without launching where the device cannot run the
-// grid, else the launch's error. The arguments take the kernel's parameter
-// types.
+// or (blocks <= 0) as many as are co-resident on the device divided by
+// `divisor` (the shares of a group on this device, whose grids must be
+// resident together), at most one per tile of kBlock * lanes of the n
+// lanes. Returns kNoCooperativeLaunch or kGridNotCoResident without
+// launching where the device cannot run the grid, else the launch's error.
+// The arguments take the kernel's parameter types.
 template <class... P>
 int launch_cooperative(void (*kernel)(P...), int n, int lanes, int blocks,
-                       cudaStream_t stream, typename Same<P>::type... args) {
+                       int divisor, cudaStream_t stream,
+                       typename Same<P>::type... args) {
   const int co_resident =
       co_resident_blocks(reinterpret_cast<const void*>(kernel));
   if (co_resident < 0) return -co_resident;
   if (co_resident == 0) return kNoCooperativeLaunch;
   const int needed = (n + kBlock * lanes - 1) / (kBlock * lanes);
-  if (blocks <= 0) blocks = co_resident < needed ? co_resident : needed;
+  const int share = co_resident / divisor;
+  if (blocks <= 0) blocks = share < needed ? share : needed;
   if (blocks < 1 || blocks > co_resident) return kGridNotCoResident;
   void* params[] = {static_cast<void*>(&args)...};
   return static_cast<int>(cudaLaunchCooperativeKernel(

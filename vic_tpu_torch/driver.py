@@ -15,10 +15,14 @@ boundaries, where the fit is taken and the accumulator reset.
 
 With several devices (`devices=[...]`, `--device cuda:0,cuda:1`) each cell
 block is split into equal shares, one a device (`parallel/sharding.py`),
-each with its own step; one host thread runs the records device by device
-and the shares' outputs and state are joined on the host. Configurations
-whose step stops a loop on a test over the whole batch (CLOSE_ENERGY, or
-QUICK_FLUX off) are refused on more than one device (BATCH_WIDE_STOPS).
+each with its own step, and the shares' outputs and state are joined on the
+host. Where the step stops a loop on a test over the whole batch
+(CLOSE_ENERGY's pass loop; with QUICK_FLUX off the node sweep and the Brent
+around it), each share runs its records in a host thread of its own, on a
+CUDA stream of its own, and every such test is voted over the shares
+(`parallel/votes.py`), so the split run takes the one-device run's
+decisions; an error in one share aborts the others' votes and is raised.
+Otherwise one host thread runs the records share by share.
 """
 from __future__ import annotations
 
@@ -37,14 +41,6 @@ from .config import GlobalParams, parse_global_param_file
 from .params import Domain
 from .timeaxis import TimeAxis, time_axis_from_params
 
-BATCH_WIDE_STOPS = (
-    "CLOSE_ENERGY's pass loop (model.py) and the finite-difference node "
-    "sweep run with QUICK_FLUX off (physics/frozen_soil.py; K6's and K7's "
-    "grid votes) stop on tests over the whole batch; split over devices "
-    "each would stop on one device's share, and the run would differ from "
-    "the one-device run by up to the sweep tolerance (1e-2 C)")
-
-
 @dataclass
 class RunResult:
     outputs: dict          # aggregated [n_out, n_cell(, k)] host arrays
@@ -62,12 +58,13 @@ class RunResult:
 
 @dataclass
 class _Share:
-    """One device's share of a cell block: its step, carried state and
-    host forcing."""
+    """One device's share of a cell block: its step, carried state, host
+    forcing and, where the shares run in threads, CUDA stream."""
     device: torch.device
     step: object
     state: object
     forcing: dict
+    stream: object = None
 
 
 def load_domain(gp: GlobalParams) -> Domain:
@@ -107,19 +104,31 @@ def load_state_any(path: str, gp, domain, template):
     return load_state(path, gp, template, domain)
 
 
-def _refuse(gp, devices):
-    if len(devices) > 1 and (gp.close_energy or not gp.quick_flux):
-        raise NotImplementedError(
-            f"run_simulation on {len(devices)} devices: {BATCH_WIDE_STOPS}; "
-            "run this configuration on one device")
+def batch_wide_stops(gp) -> bool:
+    """Whether the step stops a loop on a test over the whole batch:
+    CLOSE_ENERGY's pass loop, or with QUICK_FLUX off the node sweep and
+    the Brent around it."""
+    return bool(gp.close_energy or not gp.quick_flux)
 
 
-def _on(device):
+def _on(device, stream=None):
     """A context that makes `device` the current CUDA device (the kernels'
-    occupancy queries and launches follow it); nothing for the CPU."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
+    occupancy queries and launches follow it) and `stream`, if given, its
+    current stream; nothing for the CPU."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.cuda.device(device))
+    if stream is not None:
+        stack.enter_context(torch.cuda.stream(stream))
+    return stack
+
+
+def _synchronize(shares):
+    """Waits for all the work of every CUDA device the shares run on."""
+    for dev in dict.fromkeys(sh.device for sh in shares):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def run_simulation(gp: GlobalParams, domain: Optional[Domain] = None,
@@ -145,19 +154,22 @@ def run_simulation(gp: GlobalParams, domain: Optional[Domain] = None,
     each block is padded with clones of its last cell to a multiple of
     their count and split into equal shares, device d taking the d-th
     (vic_tpu's cell mesh); the glacier mass-balance fit runs over the
-    whole block. kernels.launches counts the launches of every device;
-    peak_device_bytes is the largest device's peak."""
+    whole block, and the batch-wide stops (batch_wide_stops) over every
+    share, each share in a thread and on a stream of its own (shares on
+    one card divide its co-resident blocks between K6's and K7's
+    cooperative grids). kernels.launches counts the launches of every
+    device; peak_device_bytes is the largest device's peak."""
     from .cells import pad_cell_tree, slice_cell_tree, unpad_cell_tree
     from .model import make_forcing_stack, make_step
     from .output import aggregate_outputs
     from .physics.hydrology_misc import build_zwt_curves, zwt_curves_to
     from .parallel.sharding import (gather_cell_axis, pad_cells,
                                     shard_cell_axis)
+    from .parallel.votes import ShareGroup
     from .prepare import lake_params_from_numpy, prepare_domain
     from .state import initial_state
 
     devs = [torch.device(d) for d in (devices or [device])]
-    _refuse(gp, devs)
     device = devs[0]
     on_cuda = device.type == "cuda"
     used = list(dict.fromkeys(devs))     # each device once
@@ -271,6 +283,8 @@ def run_simulation(gp: GlobalParams, domain: Optional[Domain] = None,
     cc = chunk_cells if chunk_cells > 0 else gp.cell_chunk
     cc = n_cell_real if cc <= 0 else min(cc, n_cell_real)
     n_dev = len(devs)
+    # the shares vote on the batch-wide stops from threads of their own
+    threaded = n_dev > 1 and batch_wide_stops(gp)
     n_run = pad_cells(cc, n_dev)
     n_share = n_run // n_dev
     check_memory_budget(gp, domain, chunk, n_cell=n_share,
@@ -296,19 +310,40 @@ def run_simulation(gp: GlobalParams, domain: Optional[Domain] = None,
             st = pad_cell_tree(st, nb, n_pad)
             frc = pad_cell_tree(frc, nb, n_pad, axis=1)
         block_prm = trees[0]
+        group = ShareGroup(n_dev, devs) if threaded else None
         shares = []
-        for dev, prm, gm, zw, lkp, s, f in zip(
+        for d, (dev, prm, gm, zw, lkp, s, f) in enumerate(zip(
                 devs, *(shard_cell_axis(t, n_run, n_dev) for t in trees),
                 shard_cell_axis(st, n_run, n_dev),
-                shard_cell_axis(frc, n_run, n_dev, axis=1)):
+                shard_cell_axis(frc, n_run, n_dev, axis=1))):
             with _on(dev):
                 prm = prm.to(dev)
                 gm = gm.to(dev) if gm is not None else None
                 zw = zwt_curves_to(zw, dev)
                 lkp = lkp.to(dev) if lkp is not None else None
-                step = make_step(prm, gp, gm, zw, lkp, outvars=outvars)
-                shares.append(_Share(dev, step, s.to(dev), f))
+                step = make_step(prm, gp, gm, zw, lkp, outvars=outvars,
+                                 votes=group.member(d) if group else None)
+                stream = (torch.cuda.Stream(dev)
+                          if threaded and dev.type == "cuda" else None)
+                shares.append(_Share(dev, step, s.to(dev), f, stream))
+        try:
+            return run_shares(shares, group, block_prm, b0, b1)
+        finally:
+            if group is not None:
+                group.close()
 
+    def run_records(sh, stack, rec, n):
+        """Share sh's records 0..n of `stack`, its outputs into rec."""
+        with _on(sh.device, sh.stream):
+            for i in range(n):
+                sh.state, outs = sh.step(
+                    sh.state, {k: v[i] for k, v in stack.items()})
+                rec.append(outs)
+
+    def run_shares(shares, group, block_prm, b0, b1):
+        """The records of the shares of cells [b0:b1), chunk by chunk
+        (run_block)."""
+        nb = b1 - b0
         gmb = None
         if use_gmb:
             from .physics.gmb import GmbAccumulator
@@ -323,14 +358,29 @@ def run_simulation(gp: GlobalParams, domain: Optional[Domain] = None,
                 {k: v[start:end] for k, v in sh.forcing.items()}, sub_ax,
                 sh.device) for sh in shares]
             recs = [[] for _ in shares]
-            # record by record, device by device, with no synchronization:
-            # a device runs its record while the host launches the next's
-            for i in range(end - start):
-                for sh, stack, rec in zip(shares, stacks, recs):
-                    with _on(sh.device):
-                        sh.state, outs = sh.step(
-                            sh.state, {k: v[i] for k, v in stack.items()})
-                    rec.append(outs)
+            if group is not None:
+                # each share in its thread, on its stream, voting the
+                # batch-wide stops with the others; the default streams'
+                # work (the block's move, the stacks) done before, theirs
+                # after
+                group.restart()
+                _synchronize(shares)
+                group.run([
+                    (lambda sh=sh, stack=stack, rec=rec:
+                     run_records(sh, stack, rec, end - start))
+                    for sh, stack, rec in zip(shares, stacks, recs)])
+                _synchronize(shares)
+            else:
+                # record by record, device by device, with no
+                # synchronization: a device runs its record while the host
+                # launches the next's
+                for i in range(end - start):
+                    for sh, stack, rec in zip(shares, stacks, recs):
+                        with _on(sh.device):
+                            sh.state, outs = sh.step(
+                                sh.state,
+                                {k: v[i] for k, v in stack.items()})
+                        rec.append(outs)
             # keys sorted, as vic_tpu's scan returns its output dict (a
             # pytree): the writers' variable order follows them
             outs = gather_cell_axis(

@@ -5,7 +5,9 @@ each lane input of K1-K5, K7-K15 and K17 as its data pointer and the
 element strides of its broadcast to the lanes, all of a call's in one int64
 table (`_lane_inputs`, csrc/lanes.cuh), so no input is copied and no view
 is made, allocates the outputs, launches on the current stream,
-raises if the launch was refused, and adds one to its entry of `launches`.
+raises if the launch was refused, and adds one to its entry of `launches`
+(under a lock: the shares of a split block launch from threads of their
+own). What a wrapper keeps between calls is kept per device and stream.
 The plain PyTorch versions live beside each call site (physics/glacier.py,
 snow.py, canopy_snow.py, runoff.py, surface.py, frozen_soil.py,
 blowing_snow.py, canopy_air.py, lake.py, bisection.py); the call sites pick
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -33,6 +36,7 @@ launches = {"glacier_brent": 0, "snowpack_brent": 0, "canopy_brent": 0,
             "lake_under_ice": 0, "lake_ice_melt": 0, "lake_depth": 0,
             "lake_water_balance": 0, "affine_surface_brent": 0,
             "mass_release": 0, "implicit_profile": 0, "bisection": 0}
+_launches_lock = threading.Lock()
 
 # per-lane float inputs of each Brent residual, in the C functors' order
 GLACIER_INPUTS = ("ra", "z_ref", "roughness", "air_dens", "vp_air",
@@ -53,8 +57,9 @@ CANOPY_FLAGS = ("has_csnow",)
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    with _launches_lock:
+        for k in launches:
+            launches[k] = 0
 
 
 def _check_input(x, device, dtype, name):
@@ -132,7 +137,8 @@ def _check_launch(name, err):
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
-    launches[name] += 1
+    with _launches_lock:
+        launches[name] += 1
 
 
 def _lane_outputs(shape, device, floats=0, flags=0):
@@ -501,10 +507,14 @@ _consts = {}
 def _const(device, dtype, value):
     """A 0-d `value` of `dtype` on `device`, made once: the stand-in for an
     input a kernel never reads or a flag broadcast to its lanes, without a
-    fill launch per call."""
+    fill launch per call. Its fill is waited for, as other streams read
+    it."""
     key = (device, dtype, value)
     if key not in _consts:
-        _consts[key] = torch.full((), value, dtype=dtype, device=device)
+        const = torch.full((), value, dtype=dtype, device=device)
+        if const.is_cuda:
+            torch.cuda.current_stream(device).synchronize()
+        _consts[key] = const
     return _consts[key]
 
 
@@ -625,8 +635,10 @@ def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     residual evaluation solves the node profile of eb_kwargs["fd_solve"]
     (a physics.frozen_soil.NodeSolve) at the candidates of all lanes with
     K6's sweeps inside the same launch, and every decision of the loop is
-    taken on the device. Same arguments as surface_root_plain; returns an
-    FdRootResult."""
+    taken on the device, over every share of the NodeSolve's share group
+    where it has one (`votes`: the launch then waits for the other shares
+    at each decision, and the call for the launch). Same arguments as
+    surface_root_plain; returns an FdRootResult."""
     from ..physics.frozen_soil import NodeSolve
     name = "fd_surface_brent"
     shape, nl, dist, table, nf, nm = _surface_lanes(name, lo, hi, active,
@@ -652,7 +664,9 @@ def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
         return FdRootResult(root, converged, bracketed,
                             *torch.zeros(3, dtype=torch.int32, device=device))
     counts = torch.empty(3, dtype=torch.int32, device=device)
-    _sweep_views, sweep_args = _node_solve_args(name, *solve,
+    fields = solve._asdict()
+    votes = fields.pop("votes")
+    _sweep_views, sweep_args = _node_solve_args(name, **fields,
                                                 fallbacks=False)
     max_iter, max_sweeps = int(max_iter), int(solve.max_sweeps)
     n_ctl = ((2 + 2 * MAXTRIES + max_iter) * 2 * max_sweeps + MAXTRIES
@@ -661,6 +675,7 @@ def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     lane_flags = torch.empty((3, n), dtype=torch.uint8, device=device)
     ctl = torch.empty(n_ctl, dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
+    group = votes.launch_table() if votes is not None else None
     err = build.load().fd_surface_brent(
         table.ctypes.data, nf, nm, shape[-1], nl, int(dist),
         float(eb_kwargs["delta_t"]), int(eb_kwargs.get("grnd_flux_type", 1)),
@@ -668,8 +683,10 @@ def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
         *sweep_args, state.data_ptr(), lane_flags.data_ptr(), ctl.data_ptr(),
         n_ctl, n, lo_c.data_ptr(), hi_c.data_ptr(), root.data_ptr(),
         converged.data_ptr(), bracketed.data_ptr(), *_out_ptrs(counts),
-        _COOP_BLOCKS, stream)
+        _COOP_BLOCKS, _table_ptr(group), stream)
     _check_coop(name, err)
+    if votes is not None:
+        votes.settle(name)
     return FdRootResult(root, converged, bracketed, *counts)
 
 
@@ -793,6 +810,11 @@ _COOP_BLOCKS = 0
 _NO_COOPERATIVE_LAUNCH, _GRID_NOT_CO_RESIDENT = -1, -2
 
 
+def _table_ptr(table):
+    """The address of a C table (a numpy int64 array), or None."""
+    return None if table is None else table.ctypes.data
+
+
 def _check_coop(name, err):
     """_check_launch, naming the refusals of a cooperative launch."""
     if err == _NO_COOPERATIVE_LAUNCH:
@@ -851,11 +873,13 @@ def _node_solve_args(name, t0, kappa, cs, moist_node, ice0_node, geom,
 
 def node_sweep(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
                fs_active, *, nlayer, dt_sec, noflux, frozen, max_sweeps,
-               exp_trans=False):
+               exp_trans=False, votes=None):
     """K6: the Gauss-Seidel node sweep of every lane as ONE cooperative
-    launch, the batch-wide sweep count decided on the device, at 3 to 50
-    nodes on linear or (exp_trans) EXP_TRANS spacing. Same arguments and
-    result as physics.frozen_soil.solve_t_profile_explicit_plain (the
+    launch, the batch-wide sweep count decided on the device (over every
+    share of `votes`' share group where it is one: the launch then waits
+    for the other shares at each sweep, and the call for the launch), at 3
+    to 50 nodes on linear or (exp_trans) EXP_TRANS spacing. Same arguments
+    and result as physics.frozen_soil.solve_t_profile_explicit_plain (the
     sweep count as an int32 0-d tensor)."""
     from ..physics.frozen_soil import ProfileResult
     name = "node_sweep"
@@ -876,10 +900,14 @@ def node_sweep(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
     sweeps = torch.empty((), dtype=i32, device=device)
     ctl = torch.empty(2 * max(int(max_sweeps), 1), dtype=i32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
+    group = votes.launch_table() if votes is not None else None
     err = build.load().node_sweep(
         *args, surf.data_ptr(), n, h, ctl.data_ptr(), temp.data_ptr(),
-        fbcount.data_ptr(), sweeps.data_ptr(), _COOP_BLOCKS, stream)
+        fbcount.data_ptr(), sweeps.data_ptr(), _COOP_BLOCKS,
+        _table_ptr(group), stream)
     _check_coop(name, err)
+    if votes is not None:
+        votes.settle(name)
     return ProfileResult(temp=temp, fbcount=fbcount, iterations=sweeps)
 
 
@@ -940,7 +968,8 @@ CANOPY_AIR_RECORD = ("tair", "air_dens", "ra_over", "iter_mask", "lane_mask")
 
 
 class _CanopyAirScratch:
-    """What K9 keeps on a device between calls: its accumulator and ticket
+    """What K9 keeps on a device and stream between calls (the shares of a
+    split block on one card each have their own): its accumulator and ticket
     (two int32, zeroed once; every launch leaves them 0), the pinned host
     word the last block writes the batch's largest change to, with its
     device address, the event recorded after the last launch, and the lane
@@ -963,6 +992,7 @@ class _CanopyAirScratch:
         self.record = None      # (record tensors, shape, lane table)
 
 
+# K9's scratch of each (device, stream)
 _canopy_air = {}
 
 
@@ -1002,16 +1032,17 @@ def canopy_air_step(*, it, **inputs):
         raise ValueError(f"{name}: CUDA tensors required, got {device}")
     _check_names(name, inputs, CANOPY_AIR_INPUTS + CANOPY_AIR_MASKS)
     shape = torch.broadcast_shapes(*(t.shape for t in inputs.values()))
-    scratch = _canopy_air.get(device)
+    stream = torch.cuda.current_stream(device)
+    key = (device, stream.cuda_stream)
+    scratch = _canopy_air.get(key)
     if scratch is None:
-        scratch = _canopy_air[device] = _CanopyAirScratch(device)
+        scratch = _canopy_air[key] = _CanopyAirScratch(device)
     table = _canopy_air_table(inputs, shape, device, scratch)
     f32 = torch.float32
     out = torch.empty((2,) + tuple(shape), dtype=f32, device=device)
     live_bits = torch.empty((), dtype=torch.int32, device=device)
     n = out[0].numel()
     if n:
-        stream = torch.cuda.current_stream(device)
         err = build.load().canopy_air_step(
             table.ctypes.data, len(CANOPY_AIR_INPUTS), len(CANOPY_AIR_MASKS),
             shape[-1], int(it), n, out[0].data_ptr(), out[1].data_ptr(),
@@ -1026,9 +1057,11 @@ def canopy_air_step(*, it, **inputs):
 
 def canopy_air_largest_change(live_max):
     """The batch's largest change of a K9 launch as a Python float: for the
-    last launch on its device, its pinned host word after its event (no
-    copy launched); else the tensor's value."""
-    scratch = _canopy_air.get(live_max.device)
+    last launch on its device and the current stream, its pinned host word
+    after its event (no copy launched); else the tensor's value."""
+    device = live_max.device
+    scratch = _canopy_air.get(
+        (device, torch.cuda.current_stream(device).cuda_stream))
     if scratch is None or scratch.last is not live_max:
         return float(live_max)
     scratch.event.synchronize()

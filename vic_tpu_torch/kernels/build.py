@@ -12,6 +12,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -100,13 +101,14 @@ _AFFINE_SURFACE_ARGTYPES = (_LANES + [ctypes.c_int] * 4 + [ctypes.c_float]
 # the counts and switches, dt and its multiples, the scratch pointers
 _NODE_SOLVE = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+# their grid, share group table and stream
+_COOPERATIVE = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 _SWEEP_ARGTYPES = (_NODE_SOLVE + [ctypes.c_void_p] + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 4 + _COOPERATIVE)
 _FD_SURFACE_ARGTYPES = (_LANES + [ctypes.c_int] * 3 + [ctypes.c_float]
                         + [ctypes.c_int] * 4 + _NODE_SOLVE
                         + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                        + [ctypes.c_void_p] * 8
-                        + [ctypes.c_int, ctypes.c_void_p])
+                        + [ctypes.c_void_p] * 8 + _COOPERATIVE)
 _BLOWING_ARGTYPES = (_LANES + [ctypes.c_int, ctypes.c_float]
                      + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                      + [ctypes.c_void_p] * 3)
@@ -143,10 +145,20 @@ _IMPLICIT_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                       + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4)
 
 _lib = None
+_loading = threading.Lock()
 
 
 def load():
-    """The loaded kernel library (built first if needed)."""
+    """The loaded kernel library (built first if needed; once, whichever
+    thread asks first)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _loading:
+        return _load()
+
+
+def _load():
     global _lib
     if _lib is None:
         path, _ = build()
@@ -177,7 +189,10 @@ def load():
                                 _FLOATS + [ctypes.c_int] * 2),
                                ("implicit_profile", _IMPLICIT_ARGTYPES),
                                ("implicit_profile_scratch_rows",
-                                [ctypes.c_int])):
+                                [ctypes.c_int]),
+                               ("share_votes_alloc",
+                                [ctypes.c_int64, ctypes.c_void_p]),
+                               ("share_votes_free", [ctypes.c_void_p])):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

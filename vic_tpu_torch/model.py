@@ -111,7 +111,7 @@ def _refuse(gp, geom, zwt_curves, lake_params):
 
 
 def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
-              lake_params=None, outvars=None):
+              lake_params=None, outvars=None, votes=None):
     """Build step(state, forcing) -> (new_state, outputs).
 
     forcing: [n_cell] float32 tensors 'prec' (mm/step), 'air_temp' (C), 'wind'
@@ -126,7 +126,11 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
     (physics.hydrology_misc.build_zwt_curves, then zwt_curves_to), for the
     OUT_ZWT* outputs. outvars: optional OUT_* names to return (plus
     OUT_WATER_ERROR, always kept, and OUT_CELL_VALID under
-    CONTINUEONERROR)."""
+    CONTINUEONERROR). votes: where these cells are one share of a block
+    split over devices, the share's parallel.votes.Member, which the step
+    keeps: CLOSE_ENERGY's pass loop, the node sweep and the Brent around
+    it then stop on tests over every share's cells, as on one device (the
+    driver runs the shares in threads of their own); None otherwise."""
     _refuse(gp, geom, zwt_curves, lake_params)
     if lake_params is not None:
         check_basin(lake_params.z)
@@ -321,7 +325,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                 state.node_temp, nodep["kappa"], nodep["cs"],
                 nodep["moist"], nodep["ice"], geom, p.fs_active, nlayer=nl,
                 dt_sec=dt_sec, noflux=gp.noflux, frozen=frozen,
-                max_sweeps=gp.soil_sweep_maxiter, exp_trans=gp.exp_trans)
+                max_sweeps=gp.soil_sweep_maxiter, exp_trans=gp.exp_trans,
+                votes=votes)
 
         eb_common = dict(
             ts_old=state.node_temp[..., 0], t1_old=state.node_temp[..., 1],
@@ -651,7 +656,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
         if gp.close_energy:
             # per-lane safeguarded secant on F(tc) - tc, every lane until the
             # batch's largest change is within OVER_TOL (a NaN keeps it
-            # going), one host read per pass
+            # going), one host read per pass; the batch is every share's
+            # cells where the block is split
             tc_prev, g_prev, tc = tair, torch.zeros_like(tair), tair
             luo = state.long_under_out
             close_iters = 0
@@ -666,7 +672,10 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                     g_prev=g_prev, iter_mask=iter_mask, lane_mask=p.mask)
                 tc_prev, tc, luo = tc, tc_next, ri["luo_out"]
                 close_iters += 1
-                if largest_change(live_max) <= OVER_TOL_F32:
+                change = largest_change(live_max)
+                if votes is not None:
+                    change = votes.max_nan(change)
+                if change <= OVER_TOL_F32:
                     break
             r = column(tc, luo)
             # the final update at the settled temperature

@@ -31,18 +31,28 @@ class RootResult(NamedTuple):
     iterations: object        # int (plain: max over lanes) or int32 per lane
 
 
+def _any(b, votes):
+    """b.any() over the batch, or over every share's batch with votes (a
+    parallel.votes.Member)."""
+    got = bool(b.any())
+    return got if votes is None else votes.any(got)
+
+
 def expand_brackets(f: Callable, lo, hi, max_tries: int = MAXTRIES,
-                    tstep: float = TSTEP, active=None):
+                    tstep: float = TSTEP, active=None, votes=None):
     """Widen [lo, hi] by `tstep` on each side, up to `max_tries` times, on
     active lanes that do not yet bracket a sign change
-    (root_brent.c:183-244). Returns (lo, hi, f_lo, f_hi, bracketed)."""
+    (root_brent.c:183-244). Returns (lo, hi, f_lo, f_hi, bracketed).
+    votes: a parallel.votes.Member where the batch is one share of a split
+    block and f's value depends on the whole block (the node sweep): then
+    every share widens while any share's lane needs it."""
     f_lo = f(lo)
     f_hi = f(hi)
     act = torch.ones_like(f_lo, dtype=torch.bool) if active is None \
         else active
     for _ in range(max_tries):
         need = (f_lo * f_hi >= 0.0) & act
-        if not bool(need.any()):
+        if not _any(need, votes):
             break
         lo = torch.where(need, lo - tstep, lo)
         hi = torch.where(need, hi + tstep, hi)
@@ -56,22 +66,24 @@ def expand_brackets(f: Callable, lo, hi, max_tries: int = MAXTRIES,
 
 def batched_brent(f: Callable, lo, hi, max_iter: int = 60,
                   max_tries: int = MAXTRIES, tol: float = None,
-                  active=None) -> RootResult:
+                  active=None, votes=None) -> RootResult:
     """Roots of `f` lane-wise on [lo, hi] by Brent's method, after bracket
     expansion. Converged when |0.5*(c-b)| <= 2*eps*|b| + tol or f(b) == 0.
     Unbracketed or inactive lanes return the midpoint of the ORIGINAL
-    [lo, hi] with converged=False, for the caller's TFALLBACK."""
+    [lo, hi] with converged=False, for the caller's TFALLBACK. votes: as
+    expand_brackets'; every share iterates while any share's lane is
+    live."""
     eps = torch.finfo(lo.dtype).eps
     if tol is None:
         tol = 1e-7 if lo.dtype == torch.float64 else F32_TOL
     a, b, fa, fb, bracketed = expand_brackets(f, lo, hi, max_tries,
-                                              active=active)
+                                              active=active, votes=votes)
     c, fc = a, fa
     d = b - a
     e = b - a
     done = ~bracketed
     i = 0
-    while i < max_iter and not bool(done.all()):
+    while i < max_iter and _any(~done, votes):
         # rearrange so b is the best iterate and [b, c] brackets the root
         # (root_brent.c:249-263) -- on every lane, frozen ones included
         same_side = fb * fc > 0.0

@@ -4,8 +4,10 @@
 The reference's only parallelism is OpenMP threads over grid cells
 (vicNl.c:514-517): cells are independent columns with no halo exchange.
 vic_tpu shards the leading cell axis of every array over a mesh; the port
-gives each device a contiguous share of the block, its own step, and runs
-the shares from one host thread (`driver.run_simulation(devices=[...])`).
+gives each device a contiguous share of the block and its own step
+(`driver.run_simulation(devices=[...])`), and runs the shares from one
+host thread, or, where the step stops a loop on a test over the whole
+batch, from a thread each, voting those tests (`parallel/votes.py`).
 A block of cells is padded to a multiple of the device count with clones
 of its last cell (`cells.pad_cell_tree`), device d takes cells
 [d*k, (d+1)*k), and the shares' outputs and state are joined on the host

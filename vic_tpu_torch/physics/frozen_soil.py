@@ -309,15 +309,18 @@ class ProfileResult(NamedTuple):
 def solve_t_profile_explicit(t0, surf_temp, kappa, cs, moist_node, ice0_node,
                              geom: NodeGeometry, fs_active, *, nlayer: int,
                              dt_sec: float, noflux: bool, frozen: bool,
-                             max_sweeps: int,
-                             exp_trans: bool = False) -> ProfileResult:
+                             max_sweeps: int, exp_trans: bool = False,
+                             votes=None) -> ProfileResult:
     """The Gauss-Seidel node sweep: `solve_t_profile_explicit_plain` for
-    CPU tensors, the `node_sweep` kernel for CUDA tensors."""
+    CPU tensors, the `node_sweep` kernel for CUDA tensors. votes: the
+    share of a split block these lanes are (parallel.votes.Member), or
+    None."""
     solve = (solve_t_profile_explicit_plain if t0.device.type == "cpu"
              else kernels.node_sweep)
     return solve(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
                  fs_active, nlayer=nlayer, dt_sec=dt_sec, noflux=noflux,
-                 frozen=frozen, max_sweeps=max_sweeps, exp_trans=exp_trans)
+                 frozen=frozen, max_sweeps=max_sweeps, exp_trans=exp_trans,
+                 votes=votes)
 
 
 class NodeSolve(NamedTuple):
@@ -325,7 +328,9 @@ class NodeSolve(NamedTuple):
     over a step: solve_t_profile_explicit's arguments but surf_temp.
     Called with the candidates it returns that function's ProfileResult;
     the `fd_surface_brent` kernel reads the arguments and runs the solve
-    inside its own launch."""
+    inside its own launch. votes: the share of a split block these lanes
+    are (parallel.votes.Member), whose sweeps, and the Brent's decisions
+    around them, are voted over every share; None on one device."""
     t0: torch.Tensor
     kappa: torch.Tensor
     cs: torch.Tensor
@@ -339,6 +344,7 @@ class NodeSolve(NamedTuple):
     frozen: bool
     max_sweeps: int
     exp_trans: bool = False
+    votes: object = None
 
     def at(self, surf_temp):
         """solve_t_profile_explicit's (args, kwargs) at surf_temp."""
@@ -346,7 +352,8 @@ class NodeSolve(NamedTuple):
                  self.ice0_node, self.geom, self.fs_active),
                 dict(nlayer=self.nlayer, dt_sec=self.dt_sec,
                      noflux=self.noflux, frozen=self.frozen,
-                     max_sweeps=self.max_sweeps, exp_trans=self.exp_trans))
+                     max_sweeps=self.max_sweeps, exp_trans=self.exp_trans,
+                     votes=self.votes))
 
     def __call__(self, surf_temp) -> ProfileResult:
         args, kwargs = self.at(surf_temp)
@@ -358,7 +365,8 @@ def solve_t_profile_explicit_plain(t0, surf_temp, kappa, cs, moist_node,
                                    *, nlayer: int, dt_sec: float,
                                    noflux: bool, frozen: bool,
                                    max_sweeps: int,
-                                   exp_trans: bool = False) -> ProfileResult:
+                                   exp_trans: bool = False,
+                                   votes=None) -> ProfileResult:
     """Plain version of the `node_sweep` kernel: vic_tpu's
     solve_t_profile_explicit (frozen_soil.py:311-598) with the reference's
     ice quirk and no warm start, at any node count, on linear or (exp_trans)
@@ -370,7 +378,9 @@ def solve_t_profile_explicit_plain(t0, surf_temp, kappa, cs, moist_node,
 
     Sweeps run while any lane of the WHOLE batch moved more than 1e-2 C in
     the last sweep, up to max_sweeps (one device-to-host sync per sweep);
-    a NaN anywhere stops them, as jnp.max propagates it. Nodes j < nlayer
+    a NaN anywhere stops them, as jnp.max propagates it. With votes (a
+    parallel.votes.Member) the batch is the whole split block: each
+    sweep's largest change is the largest of every share's. Nodes j < nlayer
     take the closed-form root of the quirk's linear residual, deeper nodes
     a 6-pair bracket expansion and 16 bisection steps, both only where the
     node was below 0 C and frozen soil is active; then the post-sweep
@@ -524,7 +534,15 @@ def solve_t_profile_explicit_plain(t0, surf_temp, kappa, cs, moist_node,
               for _ in range(nn)]
     lastdiff = torch.ones_like(t0[..., 0])
     iters = 0
-    while iters < max_sweeps and bool(lastdiff.max() > SWEEP_TOL):
+
+    def another():
+        if votes is None:
+            return bool(lastdiff.max() > SWEEP_TOL)
+        # float32 1e-2 lies below the double, and the next float32 above
+        # it: the same test in either precision
+        return votes.max_nan(float(lastdiff.max())) > SWEEP_TOL
+
+    while iters < max_sweeps and another():
         fb, lastdiff = sweep(T)
         fb_tot = [a + b for a, b in zip(fb_tot, fb)]
         iters += 1

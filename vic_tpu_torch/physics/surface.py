@@ -265,9 +265,13 @@ class SurfaceSolve(NamedTuple):
 def surface_root_plain(lo, hi, active, *, max_iter: int, eb_kwargs):
     """Plain version of the `fd_surface_brent` and `affine_surface_brent`
     kernels: the batch-wide Brent (ops/rootfind.py) on
-    surf_energy_terms(t, **eb_kwargs).error."""
+    surf_energy_terms(t, **eb_kwargs).error. Where the residual solves the
+    node profile (eb_kwargs["fd_solve"]) of one share of a split block, its
+    decisions are voted over every share (the NodeSolve's votes)."""
+    votes = getattr(eb_kwargs.get("fd_solve"), "votes", None)
     return batched_brent(lambda t: surf_energy_terms(t, **eb_kwargs).error,
-                         lo, hi, max_iter=max_iter, active=active)
+                         lo, hi, max_iter=max_iter, active=active,
+                         votes=votes)
 
 
 def surface_brent_plain(lo, hi, active, *, max_iter: int, eb_kwargs):

@@ -901,3 +901,85 @@ def ice_melt_failures(got, plain, at_roots) -> list:
             bad.append(f"{name}: {over} outside, {apart} NaN apart, max "
                        f"|diff| {float(diff.max()):.3e}")
     return bad
+
+
+def cell_share(obj, start: int, stop: int, n_cell: int, device=None):
+    """Cells [start, stop) of a kernel's arguments: every tensor whose
+    leading axis has the n_cell cells, through tuples, NamedTuples (a
+    NodeSolve), dicts and dataclasses (a NodeGeometry), every tensor moved
+    to `device` if given; other leaves as they are."""
+    import dataclasses
+
+    import torch
+
+    def share(x):
+        return cell_share(x, start, stop, n_cell, device)
+    if isinstance(obj, torch.Tensor):
+        x = obj[start:stop] if obj.dim() and obj.shape[0] == n_cell else obj
+        return x if device is None else x.to(device)
+    if isinstance(obj, tuple):
+        items = [share(v) for v in obj]
+        return type(obj)(*items) if hasattr(obj, "_fields") else tuple(items)
+    if isinstance(obj, dict):
+        return {k: share(v) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: share(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)})
+    return obj
+
+
+def with_votes(name, kwargs, votes):
+    """K6's (`node_sweep`) or K7's (`fd_surface_brent`) keyword arguments
+    with share `votes` (a parallel.votes.Member)."""
+    if name == "node_sweep":
+        return dict(kwargs, votes=votes)
+    eb = kwargs["eb_kwargs"]
+    return dict(kwargs, eb_kwargs=dict(
+        eb, fd_solve=eb["fd_solve"]._replace(votes=votes)))
+
+
+def split_kernel_call(name, args, kwargs, devices, timeout_s=None,
+                      before=None):
+    """K6 (`node_sweep`) or K7 (`fd_surface_brent`) on arguments of n_cell
+    cells cut into len(devices) equal shares of a parallel.votes.ShareGroup,
+    share i on devices[i] (a device named twice runs two shares side by
+    side), its arguments moved there, each launched from a host thread of
+    its own on a CUDA stream of its own, as the driver runs a split block;
+    before(i), if given, runs in share i's thread, on its stream, just
+    before its launch. Returns the shares' results."""
+    import functools
+
+    import torch
+
+    from . import kernels
+    from .parallel.votes import VOTE_TIMEOUT_S, ShareGroup
+    n_cell = args[0].shape[0]
+    k = n_cell // len(devices)
+    if k * len(devices) != n_cell:
+        raise ValueError(f"{n_cell} cells do not split over {devices}")
+    group = ShareGroup(len(devices), devices,
+                       timeout_s=timeout_s or VOTE_TIMEOUT_S)
+    streams = [torch.cuda.Stream(d) for d in devices]
+    results = [None] * len(devices)
+    shares = [cell_share((args, kwargs), i * k, (i + 1) * k, n_cell, d)
+              for i, d in enumerate(devices)]
+
+    def job(i):
+        a, kw = shares[i]
+        kw = with_votes(name, kw, group.member(i))
+        with torch.cuda.device(devices[i]), torch.cuda.stream(streams[i]):
+            if before is not None:
+                before(i)
+            results[i] = getattr(kernels, name)(*a, **kw)
+
+    for d in dict.fromkeys(devices):
+        torch.cuda.synchronize(d)
+    try:
+        group.run([functools.partial(job, i)
+                   for i in range(len(devices))])
+    finally:
+        for d in dict.fromkeys(devices):
+            torch.cuda.synchronize(d)
+        group.close()
+    return results
