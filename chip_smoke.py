@@ -2302,7 +2302,7 @@ def slice_phase(device, config, ref_werr=None, nnode=None):
     """ref_werr: the configuration's fixture's largest |OUT_WATER_ERROR|,
     printed beside the slice's; nnode: frozen_exp's configuration with its
     node count replaced, at NODE_COUNT_CELLS cells."""
-    from vic_tpu_torch import kernels
+    from vic_tpu_torch import kernels, trace
     from vic_tpu_torch.model import run
 
     n_cell = NODE_COUNT_CELLS if nnode else CELLS.get(config, SMOKE_CELLS)
@@ -2316,29 +2316,21 @@ def slice_phase(device, config, ref_werr=None, nnode=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     restore = guard_plain_solvers()
-    # K7's profile solves and sweeps (K6 inside its one launch), summed
-    # after the run
-    k7_counts, fd_surface_brent = [], kernels.fd_surface_brent
-
-    def counted(*args, **kwargs):
-        res = fd_surface_brent(*args, **kwargs)
-        k7_counts.append((res.solves, res.sweeps))
-        return res
-
-    kernels.fd_surface_brent = counted
     # the balances' terms come from K5, K2, K1 and K12 on their paths, the
     # infiltration curve from K4: no plain evaluation of any of them
     balance_calls, restore_balances = count_balance_calls()
     try:
         kernels.reset_launches()
-        torch.cuda.synchronize()
+        # K7's profile solves and sweeps (K6 inside its one launch): the
+        # program's counters across the run
+        counts0 = trace.counters()
         t0 = time.perf_counter()
         final, outs = run(state, stack, params, gp, **extras)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        counts = trace.counters()
         launches = dict(kernels.launches)
     finally:
-        kernels.fd_surface_brent = fd_surface_brent
         restore_balances()
         restore()
     peak = torch.cuda.max_memory_allocated(device)
@@ -2371,11 +2363,12 @@ def slice_phase(device, config, ref_werr=None, nnode=None):
                              f"plain torch on the card: {balance_calls}")
     print("  kernel launches per record: " + json.dumps(
         {k: v / SMOKE_RECS for k, v in launches.items() if v}))
-    if k7_counts:
-        print(f"  fd_surface_brent: "
-              f"{sum(int(c[0]) for c in k7_counts) / SMOKE_RECS} profile "
-              f"solves and {sum(int(c[1]) for c in k7_counts) / SMOKE_RECS} "
-              "sweeps a record inside its launches")
+    if launches["fd_surface_brent"]:
+        solves, sweeps = (counts[k] - counts0[k]
+                          for k in ("k7_solves", "k7_sweeps"))
+        print(f"  fd_surface_brent: {solves / SMOKE_RECS} profile solves "
+              f"and {sweeps / SMOKE_RECS} sweeps a record inside its "
+              "launches")
     if config in ("frozen", "frozen_exp", "frozen_quick"):
         ice = float(final.ice.sum())
         print(f"  layer ice at the end {ice:.1f} mm summed over lanes; "

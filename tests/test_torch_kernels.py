@@ -1607,6 +1607,50 @@ def test_cooperative_fd_surface_brent_matches_plain(cuda, spacing, nnode,
     assert bool(((got.root - ref.root).abs() <= tol)[both].all())
 
 
+def _counted(name, call):
+    """(call's result, the change of every trace counter across it, the
+    change of kernels.launches[name])."""
+    from vic_tpu_torch import trace
+    before, launched = trace.counters(), kernels.launches[name]
+    got = call()
+    after = trace.counters()
+    return (got, {k: after[k] - before[k] for k in after
+                  if after[k] != before[k]},
+            kernels.launches[name] - launched)
+
+
+@pytest.mark.gpu
+def test_fd_surface_brent_adds_its_counts_to_the_device_totals(cuda):
+    """One K7 call adds its returned trips, profile solves and sweeps to
+    trace's k7_* totals, on the device, and one launch."""
+    a, kw = _captured_args(cuda, names=("fd_surface_brent",), record=2,
+                           build=_node_solve_build("exp_trans", 10))[
+                               "fd_surface_brent"]
+    got, moved, launched = _counted(
+        "fd_surface_brent", lambda: kernels.fd_surface_brent(*a, **kw))
+    assert launched == 1
+    assert int(got.sweeps) > int(got.solves) > 0
+    assert moved == {"k7_trips": int(got.iterations),
+                     "k7_solves": int(got.solves),
+                     "k7_sweeps": int(got.sweeps),
+                     "launches.fd_surface_brent": 1}
+
+
+@pytest.mark.gpu
+def test_node_sweep_adds_its_sweeps_to_the_device_totals(cuda):
+    """One stand-alone K6 call adds its returned sweep count to trace's
+    k6_sweeps, on the device, and one launch."""
+    a, kw = _captured_args(cuda, names=("node_sweep",), record=2,
+                           build=_node_solve_build("exp_trans", 10))[
+                               "node_sweep"]
+    got, moved, launched = _counted("node_sweep",
+                                    lambda: kernels.node_sweep(*a, **kw))
+    assert launched == 1
+    assert int(got.iterations) > 0
+    assert moved == {"k6_sweeps": int(got.iterations),
+                     "launches.node_sweep": 1}
+
+
 @pytest.mark.gpu
 def test_cooperative_kernels_refuse_a_grid_not_co_resident(cuda,
                                                             monkeypatch):

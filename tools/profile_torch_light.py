@@ -1,53 +1,46 @@
-"""Where the time of the port's step goes on one NVIDIA GPU.
+"""Where the host and the device spend a record of the port's step, phase
+by phase, from the program's own spans (vic_tpu_torch.trace).
 
-    python tools/profile_torch_light.py [--config light|frozen|
-                                                  blowing_close|lakes|
-                                                  dist_prcp|heavy_nolakes|
-                                                  heavy|frozen_exp|
-                                                  frozen_quick|
-                                                  spatial_snow]
-                                        [--cells 32768] [--records 8]
-                                        [--repeats 5] [--rate-only]
-                                        [--out FILE.json]
+    python tools/profile_torch_light.py [--config NAME] [--cells 32768]
+                                        [--workload CELL] [--seed 1]
+                                        [--records 2] [--stub-spans]
+                                        [--device cuda|cpu] [--out FILE.json]
 
-1. throughput: `--repeats` runs of `--records` records through
-   vic_tpu_torch.model.run after a warm-up record, timed on the host clock
-   around torch.cuda.synchronize(); cell-steps/s median, quartiles and
-   each run's rate.
-2. breakdown: one run with each physics call of the step wrapped in
-   synchronize() + host clock, so every call's wall time (launch overhead
-   included) is attributed to it, and its calls counted; the rest of the
-   step is "other". Inside three calls the pieces that their kernels took
-   over are timed and counted as nested breakdowns: the snowpack
-   balance's terms (`snow_energy_terms`) inside `snow_melt`, the glacier
-   balance's terms (`glacier_energy_terms`) and K1 (`glacier_brent`)
-   inside `glacier_ablation`, the infiltration curve
-   (`compute_runoff_and_asat`) and K4 (`runoff_hourly`) inside
-   `runoff_step`; whatever of each call is not in them is its glue. With
-   LAKES, lake_step's calls inside it (solve_lake and, inside that, the
-   K10-K12 call sites; physics.lake's K13 depth bisections; the water
-   balance's launch) are timed as a nested "lake" breakdown with
-   solve_lake's own glue and lake_step less solve_lake (the water balance
-   and the state masks; with BLOWING, the blowing-snow call over lake ice,
-   K8, inside solve_lake too). A call the checkout lacks is left out, so an
-   older checkout is profiled by the same script.
-3. profile: torch.profiler over two records: device time by kernel name,
-   the hand-written kernels' own device time, and the device's busy share.
+NAME is any name of vic_tpu_torch.entry.CONFIGS (light by default), run
+at --cells cells after one warm-up record; or CELL, a cell of the
+benchmark (BENCHMARK.json's workloads), its domain and forcing made from
+--seed as benchmark/run.py makes them, after one warm-up block, from its
+initial state. Then `--records` records run in one torch.profiler session
+(host and device activity), one step call a record as the driver makes
+them. For each span name (vic.step, its phases vic.step.*, the column's
+phases, vic.kernel.<name>) and a record, it reports: the calls; host ms
+inside the span and its self ms (less its child spans); the host ms of
+the CUDA runtime calls whose innermost span it is, by call name
+(cudaLaunchKernel, cudaMalloc, cudaMemcpyAsync, ...); and the device
+operations those calls launched (tied by the profiler's correlation ids):
+their count (copies and fills apart) and device ms. Runtime calls outside
+every span are reported under "outside". Also the host ms of each step
+call on the host's clock, which holds the spans' own cost, and the change
+of each of the program's counters (trace.counters(): records,
+close_energy_passes, K7's Brent trips, profile solves and sweeps, K6's own
+sweeps, the launches of each kernel) over the profiled records, a record.
 
-With --rate-only only 1. runs, so two checkouts compare in one chip call
-by running it from each root in turn, alternating.
+--stub-spans replaces the program's record (trace._Record) with the no-op
+span for the session, so the step's host ms can be compared with the
+spans recording and without; the per-span rows are then empty.
 
-Prints one JSON object with every number (also written to --out) and the
-card's name and power limit. Needs a CUDA device. Imports the
-`vic_tpu_torch` of the directory it is run from, so two checkouts compare
-on one card when it is run from each root in turn.
+Prints one JSON object (also written to --out) with the card's name and
+power limit. Runs on the CUDA device and refuses to run without one;
+`--device cpu` runs the plain path on the CPU (host rows only, not the
+card's times). Imports the `vic_tpu_torch` of the directory it is run from,
+so two checkouts compare on one card when it is run from each root.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -56,220 +49,186 @@ import torch
 
 sys.path.insert(0, os.getcwd())
 
-from vic_tpu_torch import kernels, model  # noqa: E402
+from vic_tpu_torch import trace  # noqa: E402
 from vic_tpu_torch.entry import CONFIGS  # noqa: E402
-from vic_tpu_torch.physics import glacier, lake, runoff, snow  # noqa: E402
+from vic_tpu_torch.model import make_step  # noqa: E402
 
-STEP_CALLS = ("calc_aerodynamic", "snow_intercept", "snow_albedo",
-              "snow_melt", "glacier_ablation", "snow_density_update",
-              "build_evap_pre", "solve_surface_temperature",
-              "surf_energy_terms", "runoff_step", "compute_pot_evap")
-# each configuration's own calls (the node sweep runs inside the surface
-# Brent and the final surf_energy_terms, and is timed with them; with
-# CLOSE_ENERGY every call of the canopy -> surface chain is timed over all
-# its passes)
-CONFIG_CALLS = {
-    "light": (),
-    "frozen": ("distribute_node_moisture", "estimate_layer_ice",
-               "find_zero_fronts"),
-    "blowing_close": ("calc_blowing_snow", "canopy_air_step",
-                      "canopy_air_final"),
-    # the lake coupling's pre-step depth (K13) and the lake step
-    "lakes": ("depth_from_volume", "lake_step"),
-    "dist_prcp": ("storm_transfer",),
-    # the affine passes' probes and the final pass's Brent each run K6
-    # inside solve_surface_temperature, and are timed with it
-    "heavy_nolakes": ("distribute_node_moisture", "estimate_layer_ice",
-                      "find_zero_fronts", "calc_blowing_snow",
-                      "canopy_air_step", "canopy_air_final",
-                      "storm_transfer", "compute_zwt"),
-}
-CONFIG_CALLS["heavy"] = CONFIG_CALLS["heavy_nolakes"] + CONFIG_CALLS["lakes"]
-CONFIG_CALLS["frozen_exp"] = CONFIG_CALLS["frozen"]
-CONFIG_CALLS["frozen_quick"] = ("estimate_layer_ice", "find_zero_fronts")
-# SPATIAL_SNOW's depletion curve and CORRPREC's gauge correction
-CONFIG_CALLS["spatial_snow"] = ("calc_snow_coverage", "correct_precip")
-# inside lake_step (physics/lake.py): solve_lake, within it the open-water
-# column (K10), the snow-on-ice update (K12 inside) and the under-ice
-# column (K11); physics.lake's depth bisections (K13: solve_lake's and,
-# before the water balance was one launch, the water balance's); the water
-# balance's launch where the checkout has it
-LAKE_CALLS = ("solve_lake", "lake_open_water", "lake_ice_melt",
-              "water_under_ice", "depth_from_volume", "lake_water_balance")
-# nested breakdowns: inside snow_melt (physics/snow.py) the snowpack
-# balance's terms; inside glacier_ablation the glacier balance's terms and
-# K1; inside runoff_step the infiltration curve and K4
-NESTED = {"snow_melt": ((snow, "snow_energy_terms"),),
-          "glacier_ablation": ((glacier, "glacier_energy_terms"),
-                               (kernels, "glacier_brent")),
-          "runoff_step": ((runoff, "compute_runoff_and_asat"),
-                          (kernels, "runoff_hourly"))}
-HAND_WRITTEN = ("brent_kernel", "runoff_hourly_kernel", "node_sweep_kernel",
-                "node_finish_kernel", "fd_eval_kernel", "fd_expand_kernel",
-                "fd_init_kernel", "fd_propose_kernel", "fd_accept_kernel",
-                "fd_finish_kernel", "blowing_snow_kernel",
-                "canopy_air_kernel", "canopy_air_final_kernel",
-                "lake_open_water_kernel", "lake_under_ice_kernel",
-                "lake_depth_kernel", "lake_water_balance_kernel")
+PROGRAM = "vic."
+RUNTIME = "cuda"
+COPIES = ("Memcpy", "Memset")
 
 
-def quartiles(xs):
-    q = statistics.quantiles(xs, n=4) if len(xs) > 1 else [xs[0]] * 3
-    return {"median": statistics.median(xs), "q1": q[0], "q3": q[2],
-            "n": len(xs)}
+def record(stack, i):
+    return {k: v[i] for k, v in stack.items()}
 
 
-def build(config, n_cell, n_rec, device):
-    """(gp, params, stack, state, run keyword arguments) after a warm-up
-    record."""
-    gp, params, stack, state, kw = CONFIGS[config](n_cell, n_rec, device)
-    model.run(state, {k: v[:1] for k, v in stack.items()}, params, gp, **kw)
-    return gp, params, stack, state, kw
+def from_config(config, n_cell, n_rec, device):
+    """(step, state, the forcing of each record to profile)."""
+    gp, params, stack, state, extras = CONFIGS[config](n_cell, n_rec + 1,
+                                                       device)
+    step = make_step(params, gp, **extras)
+    state, _ = step(state, record(stack, 0))
+    return step, state, [record(stack, i) for i in range(1, n_rec + 1)]
 
 
-def throughput(config, n_cell, n_rec, repeats, device):
-    gp, params, stack, state, kw = build(config, n_cell, n_rec, device)
-    rates = []
-    for _ in range(repeats):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.run(state, stack, params, gp, **kw)
-        torch.cuda.synchronize()
-        rates.append(n_cell * n_rec / (time.perf_counter() - t0))
-    return dict(quartiles(rates), runs=rates)
+def from_workload(name, seed, n_rec, device):
+    """As from_config, for a cell of the benchmark."""
+    from benchmark import gen, harness
+    _, _, cfg, traffic = harness.cell_spec(name)
+    cell = harness.Cell(cfg, traffic, gen.cell_domain(cfg, traffic, seed),
+                        gen.cell_forcing(cfg, traffic, seed), device, {})
+    cell.block()
+    return (cell.step, harness.clone_state(cell.init),
+            [record(cell.stack, i) for i in range(n_rec)])
 
 
-def breakdown(config, n_cell, n_rec, device):
-    gp, params, stack, state, kw = build(config, n_cell, n_rec, device)
-    # a call the checkout lacks (an older one) is left out
-    wrapped = [(model, name) for name in STEP_CALLS + CONFIG_CALLS[config]
-               if hasattr(model, name)]
-    lake_calls = tuple(n for n in LAKE_CALLS if hasattr(lake, n)) + (
-        ("calc_blowing_snow",) if gp.blowing else ())
-    if gp.lakes:
-        wrapped += [(lake, name) for name in lake_calls]
-    wrapped += [pair for inner in NESTED.values() for pair in inner]
-    spent = {(mod, name): 0.0 for mod, name in wrapped}
-    count = {(mod, name): 0 for mod, name in wrapped}
-    originals = {(mod, name): getattr(mod, name) for mod, name in wrapped}
-
-    def timed(key, fn):
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spent[key] += time.perf_counter() - t0
-            count[key] += 1
-            return out
-        return wrapper
-
-    for (mod, name), fn in originals.items():
-        setattr(mod, name, timed((mod, name), fn))
+def run_profiled(step, state, forcings, device, stub):
+    """(kineto events, host seconds of each profiled step call, the
+    change of each counter that moved)."""
+    from torch.profiler import ProfilerActivity, profile
+    sync(device)
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    saved = trace._Record
+    if stub:
+        trace._Record = lambda name: trace._OFF
+    host_s = []
+    counts0 = trace.counters()
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.run(state, stack, params, gp, **kw)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
+        with profile(activities=acts) as prof:
+            for forcing in forcings:
+                t0 = time.perf_counter()
+                state, _ = step(state, forcing)
+                host_s.append(time.perf_counter() - t0)
+            sync(device)
     finally:
-        for (mod, name), fn in originals.items():
-            setattr(mod, name, fn)
-
-    def ms(key):
-        return spent[key] / n_rec * 1e3
-
-    per_rec = {name: ms((model, name)) for mod, name in wrapped
-               if mod is model}
-    per_rec["other"] = total / n_rec * 1e3 - sum(per_rec.values())
-    result = {"ms_per_record": per_rec,
-              "total_ms_per_record": total / n_rec * 1e3,
-              "calls_per_record": {
-                  (name if mod is model else f"{mod.__name__}.{name}"):
-                  count[(mod, name)] / n_rec for mod, name in wrapped}}
-    for outer, inner in NESTED.items():
-        result[f"{outer}_ms_per_record"] = {name: ms((mod, name))
-                                            for mod, name in inner}
-    if gp.lakes:
-        # nested: solve_lake's calls inside it, the rest of lake_step
-        inner = {name: ms((lake, name)) for name in lake_calls}
-        nested = ("lake_open_water", "lake_ice_melt", "water_under_ice") \
-            + (("calc_blowing_snow",) if gp.blowing else ())
-        inner["solve_lake own glue"] = inner["solve_lake"] - sum(
-            inner[n] for n in nested)
-        # the water balance and the state masks: all of lake_step but
-        # solve_lake (depth_from_volume counts physics.lake's calls,
-        # solve_lake's one included)
-        inner["lake_step less solve_lake"] = (per_rec["lake_step"]
-                                              - inner["solve_lake"])
-        result["lake_ms_per_record"] = inner
-    return result
+        trace._Record = saved
+    counts = trace.counters()
+    moved = {k: v - counts0[k] for k, v in counts.items() if v != counts0[k]}
+    return list(prof.profiler.kineto_results.events()), host_s, moved
 
 
-def profile(config, n_cell, device, step_ms):
-    """Device time of every kernel over two profiled records. The busy
-    share is given against the profiled wall time (profiler overhead
-    included) and against two records at the unprofiled median step
-    time `step_ms`."""
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def breakdown(events, n_rec):
+    """The per-span rows (see the module's docstring), a record each."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-    gp, params, stack, state, kw = build(config, n_cell, 2, device)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.run(state, stack, params, gp, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side kernel events only: CPU-side aten ops also carry the
-    # device time of the kernels they launched
-    kernels = sorted(((e.key, e.self_device_time_total, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda x: -x[1])
-    busy_ms = sum(k[1] for k in kernels) / 1e3
-    ours = {k[0]: {"ms": k[1] / 1e3, "count": k[2]} for k in kernels
-            if any(h in k[0] for h in HAND_WRITTEN)}
-    return {"records": 2, "profiled_wall_ms": wall * 1e3,
-            "device_busy_ms": busy_ms,
-            "busy_share_of_profiled_wall": busy_ms / (wall * 1e3),
-            "busy_share_of_unprofiled_steps": busy_ms / (2 * step_ms),
-            "device_kernel_launches": sum(k[2] for k in kernels),
-            "hand_written_kernels": ours,
-            "top_device_time": [
-                {"name": k[0][:100], "ms": k[1] / 1e3, "count": k[2]}
-                for k in kernels[:12]]}
+    spans, runtime, ops = [], [], []
+    for e in events:
+        name, start = e.name(), e.start_ns()
+        item = (start, start + e.duration_ns(), name, e.correlation_id(),
+                e.start_thread_id())
+        if e.device_type() == DeviceType.CUDA:
+            if not name.startswith(PROGRAM) and not e.is_user_annotation():
+                ops.append(item)
+        elif name.startswith(PROGRAM):
+            spans.append(item)
+        elif name.startswith(RUNTIME):
+            runtime.append(item)
+    rows = collections.defaultdict(lambda: {
+        "calls": 0, "host_ns": 0, "self_ns": 0,
+        "runtime_ns": collections.Counter(), "launches": 0, "copies": 0,
+        "device_ns": 0})
+    # each span's parent and each runtime call's innermost span, by a sweep
+    # over the host events of each thread in start order
+    owner = {}
+    by_thread = collections.defaultdict(list)
+    for i, s in enumerate(spans):
+        by_thread[s[4]].append((s[0], -s[1], 0, i))
+    for i, r in enumerate(runtime):
+        by_thread[r[4]].append((r[0], -r[1], 1, i))
+    for items in by_thread.values():
+        open_spans = []
+        for start, neg_end, kind, i in sorted(items):
+            while open_spans and spans[open_spans[-1]][1] <= start:
+                open_spans.pop()
+            inner = spans[open_spans[-1]][2] if open_spans else "outside"
+            if kind:
+                rows[inner]["runtime_ns"][runtime[i][2]] += -neg_end - start
+                owner[runtime[i][3]] = inner
+                continue
+            row = rows[spans[i][2]]
+            row["calls"] += 1
+            row["host_ns"] += -neg_end - start
+            row["self_ns"] += -neg_end - start
+            if open_spans:
+                rows[spans[open_spans[-1]][2]]["self_ns"] -= -neg_end - start
+            open_spans.append(i)
+    for start, end, name, corr, _ in ops:
+        row = rows[owner.get(corr, "outside")]
+        row["copies" if name.startswith(COPIES) else "launches"] += 1
+        row["device_ns"] += end - start
+    out = {}
+    for name, r in sorted(rows.items()):
+        out[name] = {
+            "calls": r["calls"] / n_rec,
+            "host_ms": r["host_ns"] / 1e6 / n_rec,
+            "host_self_ms": r["self_ns"] / 1e6 / n_rec,
+            "runtime_ms": {k: v / 1e6 / n_rec for k, v in
+                           r["runtime_ns"].most_common()},
+            "launches": r["launches"] / n_rec,
+            "copies": r["copies"] / n_rec,
+            "device_ms": r["device_ns"] / 1e6 / n_rec}
+    return out
+
+
+def table(rows):
+    """The rows as aligned text, by span name."""
+    lines = [f"{'span':34} {'calls':>7} {'host':>9} {'self':>9} "
+             f"{'runtime':>9} {'launch':>8} {'device':>9}  top runtime"]
+    for name, r in rows.items():
+        rt = sum(r["runtime_ms"].values())
+        top = ", ".join(f"{k} {v:.2f}" for k, v in
+                        list(r["runtime_ms"].items())[:2])
+        lines.append(f"{name:34} {r['calls']:7.2f} {r['host_ms']:9.3f} "
+                     f"{r['host_self_ms']:9.3f} {rt:9.3f} "
+                     f"{r['launches']:8.1f} {r['device_ms']:9.3f}  {top}")
+    return "\n".join(lines)
+
+
+def card():
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", choices=tuple(CONFIGS), default="light")
     ap.add_argument("--cells", type=int, default=32768)
-    ap.add_argument("--records", type=int, default=8)
-    ap.add_argument("--repeats", type=int, default=5)
-    ap.add_argument("--rate-only", action="store_true",
-                    help="throughput alone, with each run's rate")
+    ap.add_argument("--workload", default=None)
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--records", type=int, default=2)
+    ap.add_argument("--stub-spans", action="store_true")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--out", default=None)
     a = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_torch_light needs a CUDA device")
-    device = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    torch.empty(0, device=device)          # create the CUDA context
-    torch.cuda.reset_peak_memory_stats(device)
-    rate = throughput(a.config, a.cells, a.records, a.repeats, device)
-    result = {
-        "card": card, "config": a.config, "cells": a.cells,
-        "records": a.records,
-        "lanes": a.cells * 8, "cell_steps_per_s": rate,
-        "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
-    }
-    if not a.rate_only:
-        result["breakdown"] = breakdown(a.config, a.cells, a.records, device)
-        result["profile"] = profile(a.config, a.cells, device,
-                                    step_ms=a.cells / rate["median"] * 1e3)
+    if a.device == "cuda" and not torch.cuda.is_available():
+        ap.error("no CUDA device: these rows would not be the card's "
+                 "(--device cpu runs the plain path on the CPU)")
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if a.device == "cuda" else torch.device("cpu"))
+    made = (from_workload(a.workload, a.seed, a.records, device)
+            if a.workload else from_config(a.config, a.cells, a.records,
+                                           device))
+    events, host_s, moved = run_profiled(*made, device, a.stub_spans)
+    rows = breakdown(events, a.records)
+    print(table(rows), file=sys.stderr)
+    counters = {k: v / a.records for k, v in sorted(moved.items())}
+    print("counters a record: " + json.dumps(counters), file=sys.stderr)
+    result = {"card": card() if device.type == "cuda" else "cpu",
+              "config": a.config, "cells": a.cells, "workload": a.workload,
+              "seed": a.seed, "records": a.records,
+              "stub_spans": a.stub_spans,
+              "step_host_ms": [s * 1e3 for s in host_s],
+              "counters": counters, "spans": rows}
     text = json.dumps(result, indent=1)
     print(text)
     if a.out:

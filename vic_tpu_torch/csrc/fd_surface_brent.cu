@@ -80,7 +80,8 @@ extern "C" {
 // float [11][n]; lane_flags: uint8 [3][n]; ctl: int32 [n_ctl] = (2 +
 // 2*max_tries + max_iter) * 2 * max_sweeps sweep slots and max_tries +
 // max_iter + 1 votes; lo/hi/root/converged/bracketed: [n]; trips, solves,
-// sweeps: int32 [1] each; blocks: the grid (0: the co-resident count);
+// sweeps: int32 [1] each; totals: int64 [3] the three are added to;
+// blocks: the grid (0: the co-resident count);
 // group: the share group's table (share_votes.cuh fill_share_votes; null:
 // the lanes are the whole batch).
 int fd_surface_brent(const int64_t* lanes, int nf, int nm,
@@ -94,8 +95,8 @@ int fd_surface_brent(const int64_t* lanes, int nf, int nm,
                      uint8_t* lane_flags, int32_t* ctl, int n_ctl, int n,
                      const float* lo, const float* hi, float* root,
                      uint8_t* converged, uint8_t* bracketed, int32_t* trips,
-                     int32_t* solves, int32_t* sweeps, int blocks,
-                     const int64_t* group, void* stream) {
+                     int32_t* solves, int32_t* sweeps, int64_t* totals,
+                     int blocks, const int64_t* group, void* stream) {
   LaneInputs in{};
   SweepArgs sa{};
   if (n <= 0 || max_iter < 0 || max_tries < 0 ||
@@ -121,6 +122,7 @@ int fd_surface_brent(const int64_t* lanes, int nf, int nm,
   b.trips = trips;
   b.solves = solves;
   b.sweeps = sweeps;
+  b.totals = reinterpret_cast<unsigned long long*>(totals);
   b.dt = dt;
   b.gft = grnd_flux_type;
   b.frozen = frozen;

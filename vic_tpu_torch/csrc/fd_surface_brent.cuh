@@ -56,6 +56,9 @@ struct BrentArgs {
   int32_t* trips;    // the Brent loop's trip count
   int32_t* solves;   // profile solves (residual evaluations of every lane)
   int32_t* sweeps;   // sweeps over all the profile solves
+  // int64 running totals the three counts are added to (atomically: shares
+  // of a card launch on streams of their own)
+  unsigned long long* totals;
   float dt;
   int gft, frozen, max_iter, max_tries;
 };
@@ -272,6 +275,9 @@ __global__ void __launch_bounds__(kBlock, vicnode::kMinBlocks)
     b.trips[0] = it;
     b.solves[0] = solves;
     b.sweeps[0] = sweeps;
+    atomicAdd(&b.totals[0], static_cast<unsigned long long>(it));
+    atomicAdd(&b.totals[1], static_cast<unsigned long long>(solves));
+    atomicAdd(&b.totals[2], static_cast<unsigned long long>(sweeps));
   }
 }
 

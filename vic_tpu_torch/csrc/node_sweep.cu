@@ -45,7 +45,8 @@ template <int NN, bool G>
 __global__ void __launch_bounds__(kBlock, vicnode::kMinBlocks)
     node_sweep_kernel(const __grid_constant__ SweepArgs a,
                       const float* surf_temp, int32_t* ctl,
-                      int32_t* sweeps_out) {
+                      int32_t* sweeps_out,
+                      unsigned long long* total_sweeps) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   constexpr int kLanes = vicnode::lanes_of(NN);
   vicnode::for_each_lane<kLanes>(
@@ -59,7 +60,10 @@ __global__ void __launch_bounds__(kBlock, vicnode::kMinBlocks)
   vicnode::for_each_lane<kLanes>(a.n, [&](int i) {
     vicnode::finish_lane<NN, true>(a, i, surf_temp[i], sweeps);
   });
-  if (vicnode::thread_rank() == 0) sweeps_out[0] = sweeps;
+  if (vicnode::thread_rank() == 0) {
+    sweeps_out[0] = sweeps;
+    atomicAdd(total_sweeps, static_cast<unsigned long long>(sweeps));
+  }
 }
 
 }  // namespace
@@ -71,16 +75,19 @@ extern "C" {
 // and exp_a, bexp ([n_cell]); 3 <= nn <= 50; exp_trans: EXP_TRANS spacing;
 // work: the scratch of enum vicnode::Work (fallback counts included);
 // surf_temp: [n]; ctl: int32 [2 * max_sweeps], zeroed by the kernel;
-// t_out, fb_out: [n, nn]; sweeps: int32 [1]; blocks: the grid (0: the
-// co-resident count); group: the share group's table (share_votes.cuh
-// fill_share_votes; null: the lanes are the whole batch).
+// t_out, fb_out: [n, nn]; sweeps: int32 [1]; total_sweeps: an int64 the
+// sweep count is added to (atomically: shares of a card launch on streams
+// of their own); blocks: the grid (0: the co-resident count); group: the
+// share group's table (share_votes.cuh fill_share_votes; null: the lanes
+// are the whole batch).
 int node_sweep(const void* const* lane, const void* const* geom,
                const uint8_t* fs_active, int nn, int nlayer, int frozen,
                int noflux, int exp_trans, int max_sweeps, float dt,
                float two_dt, float four_dt, const void* const* work,
                const float* surf_temp, int n, int h, int32_t* ctl,
-               float* t_out, int32_t* fb_out, int32_t* sweeps, int blocks,
-               const int64_t* group, void* stream) {
+               float* t_out, int32_t* fb_out, int32_t* sweeps,
+               int64_t* total_sweeps, int blocks, const int64_t* group,
+               void* stream) {
   SweepArgs a{};
   if (!vicnode::fill_sweep_args(&a, lane, geom, fs_active, n, h, nn, nlayer,
                                 frozen, noflux, exp_trans, max_sweeps, dt,
@@ -92,13 +99,15 @@ int node_sweep(const void* const* lane, const void* const* geom,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int d = a.votes.divisor;
   const bool g = a.votes.words != nullptr;
+  auto* total = reinterpret_cast<unsigned long long*>(total_sweeps);
   if (nn == 5)
     return vicnode::launch_cooperative(
         g ? node_sweep_kernel<5, true> : node_sweep_kernel<5, false>, n,
-        vicnode::lanes_of(5), blocks, d, s, a, surf_temp, ctl, sweeps);
+        vicnode::lanes_of(5), blocks, d, s, a, surf_temp, ctl, sweeps,
+        total);
   return vicnode::launch_cooperative(
       g ? node_sweep_kernel<0, true> : node_sweep_kernel<0, false>, n,
-      vicnode::lanes_of(0), blocks, d, s, a, surf_temp, ctl, sweeps);
+      vicnode::lanes_of(0), blocks, d, s, a, surf_temp, ctl, sweeps, total);
 }
 
 }  // extern "C"

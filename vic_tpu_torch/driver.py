@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import trace
 from .config import GlobalParams, parse_global_param_file
 from .params import Domain
 from .timeaxis import TimeAxis, time_axis_from_params
@@ -50,7 +51,8 @@ class RunResult:
     cell_steps_per_s: float
     gmb_results: list = None   # GmbResult per accumulation interval
     # seconds of each stage: "params" (parameter files), "forcing" (ingest
-    # with MTCLIM), "run", "write" (outputs and state)
+    # with MTCLIM), "run", "write" (outputs and state), each timed on the
+    # host's clock inside its vic.driver.<stage> span
     stage_s: dict = None
     peak_device_bytes: int = 0
     forcing: dict = None   # the [n_rec, n_cell] host forcing the run used
@@ -187,22 +189,24 @@ def run_simulation(gp: GlobalParams, domain: Optional[Domain] = None,
                         nrecs=(gp.nrecs * nf if gp.nrecs > 0 else gp.nrecs))
 
     timeaxis = time_axis_from_params(gp)
-    t0 = time.perf_counter()
-    if domain is None:
-        domain = load_domain(gp)
-    stage_s["params"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    if forcing is None:
-        forcing = load_forcing(gp, domain, timeaxis, device)
-    else:
-        n_have = len(next(iter(forcing.values())))
-        if n_have != timeaxis.nrecs:
-            raise ValueError(
-                f"supplied forcing has {n_have} records but the time axis "
-                f"needs {timeaxis.nrecs} (dt={gp.dt} h after NF "
-                f"sub-stepping — pre-stacked forcing must be at SNOW_STEP "
-                f"resolution, or set snow_step == dt)")
-    stage_s["forcing"] = time.perf_counter() - t0
+    with trace.span("vic.driver.params"):
+        t0 = time.perf_counter()
+        if domain is None:
+            domain = load_domain(gp)
+        stage_s["params"] = time.perf_counter() - t0
+    with trace.span("vic.driver.forcing"):
+        t0 = time.perf_counter()
+        if forcing is None:
+            forcing = load_forcing(gp, domain, timeaxis, device)
+        else:
+            n_have = len(next(iter(forcing.values())))
+            if n_have != timeaxis.nrecs:
+                raise ValueError(
+                    f"supplied forcing has {n_have} records but the time "
+                    f"axis needs {timeaxis.nrecs} (dt={gp.dt} h after NF "
+                    f"sub-stepping — pre-stacked forcing must be at "
+                    f"SNOW_STEP resolution, or set snow_step == dt)")
+        stage_s["forcing"] = time.perf_counter() - t0
 
     if gp.output_force:
         # OUTPUT_FORCE disaggregation-only mode (vicNl.c:420-490): run the
@@ -383,9 +387,11 @@ def run_simulation(gp: GlobalParams, domain: Optional[Domain] = None,
                         rec.append(outs)
             # keys sorted, as vic_tpu's scan returns its output dict (a
             # pytree): the writers' variable order follows them
-            outs = gather_cell_axis(
-                [{k: torch.stack([o[k] for o in rec]).cpu().numpy()
-                  for k in sorted(rec[0])} for rec in recs], n_share, axis=1)
+            with trace.span("vic.driver.copy"):
+                outs = gather_cell_axis(
+                    [{k: torch.stack([o[k] for o in rec]).cpu().numpy()
+                      for k in sorted(rec[0])} for rec in recs], n_share,
+                    axis=1)
             all_outs.append({k: a[:, :nb] if a.ndim >= 2
                              and a.shape[1] == n_run else a
                              for k, a in outs.items()})
@@ -420,17 +426,20 @@ def run_simulation(gp: GlobalParams, domain: Optional[Domain] = None,
         for d in used:
             torch.cuda.synchronize(d)
             torch.cuda.reset_peak_memory_stats(d)
-    t0 = time.perf_counter()
     block_states, block_outs, gmb_results = [], [], []
-    for b0 in range(0, n_cell_real, cc):
-        bst, bouts, bres = run_block(b0, min(b0 + cc, n_cell_real), state)
-        block_states.append(bst)
-        block_outs.append(bouts)
-        gmb_results.extend(bres)
-    if on_cuda:
-        for d in used:
-            torch.cuda.synchronize(d)
-    elapsed = time.perf_counter() - t0
+    with trace.span("vic.driver.run"):
+        t0 = time.perf_counter()
+        for b0 in range(0, n_cell_real, cc):
+            with trace.span("vic.driver.block"):
+                bst, bouts, bres = run_block(b0, min(b0 + cc, n_cell_real),
+                                             state)
+            block_states.append(bst)
+            block_outs.append(bouts)
+            gmb_results.extend(bres)
+        if on_cuda:
+            for d in used:
+                torch.cuda.synchronize(d)
+        elapsed = time.perf_counter() - t0
     stage_s["run"] = elapsed
     peak = max(torch.cuda.max_memory_allocated(d) for d in used) \
         if on_cuda else 0
@@ -451,17 +460,19 @@ def run_simulation(gp: GlobalParams, domain: Optional[Domain] = None,
     if progress and on_cuda:
         print(f"  peak device memory: {peak / 1e9:.2f} GB", file=sys.stderr)
 
-    t0 = time.perf_counter()
-    if write_output:
-        write_outputs(gp, domain, timeaxis, agg, steps_per_out)
+    with trace.span("vic.driver.write"):
+        t0 = time.perf_counter()
+        if write_output:
+            write_outputs(gp, domain, timeaxis, agg, steps_per_out)
 
-    if gp.save_state and gp.state_name:
-        from .io.state_io import save_state
-        date = (int(timeaxis.year[-1]), int(timeaxis.month[-1]),
-                int(timeaxis.day[-1]))
-        save_state(_state_path(gp, date), state, gp, domain, date=date,
-                   fmt=gp.state_format, geom=geom, lake_params=lake_params)
-    stage_s["write"] = time.perf_counter() - t0
+        if gp.save_state and gp.state_name:
+            from .io.state_io import save_state
+            date = (int(timeaxis.year[-1]), int(timeaxis.month[-1]),
+                    int(timeaxis.day[-1]))
+            save_state(_state_path(gp, date), state, gp, domain, date=date,
+                       fmt=gp.state_format, geom=geom,
+                       lake_params=lake_params)
+        stage_s["write"] = time.perf_counter() - t0
 
     n_cell = domain.n_cell
     return RunResult(outputs=agg, final_state=state, timeaxis=timeaxis,

@@ -7,7 +7,8 @@ table (`_lane_inputs`, csrc/lanes.cuh), so no input is copied and no view
 is made, allocates the outputs, launches on the current stream,
 raises if the launch was refused, and adds one to its entry of `launches`
 (under a lock: the shares of a split block launch from threads of their
-own). What a wrapper keeps between calls is kept per device and stream.
+own); each call is a vic.kernel.<name> span (`trace.kernel`). What a
+wrapper keeps between calls is kept per device and stream.
 The plain PyTorch versions live beside each call site (physics/glacier.py,
 snow.py, canopy_snow.py, runoff.py, surface.py, frozen_soil.py,
 blowing_snow.py, canopy_air.py, lake.py, bisection.py); the call sites pick
@@ -17,26 +18,19 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..ops.rootfind import MAXTRIES, RootResult
 from . import build
 
-# launches of each kernel since the last reset_launches(): calls of its
-# wrapper that reached the device (K6's and K7's calls are one cooperative
-# launch each, every sweep and, in K7, the whole Brent solve inside it)
-launches = {"glacier_brent": 0, "snowpack_brent": 0, "canopy_brent": 0,
-            "runoff_hourly": 0, "surface_brent": 0, "node_sweep": 0,
-            "fd_surface_brent": 0, "blowing_snow": 0, "canopy_air_step": 0,
-            "canopy_air_final": 0, "lake_open_water": 0,
-            "lake_under_ice": 0, "lake_ice_melt": 0, "lake_depth": 0,
-            "lake_water_balance": 0, "affine_surface_brent": 0,
-            "mass_release": 0, "implicit_profile": 0, "bisection": 0}
-_launches_lock = threading.Lock()
+# launches of each kernel since the last reset_launches() (trace.launches:
+# the calls of its wrapper that reached the device), a key a wrapper
+launches = trace.launches
+reset_launches = trace.reset_launches
 
 # per-lane float inputs of each Brent residual, in the C functors' order
 GLACIER_INPUTS = ("ra", "z_ref", "roughness", "air_dens", "vp_air",
@@ -54,12 +48,6 @@ CANOPY_INPUTS = ("lai_ra_over", "air_dens", "vp_air", "pressure", "le",
                  "long_over_in", "long_under_out", "int_rain", "ra_plain",
                  "wdew_mm", "prec_mm", "wdmax_mm", "rarc", "elevation")
 CANOPY_FLAGS = ("has_csnow",)
-
-
-def reset_launches():
-    with _launches_lock:
-        for k in launches:
-            launches[k] = 0
 
 
 def _check_input(x, device, dtype, name):
@@ -137,8 +125,7 @@ def _check_launch(name, err):
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
-    with _launches_lock:
-        launches[name] += 1
+    trace.count_launch(name)
 
 
 def _lane_outputs(shape, device, floats=0, flags=0):
@@ -210,6 +197,7 @@ GLACIER_OUTPUTS = ("melt_mm", "surf_temp", "cold_content", "vapor_flux")
 GLACIER_FLAGS = ("melt_cond", "fbflag")
 
 
+@trace.kernel("glacier_brent")
 def glacier_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
     """K1: glacier.glacier_ablation's solve of the bare-ice balance in one
     launch: on every lane the balance at 0 C, its melt test and the melt
@@ -261,6 +249,7 @@ def _snowpack_inputs(inputs, device):
         spatial=_const(device, torch.bool, spatial))
 
 
+@trace.kernel("snowpack_brent")
 def snowpack_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
     """K2: snow.snow_melt's solve of the snowpack surface balance in one
     launch, with SPATIAL_SNOW's advected sensible heat where
@@ -297,6 +286,7 @@ def snowpack_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
                          terms_b=SnowEBTerms(*terms[nt:]))
 
 
+@trace.kernel("canopy_brent")
 def canopy_brent(lo, hi, active, *, dt, max_iter, max_tries, **inputs):
     """K3: expand-then-Brent on the canopy foliage residual, the active
     lanes compacted and dealt to persistent threads (csrc/lane_brent.cuh).
@@ -320,6 +310,7 @@ BISECTION_RESIDUALS = {"snowpack": (0, SNOWPACK_INPUTS, SNOWPACK_FLAGS),
                        "glacier": (1, GLACIER_INPUTS, ())}
 
 
+@trace.kernel("bisection")
 def bisection(residual, lo, hi, active, n_iter=40, *, dt, **inputs):
     """K17: vic_tpu's fixed-count bisection (ops/rootfind.py:210) on one of
     the residuals the library compiles, "snowpack" (K2's, SPATIAL_SNOW's
@@ -361,6 +352,7 @@ def _mass_release_lanes(int_snow, temp_int_storage):
     return shape, table
 
 
+@trace.kernel("mass_release")
 def mass_release(int_snow, temp_int_storage, n_iter=8):
     """K15: vic_tpu's 8-round canopy snow release (canopy_snow.py:126):
     four lanes a thread with float4 loads and stores where both inputs are
@@ -403,6 +395,7 @@ RUNOFF_LAYER_INPUTS = ("moist", "soil_ice", "layer_evap", "max_moist_l",
 RUNOFF_LANE_INPUTS = ("ppt", "b_infilt", "ds", "dsmax", "ws", "c_expt")
 
 
+@trace.kernel("runoff_hourly")
 def runoff_hourly(moist, soil_ice, layer_evap, ppt, max_moist_l,
                   resid_fract, depth, ksat, expt, b_infilt, ds, dsmax, ws,
                   c_expt, dt_hours: int):
@@ -569,6 +562,7 @@ SURFACE_DRY_TERMS = ("canopy_evap_mm_dry", "throughfall_dry", "wdew_new_dry",
                      "evap_dry")
 
 
+@trace.kernel("surface_brent")
 def surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     """K5: expand-then-Brent on the QUICK_FLUX soil-surface residual, with
     FROZEN_SOIL's fusion term where eb_kwargs["frozen_soil"], the active
@@ -620,7 +614,8 @@ _FD_ROWS = 11
 class FdRootResult(NamedTuple):
     """K7's result: RootResult's fields, iterations the Brent loop's trip
     count, then its profile solves (residual evaluations of every lane)
-    and the sweeps of all of them; the counts int32 0-d device tensors."""
+    and the sweeps of all of them; the counts int32 0-d device tensors,
+    also added by the launch to trace's k7_trips, k7_solves, k7_sweeps."""
     root: torch.Tensor
     converged: torch.Tensor
     bracketed: torch.Tensor
@@ -629,6 +624,7 @@ class FdRootResult(NamedTuple):
     sweeps: torch.Tensor
 
 
+@trace.kernel("fd_surface_brent")
 def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     """K7: the batch-wide Brent of physics.surface.surface_root_plain on
     the finite-difference residual as ONE cooperative launch: every
@@ -683,7 +679,8 @@ def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
         *sweep_args, state.data_ptr(), lane_flags.data_ptr(), ctl.data_ptr(),
         n_ctl, n, lo_c.data_ptr(), hi_c.data_ptr(), root.data_ptr(),
         converged.data_ptr(), bracketed.data_ptr(), *_out_ptrs(counts),
-        _COOP_BLOCKS, _table_ptr(group), stream)
+        trace.device_counter(device, "k7_trips"), _COOP_BLOCKS,
+        _table_ptr(group), stream)
     _check_coop(name, err)
     if votes is not None:
         votes.settle(name)
@@ -695,6 +692,7 @@ def fd_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
 AFFINE_INPUTS = ("ts_a", "ts_b", "probe_lo", "probe_hi", "lo", "hi")
 
 
+@trace.kernel("affine_surface_brent")
 def affine_surface_brent(lo, hi, active, *, max_iter, eb_kwargs):
     """K14: expand-then-Brent on the finite-difference residual whose nodes
     1-2 are interpolated affinely between two probe profiles,
@@ -761,6 +759,7 @@ def _implicit_scratch(nn, n, device, stream):
     return buf
 
 
+@trace.kernel("implicit_profile")
 def implicit_profile(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
                      fs_active, *, dt_sec, noflux, frozen, max_nr=12,
                      relax=None):
@@ -871,6 +870,7 @@ def _node_solve_args(name, t0, kappa, cs, moist_node, ice0_node, geom,
     return (lane, geo, fs, work), args
 
 
+@trace.kernel("node_sweep")
 def node_sweep(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
                fs_active, *, nlayer, dt_sec, noflux, frozen, max_sweeps,
                exp_trans=False, votes=None):
@@ -880,7 +880,8 @@ def node_sweep(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
     for the other shares at each sweep, and the call for the launch), at 3
     to 50 nodes on linear or (exp_trans) EXP_TRANS spacing. Same arguments
     and result as physics.frozen_soil.solve_t_profile_explicit_plain (the
-    sweep count as an int32 0-d tensor)."""
+    sweep count as an int32 0-d tensor, also added by the launch to
+    trace's k6_sweeps)."""
     from ..physics.frozen_soil import ProfileResult
     name = "node_sweep"
     _views, args = _node_solve_args(
@@ -903,7 +904,8 @@ def node_sweep(t0, surf_temp, kappa, cs, moist_node, ice0_node, geom,
     group = votes.launch_table() if votes is not None else None
     err = build.load().node_sweep(
         *args, surf.data_ptr(), n, h, ctl.data_ptr(), temp.data_ptr(),
-        fbcount.data_ptr(), sweeps.data_ptr(), _COOP_BLOCKS,
+        fbcount.data_ptr(), sweeps.data_ptr(),
+        trace.device_counter(device, "k6_sweeps"), _COOP_BLOCKS,
         _table_ptr(group), stream)
     _check_coop(name, err)
     if votes is not None:
@@ -920,6 +922,7 @@ BLOWING_MASKS = ("is_bare",)
 BLOWING_UNUSED = ("pressure", "zrh", "tsnow")
 
 
+@trace.kernel("blowing_snow")
 def blowing_snow(*, dt_sec, quad_nodes, log_terms, **inputs):
     """K8: calc_blowing_snow of every lane in one launch, the snow lanes
     of each block's chunk compacted and their (lane, wind increment) items
@@ -1018,6 +1021,7 @@ def _canopy_air_table(inputs, shape, device, scratch):
     return table
 
 
+@trace.kernel("canopy_air_step")
 def canopy_air_step(*, it, **inputs):
     """K9: one CLOSE_ENERGY pass's canopy-air update on every lane and the
     batch's largest masked change, reduced on the device. Same arguments and
@@ -1068,6 +1072,7 @@ def canopy_air_largest_change(live_max):
     return float(scratch.host_bits.view(np.float32)[0])
 
 
+@trace.kernel("canopy_air_final")
 def canopy_air_final(**inputs):
     """K9's final update: on the settled pass, calc_atmos_energy_bal's
     Tcanopy on the iterated lanes (Tair elsewhere), its fallback flag
@@ -1160,6 +1165,7 @@ def _check_names(name, inputs, expected):
                         f"{sorted(set(inputs) - set(expected))}")
 
 
+@trace.kernel("lake_open_water")
 def lake_open_water(*, temp, grid, dt_sec, active, **inputs):
     """K10: the open-water skin-temperature fixed point and the mix of its
     column, one warp per lake. Same arguments and result as
@@ -1187,6 +1193,7 @@ def lake_open_water(*, temp, grid, dt_sec, active, **inputs):
     return WaterEBResult(t_out, *sc.unbind(0), converged, iterations), t_open
 
 
+@trace.kernel("lake_under_ice")
 def lake_under_ice(*, temp, grid, dt_sec, active, **inputs):
     """K11: the ice/water interface flux fixed point of the column under
     lake ice, its column solved and mixed every iteration, one warp per
@@ -1217,6 +1224,7 @@ def lake_under_ice(*, temp, grid, dt_sec, active, **inputs):
                           iterations=iterations)
 
 
+@trace.kernel("lake_ice_melt")
 def lake_ice_melt(*, dt_sec, max_iter=30, blowing_flux=0.0, active=None,
                   **inputs):
     """K12: the whole of lake_ice_melt in one launch on
@@ -1264,6 +1272,7 @@ def lake_ice_melt(*, dt_sec, max_iter=30, blowing_flux=0.0, active=None,
                          terms=terms, solve=outs)
 
 
+@trace.kernel("lake_depth")
 def lake_depth(z, basin, maxdepth, volume):
     """K13: the depth of each lake's liquid volume by 30 bisection steps on
     its basin (z, basin [n_cell, 21]). Same result as
@@ -1318,6 +1327,7 @@ LAKE_BALANCE_OUTPUTS = ("volume", "evap_m3", "runoff_out_m3",
                         "depth", "sarea", "water_error_mm")
 
 
+@trace.kernel("lake_water_balance")
 def lake_water_balance(lp, st, res, **inputs):
     """The lakes' water balance after solve_lake, one thread per lake: the
     HRU lanes' passes in order (gains and evaporation cap, new extent,

@@ -104,11 +104,11 @@ _NODE_SOLVE = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
 # their grid, share group table and stream
 _COOPERATIVE = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 _SWEEP_ARGTYPES = (_NODE_SOLVE + [ctypes.c_void_p] + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 4 + _COOPERATIVE)
+                   + [ctypes.c_void_p] * 5 + _COOPERATIVE)
 _FD_SURFACE_ARGTYPES = (_LANES + [ctypes.c_int] * 3 + [ctypes.c_float]
                         + [ctypes.c_int] * 4 + _NODE_SOLVE
                         + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                        + [ctypes.c_void_p] * 8 + _COOPERATIVE)
+                        + [ctypes.c_void_p] * 9 + _COOPERATIVE)
 _BLOWING_ARGTYPES = (_LANES + [ctypes.c_int, ctypes.c_float]
                      + [ctypes.c_void_p] * 2 + [ctypes.c_int]
                      + [ctypes.c_void_p] * 3)

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from . import constants as c
-from . import kernels
+from . import kernels, trace
 from .physics.aero import calc_aerodynamic
 from .physics.blowing_snow import calc_blowing_snow
 from .physics.canopy_air import (canopy_air_final, canopy_air_step,
@@ -130,7 +130,11 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
     split over devices, the share's parallel.votes.Member, which the step
     keeps: CLOSE_ENERGY's pass loop, the node sweep and the Brent around
     it then stop on tests over every share's cells, as on one device (the
-    driver runs the shares in threads of their own); None otherwise."""
+    driver runs the shares in threads of their own); None otherwise.
+
+    Each step call adds one to trace's `records` and is a vic.step span
+    with a span for each physics phase it runs (trace); its CLOSE_ENERGY
+    passes add to `close_energy_passes`."""
     _refuse(gp, geom, zwt_curves, lake_params)
     if lake_params is not None:
         check_basin(lake_params.z)
@@ -147,7 +151,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                 if frozen else None)
     frost_kw = frost_kwargs(gp)
 
-    def step(state: ModelState, forcing):
+    def step_phases(state: ModelState, forcing, ph):
+        """The step's body; ph: its phase cursor (trace.phases)."""
         W = torch.where
         mi = int(forcing["month"]) - 1
         doy = int(forcing["day_in_year"])
@@ -156,6 +161,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             return a[:, None]
 
         # ---- forcings on [c,h] with the band lapse ----
+        ph("vic.step.forcing")
         tair = B(forcing["air_temp"]) + p.tfactor
         prec = B(forcing["prec"]) * p.pfactor
         wind = torch.clamp(B(forcing["wind"]), min=float(gp.min_wind_speed))
@@ -280,6 +286,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
         # ---- soil thermal properties of the top two layers, of the
         # mu-averaged column (prepare_full_energy.c:52-56); the wet column
         # drives evaporation and runoff ----
+        ph("vic.step.soil_thermal")
         moist0, ice0 = moist_w, ice_w
         moist_avg, ice_avg = dwl(moist_w, moist_d), dwl(ice_w, ice_d)
         l2 = slice(0, 2)
@@ -349,6 +356,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
 
         # ---- blowing-snow sublimation flux (BLOWING; CalcBlowingSnow.c),
         # from the carried state only: outside the canopy-air chain ----
+        ph("vic.step.blowing" if gp.blowing else None)
         if gp.blowing:
             blow_flux, _ = calc_blowing_snow(
                 dt_sec=dt_sec, tair=tair,
@@ -366,14 +374,16 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             blow_flux = tair.new_zeros(())
         rainfall_base, wdew0_base = rainfall, wdew0
 
-        def column(tca, luo, fd_cheap=False):
+        def column_phases(tca, luo, fd_cheap, cp):
             """One pass of the overstory -> understory chain at canopy-air
             temperature tca (Tair on lanes that do not iterate), with luo
             the understory's upward longwave that the canopy sees
             (vic_tpu/model.py:361-785). fd_cheap: on finite-difference nodes,
             solve the surface balance on the affine two-probe profile, as
-            the CLOSE_ENERGY passes before the last one do."""
+            the CLOSE_ENERGY passes before the last one do. cp: its phase
+            cursor."""
             # ---- overstory canopy snow interception (snow_intercept.c) ----
+            cp("vic.step.canopy_snow")
             ci = snow_intercept(
                 snowfall_mm=snowfall, rainfall_mm=rainfall_base,
                 int_snow_m=state.snow_canopy, int_rain_m=wdew0_base / 1000.0,
@@ -402,6 +412,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             lw_under = W(ov_snow, lw_in - ci.net_long_over, lw_in)
 
             # ---- snow albedo aging (solve_snow.c:418-439) ----
+            cp("vic.step.snow")
             albedo_aged = snow_albedo(
                 snowfall_ground, state.swq, state.depth, state.albedo,
                 state.cold_content, dt_hours, last_snow.to(tair.dtype),
@@ -451,6 +462,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             inc = sm.include_snow & snow_present & ~glacier & p.mask
 
             # ---- glacier lane: bare-ice ablation once snow is gone ----
+            cp("vic.step.glacier")
             on_ice = glacier & ~snow_present
             glac = glacier_ablation(
                 tair=tair, net_short=(1.0 - B(p.glac_albedo)) * sw_in,
@@ -478,6 +490,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                                    state.glac_water_storage)
 
             # ---- snowpack density/depth (solve_snow.c:478-496) ----
+            cp("vic.step.snow")
             snthrm = int(gp.snow_density) == 1
             density_new = snow_density_update(
                 state.swq, state.depth, state.density, surf_temp,
@@ -548,6 +561,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                            / torch.clamp(mean_depth, min=1e-10), 0.0)
 
             # ---- surface energy balance on snow-free ground ----
+            cp("vic.step.surface")
             net_short_bare = sw_under * (
                 (1.0 - (coverage + delta_cov)) * (1.0 - bare_albedo)
                 + delta_cov * (1.0 - snow_alb))
@@ -648,11 +662,17 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                 melt_energy=melt_energy, net_short_bare=net_short_bare, ts=ts,
                 fb=fb, eb=eb, luo_out=luo_out, cov_state=cov_state)
 
+        def column(tca, luo, fd_cheap=False):
+            """column_phases inside a vic.step.column span."""
+            with trace.span("vic.step.column"), trace.phases() as cp:
+                return column_phases(tca, luo, fd_cheap, cp)
+
         # ---- CLOSE_ENERGY: the canopy-air temperature's fixed point over
         # column() passes (surface_fluxes.c:455-656 + calc_atmos_energy_bal);
         # only snow-covered overstory lanes iterate, the others keep
         # Tcanopy = Tair (vic_tpu/model.py:796-851) ----
         iter_mask = ov_snow & p.mask
+        ph("vic.step.close_energy" if gp.close_energy else None)
         if gp.close_energy:
             # per-lane safeguarded secant on F(tc) - tc, every lane until the
             # batch's largest change is within OVER_TOL (a NaN keeps it
@@ -662,21 +682,23 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             luo = state.long_under_out
             close_iters = 0
             while close_iters < c.CLOSE_ENERGY_MAXITER:
-                ri = column(tc, luo, fd_cheap=True)
-                tc_next, g_prev, live_max = canopy_air_step(
-                    it=close_iters, canopy_sensible=ri["ci"].sensible,
-                    soil_sensible=ri["eb"].sensible_heat,
-                    pack_sensible=ri["sm"].terms.sensible,
-                    cov_w=ri["cov_w"], tair=tair, air_dens=air_dens,
-                    ra_over=aero.resist.canopy, tc=tc, tc_prev=tc_prev,
-                    g_prev=g_prev, iter_mask=iter_mask, lane_mask=p.mask)
-                tc_prev, tc, luo = tc, tc_next, ri["luo_out"]
-                close_iters += 1
-                change = largest_change(live_max)
-                if votes is not None:
-                    change = votes.max_nan(change)
+                with trace.span("vic.step.close_energy.pass"):
+                    ri = column(tc, luo, fd_cheap=True)
+                    tc_next, g_prev, live_max = canopy_air_step(
+                        it=close_iters, canopy_sensible=ri["ci"].sensible,
+                        soil_sensible=ri["eb"].sensible_heat,
+                        pack_sensible=ri["sm"].terms.sensible,
+                        cov_w=ri["cov_w"], tair=tair, air_dens=air_dens,
+                        ra_over=aero.resist.canopy, tc=tc, tc_prev=tc_prev,
+                        g_prev=g_prev, iter_mask=iter_mask, lane_mask=p.mask)
+                    tc_prev, tc, luo = tc, tc_next, ri["luo_out"]
+                    close_iters += 1
+                    change = largest_change(live_max)
+                    if votes is not None:
+                        change = votes.max_nan(change)
                 if change <= OVER_TOL_F32:
                     break
+            trace.count("close_energy_passes", close_iters)
             r = column(tc, luo)
             # the final update at the settled temperature
             tcanopy, tcanopy_fb, atmos_sensible = canopy_air_final(
@@ -690,6 +712,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             tcanopy = tair
             tcanopy_fb = torch.zeros_like(iter_mask)
             r = column(tair, state.long_under_out)
+        ph(None)
         ci = r["ci"]
         snow_canopy_new = r["snow_canopy_new"]
         wdew0 = r["wdew0"]
@@ -770,6 +793,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
         ppt = W(glacier, 0.0, W(snowing, melt_out, throughfall))
 
         # ---- runoff & baseflow ----
+        ph("vic.step.runoff")
+
         def runoff_of(moist, ice, lay_evap, ppt_col):
             return runoff_step(
                 moist, ice, lay_evap, ppt_col, B(p.max_moist),
@@ -789,6 +814,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             layer_evap_d, wdew_new_d, ppt_d, ro_d = layer_evap, wdew_new, \
                 ppt, ro
 
+        ph("vic.step.soil_nodes")
         if fd_nodes:
             # the profile solved at the accepted Ts in the final evaluation
             # (calc_surf_energy_bal.c:489-506, frozen_soil.c:67)
@@ -807,6 +833,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             ice_new = ice0
             ice_new_d = ice_d if gp.dist_prcp else ice_new
 
+        ph(None)
         snow_sub_mm = vapor_flux * 1000.0
         total_evap = evap_sfree + snow_sub_mm + canopy_sub_mm + cevap_liq_mm
 
@@ -826,6 +853,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
         # ---- lake/wetland coupling (full_energy.c:714-800, lakes.eb.c;
         # vic_tpu/model.py:993-1310), before the state so the wetland
         # recharge enters the soil and the closure ----
+        ph("vic.step.lake" if lake_params is not None else None)
         moist_wet_f, moist_dry_f = ro.moist, ro_d.moist
         recharge_lane_mm = torch.zeros_like(ro.runoff)
         lake_evap_mm = torch.zeros_like(cell_runoff)
@@ -1024,6 +1052,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
             # (put_data.c:195-196,271,789)
             w = w * (1.0 - wl_mask * clake_post[:, None])
 
+        ph(None)
         # without DIST_PRCP the dry columns are carried as they are
         new_state = ModelState(
             moist=moist_wet_f, ice=ice_new, wdew=wdew_new,
@@ -1055,6 +1084,7 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
         # ---- water balance closure (put_data.c aggregation): the
         # baseline is the transferred columns at the new mu, which the storm
         # transfers conserve ----
+        ph("vic.step.water_balance")
         wdew_c = dw(wdew_new, wdew_new_d)
         storage0 = dw(moist_w.sum(-1), moist_d.sum(-1)) + dw(wdew_w, wdew_d) \
             + state.swq * 1000.0 + state.snow_canopy * 1000.0 \
@@ -1066,6 +1096,8 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
         wb_err = (storage1 - storage0) - (
             influx - total_evap - (runoff_c + glac_outflow) - baseflow_c)
 
+        # ---- outputs (put_data.c) ----
+        ph("vic.step.outputs")
         pets = compute_pot_evap(
             tair, vpd, sw_in, eb.net_long_bare, B(p.elevation), dt_hours,
             aero.resist.snow_free, aero.resist.canopy, p.rmin, p.rarc,
@@ -1373,6 +1405,11 @@ def make_step(params: DeviceParams, gp, geom=None, zwt_curves=None,
                 keep.add("OUT_CELL_VALID")
             outputs = {k: v for k, v in outputs.items() if k in keep}
         return new_state, outputs
+
+    def step(state: ModelState, forcing):
+        trace.count("records")
+        with trace.span("vic.step"), trace.phases() as ph:
+            return step_phases(state, forcing, ph)
 
     return step
 
